@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/H100 port, ``paddle_tpu_torch``.
+
+Run from the root of a checkout, on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
+into ``build/paddle_tpu_torch/``), then runs three phases on card 0:
+
+1. Kernels against their plain PyTorch versions, at the shapes the serving
+   engine below gives them (nh 16, hd 128, block 64, batch 8).  float32:
+   atol 2e-5, rtol 1e-4.  bfloat16: against the plain version computed in
+   float32 on the same bfloat16 inputs, atol 2e-2.  Kernel, plain version
+   and (flash only) ``F.scaled_dot_product_attention`` are timed with CUDA
+   events.
+2. Serving at full width: GPT-3 1.3B in bfloat16 with random weights from a
+   seed, 8 requests (prompts of 100 to 1500 tokens, 64 new tokens each,
+   half greedy, half sampled) through ``ServingEngine`` with whole-prompt
+   prefill, then through a second engine with 256-token chunked prefill.
+   Each run starts with every kernel's launch count at 0 and must launch
+   its kernels.  A third whole-prompt run under ``torch.profiler`` prints
+   the card's busy share and the kernels that take its time.
+3. Card against CPU: a 4-layer cut of GPT-3 1.3B in float32 serves one
+   greedy request on the card (kernels) and on the CPU (plain versions)
+   from one state dict; the token streams must match and the first-token
+   logits agree to atol 1e-3.
+
+Any failure raises and the script exits non-zero; it also exits non-zero,
+printing no result, when no CUDA card is present or the package is not
+beside it.  The line before the last is a JSON object with each kernel's
+numbers; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+MEM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_OPS = {"torch.bfloat16": 989e12,   # dense bf16 tensor-core rate
+            "torch.float32": 67e12}     # fp32 outside the tensor cores
+NH, HD, BS, BATCH, MAX_CONTEXT = 16, 128, 64, 8, 2048
+TOL = {"torch.float32": dict(atol=2e-5, rtol=1e-4),
+       "torch.bfloat16": dict(atol=2e-2, rtol=0.0)}
+
+
+def _log(*a):
+    print(*a, flush=True)
+
+
+def _time_ms(fn, iters):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes, flops, dtype):
+    t_mem = nbytes / MEM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS[str(dtype)]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def _compare(name, got, want, dtype):
+    import torch
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **TOL[str(dtype)],
+                               msg=lambda m: f"{name} {dtype}: {m}")
+    return err
+
+
+# --------------------------------------------------------------- phase 1
+
+def _pool_case(gen, lens, dtype, extra_cols=0):
+    """Pools of random K/V and tables of shuffled blocks, as the engine
+    lays them out: [nh, num_blocks, bs, hd], block 0 the pad block."""
+    import numpy as np
+    import torch
+    B = len(lens)
+    maxb = MAX_CONTEXT // BS
+    nb = B * maxb + 1
+    k = torch.randn((NH, nb, BS, HD), generator=gen, device="cuda")
+    v = torch.randn((NH, nb, BS, HD), generator=gen, device="cuda")
+    rng = np.random.RandomState(0)
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((B, maxb), np.int32)
+    for b, n in enumerate(lens):
+        live = min(-(-(n + extra_cols) // BS), maxb)
+        tables[b, :live] = perm[b * maxb:b * maxb + live]
+    return (k.to(dtype), v.to(dtype),
+            torch.as_tensor(tables, device="cuda"))
+
+
+def kernel_checks(path_lens):
+    """Each kernel against its plain version; returns per-kernel numbers
+    (times of the bfloat16 case at the main path's shapes)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    bf16 = torch.bfloat16
+
+    # --- paged_decode: edge lengths (0, block edges, full table), then
+    # the main path's lengths (the prompts, 32 tokens into decoding)
+    edge = [0, 1, 63, 64, 65, 1000, 2047, 2048]
+    path = [n + 32 for n in path_lens]
+    for dtype in (torch.float32, bf16):
+        for lens in (edge, path):
+            k, v, tables = _pool_case(gen, lens, dtype)
+            q = torch.randn((len(lens), NH, HD), generator=gen,
+                            device="cuda").to(dtype)
+            sl = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+            out = pa.paged_attention(q, k, v, tables, sl)
+            ref = pa.paged_attention_reference(q.float(), k.float(),
+                                               v.float(), tables, sl)
+            torch.cuda.synchronize()
+            err = _compare("paged_decode", out, ref, dtype)
+            if lens[0] == 0 and out[0].abs().max().item() != 0.0:
+                raise AssertionError("paged_decode: a len-0 row is not zero")
+            _log(f"paged_decode {dtype} lens={lens}: max_abs_err={err:.3e}")
+    e = 2
+    nbytes = (2 * BATCH * NH * HD + sum(path) * NH * HD * 2) * e \
+        + tables.numel() * 4 + BATCH * 4
+    flops = 4 * NH * HD * sum(path)
+    ms = _time_ms(lambda: pa.paged_attention(q, k, v, tables, sl), 200)
+    plain = _time_ms(lambda: pa.paged_attention_reference(
+        q, k, v, tables, sl), 10)
+    bound, by = _bound(nbytes, flops, bf16)
+    rows["paged_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                bound_ms=bound, bound_by=by,
+                                library_ms=None)
+
+    # --- flash_fwd: the largest prefill bucket (one 2048-token prompt),
+    # a ragged length, a GQA group and Sq < Sk
+    cases = [(1, 2048, 2048, NH), (2, 1000, 1000, NH), (1, 300, 1000, 4)]
+    for dtype in (torch.float32, bf16):
+        for B, Sq, Sk, nkv in cases:
+            q = torch.randn((B, Sq, NH, HD), generator=gen,
+                            device="cuda").to(dtype)
+            k = torch.randn((B, Sk, nkv, HD), generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn((B, Sk, nkv, HD), generator=gen,
+                            device="cuda").to(dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+            ref, ref_lse = fa.flash_attention_fwd_reference(
+                q.float(), k.float(), v.float(), causal=True)
+            torch.cuda.synchronize()
+            err = _compare("flash_fwd", out, ref, dtype)
+            lerr = _compare("flash_fwd lse", lse, ref_lse, dtype)
+            _log(f"flash_fwd {dtype} B={B} Sq={Sq} Sk={Sk} nkv={nkv}: "
+                 f"max_abs_err={err:.3e} lse_err={lerr:.3e}")
+            if (dtype, B, Sq) == (bf16, 1, 2048):
+                timed = (q, k, v, err)
+    q, k, v, err = timed
+    S = q.shape[1]
+    nbytes = 4 * S * NH * HD * 2 + NH * S * 4
+    flops = 4 * HD * NH * S * (S + 1) // 2
+    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True), 20)
+    plain = _time_ms(lambda: fa.flash_attention_fwd_reference(
+        q, k, v, causal=True), 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    bound, by = _bound(nbytes, flops, bf16)
+    rows["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=bound, bound_by=by, library_ms=lib)
+
+    # --- paged_chunk: 256-row chunks at many starts, one running past the
+    # table (its rows attend the whole table), then the main path's shape:
+    # one sequence, a 256-token chunk at start 1024
+    s = 256
+    for dtype in (torch.float32, bf16):
+        for starts in ([0, 64, 100, 256, 700, 1000, 1500, 1792], [1900],
+                       [1024]):
+            k, v, tables = _pool_case(gen, starts, dtype, extra_cols=s)
+            q = torch.randn((len(starts), s, NH, HD), generator=gen,
+                            device="cuda").to(dtype)
+            st = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
+            out = pa.paged_chunk_attention(q, k, v, tables, st)
+            ref = pa.paged_chunk_attention_reference(q.float(), k.float(),
+                                                     v.float(), tables, st)
+            torch.cuda.synchronize()
+            err = _compare("paged_chunk", out, ref, dtype)
+            _log(f"paged_chunk {dtype} s={s} starts={starts}: "
+                 f"max_abs_err={err:.3e}")
+    start = starts[0]
+    keys = [min(start + j + 1, MAX_CONTEXT) for j in range(s)]
+    nbytes = 2 * s * NH * HD * 2 + min(start + s, MAX_CONTEXT) * NH * HD \
+        * 2 * 2 + tables.numel() * 4 + 4
+    flops = 4 * NH * HD * sum(keys)
+    ms = _time_ms(lambda: pa.paged_chunk_attention(q, k, v, tables, st), 50)
+    plain = _time_ms(lambda: pa.paged_chunk_attention_reference(
+        q, k, v, tables, st), 5)
+    bound, by = _bound(nbytes, flops, bf16)
+    rows["paged_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=bound, bound_by=by, library_ms=None)
+    for name, r in rows.items():
+        _log(f"{name} bf16 timing: ms={r['ms']:.4f} plain_ms="
+             f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+             f"({r['bound_by']}) library_ms={r['library_ms']}")
+    return rows
+
+
+# --------------------------------------------------------------- phase 2
+
+def _counters():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return {"flash_fwd": fa.flash_attention_fwd,
+            "paged_decode": pa.paged_attention,
+            "paged_chunk": pa.paged_chunk_attention}
+
+
+def serve(model, prompts, chunk):
+    """Serve the 8 requests on one engine, every launch count at 0 first;
+    returns the run's numbers."""
+    import torch
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+
+    eng = ServingEngine(model, max_batch=BATCH, max_context=MAX_CONTEXT,
+                        block_size=BS, steps_per_tick=8,
+                        prefill_chunk=chunk, device="cuda")
+    reqs = [Request(p, max_new_tokens=64, do_sample=bool(i % 2),
+                    temperature=0.9, top_k=40, top_p=0.95, seed=1000 + i)
+            for i, p in enumerate(prompts)]
+    for fn in _counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.add_request(r)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    vocab = model.cfg.vocab_size
+    for r in reqs:
+        if not r.done or len(r.output_ids) != 64:
+            raise AssertionError(f"request {r.rid}: {len(r.output_ids)} of "
+                                 "64 tokens")
+        if not all(0 <= t < vocab for t in r.output_ids):
+            raise AssertionError(f"request {r.rid}: token out of range")
+    st = eng.stats()
+    if st["free_blocks"] != eng.num_blocks or st["reserved"] != 0:
+        raise AssertionError(f"blocks leaked: {st}")
+    n_tok = sum(len(r.output_ids) for r in reqs)
+    ttfts = [r.t_first - r.t_enqueue for r in reqs]
+    return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                ttft_mean_s=sum(ttfts) / len(ttfts),
+                ttft_max_s=max(ttfts), steps=st["steps"], ticks=st["ticks"],
+                prefill_chunks=st["prefill_chunks"], launches=launches,
+                streams=[list(r.output_ids) for r in reqs])
+
+
+def serving_phase(lens):
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
+
+    cfg = gpt3_1p3b()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in lens]
+    runs = {}
+    for label, chunk, need in (("whole-prompt prefill", 0,
+                                ("flash_fwd", "paged_decode")),
+                               ("256-token chunked prefill", 256,
+                                ("paged_chunk", "paged_decode"))):
+        run = serve(model, prompts, chunk)
+        for name in need:
+            if run["launches"][name] <= 0:
+                raise AssertionError(f"{label}: {name} never launched")
+        _log(f"serving gpt3_1p3b bf16, {label}: {run['tokens']} tokens in "
+             f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s, "
+             f"mean TTFT {run['ttft_mean_s'] * 1e3:.1f} ms, max TTFT "
+             f"{run['ttft_max_s'] * 1e3:.1f} ms, {run['steps']} decode "
+             f"steps in {run['ticks']} ticks, {run['prefill_chunks']} "
+             f"chunks, launches {run['launches']}")
+        runs[chunk] = run
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(runs[0]["streams"],
+                                      runs[256]["streams"]))
+    _log(f"streams equal across the two prefill modes: {same} of {BATCH} "
+         "(bf16 numerics of two attention kernels; informational)")
+    where_the_time_goes(model, prompts)
+    return runs
+
+
+def where_the_time_goes(model, prompts):
+    """A third, profiled whole-prompt run (warm): the card's busy time
+    against the wall clock, and the kernels that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = serve(model, prompts, 0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n = sum(e.count for e in kernels)
+    wall = run["wall_s"]
+    decode_s = wall - run["ttft_max_s"]   # every prefill runs first here
+    _log(f"profiled whole-prompt run: prefill phase (max TTFT) "
+         f"{run['ttft_max_s']:.3f} s, decode phase {decode_s:.3f} s = "
+         f"{decode_s / max(run['steps'], 1) * 1e3:.2f} ms per decode step")
+    _log(f"profiled whole-prompt run: wall {wall:.3f} s, card busy "
+         f"{busy_us / 1e6:.3f} s in {n} kernel launches, idle share "
+         f"{1 - busy_us / 1e6 / wall:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+             f"{e.key[:90]}")
+
+
+# --------------------------------------------------------------- phase 3
+
+def card_vs_cpu():
+    import torch
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
+
+    cfg = gpt3_1p3b(num_layers=4)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=1)
+    card = GPTForCausalLM(cfg, device="cuda", seed=2)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab_size, (96,), generator=gen)
+    streams, first = [], []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        eng = ServingEngine(model, max_batch=1, max_context=128,
+                            block_size=BS, steps_per_tick=8, device=dev)
+        req = eng.add_request(Request(prompt.tolist(), max_new_tokens=16))
+        eng.run()
+        streams.append(list(req.output_ids))
+        caches = model.init_caches(1, 128, BS)
+        with torch.no_grad():
+            logits, _ = model.forward_with_cache(prompt[None].to(dev),
+                                                 caches, 0)
+        first.append(logits[0, -1].float().cpu())
+    err = (first[0] - first[1]).abs().max().item()
+    torch.testing.assert_close(first[0], first[1], atol=1e-3, rtol=0.0)
+    if streams[0] != streams[1]:
+        raise AssertionError(f"card stream {streams[0]} != CPU stream "
+                             f"{streams[1]}")
+    _log(f"card vs CPU, gpt3_1p3b 4 layers fp32: first-token logits "
+         f"max_abs_err={err:.3e}, 16-token greedy streams equal")
+
+
+# ------------------------------------------------------------------ main
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "paddle_tpu_torch")):
+        print("chip_smoke: paddle_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    from paddle_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    card = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    t0 = time.perf_counter()
+    _build.library()
+    _log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for f in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
+        for line in f.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                _log(f"  {f.name.split('.')[0]}: {line.strip()}")
+
+    lens = [100 + 200 * i for i in range(BATCH)]       # 100 .. 1500
+    rows = kernel_checks(lens)
+    runs = serving_phase(lens)
+    card_vs_cpu()
+
+    sources = {"flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
+                             "paddle_tpu/ops/pallas_flash.py:159"),
+               "paged_decode": ("paddle_tpu_torch/csrc/paged_decode.cu",
+                                "paddle_tpu/ops/pallas_paged.py:57"),
+               "paged_chunk": ("paddle_tpu_torch/csrc/paged_chunk.cu",
+                               "paddle_tpu/ops/pallas_paged.py:229")}
+    # each path's counts are its own run's, read from 0; `launches` is the
+    # count of the first path that runs the kernel
+    paths = {"whole_prompt": runs[0]["launches"],
+             "chunked": runs[256]["launches"]}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        by_path = {p: counts[name] for p, counts in paths.items()}
+        path = next(p for p, n in by_path.items() if n > 0)
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": by_path[path],
+                        "launches_path": path, "launches_by_path": by_path,
+                        **rows[name]})
+    _log(card)
+    _log(json.dumps({"kernels": kernels}))
+    _log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,38 @@
+"""Carry the JAX package's GPT weights into the port.
+
+``paddle_tpu`` names its parameters as the port does
+(``gpt.blocks.0.attn.qkv.weight`` and so on), but its ``Linear`` keeps the
+weight as ``[in, out]`` and computes ``x @ W``
+(``paddle_tpu/nn/layer/common.py:18``), while ``torch.nn.Linear`` keeps
+``[out, in]`` and computes ``x @ W.T``.  The port uses ``torch.nn.Linear``
+unchanged, so the conversion TRANSPOSES every linear weight; embeddings,
+biases and LayerNorm parameters pass as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+__all__ = ["gpt_state_from_numpy"]
+
+_LINEAR_WEIGHTS = (".qkv.weight", ".proj.weight", ".fc1.weight",
+                   ".fc2.weight")
+
+
+def gpt_state_from_numpy(state: Dict[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """Map the JAX ``GPTForCausalLM.state_dict()`` (as numpy arrays) onto
+    the port's ``GPTForCausalLM.load_state_dict``."""
+    out = {}
+    for name, arr in state.items():
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if name.endswith(_LINEAR_WEIGHTS):
+            if t.dim() != 2:
+                raise ValueError(f"{name}: expected a 2-D linear weight, "
+                                 f"got shape {tuple(t.shape)}")
+            t = t.t().contiguous()
+        out[name] = t
+    return out

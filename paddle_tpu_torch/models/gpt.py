@@ -1,0 +1,205 @@
+"""GPT model family (decoder-only, GPT-2/3 style) for serving.
+
+Counterpart of ``paddle_tpu/models/gpt.py``: pre-LayerNorm blocks (eps
+1e-5), learned position embedding, tanh-GELU MLP, output head tied to the
+token embedding.  Module and parameter names match the JAX model's
+``state_dict`` (``gpt.wte.weight``, ``gpt.blocks.0.attn.qkv.weight``, ...),
+so ``models/convert.py`` only has to transpose the linear weights.
+
+This slice serves: the model runs through ``forward_with_cache`` over
+paged KV caches.  Attention without a cache (training), tensor parallelism
+and MoE blocks wait for later slices (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..core.device import resolve_device
+from .kv_cache import PagedKVCache
+
+__all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
+           "GPTForCausalLM", "gpt3_tiny", "gpt3_124m", "gpt3_350m",
+           "gpt3_1p3b", "gpt3_6p7b"]
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_seq_len: int = 1024
+    intermediate_size: int = 0  # 0 -> 4 * hidden
+    moe_num_experts: int = 0    # > 0 is not ported yet
+
+    def __post_init__(self):
+        if self.intermediate_size == 0:
+            self.intermediate_size = 4 * self.hidden_size
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
+        self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, x, kv_cache):
+        if kv_cache is None:
+            raise NotImplementedError(
+                "attention without a KV cache (training) comes with the "
+                "training slice of the port (see ROADMAP.md)")
+        b, s, hidden = x.shape
+        q, k, v = self.qkv(x).view(b, s, 3, self.num_heads,
+                                   self.head_dim).unbind(2)
+        new_cache, out = kv_cache.update_and_attend(q, k, v)
+        return self.proj(out.reshape(b, s, hidden)), new_cache
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.attn = GPTAttention(cfg)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.mlp = GPTMLP(cfg)
+
+    def forward(self, x, kv_cache):
+        a, new_cache = self.attn(self.ln1(x), kv_cache)
+        x = x + a
+        return x + self.mlp(self.ln2(x)), new_cache
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
+        self.blocks = nn.ModuleList(GPTBlock(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+    def forward(self, input_ids, kv_caches, pos_offset=0):
+        """input_ids ``[B, s]``; pos_offset an int, a 0-d tensor (prefill
+        and chunks) or a ``[B, 1]`` tensor (decode)."""
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device) + pos_offset
+        # the padded rows of a bucket may run past the position table;
+        # clamp them (their outputs are discarded), as XLA's gather does
+        pos = pos.clamp(max=self.cfg.max_seq_len - 1)
+        x = self.wte(input_ids) + self.wpe(pos)
+        new_caches = []
+        for block, cache in zip(self.blocks, kv_caches):
+            x, nc = block(x, cache)
+            new_caches.append(nc)
+        return self.ln_f(x), new_caches
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with the tied output head.
+
+    ``GPTForCausalLM(cfg, device=None, dtype=torch.float32, seed=0)``
+    builds the weights on ``device`` (``cuda`` by default; raises without
+    CUDA unless ``device="cpu"``) from a ``torch.Generator`` seeded with
+    ``seed``: embeddings and linear weights ~ N(0, 0.02), biases 0,
+    LayerNorm 1 / 0.  Real weights come through ``load_state_dict`` (see
+    ``models/convert.py`` for the JAX model's).
+    """
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype=torch.float32,
+                 seed: int = 0):
+        super().__init__()
+        if cfg.moe_num_experts > 0:
+            raise NotImplementedError(
+                "GPT-MoE blocks (moe_dispatch / moe_combine) are not ported "
+                "yet: see the MoE slice in ROADMAP.md")
+        device = resolve_device(device)
+        self.cfg = cfg
+        with torch.device("meta"):
+            self.gpt = GPTModel(cfg)
+        self.gpt.to_empty(device=device)
+        self.gpt.to(dtype)
+        self._init_weights(seed)
+        self.requires_grad_(False)   # this slice serves; no training yet
+
+    @torch.no_grad()
+    def _init_weights(self, seed: int):
+        dev = self.gpt.wte.weight.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for name, p in self.gpt.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif ".ln" in name or name.startswith("ln_"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+
+    @property
+    def device(self) -> torch.device:
+        return self.gpt.wte.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.gpt.wte.weight.dtype
+
+    def init_caches(self, batch_size: int, max_context: int,
+                    block_size: int = 64):
+        """One fresh :class:`PagedKVCache` per layer for ``batch_size``
+        sequences of up to ``max_context`` tokens."""
+        cfg = self.cfg
+        return [PagedKVCache(batch_size, max_context, cfg.num_heads,
+                             cfg.hidden_size // cfg.num_heads, self.dtype,
+                             block_size, self.device)
+                for _ in range(cfg.num_layers)]
+
+    def forward_with_cache(self, input_ids, caches, pos_offset=0):
+        """Returns ``(logits [B, s, vocab], new_caches)``."""
+        h, new_caches = self.gpt(input_ids, caches, pos_offset)
+        return F.linear(h, self.gpt.wte.weight), new_caches
+
+
+def _preset(defaults, kw):
+    defaults.update(kw)  # caller overrides win (e.g. num_layers)
+    return GPTConfig(**defaults)
+
+
+def gpt3_tiny(**kw):
+    return _preset(dict(vocab_size=1024, hidden_size=128, num_layers=2,
+                        num_heads=4, max_seq_len=256), kw)
+
+
+def gpt3_124m(**kw):
+    return _preset(dict(hidden_size=768, num_layers=12, num_heads=12,
+                        max_seq_len=1024), kw)
+
+
+def gpt3_350m(**kw):
+    return _preset(dict(hidden_size=1024, num_layers=24, num_heads=16,
+                        max_seq_len=1024), kw)
+
+
+def gpt3_1p3b(**kw):
+    return _preset(dict(hidden_size=2048, num_layers=24, num_heads=16,
+                        max_seq_len=2048), kw)
+
+
+def gpt3_6p7b(**kw):
+    return _preset(dict(hidden_size=4096, num_layers=32, num_heads=32,
+                        max_seq_len=2048), kw)

@@ -24,6 +24,10 @@ def pytest_configure(config):
         "markers",
         "slow: compile-heavy tests excluded from the tier-1 fast run "
         "(`-m 'not slow'`); a plain pytest invocation runs everything")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the paddle_tpu_torch kernels); "
+        "skips elsewhere — run on the card with `pytest -m cuda`")
 
 
 @pytest.fixture(autouse=True)
