@@ -6,14 +6,17 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs three phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs five phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
-   engine below gives them (nh 16, hd 128, block 64, batch 8).  float32:
-   atol 2e-5, rtol 1e-4.  bfloat16: against the plain version computed in
-   float32 on the same bfloat16 inputs, atol 2e-2.  Kernel, plain version
-   and (flash only) ``F.scaled_dot_product_attention`` are timed with CUDA
-   events.
+   engine and the train step below give them (nh 16, hd 128, block 64,
+   batch 8; training B 4 x S 2048 causal).  float32: atol 2e-5, rtol 1e-4
+   for outputs, atol 1e-4, rtol 1e-4 for gradients.  bfloat16: against the
+   plain version computed in float32 on the same bfloat16 inputs, atol
+   2e-2, and for gradients also rtol 1e-2 (one bf16 rounding of a
+   gradient that sums over a whole sequence).  Kernel, plain version and
+   the ``F.scaled_dot_product_attention`` yardstick (flash only; for the
+   backward pair, its backward) are timed with CUDA events.
 2. Serving at full width: GPT-3 1.3B in bfloat16 with random weights from a
    seed, 8 requests (prompts of 100 to 1500 tokens, 64 new tokens each,
    half greedy, half sampled) through ``ServingEngine`` with whole-prompt
@@ -25,6 +28,15 @@ into ``build/paddle_tpu_torch/``), then runs three phases on card 0:
    greedy request on the card (kernels) and on the CPU (plain versions)
    from one state dict; the token streams must match and the first-token
    logits agree to atol 1e-3.
+4. Training at full width: GPT-3 1.3B, float32 weights, ``auto_cast`` O1
+   bfloat16, AdamW (lr 1e-4, weight decay 0.01) with global-norm clipping
+   at 1.0, 6 steps on one fixed batch of B 4 x S 2048 random tokens.  Every
+   loss finite, the last below the first, and each flash kernel launched
+   exactly 24 x 6 times.  Prints step time, tokens/s, MFU and peak memory,
+   then profiles one more step, then trains 2 steps with dropout 0.1.
+5. Card against CPU for training: a 4-layer fp32 cut, 2 AdamW steps on
+   the card (kernels) and on the CPU (plain versions) from one state dict;
+   losses within atol 1e-4, parameters within 2 x lr x steps.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -35,6 +47,7 @@ numbers; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,8 +57,11 @@ MEM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS = {"torch.bfloat16": 989e12,   # dense bf16 tensor-core rate
             "torch.float32": 67e12}     # fp32 outside the tensor cores
 NH, HD, BS, BATCH, MAX_CONTEXT = 16, 128, 64, 8, 2048
+TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 4, 2048, 6, 1e-4
 TOL = {"torch.float32": dict(atol=2e-5, rtol=1e-4),
        "torch.bfloat16": dict(atol=2e-2, rtol=0.0)}
+GRAD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
+            "torch.bfloat16": dict(atol=2e-2, rtol=1e-2)}
 
 
 def _log(*a):
@@ -73,11 +89,11 @@ def _bound(nbytes, flops, dtype):
                                      else "operations")
 
 
-def _compare(name, got, want, dtype):
+def _compare(name, got, want, dtype, tol=TOL):
     import torch
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
-    torch.testing.assert_close(got, want, **TOL[str(dtype)],
+    torch.testing.assert_close(got, want, **tol[str(dtype)],
                                msg=lambda m: f"{name} {dtype}: {m}")
     return err
 
@@ -217,6 +233,135 @@ def kernel_checks(path_lens):
     return rows
 
 
+def _train_flash_case(gen, B, Sq, Sk, nkv, dtype, masked):
+    import torch
+    q = torch.randn((B, Sq, NH, HD), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, nkv, HD), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, nkv, HD), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, Sq, NH, HD), generator=gen, device="cuda").to(dtype)
+    mask = None
+    if masked:
+        mask = (torch.rand((B, Sk), generator=gen, device="cuda")
+                > 0.2).int()
+        mask[-1] = 0                    # a batch row that sees no key
+    return q, k, v, do, mask
+
+
+def flash_train_checks(rows):
+    """flash_fwd (with its kv mask and dropout), flash_bwd_dq and
+    flash_bwd_dkv against their plain versions; times at the training
+    shape (bf16, B 4, S 2048, causal).  Updates ``rows``."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+    # (label, B, Sq, Sk, nkv, causal, masked, dropout rate)
+    cases = [("training shape", TRAIN_B, TRAIN_S, TRAIN_S, NH, True, False,
+              0.0),
+             ("ragged", 2, 1000, 1000, NH, True, False, 0.0),
+             ("GQA", 1, 1024, 1024, 4, True, False, 0.0),
+             ("Sq < Sk", 2, 300, 1000, NH, True, False, 0.0),
+             ("kv mask", 2, 512, 512, NH, False, True, 0.0),
+             ("dropout 0.1", 2, 1024, 1024, NH, True, False, 0.1)]
+    for dtype in (torch.float32, bf16):
+        for label, B, Sq, Sk, nkv, causal, masked, rate in cases:
+            q, k, v, do, mask = _train_flash_case(gen, B, Sq, Sk, nkv, dtype,
+                                                  masked)
+            args = (causal, mask, rate, 12345)
+            out, lse = fa.flash_attention_fwd(q, k, v, *args)
+            dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, *args)
+            ref, ref_lse = fa.flash_attention_fwd_reference(
+                q.float(), k.float(), v.float(), *args)
+            want = fa.flash_attention_bwd_reference(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                do.float(), *args)
+            torch.cuda.synchronize()
+            errs = [_compare("flash_fwd", out, ref, dtype),
+                    _compare("flash_fwd lse", lse, ref_lse, dtype)]
+            for name, got, w in (("flash_bwd_dq dq", dq, want[0]),
+                                 ("flash_bwd_dkv dk", dk, want[1]),
+                                 ("flash_bwd_dkv dv", dv, want[2])):
+                errs.append(_compare(name, got, w, dtype, GRAD_TOL))
+            if masked and (out[-1].abs().max().item() != 0.0
+                           or dk[-1].abs().max().item() != 0.0):
+                raise AssertionError("flash: a fully masked batch row is "
+                                     "not zero")
+            _log(f"flash train {label} {dtype} B={B} Sq={Sq} Sk={Sk} "
+                 f"nkv={nkv} causal={causal} rate={rate}: max_abs_err out="
+                 f"{errs[0]:.3e} lse={errs[1]:.3e} dq={errs[2]:.3e} "
+                 f"dk={errs[3]:.3e} dv={errs[4]:.3e}")
+            if (dtype, label) == (bf16, "training shape"):
+                timed = (q, k, v, do, out, lse, errs)
+            del q, k, v, do, out, lse, dq, dk, dv, ref, ref_lse, want
+        torch.cuda.empty_cache()
+
+    q, k, v, do, out, lse, errs = timed
+    B, S, e = TRAIN_B, TRAIN_S, 2
+    pairs = B * NH * S * (S + 1) // 2            # causal (query, key) pairs
+    qbytes = B * S * NH * HD * e                 # one tensor like q
+    lse_b = B * NH * S * 4
+    plain_fwd = _time_ms(lambda: fa.flash_attention_fwd_reference(
+        q, k, v, True), 3)
+    fwd = dict(ms=_time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 10),
+               plain_ms=plain_fwd, max_abs_err=errs[0])
+    fwd["bound_ms"], fwd["bound_by"] = _bound(4 * qbytes + lse_b,
+                                              4 * HD * pairs, bf16)
+    dq = dict(ms=_time_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, out, lse, do, True), 10),
+        plain_ms=_time_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, True, parts=("dq",)), 3),
+        max_abs_err=errs[2])
+    dq["bound_ms"], dq["bound_by"] = _bound(6 * qbytes + lse_b,
+                                            6 * HD * pairs, bf16)
+    dkv = dict(ms=_time_ms(lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, out, lse, do, True), 10),
+        plain_ms=_time_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, True, parts=("dkv",)), 3),
+        max_abs_err=max(errs[3], errs[4]))
+    dkv["bound_ms"], dkv["bound_by"] = _bound(7 * qbytes + lse_b,
+                                              8 * HD * pairs, bf16)
+    # the library yardstick: scaled_dot_product_attention forward, and its
+    # backward (autograd.grad through it, less its forward) for the pair
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 10)
+    lib_both = _time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        (qt, kt, vt), dot), 10)
+    fwd["library_ms"] = lib_fwd
+    dq["library_ms"] = dkv["library_ms"] = lib_both - lib_fwd
+    # the same kernels with dropout 0.1: the keep bits' cost
+    drop = (True, None, 0.1, 12345)
+    fwd["dropout_ms"] = _time_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, *drop), 10)
+    dq["dropout_ms"] = _time_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, out, lse, do, *drop), 10)
+    dkv["dropout_ms"] = _time_ms(lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, out, lse, do, *drop), 10)
+    dq["library_covers"] = dkv["library_covers"] = (
+        "dq+dkv: scaled_dot_product_attention backward")
+    fwd["serving"] = {key: rows["flash_fwd"][key] for key in
+                      ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "max_abs_err")}
+    rows["flash_fwd"] = fwd
+    rows["flash_bwd_dq"] = dq
+    rows["flash_bwd_dkv"] = dkv
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        r = rows[name]
+        _log(f"{name} bf16 timing B={B} S={S} causal: ms={r['ms']:.4f} "
+             f"(dropout 0.1: {r['dropout_ms']:.4f}) "
+             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+             f"({r['bound_by']}) library_ms={r['library_ms']:.4f}"
+             + (" (sdpa backward, dq+dkv)" if "library_covers" in r else ""))
+    del timed, q, k, v, do, out, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- phase 2
 
 def _counters():
@@ -302,17 +447,25 @@ def serving_phase(lens):
     return runs
 
 
+def _device_kernels(prof):
+    """The profile's kernels on the card, without the ranges that
+    ``record_function`` marks on the card's timeline (the optimizer's step,
+    for one): those overlap the kernels they enclose."""
+    import torch
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def where_the_time_goes(model, prompts):
     """A third, profiled whole-prompt run (warm): the card's busy time
     against the wall clock, and the kernels that take it."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run = serve(model, prompts, 0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     n = sum(e.count for e in kernels)
     wall = run["wall_s"]
@@ -362,6 +515,173 @@ def card_vs_cpu():
          f"max_abs_err={err:.3e}, 16-token greedy streams equal")
 
 
+# --------------------------------------------------------------- phase 4
+
+def _train_setup(cfg, device, seed, B, S):
+    """The model, AdamW with global-norm clipping, and one fixed batch of
+    random tokens from a numpy seed."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    model.train()
+    opt = AdamW(learning_rate=LR, parameters=model.parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    rng = np.random.RandomState(seed)
+    ids, labels = (torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, S)),
+                                   device=device) for _ in range(2))
+    return model, opt, ids, labels
+
+
+def _train_step(model, opt, ids, labels, autocast):
+    """bench.py's train step: loss under auto_cast O1 bf16, backward,
+    AdamW step, clear the gradients."""
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(autocast, level="O1", dtype="bfloat16",
+                       device=ids.device):
+        loss = model.compute_loss(ids, labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def _train_counters():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return {"flash_fwd": fa.flash_attention_fwd,
+            "flash_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_bwd_dkv": fa.flash_attention_bwd_dkv}
+
+
+def _run_train(model, opt, ids, labels, steps):
+    """``steps`` timed steps, every flash launch count at 0 first;
+    returns losses, step times (s) and the counts."""
+    import torch
+    for fn in _train_counters().values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _train_step(model, opt, ids, labels, True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = {name: fn.launches for name, fn in _train_counters().items()}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: a loss is not finite: {losses}")
+    return losses, times, launches
+
+
+def training_phase():
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    cfg = gpt3_1p3b()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, ids, labels = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
+    losses, times, launches = _run_train(model, opt, ids, labels,
+                                         TRAIN_STEPS)
+    want = cfg.num_layers * TRAIN_STEPS
+    for name, n in launches.items():
+        if n != want:
+            raise AssertionError(f"training: {name} launched {n} times, "
+                                 f"want {cfg.num_layers} x {TRAIN_STEPS}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: loss did not fall: {losses}")
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN_B * TRAIN_S
+    fpt = model.flops_per_token(TRAIN_S)
+    mfu = tokens / step_s * fpt / PEAK_OPS["torch.bfloat16"]
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"training gpt3_1p3b ({model.num_params()} parameters) fp32 "
+         f"weights, auto_cast O1 bf16, AdamW, B={TRAIN_B} S={TRAIN_S}: "
+         f"losses {[round(x, 4) for x in losses]}")
+    _log(f"training: step times (s) {[round(t, 4) for t in times]}; median "
+         f"of steps 2-{TRAIN_STEPS} {step_s * 1e3:.1f} ms = "
+         f"{tokens / step_s:.1f} tokens/s, {fpt / 1e9:.3f} GFLOP/token, "
+         f"MFU {mfu:.4f} (of 989 TFLOP/s bf16); peak memory "
+         f"{peak / 2 ** 30:.2f} GiB; launches {launches}")
+
+    # one more step, profiled: the card's busy share and its top kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _train_step(model, opt, ids, labels, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key)
+    _log(f"profiled train step: wall {wall * 1e3:.1f} ms, card busy "
+         f"{busy_us / 1e3:.1f} ms in {sum(e.count for e in kernels)} "
+         f"kernel launches, idle share {1 - busy_us / 1e6 / wall:.3f}; "
+         f"flash kernels {flash_us / 1e3:.1f} ms = "
+         f"{flash_us / max(busy_us, 1):.3f} of busy time")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+             f"{e.key[:90]}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # dropout 0.1 at the same width: the kernels' dropout on the path
+    model, opt, ids, labels = _train_setup(gpt3_1p3b(dropout=0.1), "cuda",
+                                           1, TRAIN_B, TRAIN_S)
+    d_losses, _, d_launches = _run_train(model, opt, ids, labels, 2)
+    if not all(n > 0 for n in d_launches.values()):
+        raise AssertionError(f"dropout training: launches {d_launches}")
+    _log(f"training gpt3_1p3b dropout 0.1, 2 steps: losses "
+         f"{[round(x, 4) for x in d_losses]}, launches {d_launches}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+                peak_bytes=peak, launches=launches)
+
+
+# --------------------------------------------------------------- phase 5
+
+def train_card_vs_cpu():
+    """2 AdamW steps of a 4-layer fp32 cut on the card and on the CPU from
+    one state dict.  Losses within atol 1e-4.  Parameters within 2 x lr x
+    steps: Adam divides by sqrt(v), so a weight whose gradient is rounding
+    noise (the key third of each qkv bias has a zero gradient in exact
+    arithmetic) moves by up to about lr per step on either side."""
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    cfg = gpt3_1p3b(num_layers=4)
+    steps, init, runs = 2, None, []
+    for dev in ("cpu", "cuda"):
+        model, opt, ids, labels = _train_setup(cfg, dev, 2, 1, 256)
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        losses = [_train_step(model, opt, ids, labels, False).item()
+                  for _ in range(steps)]
+        runs.append((losses, {k: v.detach().cpu() for k, v in
+                              model.state_dict().items()}))
+        del model, opt
+    (cpu_l, cpu_p), (card_l, card_p) = runs
+    torch.testing.assert_close(torch.tensor(card_l), torch.tensor(cpu_l),
+                               atol=1e-4, rtol=0.0)
+    err = max((card_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+    if err > 2 * LR * steps:
+        raise AssertionError(f"train card vs CPU: parameters {err:.3e} "
+                             f"apart, limit {2 * LR * steps:.1e}")
+    _log(f"train card vs CPU, gpt3_1p3b 4 layers fp32, B=1 S=256, {steps} "
+         f"AdamW steps: losses card {card_l} cpu {cpu_l}, parameters max "
+         f"abs diff {err:.3e}")
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -396,11 +716,18 @@ def main() -> int:
 
     lens = [100 + 200 * i for i in range(BATCH)]       # 100 .. 1500
     rows = kernel_checks(lens)
+    flash_train_checks(rows)
     runs = serving_phase(lens)
     card_vs_cpu()
+    train = training_phase()
+    train_card_vs_cpu()
 
     sources = {"flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/ops/pallas_flash.py:159"),
+               "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd.cu",
+                                "paddle_tpu/ops/pallas_flash.py:340"),
+               "flash_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd.cu",
+                                 "paddle_tpu/ops/pallas_flash.py:403"),
                "paged_decode": ("paddle_tpu_torch/csrc/paged_decode.cu",
                                 "paddle_tpu/ops/pallas_paged.py:57"),
                "paged_chunk": ("paddle_tpu_torch/csrc/paged_chunk.cu",
@@ -408,10 +735,11 @@ def main() -> int:
     # each path's counts are its own run's, read from 0; `launches` is the
     # count of the first path that runs the kernel
     paths = {"whole_prompt": runs[0]["launches"],
-             "chunked": runs[256]["launches"]}
+             "chunked": runs[256]["launches"],
+             "train": train["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
-        by_path = {p: counts[name] for p, counts in paths.items()}
+        by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         path = next(p for p, n in by_path.items() if n > 0)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": by_path[path],

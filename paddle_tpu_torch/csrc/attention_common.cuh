@@ -1,8 +1,9 @@
-// Pieces shared by the three attention kernels: type conversion, 4-wide
-// loads, and the 64x64 online-softmax tile loop that flash_fwd.cu and
-// paged_chunk.cu both run.  The two kernels differ only in where a key
-// row lives (a dense [B, S, nkv, hd] tensor or a block of the paged pool)
-// and in the mask, which they pass in as small device lambdas.
+// Pieces shared by the attention kernels: type conversion, 4-wide loads,
+// the dropout keep bits, and the 64x64 online-softmax tile loop that
+// flash_fwd.cu and paged_chunk.cu both run.  The two kernels differ only
+// in where a key row lives (a dense [B, S, nkv, hd] tensor or a block of
+// the paged pool) and in the mask, which they pass in as small device
+// lambdas.
 //
 // Numerics follow the JAX package's kernels: fp32 accumulation, scores
 // scaled by 1/sqrt(hd), the running max starts at -1e30 (not -inf), and a
@@ -45,6 +46,41 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
 }
 
 // ---------------------------------------------------------------------------
+// Dropout (flash_fwd, flash_bwd).  The keep bit of score (row, col) of one
+// (batch, head) is a pure function of the seed and the ABSOLUTE query row
+// and key column, so the forward and both backward kernels redraw the same
+// bits whatever their tiling: the lowbias32 mix of the JAX package's
+// _hash_bits (paddle_tpu/ops/pallas_flash.py:116) with the seed word
+// seed ^ (bh << 20), kept when the bits are below thresh =
+// uint32((1 - rate) * 4294967295).  ops/flash_attention.py draws the same
+// bits in its plain versions.
+// ---------------------------------------------------------------------------
+struct Dropout {
+  unsigned word = 0;     // seed ^ (bh << 20)
+  unsigned thresh = 0;   // keep when bits < thresh
+  float keep_p = 1.f;    // 1 - rate: a kept p is divided by it
+  int row0 = 0;          // absolute query row of the tile's row 0
+  bool on = false;
+};
+
+__host__ __device__ __forceinline__ unsigned dropout_word(unsigned seed,
+                                                         int bh) {
+  return seed ^ ((unsigned)bh << 20);
+}
+
+__device__ __forceinline__ bool dropout_keep(unsigned word, unsigned thresh,
+                                             int row, int col) {
+  unsigned x = (unsigned)row * 0x00010193u + (unsigned)col +
+               word * 0x9E3779B9u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x < thresh;
+}
+
+// ---------------------------------------------------------------------------
 // 64 x 64 tile machinery (flash_fwd, paged_chunk)
 // ---------------------------------------------------------------------------
 constexpr int kTile = 64;      // query rows per block and keys per step
@@ -64,13 +100,13 @@ struct TileSmem {
   long long koff[kTile];  // element offset of each key row, -1 = none
 };
 
-// Stage 64 rows of D elements as fp32; a row whose offset is -1 is zeros.
-template <typename T, int D, int LD>
+// Stage R rows of D elements as fp32; a row whose offset is -1 is zeros.
+template <typename T, int D, int LD, int R = kTile>
 __device__ __forceinline__ void load_rows(float (*dst)[LD],
                                           const T* __restrict__ base,
                                           const long long* off) {
   constexpr int C4 = D / 4;
-  for (int idx = threadIdx.x; idx < kTile * C4; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * C4; idx += kThreads) {
     const int r = idx / C4, c = (idx % C4) * 4;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
     const long long o = off[r];
@@ -99,14 +135,16 @@ __device__ __forceinline__ void init_tile(TileSmem<D>& sm,
 // key_off(kpos) gives a key's element offset in k/v, or -1 for a key that
 // is not there (masked like one past k_end); valid(r, kpos) says whether
 // query row r may see key kpos.  Thread (ty, tx) owns score
-// and output rows ty + 16 i, and output columns tx + 16 j.
+// and output rows ty + 16 i, and output columns tx + 16 j.  With
+// drop.on, l sums the undropped p while acc sums the dropped, rescaled p.
 template <typename T, int D, class KeyOff, class Valid>
 __device__ __forceinline__ void attend_tile(TileSmem<D>& sm,
                                             const T* __restrict__ k,
                                             const T* __restrict__ v,
                                             int k_end, float scale,
                                             KeyOff key_off, Valid valid,
-                                            float (&acc)[4][D / 16]) {
+                                            float (&acc)[4][D / 16],
+                                            const Dropout drop = Dropout()) {
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int row = tid / 4, sub = tid % 4;  // softmax: 4 threads per row
@@ -160,8 +198,12 @@ __device__ __forceinline__ void attend_tile(TileSmem<D>& sm,
     float sum = 0.f;
     for (int c = sub; c < kTile; c += 4) {
       const float p = expf(sm.s[row][c] - m_new);
-      sm.s[row][c] = p;
       sum += p;
+      sm.s[row][c] =
+          !drop.on ? p
+          : dropout_keep(drop.word, drop.thresh, drop.row0 + row, k0 + c)
+              ? p / drop.keep_p
+              : 0.f;
     }
     // the shuffles also order the four lanes' reads of m/l before the
     // write below

@@ -1,14 +1,18 @@
-"""GPT model family (decoder-only, GPT-2/3 style) for serving.
+"""GPT model family (decoder-only, GPT-2/3 style): training and serving.
 
 Counterpart of ``paddle_tpu/models/gpt.py``: pre-LayerNorm blocks (eps
 1e-5), learned position embedding, tanh-GELU MLP, output head tied to the
-token embedding.  Module and parameter names match the JAX model's
-``state_dict`` (``gpt.wte.weight``, ``gpt.blocks.0.attn.qkv.weight``, ...),
-so ``models/convert.py`` only has to transpose the linear weights.
+token embedding, dropout on the embeddings, the residual branches and the
+attention probabilities.  Module and parameter names match the JAX
+model's ``state_dict`` (``gpt.wte.weight``,
+``gpt.blocks.0.attn.qkv.weight``, ...), so ``models/convert.py`` only has
+to transpose the linear weights.
 
-This slice serves: the model runs through ``forward_with_cache`` over
-paged KV caches.  Attention without a cache (training), tensor parallelism
-and MoE blocks wait for later slices (see ROADMAP.md).
+Training: ``forward(input_ids)`` and ``compute_loss(input_ids, labels)``
+run cache-less causal attention through the flash kernels (forward and
+backward).  Serving: ``forward_with_cache`` over paged KV caches, always
+under ``torch.no_grad()``.  Activation recompute, tensor parallelism and
+MoE blocks wait for later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..nn.functional import (cross_entropy, dropout,
+                             scaled_dot_product_attention)
+from ..observability.flops import training_flops_per_token
 from .kv_cache import PagedKVCache
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
@@ -35,31 +42,48 @@ class GPTConfig:
     num_heads: int = 12
     max_seq_len: int = 1024
     intermediate_size: int = 0  # 0 -> 4 * hidden
+    dropout: float = 0.0
+    use_recompute: bool = False  # True is not ported yet, nor its knobs
+    recompute_interval: int = 1
+    recompute_policy: str = None
     moe_num_experts: int = 0    # > 0 is not ported yet
 
     def __post_init__(self):
         if self.intermediate_size == 0:
             self.intermediate_size = 4 * self.hidden_size
+        if self.use_recompute or self.recompute_interval != 1 \
+                or self.recompute_policy is not None:
+            raise NotImplementedError(
+                "activation recompute (use_recompute, recompute_interval, "
+                "recompute_policy) is not ported yet: see ROADMAP.md")
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
         self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dropout = cfg.dropout
+        self.generator = generator
 
-    def forward(self, x, kv_cache):
-        if kv_cache is None:
-            raise NotImplementedError(
-                "attention without a KV cache (training) comes with the "
-                "training slice of the port (see ROADMAP.md)")
+    def forward(self, x, kv_cache=None):
+        """Without a cache: causal attention over ``x`` (training), returns
+        the output.  With one: attends through the cache, returns
+        ``(output, new_cache)``."""
         b, s, hidden = x.shape
         q, k, v = self.qkv(x).view(b, s, 3, self.num_heads,
                                    self.head_dim).unbind(2)
-        new_cache, out = kv_cache.update_and_attend(q, k, v)
-        return self.proj(out.reshape(b, s, hidden)), new_cache
+        if kv_cache is not None:
+            new_cache, out = kv_cache.update_and_attend(q, k, v)
+            return self.proj(out.reshape(b, s, hidden)), new_cache
+        # the kernels take contiguous tensors; unbind gives strided views
+        out = scaled_dot_product_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            dropout_p=self.dropout, is_causal=True, training=self.training,
+            generator=self.generator)
+        return self.proj(out.reshape(b, s, hidden))
 
 
 class GPTMLP(nn.Module):
@@ -73,38 +97,53 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.attn = GPTAttention(cfg)
+        self.attn = GPTAttention(cfg, generator)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.mlp = GPTMLP(cfg)
+        self.dropout = cfg.dropout
+        self.generator = generator
 
-    def forward(self, x, kv_cache):
+    def _drop(self, x):
+        return dropout(x, self.dropout, self.training, self.generator)
+
+    def forward(self, x, kv_cache=None):
+        if kv_cache is None:
+            x = x + self._drop(self.attn(self.ln1(x)))
+            return x + self._drop(self.mlp(self.ln2(x)))
         a, new_cache = self.attn(self.ln1(x), kv_cache)
-        x = x + a
-        return x + self.mlp(self.ln2(x)), new_cache
+        x = x + self._drop(a)
+        return x + self._drop(self.mlp(self.ln2(x))), new_cache
 
 
 class GPTModel(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
         self.cfg = cfg
+        self.generator = generator
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
-        self.blocks = nn.ModuleList(GPTBlock(cfg)
+        self.blocks = nn.ModuleList(GPTBlock(cfg, generator)
                                     for _ in range(cfg.num_layers))
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
 
-    def forward(self, input_ids, kv_caches, pos_offset=0):
+    def forward(self, input_ids, kv_caches=None, pos_offset=0):
         """input_ids ``[B, s]``; pos_offset an int, a 0-d tensor (prefill
-        and chunks) or a ``[B, 1]`` tensor (decode)."""
+        and chunks) or a ``[B, 1]`` tensor (decode).  Returns the final
+        hidden states, and with ``kv_caches`` also the new caches."""
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device) + pos_offset
         # the padded rows of a bucket may run past the position table;
         # clamp them (their outputs are discarded), as XLA's gather does
         pos = pos.clamp(max=self.cfg.max_seq_len - 1)
-        x = self.wte(input_ids) + self.wpe(pos)
+        x = dropout(self.wte(input_ids) + self.wpe(pos), self.cfg.dropout,
+                    self.training, self.generator)
+        if kv_caches is None:
+            for block in self.blocks:
+                x = block(x)
+            return self.ln_f(x)
         new_caches = []
         for block, cache in zip(self.blocks, kv_caches):
             x, nc = block(x, cache)
@@ -121,6 +160,11 @@ class GPTForCausalLM(nn.Module):
     ``seed``: embeddings and linear weights ~ N(0, 0.02), biases 0,
     LayerNorm 1 / 0.  Real weights come through ``load_state_dict`` (see
     ``models/convert.py`` for the JAX model's).
+
+    Dropout draws from ``self.generator``, a host ``torch.Generator`` that
+    the model owns, seeded with ``seed``: the flash kernels' dropout seed
+    is one draw of it, and the elementwise dropouts seed a generator on
+    the card from it, so the host never waits for the card.
     """
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=torch.float32,
@@ -132,12 +176,12 @@ class GPTForCausalLM(nn.Module):
                 "yet: see the MoE slice in ROADMAP.md")
         device = resolve_device(device)
         self.cfg = cfg
+        self.generator = torch.Generator().manual_seed(seed)
         with torch.device("meta"):
-            self.gpt = GPTModel(cfg)
+            self.gpt = GPTModel(cfg, self.generator)
         self.gpt.to_empty(device=device)
         self.gpt.to(dtype)
         self._init_weights(seed)
-        self.requires_grad_(False)   # this slice serves; no training yet
 
     @torch.no_grad()
     def _init_weights(self, seed: int):
@@ -173,6 +217,29 @@ class GPTForCausalLM(nn.Module):
         """Returns ``(logits [B, s, vocab], new_caches)``."""
         h, new_caches = self.gpt(input_ids, caches, pos_offset)
         return F.linear(h, self.gpt.wte.weight), new_caches
+
+    def forward(self, input_ids):
+        """Logits ``[B, S, vocab]`` of ``input_ids`` ``[B, S]`` through
+        the tied head, causal attention without a cache."""
+        return F.linear(self.gpt(input_ids), self.gpt.wte.weight)
+
+    def compute_loss(self, input_ids, labels):
+        """Mean cross-entropy of the logits against ``labels`` ``[B, S]``
+        (the caller shifts; nothing is shifted here, as in the JAX
+        package)."""
+        logits = self(input_ids)
+        return cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+                             labels.reshape(-1))
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len=None) -> float:
+        """Train-step FLOPs per token, 6N + 12 L H S
+        (``observability/flops.py``)."""
+        return training_flops_per_token(
+            self.num_params(), self.cfg.num_layers, self.cfg.hidden_size,
+            seq_len or self.cfg.max_seq_len)
 
 
 def _preset(defaults, kw):

@@ -38,10 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the flash kernels' dropout: seed, keep threshold (uint32), keep probability
+_DROPOUT = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
 # C signature of every entry point: pointer arguments, then int arguments,
-# then the stream
+# then (flash) the dropout arguments, then the stream
 _SIGNATURES = {
-    "ptt_flash_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    "ptt_flash_fwd": [_P] * 6 + [_I] * 8 + _DROPOUT + [_P],
+    "ptt_flash_bwd_dq": [_P] * 8 + [_I] * 8 + _DROPOUT + [_P],
+    "ptt_flash_bwd_dkv": [_P] * 9 + [_I] * 8 + _DROPOUT + [_P],
     "ptt_paged_decode": [_P] * 6 + [_I] * 7 + [_P],
     "ptt_paged_chunk": [_P] * 6 + [_I] * 8 + [_P],
 }

@@ -8,8 +8,12 @@ there is none they skip.  Run them on the card with
 (`--noconftest`: the suite's conftest imports jax, which the card's
 machine need not have; this file imports only the port.)
 
-Tolerances: fp32 atol 2e-5, rtol 1e-4; bf16 against the plain version in
-fp32 on the same bf16 inputs, atol 2e-2 (one bf16 rounding of the output).
+Tolerances: fp32 atol 2e-5, rtol 1e-4 for outputs and atol 1e-4 for
+gradients (sums over a whole sequence in another order); bf16 against the
+plain version in fp32 on the same bf16 inputs, atol 2e-2 (one bf16
+rounding of the output), and for gradients also rtol 1e-2 (a gradient of
+a key sums over every query that sees it, and one bf16 rounding is 2^-8
+of its size).
 """
 
 import pytest
@@ -22,6 +26,12 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
+GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+# (B, Sq, Sk, nh, nkv, causal): ragged tiles, GQA, Sq < Sk, Sq > Sk
+# (rows that see no key), non-causal
+FLASH_CASES = [(2, 77, 77, 4, 4, True), (1, 40, 130, 4, 2, True),
+               (1, 70, 50, 2, 2, True), (2, 65, 100, 4, 1, False)]
 
 
 @pytest.fixture
@@ -60,6 +70,72 @@ def test_flash_fwd(gen, dtype, hd):
             q.float(), k.float(), v.float(), causal=True)
         torch.testing.assert_close(out.float(), ref, **TOL[dtype])
         torch.testing.assert_close(lse, ref_lse, **TOL[dtype])
+
+
+def _flash_inputs(gen, B, Sq, Sk, nh, nkv, hd, dtype):
+    q = _randn(gen, (B, Sq, nh, hd), dtype)
+    k = _randn(gen, (B, Sk, nkv, hd), dtype)
+    v = _randn(gen, (B, Sk, nkv, hd), dtype)
+    mask = (torch.rand((B, Sk), generator=gen, device="cuda") > 0.3).int()
+    mask[-1] = 0                      # one batch row sees no key at all
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_fwd_kv_mask_and_dropout(gen, dtype, hd):
+    for B, Sq, Sk, nh, nkv, causal in FLASH_CASES:
+        q, k, v, mask = _flash_inputs(gen, B, Sq, Sk, nh, nkv, hd, dtype)
+        for kv_mask, rate in ((mask, 0.0), (None, 0.1), (mask, 0.25)):
+            out, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask,
+                                              rate, seed=1234)
+            ref, ref_lse = fa.flash_attention_fwd_reference(
+                q.float(), k.float(), v.float(), causal, kv_mask, rate,
+                seed=1234)
+            torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+            torch.testing.assert_close(lse, ref_lse, **TOL[dtype])
+        assert not out[-1].any() and torch.all(lse[-1] == -1e30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_bwd(gen, dtype, hd):
+    for B, Sq, Sk, nh, nkv, causal in FLASH_CASES:
+        q, k, v, mask = _flash_inputs(gen, B, Sq, Sk, nh, nkv, hd, dtype)
+        do = _randn(gen, (B, Sq, nh, hd), dtype)
+        for kv_mask, rate in ((None, 0.0), (mask, 0.0), (mask, 0.2)):
+            out, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask,
+                                              rate, seed=77)
+            n_dq = fa.flash_attention_bwd_dq.launches
+            n_dkv = fa.flash_attention_bwd_dkv.launches
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                         kv_mask, rate, seed=77)
+            assert fa.flash_attention_bwd_dq.launches == n_dq + 1
+            assert fa.flash_attention_bwd_dkv.launches == n_dkv + 1
+            want = fa.flash_attention_bwd_reference(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                do.float(), causal, kv_mask, rate, seed=77)
+            for name, g, w, x in zip("qkv", got, want, (q, k, v)):
+                assert g.dtype == x.dtype and g.shape == x.shape, name
+                torch.testing.assert_close(g.float(), w, **GRAD_TOL[dtype],
+                                           msg=lambda m: f"d{name}: {m}")
+
+
+def test_flash_attention_function_matches_autograd(gen):
+    """The autograd Function on the kernels against autograd through the
+    plain forward, with the kv mask and dropout."""
+    B, S, nh, hd = 2, 96, 4, 64
+    q, k, v, mask = _flash_inputs(gen, B, S, S, nh, nh, hd, torch.float32)
+    do = _randn(gen, (B, S, nh, hd), torch.float32)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_fwd_reference):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*x, True, mask, 0.1, 5)
+        out = out[0] if isinstance(out, tuple) else out
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in x])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **GRAD_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -134,3 +210,37 @@ def test_serving_streams_match_the_cpu(gen):
             eng.run()
             streams.append([r.output_ids for r in reqs])
     assert all(s == streams[0] for s in streams)
+
+
+def test_training_steps_match_the_cpu(gen):
+    """Three AdamW steps of a tiny GPT (hd 64) with dropout 0 on the card
+    (kernels) and on the CPU (plain versions): losses within 1e-4, and the
+    flash kernels launched once per layer and step."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt3_tiny(num_heads=2)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3)
+    card = GPTForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (2, 100),
+                        generator=torch.Generator().manual_seed(0))
+    losses = []
+    for model in (cpu, card):
+        model.train()
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        x = ids.to(model.device)
+        n = fa.flash_attention_bwd_dkv.launches
+        run = []
+        for _ in range(3):
+            loss = model.compute_loss(x, x)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            run.append(loss.item())
+        losses.append(run)
+    assert fa.flash_attention_bwd_dkv.launches == n + 3 * cfg.num_layers
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
+    assert losses[1][-1] < losses[1][0]

@@ -74,12 +74,19 @@ def test_paged_prefill_and_decode_logits_match_jax(models):
     assert tc[0].seq_lens.tolist() == [S + steps] * B
 
 
-def test_moe_and_cacheless_attention_wait_for_later_slices():
+def test_moe_and_cacheless_attention_wait_for_later_slices(models):
+    """MoE still waits for its slice; cache-less attention (the training
+    path) has come, and matches the JAX model's (atol 1e-5)."""
     with pytest.raises(NotImplementedError, match="MoE"):
         GPTForCausalLM(gpt3_tiny(moe_num_experts=4), device="cpu")
-    tm = GPTForCausalLM(gpt3_tiny(num_layers=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.gpt.blocks[0].attn(torch.zeros(1, 2, 128), None)
+    jm, tm, _ = models
+    x = np.random.RandomState(3).standard_normal((2, 11, 128)).astype(
+        np.float32)
+    want = jm.gpt.blocks[1].attn(paddle.to_tensor(x))
+    with torch.no_grad():
+        got = tm.gpt.blocks[1].attn(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want._value),
+                               atol=1e-5, rtol=0)
 
 
 def test_process_logits_rows_matches_jax():

@@ -8,7 +8,8 @@ versions.  Tolerance: fp32, atol 1e-5 (XLA and PyTorch sum in different
 orders).  Also here: the pool writes and the chunk view's write path, that
 a non-CPU tensor goes to the kernel route and never to the plain version,
 that entry points refuse to fall back to the CPU, and that the port
-imports nothing of JAX or of the JAX package.
+imports nothing of JAX or of the JAX package.  The flash backward's cases
+are in ``tests/test_torch_train.py``.
 """
 
 import pathlib
@@ -180,12 +181,36 @@ def test_flash_reference_fully_masked_rows_are_zero():
     assert torch.all(lse[..., :2] == -1e30)
 
 
-def test_flash_rejects_what_belongs_to_training():
-    q = torch.randn(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention_fwd(q, q, q, causal=True, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention_fwd(q, q, q, kv_mask=torch.ones(1, 4))
+def test_flash_rejects_what_belongs_to_training(monkeypatch):
+    """The training slice's arguments of flash_fwd: the kv mask and
+    dropout now run, against the JAX kernel (interpret mode, one tile,
+    the `_hash_bits` keep mask: bit-identical), and malformed ones are
+    rejected."""
+    monkeypatch.setattr(jflash, "_resolve_interpret", lambda i, r: True)
+    B, S, nh, hd = 2, 24, 2, 32
+    rng = np.random.RandomState(7)
+    q, k, v = (rng.standard_normal((B, S, nh, hd)).astype(np.float32)
+               for _ in range(3))
+    mask = (rng.uniform(size=(B, S)) > 0.4).astype(np.int32)
+    mask[1] = 0
+    out_j, lse_j = jflash.flash_attention_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        interpret=True, kv_mask=jnp.asarray(mask), dropout_rate=0.2,
+        seed=jnp.int32(9))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out_t, lse_t = tflash.flash_attention_fwd(
+        tq, tk, tv, causal=True, kv_mask=torch.from_numpy(mask),
+        dropout_rate=0.2, seed=9)
+    np.testing.assert_allclose(out_t.numpy(), _np(out_j), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse_t.numpy(), _np(lse_j)[..., 0],
+                               atol=ATOL, rtol=0)
+    assert not out_t[1].any() and torch.all(lse_t[1] == -1e30)
+    with pytest.raises(ValueError, match="seed"):
+        tflash.flash_attention_fwd(tq, tk, tv, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        tflash.flash_attention_fwd(tq, tk, tv, dropout_rate=1.0, seed=1)
+    with pytest.raises(ValueError, match="kv_mask"):
+        tflash.flash_attention_fwd(tq, tk, tv, kv_mask=torch.ones(B, S + 1))
 
 
 # ------------------------------------------------------------------ writes
@@ -276,7 +301,18 @@ def test_non_cpu_tensors_take_the_kernel_route(monkeypatch):
                                            pool, pool, tables, lens),
         lambda: tflash.flash_attention_fwd(
             *(torch.empty(1, 8, 2, 64, **m),) * 3, causal=True),
+        lambda: tflash.flash_attention_fwd(
+            *(torch.empty(1, 8, 2, 64, **m),) * 3, causal=True,
+            kv_mask=torch.empty(1, 8, dtype=torch.int32, **m),
+            dropout_rate=0.1, seed=3),
     ]
+    x = torch.empty(1, 8, 2, 64, **m)
+    lse = torch.empty(1, 2, 8, **m)
+    bwd = (x, x, x, x, lse, x, True)
+    calls += [lambda: tflash.flash_attention_bwd_dq(*bwd),
+              lambda: tflash.flash_attention_bwd_dkv(*bwd),
+              lambda: tflash.flash_attention_bwd(*bwd),
+              lambda: tflash.flash_attention(*(x,) * 3, True)]
     for call in calls:
         with pytest.raises(_KernelRoute):
             call()
@@ -294,6 +330,9 @@ def test_wrappers_check_what_the_kernels_take():
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.empty(1, 2, 8, 64, **m).transpose(1, 2)
         tflash.flash_attention_fwd(t, t, t)
+    with pytest.raises(ValueError, match="lse"):
+        tflash.flash_attention_bwd_dq(q, q, q, q, torch.empty(1, 2, 8, **m)
+                                      .to(torch.bfloat16), q)
     with pytest.raises(TypeError, match="int32"):
         pool = torch.empty(2, 5, 8, 64, **m)
         tpa.paged_attention(torch.empty(2, 2, 64, **m), pool, pool,
@@ -328,7 +367,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     does not match: the port names its JAX counterparts by file path)."""
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 5
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"paddle_tpu_torch/ops/flash_attention.py",
+            "paddle_tpu_torch/nn/functional/attention.py",
+            "paddle_tpu_torch/nn/clip.py",
+            "paddle_tpu_torch/amp/auto_cast.py",
+            "paddle_tpu_torch/optimizer/optimizer.py",
+            "paddle_tpu_torch/observability/flops.py",
+            "paddle_tpu_torch/models/convert.py"} <= names
     for f in files:
         hits = [m.group(0) for m in _FORBIDDEN.finditer(f.read_text())]
         assert not hits, f"{f.relative_to(ROOT)}: {hits}"
