@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs five phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -37,6 +37,33 @@ into ``build/paddle_tpu_torch/``), then runs five phases on card 0:
 5. Card against CPU for training: a 4-layer fp32 cut, 2 AdamW steps on
    the card (kernels) and on the CPU (plain versions) from one state dict;
    losses within atol 1e-4, parameters within 2 x lr x steps.
+6. MoE kernels (in phase 1's run): ``moe_dispatch`` and ``moe_combine``
+   against their plain versions in float32 and bfloat16 at the training
+   shape (T 8192, M 2048, E 4, k 2, C 2458, routed by the port's GShard
+   gate on random tokens: random routing at capacity 1.2 drops choices
+   and leaves slots empty), a decode shape (T 8, eval capacity) and every
+   choice dropped.  Dispatch exact; combine exact against the plain
+   version on the same inputs and within one bf16 rounding (rtol 2^-8)
+   of the float32 result.  Timed after phase 8, on the routing, gate
+   input and expert rows of the first MoE block in a forward of the
+   train step (checked the same way first), in float32 (the training
+   path's type) beside ``F.embedding`` and ``F.embedding_bag``, the
+   library calls computing the same functions; every MoE block's kept
+   choices and filled slots in that forward are printed.
+7. GPT-MoE serving at full width: ``gpt3_1p3b(moe_num_experts=4)`` (12 of
+   24 blocks MoE, 2.52 B parameters) in bf16, the same 8 requests with
+   whole-prompt prefill; flash_fwd, paged_decode and both MoE kernels
+   launch, dispatch as often as combine.
+8. GPT-MoE training at full width: the same model, phase 4's train step,
+   6 steps at B 4 x S 2048 and one profiled step.  Losses finite and
+   falling; each flash kernel launched 24 x 6 times and each MoE kernel
+   12 x 6 (the MoE backward runs plain index ops, no kernel).  MFU both
+   by 6N + 12LHS over all experts and by the work the step does (each
+   expert over its C of the E x C rows).
+9. Card against CPU for GPT-MoE: a 4-layer fp32 cut (blocks 1 and 3 MoE)
+   serves one greedy request (streams equal, first-token logits atol
+   1e-3) and trains 2 AdamW steps with the same routing uniforms fed to
+   both (losses atol 1e-4, parameters within 2 x lr x steps).
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -58,6 +85,7 @@ PEAK_OPS = {"torch.bfloat16": 989e12,   # dense bf16 tensor-core rate
             "torch.float32": 67e12}     # fp32 outside the tensor cores
 NH, HD, BS, BATCH, MAX_CONTEXT = 16, 128, 64, 8, 2048
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 4, 2048, 6, 1e-4
+MOE_E = 4                            # experts of the GPT-MoE phases
 TOL = {"torch.float32": dict(atol=2e-5, rtol=1e-4),
        "torch.bfloat16": dict(atol=2e-2, rtol=0.0)}
 GRAD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
@@ -362,14 +390,153 @@ def flash_train_checks(rows):
     torch.cuda.empty_cache()
 
 
+def _moe_case(T, M, training, seed):
+    """Routing of T random tokens by the port's GShard gate on the card
+    (the training or eval capacity; random routing in training), and
+    random expert rows.  At the training capacity 1.2 random routing
+    alone drops choices and leaves slots empty."""
+    import torch
+    from paddle_tpu_torch.incubate.distributed.models.moe import GShardGate
+    from paddle_tpu_torch.ops import moe as mo
+    gen = torch.Generator().manual_seed(seed)
+    gate = GShardGate(M, MOE_E, generator=gen).cuda().train(training)
+    x = torch.randn((T, M), generator=gen).cuda()
+    with torch.no_grad():
+        eid, slot, keep, w, cap, _ = gate.forward_indices(x)
+    flat, inv = mo.routing_indices(eid, slot, keep, MOE_E, cap)
+    rows = torch.randn((MOE_E * cap, M), generator=gen).cuda()
+    return x, rows, w, flat, inv, cap
+
+
+def _moe_exact(label, x, r, w, flat, inv):
+    """Dispatch and combine against their plain versions on the same
+    inputs (both exact), and the combine within one bf16 rounding of the
+    float32 sum (exact in float32); returns the first two errors."""
+    import torch
+    from paddle_tpu_torch.ops import moe as mo
+    out = mo.moe_dispatch(x, inv)
+    got = mo.moe_combine(r, w, flat)
+    want = mo.moe_combine_reference(r, w, flat)
+    want32 = mo.moe_combine_reference(r.float(), w, flat)
+    torch.cuda.synchronize()
+    errs = ((out.float() - mo.moe_dispatch_reference(x, inv).float())
+            .abs().max().item(),
+            (got.float() - want.float()).abs().max().item())
+    if errs != (0.0, 0.0):
+        raise AssertionError(f"moe {label} {x.dtype}: dispatch and combine "
+                             f"differ from their plain versions by {errs}")
+    torch.testing.assert_close(
+        got.float(), want32, atol=0.0,
+        rtol=0.0 if x.dtype == torch.float32 else 2.0 ** -8,
+        msg=lambda msg: f"moe_combine {label} {x.dtype}: {msg}")
+    return errs, (got.float() - want32).abs().max().item()
+
+
+def moe_kernel_checks():
+    """moe_dispatch and moe_combine against their plain versions at the
+    training shape, a decode shape and every choice dropped (they are
+    timed on the train step's own routing, ``moe_kernel_timing``)."""
+    import torch
+    from paddle_tpu_torch.ops import moe as mo
+
+    cases = [("training shape", TRAIN_B * TRAIN_S, 2048, True),
+             ("decode shape", BATCH, 2048, False)]
+    for label, t, m, training in cases:
+        x32, r32, w, flat, inv, cap = _moe_case(t, m, training, 3)
+        EC = MOE_E * cap
+        n_empty = int((inv == t).sum())
+        n_drop = int((flat == EC).sum())
+        for dtype in (torch.float32, torch.bfloat16):
+            _, err = _moe_exact(label, x32.to(dtype), r32.to(dtype), w, flat,
+                                inv)
+            _log(f"moe {label} {dtype} T={t} M={m} C={cap}: dispatch "
+                 f"exact, combine exact vs plain, max_abs_err vs fp32 "
+                 f"{err:.3e}; {n_drop} of {flat.numel()} choices dropped, "
+                 f"{n_empty} of {EC} slots empty")
+    # every choice dropped
+    none_flat = torch.full_like(flat, EC)
+    if mo.moe_combine(r32, w, none_flat).any() or \
+            mo.moe_dispatch(x32, torch.full_like(inv, t)).any():
+        raise AssertionError("moe: every choice dropped is not zeros")
+    _log("moe every choice dropped: zeros")
+    del x32, r32, w, flat, inv, none_flat
+    torch.cuda.empty_cache()
+
+
+def moe_kernel_timing(rows_out, rec):
+    """moe_dispatch and moe_combine timed on the first MoE block's
+    routing, gate input and expert rows from a forward of the train step
+    (``_record_routing``), beside their plain versions and ``F.embedding``
+    / ``F.embedding_bag``; float32, the training path's type, and bf16.
+    Updates ``rows_out``."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import moe as mo
+
+    x, r, w, flat, inv, cap = (rec[k] for k in ("x", "rows", "w", "flat",
+                                                "inv", "cap"))
+    (T, M), EC, e = x.shape, MOE_E * cap, 4
+    errs, _ = _moe_exact("train step routing", x, r, w, flat, inv)
+    xb, rb = x.to(torch.bfloat16), r.to(torch.bfloat16)
+    _moe_exact("train step routing", xb, rb, w, flat, inv)
+    filled = int((inv < T).sum())
+    kept = int((flat < EC).sum())
+    x_pad = torch.cat([x, x.new_zeros((1, M))])
+    r_pad = torch.cat([r, r.new_zeros((1, M))])
+    lib = F.embedding_bag(flat.long(), r_pad, per_sample_weights=w,
+                          mode="sum")
+    torch.testing.assert_close(lib, mo.moe_combine(r, w, flat), atol=1e-5,
+                               rtol=1e-5)
+    disp = dict(ms=_time_ms(lambda: mo.moe_dispatch(x, inv), 50),
+                plain_ms=_time_ms(lambda: mo.moe_dispatch_reference(x, inv),
+                                  10),
+                library_ms=_time_ms(lambda: F.embedding(inv.long(), x_pad),
+                                    50),
+                max_abs_err=errs[0],
+                library_call="F.embedding(inv, x_pad)",
+                rows_filled=filled, rows=EC)
+    disp["bound_ms"], disp["bound_by"] = _bound(
+        (filled + EC) * M * e + EC * 4, 0, torch.float32)
+    comb = dict(ms=_time_ms(lambda: mo.moe_combine(r, w, flat), 50),
+                plain_ms=_time_ms(lambda: mo.moe_combine_reference(r, w,
+                                                                   flat), 10),
+                library_ms=_time_ms(lambda: F.embedding_bag(
+                    flat.long(), r_pad, per_sample_weights=w, mode="sum"),
+                    50),
+                max_abs_err=errs[1],
+                library_call="F.embedding_bag(flat, rows_pad, "
+                             "per_sample_weights=w, mode='sum')",
+                choices_kept=kept, choices=flat.numel())
+    comb["bound_ms"], comb["bound_by"] = _bound(
+        (kept + T) * M * e + flat.numel() * 8, 2 * kept * M, torch.float32)
+    disp["bf16_ms"] = _time_ms(lambda: mo.moe_dispatch(xb, inv), 50)
+    comb["bf16_ms"] = _time_ms(lambda: mo.moe_combine(rb, w, flat), 50)
+    rows_out["moe_dispatch"] = disp
+    rows_out["moe_combine"] = comb
+    for name in ("moe_dispatch", "moe_combine"):
+        r_ = rows_out[name]
+        _log(f"{name} fp32 timing on the train step's block-1 routing "
+             f"T={T} M={M} E={MOE_E} C={cap} ({kept} of {flat.numel()} "
+             f"choices kept, {filled} of {EC} slots filled): ms="
+             f"{r_['ms']:.4f} (bf16 {r_['bf16_ms']:.4f}) plain_ms="
+             f"{r_['plain_ms']:.4f} bound_ms={r_['bound_ms']:.4f} "
+             f"({r_['bound_by']}) library_ms={r_['library_ms']:.4f} "
+             f"({r_['library_call']})")
+    del x, r, w, flat, inv, x_pad, r_pad, xb, rb, lib
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- phase 2
 
 def _counters():
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import moe as mo
     from paddle_tpu_torch.ops import paged_attention as pa
     return {"flash_fwd": fa.flash_attention_fwd,
             "paged_decode": pa.paged_attention,
-            "paged_chunk": pa.paged_chunk_attention}
+            "paged_chunk": pa.paged_chunk_attention,
+            "moe_dispatch": mo.moe_dispatch,
+            "moe_combine": mo.moe_combine}
 
 
 def serve(model, prompts, chunk):
@@ -483,14 +650,13 @@ def where_the_time_goes(model, prompts):
 
 # --------------------------------------------------------------- phase 3
 
-def card_vs_cpu():
+def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
     import torch
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
 
-    cfg = gpt3_1p3b(num_layers=4)
-    cpu = GPTForCausalLM(cfg, device="cpu", seed=1)
-    card = GPTForCausalLM(cfg, device="cuda", seed=2)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=1).eval()
+    card = GPTForCausalLM(cfg, device="cuda", seed=2).eval()
     card.load_state_dict(cpu.state_dict())
     gen = torch.Generator().manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (96,), generator=gen)
@@ -511,7 +677,7 @@ def card_vs_cpu():
     if streams[0] != streams[1]:
         raise AssertionError(f"card stream {streams[0]} != CPU stream "
                              f"{streams[1]}")
-    _log(f"card vs CPU, gpt3_1p3b 4 layers fp32: first-token logits "
+    _log(f"card vs CPU, {label}: first-token logits "
          f"max_abs_err={err:.3e}, 16-token greedy streams equal")
 
 
@@ -551,9 +717,28 @@ def _train_step(model, opt, ids, labels, autocast):
 
 def _train_counters():
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import moe as mo
     return {"flash_fwd": fa.flash_attention_fwd,
             "flash_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_bwd_dkv": fa.flash_attention_bwd_dkv}
+            "flash_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "moe_dispatch": mo.moe_dispatch,
+            "moe_combine": mo.moe_combine}
+
+
+def _n_moe_blocks(cfg):
+    return sum(1 for i in range(cfg.num_layers) if cfg.moe_num_experts > 0
+               and (i + 1) % cfg.moe_every_n_layers == 0)
+
+
+def _check_train_launches(label, cfg, launches, steps):
+    """Each flash kernel once per layer and step; each MoE kernel once per
+    MoE block and step (the MoE backward launches no kernel)."""
+    for name, n in launches.items():
+        per_step = (_n_moe_blocks(cfg) if name.startswith("moe_")
+                    else cfg.num_layers)
+        if n != per_step * steps:
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"want {per_step} x {steps}")
 
 
 def _run_train(model, opt, ids, labels, steps):
@@ -576,38 +761,100 @@ def _run_train(model, opt, ids, labels, steps):
     return losses, times, launches
 
 
-def training_phase():
+def _expert_params(model):
+    return sum(p.numel() for n, p in model.named_parameters()
+               if ".experts." in n)
+
+
+def _record_routing(model, ids, labels):
+    """One forward of the train step (training mode, auto_cast O1, random
+    routing) with every MoE block's routing read: per block the kept
+    choices and filled slots, and the first block's gate input, routing
+    and expert rows (the inputs of its dispatch and combine)."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.ops import moe as mo
+
+    layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+    counts, first = [], {}
+
+    def recorder(gate, keep_inputs):
+        fwd = gate.forward_indices
+
+        def forward_indices(x):
+            out = fwd(x)
+            eid, slot, keep, w, cap, _ = out
+            E = gate.tot_expert
+            flat, inv = mo.routing_indices(eid, slot, keep, E, cap)
+            counts.append(((flat < E * cap).sum(), flat.numel(),
+                           (inv < x.shape[0]).sum(), E * cap))
+            if keep_inputs:
+                first.update(x=x.detach().clone(), w=w.detach().clone(),
+                             flat=flat, inv=inv, cap=cap)
+            return out
+        return forward_indices
+
+    for i, layer in enumerate(layers):
+        layer.gate.forward_indices = recorder(layer.gate, i == 0)
+    hook = layers[0].experts.register_forward_hook(
+        lambda m, a, out: first.update(
+            rows=out.detach().reshape(-1, out.shape[-1]).contiguous()))
+    with torch.no_grad(), amp.auto_cast(True, level="O1", dtype="bfloat16",
+                                        device=ids.device):
+        model.compute_loss(ids, labels)
+    hook.remove()
+    for layer in layers:
+        del layer.gate.forward_indices
+    kept = [int(c[0]) for c in counts]
+    filled = [int(c[2]) for c in counts]
+    _log(f"routing of a train-step forward, {len(layers)} MoE blocks: "
+         f"choices kept of {counts[0][1]}: {kept}; slots filled of "
+         f"{counts[0][3]}: {filled}")
+    first.update(kept_by_block=kept, filled_by_block=filled)
+    return first
+
+
+def train_full_width(cfg, label):
+    """6 timed steps of ``cfg`` at B 4 x S 2048 from launch counts of 0,
+    checked, then one profiled step; returns the numbers (the model and
+    optimizer are freed)."""
     import statistics
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    from paddle_tpu_torch.incubate.distributed.models.moe import capacity
 
-    cfg = gpt3_1p3b()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, opt, ids, labels = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
     losses, times, launches = _run_train(model, opt, ids, labels,
                                          TRAIN_STEPS)
-    want = cfg.num_layers * TRAIN_STEPS
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"training: {name} launched {n} times, "
-                                 f"want {cfg.num_layers} x {TRAIN_STEPS}")
+    _check_train_launches(label, cfg, launches, TRAIN_STEPS)
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"training: loss did not fall: {losses}")
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
     step_s = statistics.median(times[1:])
     tokens = TRAIN_B * TRAIN_S
     fpt = model.flops_per_token(TRAIN_S)
     mfu = tokens / step_s * fpt / PEAK_OPS["torch.bfloat16"]
+    # the work the step does: each expert runs over its C rows of the
+    # E x C buffer, not over every token
+    n_exp = _expert_params(model)
+    fpt_work = fpt
+    if n_exp:
+        cap = capacity(tokens, cfg.moe_num_experts, 1, 1.2)
+        fpt_work = fpt - 6 * n_exp * (1 - cap / tokens)
+    mfu_work = tokens / step_s * fpt_work / PEAK_OPS["torch.bfloat16"]
     peak = torch.cuda.max_memory_allocated()
-    _log(f"training gpt3_1p3b ({model.num_params()} parameters) fp32 "
-         f"weights, auto_cast O1 bf16, AdamW, B={TRAIN_B} S={TRAIN_S}: "
+    _log(f"{label} ({model.num_params()} parameters, {n_exp} in experts) "
+         f"fp32 weights, auto_cast O1 bf16, AdamW, B={TRAIN_B} S={TRAIN_S}: "
          f"losses {[round(x, 4) for x in losses]}")
-    _log(f"training: step times (s) {[round(t, 4) for t in times]}; median "
+    _log(f"{label}: step times (s) {[round(t, 4) for t in times]}; median "
          f"of steps 2-{TRAIN_STEPS} {step_s * 1e3:.1f} ms = "
-         f"{tokens / step_s:.1f} tokens/s, {fpt / 1e9:.3f} GFLOP/token, "
-         f"MFU {mfu:.4f} (of 989 TFLOP/s bf16); peak memory "
-         f"{peak / 2 ** 30:.2f} GiB; launches {launches}")
+         f"{tokens / step_s:.1f} tokens/s, {fpt / 1e9:.3f} GFLOP/token by "
+         f"6N + 12LHS: MFU {mfu:.4f}; {fpt_work / 1e9:.3f} GFLOP/token by "
+         f"the work done: MFU {mfu_work:.4f} (of 989 TFLOP/s bf16); peak "
+         f"memory {peak / 2 ** 30:.2f} GiB; launches {launches}")
 
     # one more step, profiled: the card's busy share and its top kernels
     torch.cuda.synchronize()
@@ -621,50 +868,75 @@ def training_phase():
     busy_us = sum(e.self_device_time_total for e in kernels)
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key)
-    _log(f"profiled train step: wall {wall * 1e3:.1f} ms, card busy "
+    moe_us = sum(e.self_device_time_total for e in kernels
+                 if "moe_" in e.key)
+    idle = 1 - busy_us / 1e6 / wall
+    _log(f"profiled {label} step: wall {wall * 1e3:.1f} ms, card busy "
          f"{busy_us / 1e3:.1f} ms in {sum(e.count for e in kernels)} "
-         f"kernel launches, idle share {1 - busy_us / 1e6 / wall:.3f}; "
-         f"flash kernels {flash_us / 1e3:.1f} ms = "
-         f"{flash_us / max(busy_us, 1):.3f} of busy time")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+         f"kernel launches, idle share {idle:.3f}; flash kernels "
+         f"{flash_us / 1e3:.1f} ms = {flash_us / max(busy_us, 1):.3f} of "
+         f"busy time; MoE kernels {moe_us / 1e3:.2f} ms = "
+         f"{moe_us / max(busy_us, 1):.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:24]:
         _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
              f"{e.key[:90]}")
+    routing = _record_routing(model, ids, labels) if n_exp else None
     del model, opt
     torch.cuda.empty_cache()
+    return dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+                mfu_work=mfu_work, peak_bytes=peak, idle_share=idle,
+                launches=launches, losses=losses, routing=routing)
 
+
+def training_phase():
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    run = train_full_width(gpt3_1p3b(), "training gpt3_1p3b")
     # dropout 0.1 at the same width: the kernels' dropout on the path
     model, opt, ids, labels = _train_setup(gpt3_1p3b(dropout=0.1), "cuda",
                                            1, TRAIN_B, TRAIN_S)
     d_losses, _, d_launches = _run_train(model, opt, ids, labels, 2)
-    if not all(n > 0 for n in d_launches.values()):
+    if not all(n > 0 for k, n in d_launches.items() if k.startswith("flash")):
         raise AssertionError(f"dropout training: launches {d_launches}")
     _log(f"training gpt3_1p3b dropout 0.1, 2 steps: losses "
          f"{[round(x, 4) for x in d_losses]}, launches {d_launches}")
     del model, opt
     torch.cuda.empty_cache()
-    return dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
-                peak_bytes=peak, launches=launches)
+    return run
 
 
 # --------------------------------------------------------------- phase 5
 
-def train_card_vs_cpu():
-    """2 AdamW steps of a 4-layer fp32 cut on the card and on the CPU from
-    one state dict.  Losses within atol 1e-4.  Parameters within 2 x lr x
-    steps: Adam divides by sqrt(v), so a weight whose gradient is rounding
-    noise (the key third of each qkv bias has a zero gradient in exact
-    arithmetic) moves by up to about lr per step on either side."""
-    import torch
-    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+def _feed_uniforms(model, uniforms):
+    """Every GShard gate of ``model`` draws its random-routing uniforms,
+    in call order, from the host tensors ``uniforms``."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import GShardGate
+    draws = iter(uniforms)
+    for m in model.modules():
+        if isinstance(m, GShardGate):
+            m.uniforms = lambda n, device: next(draws)[:n].to(device)
 
-    cfg = gpt3_1p3b(num_layers=4)
+
+def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
+    """2 AdamW steps of a 4-layer fp32 cut on the card and on the CPU from
+    one state dict (and, for MoE, one set of routing uniforms).  Losses
+    within atol 1e-4.  Parameters within 2 x lr x steps: Adam divides by
+    sqrt(v), so a weight whose gradient is rounding noise (the key third of
+    each qkv bias has a zero gradient in exact arithmetic) moves by up to
+    about lr per step on either side."""
+    import torch
+
     steps, init, runs = 2, None, []
+    uniforms = torch.rand((steps * _n_moe_blocks(cfg), 256),
+                          generator=torch.Generator().manual_seed(5))
     for dev in ("cpu", "cuda"):
         model, opt, ids, labels = _train_setup(cfg, dev, 2, 1, 256)
         if init is None:
             init = {k: v.clone() for k, v in model.state_dict().items()}
         else:
             model.load_state_dict(init)
+        _feed_uniforms(model, uniforms)
         losses = [_train_step(model, opt, ids, labels, False).item()
                   for _ in range(steps)]
         runs.append((losses, {k: v.detach().cpu() for k, v in
@@ -677,9 +949,57 @@ def train_card_vs_cpu():
     if err > 2 * LR * steps:
         raise AssertionError(f"train card vs CPU: parameters {err:.3e} "
                              f"apart, limit {2 * LR * steps:.1e}")
-    _log(f"train card vs CPU, gpt3_1p3b 4 layers fp32, B=1 S=256, {steps} "
+    _log(f"train card vs CPU, {label}, B=1 S=256, {steps} "
          f"AdamW steps: losses card {card_l} cpu {cpu_l}, parameters max "
          f"abs diff {err:.3e}")
+
+
+# ------------------------------------------------------------ phases 7-9
+
+def moe_serving_phase(lens):
+    """GPT-3 1.3B with 4 experts in every second block, bf16, in eval mode
+    (the eval capacity, no random routing), the 8 requests with
+    whole-prompt prefill."""
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
+
+    cfg = gpt3_1p3b(moe_num_experts=MOE_E)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=0).eval()
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in lens]
+    run = serve(model, prompts, 0)
+    n = run["launches"]
+    for name in ("flash_fwd", "paged_decode", "moe_dispatch", "moe_combine"):
+        if n[name] <= 0:
+            raise AssertionError(f"MoE serving: {name} never launched")
+    if n["moe_dispatch"] != n["moe_combine"]:
+        raise AssertionError(f"MoE serving: dispatch and combine launched "
+                             f"{n['moe_dispatch']} and {n['moe_combine']}")
+    _log(f"serving gpt3_1p3b MoE {MOE_E} experts ({model.num_params()} "
+         f"parameters) bf16, whole-prompt prefill: {run['tokens']} tokens in "
+         f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s, "
+         f"mean TTFT {run['ttft_mean_s'] * 1e3:.1f} ms, max TTFT "
+         f"{run['ttft_max_s'] * 1e3:.1f} ms, {run['steps']} decode steps in "
+         f"{run['ticks']} ticks, launches {n}")
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def moe_phases(lens, rows_out):
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    serve_run = moe_serving_phase(lens)
+    train_run = train_full_width(gpt3_1p3b(moe_num_experts=MOE_E),
+                                 "training gpt3_1p3b MoE")
+    moe_kernel_timing(rows_out, train_run.pop("routing"))
+    cut = gpt3_1p3b(num_layers=4, moe_num_experts=MOE_E)
+    label = "gpt3_1p3b MoE 4 layers (blocks 1, 3 MoE) fp32"
+    card_vs_cpu(cut, label)
+    train_card_vs_cpu(cut, label)
+    return serve_run, train_run
 
 
 # ------------------------------------------------------------------ main
@@ -695,6 +1015,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
     from paddle_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -717,10 +1038,12 @@ def main() -> int:
     lens = [100 + 200 * i for i in range(BATCH)]       # 100 .. 1500
     rows = kernel_checks(lens)
     flash_train_checks(rows)
+    moe_kernel_checks()
     runs = serving_phase(lens)
-    card_vs_cpu()
+    card_vs_cpu(gpt3_1p3b(num_layers=4))
     train = training_phase()
-    train_card_vs_cpu()
+    train_card_vs_cpu(gpt3_1p3b(num_layers=4))
+    moe_serve, moe_train = moe_phases(lens, rows)
 
     sources = {"flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/ops/pallas_flash.py:159"),
@@ -731,12 +1054,18 @@ def main() -> int:
                "paged_decode": ("paddle_tpu_torch/csrc/paged_decode.cu",
                                 "paddle_tpu/ops/pallas_paged.py:57"),
                "paged_chunk": ("paddle_tpu_torch/csrc/paged_chunk.cu",
-                               "paddle_tpu/ops/pallas_paged.py:229")}
+                               "paddle_tpu/ops/pallas_paged.py:229"),
+               "moe_dispatch": ("paddle_tpu_torch/csrc/moe.cu",
+                                "paddle_tpu/ops/pallas_moe.py:85"),
+               "moe_combine": ("paddle_tpu_torch/csrc/moe.cu",
+                               "paddle_tpu/ops/pallas_moe.py:133")}
     # each path's counts are its own run's, read from 0; `launches` is the
     # count of the first path that runs the kernel
     paths = {"whole_prompt": runs[0]["launches"],
              "chunked": runs[256]["launches"],
-             "train": train["launches"]}
+             "train": train["launches"],
+             "moe_serve": moe_serve["launches"],
+             "moe_train": moe_train["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..incubate.distributed.models.moe import MoELayer
 from ..models.generation import sample_rows
 from ..models.kv_cache import PagedChunkKernelView, PagedKVCache
 
@@ -90,7 +91,10 @@ class ServingEngine:
     """Continuous batching over a model with ``forward_with_cache``.
 
     ``device`` is where the pools live and the model must live: ``cuda``
-    by default (raises without CUDA unless ``device="cpu"``)."""
+    by default (raises without CUDA unless ``device="cpu"``).  A model with
+    MoE blocks must be in eval mode (``model.eval()``): its gates' capacity
+    and random routing follow ``training``, and the engine refuses to
+    serve it in training mode."""
 
     def __init__(self, model, max_batch: int = 4,
                  max_context: Optional[int] = None, block_size: int = 64,
@@ -101,6 +105,8 @@ class ServingEngine:
             raise ValueError(f"the model is on {model.device}, the engine "
                              f"on {self.device}")
         self.model = model
+        self._moe = any(isinstance(m, MoELayer) for m in model.modules())
+        self._check_mode()
         cfg = model.cfg
         self.B = int(max_batch)
         self.bs = int(block_size)
@@ -394,9 +400,17 @@ class ServingEngine:
                 toks.append(nxt)
         return torch.stack(toks, dim=1).cpu().numpy()
 
+    def _check_mode(self) -> None:
+        if self._moe and self.model.training:
+            raise ValueError(
+                "an MoE model is served in eval mode: call model.eval() "
+                "(in training mode its gates route at random, at the "
+                "training capacity)")
+
     def step(self) -> bool:
         """One scheduler boundary and one decode tick.  Returns True while
         work remains."""
+        self._check_mode()
         self._boundary_schedule()
         active = self._active_slots()
         if not active:

@@ -5,9 +5,11 @@
 weight as ``[in, out]`` and computes ``x @ W``
 (``paddle_tpu/nn/layer/common.py:18``), while ``torch.nn.Linear`` keeps
 ``[out, in]`` and computes ``x @ W.T``.  The port uses ``torch.nn.Linear``
-unchanged, so the conversion TRANSPOSES every linear weight; embeddings,
-biases and LayerNorm parameters pass as they are.  The AdamW moments of
-a linear weight are transposed like the weight.
+unchanged, so the conversion TRANSPOSES every linear weight (the MoE
+gate's ``gpt.blocks.N.mlp.gate.gate.weight`` among them); embeddings,
+biases, LayerNorm parameters and the stacked MoE expert weights
+(``experts.w1/b1/w2/b2``, whose layout the port keeps) pass as they are.
+The AdamW moments of a linear weight are transposed like the weight.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 __all__ = ["gpt_state_from_numpy", "adamw_state_from_numpy"]
 
 _LINEAR_WEIGHTS = (".qkv.weight", ".proj.weight", ".fc1.weight",
-                   ".fc2.weight")
+                   ".fc2.weight", ".gate.gate.weight")
 
 
 def gpt_state_from_numpy(state: Dict[str, np.ndarray]

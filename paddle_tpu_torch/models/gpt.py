@@ -3,7 +3,12 @@
 Counterpart of ``paddle_tpu/models/gpt.py``: pre-LayerNorm blocks (eps
 1e-5), learned position embedding, tanh-GELU MLP, output head tied to the
 token embedding, dropout on the embeddings, the residual branches and the
-attention probabilities.  Module and parameter names match the JAX
+attention probabilities.  GPT-MoE (``moe_num_experts > 0``): every
+``moe_every_n_layers``-th block's MLP is a mixture of experts
+(``incubate/distributed/models/moe``, GShard top-2 by default) whose
+dispatch and combine run on the ``moe_dispatch`` / ``moe_combine``
+kernels, and ``compute_loss`` adds ``moe_aux_weight`` times each MoE
+block's aux loss.  Module and parameter names match the JAX
 model's ``state_dict`` (``gpt.wte.weight``,
 ``gpt.blocks.0.attn.qkv.weight``, ...), so ``models/convert.py`` only has
 to transpose the linear weights.
@@ -11,8 +16,8 @@ to transpose the linear weights.
 Training: ``forward(input_ids)`` and ``compute_loss(input_ids, labels)``
 run cache-less causal attention through the flash kernels (forward and
 backward).  Serving: ``forward_with_cache`` over paged KV caches, always
-under ``torch.no_grad()``.  Activation recompute, tensor parallelism and
-MoE blocks wait for later slices (see ROADMAP.md).
+under ``torch.no_grad()``.  Activation recompute and tensor parallelism
+wait for later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..incubate.distributed.models.moe import MoELayer
 from ..nn.functional import (cross_entropy, dropout,
                              scaled_dot_product_attention)
 from ..observability.flops import training_flops_per_token
@@ -46,11 +52,20 @@ class GPTConfig:
     use_recompute: bool = False  # True is not ported yet, nor its knobs
     recompute_interval: int = 1
     recompute_policy: str = None
-    moe_num_experts: int = 0    # > 0 is not ported yet
+    # GPT-MoE: the MLP of every moe_every_n_layers-th block is a mixture
+    # of moe_num_experts experts (0 = dense)
+    moe_num_experts: int = 0
+    moe_every_n_layers: int = 2
+    moe_top_k: int = 2
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
         if self.intermediate_size == 0:
             self.intermediate_size = 4 * self.hidden_size
+        if self.moe_num_experts > 0 and self.moe_every_n_layers < 1:
+            raise ValueError(
+                "moe_every_n_layers must be >= 1 when moe_num_experts > 0 "
+                "(1 = every block is MoE)")
         if self.use_recompute or self.recompute_interval != 1 \
                 or self.recompute_policy is not None:
             raise NotImplementedError(
@@ -97,12 +112,21 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, generator=None):
+    def __init__(self, cfg: GPTConfig, generator=None, use_moe=False,
+                 device=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.attn = GPTAttention(cfg, generator)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.mlp = GPTMLP(cfg)
+        if use_moe:
+            self.mlp = MoELayer(
+                d_model=cfg.hidden_size, num_expert=cfg.moe_num_experts,
+                d_hidden=cfg.intermediate_size,
+                gate=("gshard" if cfg.moe_top_k == 2 else
+                      "switch" if cfg.moe_top_k == 1 else "naive"),
+                top_k=cfg.moe_top_k, generator=generator, device=device)
+        else:
+            self.mlp = GPTMLP(cfg)
         self.dropout = cfg.dropout
         self.generator = generator
 
@@ -119,14 +143,21 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, cfg: GPTConfig, generator=None):
+    """``device`` is where the MoE blocks are built (``GPTForCausalLM``
+    builds on ``meta`` and materialises the weights on its own device)."""
+
+    def __init__(self, cfg: GPTConfig, generator=None, device=None):
         super().__init__()
         self.cfg = cfg
         self.generator = generator
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
-        self.blocks = nn.ModuleList(GPTBlock(cfg, generator)
-                                    for _ in range(cfg.num_layers))
+        def _is_moe(i):
+            return cfg.moe_num_experts > 0 and \
+                (i + 1) % cfg.moe_every_n_layers == 0
+        self.blocks = nn.ModuleList(GPTBlock(cfg, generator, _is_moe(i),
+                                             device)
+                                    for i in range(cfg.num_layers))
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
 
     def forward(self, input_ids, kv_caches=None, pos_offset=0):
@@ -158,8 +189,9 @@ class GPTForCausalLM(nn.Module):
     builds the weights on ``device`` (``cuda`` by default; raises without
     CUDA unless ``device="cpu"``) from a ``torch.Generator`` seeded with
     ``seed``: embeddings and linear weights ~ N(0, 0.02), biases 0,
-    LayerNorm 1 / 0.  Real weights come through ``load_state_dict`` (see
-    ``models/convert.py`` for the JAX model's).
+    LayerNorm 1 / 0; MoE experts as the JAX layer inits them
+    (``ExpertMLP.reset_parameters``).  Real weights come through
+    ``load_state_dict`` (see ``models/convert.py`` for the JAX model's).
 
     Dropout draws from ``self.generator``, a host ``torch.Generator`` that
     the model owns, seeded with ``seed``: the flash kernels' dropout seed
@@ -170,15 +202,11 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=torch.float32,
                  seed: int = 0):
         super().__init__()
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError(
-                "GPT-MoE blocks (moe_dispatch / moe_combine) are not ported "
-                "yet: see the MoE slice in ROADMAP.md")
         device = resolve_device(device)
         self.cfg = cfg
         self.generator = torch.Generator().manual_seed(seed)
         with torch.device("meta"):
-            self.gpt = GPTModel(cfg, self.generator)
+            self.gpt = GPTModel(cfg, self.generator, device="meta")
         self.gpt.to_empty(device=device)
         self.gpt.to(dtype)
         self._init_weights(seed)
@@ -188,12 +216,17 @@ class GPTForCausalLM(nn.Module):
         dev = self.gpt.wte.weight.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         for name, p in self.gpt.named_parameters():
+            if ".experts." in name:
+                continue
             if name.endswith("bias"):
                 p.zero_()
             elif ".ln" in name or name.startswith("ln_"):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=gen)
+        for m in self.gpt.modules():
+            if isinstance(m, MoELayer):
+                m.experts.reset_parameters(gen)
 
     @property
     def device(self) -> torch.device:
@@ -226,10 +259,17 @@ class GPTForCausalLM(nn.Module):
     def compute_loss(self, input_ids, labels):
         """Mean cross-entropy of the logits against ``labels`` ``[B, S]``
         (the caller shifts; nothing is shifted here, as in the JAX
-        package)."""
+        package), plus ``moe_aux_weight`` times each MoE block's aux
+        loss."""
         logits = self(input_ids)
-        return cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+        loss = cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
                              labels.reshape(-1))
+        if self.cfg.moe_num_experts > 0:
+            for block in self.gpt.blocks:
+                aux = getattr(block.mlp, "l_aux", None)
+                if aux is not None:
+                    loss = loss + self.cfg.moe_aux_weight * aux
+        return loss
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -244,3 +244,118 @@ def test_training_steps_match_the_cpu(gen):
     torch.testing.assert_close(torch.tensor(losses[1]),
                                torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
     assert losses[1][-1] < losses[1][0]
+
+
+# --------------------------------------------------------------------- MoE
+
+def _moe_routing(T, M, E=4, dtype=torch.float32, training=True, seed=0):
+    """A GShard routing of T random tokens (drops and empty slots at the
+    training capacity 1.2) and the dispatch/combine inputs on the card."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import GShardGate
+    from paddle_tpu_torch.ops import moe as mo
+    g = torch.Generator().manual_seed(seed)
+    gate = GShardGate(M, E, generator=g).cuda().train(training)
+    x = torch.randn((T, M), generator=g).cuda()
+    with torch.no_grad():
+        eid, slot, keep, w, cap, _ = gate.forward_indices(x)
+    flat, inv = mo.routing_indices(eid, slot, keep, E, cap)
+    rows = torch.randn((E * cap, M), generator=g).cuda()
+    return x.to(dtype), rows.to(dtype), w, flat, inv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,M,training", [(1000, 256, True), (8, 2048, False),
+                                          (333, 136, True)])
+def test_moe_dispatch_and_combine(gen, dtype, T, M, training):
+    """Dispatch exact; combine exact against the plain version on the same
+    inputs (float32 products and sums in the same order, one rounding to
+    the rows' type)."""
+    from paddle_tpu_torch.ops import moe as mo
+    x, rows, w, flat, inv = _moe_routing(T, M, dtype=dtype,
+                                         training=training)
+    nd, nc = mo.moe_dispatch.launches, mo.moe_combine.launches
+    out = mo.moe_dispatch(x, inv)
+    assert torch.equal(out, mo.moe_dispatch_reference(x, inv))
+    assert not out[inv == T].any()
+    got = mo.moe_combine(rows, w, flat)
+    assert torch.equal(got, mo.moe_combine_reference(rows, w, flat))
+    assert (mo.moe_dispatch.launches, mo.moe_combine.launches) == \
+        (nd + 1, nc + 1)
+    # every choice dropped: zeros
+    none = torch.full_like(flat, rows.shape[0])
+    assert not mo.moe_combine(rows, w, none).any()
+    assert not mo.moe_dispatch(x, torch.full_like(inv, T)).any()
+
+
+def test_moe_layer_grads_match_the_cpu(gen):
+    """MoELayer forward and backward on the card (kernels) and the CPU
+    (plain versions), one set of weights and uniforms: atol 1e-5."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    torch.manual_seed(0)
+    cpu = MoELayer(64, num_expert=4, d_hidden=128, gate="gshard",
+                   device="cpu")
+    card = MoELayer(64, num_expert=4, d_hidden=128, gate="gshard")
+    card.load_state_dict(cpu.state_dict())
+    u = torch.rand(300)
+    x = torch.randn(3, 100, 64)
+    r = torch.randn(3, 100, 64)
+    got = []
+    for layer in (cpu, card):
+        dev = next(layer.parameters()).device
+        layer.gate.uniforms = lambda n, device: u[:n].to(device)
+        xi = x.to(dev).clone().requires_grad_()
+        out = layer(xi)
+        ((out * r.to(dev)).sum() + layer.l_aux).backward()
+        got.append([out.detach().cpu(), xi.grad.cpu()]
+                   + [p.grad.cpu() for p in layer.parameters()])
+    for a, b in zip(*got):
+        torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-5)
+
+
+def test_moe_gpt_serving_and_training_match_the_cpu(gen):
+    """A tiny GPT-MoE (hd 64): greedy streams equal card and CPU, and
+    three AdamW steps with random routing agree (losses within 1e-4);
+    each MoE block launches both kernels once per forward."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    from paddle_tpu_torch.ops import moe as mo
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt3_tiny(num_heads=2, moe_num_experts=4)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3)
+    card = GPTForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    prompts = [list(range(1, 40)), list(range(7, 20)), list(range(3, 90))]
+    streams = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        model.eval()
+        eng = ServingEngine(model, max_batch=2, max_context=128,
+                            block_size=16, steps_per_tick=4, device=dev)
+        reqs = [eng.add_request(Request(p, max_new_tokens=8))
+                for p in prompts]
+        eng.run()
+        streams.append([r.output_ids for r in reqs])
+    assert streams[0] == streams[1]
+    ids = torch.randint(0, cfg.vocab_size, (2, 100),
+                        generator=torch.Generator().manual_seed(0))
+    u = torch.rand(3, 200)
+    losses = []
+    for model in (cpu, card):
+        model.train()
+        draws = iter(u)
+        model.gpt.blocks[1].mlp.gate.uniforms = \
+            lambda n, device: next(draws)[:n].to(device)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        x = ids.to(model.device)
+        n = mo.moe_combine.launches
+        run = []
+        for _ in range(3):
+            loss = model.compute_loss(x, x)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            run.append(loss.item())
+        losses.append(run)
+    assert mo.moe_combine.launches == n + 3
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
+    assert losses[1][-1] < losses[1][0]

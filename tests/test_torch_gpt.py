@@ -75,10 +75,18 @@ def test_paged_prefill_and_decode_logits_match_jax(models):
 
 
 def test_moe_and_cacheless_attention_wait_for_later_slices(models):
-    """MoE still waits for its slice; cache-less attention (the training
-    path) has come, and matches the JAX model's (atol 1e-5)."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        GPTForCausalLM(gpt3_tiny(moe_num_experts=4), device="cpu")
+    """Both have come: a GPT-MoE builds with MoE blocks at 1, 3, ... (its
+    parity with the JAX model is in tests/test_torch_moe.py), and
+    cache-less attention (the training path) matches the JAX model's
+    (atol 1e-5)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    moe = GPTForCausalLM(gpt3_tiny(moe_num_experts=4, num_layers=4),
+                         device="cpu")
+    assert [i for i, b in enumerate(moe.gpt.blocks)
+            if isinstance(b.mlp, MoELayer)] == [1, 3]
+    assert moe.gpt.blocks[1].mlp.experts.w1.shape == (4, 128, 512)
+    with pytest.raises(ValueError, match="moe_every_n_layers"):
+        gpt3_tiny(moe_num_experts=4, moe_every_n_layers=0)
     jm, tm, _ = models
     x = np.random.RandomState(3).standard_normal((2, 11, 128)).astype(
         np.float32)

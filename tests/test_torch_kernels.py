@@ -78,11 +78,16 @@ def test_paged_attention_matches_pallas_decode(lens):
 
 @pytest.fixture
 def pallas_load(monkeypatch):
-    """`_chunk_fused_kernel` calls `pl.load`, which this jax release no
-    longer has; ref indexing replaces it.  Put it back for the test only,
-    so the fused kernel runs in interpret mode as written."""
+    """`_chunk_fused_kernel` calls `pl.load` (and the MoE kernels also
+    `pl.store`), which this jax release no longer has; ref indexing and
+    assignment replace them.  Put them back for the test only, so the
+    kernels run in interpret mode as written."""
     if not hasattr(pl, "load"):
         monkeypatch.setattr(pl, "load", lambda ref, idx: ref[idx],
+                            raising=False)
+    if not hasattr(pl, "store"):
+        monkeypatch.setattr(pl, "store",
+                            lambda ref, idx, v: ref.__setitem__(idx, v),
                             raising=False)
 
 
@@ -342,6 +347,7 @@ def test_wrappers_check_what_the_kernels_take():
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -349,6 +355,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GPTForCausalLM(gpt3_tiny(num_layers=1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPTForCausalLM(gpt3_tiny(num_layers=2, moe_num_experts=4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MoELayer(16, num_expert=4, d_hidden=32)
+    layer = MoELayer(16, num_expert=4, d_hidden=32, device="cpu")
+    assert {p.device.type for p in layer.parameters()} == {"cpu"}
     model = GPTForCausalLM(gpt3_tiny(num_layers=1), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(model)
@@ -374,7 +386,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch/amp/auto_cast.py",
             "paddle_tpu_torch/optimizer/optimizer.py",
             "paddle_tpu_torch/observability/flops.py",
-            "paddle_tpu_torch/models/convert.py"} <= names
+            "paddle_tpu_torch/models/convert.py",
+            "paddle_tpu_torch/ops/moe.py",
+            "paddle_tpu_torch/incubate/distributed/models/moe/gate.py",
+            "paddle_tpu_torch/incubate/distributed/models/moe/moe_layer.py"
+            } <= names
     for f in files:
         hits = [m.group(0) for m in _FORBIDDEN.finditer(f.read_text())]
         assert not hits, f"{f.relative_to(ROOT)}: {hits}"
