@@ -10,13 +10,19 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
-   batch 8; training B 4 x S 2048 causal).  float32: atol 2e-5, rtol 1e-4
+   batch 8; training B 4 x S 2048 causal), with ``flash_fwd`` also at hd 64
+   and 256 and at Sq > Sk (rows that see no key: zeros, lse -1e30), and
+   the training cases at Sq > Sk too.  float32: atol 2e-5, rtol 1e-4
    for outputs, atol 1e-4, rtol 1e-4 for gradients.  bfloat16: against the
    plain version computed in float32 on the same bfloat16 inputs, atol
    2e-2, and for gradients also rtol 1e-2 (one bf16 rounding of a
    gradient that sums over a whole sequence).  Kernel, plain version and
    the ``F.scaled_dot_product_attention`` yardstick (flash only; for the
-   backward pair, its backward) are timed with CUDA events.
+   backward pair, its backward) are timed with CUDA events; the flash
+   lines print the achieved TFLOP/s and the ratio to sdpa.  Before it, the
+   ``-Xptxas -v`` reports give every kernel's registers and spills; the
+   tensor-core kernels (bf16 ``flash_fwd``, ``flash_bwd_dq``) must not
+   spill at hd 64 and 128.
 2. Serving at full width: GPT-3 1.3B in bfloat16 with random weights from a
    seed, 8 requests (prompts of 100 to 1500 tokens, 64 new tokens each,
    half greedy, half sampled) through ``ServingEngine`` with whole-prompt
@@ -33,7 +39,9 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    at 1.0, 6 steps on one fixed batch of B 4 x S 2048 random tokens.  Every
    loss finite, the last below the first, and each flash kernel launched
    exactly 24 x 6 times.  Prints step time, tokens/s, MFU and peak memory,
-   then profiles one more step, then trains 2 steps with dropout 0.1.
+   then profiles one more step, in which every forward and dq launch must
+   be the tensor-core kernel by name (24 each, none on the FMA kernels),
+   then trains 2 steps with dropout 0.1.
 5. Card against CPU for training: a 4-layer fp32 cut, 2 AdamW steps on
    the card (kernels) and on the CPU (plain versions) from one state dict;
    losses within atol 1e-4, parameters within 2 x lr x steps.
@@ -55,7 +63,8 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    whole-prompt prefill; flash_fwd, paged_decode and both MoE kernels
    launch, dispatch as often as combine.
 8. GPT-MoE training at full width: the same model, phase 4's train step,
-   6 steps at B 4 x S 2048 and one profiled step.  Losses finite and
+   6 steps at B 4 x S 2048 and one profiled step (checked by kernel name
+   as in phase 4).  Losses finite and
    falling; each flash kernel launched 24 x 6 times and each MoE kernel
    12 x 6 (the MoE backward runs plain index ops, no kernel).  MFU both
    by 6N + 12LHS over all experts and by the work the step does (each
@@ -191,15 +200,19 @@ def kernel_checks(path_lens):
                                 library_ms=None)
 
     # --- flash_fwd: the largest prefill bucket (one 2048-token prompt),
-    # a ragged length, a GQA group and Sq < Sk
-    cases = [(1, 2048, 2048, NH), (2, 1000, 1000, NH), (1, 300, 1000, 4)]
+    # a ragged length, a GQA group, Sq < Sk, hd 64 and 256, and Sq > Sk
+    # (its first Sq - Sk rows see no key: zeros, lse -1e30)
+    cases = [(1, 2048, 2048, NH, NH, HD), (2, 1000, 1000, NH, NH, HD),
+             (1, 300, 1000, NH, 4, HD), (1, 2048, 2048, 2 * NH, 2 * NH, 64),
+             (1, 1000, 1000, NH // 2, NH // 4, 256),
+             (2, 700, 300, NH, NH, HD)]
     for dtype in (torch.float32, bf16):
-        for B, Sq, Sk, nkv in cases:
-            q = torch.randn((B, Sq, NH, HD), generator=gen,
+        for B, Sq, Sk, nh, nkv, hd in cases:
+            q = torch.randn((B, Sq, nh, hd), generator=gen,
                             device="cuda").to(dtype)
-            k = torch.randn((B, Sk, nkv, HD), generator=gen,
+            k = torch.randn((B, Sk, nkv, hd), generator=gen,
                             device="cuda").to(dtype)
-            v = torch.randn((B, Sk, nkv, HD), generator=gen,
+            v = torch.randn((B, Sk, nkv, hd), generator=gen,
                             device="cuda").to(dtype)
             out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
             ref, ref_lse = fa.flash_attention_fwd_reference(
@@ -207,9 +220,14 @@ def kernel_checks(path_lens):
             torch.cuda.synchronize()
             err = _compare("flash_fwd", out, ref, dtype)
             lerr = _compare("flash_fwd lse", lse, ref_lse, dtype)
-            _log(f"flash_fwd {dtype} B={B} Sq={Sq} Sk={Sk} nkv={nkv}: "
-                 f"max_abs_err={err:.3e} lse_err={lerr:.3e}")
-            if (dtype, B, Sq) == (bf16, 1, 2048):
+            if Sq > Sk and (out[:, :Sq - Sk].abs().max().item() != 0.0 or
+                            (lse[..., :Sq - Sk] != -1e30).any().item()):
+                raise AssertionError("flash_fwd: rows that see no key are "
+                                     "not zeros with lse -1e30")
+            _log(f"flash_fwd {dtype} B={B} Sq={Sq} Sk={Sk} nh={nh} "
+                 f"nkv={nkv} hd={hd}: max_abs_err={err:.3e} "
+                 f"lse_err={lerr:.3e}")
+            if (dtype, B, Sq, hd) == (bf16, 1, 2048, HD):
                 timed = (q, k, v, err)
     q, k, v, err = timed
     S = q.shape[1]
@@ -223,7 +241,8 @@ def kernel_checks(path_lens):
         qt, kt, vt, is_causal=True), 20)
     bound, by = _bound(nbytes, flops, bf16)
     rows["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                             bound_ms=bound, bound_by=by, library_ms=lib)
+                             bound_ms=bound, bound_by=by, library_ms=lib,
+                             tflops=flops / ms / 1e9)
 
     # --- paged_chunk: 256-row chunks at many starts, one running past the
     # table (its rows attend the whole table), then the main path's shape:
@@ -257,8 +276,18 @@ def kernel_checks(path_lens):
     for name, r in rows.items():
         _log(f"{name} bf16 timing: ms={r['ms']:.4f} plain_ms="
              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-             f"({r['bound_by']}) library_ms={r['library_ms']}")
+             f"({r['bound_by']}) library_ms={r['library_ms']}"
+             + _rate(r))
     return rows
+
+
+def _rate(r):
+    """Achieved TFLOP/s and the ratio to the library call, where there
+    are both."""
+    if r.get("tflops") is None or r.get("library_ms") is None:
+        return ""
+    return (f"; {r['tflops']:.1f} TFLOP/s, {r['ms'] / r['library_ms']:.2f}x "
+            "the library call")
 
 
 def _train_flash_case(gen, B, Sq, Sk, nkv, dtype, masked):
@@ -291,6 +320,7 @@ def flash_train_checks(rows):
              ("ragged", 2, 1000, 1000, NH, True, False, 0.0),
              ("GQA", 1, 1024, 1024, 4, True, False, 0.0),
              ("Sq < Sk", 2, 300, 1000, NH, True, False, 0.0),
+             ("Sq > Sk", 2, 1000, 300, NH, True, False, 0.0),
              ("kv mask", 2, 512, 512, NH, False, True, 0.0),
              ("dropout 0.1", 2, 1024, 1024, NH, True, False, 0.1)]
     for dtype in (torch.float32, bf16):
@@ -337,6 +367,7 @@ def flash_train_checks(rows):
                plain_ms=plain_fwd, max_abs_err=errs[0])
     fwd["bound_ms"], fwd["bound_by"] = _bound(4 * qbytes + lse_b,
                                               4 * HD * pairs, bf16)
+    fwd["tflops"] = 4 * HD * pairs / fwd["ms"] / 1e9
     dq = dict(ms=_time_ms(lambda: fa.flash_attention_bwd_dq(
         q, k, v, out, lse, do, True), 10),
         plain_ms=_time_ms(lambda: fa.flash_attention_bwd_reference(
@@ -344,6 +375,7 @@ def flash_train_checks(rows):
         max_abs_err=errs[2])
     dq["bound_ms"], dq["bound_by"] = _bound(6 * qbytes + lse_b,
                                             6 * HD * pairs, bf16)
+    dq["tflops"] = 6 * HD * pairs / dq["ms"] / 1e9
     dkv = dict(ms=_time_ms(lambda: fa.flash_attention_bwd_dkv(
         q, k, v, out, lse, do, True), 10),
         plain_ms=_time_ms(lambda: fa.flash_attention_bwd_reference(
@@ -351,6 +383,7 @@ def flash_train_checks(rows):
         max_abs_err=max(errs[3], errs[4]))
     dkv["bound_ms"], dkv["bound_by"] = _bound(7 * qbytes + lse_b,
                                               8 * HD * pairs, bf16)
+    dkv["tflops"] = 8 * HD * pairs / dkv["ms"] / 1e9
     # the library yardstick: scaled_dot_product_attention forward, and its
     # backward (autograd.grad through it, less its forward) for the pair
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -375,7 +408,7 @@ def flash_train_checks(rows):
         "dq+dkv: scaled_dot_product_attention backward")
     fwd["serving"] = {key: rows["flash_fwd"][key] for key in
                       ("ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms", "max_abs_err")}
+                       "library_ms", "max_abs_err", "tflops")}
     rows["flash_fwd"] = fwd
     rows["flash_bwd_dq"] = dq
     rows["flash_bwd_dkv"] = dkv
@@ -385,7 +418,12 @@ def flash_train_checks(rows):
              f"(dropout 0.1: {r['dropout_ms']:.4f}) "
              f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
              f"({r['bound_by']}) library_ms={r['library_ms']:.4f}"
-             + (" (sdpa backward, dq+dkv)" if "library_covers" in r else ""))
+             + (f" (sdpa backward, dq+dkv); {r['tflops']:.1f} TFLOP/s"
+                if "library_covers" in r else _rate(r)))
+    pair = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    _log(f"flash_bwd_dq + flash_bwd_dkv = {pair:.4f} ms: "
+         f"{pair / rows['flash_bwd_dq']['library_ms']:.2f}x the sdpa "
+         "backward")
     del timed, q, k, v, do, out, lse, qt, kt, vt
     torch.cuda.empty_cache()
 
@@ -741,6 +779,35 @@ def _check_train_launches(label, cfg, launches, steps):
                                  f"want {per_step} x {steps}")
 
 
+# the flash kernels by name on the card's timeline: bf16 forwards and dq
+# on the tensor cores, the FMA kernels only for fp32 (and dk/dv)
+FLASH_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
+                 "flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+
+
+def _check_flash_kernels(label, cfg, kernels):
+    """The profiled bf16 step launched every forward and dq on the
+    tensor-core kernels and none on the FMA ones; prints each flash
+    kernel's launches and device time."""
+    count = dict.fromkeys(FLASH_KERNELS, 0)
+    us = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for e in kernels:
+        for name in FLASH_KERNELS:
+            if name in e.key:
+                count[name] += e.count
+                us[name] += e.self_device_time_total
+    want = {"flash_fwd_tc_kernel": cfg.num_layers, "flash_fwd_kernel": 0,
+            "flash_bwd_dq_tc_kernel": cfg.num_layers,
+            "flash_bwd_dq_kernel": 0,
+            "flash_bwd_dkv_kernel": cfg.num_layers}
+    if count != want:
+        raise AssertionError(f"{label}: flash launches by kernel {count}, "
+                             f"want {want}")
+    _log(f"profiled {label} step, flash kernels by name: " + ", ".join(
+        f"{n} {count[n]}x {us[n] / 1e3:.2f} ms" for n in FLASH_KERNELS))
+
+
 def _run_train(model, opt, ids, labels, steps):
     """``steps`` timed steps, every flash launch count at 0 first;
     returns losses, step times (s) and the counts."""
@@ -871,6 +938,7 @@ def train_full_width(cfg, label):
     moe_us = sum(e.self_device_time_total for e in kernels
                  if "moe_" in e.key)
     idle = 1 - busy_us / 1e6 / wall
+    _check_flash_kernels(label, cfg, kernels)
     _log(f"profiled {label} step: wall {wall * 1e3:.1f} ms, card busy "
          f"{busy_us / 1e3:.1f} ms in {sum(e.count for e in kernels)} "
          f"kernel launches, idle share {idle:.3f}; flash kernels "
@@ -1004,6 +1072,49 @@ def moe_phases(lens, rows_out):
 
 # ------------------------------------------------------------------ main
 
+def ptxas_report(build_dir):
+    """Registers and spills of every kernel from the ``-Xptxas -v``
+    reports; the tensor-core kernels must not spill at hd 64 and 128.
+    Returns {kernel: {hd: "N registers, S spill stores, L spill loads"}}
+    for the tensor-core kernels."""
+    import re
+    tc = {}
+    for f in sorted(build_dir.glob("*.ptxas.txt")):
+        entry = None
+        for line in f.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if not m:
+                continue
+            name = re.search(r"ptt\d+(\w+?_kernel)", entry)
+            name = name.group(1) if name else entry
+            hd = re.search(r"Li(\d+)E", entry)
+            hd = int(hd.group(1)) if hd else None
+            text = (f"{m.group(1)} registers, {spills[0]} bytes spill "
+                    f"stores, {spills[1]} bytes spill loads")
+            _log(f"  {f.name.split('.')[0]}: {name} hd {hd}: {text}")
+            if name.endswith("_tc_kernel"):
+                tc.setdefault(name, {})[hd] = text
+                if hd in (64, 128) and spills != (0, 0):
+                    raise AssertionError(f"{name} hd {hd} spills: {text}")
+            entry = None
+    for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel"):
+        if sorted(tc.get(name, {})) != [64, 128, 256]:
+            raise AssertionError(f"ptxas report: {name} at hd "
+                                 f"{sorted(tc.get(name, {}))}")
+    return tc
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1030,10 +1141,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     _log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for f in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
-        for line in f.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"  {f.name.split('.')[0]}: {line.strip()}")
+    tc_regs = ptxas_report(_build.BUILD_DIR)
 
     lens = [100 + 200 * i for i in range(BATCH)]       # 100 .. 1500
     rows = kernel_checks(lens)
@@ -1074,6 +1182,10 @@ def main() -> int:
                         "replaces": replaces, "launches": by_path[path],
                         "launches_path": path, "launches_by_path": by_path,
                         **rows[name]})
+        tc_name = name + "_tc_kernel"
+        if tc_name in tc_regs:
+            kernels[-1]["bf16_kernel"] = tc_name
+            kernels[-1]["ptxas_by_hd"] = tc_regs[tc_name]
     _log(card)
     _log(json.dumps({"kernels": kernels}))
     _log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-// FlashAttention backward for Hopper (sm_90a), plain FMA on CUDA cores:
-// two kernels, flash_bwd_dq and flash_bwd_dkv.
+// FlashAttention backward for Hopper (sm_90a): flash_bwd_dq and
+// flash_bwd_dkv.
 //
-// Replace the Pallas TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` in
-// paddle_tpu/ops/pallas_flash.py (driven by `_flash_bwd`): the backward of
-// the training step's attention (ops/flash_attention.py FlashAttention).
+// Replace the Pallas TPU kernels `_bwd_dq_kernel`
+// (paddle_tpu/ops/pallas_flash.py:340) and `_bwd_dkv_kernel` (:403), driven
+// by `_flash_bwd`: the backward of the training step's attention
+// (ops/flash_attention.py FlashAttention).
 //
 // For q [B, Sq, nh, hd], k, v [B, Sk, nkv, hd], the forward's out and lse
 // [B, nh, Sq] and the output gradient dO (like q), with the FlashAttention-2
@@ -19,28 +20,41 @@
 // on every masked entry: a fully masked row has lse = -1e30, and a -1e30
 // score would give exp(0) = 1 there.
 //
-// Layout on the card.  The TPU kernels walk their reduction axis as the
-// last, sequential grid dimension with the sum in VMEM scratch; blocks on
-// the card run in no order, so each walk is a loop inside one block with
-// the sum in registers, written once (deterministic, no atomics):
-// - flash_bwd_dq: one block of 256 threads per (batch * head, tile of BQ
-//   query rows), looping over key tiles up to the causal diagonal;
-// - flash_bwd_dkv: one block per (batch * KV head, tile of BK key rows),
-//   looping over the query heads of its group (grouped-query attention:
-//   the sum over the group happens in the block's fp32 registers, not in a
-//   per-query-head [B, nh, Sk, hd] buffer as on the TPU) and, for each, over
-//   the query tiles from the causal diagonal on.
-// Tiles are 64 x 64 for hd 64 and 128, and 32 x 32 for hd 256, so that
-// four fp32 tiles of hd columns fit in the 227 KB of shared memory.
+// The TPU kernels walk their reduction axis as the last, sequential grid
+// dimension with the sum in VMEM scratch; blocks on the card run in no
+// order, so each walk is a loop inside one block with the sum in
+// registers, written once (deterministic, no atomics).
 //
-// What bounds it: per (query, key) pair the two kernels do 6 hd (dq) and
-// 8 hd (dk/dv) flops on O(S hd) elements, far above the H100's ~295 flops
-// per byte, so arithmetic bounds them.  This first version computes with
-// fp32 FMAs (67 TFLOP/s peak), not the tensor cores (989 TFLOP/s bf16);
-// what it does do is keep the score matrices out of device memory, stage
-// each tile in shared memory once for a whole tile of the other side, and
-// skip the tiles above the causal diagonal.  wgmma + TMA is the later step.
+// What bounds them: per (query, key) pair dq does 6 hd flops and dk/dv
+// 8 hd on O(S hd) elements, far above the H100's ~295 flops per byte, so
+// arithmetic bounds both: dq 103.1 GFLOP at the training shape (B 4, S
+// 2048, nh 16, hd 128, causal), 0.1043 ms at 989 TFLOP/s bf16.
+//
+// flash_bwd_dq, bfloat16: flash_bwd_dq_tc_kernel, on the tensor cores
+// (tc_common.cuh), the forward's machinery.  One block of two warpgroups
+// per (batch * head, tile of 128 query rows), heaviest tiles first; Q and
+// dO stay bf16 in shared memory, D and lse in registers; K and V tiles of
+// 64 keys come in by cp.async, double-buffered (hd 256: one stage, for
+// shared memory).  S = Q K^T and dP = dO V^T run on wgmma from shared
+// memory; dS is rounded to bf16 in registers, as the TPU kernel casts ds
+// to k's type, and dQ += dS K runs on wgmma with dS as the register A
+// operand and the K tile read transposed.
+//
+// flash_bwd_dq, float32, and flash_bwd_dkv in both types: fp32 FMAs on the
+// CUDA cores, 256 threads per block:
+// - flash_bwd_dq_kernel: one block per (batch * head, tile of BQ query
+//   rows), looping over key tiles up to the causal diagonal;
+// - flash_bwd_dkv_kernel: one block per (batch * KV head, tile of BK key
+//   rows), looping over the query heads of its group (grouped-query
+//   attention: the sum over the group happens in the block's fp32
+//   registers, not in a per-query-head [B, nh, Sk, hd] buffer as on the
+//   TPU) and, for each, over the query tiles from the causal diagonal on.
+// Their tiles are 64 x 64 for hd 64 and 128, and 32 x 32 for hd 256, so
+// that four fp32 tiles of hd columns fit in the 227 KB of shared memory.
+// dk/dv on the tensor cores is the next step (ROADMAP.md); fp32 dq stays
+// on FMAs by design, as the precision reference of the fp32 checks.
 #include "attention_common.cuh"
+#include "tc_common.cuh"
 
 namespace ptt {
 
@@ -300,10 +314,241 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, int BQ, int BK>
-cudaError_t launch_bwd(const BwdArgs& a, bool dkv, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// flash_bwd_dq, bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kDqRows = 128;     // query rows per block: two warpgroups
+constexpr int kDqKeys = tc::kKeys;
+constexpr int kDqThreads = 256;
+
+// Blocks per SM the register budget is cut for: hd 64 fits two in 128
+// registers without spilling, hd 128 needs 181 (one block, its two
+// warpgroups sharing each K/V tile).  One-warpgroup blocks at two or three
+// per SM, which let the warpgroups drift apart, ran slower on the H100 at
+// hd 64 and 128: each K/V tile then feeds half as many rows.
+constexpr int dq_tc_min_blocks(int D) { return D == 64 ? 2 : 1; }
+
+// Shared memory of flash_bwd_dq_tc_kernel, bytes from the 1024-aligned
+// base: Q and dO [D/64][128][64], NS stages of K and V [D/64][64][64] (all
+// SW128), the stages' key-valid flags and D = rowsum(dO * out).  hd 256
+// keeps one stage, to fit in 227 KB.
+template <int D>
+struct DqTcSmem {
+  static constexpr int NS = D == 256 ? 1 : 2;
+  static constexpr int rows = kDqRows;
+  static constexpr int kv_stage = D * kDqKeys * 2;
+  static constexpr int q = 0;
+  static constexpr int dO = q + D * rows * 2;
+  static constexpr int k = dO + D * rows * 2;
+  static constexpr int v = k + NS * kv_stage;
+  static constexpr int kok = v + NS * kv_stage;
+  static constexpr int delta = kok + NS * kDqKeys * 4;
+  static constexpr int bytes = delta + rows * 4 + tc::kGroupBytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
+    flash_bwd_dq_tc_kernel(const BwdArgs a, float scale_log2) {
+  using S = DqTcSmem<D>;
+  constexpr int NS = S::NS, NB = D / 64;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* base = tc::align1024(tc_smem);
+  const int Sq = a.Sq, Sk = a.Sk, nh = a.nh;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // heaviest first
+  const int b = bh / nh, h = bh % nh, hk = h / (nh / a.nkv);
+  const int offset = Sk - Sq;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16 + g;
+  const int row[2] = {q0 + wrow, q0 + wrow + 8};
+  const int wg_first = q0 + wg * 64;
+  const int wg_last = min(wg_first + 63, Sq - 1);
+  const int wg_kend = a.causal ? min(Sk, wg_last + offset + 1) : Sk;
+  const int q_last = min(q0 + kDqRows, Sq) - 1;
+  const int k_end = a.causal ? min(Sk, q_last + offset + 1) : Sk;
+  const int n_tiles = k_end > 0 ? (k_end + kDqKeys - 1) / kDqKeys : 0;
+  const bool drop = a.thresh > 0;
+  const unsigned word = dropout_word(a.seed, bh);
+  const float inv_keep = 1.f / a.keep_p;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO);
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o);
+  auto load_kv = [&](int st, int k0) {
+    tc::load_kv_tile<D, kDqThreads>(
+        tc::smem_addr(base + S::k + st * S::kv_stage),
+        tc::smem_addr(base + S::v + st * S::kv_stage),
+        reinterpret_cast<int*>(base + S::kok) + st * kDqKeys,
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v), a.mask, b, Sk, a.nkv, hk, k0);
+  };
+  auto qrow = [=](int r) -> long long {
+    const int qp = q0 + r;
+    return qp < Sq ? ((b * (long long)Sq + qp) * nh + h) * D : -1;
+  };
+
+  if (n_tiles > 0) {
+    tc::load_tile<D, kDqThreads>(tc::smem_addr(base + S::q), q, kDqRows,
+                                 qrow);
+    tc::load_tile<D, kDqThreads>(tc::smem_addr(base + S::dO), dO, kDqRows,
+                                 qrow);
+    load_kv(0, 0);
+    tc::cp_async_commit();
+  }
+  // D = rowsum(dO * out) in fp32: two neighbouring lanes per row
+  {
+    const int r = tid >> 1, half = tid & 1;
+    const long long off = qrow(r);
+    float sum = 0.f;
+    if (off >= 0) {
+#pragma unroll 4
+      for (int c = half * (D / 2); c < (half + 1) * (D / 2); c += 8) {
+        const uint4 x = *reinterpret_cast<const uint4*>(dO + off + c);
+        const uint4 y = *reinterpret_cast<const uint4*>(o + off + c);
+        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(xp[e]);
+          const float2 yf = __bfloat1622float2(yp[e]);
+          sum = fmaf(xf.x, yf.x, sum);
+          sum = fmaf(xf.y, yf.y, sum);
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) reinterpret_cast<float*>(base + S::delta)[r] = sum;
+  }
+  __syncthreads();
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    delta[r] = reinterpret_cast<const float*>(base + S::delta)[wrow + 8 * r];
+    // rows past Sq: zero Q and dO, lse 0 -> p finite, ds 0, not written
+    lse2[r] = row[r] < Sq
+                  ? a.lse[(long long)bh * Sq + row[r]] * 1.4426950408889634f
+                  : 0.f;
+  }
+
+  float dq[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[nb][i] = 0.f;
+  const uint32_t qa = tc::smem_addr(base + S::q) + wg * 64 * tc::kRowBytes;
+  const uint32_t da = tc::smem_addr(base + S::dO) + wg * 64 * tc::kRowBytes;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % NS, k0 = j * kDqKeys;
+    if (NS == 1 && j > 0) {
+      __syncthreads();  // every warpgroup is done with tile j - 1
+      load_kv(0, k0);
+      tc::cp_async_commit();
+    }
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile j landed; (NS 2) everyone is done with j - 1
+    if (NS == 2 && j + 1 < n_tiles) {
+      load_kv((j + 1) % NS, k0 + kDqKeys);
+      tc::cp_async_commit();
+    }
+    if (wg_first > wg_last || k0 >= wg_kend) continue;
+    const uint32_t ka = tc::smem_addr(base + S::k + st * S::kv_stage);
+    const uint32_t va = tc::smem_addr(base + S::v + st * S::kv_stage);
+
+    float s[32], dp[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
+      tc::wgmma_ss(s, tc::desc(qa + cb * kDqRows * tc::kRowBytes + ko),
+                   tc::desc(ka + cb * kDqKeys * tc::kRowBytes + ko), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
+      tc::wgmma_ss(dp, tc::desc(da + cb * kDqRows * tc::kRowBytes + ko),
+                   tc::desc(va + cb * kDqKeys * tc::kRowBytes + ko), kk > 0);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    const bool need_mask = a.mask != nullptr || k0 + kDqKeys > Sk ||
+                           (a.causal && k0 + kDqKeys - 1 > wg_first + offset);
+    const int* kok = reinterpret_cast<const int*>(base + S::kok) +
+                     st * kDqKeys;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, c = tc::acc_col(i, t);
+      float p = tc::fast_exp2(fmaf(s[i], scale_log2, -lse2[r]));
+      if (need_mask &&
+          !(kok[c] && (!a.causal || k0 + c <= row[r] + offset)))
+        p = 0.f;
+      float gd = dp[i];
+      if (drop)
+        gd = dropout_keep(word, a.thresh, row[r], k0 + c) ? gd * inv_keep
+                                                          : 0.f;
+      s[i] = p * (gd - delta[r]) * a.scale;
+    }
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) tc::acc_to_a(s, kk, dsa[kk]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        tc::wgmma_rs_t(dq[nb], dsa[kk],
+                       tc::desc(ka + nb * kDqKeys * tc::kRowBytes +
+                                kk * 16 * tc::kRowBytes));
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) tc::fence_regs(dq[nb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) tc::fence_regs(dsa[kk]);
+  }
+
+  const float one[2] = {1.f, 1.f};
+  tc::store_rows(static_cast<__nv_bfloat16*>(a.dq), dq, row, one, Sq, b, nh,
+                 h, t);
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = DqTcSmem<D>::bytes;
+  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(a.B * a.nh, (a.Sq + kDqRows - 1) / kDqRows);
+  kernel<<<grid, kDqThreads, smem, stream>>>(a,
+                                             a.scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// bf16 dq takes the tensor-core kernel or nothing (an hd it does not take
+// raises; it never drops to the FMA kernel).
+cudaError_t dispatch_dq_tc(int hd, const BwdArgs& a, cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return launch_dq_tc<64>(a, stream);
+    case 128:
+      return launch_dq_tc<128>(a, stream);
+    case 256:
+      return launch_dq_tc<256>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FMA kernels: flash_bwd_dq (fp32), flash_bwd_dkv (fp32, bf16)
+// ---------------------------------------------------------------------------
+template <typename T, int D, int BQ, int BK, bool DKV>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(BwdSmem<D, BQ, BK>);
-  if (!dkv) {
+  if constexpr (!DKV) {
     auto kernel = flash_bwd_dq_kernel<T, D, BQ, BK>;
     static const cudaError_t attr = allow_smem(kernel, smem);
     if (attr != cudaSuccess) return attr;
@@ -319,16 +564,15 @@ cudaError_t launch_bwd(const BwdArgs& a, bool dkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_bwd(int hd, const BwdArgs& a, bool dkv,
-                         cudaStream_t stream) {
+template <typename T, bool DKV>
+cudaError_t dispatch_bwd(int hd, const BwdArgs& a, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_bwd<T, 64, 64, 64>(a, dkv, stream);
+      return launch_bwd<T, 64, 64, 64, DKV>(a, stream);
     case 128:
-      return launch_bwd<T, 128, 64, 64>(a, dkv, stream);
+      return launch_bwd<T, 128, 64, 64, DKV>(a, stream);
     case 256:
-      return launch_bwd<T, 256, 32, 32>(a, dkv, stream);
+      return launch_bwd<T, 256, 32, 32, DKV>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -339,10 +583,13 @@ int run_bwd(BwdArgs a, int hd, int dtype, bool dkv, void* stream) {
     return (int)cudaErrorInvalidValue;
   a.scale = 1.0f / sqrtf((float)hd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1   ? dispatch_bwd<__nv_bfloat16>(hd, a, dkv, s)
-      : dtype == 0 ? dispatch_bwd<float>(hd, a, dkv, s)
-                   : cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1)
+    err = dkv ? dispatch_bwd<__nv_bfloat16, true>(hd, a, s)
+              : dispatch_dq_tc(hd, a, s);
+  else if (dtype == 0)
+    err = dkv ? dispatch_bwd<float, true>(hd, a, s)
+              : dispatch_bwd<float, false>(hd, a, s);
   return (int)err;
 }
 
@@ -350,9 +597,9 @@ int run_bwd(BwdArgs a, int hd, int dtype, bool dkv, void* stream) {
 
 // q, out, dO, dq [B, Sq, nh, hd]; k, v, dk, dv [B, Sk, nkv, hd]; lse
 // [B, nh, Sq] fp32; mask [B, Sk] int32 or null; all contiguous on the
-// device.  dtype: 0 = float32, 1 = bfloat16.  seed, thresh and keep_p are
-// the forward's (dropout on when thresh > 0).  Each returns the
-// cudaError_t of its launch (0 = success).
+// device.  dtype: 0 = float32, 1 = bfloat16 (dq on the tensor cores).
+// seed, thresh and keep_p are the forward's (dropout on when thresh > 0).
+// Each returns the cudaError_t of its launch (0 = success).
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* out, const void* dO,
                                 const void* lse, void* dq, const void* mask,

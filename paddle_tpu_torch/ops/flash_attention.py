@@ -7,7 +7,11 @@ Counterpart of ``paddle_tpu/ops/pallas_flash.py``: ``flash_attention_fwd``
 kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` driven by
 ``_flash_bwd``) and the differentiable ``flash_attention`` (its
 ``custom_vjp``).  The kernels are ``paddle_tpu_torch/csrc/flash_fwd.cu``
-and ``paddle_tpu_torch/csrc/flash_bwd.cu``.
+and ``paddle_tpu_torch/csrc/flash_bwd.cu``.  In bfloat16 the forward and
+dq run on the tensor cores (``wgmma`` on bf16 tiles in shared memory,
+``tc_common.cuh``), rounding p and ds to bf16 before their second product
+as the TPU kernels do; in float32 they, and dk/dv in both types, run on
+fp32 FMAs.
 
 Dropout.  The keep mask is a pure function of (seed, batch * head, query
 row, key column): the lowbias32 mix of the JAX package's ``_hash_bits``
@@ -143,8 +147,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
     tiles and is dropped here.
 
     CUDA tensors (float32 or bfloat16, contiguous, hd in 64/128/256)
-    launch the ``flash_fwd`` kernel; CPU tensors take
-    :func:`flash_attention_fwd_reference`.
+    launch the ``flash_fwd`` kernel (bfloat16: ``flash_fwd_tc_kernel`` on
+    the tensor cores; float32: ``flash_fwd_kernel`` on FMAs); CPU tensors
+    take :func:`flash_attention_fwd_reference`.
     """
     _check_shapes(q, k, v)
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
@@ -259,8 +264,10 @@ def _bwd_launch(kernel, entry, q, k, v, out, lse, do, grads, causal,
 
 def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False,
                            kv_mask=None, dropout_rate=0.0, seed=None):
-    """dq through the ``flash_bwd_dq`` kernel (CUDA tensors) or the plain
-    version (CPU tensors).  Arguments as :func:`flash_attention_bwd`."""
+    """dq through the ``flash_bwd_dq`` kernel (CUDA tensors; bfloat16 on
+    the tensor cores, ``flash_bwd_dq_tc_kernel``, float32 on FMAs) or the
+    plain version (CPU tensors).  Arguments as
+    :func:`flash_attention_bwd`."""
     _check_shapes(q, k, v)
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
     if q.device.type == "cpu":

@@ -121,6 +121,86 @@ def test_flash_bwd(gen, dtype, hd):
                                            msg=lambda m: f"d{name}: {m}")
 
 
+# bf16 on the tensor-core kernels (flash_fwd_tc_kernel,
+# flash_bwd_dq_tc_kernel): (B, Sq, Sk, nh, nkv, causal, kv mask, dropout)
+# over Sq, Sk in {1, 63, 65, 127, 129, 1000}, Sq > Sk (rows that see no
+# key), GQA groups 1, 4 and 16, a kv mask whose last batch row is fully
+# masked, dropout 0.1
+TC_CASES = [(1, 1, 1, 2, 2, True, False, 0.0),
+            (1, 1, 1000, 4, 1, True, False, 0.0),
+            (2, 63, 63, 2, 2, True, False, 0.0),
+            (2, 65, 129, 4, 4, True, True, 0.0),
+            (1, 127, 65, 4, 4, True, False, 0.0),
+            (2, 129, 127, 16, 1, False, False, 0.1),
+            (2, 1000, 1000, 4, 1, True, True, 0.1),
+            (1, 1000, 63, 2, 2, True, False, 0.0)]
+
+
+def _tc_inputs(gen, case, hd):
+    B, Sq, Sk, nh, nkv, causal, masked, rate = case
+    q, k, v, mask = _flash_inputs(gen, B, Sq, Sk, nh, nkv, hd,
+                                  torch.bfloat16)
+    return q, k, v, (causal, mask if masked else None, rate, 99)
+
+
+def _no_key_rows(case):
+    """Query rows that see no key: Sq > Sk under the causal mask, and the
+    fully masked batch row of a kv mask."""
+    B, Sq, Sk, _, _, causal, masked, _ = case
+    rows = torch.zeros((B, Sq), dtype=torch.bool, device="cuda")
+    if causal and Sq > Sk:
+        rows[:, :Sq - Sk] = True
+    if masked:
+        rows[-1] = True
+    return rows
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_fwd_bf16_tensor_cores(gen, case, hd):
+    q, k, v, args = _tc_inputs(gen, case, hd)
+    n = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    assert fa.flash_attention_fwd.launches == n + 1
+    ref, ref_lse = fa.flash_attention_fwd_reference(q.float(), k.float(),
+                                                    v.float(), *args)
+    torch.testing.assert_close(out.float(), ref, **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **TOL[torch.bfloat16])
+    empty = _no_key_rows(case)
+    assert not out[empty].any()
+    assert torch.all(lse.transpose(1, 2)[empty] == -1e30)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_bwd_dq_bf16_tensor_cores(gen, case, hd):
+    q, k, v, args = _tc_inputs(gen, case, hd)
+    do = _randn(gen, q.shape, torch.bfloat16)
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    n = fa.flash_attention_bwd_dq.launches
+    dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
+    assert fa.flash_attention_bwd_dq.launches == n + 1
+    want = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+        *args, parts=("dq",))[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    torch.testing.assert_close(dq.float(), want, **GRAD_TOL[torch.bfloat16])
+    assert not dq[_no_key_rows(case)].any()
+
+
+@pytest.mark.parametrize("hd", [32, 96, 512])
+def test_flash_bf16_unsupported_head_dim_raises(gen, hd):
+    q = _randn(gen, (1, 64, 2, hd), torch.bfloat16)
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    n = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd(q, q, q, True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse, q, True)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches) == n
+
+
 def test_flash_attention_function_matches_autograd(gen):
     """The autograd Function on the kernels against autograd through the
     plain forward, with the kv mask and dropout."""
