@@ -16,20 +16,28 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    for outputs, atol 1e-4, rtol 1e-4 for gradients.  bfloat16: against the
    plain version computed in float32 on the same bfloat16 inputs, atol
    2e-2, and for gradients also rtol 1e-2 (one bf16 rounding of a
-   gradient that sums over a whole sequence).  Kernel, plain version and
-   the ``F.scaled_dot_product_attention`` yardstick (flash only; for the
-   backward pair, its backward) are timed with CUDA events; the flash
-   lines print the achieved TFLOP/s and the ratio to sdpa.  Before it, the
+   gradient that sums over a whole sequence).  ``paged_decode`` also at
+   the edges of its 256-key splits (255, 256, 257, 511, 512), 0 and the
+   full table, and with out-of-pool table entries; the bf16 training
+   cases also at hd 64 and 256.  Kernel, plain version and the
+   ``F.scaled_dot_product_attention`` yardstick (flash only; for the
+   backward pair, sdpa's backward timed on its own) are timed with CUDA
+   events (``paged_decode``, whose two kernels take less time than the
+   host's launch, from a replayed CUDA graph of 200 calls, beside the eager
+   loop's time and its time at other split lengths); the flash lines print
+   the achieved TFLOP/s and the ratio to sdpa.  Before it, the
    ``-Xptxas -v`` reports give every kernel's registers and spills; the
-   tensor-core kernels (bf16 ``flash_fwd``, ``flash_bwd_dq``) must not
-   spill at hd 64 and 128.
+   tensor-core kernels (bf16 ``flash_fwd``, ``flash_bwd_dq``,
+   ``flash_bwd_dkv``) must not spill at hd 64 and 128.
 2. Serving at full width: GPT-3 1.3B in bfloat16 with random weights from a
    seed, 8 requests (prompts of 100 to 1500 tokens, 64 new tokens each,
    half greedy, half sampled) through ``ServingEngine`` with whole-prompt
    prefill, then through a second engine with 256-token chunked prefill.
    Each run starts with every kernel's launch count at 0 and must launch
    its kernels.  A third whole-prompt run under ``torch.profiler`` prints
-   the card's busy share and the kernels that take its time.
+   the card's busy share, the kernels that take its time, and the decode
+   kernels by name (``paged_decode_split_kernel``,
+   ``paged_decode_merge_kernel``).
 3. Card against CPU: a 4-layer cut of GPT-3 1.3B in float32 serves one
    greedy request on the card (kernels) and on the CPU (plain versions)
    from one state dict; the token streams must match and the first-token
@@ -39,9 +47,9 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    at 1.0, 6 steps on one fixed batch of B 4 x S 2048 random tokens.  Every
    loss finite, the last below the first, and each flash kernel launched
    exactly 24 x 6 times.  Prints step time, tokens/s, MFU and peak memory,
-   then profiles one more step, in which every forward and dq launch must
-   be the tensor-core kernel by name (24 each, none on the FMA kernels),
-   then trains 2 steps with dropout 0.1.
+   then profiles one more step, in which every flash launch must be the
+   tensor-core kernel by name (24 each of forward, dq and dk/dv, none on
+   the FMA kernels), then trains 2 steps with dropout 0.1.
 5. Card against CPU for training: a 4-layer fp32 cut, 2 AdamW steps on
    the card (kernels) and on the CPU (plain versions) from one state dict;
    losses within atol 1e-4, parameters within 2 x lr x steps.
@@ -99,6 +107,8 @@ TOL = {"torch.float32": dict(atol=2e-5, rtol=1e-4),
        "torch.bfloat16": dict(atol=2e-2, rtol=0.0)}
 GRAD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
             "torch.bfloat16": dict(atol=2e-2, rtol=1e-2)}
+# the two kernels of a paged_decode launch, by name on the card's timeline
+DECODE_KERNELS = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
 
 
 def _log(*a):
@@ -114,6 +124,32 @@ def _time_ms(fn, iters):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters):
+    """Time of one call of ``fn`` on the card alone: ``iters`` calls
+    captured in a CUDA graph and replayed, timed with CUDA events.  For a
+    kernel whose launch costs the host more than the card takes, which the
+    eager loop of ``_time_ms`` would measure instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -169,13 +205,17 @@ def kernel_checks(path_lens):
     rows = {}
     bf16 = torch.bfloat16
 
-    # --- paged_decode: edge lengths (0, block edges, full table), then
-    # the main path's lengths (the prompts, 32 tokens into decoding)
-    edge = [0, 1, 63, 64, 65, 1000, 2047, 2048]
+    # --- paged_decode: edge lengths (0, block edges, the edges of the
+    # 256-key splits, full table), the same with out-of-pool table entries
+    # (dropped keys), then the main path's lengths (the prompts, 32
+    # tokens into decoding)
+    edge = [0, 1, 63, 64, 65, 255, 256, 257, 511, 512, 1000, 2047, 2048]
     path = [n + 32 for n in path_lens]
     for dtype in (torch.float32, bf16):
-        for lens in (edge, path):
+        for lens, bad in ((edge, False), (edge, True), (path, False)):
             k, v, tables = _pool_case(gen, lens, dtype)
+            if bad:                 # rows 256, 511 and 2048: dropped keys
+                tables[6, 2], tables[8, 7], tables[12, 20] = -1, -1, 10 ** 6
             q = torch.randn((len(lens), NH, HD), generator=gen,
                             device="cuda").to(dtype)
             sl = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
@@ -186,18 +226,41 @@ def kernel_checks(path_lens):
             err = _compare("paged_decode", out, ref, dtype)
             if lens[0] == 0 and out[0].abs().max().item() != 0.0:
                 raise AssertionError("paged_decode: a len-0 row is not zero")
-            _log(f"paged_decode {dtype} lens={lens}: max_abs_err={err:.3e}")
+            _log(f"paged_decode {dtype} lens={lens}"
+                 + (" out-of-pool entries" if bad else "")
+                 + f": max_abs_err={err:.3e}")
     e = 2
     nbytes = (2 * BATCH * NH * HD + sum(path) * NH * HD * 2) * e \
         + tables.numel() * 4 + BATCH * 4
     flops = 4 * NH * HD * sum(path)
-    ms = _time_ms(lambda: pa.paged_attention(q, k, v, tables, sl), 200)
+    # its two kernels take less than the host's launch (workspace, ctypes):
+    # the card's time from a replayed CUDA graph, the eager loop's beside
+    # it as host_ms
+    def decode():
+        return pa.paged_attention(q, k, v, tables, sl)
+
+    ms = _graph_ms(decode, 200)
+    host_ms = _time_ms(decode, 200)
     plain = _time_ms(lambda: pa.paged_attention_reference(
         q, k, v, tables, sl), 10)
     bound, by = _bound(nbytes, flops, bf16)
-    rows["paged_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=bound, bound_by=by,
-                                library_ms=None)
+    # the same launch at other split lengths (the wrapper's keys per
+    # split; the table's 32 blocks of 64 keys)
+    by_split = {}
+    default = pa._DECODE_SPLIT_KEYS
+    try:
+        for keys in (64, 128, 256, 512):
+            pa._DECODE_SPLIT_KEYS = keys
+            by_split[keys] = _graph_ms(decode, 200)
+    finally:
+        pa._DECODE_SPLIT_KEYS = default
+    _log(f"paged_decode bf16 card ms by keys per split (default "
+         f"{default}): " + ", ".join(f"{n}: {t:.4f}"
+                                     for n, t in by_split.items()))
+    rows["paged_decode"] = dict(max_abs_err=err, ms=ms, host_ms=host_ms,
+                                plain_ms=plain, bound_ms=bound, bound_by=by,
+                                library_ms=None,
+                                ms_by_split_keys=by_split)
 
     # --- flash_fwd: the largest prefill bucket (one 2048-token prompt),
     # a ragged length, a GQA group, Sq < Sk, hd 64 and 256, and Sq > Sk
@@ -274,7 +337,9 @@ def kernel_checks(path_lens):
     rows["paged_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=bound, bound_by=by, library_ms=None)
     for name, r in rows.items():
-        _log(f"{name} bf16 timing: ms={r['ms']:.4f} plain_ms="
+        _log(f"{name} bf16 timing: ms={r['ms']:.4f}"
+             + (f" (host loop {r['host_ms']:.4f})" if "host_ms" in r else "")
+             + f" plain_ms="
              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
              f"({r['bound_by']}) library_ms={r['library_ms']}"
              + _rate(r))
@@ -290,12 +355,12 @@ def _rate(r):
             "the library call")
 
 
-def _train_flash_case(gen, B, Sq, Sk, nkv, dtype, masked):
+def _train_flash_case(gen, B, Sq, Sk, nkv, dtype, masked, hd=HD):
     import torch
-    q = torch.randn((B, Sq, NH, HD), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, Sk, nkv, HD), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, Sk, nkv, HD), generator=gen, device="cuda").to(dtype)
-    do = torch.randn((B, Sq, NH, HD), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, Sq, NH, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, nkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, nkv, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, Sq, NH, hd), generator=gen, device="cuda").to(dtype)
     mask = None
     if masked:
         mask = (torch.rand((B, Sk), generator=gen, device="cuda")
@@ -323,37 +388,43 @@ def flash_train_checks(rows):
              ("Sq > Sk", 2, 1000, 300, NH, True, False, 0.0),
              ("kv mask", 2, 512, 512, NH, False, True, 0.0),
              ("dropout 0.1", 2, 1024, 1024, NH, True, False, 0.1)]
-    for dtype in (torch.float32, bf16):
-        for label, B, Sq, Sk, nkv, causal, masked, rate in cases:
-            q, k, v, do, mask = _train_flash_case(gen, B, Sq, Sk, nkv, dtype,
-                                                  masked)
-            args = (causal, mask, rate, 12345)
-            out, lse = fa.flash_attention_fwd(q, k, v, *args)
-            dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
-            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, *args)
-            ref, ref_lse = fa.flash_attention_fwd_reference(
-                q.float(), k.float(), v.float(), *args)
-            want = fa.flash_attention_bwd_reference(
-                q.float(), k.float(), v.float(), out.float(), lse,
-                do.float(), *args)
-            torch.cuda.synchronize()
-            errs = [_compare("flash_fwd", out, ref, dtype),
-                    _compare("flash_fwd lse", lse, ref_lse, dtype)]
-            for name, got, w in (("flash_bwd_dq dq", dq, want[0]),
-                                 ("flash_bwd_dkv dk", dk, want[1]),
-                                 ("flash_bwd_dkv dv", dv, want[2])):
-                errs.append(_compare(name, got, w, dtype, GRAD_TOL))
-            if masked and (out[-1].abs().max().item() != 0.0
-                           or dk[-1].abs().max().item() != 0.0):
-                raise AssertionError("flash: a fully masked batch row is "
-                                     "not zero")
-            _log(f"flash train {label} {dtype} B={B} Sq={Sq} Sk={Sk} "
-                 f"nkv={nkv} causal={causal} rate={rate}: max_abs_err out="
-                 f"{errs[0]:.3e} lse={errs[1]:.3e} dq={errs[2]:.3e} "
-                 f"dk={errs[3]:.3e} dv={errs[4]:.3e}")
-            if (dtype, label) == (bf16, "training shape"):
-                timed = (q, k, v, do, out, lse, errs)
-            del q, k, v, do, out, lse, dq, dk, dv, ref, ref_lse, want
+    # every case at hd 128 in both types, and bf16 (the tensor-core
+    # kernels) at hd 64 and 256 too, the training shape aside
+    runs = [(dtype, HD, case) for dtype in (torch.float32, bf16)
+            for case in cases]
+    runs += [(bf16, hd, case) for hd in (64, 256) for case in cases[1:]]
+    for dtype, hd, (label, B, Sq, Sk, nkv, causal, masked, rate) in runs:
+        q, k, v, do, mask = _train_flash_case(gen, B, Sq, Sk, nkv, dtype,
+                                              masked, hd)
+        args = (causal, mask, rate, 12345)
+        out, lse = fa.flash_attention_fwd(q, k, v, *args)
+        dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, *args)
+        ref, ref_lse = fa.flash_attention_fwd_reference(
+            q.float(), k.float(), v.float(), *args)
+        want = fa.flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), out.float(), lse,
+            do.float(), *args)
+        torch.cuda.synchronize()
+        errs = [_compare("flash_fwd", out, ref, dtype),
+                _compare("flash_fwd lse", lse, ref_lse, dtype)]
+        for name, got, w in (("flash_bwd_dq dq", dq, want[0]),
+                             ("flash_bwd_dkv dk", dk, want[1]),
+                             ("flash_bwd_dkv dv", dv, want[2])):
+            errs.append(_compare(name, got, w, dtype, GRAD_TOL))
+        if masked and (out[-1].abs().max().item() != 0.0
+                       or dk[-1].abs().max().item() != 0.0
+                       or dv[-1].abs().max().item() != 0.0):
+            raise AssertionError("flash: a fully masked batch row is "
+                                 "not zero")
+        _log(f"flash train {label} {dtype} B={B} Sq={Sq} Sk={Sk} "
+             f"nkv={nkv} hd={hd} causal={causal} rate={rate}: "
+             f"max_abs_err out="
+             f"{errs[0]:.3e} lse={errs[1]:.3e} dq={errs[2]:.3e} "
+             f"dk={errs[3]:.3e} dv={errs[4]:.3e}")
+        if (dtype, label) == (bf16, "training shape"):
+            timed = (q, k, v, do, out, lse, errs)
+        del q, k, v, do, out, lse, dq, dk, dv, ref, ref_lse, want
         torch.cuda.empty_cache()
 
     q, k, v, do, out, lse, errs = timed
@@ -385,17 +456,18 @@ def flash_train_checks(rows):
                                               8 * HD * pairs, bf16)
     dkv["tflops"] = 8 * HD * pairs / dkv["ms"] / 1e9
     # the library yardstick: scaled_dot_product_attention forward, and its
-    # backward (autograd.grad through it, less its forward) for the pair
+    # backward on its own for the pair (autograd.grad on one forward kept
+    # alive)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
     lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 10)
-    lib_both = _time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        (qt, kt, vt), dot), 10)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), 10)
     fwd["library_ms"] = lib_fwd
-    dq["library_ms"] = dkv["library_ms"] = lib_both - lib_fwd
+    dq["library_ms"] = dkv["library_ms"] = lib_bwd
     # the same kernels with dropout 0.1: the keep bits' cost
     drop = (True, None, 0.1, 12345)
     fwd["dropout_ms"] = _time_ms(lambda: fa.flash_attention_fwd(
@@ -404,8 +476,16 @@ def flash_train_checks(rows):
         q, k, v, out, lse, do, *drop), 10)
     dkv["dropout_ms"] = _time_ms(lambda: fa.flash_attention_bwd_dkv(
         q, k, v, out, lse, do, *drop), 10)
+    # hd 256 splits dK/dV's columns over two blocks that each recompute
+    # S^T and dP^T: its cost at the training shape's operations (nh 8)
+    x256 = [torch.randn((B, S, NH // 2, 256), generator=gen,
+                        device="cuda").to(bf16) for _ in range(4)]
+    o256, lse256 = fa.flash_attention_fwd(*x256[:3], True)
+    dkv["hd256_ms"] = _time_ms(lambda: fa.flash_attention_bwd_dkv(
+        *x256[:3], o256, lse256, x256[3], True), 10)
+    del x256, o256, lse256
     dq["library_covers"] = dkv["library_covers"] = (
-        "dq+dkv: scaled_dot_product_attention backward")
+        "dq+dkv: scaled_dot_product_attention's backward on its own")
     fwd["serving"] = {key: rows["flash_fwd"][key] for key in
                       ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms", "max_abs_err", "tflops")}
@@ -420,11 +500,13 @@ def flash_train_checks(rows):
              f"({r['bound_by']}) library_ms={r['library_ms']:.4f}"
              + (f" (sdpa backward, dq+dkv); {r['tflops']:.1f} TFLOP/s"
                 if "library_covers" in r else _rate(r)))
+    _log(f"flash_bwd_dkv bf16 at nh 8 x hd 256 (the same operations): "
+         f"{dkv['hd256_ms']:.4f} ms, {dkv['hd256_ms'] / dkv['ms']:.2f}x hd "
+         "128")
     pair = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
-    _log(f"flash_bwd_dq + flash_bwd_dkv = {pair:.4f} ms: "
-         f"{pair / rows['flash_bwd_dq']['library_ms']:.2f}x the sdpa "
-         "backward")
-    del timed, q, k, v, do, out, lse, qt, kt, vt
+    _log(f"flash_bwd_dq + flash_bwd_dkv = {pair:.4f} ms beside the sdpa "
+         f"backward on its own {lib_bwd:.4f} ms: {pair / lib_bwd:.2f}x")
+    del timed, q, k, v, do, out, lse, qt, kt, vt, lib_out
     torch.cuda.empty_cache()
 
 
@@ -684,6 +766,15 @@ def where_the_time_goes(model, prompts):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
              f"{e.key[:90]}")
+    decode = {}
+    for name in DECODE_KERNELS:
+        hits = [e for e in kernels if name in e.key]
+        decode[name] = (sum(e.count for e in hits),
+                        sum(e.self_device_time_total for e in hits))
+        if decode[name][0] == 0:
+            raise AssertionError(f"profiled serving run: {name} never ran")
+    _log("profiled whole-prompt run, decode kernels by name: " + ", ".join(
+        f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in decode.items()))
 
 
 # --------------------------------------------------------------- phase 3
@@ -779,17 +870,17 @@ def _check_train_launches(label, cfg, launches, steps):
                                  f"want {per_step} x {steps}")
 
 
-# the flash kernels by name on the card's timeline: bf16 forwards and dq
-# on the tensor cores, the FMA kernels only for fp32 (and dk/dv)
+# the flash kernels by name on the card's timeline: bf16 on the tensor
+# cores, the FMA kernels only for fp32
 FLASH_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
                  "flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel")
+                 "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_kernel")
 
 
 def _check_flash_kernels(label, cfg, kernels):
-    """The profiled bf16 step launched every forward and dq on the
-    tensor-core kernels and none on the FMA ones; prints each flash
-    kernel's launches and device time."""
+    """The profiled bf16 step launched every flash kernel on the
+    tensor cores and none on the FMA ones; prints each flash kernel's
+    launches and device time."""
     count = dict.fromkeys(FLASH_KERNELS, 0)
     us = dict.fromkeys(FLASH_KERNELS, 0.0)
     for e in kernels:
@@ -800,7 +891,8 @@ def _check_flash_kernels(label, cfg, kernels):
     want = {"flash_fwd_tc_kernel": cfg.num_layers, "flash_fwd_kernel": 0,
             "flash_bwd_dq_tc_kernel": cfg.num_layers,
             "flash_bwd_dq_kernel": 0,
-            "flash_bwd_dkv_kernel": cfg.num_layers}
+            "flash_bwd_dkv_tc_kernel": cfg.num_layers,
+            "flash_bwd_dkv_kernel": 0}
     if count != want:
         raise AssertionError(f"{label}: flash launches by kernel {count}, "
                              f"want {want}")
@@ -1108,7 +1200,8 @@ def ptxas_report(build_dir):
                 if hd in (64, 128) and spills != (0, 0):
                     raise AssertionError(f"{name} hd {hd} spills: {text}")
             entry = None
-    for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel"):
+    for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                 "flash_bwd_dkv_tc_kernel"):
         if sorted(tc.get(name, {})) != [64, 128, 256]:
             raise AssertionError(f"ptxas report: {name} at hd "
                                  f"{sorted(tc.get(name, {}))}")

@@ -10,7 +10,7 @@
 // [B, nh, Sq] and the output gradient dO (like q), with the FlashAttention-2
 // identities (never the S x S matrices in device memory):
 //   p  = exp(q k^T * scale - lse)          0 on masked entries
-//   D  = rowsum(dO * out)                  per query row, in the block
+//   D  = rowsum(dO * out)                  per query row
 //   dp = dO v^T, dropped and / keep_p by the forward's keep bits
 //   ds = p * (dp - D) * scale
 //   dq = ds k                               flash_bwd_dq
@@ -27,8 +27,9 @@
 //
 // What bounds them: per (query, key) pair dq does 6 hd flops and dk/dv
 // 8 hd on O(S hd) elements, far above the H100's ~295 flops per byte, so
-// arithmetic bounds both: dq 103.1 GFLOP at the training shape (B 4, S
-// 2048, nh 16, hd 128, causal), 0.1043 ms at 989 TFLOP/s bf16.
+// arithmetic bounds both: at the training shape (B 4, S 2048, nh 16, hd
+// 128, causal) dq 103.1 GFLOP, 0.1043 ms, and dk/dv 137.5 GFLOP, 0.1390
+// ms, at 989 TFLOP/s bf16.
 //
 // flash_bwd_dq, bfloat16: flash_bwd_dq_tc_kernel, on the tensor cores
 // (tc_common.cuh), the forward's machinery.  One block of two warpgroups
@@ -40,19 +41,63 @@
 // to k's type, and dQ += dS K runs on wgmma with dS as the register A
 // operand and the K tile read transposed.
 //
-// flash_bwd_dq, float32, and flash_bwd_dkv in both types: fp32 FMAs on the
-// CUDA cores, 256 threads per block:
+// flash_bwd_dkv, bfloat16: flash_bwd_dkv_tc_kernel, on the tensor cores
+// with the same machinery, key-stationary and transposed.  One block of
+// two warpgroups per (batch * KV head, tile of 128 keys), each warpgroup
+// owning 64 keys; key tiles are launched in ascending order, since under
+// the causal mask key tile 0 is seen by every query and is the heaviest.
+// The K and V tiles are loaded once and stay bf16 (SW128) in shared
+// memory.  The block loops over the query heads of its GQA group and, for
+// each, over the query tiles of 64 rows from the causal diagonal on (a
+// warpgroup skips the tiles none of whose rows sees its keys), summing dK
+// and dV over the group in fp32 registers: no [B, nh, Sk, hd] buffer as
+// on the TPU (pallas_flash.py:582-587).  The Q and dO tiles come in by
+// cp.async, double-buffered (hd 256: one stage, for shared memory), with
+// each row's lse and D.  Transposed products keep every intermediate in
+// registers, each accumulator row a key and each column a query:
+//   S^T = K Q^T,  dP^T = V dO^T       wgmma_ss (K/V tile A, Q/dO tile B)
+//   P^T = exp2((S^T - lse / scale) scale log2 e), 0 on masked entries
+//   dS^T = P^T (dP^T dropped - D) scale
+//   dV += P_drop^T dO,  dK += dS^T Q   wgmma_rs_t (register A, the same
+//                                      [query][d] tile read transposed)
+// Masks run only on diagonal, ragged or kv-masked tiles.  Keys past Sk
+// are never written; a key masked out by the kv mask, or one no query
+// sees, is never read (zeros in shared memory) and gets dK = dV = 0.
+// D = rowsum(dO * out) comes from a small pre-pass kernel in this file
+// (flash_bwd_rowstats_kernel), which writes (-lse / scale, -D) per query
+// row into [B, nh, Sq rounded up to 64] float pairs: each query tile is
+// seen by up to Sk / 128 key blocks, and computing D in the block would
+// read out again in every one of them; the pre-pass reads it once, and a
+// tile's 64 pairs arrive as one aligned 512-byte cp.async.  Registers: dK
+// and dV take 64 fp32 each a thread at hd 128, S^T and dP^T 32 each; one
+// block per SM.  The pairs are the start values of the S^T and dP^T
+// accumulators, so the products give S^T - lse / scale and dP^T - D
+// directly and no register holds a column's lse or D (held, the 16
+// columns' pairs took 32 registers and the kernel spilled at hd 128).
+// At hd 256 dK and dV of all 256 columns would not fit, so two blocks
+// share a key tile, each owning 128 columns of dK and dV and each
+// recomputing S^T and dP^T (their products over the whole hd): 1.5x the
+// operations of one block.
+//
+// Precision.  bf16 takes the tensor-core kernels or raises, and never
+// drops to an FMA kernel.  The JAX _bwd_dkv_kernel keeps p_v and ds in
+// fp32 for its second products (pallas_flash.py:455-472); in interpret
+// mode on a CPU they are not rounded, while on the TPU's MXU at default
+// precision they would be rounded to bf16.  This kernel rounds P_drop^T
+// and dS^T to bf16 in registers (the A operand), as FlashAttention-2/3
+// do, and accumulates in fp32.
+//
+// flash_bwd_dq, float32, and flash_bwd_dkv, float32: fp32 FMAs on the
+// CUDA cores, 256 threads per block, kept by design as the precision
+// reference of the fp32 card-against-CPU checks:
 // - flash_bwd_dq_kernel: one block per (batch * head, tile of BQ query
 //   rows), looping over key tiles up to the causal diagonal;
 // - flash_bwd_dkv_kernel: one block per (batch * KV head, tile of BK key
-//   rows), looping over the query heads of its group (grouped-query
-//   attention: the sum over the group happens in the block's fp32
-//   registers, not in a per-query-head [B, nh, Sk, hd] buffer as on the
-//   TPU) and, for each, over the query tiles from the causal diagonal on.
+//   rows), looping over the query heads of its group (the sum over the
+//   group in the block's fp32 registers) and, for each, over the query
+//   tiles from the causal diagonal on.
 // Their tiles are 64 x 64 for hd 64 and 128, and 32 x 32 for hd 256, so
 // that four fp32 tiles of hd columns fit in the 227 KB of shared memory.
-// dk/dv on the tensor cores is the next step (ROADMAP.md); fp32 dq stays
-// on FMAs by design, as the precision reference of the fp32 checks.
 #include "attention_common.cuh"
 #include "tc_common.cuh"
 
@@ -63,6 +108,7 @@ struct BwdArgs {
   const float* lse;
   const int* mask;        // [B, Sk] int32, or null
   void *dq, *dk, *dv;
+  void* stats;            // bf16 dk/dv: the pre-pass's row statistics
   int B, Sq, Sk, nh, nkv, causal;
   float scale;
   unsigned seed, thresh;  // dropout on when thresh > 0
@@ -543,7 +589,313 @@ cudaError_t dispatch_dq_tc(int hd, const BwdArgs& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernels: flash_bwd_dq (fp32), flash_bwd_dkv (fp32, bf16)
+// flash_bwd_dkv, bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kDkvKeys = 128;    // keys per block: two warpgroups of 64
+constexpr int kDkvRows = 64;     // query rows per step
+constexpr int kDkvThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Columns of dK and dV one block owns: all of hd up to 128; at hd 256 two
+// blocks each own 128.
+__host__ __device__ constexpr int dkv_cols(int D) {
+  return D < 128 ? D : 128;
+}
+
+// Row statistics of flash_bwd_dkv_tc_kernel, one pass before it:
+// stats[b, h, i] = (-lse / scale, -D), D = rowsum(dO * out), for i < Sq,
+// and (0, 0) up to Sq_pad (Sq rounded up to 64): the start values of the
+// kernel's S^T and dP^T accumulators.  Eight lanes per row, each reading
+// 16-byte chunks of dO and out.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_rowstats_kernel(const BwdArgs a, float2* __restrict__ stats,
+                              int Sq_pad) {
+  const int bh = blockIdx.y, b = bh / a.nh, h = bh % a.nh;
+  const int i = blockIdx.x * 32 + (threadIdx.x >> 3), sub = threadIdx.x & 7;
+  float sum = 0.f;
+  if (i < a.Sq) {
+    const long long off = ((b * (long long)a.Sq + i) * a.nh + h) * D;
+    const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO) + off;
+    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o) + off;
+#pragma unroll
+    for (int c = sub * 8; c < D; c += 64) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dO + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(o + c);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xp[e]);
+        const float2 yf = __bfloat1622float2(yp[e]);
+        sum = fmaf(xf.x, yf.x, sum);
+        sum = fmaf(xf.y, yf.y, sum);
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 1; w < 8; w <<= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, w);
+  if (sub == 0 && i < Sq_pad)
+    stats[(long long)bh * Sq_pad + i] =
+        i < a.Sq ? make_float2(-a.lse[(long long)bh * a.Sq + i] / a.scale,
+                               -sum)
+                 : make_float2(0.f, 0.f);
+}
+
+// Shared memory of flash_bwd_dkv_tc_kernel, bytes from the 1024-aligned
+// base: K and V [D/64][128][64], NS stages of Q and dO [D/64][64][64] (all
+// SW128), the stages' row statistics (64 float pairs each) and the
+// key-valid flags.  hd 256 keeps one stage, to fit in 227 KB.
+template <int D>
+struct DkvTcSmem {
+  static constexpr int NS = D == 256 ? 1 : 2;
+  static constexpr int kv = D * kDkvKeys * 2;         // one K or V tile
+  static constexpr int q_stage = D * kDkvRows * 2;    // one Q or dO tile
+  static constexpr int stats_stage = kDkvRows * 8;
+  static constexpr int k = 0;
+  static constexpr int v = k + kv;
+  static constexpr int q = v + kv;
+  static constexpr int dO = q + NS * q_stage;
+  static constexpr int stats = dO + NS * q_stage;
+  static constexpr int kok = stats + NS * stats_stage;
+  static constexpr int bytes = kok + kDkvKeys * 4 + tc::kGroupBytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_tc_kernel(const BwdArgs a, int Sq_pad, float scale_log2) {
+  using S = DkvTcSmem<D>;
+  constexpr int NS = S::NS;
+  constexpr int NC = dkv_cols(D) / 64;      // owned 64-column blocks
+  constexpr int NSPLIT = D / dkv_cols(D);   // blocks per key tile
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* base = tc::align1024(tc_smem);
+  const int Sq = a.Sq, Sk = a.Sk, nh = a.nh, nkv = a.nkv;
+  const int group = nh / nkv;
+  const int bhk = blockIdx.x / NSPLIT;
+  const int c0 = blockIdx.x % NSPLIT * NC;  // first owned column block
+  const int b = bhk / nkv, hk = bhk % nkv;
+  const int k0 = blockIdx.y * kDkvKeys;     // ascending: tile 0 heaviest
+  const int offset = Sk - Sq;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16 + g;  // key in block
+  const int key[2] = {k0 + wrow, k0 + wrow + 8};
+  const int kw0 = k0 + wg * 64;             // this warpgroup's first key
+  const int n_qt = (Sq + kDkvRows - 1) / kDkvRows;
+  // the first query row that sees key k0 is k0 - (Sk - Sq)
+  const int qt_begin =
+      a.causal ? min(n_qt, max(0, k0 - offset) / kDkvRows) : 0;
+  const int per_head = n_qt - qt_begin;
+  const int n_it = group * per_head;        // (head, query tile) steps
+  const bool drop = a.thresh > 0;
+  const float inv_keep = 1.f / a.keep_p;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO);
+  const float2* stats = static_cast<const float2*>(a.stats);
+  int* kok = reinterpret_cast<int*>(base + S::kok);
+
+  // step it: query head hk * group + it / per_head, query tile
+  // qt_begin + it % per_head
+  auto load_q = [&](int st, int it) {
+    const int h = hk * group + it / per_head;
+    const int q0 = (qt_begin + it % per_head) * kDkvRows;
+    auto qrow = [=](int r) -> long long {
+      const int qp = q0 + r;
+      return qp < Sq ? ((b * (long long)Sq + qp) * nh + h) * D : -1;
+    };
+    tc::load_tile<D, kDkvThreads>(
+        tc::smem_addr(base + S::q + st * S::q_stage), q, kDkvRows, qrow);
+    tc::load_tile<D, kDkvThreads>(
+        tc::smem_addr(base + S::dO + st * S::q_stage), dO, kDkvRows, qrow);
+    if (tid < S::stats_stage / 16)
+      tc::cp_async16(tc::smem_addr(base + S::stats + st * S::stats_stage) +
+                         tid * 16,
+                     stats + (long long)(b * nh + h) * Sq_pad + q0 + tid * 2,
+                     16);
+  };
+
+  if (n_it > 0) {
+    auto krow = [=](int r) -> long long {
+      const int kp = k0 + r;
+      if (kp >= Sk) return -1;
+      const long long row = b * (long long)Sk + kp;
+      if (a.mask != nullptr && a.mask[row] == 0) return -1;
+      return (row * nkv + hk) * D;
+    };
+    tc::load_tile<D, kDkvThreads>(tc::smem_addr(base + S::k),
+                                  static_cast<const __nv_bfloat16*>(a.k),
+                                  kDkvKeys, krow);
+    tc::load_tile<D, kDkvThreads>(tc::smem_addr(base + S::v),
+                                  static_cast<const __nv_bfloat16*>(a.v),
+                                  kDkvKeys, krow);
+    if (tid < kDkvKeys) kok[tid] = krow(tid) >= 0;
+    load_q(0, 0);
+    tc::cp_async_commit();
+  }
+
+  float dk[NC][32], dv[NC][32];
+#pragma unroll
+  for (int nb = 0; nb < NC; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[nb][i] = dv[nb][i] = 0.f;
+  const uint32_t ka = tc::smem_addr(base + S::k) + wg * 64 * tc::kRowBytes;
+  const uint32_t va = tc::smem_addr(base + S::v) + wg * 64 * tc::kRowBytes;
+  const float kp = drop ? a.keep_p : 1.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = NS == 1 ? 0 : (it & 1);
+    if (NS == 1 && it > 0) {
+      __syncthreads();  // every warpgroup is done with step it - 1
+      load_q(0, it);
+      tc::cp_async_commit();
+    }
+    tc::cp_async_wait_all();
+    __syncthreads();  // step it landed; (NS 2) everyone is done with it - 1
+    if (NS == 2 && it + 1 < n_it) {
+      load_q((it + 1) & 1, it + 1);
+      tc::cp_async_commit();
+    }
+    const int h = hk * group + it / per_head;
+    const int q0 = (qt_begin + it % per_head) * kDkvRows;
+    const int q_last = min(q0 + kDkvRows, Sq) - 1;
+    // a warpgroup none of whose keys a row of this tile sees skips it
+    if (kw0 >= Sk || (a.causal && q_last + offset < kw0)) continue;
+    const uint32_t qa = tc::smem_addr(base + S::q + st * S::q_stage);
+    const uint32_t da = tc::smem_addr(base + S::dO + st * S::q_stage);
+    const float2* rs = reinterpret_cast<const float2*>(
+        base + S::stats + st * S::stats_stage);
+
+    // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries, started
+    // from each column's (-lse / scale, -D keep_p): s holds S - lse /
+    // scale and dp, dP - D keep_p, with no register spent on lse or D
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float2 row = rs[tc::acc_col(i, t)];
+      s[i] = row.x;
+      dp[i] = row.y * kp;
+    }
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
+      tc::wgmma_ss(s, tc::desc(ka + cb * kDkvKeys * tc::kRowBytes + ko),
+                   tc::desc(qa + cb * kDkvRows * tc::kRowBytes + ko), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
+      tc::wgmma_ss(dp, tc::desc(va + cb * kDkvKeys * tc::kRowBytes + ko),
+                   tc::desc(da + cb * kDkvRows * tc::kRowBytes + ko), 1);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    const bool need_mask = a.mask != nullptr || kw0 + 64 > Sk ||
+                           q0 + kDkvRows > Sq ||
+                           (a.causal && kw0 + 63 > q0 + offset);
+    const unsigned word = dropout_word(a.seed, b * nh + h);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, c = tc::acc_col(i, t), qp = q0 + c;
+      float p = tc::fast_exp2(s[i] * scale_log2);
+      if (need_mask && !(kok[wrow + 8 * r] && qp < Sq &&
+                         (!a.causal || key[r] <= qp + offset)))
+        p = 0.f;
+      float gd = dp[i], pd = p;                // gd = dP - D
+      if (drop) {
+        // kept: (dP - D keep_p) / keep_p = dP / keep_p - D; dropped: -D
+        const bool keep = dropout_keep(word, a.thresh, qp, key[r]);
+        gd = keep ? gd * inv_keep : rs[c].y;
+        pd = keep ? p * inv_keep : 0.f;
+      }
+      s[i] = pd;                               // P_drop^T
+      dp[i] = p * gd * a.scale;                // dS^T
+    }
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      tc::acc_to_a(s, kk, pa[kk]);
+      tc::acc_to_a(dp, kk, sa[kk]);
+    }
+    // dV += P_drop^T dO, dK += dS^T Q: the [query][d] tiles read
+    // transposed, this block's column blocks c0 .. c0 + NC - 1
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NC; ++nb)
+        tc::wgmma_rs_t(dv[nb], pa[kk],
+                       tc::desc(da + (c0 + nb) * kDkvRows * tc::kRowBytes +
+                                kk * 16 * tc::kRowBytes));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NC; ++nb)
+        tc::wgmma_rs_t(dk[nb], sa[kk],
+                       tc::desc(qa + (c0 + nb) * kDkvRows * tc::kRowBytes +
+                                kk * 16 * tc::kRowBytes));
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < NC; ++nb) {
+      tc::fence_regs(dv[nb]);
+      tc::fence_regs(dk[nb]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      tc::fence_regs(pa[kk]);
+      tc::fence_regs(sa[kk]);
+    }
+  }
+
+  // keys past Sk are not written; every other key is, zeros included
+  const float one[2] = {1.f, 1.f};
+  tc::store_rows<NC, D>(static_cast<__nv_bfloat16*>(a.dk), dk, key, one, Sk,
+                        b, nkv, hk, t, c0 * 64);
+  tc::store_rows<NC, D>(static_cast<__nv_bfloat16*>(a.dv), dv, key, one, Sk,
+                        b, nkv, hk, t, c0 * 64);
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
+  const int Sq_pad = (a.Sq + kDkvRows - 1) / kDkvRows * kDkvRows;
+  flash_bwd_rowstats_kernel<D><<<dim3(Sq_pad / 32, a.B * a.nh), 256, 0,
+                                 stream>>>(a, static_cast<float2*>(a.stats),
+                                           Sq_pad);
+  const cudaError_t pre = cudaGetLastError();
+  if (pre != cudaSuccess) return pre;
+  const size_t smem = DkvTcSmem<D>::bytes;
+  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(a.B * a.nkv * (D / dkv_cols(D)),
+            (a.Sk + kDkvKeys - 1) / kDkvKeys);
+  kernel<<<grid, kDkvThreads, smem, stream>>>(a, Sq_pad, a.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// bf16 dk/dv takes the tensor-core kernel or nothing, like dq.
+cudaError_t dispatch_dkv_tc(int hd, const BwdArgs& a, cudaStream_t stream) {
+  if (a.stats == nullptr) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 64:
+      return launch_dkv_tc<64>(a, stream);
+    case 128:
+      return launch_dkv_tc<128>(a, stream);
+    case 256:
+      return launch_dkv_tc<256>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FMA kernels: flash_bwd_dq (fp32), flash_bwd_dkv (fp32)
 // ---------------------------------------------------------------------------
 template <typename T, int D, int BQ, int BK, bool DKV>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
@@ -585,8 +937,7 @@ int run_bwd(BwdArgs a, int hd, int dtype, bool dkv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1)
-    err = dkv ? dispatch_bwd<__nv_bfloat16, true>(hd, a, s)
-              : dispatch_dq_tc(hd, a, s);
+    err = dkv ? dispatch_dkv_tc(hd, a, s) : dispatch_dq_tc(hd, a, s);
   else if (dtype == 0)
     err = dkv ? dispatch_bwd<float, true>(hd, a, s)
               : dispatch_bwd<float, false>(hd, a, s);
@@ -597,7 +948,9 @@ int run_bwd(BwdArgs a, int hd, int dtype, bool dkv, void* stream) {
 
 // q, out, dO, dq [B, Sq, nh, hd]; k, v, dk, dv [B, Sk, nkv, hd]; lse
 // [B, nh, Sq] fp32; mask [B, Sk] int32 or null; all contiguous on the
-// device.  dtype: 0 = float32, 1 = bfloat16 (dq on the tensor cores).
+// device.  dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core
+// kernels).  stats (bf16 dk/dv only, else null): scratch of
+// [B, nh, Sq rounded up to 64, 2] fp32 for the row statistics.
 // seed, thresh and keep_p are the forward's (dropout on when thresh > 0).
 // Each returns the cudaError_t of its launch (0 = success).
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -609,19 +962,21 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 void* stream) {
   ptt::BwdArgs a{q, k, v, out, dO, static_cast<const float*>(lse),
                  static_cast<const int*>(mask), dq, nullptr, nullptr,
-                 B, Sq, Sk, nh, nkv, causal, 0.f, seed, thresh, keep_p};
+                 nullptr, B, Sq, Sk, nh, nkv, causal, 0.f, seed, thresh,
+                 keep_p};
   return ptt::run_bwd(a, hd, dtype, false, stream);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k,
                                  const void* v, const void* out,
                                  const void* dO, const void* lse, void* dk,
-                                 void* dv, const void* mask, int B, int Sq,
+                                 void* dv, void* stats, const void* mask,
+                                 int B, int Sq,
                                  int Sk, int nh, int nkv, int hd, int causal,
                                  int dtype, unsigned seed, unsigned thresh,
                                  float keep_p, void* stream) {
   ptt::BwdArgs a{q, k, v, out, dO, static_cast<const float*>(lse),
-                 static_cast<const int*>(mask), nullptr, dk, dv,
+                 static_cast<const int*>(mask), nullptr, dk, dv, stats,
                  B, Sq, Sk, nh, nkv, causal, 0.f, seed, thresh, keep_p};
   return ptt::run_bwd(a, hd, dtype, true, stream);
 }

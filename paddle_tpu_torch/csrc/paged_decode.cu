@@ -19,31 +19,43 @@
 // ~2 len hd pool elements, about 1 flop per byte in bf16 — far below the
 // H100's ~295, so memory bounds it: the live K and V rows must stream once
 // from device memory at 3.35 TB/s, and the kernel is as fast as the bytes
-// it keeps in flight.
+// it keeps in flight across the whole card.
 //
-// Layout on the card: one block of 8 warps per (head, sequence); the TPU
-// kernel's sequential walk over pool blocks becomes 8 independent walks.
-// The block first copies its table row into shared memory, so no key's
-// address waits on a global load.  Warp w takes the groups of U
-// consecutive key positions w, w + 8, ...; each lane owns hd / 32
-// neighbouring columns, so one vector load per lane reads a whole key row
-// coalesced.  The loop is software-pipelined: the K and V rows of the
-// warp's next U keys are loaded into registers before the current U are
-// used.  The U dot products are summed with warp shuffles, and each warp
-// keeps its own online-softmax state (m, l and its columns of the output)
-// in registers.  No barrier runs inside the loop; at the end the 8 partial
-// states merge through shared memory by their maxima.
-//
-// What it does not do yet: one block per (head, sequence) keeps the time
-// tied to the longest sequence, which a single block streams far below the
-// card's rate.  Splitting a long row over several blocks (a second pass
-// merging their partial softmax states) is the next step.
+// Layout on the card: two kernels.  The TPU kernel's sequential walk over
+// a row's pool blocks is cut into splits of about 256 keys (a whole number
+// of pool blocks; ops/paged_attention.py picks blocks_per_split from the
+// table's width alone: the lengths live on the card, and reading them on
+// the host would synchronise every layer of every decode step).
+// - paged_decode_split_kernel: one block of 4 warps per (head, sequence,
+//   split), so that several blocks sit on one SM and a long row is
+//   streamed by many SMs at once, not by one.  A split at or past the
+//   row's length writes the empty state (m = -inf, l = 0) and exits at
+//   once.  Otherwise the block stages its slice of the table row in
+//   shared memory (no key's address waits on a global load); warp w takes
+//   the groups of U consecutive key positions w, w + 4, ...; each lane owns
+//   hd / 32 neighbouring columns, so one vector load per lane reads a
+//   whole key row coalesced; the loop is software-pipelined (the next U
+//   keys' K and V rows are loaded into registers before the current U are
+//   used); the U dot products are summed with warp shuffles, and each warp
+//   keeps an online-softmax state (m, l, its columns of the output) in
+//   registers.  The four warps' states merge through shared memory by
+//   their maxima, and the split writes its partial state, unnormalised,
+//   to the workspace [B, nh, n_split, hd + 2] fp32 (acc[hd], m, l).
+// - paged_decode_merge_kernel: one block per (head, sequence) merges the
+//   row's splits by their maxima, in split order (deterministic), skipping
+//   empty ones: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, and
+//   zeros where no key was live (l == 0).
+
 #include "attention_common.cuh"
 
 namespace ptt {
 
-constexpr int kDecodeWarps = 8;
+constexpr int kDecodeWarps = 4;
 constexpr int kDecodeThreads = 32 * kDecodeWarps;
+// table entries one split stages, and splits one row may have (the
+// wrapper keeps blocks_per_split and n_split within them)
+constexpr int kMaxSplitBlocks = 256;
+constexpr int kMaxSplits = 128;
 
 // One lane's VEC neighbouring elements of a key or value row, kept as the
 // raw 32-bit words they were loaded as (half the registers of fp32 for
@@ -86,12 +98,14 @@ struct Frag {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kDecodeThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                        const T* __restrict__ v_pool,
-                        const int* __restrict__ tables,
-                        const int* __restrict__ seq_lens, T* __restrict__ out,
-                        int nh, int num_blocks, int bs, int max_blocks,
-                        float scale) {
+    paged_decode_split_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k_pool,
+                              const T* __restrict__ v_pool,
+                              const int* __restrict__ tables,
+                              const int* __restrict__ seq_lens,
+                              float* __restrict__ work, int nh,
+                              int num_blocks, int bs, int max_blocks,
+                              int blocks_per_split, float scale) {
   constexpr int VEC = D / 32;                     // columns per lane
   using F = Frag<T, VEC>;
   // keys per warp step: ~32 words of K+V in flight per lane and buffer
@@ -100,10 +114,23 @@ __global__ void __launch_bounds__(kDecodeThreads)
   constexpr int kStride = kDecodeWarps * U;
   __shared__ float m_w[kDecodeWarps], l_w[kDecodeWarps];
   __shared__ float acc_w[kDecodeWarps][D];
-  extern __shared__ int table[];   // this sequence's table row
-  const int h = blockIdx.x, b = blockIdx.y;
+  __shared__ int table[kMaxSplitBlocks];   // this split's table entries
+  const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col = lane * VEC;
+  float* part = work + (((long long)b * nh + h) * gridDim.z + sp) * (D + 2);
+  const int blk0 = sp * blocks_per_split;
+  const int nblk = min(blocks_per_split, max_blocks - blk0);
+  const int p0 = blk0 * bs;
+  // this split's keys: p0 .. end - 1, never past the row or the table
+  const int end = min(seq_lens[b], (blk0 + nblk) * bs);
+  if (p0 >= end) {
+    if (threadIdx.x == 0) {
+      part[D] = -INFINITY;
+      part[D + 1] = 0.f;
+    }
+    return;
+  }
 
   float qv[VEC];
   {
@@ -111,20 +138,19 @@ __global__ void __launch_bounds__(kDecodeThreads)
     qf.load(q + ((long long)b * nh + h) * D + col);
     qf.to_float(qv);
   }
-  const int len = min(seq_lens[b], max_blocks * bs);
-  for (int i = threadIdx.x; i < max_blocks; i += kDecodeThreads)
-    table[i] = tables[(long long)b * max_blocks + i];
+  for (int i = threadIdx.x; i < nblk; i += kDecodeThreads)
+    table[i] = tables[(long long)b * max_blocks + blk0 + i];
   __syncthreads();
   const long long head_base = (long long)h * num_blocks;
 
-  // issue the loads of the U keys at base..base+U-1 (none past len)
+  // issue the loads of the U keys at base..base+U-1 (none past end)
   F kf[U], vf[U];
   bool live[U];
   auto fetch = [&](int base) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = base + u;
-      const int blk = p < len ? table[p / bs] : -1;
+      const int blk = p < end ? table[p / bs - blk0] : -1;
       live[u] = blk >= 0 && blk < num_blocks;  // else dropped, never read
       if (live[u]) {
         const long long off = ((head_base + blk) * bs + p % bs) * D + col;
@@ -138,8 +164,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
-  fetch(warp * U);
-  for (int base = warp * U; base < len; base += kStride) {
+  fetch(p0 + warp * U);
+  for (int base = p0 + warp * U; base < end; base += kStride) {
     // take this step's rows, then start the next step's loads before
     // any of this step's arithmetic, so they overlap it
     F kc[U], vc[U];
@@ -156,17 +182,17 @@ __global__ void __launch_bounds__(kDecodeThreads)
     float mx = -INFINITY;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float part = 0.f;
+      float part_s = 0.f;
       if (lc[u]) {
         float kr[VEC];
         kc[u].to_float(kr);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) part = fmaf(qv[i], kr[i], part);
+        for (int i = 0; i < VEC; ++i) part_s = fmaf(qv[i], kr[i], part_s);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      s[u] = lc[u] ? part * scale : -INFINITY;
+        part_s += __shfl_xor_sync(0xffffffffu, part_s, o);
+      s[u] = lc[u] ? part_s * scale : -INFINITY;
       mx = fmaxf(mx, s[u]);
     }
     const float m_new = fmaxf(m, mx);
@@ -187,7 +213,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
     m = m_new;
   }
 
-  // merge the warps' partial softmax states
+  // merge the warps' states into the split's (m, l, acc), unnormalised;
+  // a split whose keys were all dropped keeps m = -1e30, l = 0, acc = 0
   if (lane == 0) {
     m_w[warp] = m;
     l_w[warp] = l;
@@ -205,50 +232,95 @@ __global__ void __launch_bounds__(kDecodeThreads)
     wgt[w] = expf(m_w[w] - mall);
     lall += wgt[w] * l_w[w];
   }
-  const float inv = 1.f / (lall == 0.f ? 1.f : lall);
-  T* orow = out + ((long long)b * nh + h) * D;
   for (int d = threadIdx.x; d < D; d += kDecodeThreads) {
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < kDecodeWarps; ++w) o = fmaf(wgt[w], acc_w[w][d], o);
-    orow[d] = from_float<T>(o * inv);
+    part[d] = o;
+  }
+  if (threadIdx.x == 0) {
+    part[D] = mall;
+    part[D + 1] = lall;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDecodeThreads)
+    paged_decode_merge_kernel(const float* __restrict__ work,
+                              T* __restrict__ out, int nh, int n_split) {
+  __shared__ float m_s[kMaxSplits], w_s[kMaxSplits], wl_s[kMaxSplits];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float* part = work + ((long long)b * nh + h) * n_split * (D + 2);
+  const int s = threadIdx.x;               // n_split <= kDecodeThreads
+  float m = -INFINITY, l = 0.f;
+  if (s < n_split) {
+    m = part[s * (D + 2) + D];
+    l = part[s * (D + 2) + D + 1];
+    m_s[s] = m;
+  }
+  __syncthreads();
+  float mall = -INFINITY;
+  for (int i = 0; i < n_split; ++i) mall = fmaxf(mall, m_s[i]);
+  if (s < n_split) {
+    // an empty split (m = -inf) weighs 0 and its acc is never read
+    const float w = m == -INFINITY ? 0.f : expf(m - mall);
+    w_s[s] = w;
+    wl_s[s] = w * l;
+  }
+  __syncthreads();
+  float lall = 0.f;
+  for (int i = 0; i < n_split; ++i) lall += wl_s[i];
+  T* orow = out + ((long long)b * nh + h) * D;
+  for (int d = threadIdx.x; d < D; d += kDecodeThreads) {
+    float o = 0.f;
+    for (int i = 0; i < n_split; ++i)
+      if (w_s[i] != 0.f) o = fmaf(w_s[i], part[i * (D + 2) + d], o);
+    orow[d] = from_float<T>(lall > 0.f ? o / lall : 0.f);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k_pool,
                           const void* v_pool, const int* tables,
-                          const int* seq_lens, void* out, int B, int nh,
-                          int num_blocks, int bs, int max_blocks,
-                          cudaStream_t stream) {
-  // the table row: with the static arrays (at most 8.3 KB) under the 48 KB
-  // a launch may take without opting in, for any table up to 8192 blocks
-  // (the wrapper refuses more)
-  const size_t smem = (size_t)max_blocks * sizeof(int);
-  dim3 grid(nh, B);
-  paged_decode_kernel<T, D><<<grid, kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, seq_lens, static_cast<T*>(out),
-      nh, num_blocks, bs, max_blocks, 1.0f / sqrtf((float)D));
+                          const int* seq_lens, void* out, float* work, int B,
+                          int nh, int num_blocks, int bs, int max_blocks,
+                          int blocks_per_split, cudaStream_t stream) {
+  const int n_split = (max_blocks + blocks_per_split - 1) / blocks_per_split;
+  if (blocks_per_split > kMaxSplitBlocks || n_split > kMaxSplits)
+    return cudaErrorInvalidValue;
+  paged_decode_split_kernel<T, D>
+      <<<dim3(nh, B, n_split), kDecodeThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k_pool),
+          static_cast<const T*>(v_pool), tables, seq_lens, work, nh,
+          num_blocks, bs, max_blocks, blocks_per_split,
+          1.0f / sqrtf((float)D));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_decode_merge_kernel<T, D><<<dim3(nh, B), kDecodeThreads, 0, stream>>>(
+      work, static_cast<T*>(out), nh, n_split);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_decode(int hd, const void* q, const void* k_pool,
                             const void* v_pool, const int* tables,
-                            const int* seq_lens, void* out, int B, int nh,
-                            int num_blocks, int bs, int max_blocks,
+                            const int* seq_lens, void* out, float* work,
+                            int B, int nh, int num_blocks, int bs,
+                            int max_blocks, int blocks_per_split,
                             cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch_decode<T, 64>(q, k_pool, v_pool, tables, seq_lens, out,
-                                  B, nh, num_blocks, bs, max_blocks, stream);
+                                  work, B, nh, num_blocks, bs, max_blocks,
+                                  blocks_per_split, stream);
     case 128:
       return launch_decode<T, 128>(q, k_pool, v_pool, tables, seq_lens, out,
-                                   B, nh, num_blocks, bs, max_blocks, stream);
+                                   work, B, nh, num_blocks, bs, max_blocks,
+                                   blocks_per_split, stream);
     case 256:
       return launch_decode<T, 256>(q, k_pool, v_pool, tables, seq_lens, out,
-                                   B, nh, num_blocks, bs, max_blocks, stream);
+                                   work, B, nh, num_blocks, bs, max_blocks,
+                                   blocks_per_split, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -258,25 +330,30 @@ cudaError_t dispatch_decode(int hd, const void* q, const void* k_pool,
 
 // q [B, nh, hd], pools [nh, num_blocks, bs, hd], tables [B, max_blocks]
 // int32, seq_lens [B] int32, out like q; all contiguous on the device.
-// hd in 64/128/256.  dtype: 0 = float32, 1 = bfloat16.  Returns the
-// launch's cudaError_t.
+// work: fp32 scratch of [B, nh, n_split, hd + 2], n_split = ceil(max_blocks
+// / blocks_per_split) (at most 128; blocks_per_split at most 256).  hd in
+// 64/128/256.  dtype: 0 = float32, 1 = bfloat16.  Returns the launches'
+// cudaError_t.
 extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
                                 const void* v_pool, const void* tables,
-                                const void* seq_lens, void* out, int B,
-                                int nh, int hd, int num_blocks, int bs,
-                                int max_blocks, int dtype, void* stream) {
-  if (B <= 0 || nh <= 0 || bs <= 0 || max_blocks <= 0)
+                                const void* seq_lens, void* out, void* work,
+                                int B, int nh, int hd, int num_blocks, int bs,
+                                int max_blocks, int blocks_per_split,
+                                int dtype, void* stream) {
+  if (B <= 0 || nh <= 0 || bs <= 0 || max_blocks <= 0 ||
+      blocks_per_split <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* lens = static_cast<const int*>(seq_lens);
+  float* w = static_cast<float*>(work);
   cudaError_t err =
       dtype == 1 ? ptt::dispatch_decode<__nv_bfloat16>(
-                       hd, q, k_pool, v_pool, t, lens, out, B, nh,
-                       num_blocks, bs, max_blocks, st)
-      : dtype == 0 ? ptt::dispatch_decode<float>(hd, q, k_pool, v_pool, t,
-                                                 lens, out, B, nh, num_blocks,
-                                                 bs, max_blocks, st)
+                       hd, q, k_pool, v_pool, t, lens, out, w, B, nh,
+                       num_blocks, bs, max_blocks, blocks_per_split, st)
+      : dtype == 0 ? ptt::dispatch_decode<float>(
+                         hd, q, k_pool, v_pool, t, lens, out, w, B, nh,
+                         num_blocks, bs, max_blocks, blocks_per_split, st)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

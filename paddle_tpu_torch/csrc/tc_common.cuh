@@ -1,22 +1,25 @@
 // Tensor-core pieces of the bf16 flash kernels (flash_fwd.cu's
-// flash_fwd_tc_kernel, flash_bwd.cu's flash_bwd_dq_tc_kernel), in inline
-// PTX for sm_90a: 16-byte cp.async copies into a 128-byte-swizzled shared
-// layout, the wgmma shared-memory descriptor of that layout, and the two
-// warpgroup products the kernels need, both m64n64k16 bf16 -> fp32:
+// flash_fwd_tc_kernel, flash_bwd.cu's flash_bwd_dq_tc_kernel and
+// flash_bwd_dkv_tc_kernel), in inline PTX for sm_90a: 16-byte cp.async
+// copies into a 128-byte-swizzled shared layout, the wgmma shared-memory
+// descriptor of that layout, and the two warpgroup products the kernels
+// need, both m64n64k16 bf16 -> fp32:
 //   wgmma_ss    A and B from shared memory, both K-major (S = Q K^T,
-//               dP = dO V^T: a K or V tile [key][d] is K-major in d);
+//               dP = dO V^T: a K or V tile [key][d] is K-major in d; and
+//               transposed, S^T = K Q^T, dP^T = V dO^T);
 //   wgmma_rs_t  A from registers, B from shared memory MN-major (O += P V,
 //               dQ += dS K: the same [key][d] tile read with the
-//               transpose bit).
+//               transpose bit; dV += P^T dO, dK += dS^T Q: a [query][d]
+//               Q or dO tile read the same way).
 // The fp32 accumulator of a 64 x 64 product is, register for register,
 // the A fragment of the next product once rounded to bf16 (see
 // acc_to_a), so P and dS never pass through shared memory.
 //
 // What bounds the kernels built on it: arithmetic.  At the training shape
-// (B 4, S 2048, nh 16, hd 128, causal) the forward does 68.75 GFLOP and
-// the dq kernel 103.1 GFLOP: 0.0695 and 0.1043 ms at the H100's 989
-// TFLOP/s dense bf16, against 1.03 and 1.54 ms at the 67 TFLOP/s of fp32
-// FMAs.  These pieces move the products onto the tensor cores; operands
+// (B 4, S 2048, nh 16, hd 128, causal) the forward does 68.75 GFLOP, the
+// dq kernel 103.1 and the dk/dv kernel 137.5: 0.0695, 0.1043 and 0.1390
+// ms at the H100's 989 TFLOP/s dense bf16, against 1.03, 1.54 and 2.05 ms
+// at the 67 TFLOP/s of fp32 FMAs.  These pieces move the products onto the tensor cores; operands
 // stay bf16 in shared memory (half the bytes of the fp32 tiles), and
 // copies of the next key tile overlap the products on the current one.
 //
@@ -214,19 +217,20 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[32], int kk,
 
 // Rows g and g + 8 of a warp's share of a 64 x (64 NB) accumulator
 // (column block nb in acc[nb]), times scale[r], as bf16 into the rows
-// row[r] < Sq of out [B, Sq, nh, 64 NB] at batch b, head h; lane t of the
-// row's four writes 2 columns of each 8.
-template <int NB>
+// row[r] < Sq of out [B, Sq, nh, W] at batch b, head h, columns col0 ..
+// col0 + 64 NB - 1; lane t of the row's four writes 2 columns of each 8.
+template <int NB, int W = 64 * NB>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
                                            const float (&acc)[NB][32],
                                            const int (&row)[2],
                                            const float (&scale)[2], int Sq,
-                                           int b, int nh, int h, int t) {
+                                           int b, int nh, int h, int t,
+                                           int col0 = 0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= Sq) continue;
     __nv_bfloat16* dst =
-        out + ((b * (long long)Sq + row[r]) * nh + h) * (64 * NB);
+        out + ((b * (long long)Sq + row[r]) * nh + h) * W + col0;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll

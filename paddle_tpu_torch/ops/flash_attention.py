@@ -7,11 +7,12 @@ Counterpart of ``paddle_tpu/ops/pallas_flash.py``: ``flash_attention_fwd``
 kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` driven by
 ``_flash_bwd``) and the differentiable ``flash_attention`` (its
 ``custom_vjp``).  The kernels are ``paddle_tpu_torch/csrc/flash_fwd.cu``
-and ``paddle_tpu_torch/csrc/flash_bwd.cu``.  In bfloat16 the forward and
-dq run on the tensor cores (``wgmma`` on bf16 tiles in shared memory,
+and ``paddle_tpu_torch/csrc/flash_bwd.cu``.  In bfloat16 all three run
+on the tensor cores (``wgmma`` on bf16 tiles in shared memory,
 ``tc_common.cuh``), rounding p and ds to bf16 before their second product
-as the TPU kernels do; in float32 they, and dk/dv in both types, run on
-fp32 FMAs.
+(the forward and dq as the TPU kernels cast them; dk/dv as the TPU's
+matrix unit would round its fp32 p and ds); in float32 they run on fp32
+FMAs, the precision reference of the fp32 checks.
 
 Dropout.  The keep mask is a pure function of (seed, batch * head, query
 row, key column): the lowbias32 mix of the JAX package's ``_hash_bits``
@@ -245,7 +246,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
 
 
 def _bwd_launch(kernel, entry, q, k, v, out, lse, do, grads, causal,
-                kv_mask, dropout_rate, seed):
+                kv_mask, dropout_rate, seed, scratch=()):
     B, Sq, Sk, nh, nkv, hd = _kernel_dims(kernel, q, k, (q, k, v, out, do),
                                           kv_mask)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, nh, Sq) \
@@ -256,7 +257,7 @@ def _bwd_launch(kernel, entry, q, k, v, out, lse, do, grads, causal,
     err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), *(g.data_ptr() for g in grads),
-        mask_ptr, B, Sq, Sk, nh, nkv, hd, int(bool(causal)),
+        *scratch, mask_ptr, B, Sq, Sk, nh, nkv, hd, int(bool(causal)),
         _build.dtype_code(q.dtype), seed, thresh, keep_p,
         _build.stream(q.device))
     _build.check(err, kernel)
@@ -286,9 +287,11 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal=False,
                             kv_mask=None, dropout_rate=0.0, seed=None):
-    """(dk, dv) through the ``flash_bwd_dkv`` kernel (CUDA tensors) or
-    the plain version (CPU tensors).  Arguments as
-    :func:`flash_attention_bwd`."""
+    """(dk, dv) through the ``flash_bwd_dkv`` kernel (CUDA tensors;
+    bfloat16 on the tensor cores, ``flash_bwd_dkv_tc_kernel`` after a
+    pre-pass of each query row's lse and D = rowsum(dO * out) into a
+    scratch tensor, float32 on FMAs) or the plain version (CPU tensors).
+    Arguments as :func:`flash_attention_bwd`."""
     _check_shapes(q, k, v)
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
     if q.device.type == "cpu":
@@ -296,8 +299,15 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal=False,
                                              kv_mask, dropout_rate, seed,
                                              parts=("dkv",))[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stats = None
+    if q.dtype == torch.bfloat16:
+        # (lse log2 e, D) of each query row, rows padded to 64
+        B, Sq, nh = q.shape[:3]
+        stats = torch.empty((B, nh, -(-Sq // 64) * 64, 2),
+                            dtype=torch.float32, device=q.device)
     _bwd_launch("flash_bwd_dkv", "ptt_flash_bwd_dkv", q, k, v, out, lse, do,
-                (dk, dv), causal, kv_mask, dropout_rate, seed)
+                (dk, dv), causal, kv_mask, dropout_rate, seed,
+                (None if stats is None else stats.data_ptr(),))
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -22,13 +22,27 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["paged_attention", "paged_attention_reference",
+__all__ = ["paged_attention", "paged_attention_reference", "decode_split",
            "paged_chunk_attention", "paged_chunk_attention_reference",
            "paged_verify_attention", "paged_write_token",
            "paged_write_prefill"]
 
 _NEG_INF = -1e30
-_DECODE_MAX_TABLE = 8192    # paged_decode stages a table row in 32 KB
+_DECODE_MAX_TABLE = 8192    # the widest block table paged_decode takes
+_DECODE_SPLIT_KEYS = 256    # keys one block of paged_decode streams
+_DECODE_MAX_SPLITS = 128
+
+
+def decode_split(max_blocks: int, bs: int):
+    """``(blocks_per_split, n_split)`` of ``paged_decode`` for a table of
+    ``max_blocks`` blocks of ``bs`` keys: splits of about 256 keys (a whole
+    number of pool blocks), at most 128 of them.  They come from the
+    table's width alone, never from the lengths: those live on the card,
+    and reading them would synchronise the host at every layer of every
+    decode step."""
+    per = max(1, _DECODE_SPLIT_KEYS // bs,
+              -(-max_blocks // _DECODE_MAX_SPLITS))
+    return per, -(-max_blocks // per)
 
 
 def _check_pool(q, k_cache, v_cache, tables, lens, name):
@@ -58,7 +72,10 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
     pool are dropped, on the card and on the CPU alike.
 
     CUDA tensors (float32 or bfloat16, hd in 64/128/256) launch
-    ``paged_decode``; CPU tensors take :func:`paged_attention_reference`.
+    ``paged_decode`` (a split kernel over runs of about 256 keys, then a
+    merge of their partial softmax states, :func:`decode_split`; one
+    launch in the count); CPU tensors take
+    :func:`paged_attention_reference`.
     """
     _check_pool(q, k_cache, v_cache, block_tables, seq_lens,
                 "paged_attention")
@@ -74,11 +91,16 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
         raise ValueError(f"paged_decode: a table of {block_tables.shape[1]} "
                          f"blocks exceeds the kernel's {_DECODE_MAX_TABLE}")
     _, num_blocks, bs, _ = k_cache.shape
+    max_blocks = block_tables.shape[1]
+    per, n_split = decode_split(max_blocks, bs)
     out = torch.empty_like(q)
+    # each split's partial state: acc[hd], m, l
+    work = torch.empty((B, nh, n_split, hd + 2), dtype=torch.float32,
+                       device=q.device)
     err = _build.library().ptt_paged_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, nh, hd, num_blocks, bs, block_tables.shape[1],
+        work.data_ptr(), B, nh, hd, num_blocks, bs, max_blocks, per,
         _build.dtype_code(q.dtype), _build.stream(q.device))
     _build.check(err, "paged_decode")
     paged_attention.launches += 1

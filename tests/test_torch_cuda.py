@@ -122,7 +122,8 @@ def test_flash_bwd(gen, dtype, hd):
 
 
 # bf16 on the tensor-core kernels (flash_fwd_tc_kernel,
-# flash_bwd_dq_tc_kernel): (B, Sq, Sk, nh, nkv, causal, kv mask, dropout)
+# flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel): (B, Sq, Sk, nh, nkv,
+# causal, kv mask, dropout)
 # over Sq, Sk in {1, 63, 65, 127, 129, 1000}, Sq > Sk (rows that see no
 # key), GQA groups 1, 4 and 16, a kv mask whose last batch row is fully
 # masked, dropout 0.1
@@ -188,17 +189,45 @@ def test_flash_bwd_dq_bf16_tensor_cores(gen, case, hd):
     assert not dq[_no_key_rows(case)].any()
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_bwd_dkv_bf16_tensor_cores(gen, case, hd):
+    """flash_bwd_dkv_tc_kernel against the fp32 plain version; a key no
+    query sees (masked out by the kv mask) has zero gradient."""
+    q, k, v, args = _tc_inputs(gen, case, hd)
+    do = _randn(gen, q.shape, torch.bfloat16)
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    n = fa.flash_attention_bwd_dkv.launches
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, *args)
+    assert fa.flash_attention_bwd_dkv.launches == n + 1
+    want = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+        *args, parts=("dkv",))
+    for name, got, w, x in (("dk", dk, want[1], k), ("dv", dv, want[2], v)):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape, name
+        torch.testing.assert_close(got.float(), w,
+                                   **GRAD_TOL[torch.bfloat16],
+                                   msg=lambda m: f"{name}: {m}")
+    mask = args[1]
+    if mask is not None:
+        unseen = mask == 0
+        assert not dk[unseen].any() and not dv[unseen].any()
+
+
 @pytest.mark.parametrize("hd", [32, 96, 512])
 def test_flash_bf16_unsupported_head_dim_raises(gen, hd):
     q = _randn(gen, (1, 64, 2, hd), torch.bfloat16)
     lse = torch.zeros((1, 2, 64), device="cuda")
-    n = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches)
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    n = [fn.launches for fn in counted]
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd(q, q, q, True)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_bwd_dq(q, q, q, q, lse, q, True)
-    assert (fa.flash_attention_fwd.launches,
-            fa.flash_attention_bwd_dq.launches) == n
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd_dkv(q, q, q, q, lse, q, True)
+    assert [fn.launches for fn in counted] == n
 
 
 def test_flash_attention_function_matches_autograd(gen):
@@ -232,6 +261,35 @@ def test_paged_decode(gen, dtype):
                                        tables, sl)
     torch.testing.assert_close(out.float(), ref, **TOL[dtype])
     assert not out[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_split_edges(gen, dtype):
+    """Lengths at the edges of paged_decode's 256-key splits, 0 and the
+    full table, and an out-of-pool table entry: empty splits and an
+    all-empty row merge to the right answer (zeros for length 0)."""
+    nh, hd, bs, maxb = 4, 128, 64, 16
+    lens = [0, 1, 255, 256, 257, 511, 512, maxb * bs]
+    B = len(lens)
+    assert pa.decode_split(maxb, bs) == (4, 4)
+    k = _randn(gen, (nh, B * maxb + 1, bs, hd), dtype)
+    v = _randn(gen, (nh, B * maxb + 1, bs, hd), dtype)
+    tables = _tables(gen, B, maxb, lens, bs)
+    q = _randn(gen, (B, nh, hd), dtype)
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n = pa.paged_attention.launches
+    out = pa.paged_attention(q, k, v, tables, sl)
+    assert pa.paged_attention.launches == n + 1
+    ref = pa.paged_attention_reference(q.float(), k.float(), v.float(),
+                                       tables, sl)
+    torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+    assert not out[0].any()
+    bad = tables.clone()
+    bad[4, 1], bad[7, 9] = -1, 10 ** 6     # dropped keys inside a split
+    torch.testing.assert_close(
+        pa.paged_attention(q, k, v, bad, sl).float(),
+        pa.paged_attention_reference(q.float(), k.float(), v.float(), bad,
+                                     sl), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -74,6 +74,77 @@ def test_paged_attention_matches_pallas_decode(lens):
         assert not got[b].any()
 
 
+def _split_merge_decode(q, k, v, tables, lens):
+    """A plain model of the card's paged_decode: the table's keys cut into
+    the splits of ``decode_split``, each split's partial softmax state
+    (m, l, acc) from its live keys (a split at or past the row's length:
+    the empty state m = -inf, l = 0; one whose keys were all dropped: m =
+    -1e30, l = 0), merged by their maxima in split order, skipping empty
+    splits, zeros where l == 0."""
+    B, nh, hd = q.shape
+    bs, maxb = k.shape[2], tables.shape[1]
+    per, n_split = tpa.decode_split(maxb, bs)
+    keys, in_pool = tpa._gather_table(k, tables)       # [B, K, nh, hd]
+    vals, _ = tpa._gather_table(v, tables)
+    s = torch.einsum("bhd,bkhd->bhk", q, keys) / np.sqrt(hd)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        end = min(int(lens[b]), maxb * bs)
+        for h in range(nh):
+            parts = []
+            for sp in range(n_split):
+                lo, hi = sp * per * bs, min((sp + 1) * per * bs, end)
+                if lo >= hi:
+                    parts.append((-np.inf, 0.0, None))
+                    continue
+                live = in_pool[b, lo:hi]
+                sc = s[b, h, lo:hi]
+                m = max(-1e30, sc[live].max().item()) if live.any() else -1e30
+                p = torch.where(live, torch.exp(sc - m), 0.0)
+                parts.append((m, p.sum().item(), p @ vals[b, lo:hi, h]))
+            mall = max(m for m, _, _ in parts)
+            w = [0.0 if m == -np.inf else np.exp(m - mall)
+                 for m, _, _ in parts]
+            lall = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+            acc = sum(wi * a for wi, (_, _, a) in zip(w, parts) if wi != 0.0)
+            if lall > 0:
+                out[b, h] = acc / lall
+    return out
+
+
+@pytest.mark.parametrize("bs", [16, 64])
+def test_paged_decode_split_and_merge(bs):
+    """The split-and-merge algebra of the card's paged_decode against the
+    plain version and the JAX reference, at lengths on the split edges, 0,
+    1 and the full table: empty splits, and rows all of whose splits are
+    empty, merge to the right answer (zeros for length 0).  An out-of-pool
+    table entry drops its keys inside a split (against the plain version:
+    the JAX reference reads such an entry as a clamped index)."""
+    nh, hd, maxb = 2, 16, 512 // bs
+    lens = (0, 1, 255, 256, 257, 512)
+    assert tpa.decode_split(maxb, bs) == (256 // bs, 2)
+    k, v, tables = _paged_case(len(lens), nh, hd, bs, lens, maxb)
+    q = np.random.RandomState(6).standard_normal(
+        (len(lens), nh, hd)).astype(np.float32)
+    tq, tk, tv, tt = (torch.from_numpy(x) for x in (q, k, v, tables))
+    tl = torch.tensor(lens, dtype=torch.int32)
+    model = _split_merge_decode(tq, tk, tv, tt, tl)
+    want = jpp.paged_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(np.asarray(lens, np.int32)))
+    np.testing.assert_allclose(model.numpy(), _np(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(
+        model.numpy(), tpa.paged_attention(tq, tk, tv, tt, tl).numpy(),
+        atol=ATOL, rtol=0)
+    assert not model[0].any()
+    bad = tt.clone()
+    # row 4: a key dropped in split 0, and split 1's one key (256) dropped
+    bad[4, 1], bad[4, 256 // bs], bad[5, maxb - 1] = -1, -1, 10 ** 6
+    np.testing.assert_allclose(
+        _split_merge_decode(tq, tk, tv, bad, tl).numpy(),
+        tpa.paged_attention(tq, tk, tv, bad, tl).numpy(), atol=ATOL, rtol=0)
+
+
 # ------------------------------------------------------------------- chunk
 
 @pytest.fixture
