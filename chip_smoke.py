@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs ten phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -19,7 +19,15 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    gradient that sums over a whole sequence).  ``paged_decode`` also at
    the edges of its 256-key splits (255, 256, 257, 511, 512), 0 and the
    full table, and with out-of-pool table entries; the bf16 training
-   cases also at hd 64 and 256.  Kernel, plain version and the
+   cases also at hd 64 and 256.  ``paged_chunk`` (bf16:
+   ``paged_chunk_tc_kernel`` on the tensor cores, its key axis split)
+   with 256-row chunks at many starts and past the table, chunks of 1, 4
+   and 70 rows, bs 16, hd 64 and 256, out-of-pool entries, and splits of
+   64 .. 512 keys and none around their edges; timed at the serving
+   path's shape (B 1, s 256, start 1024) at several split lengths, with
+   TFLOP/s and two yardsticks that do not read the pool: ``flash_fwd``
+   and ``F.scaled_dot_product_attention`` with the offset-causal mask on
+   a contiguous copy of the same keys.  Kernel, plain version and the
    ``F.scaled_dot_product_attention`` yardstick (flash only; for the
    backward pair, sdpa's backward timed on its own) are timed with CUDA
    events (``paged_decode``, whose two kernels take less time than the
@@ -37,7 +45,14 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    its kernels.  A third whole-prompt run under ``torch.profiler`` prints
    the card's busy share, the kernels that take its time, and the decode
    kernels by name (``paged_decode_split_kernel``,
-   ``paged_decode_merge_kernel``).
+   ``paged_decode_merge_kernel``); a fourth, chunked, profiled the same
+   way, in which every bf16 ``paged_chunk`` launch must be
+   ``paged_chunk_tc_kernel`` (with ``paged_chunk_merge_kernel`` when the
+   keys are split) by name and none the FMA kernel; the profiled runs
+   also give ms per decode step (the card synchronised before each
+   tick).  No full-width serving or training run may take a plain route
+   (``plain_calls``).  Then ``sample_rows`` (the tick's token choice, the
+   threefry draw for sampled rows) timed on the card at [8, vocab].
 3. Card against CPU: a 4-layer cut of GPT-3 1.3B in float32 serves one
    greedy request on the card (kernels) and on the CPU (plain versions)
    from one state dict; the token streams must match and the first-token
@@ -47,7 +62,8 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    at 1.0, 6 steps on one fixed batch of B 4 x S 2048 random tokens.  Every
    loss finite, the last below the first, and each flash kernel launched
    exactly 24 x 6 times.  Prints step time, tokens/s, MFU and peak memory,
-   then profiles one more step, in which every flash launch must be the
+   then profiles one more step (after an unrecorded warm-up step of the
+   profiler), in which every flash launch must be the
    tensor-core kernel by name (24 each of forward, dq and dk/dv, none on
    the FMA kernels), then trains 2 steps with dropout 0.1.
 5. Card against CPU for training: a 4-layer fp32 cut, 2 AdamW steps on
@@ -82,6 +98,12 @@ into ``build/paddle_tpu_torch/``), then runs nine phases on card 0:
    1e-3) and trains 2 AdamW steps with the same routing uniforms fed to
    both (losses atol 1e-4, parameters within 2 x lr x steps).
 
+10. Head dims no kernel takes (run after phase 3): ``gpt3_tiny`` (hd 32)
+   serves one greedy request (whole-prompt and chunked prefill) and
+   trains 2 AdamW steps on the card through the kernels' plain versions;
+   streams equal the CPU's, losses and parameters as in phase 5, every
+   plain route counted (``plain_calls``) and no kernel launched.
+
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
 beside it.  The line before the last is a JSON object with each kernel's
@@ -109,6 +131,10 @@ GRAD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
             "torch.bfloat16": dict(atol=2e-2, rtol=1e-2)}
 # the two kernels of a paged_decode launch, by name on the card's timeline
 DECODE_KERNELS = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
+# paged_chunk's: bf16 on the tensor cores (and the merge of its key
+# splits), the FMA kernel only for fp32
+CHUNK_KERNELS = ("paged_chunk_tc_kernel", "paged_chunk_merge_kernel",
+                 "paged_chunk_kernel")
 
 
 def _log(*a):
@@ -173,21 +199,22 @@ def _compare(name, got, want, dtype, tol=TOL):
 
 # --------------------------------------------------------------- phase 1
 
-def _pool_case(gen, lens, dtype, extra_cols=0):
+def _pool_case(gen, lens, dtype, extra_cols=0, nh=NH, hd=HD, bs=BS):
     """Pools of random K/V and tables of shuffled blocks, as the engine
-    lays them out: [nh, num_blocks, bs, hd], block 0 the pad block."""
+    lays them out: [nh, num_blocks, bs, hd], block 0 the pad block, a
+    table of MAX_CONTEXT keys per sequence."""
     import numpy as np
     import torch
     B = len(lens)
-    maxb = MAX_CONTEXT // BS
+    maxb = MAX_CONTEXT // bs
     nb = B * maxb + 1
-    k = torch.randn((NH, nb, BS, HD), generator=gen, device="cuda")
-    v = torch.randn((NH, nb, BS, HD), generator=gen, device="cuda")
+    k = torch.randn((nh, nb, bs, hd), generator=gen, device="cuda")
+    v = torch.randn((nh, nb, bs, hd), generator=gen, device="cuda")
     rng = np.random.RandomState(0)
     perm = rng.permutation(np.arange(1, nb))
     tables = np.zeros((B, maxb), np.int32)
     for b, n in enumerate(lens):
-        live = min(-(-(n + extra_cols) // BS), maxb)
+        live = min(-(-(n + extra_cols) // bs), maxb)
         tables[b, :live] = perm[b * maxb:b * maxb + live]
     return (k.to(dtype), v.to(dtype),
             torch.as_tensor(tables, device="cuda"))
@@ -307,35 +334,7 @@ def kernel_checks(path_lens):
                              bound_ms=bound, bound_by=by, library_ms=lib,
                              tflops=flops / ms / 1e9)
 
-    # --- paged_chunk: 256-row chunks at many starts, one running past the
-    # table (its rows attend the whole table), then the main path's shape:
-    # one sequence, a 256-token chunk at start 1024
-    s = 256
-    for dtype in (torch.float32, bf16):
-        for starts in ([0, 64, 100, 256, 700, 1000, 1500, 1792], [1900],
-                       [1024]):
-            k, v, tables = _pool_case(gen, starts, dtype, extra_cols=s)
-            q = torch.randn((len(starts), s, NH, HD), generator=gen,
-                            device="cuda").to(dtype)
-            st = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
-            out = pa.paged_chunk_attention(q, k, v, tables, st)
-            ref = pa.paged_chunk_attention_reference(q.float(), k.float(),
-                                                     v.float(), tables, st)
-            torch.cuda.synchronize()
-            err = _compare("paged_chunk", out, ref, dtype)
-            _log(f"paged_chunk {dtype} s={s} starts={starts}: "
-                 f"max_abs_err={err:.3e}")
-    start = starts[0]
-    keys = [min(start + j + 1, MAX_CONTEXT) for j in range(s)]
-    nbytes = 2 * s * NH * HD * 2 + min(start + s, MAX_CONTEXT) * NH * HD \
-        * 2 * 2 + tables.numel() * 4 + 4
-    flops = 4 * NH * HD * sum(keys)
-    ms = _time_ms(lambda: pa.paged_chunk_attention(q, k, v, tables, st), 50)
-    plain = _time_ms(lambda: pa.paged_chunk_attention_reference(
-        q, k, v, tables, st), 5)
-    bound, by = _bound(nbytes, flops, bf16)
-    rows["paged_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=bound, bound_by=by, library_ms=None)
+    rows["paged_chunk"] = paged_chunk_checks(gen)
     for name, r in rows.items():
         _log(f"{name} bf16 timing: ms={r['ms']:.4f}"
              + (f" (host loop {r['host_ms']:.4f})" if "host_ms" in r else "")
@@ -344,6 +343,134 @@ def kernel_checks(path_lens):
              f"({r['bound_by']}) library_ms={r['library_ms']}"
              + _rate(r))
     return rows
+
+
+def _chunk_case(gen, starts, s, dtype, bad=False, **shape):
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    nh, hd = shape.get("nh", NH), shape.get("hd", HD)
+    k, v, tables = _pool_case(gen, starts, dtype, extra_cols=s, **shape)
+    if bad:            # dropped keys: an entry below and one past the pool
+        tables[0, 0], tables[-1, 1] = -1, 10 ** 6
+    q = torch.randn((len(starts), s, nh, hd), generator=gen,
+                    device="cuda").to(dtype)
+    st = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
+    out = pa.paged_chunk_attention(q, k, v, tables, st)
+    ref = pa.paged_chunk_attention_reference(q.float(), k.float(), v.float(),
+                                             tables, st)
+    torch.cuda.synchronize()
+    return (q, k, v, tables, st), _compare("paged_chunk", out, ref, dtype)
+
+
+def paged_chunk_checks(gen):
+    """paged_chunk against its plain version (fp32 on the FMA kernel,
+    bf16 on the tensor-core kernel, its keys split as the wrapper picks),
+    then timed at the serving path's shape, one sequence, a 256-token
+    chunk at start 1024, beside the same work without the table: the
+    port's flash_fwd (Sq 256, Sk 1280, causal: its end-aligned mask is
+    this offset mask) and scaled_dot_product_attention with the boolean
+    offset-causal mask, both on a contiguous copy of the same keys.
+    Returns the kernel's numbers."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    bf16 = torch.bfloat16
+    # (label, starts, s, pool shape): 256-row chunks at many starts and one
+    # running past the table (its rows attend the whole table), verify-
+    # sized and ragged chunks, bs 16, hd 64 and 256, dropped keys
+    cases = [("serving chunks", [0, 64, 100, 256, 700, 1000, 1500, 1792],
+              256, {}),
+             ("past the table", [1900], 256, {}),
+             ("s 1", [0, 5, 1023, 2047], 1, {}),
+             ("s 4", [0, 61, 700, 2046], 4, {}),
+             ("s 70", [0, 37, 190, 1990], 70, {}),
+             ("bs 16", [0, 100, 1024, 1900], 256, dict(bs=16)),
+             ("hd 64", [0, 300, 1024], 256, dict(nh=2 * NH, hd=64)),
+             ("hd 256", [0, 300, 1024], 256, dict(nh=NH // 2, hd=256))]
+    for dtype in (torch.float32, bf16):
+        for label, starts, s, shape in cases:
+            for bad in (False, True):
+                _, err = _chunk_case(gen, starts, s, dtype, bad, **shape)
+                _log(f"paged_chunk {dtype} {label} s={s} starts={starts} "
+                     f"{shape or ''}" + (" out-of-pool entries" if bad
+                                         else "")
+                     + f": max_abs_err={err:.3e}")
+    # the split's edges: splits of 64 .. 512 keys and none; rows whose
+    # keys end one before, at and one past a split edge, a chunk inside
+    # the first split, splits past every row's keys
+    default = pa._CHUNK_SPLIT_KEYS
+    try:
+        for keys in (64, 128, 512, 1 << 30):
+            pa._CHUNK_SPLIT_KEYS = keys
+            for dtype in (torch.float32, bf16):
+                _, err = _chunk_case(gen, [0, 187, 441, 953], 70, dtype,
+                                     bad=True)
+                _log(f"paged_chunk {dtype} split edges, {keys} keys per "
+                     f"split: max_abs_err={err:.3e}")
+    finally:
+        pa._CHUNK_SPLIT_KEYS = default
+
+    # the serving path's shape
+    (q, k, v, tables, st), err = _chunk_case(gen, [1024], 256, bf16)
+    s, start = 256, 1024
+    keys = [min(start + j + 1, MAX_CONTEXT) for j in range(s)]
+    nbytes = 2 * s * NH * HD * 2 + min(start + s, MAX_CONTEXT) * NH * HD \
+        * 2 * 2 + tables.numel() * 4 + 4
+    flops = 4 * NH * HD * sum(keys)
+
+    def chunk():
+        return pa.paged_chunk_attention(q, k, v, tables, st)
+
+    ms = _time_ms(chunk, 50)
+    plain = _time_ms(lambda: pa.paged_chunk_attention_reference(
+        q, k, v, tables, st), 5)
+    bound, by = _bound(nbytes, flops, bf16)
+    by_split = {}
+    try:
+        for n in (128, 256, 512, 1 << 30):
+            pa._CHUNK_SPLIT_KEYS = n
+            label = "none" if n == 1 << 30 else n
+            by_split[label] = (_time_ms(chunk, 50), pa.chunk_split(
+                1, NH, s, tables.shape[1], BS)[1])
+    finally:
+        pa._CHUNK_SPLIT_KEYS = default
+    _log(f"paged_chunk bf16 path shape ms by keys per split (default "
+         f"{default}): " + ", ".join(f"{n} ({sp} splits): {t:.4f}"
+                                     for n, (t, sp) in by_split.items()))
+    # yardsticks without the table: the same keys, contiguous
+    kc, _ = pa._gather_table(k, tables)
+    vc, _ = pa._gather_table(v, tables)
+    kc, vc = kc[:, :start + s].contiguous(), vc[:, :start + s].contiguous()
+    want = chunk()
+    got = fa.flash_attention_fwd(q, kc, vc, causal=True)[0]
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=0.0)
+    flash_ms = _time_ms(lambda: fa.flash_attention_fwd(q, kc, vc,
+                                                       causal=True), 50)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+    allowed = (torch.arange(start + s, device="cuda")[None, :]
+               <= start + torch.arange(s, device="cuda")[:, None])
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+    torch.testing.assert_close(sdpa.transpose(1, 2).float(), want.float(),
+                               atol=2e-2, rtol=0.0)
+    sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=allowed), 50)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+               bound_by=by, library_ms=None, tflops=flops / ms / 1e9,
+               ms_by_split_keys={str(n): t for n, (t, _) in
+                                 by_split.items()},
+               yardsticks_without_table={
+                   "flash_fwd_contiguous_ms": flash_ms,
+                   "sdpa_offset_causal_mask_ms": sdpa_ms})
+    _log(f"paged_chunk bf16 path shape B=1 s={s} start={start} nh={NH} "
+         f"hd={HD}: {flops / 1e9:.3f} GFLOP on {nbytes / 1e6:.2f} MB, "
+         f"{row['tflops']:.1f} TFLOP/s, {ms / bound:.1f}x the bound; not "
+         f"reading the pool (contiguous copy of the same keys): flash_fwd "
+         f"Sq 256 Sk 1280 causal {flash_ms:.4f} ms, sdpa with the offset-"
+         f"causal mask {sdpa_ms:.4f} ms")
+    return row
 
 
 def _rate(r):
@@ -659,9 +786,33 @@ def _counters():
             "moe_combine": mo.moe_combine}
 
 
-def serve(model, prompts, chunk):
-    """Serve the 8 requests on one engine, every launch count at 0 first;
-    returns the run's numbers."""
+def _plain_counters():
+    """The callers' plain routes (head dims no kernel takes), counted
+    apart from the launches."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return {"flash_fwd": fa.flash_attention_fwd,
+            "paged_decode": pa.paged_attention,
+            "paged_chunk": pa.paged_chunk_attention}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+    for fn in _plain_counters().values():
+        fn.plain_calls = 0
+
+
+def _plain_calls():
+    return {name: fn.plain_calls for name, fn in _plain_counters().items()}
+
+
+def serve(model, prompts, chunk, time_ticks=False):
+    """Serve the 8 requests on one engine, every launch count and plain
+    route count at 0 first; returns the run's numbers.  ``time_ticks``
+    synchronises the card before each decode tick and sums the ticks' wall
+    time (each tick ends in a host round trip), for ms per decode step
+    beside chunked prefill."""
     import torch
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
 
@@ -671,8 +822,18 @@ def serve(model, prompts, chunk):
     reqs = [Request(p, max_new_tokens=64, do_sample=bool(i % 2),
                     temperature=0.9, top_k=40, top_p=0.95, seed=1000 + i)
             for i, p in enumerate(prompts)]
-    for fn in _counters().values():
-        fn.launches = 0
+    tick_s = [0.0]
+    if time_ticks:
+        tick = eng._tick
+
+        def timed_tick(k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = tick(k)
+            tick_s[0] += time.perf_counter() - t
+            return out
+        eng._tick = timed_tick
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
@@ -681,6 +842,10 @@ def serve(model, prompts, chunk):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in _counters().items()}
+    plain = _plain_calls()
+    if any(plain.values()):
+        raise AssertionError(f"serving at full width took plain routes: "
+                             f"{plain}")
     vocab = model.cfg.vocab_size
     for r in reqs:
         if not r.done or len(r.output_ids) != 64:
@@ -697,6 +862,7 @@ def serve(model, prompts, chunk):
                 ttft_mean_s=sum(ttfts) / len(ttfts),
                 ttft_max_s=max(ttfts), steps=st["steps"], ticks=st["ticks"],
                 prefill_chunks=st["prefill_chunks"], launches=launches,
+                plain_calls=plain, tick_s=tick_s[0],
                 streams=[list(r.output_ids) for r in reqs])
 
 
@@ -730,8 +896,37 @@ def serving_phase(lens):
                                       runs[256]["streams"]))
     _log(f"streams equal across the two prefill modes: {same} of {BATCH} "
          "(bf16 numerics of two attention kernels; informational)")
-    where_the_time_goes(model, prompts)
+    for chunk in (0, 256):
+        where_the_time_goes(model, prompts, chunk)
+    sampling_cost(cfg.vocab_size)
     return runs
+
+
+def sampling_cost(vocab):
+    """The decode tick's token choice on the card at the serving batch:
+    ``sample_rows`` over [8, vocab] logits with the engine's filters, four
+    rows sampled (the threefry draw) and none (the argmax alone); CUDA
+    events over an eager loop, as the tick runs it."""
+    import torch
+    from paddle_tpu_torch.core import threefry
+    from paddle_tpu_torch.models.generation import sample_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    logits = torch.randn((BATCH, vocab), generator=gen, device="cuda")
+    on = torch.arange(BATCH, device="cuda") % 2 == 1
+    args = (torch.full((BATCH,), 0.9, device="cuda"),
+            torch.full((BATCH,), 40, device="cuda"),
+            torch.full((BATCH,), 0.95, device="cuda"))
+    keys = torch.stack(threefry.fold_in(
+        threefry.key(1000 + torch.arange(BATCH)),
+        torch.full((BATCH,), 17))).cuda()
+    sampled = _time_ms(lambda: sample_rows(logits, on, *args, keys, True),
+                       50)
+    greedy = _time_ms(lambda: sample_rows(logits, torch.zeros_like(on),
+                                          *args, None, False), 50)
+    _log(f"sample_rows on the card, [{BATCH}, {vocab}] logits: 4 rows "
+         f"sampled (filters + threefry draw) {sampled:.4f} ms, all greedy "
+         f"{greedy:.4f} ms (CUDA events over an eager loop of 50)")
 
 
 def _device_kernels(prof):
@@ -744,37 +939,89 @@ def _device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def where_the_time_goes(model, prompts):
-    """A third, profiled whole-prompt run (warm): the card's busy time
-    against the wall clock, and the kernels that take it."""
-    from torch.profiler import ProfilerActivity, profile
+def _profiled(fn, warm):
+    """``fn()`` under ``torch.profiler`` after a warm-up cycle that runs
+    ``warm()`` with the card's tracing already on and discards its
+    records (a cycle's first kernel records can otherwise go missing: a
+    profiled train step once showed 23 of its 24 forward launches).
+    Returns ``fn``'s result and the active cycle's kernels on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run = serve(model, prompts, 0)
-    kernels = _device_kernels(prof)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return out, _device_kernels(prof)
+
+
+def _by_name(kernels, names):
+    """Launches and device time (us) of the kernels whose names contain
+    each of ``names``."""
+    out = {}
+    for name in names:
+        hits = [e for e in kernels if name in e.key]
+        out[name] = (sum(e.count for e in hits),
+                     sum(e.self_device_time_total for e in hits))
+    return out
+
+
+def where_the_time_goes(model, prompts, chunk):
+    """A profiled serving run (warm) with whole-prompt (``chunk`` 0) or
+    chunked prefill: the card's busy time against the wall clock, the
+    kernels that take it, the decode kernels by name and, chunked, every
+    bf16 paged_chunk launch by name: the tensor-core kernel (and its
+    merge when the wrapper splits the keys), never the FMA kernel."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    label = "chunked" if chunk else "whole-prompt"
+    run, kernels = _profiled(
+        lambda: serve(model, prompts, chunk, time_ticks=True),
+        lambda: torch.ones((256, 256), device="cuda").matmul(
+            torch.ones((256, 256), device="cuda")))
     busy_us = sum(e.self_device_time_total for e in kernels)
     n = sum(e.count for e in kernels)
     wall = run["wall_s"]
-    decode_s = wall - run["ttft_max_s"]   # every prefill runs first here
-    _log(f"profiled whole-prompt run: prefill phase (max TTFT) "
-         f"{run['ttft_max_s']:.3f} s, decode phase {decode_s:.3f} s = "
-         f"{decode_s / max(run['steps'], 1) * 1e3:.2f} ms per decode step")
-    _log(f"profiled whole-prompt run: wall {wall:.3f} s, card busy "
+    step_ms = run["tick_s"] / max(run["steps"], 1) * 1e3
+    _log(f"profiled {label} run: {run['steps']} decode steps in "
+         f"{run['tick_s']:.3f} s of ticks = {step_ms:.2f} ms per decode "
+         f"step (card synchronised before each tick); max TTFT "
+         f"{run['ttft_max_s']:.3f} s")
+    idle = 1 - busy_us / 1e6 / wall
+    _log(f"profiled {label} run: wall {wall:.3f} s, card busy "
          f"{busy_us / 1e6:.3f} s in {n} kernel launches, idle share "
-         f"{1 - busy_us / 1e6 / wall:.3f}")
+         f"{idle:.3f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
              f"{e.key[:90]}")
-    decode = {}
-    for name in DECODE_KERNELS:
-        hits = [e for e in kernels if name in e.key]
-        decode[name] = (sum(e.count for e in hits),
-                        sum(e.self_device_time_total for e in hits))
-        if decode[name][0] == 0:
-            raise AssertionError(f"profiled serving run: {name} never ran")
-    _log("profiled whole-prompt run, decode kernels by name: " + ", ".join(
+    decode = _by_name(kernels, DECODE_KERNELS)
+    for name, (c, _) in decode.items():
+        if c == 0:
+            raise AssertionError(f"profiled {label} run: {name} never ran")
+    _log(f"profiled {label} run, decode kernels by name: " + ", ".join(
         f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in decode.items()))
+    if chunk:
+        calls = run["launches"]["paged_chunk"]
+        split = pa.chunk_split(1, NH, chunk, MAX_CONTEXT // BS, BS)[1] > 1
+        got = _by_name(kernels, CHUNK_KERNELS)
+        want = {"paged_chunk_tc_kernel": calls,
+                "paged_chunk_merge_kernel": calls if split else 0,
+                "paged_chunk_kernel": 0}
+        if {k: c for k, (c, _) in got.items()} != want or calls == 0:
+            raise AssertionError(f"profiled chunked run: paged_chunk "
+                                 f"launches by kernel {got}, want {want}")
+        chunk_us = sum(us for c, us in got.values())
+        _log(f"profiled chunked run, paged_chunk kernels by name: "
+             + ", ".join(f"{n} {c}x {us / 1e3:.2f} ms"
+                         for n, (c, us) in got.items())
+             + f"; {chunk_us / 1e3:.2f} ms of device time in {calls} "
+             f"launches")
 
 
 # --------------------------------------------------------------- phase 3
@@ -808,6 +1055,59 @@ def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
                              f"{streams[1]}")
     _log(f"card vs CPU, {label}: first-token logits "
          f"max_abs_err={err:.3e}, 16-token greedy streams equal")
+
+
+# -------------------------------------------------------------- phase 10
+
+def plain_route_phase():
+    """gpt3_tiny, whose head dim 32 no attention kernel takes, on the card
+    through the kernels' plain versions: one greedy request with
+    whole-prompt and chunked prefill, its streams equal to the CPU's, and
+    2 AdamW steps card against CPU; every plain route counted, no kernel
+    launched."""
+    import torch
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+
+    cfg = gpt3_tiny()
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3).eval()
+    card = GPTForCausalLM(cfg, device="cuda", seed=4).eval()
+    card.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(1, cfg.vocab_size, (95,),
+                           generator=torch.Generator().manual_seed(3))
+    _zero_counts()
+    streams = {}
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        for chunk in (0, 32):
+            eng = ServingEngine(model, max_batch=1, max_context=160,
+                                block_size=16, steps_per_tick=4,
+                                prefill_chunk=chunk, device=dev)
+            req = eng.add_request(Request(prompt.tolist(),
+                                          max_new_tokens=16))
+            eng.run()
+            streams[dev, chunk] = list(req.output_ids)
+    serve_plain = _plain_calls()
+    serve_launches = {n: fn.launches for n, fn in _counters().items()}
+    if len({tuple(x) for x in streams.values()}) != 1:
+        raise AssertionError(f"gpt3_tiny hd 32: card and CPU streams "
+                             f"differ: {streams}")
+    if not all(n > 0 for n in serve_plain.values()) or \
+            any(serve_launches.values()):
+        raise AssertionError(f"gpt3_tiny hd 32 serving: plain routes "
+                             f"{serve_plain}, launches {serve_launches}")
+    _zero_counts()
+    for fn in _train_counters().values():
+        fn.launches = 0
+    train_card_vs_cpu(cfg, "gpt3_tiny (hd 32) on the plain routes")
+    train_plain = _plain_calls()
+    train_launches = {n: fn.launches for n, fn in _train_counters().items()}
+    if train_plain["flash_fwd"] <= 0 or any(train_launches.values()):
+        raise AssertionError(f"gpt3_tiny hd 32 training: plain routes "
+                             f"{train_plain}, launches {train_launches}")
+    _log(f"gpt3_tiny hd 32 on the card: greedy streams (whole-prompt and "
+         f"chunked) equal to the CPU's; plain routes serving "
+         f"{serve_plain}, training {train_plain}; kernel launches "
+         f"{serve_launches}, {train_launches}")
 
 
 # --------------------------------------------------------------- phase 4
@@ -906,6 +1206,8 @@ def _run_train(model, opt, ids, labels, steps):
     import torch
     for fn in _train_counters().values():
         fn.launches = 0
+    for fn in _plain_counters().values():
+        fn.plain_calls = 0
     losses, times = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -915,6 +1217,9 @@ def _run_train(model, opt, ids, labels, steps):
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
     launches = {name: fn.launches for name, fn in _train_counters().items()}
+    if any(_plain_calls().values()):
+        raise AssertionError(f"training at full width took plain routes: "
+                             f"{_plain_calls()}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"training: a loss is not finite: {losses}")
     return losses, times, launches
@@ -976,12 +1281,11 @@ def _record_routing(model, ids, labels):
 
 def train_full_width(cfg, label):
     """6 timed steps of ``cfg`` at B 4 x S 2048 from launch counts of 0,
-    checked, then one profiled step; returns the numbers (the model and
-    optimizer are freed)."""
+    checked, then one profiled step after a warm-up step; returns the
+    numbers (the model and optimizer are freed)."""
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.incubate.distributed.models.moe import capacity
 
     torch.cuda.empty_cache()
@@ -1015,15 +1319,16 @@ def train_full_width(cfg, label):
          f"the work done: MFU {mfu_work:.4f} (of 989 TFLOP/s bf16); peak "
          f"memory {peak / 2 ** 30:.2f} GiB; launches {launches}")
 
-    # one more step, profiled: the card's busy share and its top kernels
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # two more steps, the second profiled: the card's busy share and its
+    # top kernels
+    def step():
         t0 = time.perf_counter()
         _train_step(model, opt, ids, labels, True)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = _device_kernels(prof)
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    wall, kernels = _profiled(step, step)
     busy_us = sum(e.self_device_time_total for e in kernels)
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key)
@@ -1201,7 +1506,7 @@ def ptxas_report(build_dir):
                     raise AssertionError(f"{name} hd {hd} spills: {text}")
             entry = None
     for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
-                 "flash_bwd_dkv_tc_kernel"):
+                 "flash_bwd_dkv_tc_kernel", "paged_chunk_tc_kernel"):
         if sorted(tc.get(name, {})) != [64, 128, 256]:
             raise AssertionError(f"ptxas report: {name} at hd "
                                  f"{sorted(tc.get(name, {}))}")
@@ -1242,6 +1547,7 @@ def main() -> int:
     moe_kernel_checks()
     runs = serving_phase(lens)
     card_vs_cpu(gpt3_1p3b(num_layers=4))
+    plain_route_phase()
     train = training_phase()
     train_card_vs_cpu(gpt3_1p3b(num_layers=4))
     moe_serve, moe_train = moe_phases(lens, rows)

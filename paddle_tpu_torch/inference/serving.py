@@ -34,9 +34,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core import threefry
 from ..core.device import resolve_device
 from ..incubate.distributed.models.moe import MoELayer
-from ..models.generation import sample_rows
+from ..models.generation import _process_logits_rows, sample_rows
 from ..models.kv_cache import PagedChunkKernelView, PagedKVCache
 
 __all__ = ["Request", "ServingEngine"]
@@ -47,8 +48,12 @@ class Request:
 
     A sampled request's stream is a function of its ``seed`` and token
     positions alone: the same seed gives the same tokens whatever the tick
-    size, batch or slot.  ``t_enqueue`` and ``t_first`` are host
-    ``perf_counter`` stamps at ``add_request`` and at the first token."""
+    size, batch or slot, and the JAX engine's tokens.  As there, the first
+    token is drawn on the host from ``numpy.random.RandomState(seed)``
+    (:meth:`_sample`), the decode tokens on the card from
+    ``fold_in(key(seed), position)`` (``sample_rows``).  ``t_enqueue``
+    and ``t_first`` are host ``perf_counter`` stamps at ``add_request``
+    and at the first token."""
 
     _counter = 0
 
@@ -67,6 +72,7 @@ class Request:
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.seed = int(seed) if seed is not None else self.rid
+        self._rng = np.random.RandomState(self.seed)
         self.output_ids: List[int] = []
         self.done = False
         self.slot: Optional[int] = None
@@ -78,6 +84,22 @@ class Request:
         self._prefill_chunks = 0
         self._chunk_row: Optional[np.ndarray] = None  # shadow table row
         self._chunk_off = 0                           # prompt tokens written
+
+    def _sample(self, row) -> int:
+        """The first token from the prompt's last logits row ``[V]``:
+        greedy the argmax; sampled a draw of the host ``RandomState`` over
+        the filtered distribution, as the JAX package's
+        ``Request._sample`` (float32 probabilities, ``choice``)."""
+        if not self.do_sample:
+            return int(row.argmax())
+        filtered = _process_logits_rows(
+            row[None].float(),
+            torch.tensor([self.temperature], device=row.device),
+            torch.tensor([max(0, self.top_k)], device=row.device),
+            torch.tensor([self.top_p], device=row.device))[0].cpu().numpy()
+        p = np.exp(filtered - filtered.max())
+        p = p / p.sum()
+        return int(self._rng.choice(len(p), p=p))
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -276,16 +298,7 @@ class ServingEngine:
     def _finish_admission(self, req: Request, slot: int, row) -> None:
         """First token from the prompt's last logits row (position 0 of
         the request's sampling stream); the slot joins the decode ticks."""
-        dev = self.device
-        first = int(sample_rows(
-            row[None],
-            torch.tensor([req.do_sample], device=dev),
-            torch.tensor([req.temperature], device=dev),
-            torch.tensor([max(0, req.top_k)], device=dev),
-            torch.tensor([req.top_p], device=dev),
-            torch.tensor([req.seed & 0xFFFFFFFF], device=dev),
-            torch.zeros((1,), dtype=torch.long, device=dev),
-            req.do_sample)[0])
+        first = req._sample(row)
         req.t_first = time.perf_counter()
         req.output_ids.append(first)
         req.slot = slot
@@ -379,10 +392,18 @@ class ServingEngine:
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         tables, lens, last = t(self.tables), t(self.seq_lens), \
             t(self.last_tok)
-        do_s, temp, topk, topp, seeds, tok_pos = (
+        do_s, temp, topk, topp = (
             t(self.samp_do), t(self.samp_temp), t(self.samp_topk),
-            t(self.samp_topp), t(self.samp_seed), t(self.tok_pos))
+            t(self.samp_topp))
         any_sample = bool(self.samp_do.any())
+        keys = None
+        if any_sample:
+            # the draw's keys fold_in(key(seed), position) of all k steps,
+            # on the host (tiny) and in one copy: [2, k, B]
+            pos = (torch.as_tensor(self.tok_pos)[None]
+                   + torch.arange(k)[:, None])
+            keys = t(torch.stack(threefry.fold_in(
+                threefry.key(torch.as_tensor(self.samp_seed)), pos)))
         toks = []
         with torch.no_grad():
             for j in range(k):
@@ -392,7 +413,8 @@ class ServingEngine:
                 logits, _ = self.model.forward_with_cache(
                     last[:, None], views, pos_offset=lens[:, None])
                 nxt = sample_rows(logits[:, -1], do_s, temp, topk, topp,
-                                  seeds, tok_pos + j, any_sample)
+                                  None if keys is None else keys[:, j],
+                                  any_sample)
                 active = lens > 0
                 nxt = torch.where(active, nxt, torch.zeros_like(nxt))
                 lens = torch.where(active, lens + 1, torch.zeros_like(lens))

@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["_process_logits_rows", "sample_rows"]
+from ..core import threefry
 
-_MASK32 = 0xFFFFFFFF
+__all__ = ["_process_logits_rows", "sample_rows"]
 
 
 def _process_logits_rows(logits, temperature, top_k, top_p):
@@ -43,39 +43,22 @@ def _process_logits_rows(logits, temperature, top_k, top_p):
                        logits)
 
 
-def _mix32(x):
-    """A 32-bit integer hash (xorshift-multiply rounds) on int64 tensors
-    holding values in [0, 2^32); every product stays below 2^63."""
-    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _MASK32
-    x = ((x ^ (x >> 15)) * 0x6C8E9CF5) & _MASK32
-    return x ^ (x >> 16)
-
-
-def _uniform_rows(seeds, positions, V: int):
-    """``[B, V]`` float32 uniforms in (0, 1), a pure function of
-    (seed, token position, vocabulary index): the same request draws the
-    same numbers at the same position on any device, whatever the batch,
-    slot or tick it runs in."""
-    row = _mix32((seeds.long() & _MASK32)
-                 ^ _mix32((positions.long() * 0x9E3779B1) & _MASK32))
-    cols = torch.arange(V, device=row.device, dtype=torch.long)
-    bits = _mix32((row[:, None] + cols[None, :] * 0x2545F491) & _MASK32)
-    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
-
-
-def sample_rows(logits, do_sample, temperature, top_k, top_p, seeds,
-                positions, any_sample: bool):
+def sample_rows(logits, do_sample, temperature, top_k, top_p, keys,
+                any_sample: bool):
     """One token per row of ``logits [B, V]``: greedy rows take the
-    argmax; sampling rows draw from their filtered distribution by the
-    Gumbel-max trick with the noise of :func:`_uniform_rows`, so a stream
-    is a function of (seed, position) alone.  ``any_sample`` is the
-    host's knowledge that some row samples: without it the [B, V] sort is
-    skipped.  Returns int64 ``[B]``."""
+    argmax; sampling rows draw ``jax.random.categorical(key, filtered)``
+    over their filtered logits with ``keys``, the pair of ``[B]`` threefry
+    key words of ``fold_in(key(seed), position)``
+    (:func:`..core.threefry.fold_in`).  That is the draw of the JAX
+    package's ``_next_tokens``, bit for bit, so a stream is a function of
+    (seed, position) alone and the JAX engine's for the same seed.
+    ``any_sample`` is the host's knowledge that some row samples: without
+    it the [B, V] sort and draw are skipped (and ``keys`` may be None).
+    Returns int64 ``[B]``."""
     greedy = logits.argmax(dim=-1)
     if not any_sample:
         return greedy
     filtered = _process_logits_rows(logits.float(), temperature, top_k,
                                     top_p)
-    u = _uniform_rows(seeds, positions, logits.shape[-1])
-    drawn = (filtered - torch.log(-torch.log(u))).argmax(dim=-1)
+    drawn = threefry.categorical(keys, filtered)
     return torch.where(do_sample, drawn, greedy)

@@ -7,6 +7,12 @@ int32.  The JAX views are immutable and ``update_and_attend`` returns new
 arrays; here the pools are written IN PLACE and the returned view shares
 them, with the lengths advanced.
 
+Head dims the port's kernels do not take (``plain_route``: outside 64,
+128, 256) attend on the card through the kernels' plain versions, counted
+in each wrapper's ``plain_calls``.  The JAX package does the same for its
+flash prefill (a jnp oracle), but its paged kernels take any head dim:
+there the plain route is a gap of the port's paged kernels (ROADMAP.md).
+
 ``StaticKVCache`` and the host-side ``BlockKVCache`` of the JAX package
 belong to a later slice.
 """
@@ -26,7 +32,10 @@ class PagedKVCache:
     (the caller's contract, as in the JAX package): a bulk write and
     causal attention within the chunk through the ``flash_fwd`` kernel.
     Appending several tokens to non-empty sequences is
-    :class:`PagedChunkView`'s job."""
+    :class:`PagedChunkView`'s job.  A head dim the kernels do not take
+    attends through their plain versions, counted in ``plain_calls``: for
+    decode a gap of the port's ``paged_decode``, where the JAX package's
+    decode kernel takes any head dim."""
 
     def __init__(self, batch: int, max_context: int, num_heads: int,
                  head_dim: int, dtype=torch.float32, block_size: int = 64,
@@ -62,8 +71,12 @@ class PagedKVCache:
             pa.paged_write_token(self.k, self.v, self.tables, self.seq_lens,
                                  k[:, 0], v[:, 0])
             new = self._advanced(1)
-            out = pa.paged_attention(q[:, 0].contiguous(), self.k, self.v,
-                                     self.tables, new.seq_lens)
+            attend = pa.paged_attention
+            if flash_attention.plain_route(q):
+                pa.paged_attention.plain_calls += 1
+                attend = pa.paged_attention_reference
+            out = attend(q[:, 0].contiguous(), self.k, self.v, self.tables,
+                         new.seq_lens)
             return new, out[:, None]
         pa.paged_write_prefill(self.k, self.v, self.tables, k, v)
         return self._advanced(q.shape[1]), _dense_causal(q, k, v)
@@ -118,16 +131,27 @@ class PagedChunkView(PagedKVCache):
 class PagedChunkKernelView(PagedChunkView):
     """:class:`PagedChunkView` attending through ``paged_chunk_attention``
     (the ``paged_chunk`` kernel on the card).  The write path is
-    inherited unchanged."""
+    inherited unchanged.  A head dim the kernel does not take attends
+    through ``paged_chunk_attention_reference`` (counted in its
+    ``plain_calls``): a gap of the port's kernel, where the JAX package's
+    chunk kernel takes any head dim."""
 
     def _attend_chunk(self, q):
+        if flash_attention.plain_route(q):
+            pa.paged_chunk_attention.plain_calls += 1
+            return super()._attend_chunk(q)
         return pa.paged_chunk_attention(q.contiguous(), self.k, self.v,
                                         self.tables, self.seq_lens)
 
 
 def _dense_causal(q, k, v):
     """Prefill attention: the prompt is the whole context, so no cache
-    read is needed.  Always the ``flash_fwd`` wrapper, which takes any
-    sequence length."""
+    read is needed.  The ``flash_fwd`` wrapper, which takes any sequence
+    length; a head dim it does not take goes to its plain version (the
+    JAX package's jnp oracle), counted in its ``plain_calls``."""
+    if flash_attention.plain_route(q):
+        flash_attention.flash_attention_fwd.plain_calls += 1
+        return flash_attention.flash_attention_fwd_reference(
+            q, k, v, causal=True)[0]
     return flash_attention.flash_attention_fwd(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=True)[0]

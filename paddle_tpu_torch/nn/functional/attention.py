@@ -7,8 +7,12 @@ No mask, or a boolean key-padding mask (``[B, 1, Sk]`` or
 ``[B, 1, 1, Sk]``, see :func:`as_kv_padding_mask`), and attention dropout
 go through :func:`paddle_tpu_torch.ops.flash_attention.flash_attention`:
 the flash kernels for CUDA tensors, their plain versions for CPU tensors.
-Any other mask (additive, or a full ``[Sq, Sk]`` one) takes the plain
-softmax path below, as the JAX package takes ``sdpa_xla``.
+A head dim the kernels do not take (``plain_route``: hd outside 64, 128,
+256) goes on the card to ``flash_attention_fwd_reference`` under autograd
+and is counted in ``flash_attention_fwd.plain_calls``, as the JAX package
+takes ``sdpa_xla`` where its kernel does not apply.  Any other mask
+(additive, or a full ``[Sq, Sk]`` one) takes the plain softmax path
+below, as the JAX package takes ``sdpa_xla``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import math
 
 import torch
 
-from ...ops.flash_attention import flash_attention
+from ...ops import flash_attention as fa
 from .common import dropout
 
 __all__ = ["scaled_dot_product_attention", "as_kv_padding_mask"]
@@ -76,7 +80,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     rate = float(dropout_p) if training else 0.0
     if attn_mask is None or kv_mask is not None:
         seed = _draw_seed(generator) if rate else None
-        return flash_attention(query, key, value, is_causal, kv_mask, rate,
-                               seed)
+        if fa.plain_route(query):
+            fa.flash_attention_fwd.plain_calls += 1
+            return fa.flash_attention_fwd_reference(
+                query, key, value, is_causal, kv_mask, rate, seed)[0]
+        return fa.flash_attention(query, key, value, is_causal, kv_mask,
+                                  rate, seed)
     return _sdpa_plain(query, key, value, attn_mask, rate, is_causal,
                        generator)

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "ptt_flash_bwd_dq": [_P] * 8 + [_I] * 8 + _DROPOUT + [_P],
     "ptt_flash_bwd_dkv": [_P] * 10 + [_I] * 8 + _DROPOUT + [_P],
     "ptt_paged_decode": [_P] * 7 + [_I] * 8 + [_P],
-    "ptt_paged_chunk": [_P] * 6 + [_I] * 8 + [_P],
+    "ptt_paged_chunk": [_P] * 7 + [_I] * 9 + [_P],
     "ptt_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
     "ptt_moe_combine": [_P] * 4 + [_I] * 5 + [_P],
 }

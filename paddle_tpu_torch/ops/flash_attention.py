@@ -26,6 +26,7 @@ tile alike, in one tile of Sq, Sk <= 512, they give these bits exactly.)
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -33,12 +34,25 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
+           "KERNEL_HEAD_DIMS", "plain_route",
            "flash_attention_bwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_fwd_reference",
            "flash_attention_bwd_reference", "dropout_keep_mask"]
 
 _NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
+# the head dims every attention kernel of the port takes (flash and paged)
+KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def plain_route(q) -> bool:
+    """The callers' route, decided from the shape before any launch (the
+    JAX package's ``flash_attention_available``): True for a tensor off
+    the CPU whose head dim (``q.shape[-1]``) no attention kernel takes.
+    The caller then runs the kernel's plain version and adds one to the
+    wrapper's ``plain_calls``, never to its ``launches``.  A CPU tensor
+    gives False: the wrappers take their plain versions for it anyway."""
+    return q.device.type != "cpu" and q.shape[-1] not in KERNEL_HEAD_DIMS
 
 
 # ------------------------------------------------------------------ dropout
@@ -73,6 +87,14 @@ def dropout_keep_mask(B: int, nh: int, Sq: int, Sk: int, seed: int,
     x = _mul32(x, 0x846CA68B)
     x ^= x >> 16
     return (x < _keep_threshold(rate)).view(B, nh, Sq, Sk)
+
+
+def _autocast_off(device):
+    """Autocast off for the plain versions' float32 math; a device with no
+    autocast (``meta``) has none to turn off."""
+    if device.type in ("cpu", "cuda"):
+        return torch.autocast(device.type, enabled=False)
+    return contextlib.nullcontext()
 
 
 # ------------------------------------------------------------------- checks
@@ -122,8 +144,9 @@ def _kernel_dims(kernel, q, k, floats, kv_mask):
     _build.check_device_tensors(kernel, floats,
                                 () if kv_mask is None else (kv_mask,))
     B, Sq, nh, hd = q.shape
-    if hd not in (64, 128, 256):
-        raise ValueError(f"{kernel}: head dim {hd} not in (64, 128, 256)")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dim {hd} not in "
+                         f"{KERNEL_HEAD_DIMS}")
     return B, Sq, k.shape[1], nh, k.shape[2], hd
 
 
@@ -173,6 +196,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.plain_calls = 0     # callers' plain routes (plain_route)
 
 
 def _scores(q, k, causal, kv_mask):
@@ -197,7 +221,7 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = False,
     """The plain version of ``flash_fwd``: the whole score matrix in
     float32 (autocast off), the same masking, the same keep bits and the
     same zero-row convention."""
-    with torch.autocast(q.device.type, enabled=False):
+    with _autocast_off(q.device):
         B, Sq, nh, hd = q.shape
         Sk = k.shape[1]
         s, valid, _ = _scores(q, k, causal, kv_mask)
@@ -330,7 +354,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
     summed over each kv head's group of query heads.  float32 throughout
     (autocast off).  Returns ``(dq, dk, dv)``; ``parts`` names which to
     compute (the others are None)."""
-    with torch.autocast(q.device.type, enabled=False):
+    with _autocast_off(q.device):
         B, Sq, nh, hd = q.shape
         Sk, nkv = k.shape[1], k.shape[2]
         s, valid, kf = _scores(q, k, causal, kv_mask)

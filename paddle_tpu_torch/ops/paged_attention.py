@@ -21,16 +21,20 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .flash_attention import KERNEL_HEAD_DIMS
 
 __all__ = ["paged_attention", "paged_attention_reference", "decode_split",
-           "paged_chunk_attention", "paged_chunk_attention_reference",
-           "paged_verify_attention", "paged_write_token",
-           "paged_write_prefill"]
+           "chunk_split", "paged_chunk_attention",
+           "paged_chunk_attention_reference", "paged_verify_attention",
+           "paged_write_token", "paged_write_prefill"]
 
 _NEG_INF = -1e30
 _DECODE_MAX_TABLE = 8192    # the widest block table paged_decode takes
 _DECODE_SPLIT_KEYS = 256    # keys one block of paged_decode streams
 _DECODE_MAX_SPLITS = 128
+_CHUNK_SPLIT_KEYS = 256     # keys one block of bf16 paged_chunk takes
+_CHUNK_MAX_SPLITS = 64
+_CHUNK_FILL_BLOCKS = 132    # the H100's SMs: fewer blocks split the keys
 
 
 def decode_split(max_blocks: int, bs: int):
@@ -43,6 +47,26 @@ def decode_split(max_blocks: int, bs: int):
     per = max(1, _DECODE_SPLIT_KEYS // bs,
               -(-max_blocks // _DECODE_MAX_SPLITS))
     return per, -(-max_blocks // per)
+
+
+def chunk_split(B: int, nh: int, s: int, max_blocks: int, bs: int):
+    """``(keys_per_split, n_split)`` of bf16 ``paged_chunk`` for ``B``
+    sequences of ``s`` chunk rows and ``nh`` heads over a table of
+    ``max_blocks`` blocks of ``bs`` keys.  A grid of fewer blocks (one per
+    sequence x head x 128 rows) than the card has SMs splits the key axis
+    into runs of about 256 keys (a multiple of the kernel's 64-key tile, at
+    most 64 runs), whose partial states a merge combines; otherwise one
+    split covers the whole table.  From the shapes alone, never from the
+    starts: they live on the card, and reading them would synchronise the
+    host at every layer of every chunk."""
+    table_keys = max_blocks * bs
+    whole = -(-table_keys // 64) * 64
+    if B * nh * -(-s // 128) >= _CHUNK_FILL_BLOCKS:
+        return whole, 1
+    per = max(_CHUNK_SPLIT_KEYS,
+              -(-table_keys // (64 * _CHUNK_MAX_SPLITS)) * 64)
+    per = min(-(-per // 64) * 64, whole)
+    return per, -(-table_keys // per)
 
 
 def _check_pool(q, k_cache, v_cache, tables, lens, name):
@@ -85,8 +109,9 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
     _build.check_device_tensors("paged_decode", (q, k_cache, v_cache),
                                 (block_tables, seq_lens))
     B, nh, hd = q.shape
-    if hd not in (64, 128, 256):
-        raise ValueError(f"paged_decode: head dim {hd} not in (64, 128, 256)")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_decode: head dim {hd} not in "
+                         f"{KERNEL_HEAD_DIMS}")
     if block_tables.shape[1] > _DECODE_MAX_TABLE:
         raise ValueError(f"paged_decode: a table of {block_tables.shape[1]} "
                          f"blocks exceeds the kernel's {_DECODE_MAX_TABLE}")
@@ -108,6 +133,7 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
 
 
 paged_attention.launches = 0
+paged_attention.plain_calls = 0     # callers' plain routes (plain_route)
 
 
 def _gather_table(pool, tables):
@@ -153,15 +179,25 @@ def _launch_chunk(q, k_cache, v_cache, block_tables, start_lens):
     _build.check_device_tensors("paged_chunk", (q, k_cache, v_cache),
                                 (block_tables, start_lens))
     B, s, nh, hd = q.shape
-    if hd not in (64, 128, 256):
-        raise ValueError(f"paged_chunk: head dim {hd} not in (64, 128, 256)")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_chunk: head dim {hd} not in "
+                         f"{KERNEL_HEAD_DIMS}")
     _, num_blocks, bs, _ = k_cache.shape
+    max_blocks = block_tables.shape[1]
+    per, n_split, work = 64, 1, None
+    if q.dtype == torch.bfloat16:
+        per, n_split = chunk_split(B, nh, s, max_blocks, bs)
+    if n_split > 1:
+        # each split's partial states: acc [hd] and (m, l) per row
+        work = torch.empty(n_split * B * nh * s * (hd + 2),
+                           dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     err = _build.library().ptt_paged_chunk(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), start_lens.data_ptr(), out.data_ptr(),
-        B, s, nh, hd, num_blocks, bs, block_tables.shape[1],
-        _build.dtype_code(q.dtype), _build.stream(q.device))
+        None if work is None else work.data_ptr(), B, s, nh, hd,
+        num_blocks, bs, max_blocks, per, _build.dtype_code(q.dtype),
+        _build.stream(q.device))
     _build.check(err, "paged_chunk")
     return out
 
@@ -179,7 +215,10 @@ def paged_chunk_attention(q, k_cache, v_cache, block_tables, start_lens):
     ``[B, s, nh, hd]``.
 
     CUDA tensors (float32 or bfloat16, hd in 64/128/256) launch
-    ``paged_chunk``; CPU tensors take
+    ``paged_chunk`` (bfloat16: ``paged_chunk_tc_kernel`` on the tensor
+    cores, its key axis split as :func:`chunk_split` says and the splits
+    merged by ``paged_chunk_merge_kernel``, one launch in the count;
+    float32: ``paged_chunk_kernel`` on FMAs); CPU tensors take
     :func:`paged_chunk_attention_reference`.
     """
     _chunk_checks(q, k_cache, v_cache, block_tables, start_lens,
@@ -193,6 +232,7 @@ def paged_chunk_attention(q, k_cache, v_cache, block_tables, start_lens):
 
 
 paged_chunk_attention.launches = 0
+paged_chunk_attention.plain_calls = 0   # callers' plain routes
 
 
 def paged_verify_attention(q, k_cache, v_cache, block_tables, start_lens):

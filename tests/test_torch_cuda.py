@@ -307,6 +307,80 @@ def test_paged_chunk(gen, dtype):
     torch.testing.assert_close(out.float(), ref, **TOL[dtype])
 
 
+def _chunk_case(gen, B, s, nh, hd, bs, maxb, starts, dtype):
+    """Pools, tables of shuffled blocks covering each chunk (a chunk past
+    the table keeps every column live) and chunk queries."""
+    k = _randn(gen, (nh, B * maxb + 1, bs, hd), dtype)
+    v = _randn(gen, (nh, B * maxb + 1, bs, hd), dtype)
+    tables = _tables(gen, B, maxb, [x + s for x in starts], bs)
+    q = _randn(gen, (B, s, nh, hd), dtype)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    return q, k, v, tables, st
+
+
+def _check_chunk(q, k, v, tables, st, dtype):
+    n = pa.paged_chunk_attention.launches
+    out = pa.paged_chunk_attention(q, k, v, tables, st)
+    assert pa.paged_chunk_attention.launches == n + 1
+    ref = pa.paged_chunk_attention_reference(q.float(), k.float(),
+                                             v.float(), tables, st)
+    torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+    return out
+
+
+@pytest.mark.parametrize("s", [1, 4, 70, 256])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_paged_chunk_bf16_tensor_cores(gen, hd, bs, s):
+    """paged_chunk_tc_kernel (split or not, as chunk_split picks) at every
+    head dim it takes, two block sizes and verify-sized to serving-sized
+    chunks: starts 0, ragged, at a tile edge, and a chunk running past the
+    512-key table (its rows attend the whole table), then the same with
+    out-of-pool table entries (dropped keys)."""
+    nh, maxb = 2, 512 // bs
+    starts = [0, 37, 128, 500]
+    q, k, v, tables, st = _chunk_case(gen, len(starts), s, nh, hd, bs, maxb,
+                                      starts, torch.bfloat16)
+    _check_chunk(q, k, v, tables, st, torch.bfloat16)
+    bad = tables.clone()
+    bad[1, 0], bad[2, 3], bad[3, maxb - 1] = -1, 10 ** 6, -7
+    _check_chunk(q, k, v, bad, st, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split_keys", [64, 128, 256, 1 << 30])
+def test_paged_chunk_split_edges(gen, monkeypatch, dtype, split_keys):
+    """The key axis in splits of 64 .. 256 keys and unsplit: rows whose
+    keys end one before, at and one past a split edge, a chunk whose keys
+    all lie in the first split, rows that see only dropped keys (zeros),
+    and splits past every row's keys (merged as empty)."""
+    monkeypatch.setattr(pa, "_CHUNK_SPLIT_KEYS", split_keys)
+    nh, hd, bs, maxb, s = 2, 128, 16, 32, 70
+    # last keys of the rows: 0..69, 57..126, 186..255, 187..256,
+    # 188..257 (across the edges at 64, 128, 192 and 256), 480..549 (past
+    # the 512-key table)
+    starts = [0, 57, 186, 187, 188, 480]
+    q, k, v, tables, st = _chunk_case(gen, len(starts), s, nh, hd, bs, maxb,
+                                      starts, dtype)
+    per, n_split = pa.chunk_split(len(starts), nh, s, maxb, bs)
+    assert n_split == -(-maxb * bs // per) and per % 64 == 0
+    _check_chunk(q, k, v, tables, st, dtype)
+    bad = tables.clone()
+    bad[0, :2] = -1              # rows 0..31 of sequence 0 see no key
+    out = _check_chunk(q, k, v, bad, st, dtype)
+    assert not out[0, :2 * bs].any()
+
+
+@pytest.mark.parametrize("hd", [32, 96])
+def test_paged_chunk_unsupported_head_dim_raises(gen, hd):
+    q, k, v, tables, st = _chunk_case(gen, 1, 8, 2, hd, 16, 4, [3],
+                                      torch.bfloat16)
+    n = pa.paged_chunk_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_chunk_attention(q, k, v, tables, st)
+    assert pa.paged_chunk_attention.launches == n
+
+
 @pytest.mark.parametrize("bad", [-1, 10 ** 6])
 def test_paged_kernels_drop_out_of_pool_entries(gen, bad):
     nh, hd, bs, maxb = 2, 128, 16, 6
@@ -382,6 +456,57 @@ def test_training_steps_match_the_cpu(gen):
     torch.testing.assert_close(torch.tensor(losses[1]),
                                torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
     assert losses[1][-1] < losses[1][0]
+
+
+def test_hd32_serves_and_trains_on_the_plain_routes(gen):
+    """gpt3_tiny (hd 32, which no attention kernel takes) on the card: one
+    greedy request with whole-prompt and chunked prefill, and 2 AdamW
+    steps, through the kernels' plain versions, counted in plain_calls and
+    never in launches; streams equal the CPU's, losses within 1e-4."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt3_tiny()
+    assert cfg.hidden_size // cfg.num_heads == 32
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3)
+    card = GPTForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    counted = (fa.flash_attention_fwd, pa.paged_attention,
+               pa.paged_chunk_attention)
+    launches = [fn.launches for fn in counted]
+    plain = [fn.plain_calls for fn in counted]
+    prompt = list(range(5, 60))
+    streams = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        for chunk in (0, 16):
+            eng = ServingEngine(model, max_batch=1, max_context=128,
+                                block_size=16, steps_per_tick=4,
+                                prefill_chunk=chunk, device=dev)
+            req = eng.add_request(Request(prompt, max_new_tokens=10))
+            eng.run()
+            streams.append(req.output_ids)
+    assert all(s == streams[0] for s in streams)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64),
+                        generator=torch.Generator().manual_seed(0))
+    losses = []
+    for model in (cpu, card):
+        model.train()
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        x = ids.to(model.device)
+        run = []
+        for _ in range(2):
+            loss = model.compute_loss(x, x)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            run.append(loss.item())
+        losses.append(run)
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
+    assert [fn.launches for fn in counted] == launches
+    assert all(fn.plain_calls > n for fn, n in zip(counted, plain))
 
 
 # --------------------------------------------------------------------- MoE

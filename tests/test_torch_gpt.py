@@ -118,6 +118,11 @@ def test_process_logits_rows_matches_jax():
 
 
 def test_sampler_draws_by_seed_and_position():
+    from paddle_tpu_torch.core import threefry
+
+    def keys(seeds, positions):
+        return threefry.fold_in(threefry.key(seeds), positions)
+
     V = 64
     logits = torch.from_numpy(
         np.random.RandomState(2).standard_normal((3, V)).astype(np.float32))
@@ -126,15 +131,15 @@ def test_sampler_draws_by_seed_and_position():
                                                             dtype=torch.long),
                 top_p=torch.ones(3), any_sample=True)
     seeds = torch.tensor([7, 7, 7])
-    a = tgen.sample_rows(logits, seeds=seeds,
-                         positions=torch.tensor([0, 0, 0]), **args)
-    b = tgen.sample_rows(logits, seeds=seeds,
-                         positions=torch.tensor([0, 0, 0]), **args)
+    a = tgen.sample_rows(logits, keys=keys(seeds, torch.tensor([0, 0, 0])),
+                         **args)
+    b = tgen.sample_rows(logits, keys=keys(seeds, torch.tensor([0, 0, 0])),
+                         **args)
     assert torch.equal(a, b)
     assert a[2] == logits[2].argmax()           # the greedy row
     # rows with the same logits, seed and position draw the same token
-    same = tgen.sample_rows(logits[[0, 0]], seeds=seeds[:2],
-                            positions=torch.tensor([5, 5]),
+    same = tgen.sample_rows(logits[[0, 0]],
+                            keys=keys(seeds[:2], torch.tensor([5, 5])),
                             do_sample=torch.tensor([True, True]),
                             temperature=torch.ones(2),
                             top_k=torch.zeros(2, dtype=torch.long),
@@ -144,8 +149,8 @@ def test_sampler_draws_by_seed_and_position():
     # positions against softmax(logits), within 4 standard errors
     n = 4000
     row = logits[:1].expand(n, V)
-    draws = tgen.sample_rows(row, seeds=torch.full((n,), 11),
-                             positions=torch.arange(n),
+    draws = tgen.sample_rows(row, keys=keys(torch.full((n,), 11),
+                                            torch.arange(n)),
                              do_sample=torch.ones(n, dtype=torch.bool),
                              temperature=torch.ones(n),
                              top_k=torch.zeros(n, dtype=torch.long),

@@ -465,3 +465,65 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for f in files:
         hits = [m.group(0) for m in _FORBIDDEN.finditer(f.read_text())]
         assert not hits, f"{f.relative_to(ROOT)}: {hits}"
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_head_dims_route_before_any_launch(monkeypatch, hd):
+    """Off the CPU (here ``meta`` tensors, the library a stub that
+    raises), a head dim the kernels do not take goes to the plain
+    versions in every caller and is counted in ``plain_calls``, never in
+    ``launches``; a head dim they take reaches the kernel library."""
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    def stub():
+        raise _KernelRoute()
+    monkeypatch.setattr(_build, "library", stub)
+    m = dict(device="meta")
+    B, s, nh = 2, 4, 2
+    q = torch.empty(B, s, nh, hd, **m)
+    cache = tkv.PagedKVCache(B, 48, nh, hd, block_size=16, device="meta")
+    chunk = tkv.PagedChunkKernelView.from_parts(
+        cache.k, cache.v, cache.tables, cache.seq_lens + 3, 16)
+    calls = [(tflash.flash_attention_fwd,
+              lambda: scaled_dot_product_attention(q, q, q, is_causal=True)),
+             (tflash.flash_attention_fwd,
+              lambda: cache.update_and_attend(q, q, q)),
+             (tpa.paged_attention,
+              lambda: cache.update_and_attend(*(q[:, :1],) * 3)),
+             (tpa.paged_chunk_attention,
+              lambda: chunk.update_and_attend(q, q, q))]
+    counted = (tflash.flash_attention_fwd, tpa.paged_attention,
+               tpa.paged_chunk_attention)
+    for fn in counted:
+        monkeypatch.setattr(fn, "plain_calls", 0)
+        monkeypatch.setattr(fn, "launches", 0)
+    for fn, call in calls:
+        before = fn.plain_calls
+        if hd in tflash.KERNEL_HEAD_DIMS:
+            with pytest.raises(_KernelRoute):
+                call()
+            assert fn.plain_calls == before
+        else:
+            out = call()
+            out = out[1] if isinstance(out, tuple) else out
+            assert out.shape[-1] == hd and out.device.type == "meta"
+            assert fn.plain_calls == before + 1
+    assert all(fn.launches == 0 for fn in counted)
+    assert tflash.plain_route(q) == (hd not in (64, 128, 256))
+    assert not tflash.plain_route(torch.empty(B, s, nh, hd))   # the CPU
+
+
+def test_chunk_split_comes_from_the_shapes():
+    """bf16 paged_chunk splits its key axis only when the grid (sequence x
+    head x 128 rows) is smaller than the card's 132 SMs; splits are
+    multiples of the 64-key tile, at most 64 of them, and cover the
+    table."""
+    assert tpa.chunk_split(1, 16, 256, 32, 64) == (256, 8)   # serving path
+    assert tpa.chunk_split(8, 16, 256, 32, 64) == (2048, 1)
+    assert tpa.chunk_split(1, 2, 70, 8, 16) == (128, 1)      # small table
+    assert tpa.chunk_split(1, 16, 4, 2048, 16) == (512, 64)
+    for B, nh, s, maxb, bs in [(1, 16, 1, 100, 16), (2, 4, 300, 7, 48),
+                               (1, 1, 1000, 3000, 64)]:
+        per, n = tpa.chunk_split(B, nh, s, maxb, bs)
+        assert per % 64 == 0 and n <= 64 and (n - 1) * per < maxb * bs \
+            <= n * per

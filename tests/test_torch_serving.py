@@ -3,14 +3,18 @@
 Both engines serve the same three greedy requests on `gpt3_tiny` with the
 same weights (carried by `paddle_tpu_torch/models/convert.py`), with
 whole-prompt prefill and with 16-token chunks; the token streams must be
-identical.  The JAX engine runs with its prefix cache off (not ported
-yet) and with `FLAGS_serving_pallas_prefill` off: its chunk kernel's
-default interpret strategy calls `pl.load`, which this jax release does
-not have, and the dense chunk view it falls back to is the same math.
+identical.  So must the streams of sampled requests (temperature, top-k,
+top-p) with the same seeds: both engines draw the first token from
+`numpy.random.RandomState(seed)` on the host and every later token from
+`fold_in(key(seed), position)`, the port through its own threefry
+(`paddle_tpu_torch/core/threefry.py`).  The JAX engine runs with its
+prefix cache off (not ported yet) and with `FLAGS_serving_pallas_prefill`
+off: its chunk kernel's default interpret strategy calls `pl.load`, which
+this jax release does not have, and the dense chunk view it falls back
+to is the same math.
 
-Sampled streams are not compared across the two: JAX and the port draw
-different random bits by design.  Within the port, a sampled stream is a
-function of the request's seed alone, whatever the tick size or batch.
+Within the port, a sampled stream is a function of the request's seed
+alone, whatever the tick size or batch.
 """
 
 import numpy as np
@@ -77,6 +81,37 @@ def test_greedy_streams_match_the_jax_engine(models, chunk):
     if chunk:
         # 29 -> 2 chunks, 11 -> 1, 40 -> 3
         assert eng.stats()["prefill_chunks"] == 6
+
+
+def _sampled_mix(seed0):
+    """The three prompts, all sampled with different filters and seeds
+    (one seed past 2**31), beside one greedy request."""
+    prompts = _prompts(4)
+    kws = [dict(temperature=0.9, top_k=40, top_p=0.95),
+           dict(temperature=1.3, top_k=0, top_p=0.8),
+           dict(temperature=0.7, top_k=5, top_p=1.0)]
+    reqs = [dict(prompt_ids=p, max_new_tokens=b, do_sample=True,
+                 seed=seed0 + 2 ** 31 * (i == 1) + i, **kw)
+            for i, (p, b, kw) in enumerate(zip(prompts, BUDGETS, kws))]
+    reqs.append(dict(prompt_ids=_prompts(5)[1], max_new_tokens=7))
+    return reqs
+
+
+@pytest.mark.parametrize("chunk", [0, 16])
+@pytest.mark.parametrize("seed0", [11, 2024])
+def test_sampled_streams_match_the_jax_engine(models, chunk, seed0):
+    jm, tm = models
+    mix = _sampled_mix(seed0)
+    with flag_guard(serving_pallas_prefill=False):
+        jeng = JaxEngine(jm, prefill_chunk=chunk, prefix_cache=False,
+                         **ENGINE)
+        jreqs = [jeng.add_request(JaxRequest(**kw)) for kw in mix]
+        jeng.run()
+    want = [list(r.output_ids) for r in jreqs]
+    _, got = _serve_port(tm, [Request(**kw) for kw in mix],
+                         prefill_chunk=chunk)
+    assert got == want
+    assert [len(s) for s in got] == [kw["max_new_tokens"] for kw in mix]
 
 
 def _sampled(seed, **kw):
