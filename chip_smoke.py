@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs ten phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs twelve phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -18,7 +18,10 @@ into ``build/paddle_tpu_torch/``), then runs ten phases on card 0:
    2e-2, and for gradients also rtol 1e-2 (one bf16 rounding of a
    gradient that sums over a whole sequence).  ``paged_decode`` also at
    the edges of its 256-key splits (255, 256, 257, 511, 512), 0 and the
-   full table, and with out-of-pool table entries; the bf16 training
+   full table, and with out-of-pool table entries, and at phase 12's
+   draft shape (hd 64, the draft's lengths, with and without out-of-pool
+   entries); ``flash_fwd`` also at the draft's prompt (nh 16, hd 64,
+   1024 keys); the bf16 training
    cases also at hd 64 and 256.  ``paged_chunk`` (bf16:
    ``paged_chunk_tc_kernel`` on the tensor cores, its key axis split)
    with 256-row chunks at many starts and past the table, chunks of 1, 4
@@ -27,7 +30,13 @@ into ``build/paddle_tpu_torch/``), then runs ten phases on card 0:
    path's shape (B 1, s 256, start 1024) at several split lengths, with
    TFLOP/s and two yardsticks that do not read the pool: ``flash_fwd``
    and ``F.scaled_dot_product_attention`` with the offset-causal mask on
-   a contiguous copy of the same keys.  Kernel, plain version and the
+   a contiguous copy of the same keys.  ``paged_chunk`` also at the
+   speculative verify's shape, through ``paged_verify_attention``: 8
+   slots, s = k in 2, 4, 8, starts 0, 0, 63, 64, 700, 1023, 1500, 2040
+   with the first two slots free (all-zero table rows), with and without
+   out-of-pool entries, fp32 and bf16; timed in bf16 at s 4 with the
+   serving lengths + 64 as starts, beside ``paged_decode`` (one decode
+   step) at the same lengths.  Kernel, plain version and the
    ``F.scaled_dot_product_attention`` yardstick (flash only; for the
    backward pair, sdpa's backward timed on its own) are timed with CUDA
    events (``paged_decode``, whose two kernels take less time than the
@@ -98,11 +107,41 @@ into ``build/paddle_tpu_torch/``), then runs ten phases on card 0:
    1e-3) and trains 2 AdamW steps with the same routing uniforms fed to
    both (losses atol 1e-4, parameters within 2 x lr x steps).
 
-10. Head dims no kernel takes (run after phase 3): ``gpt3_tiny`` (hd 32)
-   serves one greedy request (whole-prompt and chunked prefill) and
-   trains 2 AdamW steps on the card through the kernels' plain versions;
+10. Head dims no kernel takes (run after phase 12): ``gpt3_tiny`` (hd 32)
+   serves one greedy request (whole-prompt and chunked prefill, and with
+   n-gram speculation) and trains 2 AdamW steps on the card through the
+   kernels' plain versions;
    streams equal the CPU's, losses and parameters as in phase 5, every
    plain route counted (``plain_calls``) and no kernel launched.
+
+11. The prefix cache (run after phase 3, on a second GPT-3 1.3B in bf16):
+   8 requests sharing a 1024-token system prompt (16 full blocks), each
+   with its own suffix of 37 + 64 i tokens, and a ninth that is the
+   system prompt alone (its last block copied on write), 64 new tokens
+   each, odd ones sampled; served with the prefix cache off, on with
+   whole-prompt prefill, and on with 256-token chunks, 3 runs each in
+   turns (medians of tokens/s, mean TTFT of all and of the first 8, ms
+   per decode step).  Every budget met, hits > 0, ``paged_chunk``
+   launched in the whole-prompt hit run, no plain route, no leaked block;
+   how far the greedy streams agree with prefix off's, and the logit gap
+   at the first divergence (bf16 near-ties), printed.  Then one prefill
+   program, a miss (2048
+   bucket) against hits (suffixes of 512 and 64 at 1024): wall, host
+   enqueue and card busy time.
+12. Speculative decoding on the same model: 8 prompts of 400 .. 1000
+   tokens, each a random 48-token pattern repeated, 64 new tokens each,
+   odd ones sampled; plain decoding, n-gram drafts at k 4, n-gram with
+   the adaptive ladder 2, 4, 8, and a GPT-3 350M draft (hd 64, random
+   weights from a seed) at k 4, and the target as its own draft at k 4
+   (acceptance near 1: it must exceed 0.5), 3 runs each in turns.  Every
+   spec run launches ``paged_verify_attention``; budgets met, no leak;
+   the acceptance rate, ``k_now``, ``k_switches`` and the greedy
+   streams' agreement with plain decoding printed; the n-gram
+   run once more under the profiler (idle share, every verify launch on
+   ``paged_chunk_tc_kernel`` by name).  Then a
+   4-layer fp32 cut, card against CPU: greedy streams with the prefix (a
+   miss, a hit, a copy on write) equal those without it, and n-gram and
+   same-weights-draft speculation equal plain decoding.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -125,6 +164,8 @@ PEAK_OPS = {"torch.bfloat16": 989e12,   # dense bf16 tensor-core rate
 NH, HD, BS, BATCH, MAX_CONTEXT = 16, 128, 64, 8, 2048
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 4, 2048, 6, 1e-4
 MOE_E = 4                            # experts of the GPT-MoE phases
+REPEATS = 3                          # serving runs per median (phases 11-12)
+SPEC_LENS = [400 + 600 * i // (BATCH - 1) for i in range(BATCH)]  # phase 12
 TOL = {"torch.float32": dict(atol=2e-5, rtol=1e-4),
        "torch.bfloat16": dict(atol=2e-2, rtol=0.0)}
 GRAD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
@@ -234,16 +275,25 @@ def kernel_checks(path_lens):
 
     # --- paged_decode: edge lengths (0, block edges, the edges of the
     # 256-key splits, full table), the same with out-of-pool table entries
-    # (dropped keys), then the main path's lengths (the prompts, 32
-    # tokens into decoding)
+    # (dropped keys), the draft model's shape in phase 12 (gpt3_350m: hd
+    # 64, its prompts 32 tokens into decoding, with and without dropped
+    # keys), then the main path's lengths (the prompts, 32 tokens into
+    # decoding)
     edge = [0, 1, 63, 64, 65, 255, 256, 257, 511, 512, 1000, 2047, 2048]
+    draft = [n + 32 for n in SPEC_LENS]
     path = [n + 32 for n in path_lens]
+    # (row, table column, entry): rows 256, 511 and 2048 of `edge`, and
+    # three rows of `draft`, lose keys
+    edge_bad = ((6, 2, -1), (8, 7, -1), (12, 20, 10 ** 6))
+    draft_bad = ((0, 3, -1), (4, 9, 10 ** 6), (7, 16, -1))
     for dtype in (torch.float32, bf16):
-        for lens, bad in ((edge, False), (edge, True), (path, False)):
-            k, v, tables = _pool_case(gen, lens, dtype)
-            if bad:                 # rows 256, 511 and 2048: dropped keys
-                tables[6, 2], tables[8, 7], tables[12, 20] = -1, -1, 10 ** 6
-            q = torch.randn((len(lens), NH, HD), generator=gen,
+        for lens, bad, hd in ((edge, (), HD), (edge, edge_bad, HD),
+                              (draft, (), 64), (draft, draft_bad, 64),
+                              (path, (), HD)):
+            k, v, tables = _pool_case(gen, lens, dtype, hd=hd)
+            for r, c, entry in bad:
+                tables[r, c] = entry
+            q = torch.randn((len(lens), NH, hd), generator=gen,
                             device="cuda").to(dtype)
             sl = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
             out = pa.paged_attention(q, k, v, tables, sl)
@@ -253,7 +303,7 @@ def kernel_checks(path_lens):
             err = _compare("paged_decode", out, ref, dtype)
             if lens[0] == 0 and out[0].abs().max().item() != 0.0:
                 raise AssertionError("paged_decode: a len-0 row is not zero")
-            _log(f"paged_decode {dtype} lens={lens}"
+            _log(f"paged_decode {dtype} hd={hd} lens={lens}"
                  + (" out-of-pool entries" if bad else "")
                  + f": max_abs_err={err:.3e}")
     e = 2
@@ -290,12 +340,13 @@ def kernel_checks(path_lens):
                                 ms_by_split_keys=by_split)
 
     # --- flash_fwd: the largest prefill bucket (one 2048-token prompt),
-    # a ragged length, a GQA group, Sq < Sk, hd 64 and 256, and Sq > Sk
-    # (its first Sq - Sk rows see no key: zeros, lse -1e30)
+    # a ragged length, a GQA group, Sq < Sk, hd 64 and 256, Sq > Sk (its
+    # first Sq - Sk rows see no key: zeros, lse -1e30), and the phase-12
+    # draft model's prompt (gpt3_350m: nh 16, hd 64, a 1024 bucket)
     cases = [(1, 2048, 2048, NH, NH, HD), (2, 1000, 1000, NH, NH, HD),
              (1, 300, 1000, NH, 4, HD), (1, 2048, 2048, 2 * NH, 2 * NH, 64),
              (1, 1000, 1000, NH // 2, NH // 4, 256),
-             (2, 700, 300, NH, NH, HD)]
+             (2, 700, 300, NH, NH, HD), (1, 1024, 1024, NH, NH, 64)]
     for dtype in (torch.float32, bf16):
         for B, Sq, Sk, nh, nkv, hd in cases:
             q = torch.randn((B, Sq, nh, hd), generator=gen,
@@ -335,6 +386,7 @@ def kernel_checks(path_lens):
                              tflops=flops / ms / 1e9)
 
     rows["paged_chunk"] = paged_chunk_checks(gen)
+    rows["paged_chunk"]["verify_shape"] = verify_checks(gen, path_lens)
     for name, r in rows.items():
         _log(f"{name} bf16 timing: ms={r['ms']:.4f}"
              + (f" (host loop {r['host_ms']:.4f})" if "host_ms" in r else "")
@@ -470,6 +522,88 @@ def paged_chunk_checks(gen):
          f"reading the pool (contiguous copy of the same keys): flash_fwd "
          f"Sq 256 Sk 1280 causal {flash_ms:.4f} ms, sdpa with the offset-"
          f"causal mask {sdpa_ms:.4f} ms")
+    return row
+
+
+def _verify_case(gen, starts, s, dtype, free=0, bad=False):
+    """``paged_verify_attention`` against the plain version at the spec
+    tick's shape: one row of s verify positions per slot at ``starts``,
+    the first ``free`` rows free slots (start 0 on an all-zero table row:
+    the pad block)."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    k, v, tables = _pool_case(gen, starts, dtype, extra_cols=s)
+    tables[:free] = 0
+    if bad:            # dropped keys, in a live row and at the table's end
+        tables[3, 1], tables[-1, -1] = -1, 10 ** 6
+    q = torch.randn((len(starts), s, NH, HD), generator=gen,
+                    device="cuda").to(dtype)
+    st = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
+    n = pa.paged_verify_attention.launches
+    out = pa.paged_verify_attention(q, k, v, tables, st)
+    if pa.paged_verify_attention.launches != n + 1:
+        raise AssertionError("paged_verify_attention did not count its "
+                             "launch")
+    ref = pa.paged_chunk_attention_reference(q.float(), k.float(), v.float(),
+                                             tables, st)
+    torch.cuda.synchronize()
+    return (q, k, v, tables, st), _compare("paged_verify", out, ref, dtype)
+
+
+def verify_checks(gen, path_lens):
+    """paged_chunk at the speculative verify's shape (through
+    ``paged_verify_attention``): 8 slots, s = k in 2, 4, 8, mixed starts
+    with two free slots on all-zero table rows, a row across a block edge
+    and a row ending at the table's last key, with and without out-of-pool
+    entries, in fp32 and bf16 (bf16: 8 x 16 x 1 = 128 blocks, fewer than
+    the card's SMs, so the keys are split and merged).  Then timed in bf16
+    at s 4 with the serving lengths + 64 as starts (a verify 64 tokens
+    into decoding), beside ``paged_decode`` (one decode step) at the same
+    lengths.  Returns the numbers."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    bf16 = torch.bfloat16
+    starts = [0, 0, 63, 64, 700, 1023, 1500, 2040]
+    for dtype in (torch.float32, bf16):
+        for s in (2, 4, 8):
+            for bad in (False, True):
+                _, err = _verify_case(gen, starts, s, dtype, free=2, bad=bad)
+                _log(f"paged_verify {dtype} s={s} starts={starts}, rows 0-1 "
+                     f"free" + (", out-of-pool entries" if bad else "")
+                     + f": max_abs_err={err:.3e}")
+    s = 4
+    starts = [n + 64 for n in path_lens]
+    (q, k, v, tables, st), err = _verify_case(gen, starts, s, bf16)
+    per, n_split = pa.chunk_split(len(starts), NH, s, tables.shape[1], BS)
+    keys = [st0 + j + 1 for st0 in starts for j in range(s)]
+    nbytes = 2 * len(starts) * s * NH * HD * 2 \
+        + sum(st0 + s for st0 in starts) * NH * HD * 2 * 2 \
+        + tables.numel() * 4 + len(starts) * 4
+    flops = 4 * NH * HD * sum(keys)
+
+    def verify():
+        return pa.paged_verify_attention(q, k, v, tables, st)
+
+    ms = _graph_ms(verify, 200)
+    host_ms = _time_ms(verify, 200)
+    plain = _time_ms(lambda: pa.paged_chunk_attention_reference(
+        q, k, v, tables, st), 10)
+    bound, by = _bound(nbytes, flops, bf16)
+    q1 = q[:, 0].contiguous()
+    decode_ms = _graph_ms(lambda: pa.paged_attention(q1, k, v, tables, st),
+                          200)
+    row = dict(B=len(starts), s=s, starts=starts, keys_per_split=per,
+               n_split=n_split, max_abs_err=err, ms=ms, host_ms=host_ms,
+               plain_ms=plain, bound_ms=bound, bound_by=by,
+               tflops=flops / ms / 1e9,
+               paged_decode_same_lengths_ms=decode_ms)
+    _log(f"paged_chunk bf16 at the verify shape B={len(starts)} s={s} "
+         f"starts={starts} ({n_split} splits of {per} keys): card "
+         f"{ms:.4f} ms (host loop {host_ms:.4f}), plain {plain:.4f} ms, "
+         f"bound {bound:.4f} ms ({by}), {ms / bound:.1f}x the bound, "
+         f"{row['tflops']:.2f} TFLOP/s; paged_decode at the same lengths "
+         f"(one decode step) {decode_ms:.4f} ms")
     return row
 
 
@@ -782,6 +916,7 @@ def _counters():
     return {"flash_fwd": fa.flash_attention_fwd,
             "paged_decode": pa.paged_attention,
             "paged_chunk": pa.paged_chunk_attention,
+            "paged_verify_attention": pa.paged_verify_attention,
             "moe_dispatch": mo.moe_dispatch,
             "moe_combine": mo.moe_combine}
 
@@ -793,7 +928,8 @@ def _plain_counters():
     from paddle_tpu_torch.ops import paged_attention as pa
     return {"flash_fwd": fa.flash_attention_fwd,
             "paged_decode": pa.paged_attention,
-            "paged_chunk": pa.paged_chunk_attention}
+            "paged_chunk": pa.paged_chunk_attention,
+            "paged_verify_attention": pa.paged_verify_attention}
 
 
 def _zero_counts():
@@ -807,32 +943,35 @@ def _plain_calls():
     return {name: fn.plain_calls for name, fn in _plain_counters().items()}
 
 
-def serve(model, prompts, chunk, time_ticks=False):
-    """Serve the 8 requests on one engine, every launch count and plain
-    route count at 0 first; returns the run's numbers.  ``time_ticks``
-    synchronises the card before each decode tick and sums the ticks' wall
-    time (each tick ends in a host round trip), for ms per decode step
-    beside chunked prefill."""
+def serve(model, prompts, chunk, time_ticks=False, **engine_kw):
+    """Serve one request per prompt (64 new tokens, odd ones sampled) on
+    one engine with the serving settings (8 slots, block 64, context 2048,
+    8 steps per tick; ``engine_kw`` adds to them), every launch count and
+    plain route count at 0 first; returns the run's numbers.
+    ``time_ticks`` synchronises the card before each decode tick (plain or
+    speculative) and sums the ticks' wall time (each tick ends in a host
+    round trip), for ms per decode step beside the prefills."""
     import torch
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
 
     eng = ServingEngine(model, max_batch=BATCH, max_context=MAX_CONTEXT,
                         block_size=BS, steps_per_tick=8,
-                        prefill_chunk=chunk, device="cuda")
+                        prefill_chunk=chunk, device="cuda", **engine_kw)
     reqs = [Request(p, max_new_tokens=64, do_sample=bool(i % 2),
                     temperature=0.9, top_k=40, top_p=0.95, seed=1000 + i)
             for i, p in enumerate(prompts)]
     tick_s = [0.0]
     if time_ticks:
-        tick = eng._tick
-
-        def timed_tick(k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = tick(k)
-            tick_s[0] += time.perf_counter() - t
-            return out
-        eng._tick = timed_tick
+        def timed(fn):
+            def call(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a)
+                tick_s[0] += time.perf_counter() - t
+                return out
+            return call
+        eng._tick = timed(eng._tick)
+        eng._spec_tick = timed(eng._spec_tick)
     _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -859,10 +998,10 @@ def serve(model, prompts, chunk, time_ticks=False):
     n_tok = sum(len(r.output_ids) for r in reqs)
     ttfts = [r.t_first - r.t_enqueue for r in reqs]
     return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
-                ttft_mean_s=sum(ttfts) / len(ttfts),
+                ttft_mean_s=sum(ttfts) / len(ttfts), ttfts=ttfts,
                 ttft_max_s=max(ttfts), steps=st["steps"], ticks=st["ticks"],
                 prefill_chunks=st["prefill_chunks"], launches=launches,
-                plain_calls=plain, tick_s=tick_s[0],
+                plain_calls=plain, tick_s=tick_s[0], stats=st,
                 streams=[list(r.output_ids) for r in reqs])
 
 
@@ -895,7 +1034,9 @@ def serving_phase(lens):
     same = sum(a == b for a, b in zip(runs[0]["streams"],
                                       runs[256]["streams"]))
     _log(f"streams equal across the two prefill modes: {same} of {BATCH} "
-         "(bf16 numerics of two attention kernels; informational)")
+         "(bf16 numerics of two attention kernels; informational); greedy "
+         "streams' leading tokens equal: "
+         f"{_agreement(runs[256]['streams'], runs[0]['streams'])} of 64")
     for chunk in (0, 256):
         where_the_time_goes(model, prompts, chunk)
     sampling_cost(cfg.vocab_size)
@@ -1062,7 +1203,8 @@ def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
 def plain_route_phase():
     """gpt3_tiny, whose head dim 32 no attention kernel takes, on the card
     through the kernels' plain versions: one greedy request with
-    whole-prompt and chunked prefill, its streams equal to the CPU's, and
+    whole-prompt and chunked prefill and with n-gram speculation, its
+    streams equal to the CPU's (and to each other), and
     2 AdamW steps card against CPU; every plain route counted, no kernel
     launched."""
     import torch
@@ -1078,14 +1220,16 @@ def plain_route_phase():
     _zero_counts()
     streams = {}
     for model, dev in ((card, "cuda"), (cpu, "cpu")):
-        for chunk in (0, 32):
+        for chunk, spec in ((0, False), (32, False), (0, True)):
+            # the n-gram spec run verifies through paged_verify_attention
             eng = ServingEngine(model, max_batch=1, max_context=160,
                                 block_size=16, steps_per_tick=4,
-                                prefill_chunk=chunk, device=dev)
+                                prefill_chunk=chunk, device=dev,
+                                spec_decode=spec, spec_draft="ngram")
             req = eng.add_request(Request(prompt.tolist(),
                                           max_new_tokens=16))
             eng.run()
-            streams[dev, chunk] = list(req.output_ids)
+            streams[dev, chunk, spec] = list(req.output_ids)
     serve_plain = _plain_calls()
     serve_launches = {n: fn.launches for n, fn in _counters().items()}
     if len({tuple(x) for x in streams.values()}) != 1:
@@ -1104,10 +1248,355 @@ def plain_route_phase():
     if train_plain["flash_fwd"] <= 0 or any(train_launches.values()):
         raise AssertionError(f"gpt3_tiny hd 32 training: plain routes "
                              f"{train_plain}, launches {train_launches}")
-    _log(f"gpt3_tiny hd 32 on the card: greedy streams (whole-prompt and "
-         f"chunked) equal to the CPU's; plain routes serving "
+    _log(f"gpt3_tiny hd 32 on the card: greedy streams (whole-prompt, "
+         f"chunked, n-gram spec) equal to the CPU's; plain routes serving "
          f"{serve_plain}, training {train_plain}; kernel launches "
          f"{serve_launches}, {train_launches}")
+
+
+# ---------------------------------------------------------- phases 11-12
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def _interleaved(label, model, prompts, configs):
+    """``REPEATS`` rounds of one serving run per configuration, in turns
+    (so a drift of the card or the host spreads over all of them); each
+    configuration's first run gives the launches and stats (each run
+    counts from 0), its runs the medians of tokens/s, mean TTFT (of all
+    requests, and of the first ``BATCH``, admitted at once) and ms per
+    decode step and per tick.  ``configs``: (key, label, chunk, engine
+    keywords)."""
+    runs = {key: [] for key, _, _, _ in configs}
+    for _ in range(REPEATS):
+        for key, _, chunk, kw in configs:
+            runs[key].append(serve(model, prompts, chunk, time_ticks=True,
+                                   **kw))
+    out = {}
+    for key, name, _, _ in configs:
+        rs = runs[key]
+        r = dict(rs[0])
+        r["tokens_per_s_runs"] = [x["tokens_per_s"] for x in rs]
+        r["tokens_per_s"] = _median(r["tokens_per_s_runs"])
+        r["ttft_mean_s"] = _median([x["ttft_mean_s"] for x in rs])
+        r["ttft_first_mean_s"] = _median(
+            [sum(x["ttfts"][:BATCH]) / BATCH for x in rs])
+        r["ms_per_step"] = _median([x["tick_s"] / max(x["steps"], 1) * 1e3
+                                    for x in rs])
+        r["ms_per_tick"] = _median([x["tick_s"] / max(x["ticks"], 1) * 1e3
+                                    for x in rs])
+        _log(f"{label}, {name}: {r['tokens']} tokens, median of {REPEATS} "
+             f"runs {r['tokens_per_s']:.1f} tokens/s (runs "
+             + ", ".join(f"{x:.1f}" for x in r["tokens_per_s_runs"])
+             + f"), mean TTFT {r['ttft_mean_s'] * 1e3:.1f} ms (the first "
+             f"{BATCH}: {r['ttft_first_mean_s'] * 1e3:.1f} ms), "
+             f"{r['ms_per_step']:.2f} ms per decode step, "
+             f"{r['ms_per_tick']:.2f} ms per tick; {r['steps']} decode "
+             f"steps in {r['ticks']} ticks, {r['prefill_chunks']} chunks, "
+             f"launches {r['launches']}")
+        _log("  mean TTFT of the first {} by run: {}".format(
+            BATCH, ", ".join(f"{sum(x['ttfts'][:BATCH]) / BATCH * 1e3:.1f}"
+                             for x in rs)))
+        out[key] = r
+    return out
+
+
+def _agreement(streams, base):
+    """How far each greedy request's stream (the even ones; odd ones
+    sample) agrees with ``base``'s: the common leading tokens, of 64."""
+    out = []
+    for i in range(0, len(base), 2):
+        n = 0
+        while n < len(base[i]) and n < len(streams[i]) \
+                and streams[i][n] == base[i][n]:
+            n += 1
+        out.append(n)
+    return out
+
+
+def _divergence_gaps(model, prompts, streams, base):
+    """Where a greedy stream first leaves ``base``'s, the dense forward's
+    logit of ``base``'s token minus that of the stream's, on the prompt
+    and ``base``'s tokens before it: a gap near 0 against the logits' std
+    is a near-tie that bf16 rounding flips.  Returns (gaps, std)."""
+    import torch
+    gaps, stds = [], []
+    n = _agreement(streams, base)
+    with torch.no_grad():
+        for i, d in zip(range(0, len(base), 2), n):
+            if d >= len(base[i]):
+                continue
+            ids = torch.as_tensor([prompts[i] + base[i][:d]], device="cuda")
+            logits = model(ids)[0, -1].float()
+            gaps.append(round((logits[base[i][d]]
+                               - logits[streams[i][d]]).item(), 4))
+            stds.append(logits.std().item())
+    return gaps, (sum(stds) / len(stds) if stds else 0.0)
+
+
+def prefix_phase(model):
+    """The prefix cache at full width: 8 requests sharing a 1024-token
+    system prompt (16 full blocks), each with its own suffix of 37 + 64 i
+    tokens, and a ninth that is the system prompt alone (fully cached and
+    block-aligned: its last block is copied on write); prefix off,
+    prefix on with whole-prompt prefill, and on with 256-token chunks.
+    Then the cost of one prefill, miss against hit."""
+    import torch
+    vocab = model.cfg.vocab_size
+    gen = torch.Generator().manual_seed(5)
+    system = torch.randint(1, vocab, (1024,), generator=gen).tolist()
+    prompts = [system + torch.randint(1, vocab, (37 + 64 * i,),
+                                      generator=gen).tolist()
+               for i in range(BATCH)] + [system]
+    runs = _interleaved(
+        "serving gpt3_1p3b bf16, shared 1024-token prefix", model, prompts,
+        [("off", "prefix off, whole-prompt", 0, dict(prefix_cache=False)),
+         ("whole", "prefix on, whole-prompt", 0, dict(prefix_cache=True)),
+         ("chunked", "prefix on, 256-token chunks", 256,
+          dict(prefix_cache=True))])
+    for key, run in runs.items():
+        pc = run["stats"].get("prefix_cache")
+        if key == "off":
+            if pc is not None:
+                raise AssertionError(f"prefix off: the cache is on: {pc}")
+            continue
+        if pc["hits"] <= 0:
+            raise AssertionError(f"prefix on ({key}): no hit: {pc}")
+        _log(f"  prefix on ({key}): hits {pc['hits']}, misses "
+             f"{pc['misses']}, blocks shared {pc['blocks_shared']}, "
+             f"entries {pc['entries']}, evictions {pc['evictions']}; "
+             f"greedy streams' leading tokens equal to prefix off's: "
+             f"{_agreement(run['streams'], runs['off']['streams'])} of 64; "
+             "logit gaps at the first divergence {} (logits' std "
+             "{:.3f})".format(*_divergence_gaps(
+                 model, prompts, run["streams"], runs["off"]["streams"])))
+    if runs["whole"]["launches"]["paged_chunk"] <= 0:
+        raise AssertionError("prefix hits ran no paged_chunk launch")
+    runs["prefill_cost"] = prefill_cost(model)
+    return runs
+
+
+def profiled_serving(label, model, prompts, chunk, **kw):
+    """One serving run under ``torch.profiler`` (after a warm-up cycle):
+    the card's busy share of the wall clock, the kernels that take its
+    time, and every bf16 ``paged_chunk`` launch (chunk and verify) by
+    name: the tensor-core kernel, never the FMA one.  Returns (idle share,
+    busy s, wall s)."""
+    import torch
+    run, kernels = _profiled(
+        lambda: serve(model, prompts, chunk, time_ticks=True, **kw),
+        lambda: torch.ones((256, 256), device="cuda").matmul(
+            torch.ones((256, 256), device="cuda")))
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    idle = 1 - busy / run["wall_s"]
+    _log(f"  profiled {label}: wall {run['wall_s']:.3f} s, card busy "
+         f"{busy:.3f} s in {sum(e.count for e in kernels)} launches, idle "
+         f"share {idle:.3f}, {run['ticks']} ticks")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        _log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x"
+             f"  {e.key[:80]}")
+    calls = run["launches"]["paged_chunk"] \
+        + run["launches"]["paged_verify_attention"]
+    got = _by_name(kernels, CHUNK_KERNELS)
+    if got["paged_chunk_tc_kernel"][0] != calls or \
+            got["paged_chunk_kernel"][0] != 0:
+        raise AssertionError(f"profiled {label}: paged_chunk launches by "
+                             f"kernel {got}, want {calls} on the tensor "
+                             "cores")
+    _log(f"    paged_chunk kernels by name: " + ", ".join(
+        f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in got.items()))
+    return idle, busy, run["wall_s"]
+
+
+def prefill_cost(model):
+    """One prompt program of the serving engine at the prefix phase's
+    shapes: a miss (the whole prompt in its 2048 bucket, ``flash_fwd``)
+    against hits (a 512- and a 64-token suffix at start 1024,
+    ``paged_chunk``): wall time with the card synchronised, the host's
+    time to enqueue it, and the card's busy time in one profiled call.
+    Returns {label: (wall ms, host ms, device ms)}."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.kv_cache import (PagedChunkKernelView,
+                                                  PagedKVCache)
+
+    eng = ServingEngine(model, max_batch=1, max_context=MAX_CONTEXT,
+                        block_size=BS, device="cuda")
+    row = np.arange(1, MAX_CONTEXT // BS + 1, dtype=np.int32)
+    rng = np.random.RandomState(8)
+    out = {}
+    for label, view, s, start in (
+            ("miss, whole prompt 2048", PagedKVCache, 2048, 0),
+            ("hit, suffix 512 at 1024", PagedChunkKernelView, 512, 1024),
+            ("hit, suffix 64 at 1024", PagedChunkKernelView, 64, 1024)):
+        ids = rng.randint(1, model.cfg.vocab_size, (1, s)).astype(np.int64)
+
+        def call():
+            return eng._forward_prompt(view, row, ids, start)
+        call()
+        walls, hosts = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            hosts.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        _, kernels = _profiled(call, call)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        out[label] = (_median(walls) * 1e3, _median(hosts) * 1e3, busy)
+        _log(f"  prefill {label}: wall {out[label][0]:.2f} ms, host "
+             f"{out[label][1]:.2f} ms to enqueue, card busy {busy:.2f} ms "
+             f"(median of 5; busy from one profiled call)")
+    del eng
+    return out
+
+
+def _repetitive_prompts(vocab):
+    """8 prompts of 400 .. 1000 tokens, each a random 48-token pattern
+    repeated: the n-gram drafter's traffic."""
+    import torch
+    gen = torch.Generator().manual_seed(6)
+    out = []
+    for n in SPEC_LENS:
+        pat = torch.randint(1, vocab, (48,), generator=gen).tolist()
+        out.append((pat * (n // 48 + 1))[:n])
+    return out
+
+
+def spec_phase(model, draft):
+    """Speculative decoding at full width: 8 repetitive prompts, plain
+    decoding against n-gram drafts at k 4, n-gram with the adaptive ladder
+    2, 4, 8, the draft model (GPT-3 350M, hd 64, random weights: low
+    acceptance, so the rejections and residual draws run) at k 4, and the
+    target as its own draft at k 4 (acceptance near 1: the accept and
+    advance path in bf16)."""
+    prompts = _repetitive_prompts(model.cfg.vocab_size)
+    runs = _interleaved(
+        "serving gpt3_1p3b bf16, repetitive prompts", model, prompts,
+        [("plain", "plain decoding", 0, {}),
+         ("ngram", "n-gram draft k 4", 0,
+          dict(spec_decode=True, spec_draft="ngram", spec_k=4)),
+         ("ngram_adaptive", "n-gram draft, adaptive k over 2,4,8", 0,
+          dict(spec_decode=True, spec_draft="ngram", spec_adaptive=True,
+               spec_k_ladder="2,4,8")),
+         ("model", "draft model gpt3_350m k 4", 0,
+          dict(spec_decode=True, spec_draft="model", spec_k=4,
+               draft_model=draft)),
+         ("self", "the target as its own draft k 4", 0,
+          dict(spec_decode=True, spec_draft="model", spec_k=4,
+               draft_model=model))])
+    for key, run in runs.items():
+        if key == "plain":
+            continue
+        sp = run["stats"]["speculative"]
+        if run["launches"]["paged_verify_attention"] <= 0:
+            raise AssertionError(f"spec {key}: no verify launch")
+        _log(f"  spec {key}: accept rate {sp['accept_rate']}, accepted "
+             f"{sp['accepted_tokens']} of {sp['proposed_tokens']}, k_now "
+             f"{sp['k_now']}, k_switches {sp['k_switches']}, spec ticks "
+             f"{sp['ticks']}, capped slots {sp['ineligible_slots']}; "
+             f"greedy streams' leading tokens equal to plain decoding's: "
+             f"{_agreement(run['streams'], runs['plain']['streams'])} of 64; "
+             "logit gaps at the first divergence {} (logits' std "
+             "{:.3f})".format(*_divergence_gaps(
+                 model, prompts, run["streams"], runs["plain"]["streams"])))
+    # the same weights propose what the target would choose, up to the
+    # rounding between the decode and the chunk kernel: a rate far below
+    # 1 means the accept path rejects what it should keep
+    rate = runs["self"]["stats"]["speculative"]["accept_rate"]
+    if not rate > 0.5:
+        raise AssertionError(f"spec self: accept rate {rate}, want near 1")
+    # one profile (its post-processing costs ~0.7 ms a launch, and the
+    # draft model's run has four times the n-gram run's launches)
+    runs["ngram"]["profile"] = profiled_serving(
+        "spec ngram", model, prompts, 0, spec_decode=True,
+        spec_draft="ngram", spec_k=4)
+    return runs
+
+
+def _cut_models(cfg):
+    """The fp32 cut on the CPU and on the card from one state dict."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=1).eval()
+    card = GPTForCausalLM(cfg, device="cuda", seed=2).eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _cut_streams(model, dev, prompts, **kw):
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    eng = ServingEngine(model, max_batch=2, max_context=256, block_size=BS,
+                        steps_per_tick=8, device=dev, **kw)
+    reqs = [eng.add_request(Request(p, max_new_tokens=16)) for p in prompts]
+    eng.run()
+    st = eng.stats()
+    if st["free_blocks"] != eng.num_blocks or st["reserved"] != 0:
+        raise AssertionError(f"blocks leaked: {st}")
+    return [list(r.output_ids) for r in reqs], st
+
+
+def cut_checks(cfg, label="gpt3_1p3b 4 layers fp32"):
+    """The prefix cache and speculation on a 4-layer fp32 cut, card
+    against CPU: greedy streams with the prefix (a miss, a hit, and the
+    128-token shared prompt alone, copied on write) equal the streams
+    without it; n-gram and same-weights-draft speculation equal plain
+    decoding; all equal on the card and the CPU."""
+    import torch
+    cpu, card = _cut_models(cfg)
+    vocab = cfg.vocab_size
+    gen = torch.Generator().manual_seed(7)
+    system = torch.randint(1, vocab, (128,), generator=gen).tolist()
+    shared = [system + torch.randint(1, vocab, (n,), generator=gen).tolist()
+              for n in (40, 70)] + [system]
+    pat = torch.randint(1, vocab, (48,), generator=gen).tolist()
+    rep = [(pat * 5)[:200], torch.randint(1, vocab, (150,),
+                                          generator=gen).tolist()]
+    streams = {}
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        for on in (False, True):
+            out, st = _cut_streams(model, dev, shared, prefix_cache=on)
+            if on and st["prefix_cache"]["hits"] != 2:
+                raise AssertionError(f"cut: prefix stats {st}")
+            streams["prefix", on, dev] = out
+        for key, kw in (("plain", {}),
+                        ("ngram", dict(spec_decode=True, spec_draft="ngram")),
+                        ("model", dict(spec_decode=True, spec_draft="model",
+                                       draft_model=model))):
+            out, st = _cut_streams(model, dev, rep, **kw)
+            streams["spec", key, dev] = out
+            if kw:
+                _log(f"  cut {key} spec on {dev}: accept rate "
+                     f"{st['speculative']['accept_rate']}")
+    for kind in ("prefix", "spec"):
+        got = {k: v for k, v in streams.items() if k[0] == kind}
+        if len({str(v) for v in got.values()}) != 1:
+            raise AssertionError(f"cut {kind} streams differ: {got}")
+    _log(f"card vs CPU, {label}: greedy streams with and without the "
+         f"prefix (hit, miss, copy on write) equal; n-gram and same-weights "
+         f"draft speculation equal plain decoding; card equal to CPU")
+
+
+def serving_extras_phase():
+    """Phases 11 and 12 on one GPT-3 1.3B (bf16, seed 0), then the 4-layer
+    fp32 cut."""
+    import torch
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt3_1p3b,
+                                             gpt3_350m)
+    cfg = gpt3_1p3b()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    draft = GPTForCausalLM(gpt3_350m(max_seq_len=MAX_CONTEXT),
+                           device="cuda", dtype=torch.bfloat16, seed=9)
+    prefix = prefix_phase(model)
+    spec = spec_phase(model, draft)
+    del model, draft
+    torch.cuda.empty_cache()
+    cut_checks(gpt3_1p3b(num_layers=4))
+    return prefix, spec
 
 
 # --------------------------------------------------------------- phase 4
@@ -1542,15 +2031,24 @@ def main() -> int:
     tc_regs = ptxas_report(_build.BUILD_DIR)
 
     lens = [100 + 200 * i for i in range(BATCH)]       # 100 .. 1500
-    rows = kernel_checks(lens)
-    flash_train_checks(rows)
-    moe_kernel_checks()
-    runs = serving_phase(lens)
-    card_vs_cpu(gpt3_1p3b(num_layers=4))
-    plain_route_phase()
-    train = training_phase()
-    train_card_vs_cpu(gpt3_1p3b(num_layers=4))
-    moe_serve, moe_train = moe_phases(lens, rows)
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        _log(f"[{name}: {time.perf_counter() - t:.1f} s; "
+             f"{time.perf_counter() - t0:.1f} s since the build began]")
+        return out
+    rows = timed("kernel checks", kernel_checks, lens)
+    timed("flash training checks", flash_train_checks, rows)
+    timed("MoE kernel checks", moe_kernel_checks)
+    runs = timed("serving", serving_phase, lens)
+    timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=4))
+    prefix, spec = timed("prefix and spec", serving_extras_phase)
+    timed("plain routes", plain_route_phase)
+    train = timed("training", training_phase)
+    timed("training card vs CPU", train_card_vs_cpu,
+          gpt3_1p3b(num_layers=4))
+    moe_serve, moe_train = timed("MoE", moe_phases, lens, rows)
 
     sources = {"flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/ops/pallas_flash.py:159"),
@@ -1572,7 +2070,13 @@ def main() -> int:
              "chunked": runs[256]["launches"],
              "train": train["launches"],
              "moe_serve": moe_serve["launches"],
-             "moe_train": moe_train["launches"]}
+             "moe_train": moe_train["launches"],
+             "prefix_whole": prefix["whole"]["launches"],
+             "prefix_chunked": prefix["chunked"]["launches"],
+             "spec_ngram": spec["ngram"]["launches"],
+             "spec_ngram_adaptive": spec["ngram_adaptive"]["launches"],
+             "spec_model": spec["model"]["launches"],
+             "spec_self": spec["self"]["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -1581,6 +2085,12 @@ def main() -> int:
                         "replaces": replaces, "launches": by_path[path],
                         "launches_path": path, "launches_by_path": by_path,
                         **rows[name]})
+        if name == "paged_chunk":
+            # the verify's launches, counted apart (paged_verify_attention)
+            kernels[-1]["verify_launches"] = {
+                p: paths[p]["paged_verify_attention"]
+                for p in ("spec_ngram", "spec_ngram_adaptive", "spec_model",
+                          "spec_self")}
         tc_name = name + "_tc_kernel"
         if tc_name in tc_regs:
             kernels[-1]["bf16_kernel"] = tc_name

@@ -81,11 +81,14 @@ def random_bits(k, n: int):
     return y1 ^ y2
 
 
-def uniform(k, n: int, minval: float = 0.0, maxval: float = 1.0):
+def uniform(k, n=None, minval: float = 0.0, maxval: float = 1.0):
     """``jax.random.uniform(k, (n,), float32, minval, maxval)``: the top 23
     bits as the mantissa of a float in [1, 2), minus 1, scaled, and no
-    lower than ``minval``; float32 arithmetic throughout."""
-    bits = (random_bits(k, n) >> 9) | _ONE_BITS
+    lower than ``minval``; float32 arithmetic throughout.  ``n`` None is
+    jax's draw of shape ``()``, one value per key (the keys' shape): its
+    counter pair is (0, 0), so it is element 0 of the ``(n,)`` draw."""
+    bits = random_bits(k, 1)[..., 0] if n is None else random_bits(k, n)
+    bits = (bits >> 9) | _ONE_BITS
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     # the bounds and their difference as float32 values (exact in a
     # Python float), so the tensor arithmetic below is jax's float32 one

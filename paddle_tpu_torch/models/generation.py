@@ -2,7 +2,8 @@
 filtering and the per-row sampler.
 
 Counterpart of ``paddle_tpu/models/generation.py:_process_logits_rows``
-and of the draw in ``paddle_tpu/inference/serving.py:_next_tokens``.
+and ``_process_logits_tokens`` (its k-row twin for the speculative
+verify), and of the draw in ``paddle_tpu/inference/serving.py:_next_tokens``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ import torch
 
 from ..core import threefry
 
-__all__ = ["_process_logits_rows", "sample_rows"]
+__all__ = ["_process_logits_rows", "_process_logits_tokens",
+           "sample_rows"]
 
 
 def _process_logits_rows(logits, temperature, top_k, top_p):
@@ -41,6 +43,18 @@ def _process_logits_rows(logits, temperature, top_k, top_p):
     pth = sorted_l.gather(-1, cutoff[:, None])
     return torch.where((top_p < 1.0)[:, None] & (logits < pth), neg_inf,
                        logits)
+
+
+def _process_logits_tokens(logits, temperature, top_k, top_p):
+    """:func:`_process_logits_rows` over the speculative verify's
+    ``[B, S, V]`` logits: each slot's parameters apply to all of its S
+    positions (row-major, slot b's position s is row ``b * S + s``).
+    Returns the filtered logits, same shape."""
+    B, S, V = logits.shape
+    rows = _process_logits_rows(
+        logits.reshape(B * S, V), temperature.repeat_interleave(S),
+        top_k.repeat_interleave(S), top_p.repeat_interleave(S))
+    return rows.reshape(B, S, V)
 
 
 def sample_rows(logits, do_sample, temperature, top_k, top_p, keys,

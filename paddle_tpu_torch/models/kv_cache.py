@@ -23,7 +23,8 @@ import torch
 
 from ..ops import flash_attention, paged_attention as pa
 
-__all__ = ["PagedKVCache", "PagedChunkView", "PagedChunkKernelView"]
+__all__ = ["PagedKVCache", "PagedChunkView", "PagedChunkKernelView",
+           "PagedVerifyKernelView"]
 
 
 class PagedKVCache:
@@ -132,16 +133,28 @@ class PagedChunkKernelView(PagedChunkView):
     """:class:`PagedChunkView` attending through ``paged_chunk_attention``
     (the ``paged_chunk`` kernel on the card).  The write path is
     inherited unchanged.  A head dim the kernel does not take attends
-    through ``paged_chunk_attention_reference`` (counted in its
+    through ``paged_chunk_attention_reference`` (counted in the wrapper's
     ``plain_calls``): a gap of the port's kernel, where the JAX package's
     chunk kernel takes any head dim."""
 
+    _attend = staticmethod(pa.paged_chunk_attention)
+
     def _attend_chunk(self, q):
         if flash_attention.plain_route(q):
-            pa.paged_chunk_attention.plain_calls += 1
+            self._attend.plain_calls += 1
             return super()._attend_chunk(q)
-        return pa.paged_chunk_attention(q.contiguous(), self.k, self.v,
-                                        self.tables, self.seq_lens)
+        return self._attend(q.contiguous(), self.k, self.v, self.tables,
+                            self.seq_lens)
+
+
+class PagedVerifyKernelView(PagedChunkKernelView):
+    """The spec-verify twin of :class:`PagedChunkKernelView`: the k
+    candidate positions are an offset-causal chunk on the same kernel,
+    attended through ``paged_verify_attention``, which counts its own
+    launches and plain routes.  The JAX engine picks this view with
+    ``FLAGS_serving_pallas_verify``; the port's engine always does."""
+
+    _attend = staticmethod(pa.paged_verify_attention)
 
 
 def _dense_causal(q, k, v):

@@ -237,8 +237,10 @@ paged_chunk_attention.plain_calls = 0   # callers' plain routes
 
 def paged_verify_attention(q, k_cache, v_cache, block_tables, start_lens):
     """Spec-decode verify attention: the chunk contract with s = k
-    candidate positions, on the same ``paged_chunk`` kernel.  It keeps its
-    own launch count, apart from :func:`paged_chunk_attention`'s."""
+    candidate positions (``[last, d_1 .. d_{k-1}]`` at each slot's length;
+    free slots at start 0 on an all-zero table row), on the same
+    ``paged_chunk`` kernel.  It keeps its own launch and plain-route
+    counts, apart from :func:`paged_chunk_attention`'s."""
     _chunk_checks(q, k_cache, v_cache, block_tables, start_lens,
                   "paged_verify_attention")
     if q.device.type == "cpu":
@@ -250,6 +252,7 @@ def paged_verify_attention(q, k_cache, v_cache, block_tables, start_lens):
 
 
 paged_verify_attention.launches = 0
+paged_verify_attention.plain_calls = 0  # callers' plain routes
 
 
 def paged_chunk_attention_reference(q, k_cache, v_cache, block_tables,
@@ -275,11 +278,16 @@ def paged_chunk_attention_reference(q, k_cache, v_cache, block_tables,
 
 def paged_write_token(k_pool, v_pool, tables, seq_lens, k_step, v_step):
     """Write one decode token per sequence IN PLACE at position
-    ``seq_lens[b]`` through its table.  k_step/v_step ``[B, nh, hd]``."""
+    ``seq_lens[b]`` through its table.  k_step/v_step ``[B, nh, hd]``.
+    A position past the table (a draft model's steps beyond a slot's
+    budget) writes the pad block 0."""
     bs = k_pool.shape[2]
+    nb = tables.shape[1]
     lens = seq_lens.long()
     rows = torch.arange(k_step.shape[0], device=k_step.device)
-    blk = tables.long()[rows, lens // bs]
+    cols = lens // bs
+    blk = tables.long()[rows, cols.clamp(max=nb - 1)]
+    blk = torch.where(cols < nb, blk, torch.zeros_like(blk))
     off = lens % bs
     k_pool[:, blk, off] = k_step.transpose(0, 1).to(k_pool.dtype)
     v_pool[:, blk, off] = v_step.transpose(0, 1).to(v_pool.dtype)

@@ -371,6 +371,37 @@ def test_paged_chunk_split_edges(gen, monkeypatch, dtype, split_keys):
     assert not out[0, :2 * bs].any()
 
 
+VERIFY_STARTS = [0, 0, 63, 64, 700, 1023, 1500, 2040]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 4, 8])
+def test_paged_verify_at_the_verify_shape(gen, dtype, s):
+    """paged_verify_attention at the spec tick's shape: 8 slots of nh 16,
+    hd 128 over a 2048-key table of 64-key blocks (bf16: 128 blocks, fewer
+    than the card's SMs, so the keys are split and merged), k = s rows at
+    mixed starts.  Rows 0 and 1 are free slots (start 0 on an all-zero
+    table row: the pad block), row 2 crosses a block edge, row 7 ends at
+    the table's last key; then the same with out-of-pool entries."""
+    nh, hd, bs, maxb = 16, 128, 64, 32
+    q, k, v, tables, st = _chunk_case(gen, len(VERIFY_STARTS), s, nh, hd,
+                                      bs, maxb, VERIFY_STARTS, dtype)
+    tables[:2] = 0
+    if dtype == torch.bfloat16:
+        assert pa.chunk_split(8, nh, s, maxb, bs)[1] > 1
+    for tbl in (tables, tables.clone()):
+        if tbl is not tables:
+            tbl[3, 1], tbl[5, 4], tbl[7, maxb - 1] = -1, 10 ** 6, -7
+        n = (pa.paged_verify_attention.launches,
+             pa.paged_chunk_attention.launches)
+        out = pa.paged_verify_attention(q, k, v, tbl, st)
+        assert (pa.paged_verify_attention.launches,
+                pa.paged_chunk_attention.launches) == (n[0] + 1, n[1])
+        ref = pa.paged_chunk_attention_reference(q.float(), k.float(),
+                                                 v.float(), tbl, st)
+        torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+
+
 @pytest.mark.parametrize("hd", [32, 96])
 def test_paged_chunk_unsupported_head_dim_raises(gen, hd):
     q, k, v, tables, st = _chunk_case(gen, 1, 8, 2, hd, 16, 4, [3],
@@ -509,6 +540,95 @@ def test_hd32_serves_and_trains_on_the_plain_routes(gen):
     assert all(fn.plain_calls > n for fn, n in zip(counted, plain))
 
 
+def _prefix_spec_mix():
+    """Three requests sharing a 32-token prompt (a miss, a hit, and the
+    prompt alone: a hit that copies its last block on write), one
+    repetitive prompt for the n-gram drafter, and a sampled request."""
+    shared = list(range(3, 35))
+    return [dict(prompt_ids=shared + list(range(60, 71)), max_new_tokens=9),
+            dict(prompt_ids=shared + list(range(80, 100)),
+                 max_new_tokens=7),
+            dict(prompt_ids=shared, max_new_tokens=6),
+            dict(prompt_ids=[5, 9, 14, 2] * 8, max_new_tokens=10),
+            dict(prompt_ids=list(range(40, 63)), max_new_tokens=8,
+                 do_sample=True, temperature=1.2, seed=21)]
+
+
+def _serve_prefix_spec(model, draft, dev, **kw):
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    eng = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
+                        steps_per_tick=4, device=dev,
+                        draft_model=draft if kw.get("spec_draft") == "model"
+                        else None, **kw)
+    reqs = [eng.add_request(Request(**m)) for m in _prefix_spec_mix()]
+    eng.run()
+    st = eng.stats()
+    assert st["free_blocks"] == eng.num_blocks and st["reserved"] == 0
+    assert st["prefix_cache"]["hits"] == 2
+    return [r.output_ids for r in reqs]
+
+
+SPEC_RUNS = [dict(), dict(spec_decode=True, spec_draft="ngram"),
+             dict(spec_decode=True, spec_draft="ngram", spec_adaptive=True),
+             dict(spec_decode=True, spec_draft="model", spec_k=3)]
+
+
+def test_token_write_past_the_table_goes_to_the_pad_block(gen):
+    """The card's decode write at a position past the table (a draft's
+    step beyond a slot's budget) lands in the pad block, as on the CPU."""
+    k = torch.randn((4, 9, 16, 64), generator=gen, device="cuda")
+    v = torch.randn_like(k)
+    tables = torch.tensor([[3, 1, 7, 4], [2, 8, 5, 6]], dtype=torch.int32,
+                          device="cuda")
+    lens = torch.tensor([64, 70], dtype=torch.int32, device="cuda")
+    step = torch.randn((2, 4, 64), generator=gen, device="cuda")
+    want = [x.cpu() for x in (k, v)]
+    pa.paged_write_token(*want, tables.cpu(), lens.cpu(), step.cpu(),
+                         step.cpu())
+    pa.paged_write_token(k, v, tables, lens, step, step)
+    torch.cuda.synchronize()
+    assert torch.equal(k.cpu(), want[0]) and torch.equal(v.cpu(), want[1])
+    assert torch.equal(k[:, 0, 0].cpu(), step[0].cpu())
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_prefix_and_spec_streams_match_the_cpu(gen, hd):
+    """gpt3_tiny with a prefix hit, a copy on write, n-gram and model-draft
+    speculation (a 1-layer draft) on the card and on the CPU: equal
+    streams, and the greedy ones equal to plain decoding's.  hd 64 runs
+    the kernels (paged_chunk for the suffix prefills,
+    paged_verify_attention for the verify); hd 32, which no kernel takes,
+    runs their plain versions, each counted in plain_calls and no kernel
+    launched."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    cfg = gpt3_tiny(num_heads=128 // hd)
+    dcfg = gpt3_tiny(num_heads=128 // hd, num_layers=1)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3)
+    dcpu = GPTForCausalLM(dcfg, device="cpu", seed=4)
+    card = GPTForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    dcard = GPTForCausalLM(dcfg, device="cuda")
+    dcard.load_state_dict(dcpu.state_dict())
+    counted = (fa.flash_attention_fwd, pa.paged_attention,
+               pa.paged_chunk_attention, pa.paged_verify_attention)
+    launches = [fn.launches for fn in counted]
+    plain = [fn.plain_calls for fn in counted]
+    greedy = []
+    for kw in SPEC_RUNS:
+        want = _serve_prefix_spec(cpu, dcpu, "cpu", **kw)
+        assert _serve_prefix_spec(card, dcard, "cuda", **kw) == want
+        greedy.append(want[:4])
+    # greedy speculation is lossless: the plain decode's streams
+    assert all(g == greedy[0] for g in greedy)
+    grew = [fn.launches > n for fn, n in zip(counted, launches)]
+    took_plain = [fn.plain_calls > n for fn, n in zip(counted, plain)]
+    if hd == 32:
+        assert not any(grew) and all(took_plain)
+    else:
+        assert all(grew) and not any(took_plain)
+
+
+# --------------------------------------------------------------------- MoE
 # --------------------------------------------------------------------- MoE
 
 def _moe_routing(T, M, E=4, dtype=torch.float32, training=True, seed=0):

@@ -188,6 +188,42 @@ def test_paged_chunk_attention_matches_pallas(case, strategy, pallas_load):
                                   got.numpy())
 
 
+@pytest.mark.parametrize("s", [2, 4])
+def test_paged_verify_attention_matches_pallas_at_the_verify_shape(
+        s, pallas_load):
+    """The spec tick's verify: k = s rows per slot at mixed starts, the
+    first two slots free (start 0 on an all-zero table row: the pad
+    block), one row across a block edge, one at the table's end; the
+    port's CPU route against the JAX ``paged_verify_attention``."""
+    B, nh, hd, bs, maxb = 6, 2, 16, 8, 5
+    starts = np.array([0, 0, 7, 15, 21, 40 - s], np.int32)
+    k, v, tables = _paged_case(B, nh, hd, bs, starts + s, maxb, seed=4)
+    tables[:2] = 0
+    q = np.random.RandomState(6).standard_normal((B, s, nh, hd)).astype(
+        np.float32)
+    args = [jnp.asarray(a) for a in (q, k, v, tables, starts)]
+    want = jpp.paged_verify_attention(*args, interpret=True)
+    targs = [torch.from_numpy(a) for a in (q, k, v, tables, starts)]
+    n = tpa.paged_verify_attention.launches
+    got = tpa.paged_verify_attention(*targs)
+    assert tpa.paged_verify_attention.launches == n       # the CPU route
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL, rtol=0)
+    # the view the engine verifies through writes, then attends
+    view = tkv.PagedVerifyKernelView.from_parts(
+        targs[1].clone(), targs[2].clone(), targs[3], targs[4], bs)
+    jview = jkv.PagedVerifyKernelView.from_parts(
+        args[1], args[2], args[3], args[4], bs)
+    kn = np.random.RandomState(7).standard_normal(q.shape).astype(
+        np.float32)
+    new, out = view.update_and_attend(targs[0], torch.from_numpy(kn),
+                                      torch.from_numpy(kn))
+    jnew, jout = jview.update_and_attend(args[0], jnp.asarray(kn),
+                                         jnp.asarray(kn))
+    np.testing.assert_allclose(new.k.numpy(), _np(jnew.k), atol=0, rtol=0)
+    np.testing.assert_allclose(out.numpy(), _np(jout), atol=ATOL, rtol=0)
+    assert new.seq_lens.tolist() == (starts + s).tolist()
+
+
 @pytest.mark.parametrize("bad", [-1, 99])
 def test_out_of_pool_table_entries_are_dropped(bad):
     """A table entry outside the pool drops its keys in both ops, the rule
@@ -315,6 +351,33 @@ def test_pool_writes_match_jax():
     tpa.paged_write_prefill(tk, tk.clone(), torch.from_numpy(tables),
                             torch.from_numpy(kp), torch.from_numpy(kp))
     np.testing.assert_array_equal(tk.numpy(), _np(jk))
+
+
+def test_token_write_past_the_table_goes_to_the_pad_block():
+    """A draft model's steps past a slot's budget write positions past its
+    table: the pad block 0 takes them, no live block changes."""
+    nh, npool, bs, hd = 2, 9, 4, 8
+    rng = np.random.RandomState(5)
+    pool = torch.from_numpy(
+        rng.standard_normal((nh, npool, bs, hd)).astype(np.float32))
+    tables = torch.tensor([[3, 1, 7, 4], [2, 8, 5, 6]], dtype=torch.int32)
+    lens = torch.tensor([16, 13], dtype=torch.int32)    # 16: past the table
+    kt = torch.from_numpy(rng.standard_normal((2, nh, hd)).astype(np.float32))
+    k, v = pool.clone(), pool.clone()
+    tpa.paged_write_token(k, v, tables, lens, kt, kt)
+    want = pool.clone()
+    want[:, 0, 0] = kt[0]
+    want[:, 6, 1] = kt[1]
+    torch.testing.assert_close(k, want, rtol=0, atol=0)
+    torch.testing.assert_close(v, want, rtol=0, atol=0)
+    # the JAX write clamps the column instead: row 0's token lands in its
+    # last live block (4) at offset 16 % 4, over a cached position
+    jk, _ = jpp.paged_write_token(*(jnp.asarray(x.numpy()) for x in (
+        pool, pool, tables, lens, kt, kt)))
+    jwant = pool.clone()
+    jwant[:, 4, 0] = kt[0]
+    jwant[:, 6, 1] = kt[1]
+    np.testing.assert_array_equal(_np(jk), jwant.numpy())
 
 
 def test_chunk_view_writes_and_attends_like_jax():
@@ -484,6 +547,8 @@ def test_head_dims_route_before_any_launch(monkeypatch, hd):
     cache = tkv.PagedKVCache(B, 48, nh, hd, block_size=16, device="meta")
     chunk = tkv.PagedChunkKernelView.from_parts(
         cache.k, cache.v, cache.tables, cache.seq_lens + 3, 16)
+    verify = tkv.PagedVerifyKernelView.from_parts(
+        cache.k, cache.v, cache.tables, cache.seq_lens + 3, 16)
     calls = [(tflash.flash_attention_fwd,
               lambda: scaled_dot_product_attention(q, q, q, is_causal=True)),
              (tflash.flash_attention_fwd,
@@ -491,9 +556,11 @@ def test_head_dims_route_before_any_launch(monkeypatch, hd):
              (tpa.paged_attention,
               lambda: cache.update_and_attend(*(q[:, :1],) * 3)),
              (tpa.paged_chunk_attention,
-              lambda: chunk.update_and_attend(q, q, q))]
+              lambda: chunk.update_and_attend(q, q, q)),
+             (tpa.paged_verify_attention,
+              lambda: verify.update_and_attend(q, q, q))]
     counted = (tflash.flash_attention_fwd, tpa.paged_attention,
-               tpa.paged_chunk_attention)
+               tpa.paged_chunk_attention, tpa.paged_verify_attention)
     for fn in counted:
         monkeypatch.setattr(fn, "plain_calls", 0)
         monkeypatch.setattr(fn, "launches", 0)

@@ -7,11 +7,14 @@ identical.  So must the streams of sampled requests (temperature, top-k,
 top-p) with the same seeds: both engines draw the first token from
 `numpy.random.RandomState(seed)` on the host and every later token from
 `fold_in(key(seed), position)`, the port through its own threefry
-(`paddle_tpu_torch/core/threefry.py`).  The JAX engine runs with its
-prefix cache off (not ported yet) and with `FLAGS_serving_pallas_prefill`
-off: its chunk kernel's default interpret strategy calls `pl.load`, which
-this jax release does not have, and the dense chunk view it falls back
-to is the same math.
+(`paddle_tpu_torch/core/threefry.py`).  Both parity tests run with the
+prefix cache off and on, the same on both engines (these prompts share
+no full block, so on it registers and misses; the shared-prefix mixes
+are in `tests/test_torch_prefix_cache.py`).  The JAX engine runs with
+`FLAGS_serving_pallas_prefill` and `FLAGS_serving_pallas_verify` off: its
+chunk kernel's default interpret strategy calls `pl.load`, which this jax
+release does not have, and the dense chunk view it falls back to is the
+same math.
 
 Within the port, a sampled stream is a function of the request's seed
 alone, whatever the tick size or batch.
@@ -62,12 +65,16 @@ def _serve_port(model, reqs, **kw):
     return eng, [list(r.output_ids) for r in reqs]
 
 
+JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False)
+
+
+@pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize("chunk", [0, 16])
-def test_greedy_streams_match_the_jax_engine(models, chunk):
+def test_greedy_streams_match_the_jax_engine(models, chunk, prefix):
     jm, tm = models
     prompts = _prompts()
-    with flag_guard(serving_pallas_prefill=False):
-        jeng = JaxEngine(jm, prefill_chunk=chunk, prefix_cache=False,
+    with flag_guard(**JAX_FLAGS):
+        jeng = JaxEngine(jm, prefill_chunk=chunk, prefix_cache=prefix,
                          **ENGINE)
         jreqs = [jeng.add_request(JaxRequest(p, max_new_tokens=b))
                  for p, b in zip(prompts, BUDGETS)]
@@ -75,8 +82,10 @@ def test_greedy_streams_match_the_jax_engine(models, chunk):
     want = [list(r.output_ids) for r in jreqs]
     eng, got = _serve_port(tm, [Request(p, max_new_tokens=b)
                                 for p, b in zip(prompts, BUDGETS)],
-                           prefill_chunk=chunk)
+                           prefill_chunk=chunk, prefix_cache=prefix)
     assert got == want
+    assert eng.stats().get("prefix_cache") == \
+        jeng.stats().get("prefix_cache")
     assert [len(s) for s in got] == list(BUDGETS)
     if chunk:
         # 29 -> 2 chunks, 11 -> 1, 40 -> 3
@@ -97,19 +106,20 @@ def _sampled_mix(seed0):
     return reqs
 
 
+@pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize("chunk", [0, 16])
 @pytest.mark.parametrize("seed0", [11, 2024])
-def test_sampled_streams_match_the_jax_engine(models, chunk, seed0):
+def test_sampled_streams_match_the_jax_engine(models, chunk, seed0, prefix):
     jm, tm = models
     mix = _sampled_mix(seed0)
-    with flag_guard(serving_pallas_prefill=False):
-        jeng = JaxEngine(jm, prefill_chunk=chunk, prefix_cache=False,
+    with flag_guard(**JAX_FLAGS):
+        jeng = JaxEngine(jm, prefill_chunk=chunk, prefix_cache=prefix,
                          **ENGINE)
         jreqs = [jeng.add_request(JaxRequest(**kw)) for kw in mix]
         jeng.run()
     want = [list(r.output_ids) for r in jreqs]
     _, got = _serve_port(tm, [Request(**kw) for kw in mix],
-                         prefill_chunk=chunk)
+                         prefill_chunk=chunk, prefix_cache=prefix)
     assert got == want
     assert [len(s) for s in got] == [kw["max_new_tokens"] for kw in mix]
 
