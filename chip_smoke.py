@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs twelve phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs thirteen phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -50,22 +50,34 @@ into ``build/paddle_tpu_torch/``), then runs twelve phases on card 0:
    seed, 8 requests (prompts of 100 to 1500 tokens, 64 new tokens each,
    half greedy, half sampled) through ``ServingEngine`` with whole-prompt
    prefill, then through a second engine with 256-token chunked prefill.
-   Each run starts with every kernel's launch count at 0 and must launch
-   its kernels.  A third whole-prompt run under ``torch.profiler`` prints
-   the card's busy share, the kernels that take its time, and the decode
-   kernels by name (``paged_decode_split_kernel``,
-   ``paged_decode_merge_kernel``); a fourth, chunked, profiled the same
-   way, in which every bf16 ``paged_chunk`` launch must be
-   ``paged_chunk_tc_kernel`` (with ``paged_chunk_merge_kernel`` when the
-   keys are split) by name and none the FMA kernel; the profiled runs
-   also give ms per decode step (the card synchronised before each
-   tick).  No full-width serving or training run may take a plain route
-   (``plain_calls``).  Then ``sample_rows`` (the tick's token choice, the
-   threefry draw for sampled rows) timed on the card at [8, vocab].
+   Every serving engine of this script is the default one unless a phase
+   says otherwise: its program grid captured as CUDA graphs by
+   ``warmup()`` before the clock starts, and the overlapped tick loop;
+   each must have captured programs and replayed them.  Each run starts
+   with every kernel's launch count at 0 (replays count what their
+   capture launched) and must launch its kernels.  A chunked run under
+   ``torch.profiler`` prints the card's busy share, the kernels that
+   take its time, the decode kernels by name
+   (``paged_decode_split_kernel``, ``paged_decode_merge_kernel``), and
+   every bf16 ``paged_chunk`` launch must be ``paged_chunk_tc_kernel``
+   (with ``paged_chunk_merge_kernel`` when the keys are split) by name
+   and none the FMA kernel.  No full-width serving or training run may
+   take a plain route (``plain_calls``).  Then phase 13, and
+   ``sample_rows`` (the tick's token choice, the threefry draw for
+   sampled rows) timed on the card at [8, vocab].
+13. Graphs and overlap (in phase 2's run): phase 2's whole-prompt mix on
+   the eager programs (``cuda_graphs=False``), on CUDA graphs with the
+   overlapped loop off, and on the default engine, 3 runs each in turns.
+   Streams equal in all nine runs, launch counts of eager and graphs
+   equal; medians of tokens/s and mean TTFT, ms per decode step with
+   overlap off (the card synchronised before each tick), the idle share
+   of one profiled run each (decode kernels by name, as above), the
+   warmup's time and grid.
 3. Card against CPU: a 4-layer cut of GPT-3 1.3B in float32 serves one
-   greedy request on the card (kernels) and on the CPU (plain versions)
-   from one state dict; the token streams must match and the first-token
-   logits agree to atol 1e-3.
+   greedy request on the card (kernels; the default engine and the eager
+   programs) and on the CPU (plain versions) from one state dict; the
+   token streams must match and the first-token logits agree to atol
+   1e-3.
 4. Training at full width: GPT-3 1.3B, float32 weights, ``auto_cast`` O1
    bfloat16, AdamW (lr 1e-4, weight decay 0.01) with global-norm clipping
    at 1.0, 6 steps on one fixed batch of B 4 x S 2048 random tokens.  Every
@@ -120,12 +132,12 @@ into ``build/paddle_tpu_torch/``), then runs twelve phases on card 0:
    system prompt alone (its last block copied on write), 64 new tokens
    each, odd ones sampled; served with the prefix cache off, on with
    whole-prompt prefill, and on with 256-token chunks, 3 runs each in
-   turns (medians of tokens/s, mean TTFT of all and of the first 8, ms
-   per decode step).  Every budget met, hits > 0, ``paged_chunk``
+   turns (medians of tokens/s, mean TTFT of all and of the first 8).
+   Every budget met, hits > 0, ``paged_chunk``
    launched in the whole-prompt hit run, no plain route, no leaked block;
    how far the greedy streams agree with prefix off's, and the logit gap
    at the first divergence (bf16 near-ties), printed.  Then one prefill
-   program, a miss (2048
+   program (a replayed graph), a miss (2048
    bucket) against hits (suffixes of 512 and 64 at 1024): wall, host
    enqueue and card busy time.
 12. Speculative decoding on the same model: 8 prompts of 400 .. 1000
@@ -139,9 +151,10 @@ into ``build/paddle_tpu_torch/``), then runs twelve phases on card 0:
    streams' agreement with plain decoding printed; the n-gram
    run once more under the profiler (idle share, every verify launch on
    ``paged_chunk_tc_kernel`` by name).  Then a
-   4-layer fp32 cut, card against CPU: greedy streams with the prefix (a
-   miss, a hit, a copy on write) equal those without it, and n-gram and
-   same-weights-draft speculation equal plain decoding.
+   4-layer fp32 cut, card (default engine and eager programs) against
+   CPU: greedy streams with the prefix (a miss, a hit, a copy on write)
+   equal those without it, and n-gram and same-weights-draft speculation
+   equal plain decoding.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -151,6 +164,7 @@ numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -943,14 +957,20 @@ def _plain_calls():
     return {name: fn.plain_calls for name, fn in _plain_counters().items()}
 
 
-def serve(model, prompts, chunk, time_ticks=False, **engine_kw):
+def serve(model, prompts, chunk, time_ticks=False, profile=False,
+          **engine_kw):
     """Serve one request per prompt (64 new tokens, odd ones sampled) on
     one engine with the serving settings (8 slots, block 64, context 2048,
-    8 steps per tick; ``engine_kw`` adds to them), every launch count and
-    plain route count at 0 first; returns the run's numbers.
-    ``time_ticks`` synchronises the card before each decode tick (plain or
-    speculative) and sums the ticks' wall time (each tick ends in a host
-    round trip), for ms per decode step beside the prefills."""
+    8 steps per tick; ``engine_kw`` adds to them: by default CUDA graphs
+    and the overlapped loop are on), every launch count and plain route
+    count at 0 first; returns the run's numbers.  The program grid is
+    captured (``warmup()``) before the clock starts, as a server does
+    before traffic; its time is ``warmup_s``.  ``time_ticks`` (overlap off
+    only) synchronises the card before each decode tick (plain or
+    speculative) and sums the ticks' wall time to their harvest, for ms
+    per decode step beside the prefills.  ``profile`` runs the traffic
+    (not the warmup) under ``torch.profiler`` (:func:`_profiled`) and adds
+    its kernels on the card to the result."""
     import torch
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
 
@@ -962,24 +982,38 @@ def serve(model, prompts, chunk, time_ticks=False, **engine_kw):
             for i, p in enumerate(prompts)]
     tick_s = [0.0]
     if time_ticks:
-        def timed(fn):
-            def call(*a):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = fn(*a)
-                tick_s[0] += time.perf_counter() - t
-                return out
-            return call
-        eng._tick = timed(eng._tick)
-        eng._spec_tick = timed(eng._spec_tick)
+        if eng.overlap:
+            raise ValueError("ticks are timed with overlap off")
+        dispatch, harvest, t = eng._dispatch_tick, eng._harvest, [0.0]
+
+        def timed_dispatch(*a):
+            torch.cuda.synchronize()
+            t[0] = time.perf_counter()
+            return dispatch(*a)
+
+        def timed_harvest(*a):
+            out = harvest(*a)
+            tick_s[0] += time.perf_counter() - t[0]
+            return out
+        eng._dispatch_tick, eng._harvest = timed_dispatch, timed_harvest
+    warm = eng.warmup() if eng.cuda_graphs else None
     _zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.add_request(r)
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    def traffic():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        eng.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    kernels = None
+    if profile:
+        wall, kernels = _profiled(traffic, lambda: torch.ones(
+            (256, 256), device="cuda").matmul(torch.ones((256, 256),
+                                                         device="cuda")))
+    else:
+        wall = traffic()
     launches = {name: fn.launches for name, fn in _counters().items()}
     plain = _plain_calls()
     if any(plain.values()):
@@ -995,6 +1029,7 @@ def serve(model, prompts, chunk, time_ticks=False, **engine_kw):
     st = eng.stats()
     if st["free_blocks"] != eng.num_blocks or st["reserved"] != 0:
         raise AssertionError(f"blocks leaked: {st}")
+    _check_graphs(eng, st)
     n_tok = sum(len(r.output_ids) for r in reqs)
     ttfts = [r.t_first - r.t_enqueue for r in reqs]
     return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
@@ -1002,7 +1037,17 @@ def serve(model, prompts, chunk, time_ticks=False, **engine_kw):
                 ttft_max_s=max(ttfts), steps=st["steps"], ticks=st["ticks"],
                 prefill_chunks=st["prefill_chunks"], launches=launches,
                 plain_calls=plain, tick_s=tick_s[0], stats=st,
+                warmup=warm, replays=st["graphs"]["replays"],
+                overlapped=st["overlapped_ticks"], kernels=kernels,
                 streams=[list(r.output_ids) for r in reqs])
+
+
+def _check_graphs(eng, st):
+    """A default engine on the card captured its grid and replayed it."""
+    if eng.cuda_graphs and not (st["warmup"]["programs"] > 0
+                                and st["graphs"]["replays"] > 0):
+        raise AssertionError(f"CUDA graphs: warmup {st.get('warmup')}, "
+                             f"graphs {st['graphs']}")
 
 
 def serving_phase(lens):
@@ -1027,8 +1072,11 @@ def serving_phase(lens):
              f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s, "
              f"mean TTFT {run['ttft_mean_s'] * 1e3:.1f} ms, max TTFT "
              f"{run['ttft_max_s'] * 1e3:.1f} ms, {run['steps']} decode "
-             f"steps in {run['ticks']} ticks, {run['prefill_chunks']} "
-             f"chunks, launches {run['launches']}")
+             f"steps in {run['ticks']} ticks ({run['overlapped']} chained), "
+             f"{run['prefill_chunks']} chunks, {run['replays']} graph "
+             f"replays after a warmup of {run['warmup']['programs']} "
+             f"programs in {run['warmup']['warmup_s']:.2f} s, launches "
+             f"{run['launches']}")
         runs[chunk] = run
         torch.cuda.empty_cache()
     same = sum(a == b for a, b in zip(runs[0]["streams"],
@@ -1037,10 +1085,72 @@ def serving_phase(lens):
          "(bf16 numerics of two attention kernels; informational); greedy "
          "streams' leading tokens equal: "
          f"{_agreement(runs[256]['streams'], runs[0]['streams'])} of 64")
-    for chunk in (0, 256):
-        where_the_time_goes(model, prompts, chunk)
+    # the whole-prompt run is profiled in graphs_phase, per engine mode
+    where_the_time_goes(model, prompts, 256)
+    runs["graphs"] = graphs_phase(model, prompts)
     sampling_cost(cfg.vocab_size)
     return runs
+
+
+def graphs_phase(model, prompts):
+    """Phase 2's whole-prompt mix three ways, ``REPEATS`` runs each in
+    turns: the eager programs (``cuda_graphs=False``), CUDA graphs with
+    the overlapped loop off, and the default engine (graphs and overlap).
+    Streams must be equal across all nine runs and the launch counts of
+    the eager and graph runs equal.  Medians of tokens/s and mean TTFT; ms
+    per decode step where overlap is off (the card synchronised before
+    each tick, the tick's wall to its harvest); the idle share from one
+    profiled run each; the warmup's time and grid."""
+    configs = (("eager", "eager programs", True,
+                dict(cuda_graphs=False, overlap=False)),
+               ("graphs", "CUDA graphs, overlap off", True,
+                dict(overlap=False)),
+               ("overlap", "CUDA graphs, overlap on (default)", False, {}))
+    runs = {key: [] for key, _, _, _ in configs}
+    for _ in range(REPEATS):
+        for key, _, timed, kw in configs:
+            runs[key].append(serve(model, prompts, 0, time_ticks=timed,
+                                   **kw))
+    base = runs["eager"][0]
+    for key, rs in runs.items():
+        for r in rs:
+            if r["streams"] != base["streams"]:
+                raise AssertionError(f"graphs phase: {key} streams differ "
+                                     "from the eager programs'")
+        if key != "overlap" and rs[0]["launches"] != base["launches"]:
+            raise AssertionError(f"graphs phase: {key} launches "
+                                 f"{rs[0]['launches']} != eager "
+                                 f"{base['launches']}")
+    out = {}
+    for key, name, timed, kw in configs:
+        rs = runs[key]
+        r = dict(rs[0])
+        r["tokens_per_s_runs"] = [x["tokens_per_s"] for x in rs]
+        r["tokens_per_s"] = _median(r["tokens_per_s_runs"])
+        r["ttft_mean_s"] = _median([x["ttft_mean_s"] for x in rs])
+        r["ms_per_step"] = _median([x["tick_s"] / max(x["steps"], 1) * 1e3
+                                    for x in rs]) if timed else None
+        r["warmup_s"] = _median([x["warmup"]["warmup_s"] for x in rs]) \
+            if rs[0]["warmup"] else None
+        r["profile"] = where_the_time_goes(model, prompts, 0, key, **kw)
+        step = "not timed (overlap on)" if r["ms_per_step"] is None \
+            else f"{r['ms_per_step']:.3f} ms per decode step"
+        warm = "no warmup" if r["warmup"] is None else (
+            f"warmup {r['warmup_s']:.3f} s for {r['warmup']['programs']} "
+            f"programs ({len(r['warmup']['grid'])} grid entries)")
+        _log(f"graphs phase, {name}: median of {REPEATS} runs "
+             f"{r['tokens_per_s']:.1f} tokens/s (runs "
+             + ", ".join(f"{x:.1f}" for x in r["tokens_per_s_runs"])
+             + f"), mean TTFT {r['ttft_mean_s'] * 1e3:.1f} ms, {step}, "
+             f"idle share {r['profile']['idle']:.3f}; {warm}; "
+             f"{r['steps']} steps in {r['ticks']} ticks "
+             f"({r['overlapped']} chained), {r['replays']} replays")
+        out[key] = r
+    _log("graphs phase: streams equal in all runs; tokens/s against the "
+         "eager programs: graphs {:.2f}x, graphs with overlap {:.2f}x".format(
+             out["graphs"]["tokens_per_s"] / out["eager"]["tokens_per_s"],
+             out["overlap"]["tokens_per_s"] / out["eager"]["tokens_per_s"]))
+    return out
 
 
 def sampling_cost(vocab):
@@ -1112,32 +1222,27 @@ def _by_name(kernels, names):
     return out
 
 
-def where_the_time_goes(model, prompts, chunk):
+def where_the_time_goes(model, prompts, chunk, label=None, **kw):
     """A profiled serving run (warm) with whole-prompt (``chunk`` 0) or
-    chunked prefill: the card's busy time against the wall clock, the
-    kernels that take it, the decode kernels by name and, chunked, every
-    bf16 paged_chunk launch by name: the tensor-core kernel (and its
-    merge when the wrapper splits the keys), never the FMA kernel."""
-    import torch
+    chunked prefill on the engine ``kw`` asks for (by default graphs and
+    overlap): the card's busy time against the wall clock, the kernels
+    that take it, the decode kernels by name and, chunked, every bf16
+    paged_chunk launch by name: the tensor-core kernel (and its merge when
+    the wrapper splits the keys), never the FMA kernel.  Kernels replayed
+    in a CUDA graph show on the timeline one by one.  Returns the idle
+    share, busy and wall seconds, and the kernel launches."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    label = "chunked" if chunk else "whole-prompt"
-    run, kernels = _profiled(
-        lambda: serve(model, prompts, chunk, time_ticks=True),
-        lambda: torch.ones((256, 256), device="cuda").matmul(
-            torch.ones((256, 256), device="cuda")))
+    label = label or ("chunked" if chunk else "whole-prompt")
+    run = serve(model, prompts, chunk, profile=True, **kw)
+    kernels = run["kernels"]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n = sum(e.count for e in kernels)
     wall = run["wall_s"]
-    step_ms = run["tick_s"] / max(run["steps"], 1) * 1e3
-    _log(f"profiled {label} run: {run['steps']} decode steps in "
-         f"{run['tick_s']:.3f} s of ticks = {step_ms:.2f} ms per decode "
-         f"step (card synchronised before each tick); max TTFT "
-         f"{run['ttft_max_s']:.3f} s")
     idle = 1 - busy_us / 1e6 / wall
     _log(f"profiled {label} run: wall {wall:.3f} s, card busy "
          f"{busy_us / 1e6:.3f} s in {n} kernel launches, idle share "
-         f"{idle:.3f}")
+         f"{idle:.3f}; max TTFT {run['ttft_max_s']:.3f} s")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
              f"{e.key[:90]}")
@@ -1163,6 +1268,8 @@ def where_the_time_goes(model, prompts, chunk):
                          for n, (c, us) in got.items())
              + f"; {chunk_us / 1e3:.2f} ms of device time in {calls} "
              f"launches")
+    return dict(idle=idle, busy_s=busy_us / 1e6, wall_s=wall,
+                kernel_launches=n)
 
 
 # --------------------------------------------------------------- phase 3
@@ -1178,12 +1285,19 @@ def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
     gen = torch.Generator().manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (96,), generator=gen)
     streams, first = [], []
-    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+    # the default card engine (graphs, overlap), the eager card programs,
+    # the CPU
+    for model, dev, graphs in ((card, "cuda", True), (card, "cuda", False),
+                               (cpu, "cpu", False)):
         eng = ServingEngine(model, max_batch=1, max_context=128,
-                            block_size=BS, steps_per_tick=8, device=dev)
+                            block_size=BS, steps_per_tick=8, device=dev,
+                            cuda_graphs=graphs)
         req = eng.add_request(Request(prompt.tolist(), max_new_tokens=16))
         eng.run()
+        _check_graphs(eng, eng.stats())
         streams.append(list(req.output_ids))
+        if graphs:
+            continue
         caches = model.init_caches(1, 128, BS)
         with torch.no_grad():
             logits, _ = model.forward_with_cache(prompt[None].to(dev),
@@ -1191,11 +1305,13 @@ def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
         first.append(logits[0, -1].float().cpu())
     err = (first[0] - first[1]).abs().max().item()
     torch.testing.assert_close(first[0], first[1], atol=1e-3, rtol=0.0)
-    if streams[0] != streams[1]:
-        raise AssertionError(f"card stream {streams[0]} != CPU stream "
-                             f"{streams[1]}")
+    if not streams[0] == streams[1] == streams[2]:
+        raise AssertionError(f"card streams {streams[0]} (graphs), "
+                             f"{streams[1]} (eager) != CPU stream "
+                             f"{streams[2]}")
     _log(f"card vs CPU, {label}: first-token logits "
-         f"max_abs_err={err:.3e}, 16-token greedy streams equal")
+         f"max_abs_err={err:.3e}, 16-token greedy streams equal (card "
+         f"graphs, card eager, CPU)")
 
 
 # -------------------------------------------------------------- phase 10
@@ -1229,6 +1345,7 @@ def plain_route_phase():
             req = eng.add_request(Request(prompt.tolist(),
                                           max_new_tokens=16))
             eng.run()
+            _check_graphs(eng, eng.stats())
             streams[dev, chunk, spec] = list(req.output_ids)
     serve_plain = _plain_calls()
     serve_launches = {n: fn.launches for n, fn in _counters().items()}
@@ -1266,15 +1383,14 @@ def _interleaved(label, model, prompts, configs):
     """``REPEATS`` rounds of one serving run per configuration, in turns
     (so a drift of the card or the host spreads over all of them); each
     configuration's first run gives the launches and stats (each run
-    counts from 0), its runs the medians of tokens/s, mean TTFT (of all
-    requests, and of the first ``BATCH``, admitted at once) and ms per
-    decode step and per tick.  ``configs``: (key, label, chunk, engine
-    keywords)."""
+    counts from 0), its runs the medians of tokens/s and mean TTFT (of all
+    requests, and of the first ``BATCH``, admitted at once).  The engines
+    are the default ones (graphs and overlap): no tick is timed on its
+    own.  ``configs``: (key, label, chunk, engine keywords)."""
     runs = {key: [] for key, _, _, _ in configs}
     for _ in range(REPEATS):
         for key, _, chunk, kw in configs:
-            runs[key].append(serve(model, prompts, chunk, time_ticks=True,
-                                   **kw))
+            runs[key].append(serve(model, prompts, chunk, **kw))
     out = {}
     for key, name, _, _ in configs:
         rs = runs[key]
@@ -1284,19 +1400,16 @@ def _interleaved(label, model, prompts, configs):
         r["ttft_mean_s"] = _median([x["ttft_mean_s"] for x in rs])
         r["ttft_first_mean_s"] = _median(
             [sum(x["ttfts"][:BATCH]) / BATCH for x in rs])
-        r["ms_per_step"] = _median([x["tick_s"] / max(x["steps"], 1) * 1e3
-                                    for x in rs])
-        r["ms_per_tick"] = _median([x["tick_s"] / max(x["ticks"], 1) * 1e3
-                                    for x in rs])
         _log(f"{label}, {name}: {r['tokens']} tokens, median of {REPEATS} "
              f"runs {r['tokens_per_s']:.1f} tokens/s (runs "
              + ", ".join(f"{x:.1f}" for x in r["tokens_per_s_runs"])
              + f"), mean TTFT {r['ttft_mean_s'] * 1e3:.1f} ms (the first "
-             f"{BATCH}: {r['ttft_first_mean_s'] * 1e3:.1f} ms), "
-             f"{r['ms_per_step']:.2f} ms per decode step, "
-             f"{r['ms_per_tick']:.2f} ms per tick; {r['steps']} decode "
-             f"steps in {r['ticks']} ticks, {r['prefill_chunks']} chunks, "
-             f"launches {r['launches']}")
+             f"{BATCH}: {r['ttft_first_mean_s'] * 1e3:.1f} ms); "
+             f"{r['steps']} decode steps in {r['ticks']} ticks "
+             f"({r['overlapped']} chained), {r['prefill_chunks']} chunks, "
+             f"{r['replays']} replays, warmup {r['warmup']['programs']} "
+             f"programs in {r['warmup']['warmup_s']:.2f} s, launches "
+             f"{r['launches']}")
         _log("  mean TTFT of the first {} by run: {}".format(
             BATCH, ", ".join(f"{sum(x['ttfts'][:BATCH]) / BATCH * 1e3:.1f}"
                              for x in rs)))
@@ -1385,11 +1498,8 @@ def profiled_serving(label, model, prompts, chunk, **kw):
     time, and every bf16 ``paged_chunk`` launch (chunk and verify) by
     name: the tensor-core kernel, never the FMA one.  Returns (idle share,
     busy s, wall s)."""
-    import torch
-    run, kernels = _profiled(
-        lambda: serve(model, prompts, chunk, time_ticks=True, **kw),
-        lambda: torch.ones((256, 256), device="cuda").matmul(
-            torch.ones((256, 256), device="cuda")))
+    run = serve(model, prompts, chunk, profile=True, **kw)
+    kernels = run["kernels"]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     idle = 1 - busy / run["wall_s"]
     _log(f"  profiled {label}: wall {run['wall_s']:.3f} s, card busy "
@@ -1412,31 +1522,30 @@ def profiled_serving(label, model, prompts, chunk, **kw):
 
 
 def prefill_cost(model):
-    """One prompt program of the serving engine at the prefix phase's
-    shapes: a miss (the whole prompt in its 2048 bucket, ``flash_fwd``)
-    against hits (a 512- and a 64-token suffix at start 1024,
-    ``paged_chunk``): wall time with the card synchronised, the host's
-    time to enqueue it, and the card's busy time in one profiled call.
-    Returns {label: (wall ms, host ms, device ms)}."""
+    """One prompt program of the serving engine (a CUDA graph replayed)
+    at the prefix phase's shapes: a miss (the whole prompt in its 2048
+    bucket, ``prefill``: ``flash_fwd``) against hits (a 512- and a
+    64-token suffix at start 1024, ``prefill_cont``: ``paged_chunk``):
+    wall time with the card synchronised, the host's time to enqueue it
+    (the inputs' copies and the replay), and the card's busy time in one
+    profiled call.  Returns {label: (wall ms, host ms, device ms)}."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference.serving import ServingEngine
-    from paddle_tpu_torch.models.kv_cache import (PagedChunkKernelView,
-                                                  PagedKVCache)
 
     eng = ServingEngine(model, max_batch=1, max_context=MAX_CONTEXT,
                         block_size=BS, device="cuda")
     row = np.arange(1, MAX_CONTEXT // BS + 1, dtype=np.int32)
     rng = np.random.RandomState(8)
     out = {}
-    for label, view, s, start in (
-            ("miss, whole prompt 2048", PagedKVCache, 2048, 0),
-            ("hit, suffix 512 at 1024", PagedChunkKernelView, 512, 1024),
-            ("hit, suffix 64 at 1024", PagedChunkKernelView, 64, 1024)):
-        ids = rng.randint(1, model.cfg.vocab_size, (1, s)).astype(np.int64)
+    for label, kind, s, start in (
+            ("miss, whole prompt 2048", "prefill", 2048, 0),
+            ("hit, suffix 512 at 1024", "prefill_cont", 512, 1024),
+            ("hit, suffix 64 at 1024", "prefill_cont", 64, 1024)):
+        ids = rng.randint(1, model.cfg.vocab_size, (s,)).tolist()
 
         def call():
-            return eng._forward_prompt(view, row, ids, start)
+            return eng._forward_prompt(kind, row, ids, start)
         call()
         walls, hosts = [], []
         for _ in range(5):
@@ -1537,6 +1646,7 @@ def _cut_streams(model, dev, prompts, **kw):
     st = eng.stats()
     if st["free_blocks"] != eng.num_blocks or st["reserved"] != 0:
         raise AssertionError(f"blocks leaked: {st}")
+    _check_graphs(eng, st)
     return [list(r.output_ids) for r in reqs], st
 
 
@@ -1557,20 +1667,25 @@ def cut_checks(cfg, label="gpt3_1p3b 4 layers fp32"):
     rep = [(pat * 5)[:200], torch.randint(1, vocab, (150,),
                                           generator=gen).tolist()]
     streams = {}
-    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+    # the default card engine (graphs, overlap), the eager card programs,
+    # the CPU
+    for model, dev, graphs in ((card, "cuda", True), (card, "cuda", False),
+                               (cpu, "cpu", False)):
+        where = dev + (" graphs" if graphs else "")
         for on in (False, True):
-            out, st = _cut_streams(model, dev, shared, prefix_cache=on)
+            out, st = _cut_streams(model, dev, shared, prefix_cache=on,
+                                   cuda_graphs=graphs)
             if on and st["prefix_cache"]["hits"] != 2:
                 raise AssertionError(f"cut: prefix stats {st}")
-            streams["prefix", on, dev] = out
+            streams["prefix", on, where] = out
         for key, kw in (("plain", {}),
                         ("ngram", dict(spec_decode=True, spec_draft="ngram")),
                         ("model", dict(spec_decode=True, spec_draft="model",
                                        draft_model=model))):
-            out, st = _cut_streams(model, dev, rep, **kw)
-            streams["spec", key, dev] = out
+            out, st = _cut_streams(model, dev, rep, cuda_graphs=graphs, **kw)
+            streams["spec", key, where] = out
             if kw:
-                _log(f"  cut {key} spec on {dev}: accept rate "
+                _log(f"  cut {key} spec on {where}: accept rate "
                      f"{st['speculative']['accept_rate']}")
     for kind in ("prefix", "spec"):
         got = {k: v for k, v in streams.items() if k[0] == kind}
@@ -1578,7 +1693,8 @@ def cut_checks(cfg, label="gpt3_1p3b 4 layers fp32"):
             raise AssertionError(f"cut {kind} streams differ: {got}")
     _log(f"card vs CPU, {label}: greedy streams with and without the "
          f"prefix (hit, miss, copy on write) equal; n-gram and same-weights "
-         f"draft speculation equal plain decoding; card equal to CPU")
+         f"draft speculation equal plain decoding; card (graphs and eager) "
+         f"equal to CPU")
 
 
 def serving_extras_phase():
@@ -1777,8 +1893,13 @@ def train_full_width(cfg, label):
     import torch
     from paddle_tpu_torch.incubate.distributed.models.moe import capacity
 
+    # the serving phases' engines, models and graphs are gone before the
+    # peak is reset: the peak is the training step's alone
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    _log(f"{label}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+         f"allocated before the model is built")
     model, opt, ids, labels = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
     losses, times, launches = _run_train(model, opt, ids, labels,
                                          TRAIN_STEPS)
@@ -1936,7 +2057,10 @@ def moe_serving_phase(lens):
          f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s, "
          f"mean TTFT {run['ttft_mean_s'] * 1e3:.1f} ms, max TTFT "
          f"{run['ttft_max_s'] * 1e3:.1f} ms, {run['steps']} decode steps in "
-         f"{run['ticks']} ticks, launches {n}")
+         f"{run['ticks']} ticks ({run['overlapped']} chained), "
+         f"{run['replays']} graph replays after a warmup of "
+         f"{run['warmup']['programs']} programs in "
+         f"{run['warmup']['warmup_s']:.2f} s, launches {n}")
     del model
     torch.cuda.empty_cache()
     return run

@@ -66,6 +66,11 @@ def fold_in(k, data):
     """``jax.random.fold_in(k, data)``: the key ``threefry2x32(k, (0,
     data mod 2**32))``."""
     k1, k2 = k
+    if not isinstance(data, torch.Tensor):
+        # a fill on the key's device, no host copy (a CUDA graph captures
+        # the serving engine's draws)
+        data = torch.full((), int(data), dtype=torch.int64,
+                          device=k1.device)
     data = torch.as_tensor(data, device=k1.device).long() & _M32
     return threefry2x32(k1, k2, torch.zeros_like(data), data)
 

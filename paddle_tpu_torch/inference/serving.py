@@ -30,13 +30,21 @@ part that serves one model on one card:
     engine.add_request(Request([1, 2, 3], max_new_tokens=16))
     finished = engine.run()          # or engine.step() incrementally
 
-The JAX engine compiles each program with XLA; here PyTorch runs eagerly
-and the attention goes through the port's CUDA kernels.  The tick loop
-has no overlap: every tick is harvested before the next is dispatched,
-which the JAX engine's streams do not depend on.  The prefix cache's
-export and import, quantization, tensor parallelism, the overlapped tick
-loop, warmup, crash-only handling, drain, the HTTP endpoint and telemetry
-are later slices (see ROADMAP.md).
+The device programs are the JAX engine's: the tick of ``steps_per_tick``
+or 1 steps, greedy or sampled; the spec tick per ladder rung; the prompt
+programs per pad-ladder bucket (``prefill`` from an empty sequence through
+``flash_fwd``, ``prefill_cont`` at an offset through ``paged_chunk``).
+Each is a function of static buffers (``inference/graphs.py``): on the
+card a CUDA graph captured once and replayed (``cuda_graphs=True``, the
+default), on the CPU a direct call.  :meth:`ServingEngine.warmup` captures
+the whole grid before traffic; ``run()`` calls it on the card.  With
+``overlap`` (default on, the JAX flag ``serving_overlap``) ``run()`` keeps
+one tick in flight: tick t+1 is replayed on the lengths and last tokens
+tick t left on the card before t is harvested, and non-final prefill
+chunks ride behind it (the JAX flag ``serving_chunk_overlap``'s
+default).  Streams depend on neither.  The prefix cache's export and
+import, quantization, tensor parallelism, crash-only handling, drain, the
+HTTP endpoint and telemetry are later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ from ..core.device import resolve_device
 from ..incubate.distributed.models.moe import MoELayer
 from ..models.generation import _process_logits_rows, sample_rows
 from ..models.kv_cache import PagedChunkKernelView, PagedKVCache
-from . import speculative
+from ..ops import _build
+from . import graphs, speculative
 from .drafting import NGramDraft
 from .prefix_cache import PrefixCache
 
@@ -151,6 +160,136 @@ def _parse_spec_ladder(spec) -> tuple:
     return tuple(sorted(set(vals)))
 
 
+# ------------------------------------------------------------ programs
+# The functions of the device programs take only the models, pools and
+# block size they use, never the engine: the engine holds the programs,
+# and a program holding the engine would make a reference cycle that keeps
+# an engine (its pools and its CUDA graphs) alive until the cyclic
+# collector runs.
+
+def _prompt_fn(kind: str, model, pools, draft, dpools, bs: int):
+    """The counterparts of ``_prefill_program`` and
+    ``_prefill_cont_program``: the prompt forward (with a draft model,
+    the draft's too, for its KV) and the last real token's row."""
+    cont = kind == "prefill_cont"
+    view_cls = PagedChunkKernelView if cont else PagedKVCache
+
+    def prompt(i, o):
+        table, ids = i["table"], i["ids"]
+        if cont:
+            lens, off = i["start"].view(1), i["start"]
+        else:
+            lens, off = torch.zeros((1,), dtype=torch.int32,
+                                    device=ids.device), 0
+        logits, _ = model.forward_with_cache(
+            ids, [view_cls.from_parts(k, v, table, lens, bs)
+                  for k, v in pools], pos_offset=off)
+        if draft is not None:
+            draft.forward_with_cache(
+                ids, [view_cls.from_parts(k, v, table, lens, bs)
+                      for k, v in dpools], pos_offset=off)
+        o["row"].copy_(logits[0].index_select(0, i["idx"].view(1))[0])
+    return prompt
+
+
+def _tick_fn(model, pools, bs: int, k: int, sampled: bool):
+    """The counterpart of ``_tick_program``: k decode steps over every
+    slot with sampling on the card.  Free slots run with length 0 on
+    all-zero table rows: they write and read the pad block and emit 0.
+    A sampled program draws each step's token from ``fold_in(key(seed),
+    position)``; a greedy one (no slot samples: the host's knowledge,
+    baked in) skips the filters and the draw.  The final lengths and
+    last tokens go back into the inputs, for a chained tick."""
+    def tick(i, o):
+        tables, lens, last = i["tables"], i["lens"], i["last"]
+        samp = (i["do_s"], i["temp"], i["topk"], i["topp"])
+        keys = None
+        if sampled:
+            pos = i["tok_pos"][None] + torch.arange(
+                k, device=lens.device)[:, None]
+            keys = torch.stack(threefry.fold_in(
+                threefry.key(i["seeds"]), pos))          # [2, k, B]
+        toks = []
+        for j in range(k):
+            views = [PagedKVCache.from_parts(kp, vp, tables, lens, bs)
+                     for kp, vp in pools]
+            logits, _ = model.forward_with_cache(
+                last[:, None], views, pos_offset=lens[:, None])
+            nxt = sample_rows(logits[:, -1], *samp,
+                              None if keys is None else keys[:, j], sampled)
+            active = lens > 0
+            nxt = torch.where(active, nxt, torch.zeros_like(nxt))
+            lens = torch.where(active, lens + 1, torch.zeros_like(lens))
+            last = nxt
+            toks.append(nxt)
+        o["toks"].copy_(torch.stack(toks, dim=1))
+        i["lens"].copy_(lens)
+        i["last"].copy_(last)
+    return tick
+
+
+def _spec_fn(model, pools, draft, dpools, bs: int, k: int, sampled: bool):
+    """The counterparts of ``_spec_program`` (the draft model's k steps;
+    ``draft`` given) and ``_spec_hd_program`` (the host's proposals
+    ``dtoks``; ``draft`` None), then the verify and the accept tail.
+    Every key and uniform comes from the lengths on the card (a chained
+    tick's exist only there).  The new lengths and last tokens go back
+    into the inputs."""
+    def spec(i, o):
+        tables, lens, last = i["tables"], i["lens"], i["last"]
+        samp = (i["do_s"], i["temp"], i["topk"], i["topp"])
+        u = resid_keys = draft_keys = None
+        if sampled:
+            seeds, base = i["seeds"], lens.long()
+            u, resid_keys = speculative.host_draws(seeds, base, k)
+            if draft is not None:
+                draft_keys = torch.stack([
+                    torch.stack(speculative.keys_at(
+                        seeds, base + j, speculative.DRAFT_FOLD))
+                    for j in range(k)], dim=1)
+        if draft is not None:
+            dt, dprobs = speculative.draft_phase(
+                draft, dpools, bs, tables, lens, last, samp, draft_keys,
+                sampled, k)
+        else:
+            dt = i["dtoks"]
+            # a host proposal is the point mass at its token
+            dprobs = torch.zeros(
+                dt.shape + (model.cfg.vocab_size,),
+                dtype=torch.float32, device=dt.device).scatter_(
+                    -1, dt[..., None], 1.0) if sampled else None
+        logits = speculative.verify_logits(model, pools, bs, tables, lens,
+                                           last, dt)
+        chosen, counts, accepts = speculative.finish(
+            logits, dt, dprobs, samp, lens, i["kcap"], u, resid_keys,
+            sampled)
+        new_last = chosen.gather(1, (counts.clamp_min(1) - 1)[:, None])
+        o["out"].copy_(torch.cat([chosen, counts[:, None],
+                                  accepts[:, None]], dim=1))
+        i["last"].copy_(torch.where(lens > 0, new_last[:, 0],
+                                    torch.zeros_like(new_last[:, 0])))
+        i["lens"].copy_(lens + counts)
+    return spec
+
+
+class _Pending:
+    """One tick in flight (the JAX engine's ``_PendingTick``): the slots it
+    decodes, its k, the slot -> request map at dispatch, for a spec tick
+    the per-slot caps, its program (a chained tick reads what it left on
+    the card) and the pending copy of its tokens to the host."""
+
+    __slots__ = ("active", "k", "reqs", "spec", "kcap", "prog", "fetch")
+
+    def __init__(self, active, k, reqs, spec, kcap, prog, fetch):
+        self.active = active
+        self.k = k
+        self.reqs = reqs
+        self.spec = spec
+        self.kcap = kcap
+        self.prog = prog
+        self.fetch = fetch
+
+
 class ServingEngine:
     """Continuous batching over a model with ``forward_with_cache``.
 
@@ -167,7 +306,16 @@ class ServingEngine:
     least ``max_context``, on the same device), ``"ngram"`` with the
     host's n-gram table; ``spec_k`` tokens a tick, or, with
     ``spec_adaptive``, a rung of ``spec_k_ladder`` chosen by the
-    acceptance rate."""
+    acceptance rate.
+
+    ``overlap`` is the JAX flag ``serving_overlap`` (on by default):
+    ``run()`` dispatches tick t+1 before it harvests tick t, and
+    non-final prefill chunks ride behind such a tick (the JAX flag
+    ``serving_chunk_overlap``'s default).  ``cuda_graphs``
+    (default on) captures every device program into a CUDA graph on the
+    card; only a caller that wants the eager programs on the card turns
+    it off, and the engine never does so on its own: a failed capture
+    raises.  The CPU runs the programs eagerly."""
 
     # the adaptive-k controller: a rung up while the acceptance EWMA is at
     # least _ADAPT_UP, down at most _ADAPT_DOWN, after at least
@@ -184,7 +332,8 @@ class ServingEngine:
                  prefix_cache: bool = True, draft_model=None,
                  spec_decode: bool = False, spec_k: int = 4,
                  spec_draft: str = "model", spec_adaptive: bool = False,
-                 spec_k_ladder="2,4,8", device=None):
+                 spec_k_ladder="2,4,8", overlap: bool = True,
+                 cuda_graphs: bool = True, device=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}, the engine "
@@ -245,6 +394,15 @@ class ServingEngine:
         self.chunk = int(prefill_chunk)
         if self.chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0: {self.chunk}")
+        self.overlap = bool(overlap)
+        self.overlapped_ticks = 0          # ticks dispatched on a chain
+        self.overlap_chunks = 0            # chunks run behind such a tick
+        # the device programs by key: ("tick", k, sampled), ("spec_tick",
+        # k, sampled), ("prefill", L_pad), ("prefill_cont", L_pad)
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self._programs: dict = {}
+        self._pool = None                  # the graphs' shared memory pool
+        self._warmup_info: Optional[dict] = None
 
     def _init_spec(self, draft_model, spec_decode, spec_k, spec_draft,
                    spec_adaptive, spec_k_ladder) -> None:
@@ -461,17 +619,12 @@ class ServingEngine:
                 return True
             self.tables[slot, :] = row
             if chain:
-                Ls = L - cached_len
-                ids = np.zeros((1, self._pad_bucket(Ls)), np.int64)
-                ids[0, :Ls] = req.prompt_ids[cached_len:]
-                logits = self._forward_prompt(PagedChunkKernelView, row,
-                                              ids, cached_len)
-                first_row = logits[0, Ls - 1]
+                first_row = self._forward_prompt(
+                    "prefill_cont", row, req.prompt_ids[cached_len:],
+                    cached_len)
             else:
-                ids = np.zeros((1, L_pad), np.int64)
-                ids[0, :L] = req.prompt_ids
-                logits = self._forward_prompt(PagedKVCache, row, ids, 0)
-                first_row = logits[0, L - 1]
+                first_row = self._forward_prompt("prefill", row,
+                                                 req.prompt_ids, 0)
         except BaseException:
             # undo every host-side draw: references (shared blocks survive
             # their other holders), the slot, the growth reservation
@@ -524,23 +677,23 @@ class ServingEngine:
                 kk[:, dst] = kk[:, src]
                 vv[:, dst] = vv[:, src]
 
-    def _forward_prompt(self, view_cls, row, ids, start: int):
-        """One prompt program over a single sequence: ``ids`` [1, L_pad]
-        at positions start.., through views with lengths [start].  With a
-        draft model, the draft runs the same tokens for their KV (its
-        logits are discarded: the first token is the target's)."""
-        table = torch.as_tensor(row[None], device=self.device)
-        lens = torch.full((1,), start, dtype=torch.int32, device=self.device)
-        ids = torch.as_tensor(ids, device=self.device)
-        with torch.no_grad():
-            logits, _ = self.model.forward_with_cache(
-                ids, [view_cls.from_parts(k, v, table, lens, self.bs)
-                      for k, v in self.pools], pos_offset=start)
-            if self.spec_model:
-                self.draft.forward_with_cache(
-                    ids, [view_cls.from_parts(k, v, table, lens, self.bs)
-                          for k, v in self.dpools], pos_offset=start)
-        return logits
+    def _forward_prompt(self, kind: str, row, tokens, start: int):
+        """One prompt program over a single sequence: ``tokens`` at
+        positions ``start..`` through the table ``row``, padded to their
+        ladder bucket; ``kind`` "prefill" (from an empty sequence, so
+        ``start`` is 0) or "prefill_cont" (at an offset: prefix hits and
+        chunks).  Returns the last real token's logits row ``[V]``: the
+        program's static output, valid until its next replay."""
+        n = len(tokens)
+        ids = np.zeros((1, self._pad_bucket(n)), np.int64)
+        ids[0, :n] = tokens
+        prog = self._program((kind, ids.shape[1]))
+        arrays = dict(table=row[None], ids=ids, idx=n - 1)
+        if kind == "prefill_cont":
+            arrays["start"] = start
+        prog.load(**arrays)
+        prog.replay()
+        return prog.outputs["row"]
 
     def _prefill_chunk_step(self, req: Request) -> None:
         """One chunk of a chunked admission: prompt tokens [off, off + n)
@@ -549,10 +702,8 @@ class ServingEngine:
         L = len(req.prompt_ids)
         off = req._chunk_off
         n = min(self.chunk, L - off)
-        ids = np.zeros((1, self._pad_bucket(n)), np.int64)
-        ids[0, :n] = req.prompt_ids[off:off + n]
-        logits = self._forward_prompt(PagedChunkKernelView, req._chunk_row,
-                                      ids, off)
+        row = self._forward_prompt("prefill_cont", req._chunk_row,
+                                   req.prompt_ids[off:off + n], off)
         req._chunk_off = off + n
         req._prefill_chunks += 1
         self.prefill_chunks_total += 1
@@ -564,7 +715,7 @@ class ServingEngine:
             req._chunk_row = None
             req._prefilling = False
             self._register(req, req.slot)
-            self._finish_admission(req, req.slot, logits[0, n - 1])
+            self._finish_admission(req, req.slot, row)
 
     def _finish_admission(self, req: Request, slot: int, row) -> None:
         """First token from the prompt's last logits row (position 0 of
@@ -649,15 +800,123 @@ class ServingEngine:
             if not self._try_admit():
                 return
 
+    # ---------------------------------------------------------- programs
+    def _program(self, key) -> graphs.Program:
+        """The device program ``key``, built at first use and, on the
+        card, captured into a CUDA graph in the engine's shared pool."""
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._build(key)
+            if self.cuda_graphs:
+                if self._pool is None:
+                    # built before any capture: nvcc and the module load
+                    # must not run inside one
+                    _build.library()
+                    self._pool = torch.cuda.graph_pool_handle()
+                prog.capture(self._pool)
+            self._programs[key] = prog
+        return prog
+
+    def _build(self, key) -> graphs.Program:
+        """The static buffers and the function of one program.  Prompt
+        programs: the table row ``[1, nb]``, the padded ids ``[1, L_pad]``,
+        the last real token's index, and for ``prefill_cont`` the start;
+        out the logits row ``[V]``.  Ticks: tables ``[B, nb]``, lengths,
+        last tokens, the sampling arrays, the seeds and (plain) the stream
+        positions or (spec) the per-slot caps and the host's proposals;
+        out the tokens ``[B, k]`` (spec: with the counts and accepts)."""
+        dev, B, nb = self.device, self.B, self.nb_per_seq
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        kind = key[0]
+        if kind in ("prefill", "prefill_cont"):
+            ins = dict(table=z((1, nb), torch.int32),
+                       ids=z((1, key[1]), torch.int64),
+                       idx=z((), torch.int64))
+            if kind == "prefill_cont":
+                ins["start"] = z((), torch.int32)
+            outs = dict(row=z((self.model.cfg.vocab_size,),
+                              self.model.dtype))
+            return graphs.Program(
+                _prompt_fn(kind, self.model, self.pools, self.draft,
+                           self.dpools, self.bs), ins, outs)
+        _, k, sampled = key
+        ins = dict(tables=z((B, nb), torch.int32),
+                   lens=z((B,), torch.int32), last=z((B,), torch.int64),
+                   do_s=z((B,), torch.bool), temp=z((B,), torch.float32),
+                   topk=z((B,), torch.int64), topp=z((B,), torch.float32),
+                   seeds=z((B,), torch.int64))
+        if kind == "tick":
+            ins["tok_pos"] = z((B,), torch.int64)
+            outs = dict(toks=z((B, k), torch.int64))
+            fn = _tick_fn(self.model, self.pools, self.bs, k, sampled)
+        else:
+            ins["kcap"] = z((B,), torch.int64)
+            if not self.spec_model:
+                ins["dtoks"] = z((B, k), torch.int64)
+            outs = dict(out=z((B, k + 2), torch.int64))
+            fn = _spec_fn(self.model, self.pools, self.draft, self.dpools,
+                          self.bs, k, sampled)
+        return graphs.Program(fn, ins, outs, inert=dict(temp=1.0, topp=1.0))
+
+    def warmup(self) -> dict:
+        """Build (on the card: capture) the whole program grid before
+        traffic, on inert inputs: all-zero tables and lengths send every
+        write to the pad block 0.  The grid is the JAX engine's without its
+        host-sampling ``decode`` and ``cow`` programs: the tick per size in
+        {steps_per_tick, 1}, the spec tick per ladder rung, and per
+        pad-ladder bucket the ``prefill`` program (whole-prompt engines)
+        and the ``prefill_cont`` one (prefix cache or chunks).  A tick and
+        a spec tick are two programs each, greedy and sampled.  The
+        warm-up runs' launches are not counted.  Idempotent; returns, and
+        ``stats()["warmup"]`` keeps, ``{warmup_s, programs, grid}``."""
+        if self._warmup_info is not None:
+            return self._warmup_info
+        t0 = time.perf_counter()
+        snap = graphs.snapshot()
+        grid = []
+
+        def warm(key):
+            built = key in self._programs
+            prog = self._program(key)
+            if not built and prog.graph is None:
+                prog.warm()
+        for k in sorted({self.steps_per_tick, 1}, reverse=True):
+            for sampled in (False, True):
+                warm(("tick", k, sampled))
+            grid.append({"program": "tick", "steps_per_tick": k})
+        for sk in self.spec_ladder:
+            for sampled in (False, True):
+                warm(("spec_tick", sk, sampled))
+            grid.append({"program": "spec_tick", "spec_k": sk,
+                         "draft": self.spec_kind})
+        if self.chunk <= 0:
+            for L_pad in self.pad_ladder:
+                warm(("prefill", L_pad))
+                grid.append({"program": "prefill", "L_pad": L_pad})
+        if self.prefix is not None or self.chunk > 0:
+            for L_pad in self.pad_ladder:
+                warm(("prefill_cont", L_pad))
+                grid.append({"program": "prefill_cont", "L_pad": L_pad})
+        graphs.restore(snap)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warmup_info = {
+            "warmup_s": round(time.perf_counter() - t0, 4),
+            "programs": len(self._programs), "grid": grid}
+        return self._warmup_info
+
     # ------------------------------------------------------------- ticks
     def _tick_size(self, active) -> int:
-        """Steps this tick: the configured tick size, cut to the smallest
-        remaining budget so no request decodes past its reservation."""
+        """Steps this tick: ``steps_per_tick`` if every active request's
+        remaining budget allows it, else 1 (the JAX engine's two tick
+        programs; no request decodes past its reservation)."""
         k = self.steps_per_tick
         for slot in active:
             req = self.slot_req[slot]
             k = min(k, req.max_new_tokens - int(self.tok_pos[slot]))
-        return max(1, k)
+        return k if k >= self.steps_per_tick else 1
 
     def _draw_blocks(self, slot: int, n: int) -> None:
         """A physical block for every position of the next ``n`` this slot
@@ -670,43 +929,157 @@ class ServingEngine:
                 self.reserved -= 1
                 self.slot_req[slot]._growth_left -= 1
 
-    def _tick(self, k: int) -> np.ndarray:
-        """k decode steps over every slot, sampling on the card; one host
-        round trip at the end.  Free slots run with length 0 on all-zero
-        table rows: they write and read the pad block and emit 0."""
-        dev = self.device
-        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        tables, lens, last = t(self.tables), t(self.seq_lens), \
-            t(self.last_tok)
-        do_s, temp, topk, topp = (
-            t(self.samp_do), t(self.samp_temp), t(self.samp_topk),
-            t(self.samp_topp))
-        any_sample = bool(self.samp_do.any())
-        keys = None
-        if any_sample:
-            # the draw's keys fold_in(key(seed), position) of all k steps,
-            # on the host (tiny) and in one copy: [2, k, B]
-            pos = (torch.as_tensor(self.tok_pos)[None]
-                   + torch.arange(k)[:, None])
-            keys = t(torch.stack(threefry.fold_in(
-                threefry.key(torch.as_tensor(self.samp_seed)), pos)))
-        toks = []
-        with torch.no_grad():
-            for j in range(k):
-                views = [PagedKVCache.from_parts(kp, vp, tables, lens,
-                                                 self.bs)
-                         for kp, vp in self.pools]
-                logits, _ = self.model.forward_with_cache(
-                    last[:, None], views, pos_offset=lens[:, None])
-                nxt = sample_rows(logits[:, -1], do_s, temp, topk, topp,
-                                  None if keys is None else keys[:, j],
-                                  any_sample)
-                active = lens > 0
-                nxt = torch.where(active, nxt, torch.zeros_like(nxt))
-                lens = torch.where(active, lens + 1, torch.zeros_like(lens))
-                last = nxt
-                toks.append(nxt)
-        return torch.stack(toks, dim=1).cpu().numpy()
+    def _samp_arrays(self) -> dict:
+        return dict(tables=self.tables, do_s=self.samp_do,
+                    temp=self.samp_temp, topk=self.samp_topk,
+                    topp=self.samp_topp, seeds=self.samp_seed)
+
+    def _dispatch(self, boundary: bool = True, chain=None):
+        """The JAX engine's ``_dispatch_tick``: at a ``boundary`` the
+        scheduler's work first, then one tick launched and returned in
+        flight (None when no slot decodes).  ``chain`` is the tick in
+        flight before it (overlap): its kind continues, and what it left
+        on the card feeds this one."""
+        if boundary:
+            self._check_mode()
+            empty = not any(r is not None for r in self.slot_req)
+            self._boundary_schedule()
+        active = self._active_slots()
+        if not active:
+            if boundary and empty and self.waiting and \
+                    not self.prefilling and \
+                    all(r is None for r in self.slot_req):
+                raise RuntimeError("the waiting request cannot be admitted "
+                                   "into an empty engine")
+            return None
+        return self._dispatch_tick(active, chain)
+
+    def _dispatch_tick(self, active, chain=None) -> "_Pending":
+        """Launch a plain or speculative tick over ``active``; the host's
+        lengths and stream positions advance now (a spec tick's by each
+        slot's cap, refunded at harvest), so a chained dispatch sees the
+        in-flight state."""
+        spec = chain.spec if chain is not None \
+            else self._spec_eligible(active)
+        if spec:
+            return self._dispatch_spec(active, chain)
+        k = self._tick_size(active)
+        for slot in active:
+            self._draw_blocks(slot, k)
+        prog = self._program(("tick", k, bool(self.samp_do.any())))
+        arrays = self._samp_arrays()
+        arrays.update(lens=self.seq_lens, tok_pos=self.tok_pos)
+        if chain is None:
+            arrays["last"] = self.last_tok
+        prog.load(**arrays)
+        if chain is not None:
+            # the last tokens live on the card until the harvest
+            prog.carry(chain.prog, "last")
+        prog.replay()
+        pend = _Pending(active, k, list(self.slot_req), False, None, prog,
+                        prog.fetch("toks"))
+        self.steps += k
+        for slot in active:
+            self.seq_lens[slot] += k
+            self.tok_pos[slot] += k
+        return pend
+
+    def _dispatch_spec(self, active, chain=None) -> "_Pending":
+        """One speculative tick in flight: per-slot caps ``kcap = min(k,
+        remaining budget)`` with their blocks, the proposals, one verify.
+        A chained tick (model drafts only) keeps its predecessor's k and
+        reads the lengths and last tokens it left on the card."""
+        k = chain.k if chain is not None else self._adapt_k()
+        kcap = np.zeros((self.B,), np.int64)
+        for slot in active:
+            req = self.slot_req[slot]
+            cap = min(k, req.max_new_tokens - int(self.tok_pos[slot]))
+            kcap[slot] = cap
+            if cap < k:
+                self.spec_ineligible_slots += 1
+            self._draw_blocks(slot, cap)
+        prog = self._program(("spec_tick", k, bool(self.samp_do.any())))
+        arrays = self._samp_arrays()
+        arrays["kcap"] = kcap
+        if not self.spec_model:
+            # the host's n-gram proposals: a few dict probes per slot
+            dtoks = np.zeros((self.B, k), np.int64)
+            for slot in active:
+                req = self.slot_req[slot]
+                if req._drafter is None:
+                    req._drafter = NGramDraft()
+                dtoks[slot] = req._drafter.propose_stream(
+                    req.prompt_ids, req.output_ids, k)
+            arrays["dtoks"] = dtoks
+        if chain is None:
+            arrays.update(lens=self.seq_lens, last=self.last_tok)
+        prog.load(**arrays)
+        if chain is not None:
+            prog.carry(chain.prog, "lens", "last")
+        prog.replay()
+        pend = _Pending(active, k, list(self.slot_req), True, kcap, prog,
+                        prog.fetch("out"))
+        self.steps += k + 1 if self.spec_model else 1
+        for slot in active:
+            self.seq_lens[slot] += int(kcap[slot])
+            self.tok_pos[slot] += int(kcap[slot])
+        return pend
+
+    def _harvest(self, pend: "_Pending") -> None:
+        """The JAX engine's ``_harvest_tick``: wait for the tick's tokens
+        and feed the requests.  ``pend.reqs`` is the slot's request at
+        dispatch: one that finished while this tick was in flight has its
+        rows discarded."""
+        out = pend.fetch.wait()
+        k = pend.k
+        if not pend.spec:
+            toks = out["toks"]
+            for slot in pend.active:
+                req = pend.reqs[slot]
+                if req.done:
+                    continue
+                self.last_tok[slot] = int(toks[slot, -1])
+                self._emit(req, toks[slot])
+            self.ticks += 1
+            return
+        out = out["out"]
+        toks, counts, accepts = out[:, :k], out[:, k], out[:, k + 1]
+        proposed = accepted = 0
+        for slot in pend.active:
+            req = pend.reqs[slot]
+            c, a = int(counts[slot]), int(accepts[slot])
+            # the dispatch advanced by the cap; the emitted count is true
+            refund = int(pend.kcap[slot]) - c
+            self.seq_lens[slot] -= refund
+            self.tok_pos[slot] -= refund
+            if req.done:
+                continue
+            # acceptance counts all k proposals (the drafter's quality,
+            # which the controller reads), whatever the slot's cap
+            proposed += k
+            accepted += a
+            req._spec_proposed += k
+            req._spec_accepted += a
+            self.last_tok[slot] = int(toks[slot, c - 1])
+            self._emit(req, toks[slot, :c])
+        self.ticks += 1
+        self.spec_ticks += 1
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        if proposed:
+            rate = accepted / proposed
+            self._accept_ewma = rate if self._accept_ewma is None else (
+                self._EWMA_BETA * self._accept_ewma
+                + (1.0 - self._EWMA_BETA) * rate)
+            self._spec_ticks_since_adapt += 1
+
+    def _emit(self, req: Request, toks) -> None:
+        for tok in toks:
+            if req.done:
+                break        # tokens past eos are discarded
+            req.output_ids.append(int(tok))
+            self.tokens_out += 1
+            self._maybe_finish(req, int(tok))
 
     # ------------------------------------------------------ speculation
     def _spec_eligible(self, active) -> bool:
@@ -742,110 +1115,6 @@ class ServingEngine:
             self._spec_ticks_since_adapt = 0
         return self.spec_k_now
 
-    def _spec_step(self, active) -> None:
-        """One speculative tick: per-slot caps ``kcap = min(k, remaining
-        budget)`` with their blocks, the proposals, one verify, and the
-        harvest of each slot's emitted tokens and accepts."""
-        k = self._adapt_k()
-        kcap = np.zeros((self.B,), np.int64)
-        for slot in active:
-            req = self.slot_req[slot]
-            cap = min(k, req.max_new_tokens - int(self.tok_pos[slot]))
-            kcap[slot] = cap
-            if cap < k:
-                self.spec_ineligible_slots += 1
-            self._draw_blocks(slot, cap)
-        dtoks = None
-        if not self.spec_model:
-            # the host's n-gram proposals: a few dict probes per slot
-            dtoks = np.zeros((self.B, k), np.int64)
-            for slot in active:
-                req = self.slot_req[slot]
-                if req._drafter is None:
-                    req._drafter = NGramDraft()
-                dtoks[slot] = req._drafter.propose_stream(
-                    req.prompt_ids, req.output_ids, k)
-        toks, counts, accepts = self._spec_tick(k, kcap, dtoks)
-        self.steps += k + 1 if self.spec_model else 1
-        self.ticks += 1
-        proposed = accepted = 0
-        for slot in active:
-            req = self.slot_req[slot]
-            c, a = int(counts[slot]), int(accepts[slot])
-            # the emitted count: where the JAX engine's advance by kcap at
-            # dispatch lands after its refund at harvest (no tick is in
-            # flight here to need the upper bound)
-            self.seq_lens[slot] += c
-            self.tok_pos[slot] += c
-            # acceptance counts all k proposals (the drafter's quality,
-            # which the controller reads), whatever the slot's cap
-            proposed += k
-            accepted += a
-            req._spec_proposed += k
-            req._spec_accepted += a
-            self.last_tok[slot] = int(toks[slot, c - 1])
-            for j in range(c):
-                if req.done:
-                    break        # tokens past eos are discarded
-                tok = int(toks[slot, j])
-                req.output_ids.append(tok)
-                self.tokens_out += 1
-                self._maybe_finish(req, tok)
-        self.spec_ticks += 1
-        self.spec_proposed += proposed
-        self.spec_accepted += accepted
-        if proposed:
-            rate = accepted / proposed
-            self._accept_ewma = rate if self._accept_ewma is None else (
-                self._EWMA_BETA * self._accept_ewma
-                + (1.0 - self._EWMA_BETA) * rate)
-            self._spec_ticks_since_adapt += 1
-
-    def _spec_tick(self, k: int, kcap, dtoks):
-        """The card's side of a spec tick: the draft model's k steps (or
-        the host's proposals ``dtoks``), the verify forward and the accept
-        tail; one host round trip.  Returns ``(tokens [B, k], counts [B],
-        accepts [B])``."""
-        dev = self.device
-        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        tables, lens, last = t(self.tables), t(self.seq_lens), \
-            t(self.last_tok)
-        samp = (t(self.samp_do), t(self.samp_temp), t(self.samp_topk),
-                t(self.samp_topp))
-        any_sample = bool(self.samp_do.any())
-        u = resid_keys = draft_keys = None
-        if any_sample:
-            # every key and uniform is a function of the host's lengths:
-            # drawn here, copied once
-            seeds = torch.as_tensor(self.samp_seed)
-            base = torch.as_tensor(self.seq_lens).long()
-            u, resid_keys = (t(x) for x in speculative.host_draws(
-                seeds, base, k))
-            if self.spec_model:
-                draft_keys = t(torch.stack([
-                    torch.stack(speculative.keys_at(
-                        seeds, base + j, speculative.DRAFT_FOLD))
-                    for j in range(k)], dim=1))
-        with torch.no_grad():
-            if self.spec_model:
-                dt, dprobs = speculative.draft_phase(
-                    self.draft, self.dpools, self.bs, tables, lens, last,
-                    samp, draft_keys, any_sample, k)
-            else:
-                dt = t(dtoks)
-                # a host proposal is the point mass at its token
-                dprobs = (torch.nn.functional.one_hot(
-                    dt, self.model.cfg.vocab_size).float()
-                    if any_sample else None)
-            logits = speculative.verify_logits(
-                self.model, self.pools, self.bs, tables, lens, last, dt)
-            chosen, counts, accepts = speculative.finish(
-                logits, dt, dprobs, samp, lens, t(kcap), u, resid_keys,
-                any_sample)
-        out = torch.cat([chosen, counts[:, None], accepts[:, None]],
-                        dim=1).cpu().numpy()
-        return out[:, :k], out[:, k], out[:, k + 1]
-
     def _check_mode(self) -> None:
         if self._moe and any(m.training for m in self._models()):
             raise ValueError(
@@ -853,49 +1122,83 @@ class ServingEngine:
                 "(in training mode its gates route at random, at the "
                 "training capacity)")
 
+    # ------------------------------------------------------------ overlap
+    def _can_overlap(self, pend: "_Pending") -> bool:
+        """May tick t+1 be dispatched before tick t (``pend``) is
+        harvested?  Not while a request waits (admissions join at a real
+        boundary) or chunk work needs one; not past an active request's
+        budget or a finished one; a chained tick continues ``pend``'s
+        kind, and a spec tick chains only with a model draft (n-gram
+        proposals need the harvested tokens) and no rung step due."""
+        if self.waiting:
+            return False
+        if self.prefilling and not self._chunk_overlap_ok():
+            return False
+        if pend.spec:
+            if not self.spec_model or self._adapt_step():
+                return False
+        elif self.spec and self._spec_eligible(pend.active):
+            return False         # plain -> spec: a boundary first
+        for slot in pend.active:
+            req = self.slot_req[slot]
+            if req is None or req.done:
+                return False
+            if req.max_new_tokens - int(self.tok_pos[slot]) < 1:
+                return False
+        return True
+
+    def _chunk_overlap_ok(self) -> bool:
+        """Only non-final chunks ride behind a chained tick: the final one
+        reads its logits row on the host and installs the table row,
+        boundary work."""
+        if self.chunk <= 0:
+            return False
+        req = self.prefilling[0]
+        return len(req.prompt_ids) - req._chunk_off > self.chunk
+
+    def _overlap_chunk_work(self) -> None:
+        """One non-final chunk of the head chunked admission, enqueued
+        behind the chained tick: its writes land in the admission's own
+        blocks, apart from every decoding slot's, so the order commutes."""
+        if self.prefilling and self._chunk_overlap_ok():
+            self._prefill_chunk_step(self.prefilling[0])
+            self.overlap_chunks += 1
+
     def step(self) -> bool:
         """One scheduler boundary and one decode tick (a speculative one
-        when some slot can take more than one token).  Returns True while
-        work remains."""
-        self._check_mode()
-        empty = not any(r is not None for r in self.slot_req)
-        self._boundary_schedule()
-        active = self._active_slots()
-        if not active:
-            if empty and self.waiting and not self.prefilling and \
-                    all(r is None for r in self.slot_req):
-                raise RuntimeError("the waiting request cannot be admitted "
-                                   "into an empty engine")
+        when some slot can take more than one token), harvested before it
+        returns.  Returns True while work remains."""
+        pend = self._dispatch(boundary=True)
+        if pend is None:
             return bool(self.waiting or self.prefilling
                         or any(r is not None for r in self.slot_req))
-        if self._spec_eligible(active):
-            self._spec_step(active)
-            return True
-        k = self._tick_size(active)
-        for slot in active:
-            self._draw_blocks(slot, k)
-        toks = self._tick(k)
-        self.steps += k
-        self.ticks += 1
-        for slot in active:
-            req = self.slot_req[slot]
-            self.seq_lens[slot] += k
-            self.tok_pos[slot] += k
-            self.last_tok[slot] = int(toks[slot, -1])
-            for j in range(k):
-                if req.done:
-                    break        # tokens past eos are discarded
-                tok = int(toks[slot, j])
-                req.output_ids.append(tok)
-                self.tokens_out += 1
-                self._maybe_finish(req, tok)
+        self._harvest(pend)
         return True
 
     def run(self) -> List[Request]:
         """Drive until every queued request finishes; returns them in
-        completion order."""
-        while self.step():
-            pass
+        completion order.  On the card the program grid is captured first
+        (:meth:`warmup`).  With ``overlap`` one tick stays in flight: tick
+        t+1 is dispatched, then t harvested."""
+        if self.cuda_graphs:
+            self.warmup()
+        pend = None
+        while True:
+            if pend is None:
+                if not (self.waiting or self.prefilling
+                        or self._active_slots()):
+                    break
+                pend = self._dispatch(boundary=True)
+                if pend is None:
+                    continue
+            nxt = None
+            if self.overlap and self._can_overlap(pend):
+                nxt = self._dispatch(boundary=False, chain=pend)
+                if nxt is not None:
+                    self.overlapped_ticks += 1
+                    self._overlap_chunk_work()
+            self._harvest(pend)
+            pend = nxt
         self._evict_done()
         return self.finished
 
@@ -913,7 +1216,17 @@ class ServingEngine:
                "waiting": len(self.waiting),
                "prefilling": len(self.prefilling),
                "prefill_chunks": self.prefill_chunks_total,
-               "pad_buckets": list(self.pad_ladder)}
+               "pad_buckets": list(self.pad_ladder),
+               "overlapped_ticks": self.overlapped_ticks,
+               "overlap_chunks": self.overlap_chunks,
+               "graphs": {
+                   "enabled": self.cuda_graphs,
+                   "captured": sum(p.graph is not None
+                                   for p in self._programs.values()),
+                   "replays": sum(p.replays for p in self._programs.values()
+                                  if p.graph is not None)}}
+        if self._warmup_info is not None:
+            out["warmup"] = dict(self._warmup_info)
         if self.spec:
             per_slot = {slot: round(r._spec_accepted / r._spec_proposed, 4)
                         for slot, r in enumerate(self.slot_req)

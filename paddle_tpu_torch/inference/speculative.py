@@ -8,7 +8,7 @@ k-row chunk forward through ``PagedVerifyKernelView`` (the
 keep the stream lossless (Leviathan et al. 2023 rejection sampling).
 Two proposers:
 
-* a draft MODEL (:func:`draft_phase`): k eager decode steps over the
+* a draft MODEL (:func:`draft_phase`): k decode steps over the
   draft's own paged pools, indexed by the SAME block tables as the
   target's, so one allocator, one refcount and one prefix path cover
   both models;
@@ -33,11 +33,11 @@ position)`` with one tag per stream (draft, accept, residual), so a
 sampled stream is a function of the request's seed alone: the JAX
 engine's, draw for draw (``core/threefry.py``).
 
-The JAX package compiles each tick as one program; here it runs eagerly,
-one host round trip per tick.  The keys and the accept uniforms depend on
-the host's lengths only, so they are drawn on the host once per tick and
-copied to the card with the other inputs; the categorical draws (V
-Gumbel bits a row) run on the card.
+The JAX package compiles each tick as one program; the serving engine
+captures it as one (``inference/graphs.py``: a CUDA graph on the card),
+and the keys and accept uniforms are computed in it from the lengths on
+the card, as in the JAX program, since a chained tick's lengths exist
+only there.
 """
 
 from __future__ import annotations
@@ -70,10 +70,10 @@ def keys_at(seeds, pos, tag):
 
 
 def host_draws(seeds, seq_lens, k):
-    """The host side of one tick's draws at positions ``seq_lens + j``
-    (``[B]`` int64 CPU tensors): the accept uniforms ``[B, k]`` and the
-    residual keys (a ``[2, B, k]`` tensor)."""
-    pos = seq_lens[:, None] + torch.arange(k)
+    """One tick's draws at positions ``seq_lens + j`` (``[B]`` int64
+    tensors, on the host or in the tick's program on the card): the accept
+    uniforms ``[B, k]`` and the residual keys (a ``[2, B, k]`` tensor)."""
+    pos = seq_lens[:, None] + torch.arange(k, device=seq_lens.device)
     u = threefry.uniform(keys_at(seeds, pos, ACCEPT_FOLD))
     return u, torch.stack(keys_at(seeds, pos, RESID_FOLD))
 
@@ -138,7 +138,7 @@ def finish(tlogits, dtoks, dprobs, samp, seq_lens, kcap, u, resid_keys,
 
 def draft_phase(draft, dpools, bs, tables, seq_lens, last_tok, samp,
                 draft_keys, any_sample: bool, k: int):
-    """k eager decode steps of the draft model over its own pools: one
+    """k decode steps of the draft model over its own pools: one
     proposed token per slot a step, greedy or drawn with the keys
     ``draft_keys [2, k, B]`` (tag ``DRAFT_FOLD`` at each step's length).
     Free slots (length 0) stay at 0 and write the pad block.  Returns

@@ -26,8 +26,10 @@ def _process_logits_rows(logits, temperature, top_k, top_p):
     ``[B]``.  Returns the filtered logits (removed entries are -inf).
     """
     V = logits.shape[-1]
-    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
-                           device=logits.device)
+    # a fill on the logits' device, no host copy: the serving engine
+    # captures this function into CUDA graphs
+    neg_inf = torch.full((), float("-inf"), dtype=logits.dtype,
+                         device=logits.device)
     logits = logits / temperature.clamp_min(1e-6)[:, None]
     # top-k: threshold at the k-th largest (ascending index V - k)
     asc = torch.sort(logits, dim=-1).values

@@ -147,7 +147,7 @@ def _gather_table(pool, tables):
     in_pool = (t >= 0) & (t < nb)
     g = pool[:, torch.where(in_pool, t, 0)]         # [nh, B, maxb, bs, hd]
     return (g.permute(1, 2, 3, 0, 4).reshape(B, maxb * bs, nh, hd),
-            in_pool.repeat_interleave(bs, dim=1))
+            in_pool[:, :, None].expand(B, maxb, bs).reshape(B, maxb * bs))
 
 
 def paged_attention_reference(q, k_cache, v_cache, block_tables, seq_lens):

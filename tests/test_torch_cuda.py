@@ -742,3 +742,161 @@ def test_moe_gpt_serving_and_training_match_the_cpu(gen):
     torch.testing.assert_close(torch.tensor(losses[1]),
                                torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
     assert losses[1][-1] < losses[1][0]
+
+
+# ------------------------------------------------- serving programs, graphs
+
+def _graph_mix(sampled):
+    """Five requests for two slots (admissions and evictions change the
+    tables between replays), 24 new tokens each from prompts of 10 to 45
+    tokens: every stream crosses a 16-token block boundary.  Sampled:
+    every other request samples, with filters."""
+    lens = (10, 30, 45, 17, 26)
+    g = torch.Generator().manual_seed(11)
+    return [dict(prompt_ids=torch.randint(1, 1024, (n,), generator=g)
+                 .tolist(), max_new_tokens=24,
+                 do_sample=sampled and i % 2 == 1, temperature=0.9,
+                 top_k=40, top_p=0.95, seed=100 + i)
+            for i, n in enumerate(lens)]
+
+
+def _prefix_graph_mix():
+    """A shared 32-token prompt: a miss, two hits (one copied on write)
+    and a repetitive prompt for the n-gram drafter."""
+    shared = list(range(3, 35))
+    return [dict(prompt_ids=shared + list(range(60, 71)), max_new_tokens=20),
+            dict(prompt_ids=shared + list(range(80, 100)),
+                 max_new_tokens=24),
+            dict(prompt_ids=shared, max_new_tokens=18, do_sample=True,
+                 temperature=1.2, seed=21),
+            dict(prompt_ids=[5, 9, 14, 2] * 8, max_new_tokens=24)]
+
+
+def _tiny_card(**kw):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    return GPTForCausalLM(gpt3_tiny(num_heads=2, **kw), device="cuda",
+                          seed=3).eval()
+
+
+def _serve_card(model, mix, **kw):
+    """Serve ``mix`` on the card (block 16, 2 slots, 4 steps a tick);
+    returns the streams, every wrapper count's growth over the run (the
+    warmup's not included) and the stats."""
+    from paddle_tpu_torch.inference import graphs
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    eng = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
+                        steps_per_tick=4, device="cuda", **kw)
+    if eng.cuda_graphs:
+        eng.warmup()
+    before = graphs.snapshot()
+    reqs = [eng.add_request(Request(**m)) for m in mix]
+    eng.run()
+    torch.cuda.synchronize()
+    grew = {(fn.__name__, a): getattr(fn, a) - v for fn, a, v in before}
+    st = eng.stats()
+    assert st["free_blocks"] == eng.num_blocks and st["reserved"] == 0
+    assert [len(r.output_ids) for r in reqs] == \
+        [m["max_new_tokens"] for m in mix]
+    return [list(r.output_ids) for r in reqs], grew, st
+
+
+def _graphs_against_eager(model, mix, **kw):
+    """Graphs (the default) against eager programs on the card, overlap
+    off in both: bit-identical streams and equal launch counts."""
+    want, want_n, _ = _serve_card(model, mix, cuda_graphs=False,
+                                  overlap=False, **kw)
+    got, got_n, st = _serve_card(model, mix, overlap=False, **kw)
+    assert got == want
+    assert got_n == want_n and any(got_n.values())
+    assert st["warmup"]["programs"] > 0 and st["graphs"]["replays"] > 0
+    assert st["graphs"]["captured"] == st["warmup"]["programs"]
+    return st
+
+
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["greedy", "sampled"])
+@pytest.mark.parametrize("chunk", [0, 32])
+def test_graph_ticks_match_eager(gen, chunk, sampled):
+    _graphs_against_eager(_tiny_card(), _graph_mix(sampled),
+                          prefill_chunk=chunk)
+
+
+@pytest.mark.parametrize("draft", ["ngram", "model"])
+def test_graph_spec_ticks_match_eager(gen, draft):
+    kw = dict(spec_decode=True, spec_draft=draft, spec_k=3)
+    if draft == "model":
+        kw["draft_model"] = _tiny_card(num_layers=1)
+    st = _graphs_against_eager(_tiny_card(), _graph_mix(True)[:4]
+                               + _prefix_graph_mix()[3:], **kw)
+    assert st["speculative"]["ticks"] > 0
+
+
+@pytest.mark.parametrize("chunk", [0, 32])
+def test_graph_prompt_programs_match_eager(gen, chunk):
+    """The prefill and prefill_cont programs: a prefix mix served, and
+    one program's logits row against the eager one's."""
+    import numpy as np
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    model = _tiny_card()
+    st = _graphs_against_eager(model, _prefix_graph_mix(),
+                               prefill_chunk=chunk)
+    assert st["prefix_cache"]["hits"] == 2
+    toks = torch.randint(1, 1024, (70,),
+                         generator=torch.Generator().manual_seed(2)).tolist()
+    row = np.arange(1, 9, dtype=np.int32)
+    for kind, start in (("prefill", 0), ("prefill_cont", 40)):
+        rows = []
+        for graphs_on in (False, True):
+            eng = ServingEngine(model, max_batch=2, max_context=128,
+                                block_size=16, device="cuda",
+                                cuda_graphs=graphs_on)
+            if start:
+                eng._forward_prompt("prefill", row, toks[:start], 0)
+            rows.append(eng._forward_prompt(kind, row, toks[start:],
+                                            start).clone())
+            assert all((p.graph is not None) == graphs_on
+                       for p in eng._programs.values())
+        assert torch.equal(rows[0], rows[1])
+
+
+def test_graph_moe_serving_matches_eager(gen):
+    _graphs_against_eager(_tiny_card(moe_num_experts=4), _graph_mix(True))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(prefill_chunk=16),
+                                dict(spec_decode=True, spec_draft="model",
+                                     spec_k=3)],
+                         ids=["whole", "chunked", "model-draft"])
+def test_overlap_on_and_off_give_equal_streams(gen, kw):
+    model = _tiny_card()
+    if kw.get("spec_draft") == "model":
+        kw = dict(kw, draft_model=_tiny_card(num_layers=1))
+    mix = _graph_mix(True)[:2]          # two requests: ticks chain
+    off, off_n, _ = _serve_card(model, mix, overlap=False, **kw)
+    on, on_n, st = _serve_card(model, mix, **kw)
+    assert on == off and st["overlapped_ticks"] > 0
+    if not kw.get("spec_decode"):
+        # a chained spec tick's caps are upper bounds: its ticks differ
+        assert on_n == off_n
+
+
+def test_a_failed_capture_raises(gen, monkeypatch):
+    """A program that cannot be captured (here: a host read inside it)
+    raises from warmup() and from run(); no eager program stands in."""
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+
+    def host_read(model, pools, bs, k, sampled):
+        def tick(i, o):
+            o["toks"].fill_(int(i["lens"].sum().item()))
+        return tick
+    monkeypatch.setattr(serving, "_tick_fn", host_read)
+    eng = ServingEngine(_tiny_card(), max_batch=2, max_context=128,
+                        block_size=16, steps_per_tick=4, device="cuda")
+    with pytest.raises(RuntimeError):
+        eng.warmup()
+    assert not any(p.graph is None for p in eng._programs.values())
+    eng.add_request(Request([1, 2, 3], max_new_tokens=4))
+    with pytest.raises(RuntimeError):
+        eng.run()
+    torch.cuda.synchronize()

@@ -15,9 +15,11 @@ streams and `stats()["prefix_cache"]` must be equal, and every drained
 engine reads `free_blocks == num_blocks`.  The JAX engine runs with its
 paged Pallas views off (`FLAGS_serving_pallas_prefill`,
 `FLAGS_serving_pallas_verify`: their interpret strategy calls `pl.load`,
-which this jax release lacks; the dense views are the same math) and
-without its overlapped tick loop (`FLAGS_serving_overlap`, which the port
-does not have), so both engines see the same boundaries.
+which this jax release lacks; the dense views are the same math).  The
+engine tests run with the overlapped tick loop off and on, the same on
+both engines (`FLAGS_serving_overlap`, the port's `overlap`), so both see
+the same boundaries and their `stats()["steps"]` and `["ticks"]` are
+equal too; with overlap on, ticks must have been chained.
 """
 
 import numpy as np
@@ -36,8 +38,7 @@ from paddle_tpu_torch.models.convert import gpt_state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
 
 ENGINE = dict(max_batch=2, max_context=64, block_size=16, steps_per_tick=4)
-JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False,
-                 serving_overlap=False)
+JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False)
 
 
 # ------------------------------------------------------------------ index
@@ -190,7 +191,9 @@ def _mix(name):
     return reqs, 5
 
 
-def _serve(engine_cls, req_cls, model, mix, chunk, nb, **kw):
+def _serve(engine_cls, req_cls, model, mix, chunk, nb, overlap, **kw):
+    if engine_cls is ServingEngine:
+        kw["overlap"] = overlap
     eng = engine_cls(model, prefill_chunk=chunk, num_blocks=nb,
                      **{**ENGINE, **kw})
     reqs = [eng.add_request(req_cls(**m)) for m in mix]
@@ -201,29 +204,34 @@ def _serve(engine_cls, req_cls, model, mix, chunk, nb, **kw):
     return [list(r.output_ids) for r in reqs], st
 
 
+@pytest.mark.parametrize("overlap", [False, True])
 @pytest.mark.parametrize("chunk", [0, 16])
 @pytest.mark.parametrize("name", ["shared", "cow", "evict"])
-def test_engine_matches_the_jax_engine(models, monkeypatch, name, chunk):
+def test_engine_matches_the_jax_engine(models, monkeypatch, name, chunk,
+                                       overlap):
     jm, tm = models
     mix, nb = _mix(name)
-    with flag_guard(**JAX_FLAGS):
+    with flag_guard(serving_overlap=overlap, **JAX_FLAGS):
         want, jst = _serve(JaxEngine, JaxRequest, jm, mix, chunk, nb,
-                           prefix_cache=True)
+                           overlap, prefix_cache=True)
     copies = []
     cow = ServingEngine._cow
     monkeypatch.setattr(ServingEngine, "_cow", lambda self, s, d: (
         copies.append((s, d)), cow(self, s, d)))
-    got, st = _serve(ServingEngine, Request, tm, mix, chunk, nb,
+    got, st = _serve(ServingEngine, Request, tm, mix, chunk, nb, overlap,
                      device="cpu")
     assert got == want
     assert st["prefix_cache"] == jst["prefix_cache"]
+    assert (st["steps"], st["ticks"], st["prefill_chunks"]) == \
+        (jst["steps"], jst["ticks"], jst["prefill_chunks"])
+    assert (st["overlapped_ticks"] > 0) == overlap
     pc = st["prefix_cache"]
     assert pc["hits"] > 0 and pc["blocks_shared"] > 0
     assert bool(copies) == (name == "cow")
     assert (pc["evictions"] > 0) == (name == "evict")
     # a hit's greedy stream is the miss's
     miss, st_off = _serve(ServingEngine, Request, tm, mix, chunk, nb,
-                          device="cpu", prefix_cache=False)
+                          overlap, device="cpu", prefix_cache=False)
     assert "prefix_cache" not in st_off
     greedy = [i for i, m in enumerate(mix) if not m.get("do_sample")]
     assert [got[i] for i in greedy] == [miss[i] for i in greedy]

@@ -14,7 +14,12 @@ are in `tests/test_torch_prefix_cache.py`).  The JAX engine runs with
 `FLAGS_serving_pallas_prefill` and `FLAGS_serving_pallas_verify` off: its
 chunk kernel's default interpret strategy calls `pl.load`, which this jax
 release does not have, and the dense chunk view it falls back to is the
-same math.
+same math.  Both parity tests run with the overlapped tick loops off and
+on, the same on both engines (`FLAGS_serving_overlap`, the port's
+`overlap`; on, non-final chunks ride behind a chained tick as with
+`FLAGS_serving_chunk_overlap`'s default): the tick boundaries, and with
+them `stats()["steps"]` and `["ticks"]`, are equal too, and with overlap
+on ticks must have been chained.
 
 Within the port, a sampled stream is a function of the request's seed
 alone, whatever the tick size or batch.
@@ -54,26 +59,31 @@ def _prompts(seed=0):
     return [rng.randint(1, 1024, (n,)).tolist() for n in PROMPT_LENS]
 
 
-def _serve_port(model, reqs, **kw):
-    eng = ServingEngine(model, device="cpu", **{**ENGINE, **kw})
+def _serve_port(model, reqs, overlap=False, **kw):
+    eng = ServingEngine(model, device="cpu", overlap=overlap,
+                        **{**ENGINE, **kw})
     for r in reqs:
         eng.add_request(r)
     eng.run()
     st = eng.stats()
     assert st["free_blocks"] == eng.num_blocks and st["reserved"] == 0
     assert all(r.done for r in reqs)
+    assert (st["overlapped_ticks"] > 0) == overlap
     return eng, [list(r.output_ids) for r in reqs]
 
 
 JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False)
+STATS = ("steps", "ticks", "prefill_chunks", "prefix_cache")
 
 
+@pytest.mark.parametrize("overlap", [False, True])
 @pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize("chunk", [0, 16])
-def test_greedy_streams_match_the_jax_engine(models, chunk, prefix):
+def test_greedy_streams_match_the_jax_engine(models, chunk, prefix,
+                                             overlap):
     jm, tm = models
     prompts = _prompts()
-    with flag_guard(**JAX_FLAGS):
+    with flag_guard(serving_overlap=overlap, **JAX_FLAGS):
         jeng = JaxEngine(jm, prefill_chunk=chunk, prefix_cache=prefix,
                          **ENGINE)
         jreqs = [jeng.add_request(JaxRequest(p, max_new_tokens=b))
@@ -82,10 +92,11 @@ def test_greedy_streams_match_the_jax_engine(models, chunk, prefix):
     want = [list(r.output_ids) for r in jreqs]
     eng, got = _serve_port(tm, [Request(p, max_new_tokens=b)
                                 for p, b in zip(prompts, BUDGETS)],
-                           prefill_chunk=chunk, prefix_cache=prefix)
+                           overlap, prefill_chunk=chunk,
+                           prefix_cache=prefix)
     assert got == want
-    assert eng.stats().get("prefix_cache") == \
-        jeng.stats().get("prefix_cache")
+    assert {k: eng.stats().get(k) for k in STATS} == \
+        {k: jeng.stats().get(k) for k in STATS}
     assert [len(s) for s in got] == list(BUDGETS)
     if chunk:
         # 29 -> 2 chunks, 11 -> 1, 40 -> 3
@@ -106,21 +117,25 @@ def _sampled_mix(seed0):
     return reqs
 
 
+@pytest.mark.parametrize("overlap", [False, True])
 @pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize("chunk", [0, 16])
 @pytest.mark.parametrize("seed0", [11, 2024])
-def test_sampled_streams_match_the_jax_engine(models, chunk, seed0, prefix):
+def test_sampled_streams_match_the_jax_engine(models, chunk, seed0, prefix,
+                                              overlap):
     jm, tm = models
     mix = _sampled_mix(seed0)
-    with flag_guard(**JAX_FLAGS):
+    with flag_guard(serving_overlap=overlap, **JAX_FLAGS):
         jeng = JaxEngine(jm, prefill_chunk=chunk, prefix_cache=prefix,
                          **ENGINE)
         jreqs = [jeng.add_request(JaxRequest(**kw)) for kw in mix]
         jeng.run()
     want = [list(r.output_ids) for r in jreqs]
-    _, got = _serve_port(tm, [Request(**kw) for kw in mix],
-                         prefill_chunk=chunk, prefix_cache=prefix)
+    eng, got = _serve_port(tm, [Request(**kw) for kw in mix], overlap,
+                           prefill_chunk=chunk, prefix_cache=prefix)
     assert got == want
+    assert {k: eng.stats().get(k) for k in STATS} == \
+        {k: jeng.stats().get(k) for k in STATS}
     assert [len(s) for s in got] == [kw["max_new_tokens"] for kw in mix]
 
 

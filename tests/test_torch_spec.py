@@ -15,8 +15,12 @@
   short of k (its cap binds), whole-prompt and chunked prefill: equal
   streams and equal `stats()["speculative"]`; the greedy streams also
   equal the port's plain decoding.  The JAX engine runs with its paged
-  Pallas views and its overlapped loop off, as in
-  `tests/test_torch_prefix_cache.py`.
+  Pallas views off, as in `tests/test_torch_prefix_cache.py`, and both
+  engines with the overlapped tick loop off and on, the same on both
+  (`FLAGS_serving_overlap`, the port's `overlap`): `stats()["steps"]`
+  and `["ticks"]` are equal too.  With overlap on, model-draft spec ticks
+  must have been chained, n-gram ones never (their proposals need the
+  harvested tokens).
 """
 
 import numpy as np
@@ -41,8 +45,7 @@ from paddle_tpu_torch.inference.serving import Request, ServingEngine
 from paddle_tpu_torch.models.convert import gpt_state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
 
-JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False,
-                 serving_overlap=False)
+JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False)
 SEEDS = np.array([7, 2 ** 31 + 5, 123456, 0xFFFFFFFF], np.uint32)
 
 
@@ -221,7 +224,9 @@ SPEC_CASES = [dict(spec_draft="ngram", spec_k=4),
                    spec_k_ladder=[2, 4], prefill_chunk=16)]
 
 
-def _serve(engine_cls, req_cls, model, mix=_mix, **kw):
+def _serve(engine_cls, req_cls, model, mix=_mix, overlap=False, **kw):
+    if engine_cls is ServingEngine:
+        kw["overlap"] = overlap
     eng = engine_cls(model, **{**ENGINE, **kw})
     reqs = [eng.add_request(req_cls(**m)) for m in mix()]
     eng.run()
@@ -232,20 +237,24 @@ def _serve(engine_cls, req_cls, model, mix=_mix, **kw):
     return [list(r.output_ids) for r in reqs], st
 
 
+@pytest.mark.parametrize("overlap", [False, True])
 @pytest.mark.parametrize("case", SPEC_CASES,
                          ids=["ngram-k4", "ngram-adaptive-chunked",
                               "model-k3", "model-adaptive-chunked"])
-def test_engine_matches_the_jax_engine(models, case):
+def test_engine_matches_the_jax_engine(models, case, overlap):
     (jm, tm), (jd, td) = models
-    kw = dict(spec_decode=True, **case)
+    kw = dict(spec_decode=True, overlap=overlap, **case)
     model_draft = case["spec_draft"] == "model"
-    with flag_guard(**JAX_FLAGS):
+    with flag_guard(serving_overlap=overlap, **JAX_FLAGS):
         want, jst = _serve(JaxEngine, JaxRequest, jm, prefix_cache=True,
                            draft_model=jd if model_draft else None, **kw)
     got, st = _serve(ServingEngine, Request, tm, device="cpu",
                      draft_model=td if model_draft else None, **kw)
     assert got == want
     assert st["speculative"] == jst["speculative"]
+    assert (st["steps"], st["ticks"], st["prefill_chunks"]) == \
+        (jst["steps"], jst["ticks"], jst["prefill_chunks"])
+    assert (st["overlapped_ticks"] > 0) == (overlap and model_draft)
     sp = st["speculative"]
     assert sp["ticks"] > 0 and sp["ineligible_slots"] > 0
     if model_draft or case["spec_draft"] == "ngram":
@@ -254,6 +263,7 @@ def test_engine_matches_the_jax_engine(models, case):
         assert sp["k_switches"] > 0
     # greedy speculation is lossless: plain decoding's streams
     plain, _ = _serve(ServingEngine, Request, tm, device="cpu",
+                      overlap=overlap,
                       prefill_chunk=case.get("prefill_chunk", 0))
     assert [got[i] for i in (0, 3)] == [plain[i] for i in (0, 3)]
 
@@ -271,17 +281,19 @@ def _full_context_mix():
     return out
 
 
-def test_model_draft_serves_requests_that_fill_the_context(models):
+@pytest.mark.parametrize("overlap", [False, True])
+def test_model_draft_serves_requests_that_fill_the_context(models, overlap):
     (jm, tm), (jd, td) = models
     kw = dict(spec_decode=True, spec_draft="model", spec_k=4,
-              mix=_full_context_mix)
-    with flag_guard(**JAX_FLAGS):
+              mix=_full_context_mix, overlap=overlap)
+    with flag_guard(serving_overlap=overlap, **JAX_FLAGS):
         want, jst = _serve(JaxEngine, JaxRequest, jm, prefix_cache=True,
                            draft_model=jd, **kw)
     got, st = _serve(ServingEngine, Request, tm, device="cpu",
                      draft_model=td, **kw)
     assert got == want
     assert st["speculative"] == jst["speculative"]
+    assert (st["steps"], st["ticks"]) == (jst["steps"], jst["ticks"])
 
 
 def test_spec_settings_are_checked(models):
