@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs thirteen phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs seventeen phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -17,6 +17,11 @@ into ``build/paddle_tpu_torch/``), then runs thirteen phases on card 0:
    plain version computed in float32 on the same bfloat16 inputs, atol
    2e-2, and for gradients also rtol 1e-2 (one bf16 rounding of a
    gradient that sums over a whole sequence).  ``paged_decode`` also at
+   Llama-2 7B's serving shape (nh 32, timed beside its bound), the three
+   flash kernels also at BERT-base's training shape (B 8, S 512, nh 12, hd
+   64, non-causal, padded rows through the kv mask, dropout 0.1; timed
+   beside ``F.scaled_dot_product_attention`` with the same mask and
+   rate), and ``paged_decode`` at
    the edges of its 256-key splits (255, 256, 257, 511, 512), 0 and the
    full table, and with out-of-pool table entries, and at phase 12's
    draft shape (hd 64, the draft's lengths, with and without out-of-pool
@@ -156,6 +161,40 @@ into ``build/paddle_tpu_torch/``), then runs thirteen phases on card 0:
    equal those without it, and n-gram and same-weights-draft speculation
    equal plain decoding.
 
+14. Llama-2 7B serving at full width (run after phase 9, every GPT model
+   and engine freed first): ``llama2_7b()`` (hidden 4096, 32 layers, 32
+   heads, hd 128, vocab 32000; 6.74 B parameters) in bfloat16 with random
+   weights from a seed, on phase 2's requests and engine settings:
+   whole-prompt prefill (median of 3 runs, one more with the overlapped
+   loop off for ms per decode step, one profiled for the idle share),
+   256-token chunks and phase 11's shared-prefix mix with the prefix cache
+   (one profiled run each).  In the profiled runs every prompt's
+   ``flash_fwd`` is ``flash_fwd_tc_kernel``, decode runs the split and
+   merge kernels and every ``paged_chunk`` launch (chunks and hits) is
+   ``paged_chunk_tc_kernel``, by name; no plain route, budgets met, no
+   leaked block, the program grid captured and replayed.  Prints tokens/s,
+   mean TTFT, ms per decode step, idle share, warmup, the top kernels and
+   peak memory.
+15. Llama card against CPU: a 4-layer fp32 cut of ``llama2_7b(num_kv_heads
+   =4)`` (Llama-2-70B's group of 8 query heads per kv head) serves one
+   greedy 260-token request whole-prompt and in 256-token chunks (card:
+   default engine and eager programs) with phase 3's checks; a 2-layer
+   cut takes 2 AdamW steps card against CPU at B 1 x S 256 with phase 5's
+   (the card's fp32 FMA flash kernels reading kv head h // 8).
+16. Llama training at a layer cut: ``llama2_7b(num_layers=8)`` at full
+   width (1.88 B parameters: fp32 weights, gradients and AdamW moments
+   take 30 GB; all 32 layers would take 108 GB), phase 4's step at B 1 x
+   S 4096, 6 steps and one profiled; each flash kernel launched 8 x 6
+   times, on the tensor-core kernels by name.
+17. BERT-base MLM training at full width (``bench.py``'s
+   ``bench_bert_base``: B 8 x S 512, dropout 0.1, labels on 15% of the
+   tokens, -100 elsewhere): phase 4's step, 6 steps without a mask and 6
+   with every second row padded from a random length in [128, 512); each
+   flash kernel (hd 64, non-causal, kv mask, dropout) launched 12 x 6
+   times per run, on the tensor-core kernels by name in a profiled step.
+   Then a 2-layer fp32 cut with padded rows, 2 AdamW steps card against
+   CPU at B 2 x S 128 with phase 5's tolerances.
+
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
 beside it.  The line before the last is a JSON object with each kernel's
@@ -180,6 +219,9 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 4, 2048, 6, 1e-4
 MOE_E = 4                            # experts of the GPT-MoE phases
 REPEATS = 3                          # serving runs per median (phases 11-12)
 SPEC_LENS = [400 + 600 * i // (BATCH - 1) for i in range(BATCH)]  # phase 12
+LLAMA_NH = 32                        # llama2_7b's heads (phase 14)
+LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_S = 8, 4096    # phase 16
+BERT_B, BERT_S = 8, 512              # phase 17, bench.py's bench_bert_base
 TOL = {"torch.float32": dict(atol=2e-5, rtol=1e-4),
        "torch.bfloat16": dict(atol=2e-2, rtol=0.0)}
 GRAD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
@@ -1014,6 +1056,11 @@ def serve(model, prompts, chunk, time_ticks=False, profile=False,
                                                          device="cuda")))
     else:
         wall = traffic()
+    if time_ticks:
+        # the wrappers hold the engine's bound methods: drop them, so the
+        # engine (its pools and graphs) goes with its last reference and
+        # not with the cyclic collector, after the next engine is built
+        del eng._dispatch_tick, eng._harvest
     launches = {name: fn.launches for name, fn in _counters().items()}
     plain = _plain_calls()
     if any(plain.values()):
@@ -1222,15 +1269,18 @@ def _by_name(kernels, names):
     return out
 
 
-def where_the_time_goes(model, prompts, chunk, label=None, **kw):
+def where_the_time_goes(model, prompts, chunk, label=None, nh=NH, **kw):
     """A profiled serving run (warm) with whole-prompt (``chunk`` 0) or
     chunked prefill on the engine ``kw`` asks for (by default graphs and
     overlap): the card's busy time against the wall clock, the kernels
-    that take it, the decode kernels by name and, chunked, every bf16
-    paged_chunk launch by name: the tensor-core kernel (and its merge when
-    the wrapper splits the keys), never the FMA kernel.  Kernels replayed
-    in a CUDA graph show on the timeline one by one.  Returns the idle
-    share, busy and wall seconds, and the kernel launches."""
+    that take it, the decode kernels by name, the prompts' bf16 flash_fwd
+    launches on the tensor-core kernel by name (none on the FMA one) and,
+    chunked, every bf16 paged_chunk launch by name: the tensor-core kernel
+    (and its merge when the wrapper splits the keys over ``nh`` heads'
+    blocks), never the FMA kernel; prefix hits' paged_chunk launches
+    likewise on the tensor-core kernel.  Kernels replayed in a CUDA graph
+    show on the timeline one by one.  Returns the idle share, busy and
+    wall seconds, the kernel launches and the run."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
     label = label or ("chunked" if chunk else "whole-prompt")
@@ -1252,9 +1302,26 @@ def where_the_time_goes(model, prompts, chunk, label=None, **kw):
             raise AssertionError(f"profiled {label} run: {name} never ran")
     _log(f"profiled {label} run, decode kernels by name: " + ", ".join(
         f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in decode.items()))
+    if run["launches"]["flash_fwd"]:
+        flash = _by_name(kernels, ("flash_fwd_tc_kernel", "flash_fwd_kernel"))
+        if flash["flash_fwd_tc_kernel"][0] == 0 or \
+                flash["flash_fwd_kernel"][0] != 0:
+            raise AssertionError(f"profiled {label} run: flash_fwd "
+                                 f"launches by kernel {flash}")
+        _log(f"profiled {label} run, prompt kernels by name: " + ", ".join(
+            f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in flash.items()))
+    if not chunk and run["launches"]["paged_chunk"]:
+        hits = _by_name(kernels, CHUNK_KERNELS)
+        if hits["paged_chunk_tc_kernel"][0] == 0 or \
+                hits["paged_chunk_kernel"][0] != 0:
+            raise AssertionError(f"profiled {label} run: paged_chunk "
+                                 f"launches by kernel {hits}")
+        _log(f"profiled {label} run, prefix hits' kernels by name: "
+             + ", ".join(f"{n} {c}x {us / 1e3:.2f} ms"
+                         for n, (c, us) in hits.items()))
     if chunk:
         calls = run["launches"]["paged_chunk"]
-        split = pa.chunk_split(1, NH, chunk, MAX_CONTEXT // BS, BS)[1] > 1
+        split = pa.chunk_split(1, nh, chunk, MAX_CONTEXT // BS, BS)[1] > 1
         got = _by_name(kernels, CHUNK_KERNELS)
         want = {"paged_chunk_tc_kernel": calls,
                 "paged_chunk_merge_kernel": calls if split else 0,
@@ -1269,49 +1336,56 @@ def where_the_time_goes(model, prompts, chunk, label=None, **kw):
              + f"; {chunk_us / 1e3:.2f} ms of device time in {calls} "
              f"launches")
     return dict(idle=idle, busy_s=busy_us / 1e6, wall_s=wall,
-                kernel_launches=n)
+                kernel_launches=n, run=run)
 
 
 # --------------------------------------------------------------- phase 3
 
-def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
+def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", prompt_len=96,
+                chunks=(0,)):
+    """One greedy request of ``prompt_len`` tokens served with each
+    prefill chunk of ``chunks`` (0: whole-prompt) on the card (the default
+    engine and the eager programs) and on the CPU, from one state dict:
+    all streams equal, first-token logits within atol 1e-3."""
     import torch
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
 
-    cpu = GPTForCausalLM(cfg, device="cpu", seed=1).eval()
-    card = GPTForCausalLM(cfg, device="cuda", seed=2).eval()
+    cpu = _model(cfg, "cpu", 1).eval()
+    card = _model(cfg, "cuda", 2).eval()
     card.load_state_dict(cpu.state_dict())
     gen = torch.Generator().manual_seed(1)
-    prompt = torch.randint(1, cfg.vocab_size, (96,), generator=gen)
-    streams, first = [], []
+    prompt = torch.randint(1, cfg.vocab_size, (prompt_len,), generator=gen)
+    ctx = -(-(prompt_len + 16) // BS) * BS
+    streams, first = {}, []
     # the default card engine (graphs, overlap), the eager card programs,
     # the CPU
     for model, dev, graphs in ((card, "cuda", True), (card, "cuda", False),
                                (cpu, "cpu", False)):
-        eng = ServingEngine(model, max_batch=1, max_context=128,
-                            block_size=BS, steps_per_tick=8, device=dev,
-                            cuda_graphs=graphs)
-        req = eng.add_request(Request(prompt.tolist(), max_new_tokens=16))
-        eng.run()
-        _check_graphs(eng, eng.stats())
-        streams.append(list(req.output_ids))
+        for chunk in chunks:
+            eng = ServingEngine(model, max_batch=1, max_context=ctx,
+                                block_size=BS, steps_per_tick=8, device=dev,
+                                cuda_graphs=graphs, prefill_chunk=chunk)
+            req = eng.add_request(Request(prompt.tolist(),
+                                          max_new_tokens=16))
+            eng.run()
+            _check_graphs(eng, eng.stats())
+            streams[dev, graphs, chunk] = list(req.output_ids)
         if graphs:
             continue
-        caches = model.init_caches(1, 128, BS)
+        caches = model.init_caches(1, ctx, BS)
         with torch.no_grad():
             logits, _ = model.forward_with_cache(prompt[None].to(dev),
                                                  caches, 0)
         first.append(logits[0, -1].float().cpu())
     err = (first[0] - first[1]).abs().max().item()
     torch.testing.assert_close(first[0], first[1], atol=1e-3, rtol=0.0)
-    if not streams[0] == streams[1] == streams[2]:
-        raise AssertionError(f"card streams {streams[0]} (graphs), "
-                             f"{streams[1]} (eager) != CPU stream "
-                             f"{streams[2]}")
+    if len({str(x) for x in streams.values()}) != 1:
+        raise AssertionError(f"card and CPU streams differ (device, graphs, "
+                             f"chunk): {streams}")
     _log(f"card vs CPU, {label}: first-token logits "
-         f"max_abs_err={err:.3e}, 16-token greedy streams equal (card "
-         f"graphs, card eager, CPU)")
+         f"max_abs_err={err:.3e}, 16-token greedy streams of a "
+         f"{prompt_len}-token prompt equal (card graphs, card eager, CPU; "
+         f"prefill chunks {list(chunks)})")
 
 
 # -------------------------------------------------------------- phase 10
@@ -1450,6 +1524,17 @@ def _divergence_gaps(model, prompts, streams, base):
     return gaps, (sum(stds) / len(stds) if stds else 0.0)
 
 
+def _prefix_prompts(vocab):
+    """Phase 11's mix: 8 prompts on one 1024-token system prompt with
+    suffixes of 37 + 64 i tokens, and the system prompt alone."""
+    import torch
+    gen = torch.Generator().manual_seed(5)
+    system = torch.randint(1, vocab, (1024,), generator=gen).tolist()
+    return [system + torch.randint(1, vocab, (37 + 64 * i,),
+                                   generator=gen).tolist()
+            for i in range(BATCH)] + [system]
+
+
 def prefix_phase(model):
     """The prefix cache at full width: 8 requests sharing a 1024-token
     system prompt (16 full blocks), each with its own suffix of 37 + 64 i
@@ -1457,13 +1542,7 @@ def prefix_phase(model):
     block-aligned: its last block is copied on write); prefix off,
     prefix on with whole-prompt prefill, and on with 256-token chunks.
     Then the cost of one prefill, miss against hit."""
-    import torch
-    vocab = model.cfg.vocab_size
-    gen = torch.Generator().manual_seed(5)
-    system = torch.randint(1, vocab, (1024,), generator=gen).tolist()
-    prompts = [system + torch.randint(1, vocab, (37 + 64 * i,),
-                                      generator=gen).tolist()
-               for i in range(BATCH)] + [system]
+    prompts = _prefix_prompts(model.cfg.vocab_size)
     runs = _interleaved(
         "serving gpt3_1p3b bf16, shared 1024-token prefix", model, prompts,
         [("off", "prefix off, whole-prompt", 0, dict(prefix_cache=False)),
@@ -1717,32 +1796,60 @@ def serving_extras_phase():
 
 # --------------------------------------------------------------- phase 4
 
-def _train_setup(cfg, device, seed, B, S):
+def _model(cfg, device, seed, dtype=None):
+    """The port's model of ``cfg``'s family (GPT, Llama, or BERT with its
+    MLM head), random weights from ``seed``."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cls = (GPTForCausalLM if isinstance(cfg, GPTConfig) else
+           BertForMaskedLM if isinstance(cfg, BertConfig) else
+           LlamaForCausalLM)
+    return cls(cfg, device=device, seed=seed,
+               **({} if dtype is None else dict(dtype=dtype)))
+
+
+def _train_setup(cfg, device, seed, B, S, masked=False):
     """The model, AdamW with global-norm clipping, and one fixed batch of
-    random tokens from a numpy seed."""
+    random tokens from a numpy seed: the arguments of ``compute_loss``.
+    GPT and Llama: random labels.  BERT (MLM): a label on 15% of the
+    tokens (the token itself), -100 elsewhere; ``masked`` pads every second
+    row from a random length in [S / 4, S) (``attention_mask`` 0 there,
+    and no label)."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.models.bert import BertConfig
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
-    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    model = _model(cfg, device, seed)
     model.train()
     opt = AdamW(learning_rate=LR, parameters=model.parameters(),
                 weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
     rng = np.random.RandomState(seed)
-    ids, labels = (torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, S)),
-                                   device=device) for _ in range(2))
-    return model, opt, ids, labels
+    ids, labels = (rng.randint(0, cfg.vocab_size, (B, S)) for _ in range(2))
+    if not isinstance(cfg, BertConfig):
+        return model, opt, tuple(torch.as_tensor(x, device=device)
+                                 for x in (ids, labels))
+    mask = np.ones((B, S), np.int64)
+    if masked:
+        for b in range(1, B, 2):
+            mask[b, rng.randint(S // 4, S):] = 0
+    labels = np.where((rng.uniform(size=(B, S)) < 0.15) & (mask > 0), ids,
+                      -100)
+    return model, opt, (torch.as_tensor(ids, device=device),
+                        torch.as_tensor(labels, device=device), -100, None,
+                        torch.as_tensor(mask, device=device)
+                        if masked else None)
 
 
-def _train_step(model, opt, ids, labels, autocast):
+def _train_step(model, opt, batch, autocast):
     """bench.py's train step: loss under auto_cast O1 bf16, backward,
     AdamW step, clear the gradients."""
     from paddle_tpu_torch import amp
     with amp.auto_cast(autocast, level="O1", dtype="bfloat16",
-                       device=ids.device):
-        loss = model.compute_loss(ids, labels)
+                       device=batch[0].device):
+        loss = model.compute_loss(*batch)
     loss.backward()
     opt.step()
     opt.clear_grad()
@@ -1760,7 +1867,8 @@ def _train_counters():
 
 
 def _n_moe_blocks(cfg):
-    return sum(1 for i in range(cfg.num_layers) if cfg.moe_num_experts > 0
+    return sum(1 for i in range(cfg.num_layers)
+               if getattr(cfg, "moe_num_experts", 0) > 0
                and (i + 1) % cfg.moe_every_n_layers == 0)
 
 
@@ -1805,7 +1913,7 @@ def _check_flash_kernels(label, cfg, kernels):
         f"{n} {count[n]}x {us[n] / 1e3:.2f} ms" for n in FLASH_KERNELS))
 
 
-def _run_train(model, opt, ids, labels, steps):
+def _run_train(model, opt, batch, steps):
     """``steps`` timed steps, every flash launch count at 0 first;
     returns losses, step times (s) and the counts."""
     import torch
@@ -1817,7 +1925,7 @@ def _run_train(model, opt, ids, labels, steps):
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = _train_step(model, opt, ids, labels, True)
+        loss = _train_step(model, opt, batch, True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
@@ -1884,10 +1992,11 @@ def _record_routing(model, ids, labels):
     return first
 
 
-def train_full_width(cfg, label):
-    """6 timed steps of ``cfg`` at B 4 x S 2048 from launch counts of 0,
-    checked, then one profiled step after a warm-up step; returns the
-    numbers (the model and optimizer are freed)."""
+def train_full_width(cfg, label, B=TRAIN_B, S=TRAIN_S, masked=False):
+    """6 timed steps of ``cfg`` at B x S (by default 4 x 2048; ``masked``:
+    BERT's padded rows) from launch counts of 0, checked, then one
+    profiled step after a warm-up step; returns the numbers (the model and
+    optimizer are freed)."""
     import statistics
 
     import torch
@@ -1900,15 +2009,14 @@ def train_full_width(cfg, label):
     torch.cuda.reset_peak_memory_stats()
     _log(f"{label}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
          f"allocated before the model is built")
-    model, opt, ids, labels = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
-    losses, times, launches = _run_train(model, opt, ids, labels,
-                                         TRAIN_STEPS)
+    model, opt, batch = _train_setup(cfg, "cuda", 0, B, S, masked)
+    losses, times, launches = _run_train(model, opt, batch, TRAIN_STEPS)
     _check_train_launches(label, cfg, launches, TRAIN_STEPS)
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not fall: {losses}")
     step_s = statistics.median(times[1:])
-    tokens = TRAIN_B * TRAIN_S
-    fpt = model.flops_per_token(TRAIN_S)
+    tokens = B * S
+    fpt = model.flops_per_token(S)
     mfu = tokens / step_s * fpt / PEAK_OPS["torch.bfloat16"]
     # the work the step does: each expert runs over its C rows of the
     # E x C buffer, not over every token
@@ -1920,7 +2028,7 @@ def train_full_width(cfg, label):
     mfu_work = tokens / step_s * fpt_work / PEAK_OPS["torch.bfloat16"]
     peak = torch.cuda.max_memory_allocated()
     _log(f"{label} ({model.num_params()} parameters, {n_exp} in experts) "
-         f"fp32 weights, auto_cast O1 bf16, AdamW, B={TRAIN_B} S={TRAIN_S}: "
+         f"fp32 weights, auto_cast O1 bf16, AdamW, B={B} S={S}: "
          f"losses {[round(x, 4) for x in losses]}")
     _log(f"{label}: step times (s) {[round(t, 4) for t in times]}; median "
          f"of steps 2-{TRAIN_STEPS} {step_s * 1e3:.1f} ms = "
@@ -1933,7 +2041,7 @@ def train_full_width(cfg, label):
     # top kernels
     def step():
         t0 = time.perf_counter()
-        _train_step(model, opt, ids, labels, True)
+        _train_step(model, opt, batch, True)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1955,7 +2063,7 @@ def train_full_width(cfg, label):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:24]:
         _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
              f"{e.key[:90]}")
-    routing = _record_routing(model, ids, labels) if n_exp else None
+    routing = _record_routing(model, *batch) if n_exp else None
     del model, opt
     torch.cuda.empty_cache()
     return dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
@@ -1969,9 +2077,9 @@ def training_phase():
 
     run = train_full_width(gpt3_1p3b(), "training gpt3_1p3b")
     # dropout 0.1 at the same width: the kernels' dropout on the path
-    model, opt, ids, labels = _train_setup(gpt3_1p3b(dropout=0.1), "cuda",
-                                           1, TRAIN_B, TRAIN_S)
-    d_losses, _, d_launches = _run_train(model, opt, ids, labels, 2)
+    model, opt, batch = _train_setup(gpt3_1p3b(dropout=0.1), "cuda", 1,
+                                     TRAIN_B, TRAIN_S)
+    d_losses, _, d_launches = _run_train(model, opt, batch, 2)
     if not all(n > 0 for k, n in d_launches.items() if k.startswith("flash")):
         raise AssertionError(f"dropout training: launches {d_launches}")
     _log(f"training gpt3_1p3b dropout 0.1, 2 steps: losses "
@@ -1993,9 +2101,10 @@ def _feed_uniforms(model, uniforms):
             m.uniforms = lambda n, device: next(draws)[:n].to(device)
 
 
-def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
-    """2 AdamW steps of a 4-layer fp32 cut on the card and on the CPU from
-    one state dict (and, for MoE, one set of routing uniforms).  Losses
+def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", B=1, S=256,
+                      masked=False):
+    """2 AdamW steps of an fp32 cut on the card and on the CPU at B x S
+    from one state dict (and, for MoE, one set of routing uniforms).  Losses
     within atol 1e-4.  Parameters within 2 x lr x steps: Adam divides by
     sqrt(v), so a weight whose gradient is rounding noise (the key third of
     each qkv bias has a zero gradient in exact arithmetic) moves by up to
@@ -2006,13 +2115,13 @@ def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
     uniforms = torch.rand((steps * _n_moe_blocks(cfg), 256),
                           generator=torch.Generator().manual_seed(5))
     for dev in ("cpu", "cuda"):
-        model, opt, ids, labels = _train_setup(cfg, dev, 2, 1, 256)
+        model, opt, batch = _train_setup(cfg, dev, 2, B, S, masked)
         if init is None:
             init = {k: v.clone() for k, v in model.state_dict().items()}
         else:
             model.load_state_dict(init)
         _feed_uniforms(model, uniforms)
-        losses = [_train_step(model, opt, ids, labels, False).item()
+        losses = [_train_step(model, opt, batch, False).item()
                   for _ in range(steps)]
         runs.append((losses, {k: v.detach().cpu() for k, v in
                               model.state_dict().items()}))
@@ -2024,7 +2133,7 @@ def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32"):
     if err > 2 * LR * steps:
         raise AssertionError(f"train card vs CPU: parameters {err:.3e} "
                              f"apart, limit {2 * LR * steps:.1e}")
-    _log(f"train card vs CPU, {label}, B=1 S=256, {steps} "
+    _log(f"train card vs CPU, {label}, B={B} S={S}, {steps} "
          f"AdamW steps: losses card {card_l} cpu {cpu_l}, parameters max "
          f"abs diff {err:.3e}")
 
@@ -2078,6 +2187,245 @@ def moe_phases(lens, rows_out):
     card_vs_cpu(cut, label)
     train_card_vs_cpu(cut, label)
     return serve_run, train_run
+
+
+# --------------------------------------------------------- phases 14-17
+
+def llama_decode_checks(path_lens):
+    """paged_decode at Llama-2 7B's serving shape (nh 32, hd 128, the
+    serving lengths 32 tokens into decoding) against its plain version in
+    fp32 and bf16; the bf16 launch timed from a replayed CUDA graph beside
+    its bound.  Returns the numbers."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    nh, lens = LLAMA_NH, [n + 32 for n in path_lens]
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v, tables = _pool_case(gen, lens, dtype, nh=nh)
+        q = torch.randn((len(lens), nh, HD), generator=gen,
+                        device="cuda").to(dtype)
+        sl = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+        out = pa.paged_attention(q, k, v, tables, sl)
+        ref = pa.paged_attention_reference(q.float(), k.float(), v.float(),
+                                           tables, sl)
+        torch.cuda.synchronize()
+        err = _compare("paged_decode nh 32", out, ref, dtype)
+        _log(f"paged_decode {dtype} nh={nh} hd={HD} lens={lens}: "
+             f"max_abs_err={err:.3e}")
+    nbytes = (2 * len(lens) * nh * HD + sum(lens) * nh * HD * 2) * 2 \
+        + tables.numel() * 4 + len(lens) * 4
+    bound, by = _bound(nbytes, 4 * nh * HD * sum(lens), torch.bfloat16)
+    row = dict(nh=nh, max_abs_err=err,
+               ms=_graph_ms(lambda: pa.paged_attention(q, k, v, tables, sl),
+                            200),
+               plain_ms=_time_ms(lambda: pa.paged_attention_reference(
+                   q, k, v, tables, sl), 10),
+               bound_ms=bound, bound_by=by, library_ms=None)
+    _log(f"paged_decode bf16 at llama2_7b's shape (nh {nh}): card "
+         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+         f"{bound:.4f} ms ({by}), {row['ms'] / bound:.2f}x the bound")
+    del q, k, v, tables
+    torch.cuda.empty_cache()
+    return row
+
+
+def bert_flash_checks(rows):
+    """The three flash kernels at BERT-base's training shape (B 8, S 512,
+    nh 12, hd 64, non-causal, every second row padded from a random length
+    in [128, 512) through the kv mask, dropout 0.1) against their plain
+    versions in fp32 and bf16, and timed in bf16 beside
+    ``F.scaled_dot_product_attention`` with the same boolean mask and
+    dropout rate (its backward on its own for the pair).  The bound counts
+    the (query, key) pairs the mask keeps.  Adds ``bert_shape`` to each
+    flash row."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, S, nh, hd, rate = 8, 512, 12, 64, 0.1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    lengths = torch.randint(128, S, (B,), generator=gen, device="cuda")
+    for b in range(1, B, 2):
+        mask[b, int(lengths[b]):] = 0
+    args = (False, mask, rate, 12345)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((B, S, nh, hd), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v, *args)
+        dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, *args)
+        ref, ref_lse = fa.flash_attention_fwd_reference(
+            q.float(), k.float(), v.float(), *args)
+        want = fa.flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+            *args)
+        torch.cuda.synchronize()
+        errs = [_compare("flash_fwd bert", out, ref, dtype),
+                _compare("flash_fwd bert lse", lse, ref_lse, dtype)]
+        for name, got, w in (("dq", dq, want[0]), ("dk", dk, want[1]),
+                             ("dv", dv, want[2])):
+            errs.append(_compare(f"flash bert {name}", got, w, dtype,
+                                 GRAD_TOL))
+        _log(f"flash at BERT-base's shape {dtype} B={B} S={S} nh={nh} "
+             f"hd={hd} non-causal kv mask dropout {rate}: max_abs_err out="
+             f"{errs[0]:.3e} lse={errs[1]:.3e} dq={errs[2]:.3e} "
+             f"dk={errs[3]:.3e} dv={errs[4]:.3e}")
+    kept = int(mask.sum()) * nh * S                # (query, key) pairs
+    qbytes, lse_b = B * S * nh * hd * 2, B * nh * S * 4
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    keep = mask.bool()[:, None, None, :]
+    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, dropout_p=rate), 20)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                             dropout_p=rate)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20)
+    timed = {
+        "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, *args),
+                      lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                               *args),
+                      4 * qbytes + lse_b, 4, errs[0], lib_fwd),
+        "flash_bwd_dq": (lambda: fa.flash_attention_bwd_dq(
+            q, k, v, out, lse, do, *args),
+            lambda: fa.flash_attention_bwd_reference(
+                q, k, v, out, lse, do, *args, parts=("dq",)),
+            6 * qbytes + lse_b, 6, errs[2], lib_bwd),
+        "flash_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, out, lse, do, *args),
+            lambda: fa.flash_attention_bwd_reference(
+                q, k, v, out, lse, do, *args, parts=("dkv",)),
+            7 * qbytes + lse_b, 8, max(errs[3], errs[4]), lib_bwd)}
+    for name, (fn, plain, nbytes, per_pair, err, lib) in timed.items():
+        ms = _time_ms(fn, 20)
+        bound, by = _bound(nbytes + mask.numel() * 4, per_pair * hd * kept,
+                           torch.bfloat16)
+        r = dict(B=B, S=S, nh=nh, hd=hd, causal=False, dropout=rate,
+                 keys_kept=int(mask.sum()), max_abs_err=err, ms=ms,
+                 plain_ms=_time_ms(plain, 3), bound_ms=bound, bound_by=by,
+                 library_ms=lib, tflops=per_pair * hd * kept / ms / 1e9)
+        rows[name]["bert_shape"] = r
+        _log(f"{name} bf16 at BERT-base's shape: ms={ms:.4f} plain_ms="
+             f"{r['plain_ms']:.4f} bound_ms={bound:.4f} ({by}) library_ms="
+             f"{lib:.4f}{' (sdpa backward, dq+dkv)' if 'bwd' in name else ''}"
+             f"; {r['tflops']:.1f} TFLOP/s")
+    del q, k, v, do, out, lse, qt, kt, vt, lib_out
+    torch.cuda.empty_cache()
+
+
+def llama_serving_phase(lens):
+    """Phase 14: Llama-2 7B at full width in bf16 (6.74 B parameters,
+    random weights from seed 0) on phase 2's mix and engine settings:
+    whole-prompt prefill (median of ``REPEATS`` runs; one more with the
+    overlapped loop off for ms per decode step; one profiled), 256-token
+    chunks (one profiled run) and phase 11's shared-prefix mix with the
+    prefix cache (one profiled run).  Every run launches its kernels (the
+    profiled ones by name on the tensor-core and split kernels), takes no
+    plain route and leaks no block."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama2_7b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in lens]
+    label = f"serving llama2_7b bf16 ({model.num_params()} parameters)"
+    whole = [serve(model, prompts, 0) for _ in range(REPEATS)]
+    for run in whole:
+        for name in ("flash_fwd", "paged_decode"):
+            if run["launches"][name] <= 0:
+                raise AssertionError(f"{label}: {name} never launched")
+    ticks = serve(model, prompts, 0, time_ticks=True, overlap=False)
+    out = dict(whole[0])
+    out["tokens_per_s_runs"] = [r["tokens_per_s"] for r in whole]
+    out["tokens_per_s"] = _median(out["tokens_per_s_runs"])
+    out["ttft_mean_s"] = _median([r["ttft_mean_s"] for r in whole])
+    out["ms_per_step"] = ticks["tick_s"] / ticks["steps"] * 1e3
+    out["profile"] = where_the_time_goes(model, prompts, 0,
+                                         "llama2_7b whole-prompt",
+                                         nh=cfg.num_heads)
+    _log(f"{label}, whole-prompt prefill: median of {REPEATS} runs "
+         f"{out['tokens_per_s']:.1f} tokens/s (runs "
+         + ", ".join(f"{x:.1f}" for x in out["tokens_per_s_runs"])
+         + f"), mean TTFT {out['ttft_mean_s'] * 1e3:.1f} ms, "
+         f"{out['ms_per_step']:.3f} ms per decode step (overlap off), idle "
+         f"share {out['profile']['idle']:.3f}, warmup "
+         f"{out['warmup']['programs']} programs in "
+         f"{out['warmup']['warmup_s']:.2f} s, {out['steps']} steps in "
+         f"{out['ticks']} ticks ({out['overlapped']} chained), launches "
+         f"{out['launches']}")
+    runs = {"whole": out}
+    for key, name, chunk, ps, kw in (
+            ("chunked", "256-token chunks", 256, prompts, {}),
+            ("prefix", "shared 1024-token prefix, prefix cache on", 0,
+             _prefix_prompts(cfg.vocab_size), dict(prefix_cache=True))):
+        prof = where_the_time_goes(model, ps, chunk, f"llama2_7b {name}",
+                                   nh=cfg.num_heads, **kw)
+        run = prof["run"]
+        need = ("paged_chunk", "paged_decode")
+        if any(run["launches"][n] <= 0 for n in need):
+            raise AssertionError(f"{label}, {name}: launches "
+                                 f"{run['launches']}")
+        pc = run["stats"].get("prefix_cache")
+        if kw and pc["hits"] <= 0:
+            raise AssertionError(f"{label}, {name}: no hit: {pc}")
+        _log(f"{label}, {name} (one profiled run): {run['tokens']} tokens "
+             f"in {run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s"
+             f", mean TTFT {run['ttft_mean_s'] * 1e3:.1f} ms, idle share "
+             f"{prof['idle']:.3f}, {run['prefill_chunks']} chunks, launches "
+             f"{run['launches']}" + (f", prefix hits {pc['hits']}" if kw
+                                     else ""))
+        runs[key] = dict(run, profile=prof)
+    peak = torch.cuda.max_memory_allocated()
+    runs["peak_bytes"] = peak
+    _log(f"{label}: peak memory {peak / 2 ** 30:.2f} GiB (weights "
+         f"{model.num_params() * 2 / 2 ** 30:.2f} GiB)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def llama_phases(lens):
+    """Phases 14-16: Llama-2 7B served at full width, the GQA fp32 cuts
+    card against CPU, and the 8-layer cut trained at full width."""
+    from paddle_tpu_torch.models.llama import llama2_7b
+
+    serving = llama_serving_phase(lens)
+    # four kv heads over 32 query heads: Llama-2-70B's group of 8
+    card_vs_cpu(llama2_7b(num_layers=4, num_kv_heads=4),
+                "llama2_7b 4 layers, 4 kv heads, fp32", prompt_len=260,
+                chunks=(0, 256))
+    train_card_vs_cpu(llama2_7b(num_layers=2, num_kv_heads=4),
+                      "llama2_7b 2 layers, 4 kv heads, fp32")
+    train = train_full_width(llama2_7b(num_layers=LLAMA_TRAIN_LAYERS),
+                             f"training llama2_7b {LLAMA_TRAIN_LAYERS} "
+                             "layers", B=1, S=LLAMA_TRAIN_S)
+    return serving, train
+
+
+def bert_phase():
+    """Phase 17: BERT-base MLM at full width (bench.py's ``bench_bert_base``
+    step), unmasked and with padded rows, then a 2-layer fp32 cut card
+    against CPU with a padding mask."""
+    from paddle_tpu_torch.models.bert import bert_base
+
+    runs = {masked: train_full_width(
+        bert_base(), "training bert_base MLM" + (", padded rows" if masked
+                                                else ""),
+        B=BERT_B, S=BERT_S, masked=masked) for masked in (False, True)}
+    train_card_vs_cpu(bert_base(num_layers=2, dropout=0.0),
+                      "bert_base 2 layers fp32, padded rows", B=2, S=128,
+                      masked=True)
+    return runs
 
 
 # ------------------------------------------------------------------ main
@@ -2163,7 +2511,10 @@ def main() -> int:
              f"{time.perf_counter() - t0:.1f} s since the build began]")
         return out
     rows = timed("kernel checks", kernel_checks, lens)
+    rows["paged_decode"]["llama_shape"] = timed(
+        "paged_decode at llama2_7b's shape", llama_decode_checks, lens)
     timed("flash training checks", flash_train_checks, rows)
+    timed("flash at BERT-base's shape", bert_flash_checks, rows)
     timed("MoE kernel checks", moe_kernel_checks)
     runs = timed("serving", serving_phase, lens)
     timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=4))
@@ -2173,6 +2524,8 @@ def main() -> int:
     timed("training card vs CPU", train_card_vs_cpu,
           gpt3_1p3b(num_layers=4))
     moe_serve, moe_train = timed("MoE", moe_phases, lens, rows)
+    llama, llama_train = timed("Llama", llama_phases, lens)
+    bert = timed("BERT", bert_phase)
 
     sources = {"flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/ops/pallas_flash.py:159"),
@@ -2200,7 +2553,13 @@ def main() -> int:
              "spec_ngram": spec["ngram"]["launches"],
              "spec_ngram_adaptive": spec["ngram_adaptive"]["launches"],
              "spec_model": spec["model"]["launches"],
-             "spec_self": spec["self"]["launches"]}
+             "spec_self": spec["self"]["launches"],
+             "llama_whole": llama["whole"]["launches"],
+             "llama_chunked": llama["chunked"]["launches"],
+             "llama_prefix": llama["prefix"]["launches"],
+             "llama_train": llama_train["launches"],
+             "bert_train": bert[False]["launches"],
+             "bert_train_masked": bert[True]["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}

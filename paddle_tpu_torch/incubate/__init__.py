@@ -1,2 +1,3 @@
 """The parts of the JAX package's ``incubate`` that the port has: the
-mixture-of-experts layer of the GPT-MoE blocks."""
+mixture-of-experts layer of the GPT-MoE blocks, and the fused RoPE and
+SwiGLU of the Llama family (``incubate.nn.functional``)."""

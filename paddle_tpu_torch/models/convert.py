@@ -1,15 +1,20 @@
-"""Carry the JAX package's GPT weights and AdamW state into the port.
+"""Carry the JAX package's model weights and AdamW state into the port.
 
 ``paddle_tpu`` names its parameters as the port does
-(``gpt.blocks.0.attn.qkv.weight`` and so on), but its ``Linear`` keeps the
+(``gpt.blocks.0.attn.qkv.weight``, ``model.layers.0.self_attn.q_proj.weight``,
+``bert.layers.0.attention.qkv.weight``, ...), but its ``Linear`` keeps the
 weight as ``[in, out]`` and computes ``x @ W``
 (``paddle_tpu/nn/layer/common.py:18``), while ``torch.nn.Linear`` keeps
-``[out, in]`` and computes ``x @ W.T``.  The port uses ``torch.nn.Linear``
-unchanged, so the conversion TRANSPOSES every linear weight (the MoE
-gate's ``gpt.blocks.N.mlp.gate.gate.weight`` among them); embeddings,
-biases, LayerNorm parameters and the stacked MoE expert weights
-(``experts.w1/b1/w2/b2``, whose layout the port keeps) pass as they are.
-The AdamW moments of a linear weight are transposed like the weight.
+``[out, in]`` and computes ``x @ W.T``.  So the conversion TRANSPOSES the
+weight of every ``nn.Linear`` of the port's model, decided by the type of
+the module that owns the parameter (GPT's qkv, proj, fc1, fc2 and the MoE
+gate; Llama's q/k/v/o, gate/up/down projections and its untied
+``lm_head``; BERT's qkv, out, intermediate, output, pooler, transform and
+classifier).  Everything else passes as it is: embeddings (BERT's tied
+decoder among them), biases, LayerNorm and RMSNorm parameters,
+``decoder_bias`` and the stacked MoE expert weights
+(``experts.w1/b1/w2/b2``, whose layout the port keeps).  The AdamW moments
+of a linear weight are transposed like the weight.
 """
 
 from __future__ import annotations
@@ -18,27 +23,35 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn as nn
 
-__all__ = ["gpt_state_from_numpy", "adamw_state_from_numpy"]
-
-_LINEAR_WEIGHTS = (".qkv.weight", ".proj.weight", ".fc1.weight",
-                   ".fc2.weight", ".gate.gate.weight")
+__all__ = ["state_from_numpy", "adamw_state_from_numpy"]
 
 
-def gpt_state_from_numpy(state: Dict[str, np.ndarray]
-                         ) -> Dict[str, torch.Tensor]:
-    """Map the JAX ``GPTForCausalLM.state_dict()`` (as numpy arrays) onto
-    the port's ``GPTForCausalLM.load_state_dict``."""
-    out = {}
-    for name, arr in state.items():
-        t = torch.from_numpy(np.array(arr, copy=True))
-        if name.endswith(_LINEAR_WEIGHTS):
-            if t.dim() != 2:
-                raise ValueError(f"{name}: expected a 2-D linear weight, "
-                                 f"got shape {tuple(t.shape)}")
-            t = t.t().contiguous()
-        out[name] = t
-    return out
+def _linear_weights(model: nn.Module) -> set:
+    """The names of ``model``'s ``nn.Linear`` weights."""
+    return {f"{name}.weight" if name else "weight"
+            for name, m in model.named_modules() if isinstance(m, nn.Linear)}
+
+
+def _tensor(name, arr, transpose):
+    t = torch.from_numpy(np.array(arr, copy=True))
+    if not transpose:
+        return t
+    if t.dim() != 2:
+        raise ValueError(f"{name}: expected a 2-D linear weight, got shape "
+                         f"{tuple(t.shape)}")
+    return t.t().contiguous()
+
+
+def state_from_numpy(state: Dict[str, np.ndarray], model: nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    """Map a JAX model's ``state_dict()`` (as numpy arrays) onto
+    ``model.load_state_dict`` of the port's model of the same family and
+    configuration (GPT, GPT-MoE, Llama or BERT)."""
+    linear = _linear_weights(model)
+    return {name: _tensor(name, arr, name in linear)
+            for name, arr in state.items()}
 
 
 def adamw_state_from_numpy(state: Dict[str, np.ndarray], model
@@ -50,6 +63,7 @@ def adamw_state_from_numpy(state: Dict[str, np.ndarray], model
     the device of ``model``'s parameters.  Keys without a moment (the
     empty ``LR_Scheduler``) are dropped; any other accumulator raises."""
     params = dict(model.named_parameters())
+    linear = _linear_weights(model)
     out = {"global_step": int(np.asarray(state["global_step"]))}
     for key, arr in state.items():
         if "@" not in key:
@@ -58,8 +72,5 @@ def adamw_state_from_numpy(state: Dict[str, np.ndarray], model
         if acc not in ("moment1", "moment2") or name not in params:
             raise ValueError(f"adamw_state_from_numpy: {key!r} is not a "
                              "moment of a parameter of the model")
-        t = torch.from_numpy(np.array(arr, copy=True))
-        if name.endswith(_LINEAR_WEIGHTS):
-            t = t.t().contiguous()
-        out[key] = t.to(params[name].device)
+        out[key] = _tensor(key, arr, name in linear).to(params[name].device)
     return out

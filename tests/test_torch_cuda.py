@@ -900,3 +900,101 @@ def test_a_failed_capture_raises(gen, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.run()
     torch.cuda.synchronize()
+
+
+def _train_card_vs_cpu(cpu, card, batch, steps=2):
+    """``steps`` AdamW steps with clipping on each model from one state;
+    returns the losses (CPU, card) and the largest parameter difference."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    card.load_state_dict(cpu.state_dict())
+    losses = []
+    for model in (cpu, card):
+        model.train()
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+        run = []
+        for _ in range(steps):
+            loss = model.compute_loss(*(x.to(model.device)
+                                        if torch.is_tensor(x) else x
+                                        for x in batch))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            run.append(loss.item())
+        losses.append(run)
+    cpu_p, card_p = cpu.state_dict(), card.state_dict()
+    err = max((card_p[k].cpu() - cpu_p[k]).abs().max().item() for k in cpu_p)
+    return losses, err
+
+
+def test_llama_gqa_serves_and_trains_like_the_cpu(gen):
+    """Llama with hd 64 and GQA (4 query heads over 2 kv heads): one
+    greedy request with whole-prompt and chunked prefill on the card
+    (flash_fwd, paged_decode, paged_chunk over the repeated kv heads in
+    the pools) equals the CPU's stream; 2 AdamW steps (the flash kernels
+    reading kv head h // 2) within 1e-4 of the CPU's losses and 2 x lr x
+    steps of its parameters."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+    cfg = llama_tiny(hidden_size=256, num_heads=4, num_kv_heads=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    card = LlamaForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    n = [fn.launches for fn in (fa.flash_attention_fwd, pa.paged_attention,
+                                pa.paged_chunk_attention)]
+    prompt = list(range(5, 90))
+    streams = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        for chunk in (0, 32):
+            eng = ServingEngine(model, max_batch=2, max_context=128,
+                                block_size=16, steps_per_tick=4,
+                                prefill_chunk=chunk, device=dev)
+            reqs = [eng.add_request(Request(p, max_new_tokens=10))
+                    for p in (prompt, prompt[:33])]
+            eng.run()
+            streams.append([r.output_ids for r in reqs])
+    assert all(s == streams[0] for s in streams)
+    assert all(fn.launches > c for fn, c in zip(
+        (fa.flash_attention_fwd, pa.paged_attention,
+         pa.paged_chunk_attention), n))
+    ids = torch.randint(0, cfg.vocab_size, (2, 100),
+                        generator=torch.Generator().manual_seed(0))
+    before = fa.flash_attention_bwd_dkv.launches
+    losses, err = _train_card_vs_cpu(cpu, card, (ids, ids))
+    assert fa.flash_attention_bwd_dkv.launches == before + 2 * cfg.num_layers
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
+    assert err <= 2 * 1e-4 * 2
+
+
+def test_bert_with_a_padding_mask_trains_like_the_cpu(gen):
+    """A small BERT at hd 64 (non-causal flash with the kv mask), padded
+    rows, labels ignored off 15% of the tokens: the MLM logits equal the
+    CPU's (atol 1e-4), and 2 AdamW steps within 1e-4 of its losses and 2 x
+    lr x steps of its parameters; the pooler takes no step."""
+    from paddle_tpu_torch.models.bert import BertForMaskedLM, bert_tiny
+    cfg = bert_tiny(hidden_size=128, num_heads=2, dropout=0.0)
+    cpu = BertForMaskedLM(cfg, device="cpu", seed=3)
+    card = BertForMaskedLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (3, 100), generator=g)
+    mask = torch.ones_like(ids)
+    mask[1, 70:] = 0
+    mask[2, 9:] = 0
+    labels = torch.where(torch.rand(ids.shape, generator=g) < 0.15, ids,
+                         torch.full_like(ids, -100))
+    with torch.no_grad():
+        want = cpu.eval()(ids, None, mask)
+        got = card.eval()(ids.cuda(), None, mask.cuda())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0.0)
+    pooler = cpu.bert.pooler.weight.detach().clone()
+    before = fa.flash_attention_fwd.launches
+    losses, err = _train_card_vs_cpu(cpu, card, (ids, labels, -100, None,
+                                                 mask))
+    assert fa.flash_attention_fwd.launches == before + 2 * cfg.num_layers
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
+    assert err <= 2 * 1e-4 * 2
+    assert torch.equal(card.bert.pooler.weight.cpu(), pooler)

@@ -21,7 +21,7 @@ from paddle_tpu.models import generation as jgen
 from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.gpt import gpt3_tiny as jax_tiny
 from paddle_tpu_torch.models import generation as tgen
-from paddle_tpu_torch.models.convert import gpt_state_from_numpy
+from paddle_tpu_torch.models.convert import state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
 
 
@@ -32,7 +32,7 @@ def models():
     jm.eval()
     state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
     tm = GPTForCausalLM(gpt3_tiny(), device="cpu", seed=1)
-    tm.load_state_dict(gpt_state_from_numpy(state))
+    tm.load_state_dict(state_from_numpy(state, tm))
     return jm, tm, state
 
 
@@ -47,6 +47,59 @@ def test_convert_transposes_linear_weights_only(models):
             np.testing.assert_array_equal(got, arr.T)
         else:
             np.testing.assert_array_equal(got, arr)
+
+
+def _family(name):
+    """A tiny JAX model of the family and the port's model for it."""
+    from paddle_tpu.models import bert as jbert
+    from paddle_tpu.models import llama as jllama
+    from paddle_tpu_torch.models import bert as tbert
+    from paddle_tpu_torch.models import llama as tllama
+    if name == "gpt-moe":
+        return (JaxGPT(jax_tiny(moe_num_experts=4)),
+                GPTForCausalLM(gpt3_tiny(moe_num_experts=4), device="cpu"))
+    if name == "llama-gqa":
+        return (jllama.LlamaForCausalLM(jllama.llama_tiny(num_kv_heads=2)),
+                tllama.LlamaForCausalLM(tllama.llama_tiny(num_kv_heads=2),
+                                        device="cpu"))
+    if name == "bert-mlm":
+        return (jbert.BertForMaskedLM(jbert.bert_tiny()),
+                tbert.BertForMaskedLM(tbert.bert_tiny(), device="cpu"))
+    return (jbert.BertForSequenceClassification(jbert.bert_tiny(), 3),
+            tbert.BertForSequenceClassification(tbert.bert_tiny(), 3,
+                                                device="cpu"))
+
+
+# the modules whose weights are a Linear's, family by family
+LINEAR = {"gpt-moe": ("qkv", "proj", "fc1", "fc2", "gate"),
+          "llama-gqa": ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj", "lm_head"),
+          "bert-mlm": ("qkv", "out", "intermediate", "output", "pooler",
+                       "transform"),
+          "bert-cls": ("qkv", "out", "intermediate", "output", "pooler",
+                       "classifier")}
+
+
+@pytest.mark.parametrize("family", list(LINEAR))
+def test_convert_carries_every_key_of_each_family(family):
+    """Every JAX key lands on a port parameter of its shape (strict load),
+    and exactly the Linear weights are transposed: everything else
+    (embeddings, BERT's tied decoder, norms, biases, ``decoder_bias``,
+    the stacked expert weights) passes as it is."""
+    jm, tm = _family(family)
+    state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
+    tm.load_state_dict(state_from_numpy(state, tm), strict=True)
+    got = tm.state_dict()
+    assert set(got) == set(state)
+    n_t = 0
+    for name, arr in state.items():
+        module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        if leaf == "weight" and module.rsplit(".", 1)[-1] in LINEAR[family]:
+            np.testing.assert_array_equal(got[name].numpy(), arr.T)
+            n_t += 1
+        else:
+            np.testing.assert_array_equal(got[name].numpy(), arr)
+    assert n_t == sum(isinstance(m, torch.nn.Linear) for m in tm.modules())
 
 
 def test_paged_prefill_and_decode_logits_match_jax(models):

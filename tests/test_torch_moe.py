@@ -42,7 +42,7 @@ from paddle_tpu_torch import optimizer as toptim
 from paddle_tpu_torch.incubate.distributed.models import moe as tmoe
 from paddle_tpu_torch.inference.serving import Request, ServingEngine
 from paddle_tpu_torch.models.convert import (adamw_state_from_numpy,
-                                             gpt_state_from_numpy)
+                                             state_from_numpy)
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import moe as tops
@@ -365,7 +365,7 @@ def _gpt_pair(seed=0):
     jm = JaxGPT(jax_tiny(moe_num_experts=4))
     state = {k: _np(v) for k, v in jm.state_dict().items()}
     tm = GPTForCausalLM(gpt3_tiny(moe_num_experts=4), device="cpu", seed=1)
-    tm.load_state_dict(gpt_state_from_numpy(state))
+    tm.load_state_dict(state_from_numpy(state, tm))
     return jm, tm, state
 
 
@@ -421,8 +421,8 @@ def test_gpt_moe_adamw_steps_match_jax(monkeypatch, pallas_moe):
         topt.step()
         topt.clear_grad()
         assert abs(tl.item() - float(jl.item())) < 1e-5
-    state = gpt_state_from_numpy({k: _np(v)
-                                  for k, v in jm.state_dict().items()})
+    state = state_from_numpy({k: _np(v)
+                              for k, v in jm.state_dict().items()}, tm)
     Hd = tm.cfg.hidden_size
     for name, p in tm.state_dict().items():
         got, want = p.numpy(), state[name].numpy()

@@ -34,7 +34,7 @@ from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.gpt import gpt3_tiny as jax_tiny
 from paddle_tpu_torch.inference import prefix_cache as tpc
 from paddle_tpu_torch.inference.serving import Request, ServingEngine
-from paddle_tpu_torch.models.convert import gpt_state_from_numpy
+from paddle_tpu_torch.models.convert import state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
 
 ENGINE = dict(max_batch=2, max_context=64, block_size=16, steps_per_tick=4)
@@ -155,7 +155,7 @@ def models():
     jm.eval()
     state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
     tm = GPTForCausalLM(gpt3_tiny(), device="cpu", seed=1)
-    tm.load_state_dict(gpt_state_from_numpy(state))
+    tm.load_state_dict(state_from_numpy(state, tm))
     return jm, tm
 
 

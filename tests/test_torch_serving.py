@@ -21,9 +21,17 @@ on, the same on both engines (`FLAGS_serving_overlap`, the port's
 them `stats()["steps"]` and `["ticks"]`, are equal too, and with overlap
 on ticks must have been chained.
 
+The Llama family (`llama_tiny(num_kv_heads=2)`: RoPE, GQA, RMSNorm,
+SwiGLU, an untied head) runs the same parity tests on a subset of the
+cases, through the same `models` fixture: whole-prompt and 16-token
+chunked prefill with the prefix cache and the overlapped loop on, greedy
+and sampled.
+
 Within the port, a sampled stream is a function of the request's seed
 alone, whatever the tick size or batch.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -34,24 +42,46 @@ from paddle_tpu.inference.serving import Request as JaxRequest
 from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.gpt import gpt3_tiny as jax_tiny
+from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
 from paddle_tpu_torch.inference.serving import Request, ServingEngine
-from paddle_tpu_torch.models.convert import gpt_state_from_numpy
+from paddle_tpu_torch.models.convert import state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
 PROMPT_LENS = (29, 11, 40)
 BUDGETS = (8, 6, 5)
 ENGINE = dict(max_batch=2, max_context=64, block_size=16, steps_per_tick=4)
 
 
+# Llama with GQA: 2 kv heads, repeated to the 4 query heads in the pools
+FAMILIES = {"gpt": (JaxGPT, jax_tiny, GPTForCausalLM, gpt3_tiny),
+            "llama": (JaxLlama, partial(jax_llama_tiny, num_kv_heads=2),
+                      LlamaForCausalLM, partial(llama_tiny, num_kv_heads=2))}
+
+
 @pytest.fixture(scope="module")
-def models():
+def models(request):
+    """The JAX model of a family (GPT unless a test asks for another) and
+    the port's with the same weights."""
+    jax_cls, jax_cfg, cls, cfg = FAMILIES[getattr(request, "param", "gpt")]
     paddle.seed(0)
-    jm = JaxGPT(jax_tiny())
+    jm = jax_cls(jax_cfg())
     jm.eval()
     state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
-    tm = GPTForCausalLM(gpt3_tiny(), device="cpu", seed=1)
-    tm.load_state_dict(gpt_state_from_numpy(state))
+    tm = cls(cfg(), device="cpu", seed=1)
+    tm.load_state_dict(state_from_numpy(state, tm))
     return jm, tm
+
+
+def _family_cases(gpt_cases, llama_cases):
+    """Cases for ``models`` and the test's own arguments: GPT's keep their
+    ids, Llama's carry the family's name."""
+    def ids(case):
+        return "-".join(map(str, case))
+    return ([pytest.param("gpt", *c, id=ids(c)) for c in gpt_cases]
+            + [pytest.param("llama", *c, id="llama-" + ids(c))
+               for c in llama_cases])
 
 
 def _prompts(seed=0):
@@ -76,9 +106,16 @@ JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False)
 STATS = ("steps", "ticks", "prefill_chunks", "prefix_cache")
 
 
-@pytest.mark.parametrize("overlap", [False, True])
-@pytest.mark.parametrize("prefix", [False, True])
-@pytest.mark.parametrize("chunk", [0, 16])
+# Llama (RoPE, GQA, RMSNorm, untied head) on a subset: whole-prompt
+# and 16-token chunks with the prefix cache and the overlapped loop on
+LLAMA_CASES = [(0, True, True), (16, True, True)]
+
+
+@pytest.mark.parametrize(
+    "models,chunk,prefix,overlap",
+    _family_cases([(c, p, o) for c in (0, 16) for p in (False, True)
+                   for o in (False, True)], LLAMA_CASES),
+    indirect=["models"])
 def test_greedy_streams_match_the_jax_engine(models, chunk, prefix,
                                              overlap):
     jm, tm = models
@@ -117,10 +154,12 @@ def _sampled_mix(seed0):
     return reqs
 
 
-@pytest.mark.parametrize("overlap", [False, True])
-@pytest.mark.parametrize("prefix", [False, True])
-@pytest.mark.parametrize("chunk", [0, 16])
-@pytest.mark.parametrize("seed0", [11, 2024])
+@pytest.mark.parametrize(
+    "models,seed0,chunk,prefix,overlap",
+    _family_cases([(s, c, p, o) for s in (11, 2024) for c in (0, 16)
+                   for p in (False, True) for o in (False, True)],
+                  [(11,) + c for c in LLAMA_CASES]),
+    indirect=["models"])
 def test_sampled_streams_match_the_jax_engine(models, chunk, seed0, prefix,
                                               overlap):
     jm, tm = models

@@ -20,7 +20,8 @@
   (`FLAGS_serving_overlap`, the port's `overlap`): `stats()["steps"]`
   and `["ticks"]` are equal too.  With overlap on, model-draft spec ticks
   must have been chained, n-gram ones never (their proposals need the
-  harvested tokens).
+  harvested tokens).  One n-gram case runs the Llama family
+  (`llama_tiny(num_kv_heads=2)`) through the same `models` fixture.
 """
 
 import numpy as np
@@ -38,12 +39,16 @@ from paddle_tpu.inference.serving import Request as JaxRequest
 from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.gpt import gpt3_tiny as jax_tiny
+from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
 from paddle_tpu_torch.core import threefry
 from paddle_tpu_torch.inference import drafting as tdraft
 from paddle_tpu_torch.inference import speculative as tspec
 from paddle_tpu_torch.inference.serving import Request, ServingEngine
-from paddle_tpu_torch.models.convert import gpt_state_from_numpy
+from paddle_tpu_torch.models.convert import state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
 JAX_FLAGS = dict(serving_pallas_prefill=False, serving_pallas_verify=False)
 SEEDS = np.array([7, 2 ** 31 + 5, 123456, 0xFFFFFFFF], np.uint32)
@@ -184,16 +189,33 @@ def test_ngram_proposals_match_the_jax_drafter():
 
 # ---------------------------------------------------------------- engines
 
+def _jax_llama_tiny(**kw):
+    """The JAX preset with overrides (its own takes none of its fields)."""
+    return JaxLlamaConfig(**{**vars(jax_llama_tiny()), **kw})
+
+
+# GPT, and Llama with GQA (2 kv heads for 4 query heads)
+FAMILIES = {"gpt": (JaxGPT, jax_tiny, GPTForCausalLM, gpt3_tiny, {}),
+            "llama": (JaxLlama, _jax_llama_tiny, LlamaForCausalLM, llama_tiny,
+                      dict(num_kv_heads=2))}
+
+
 @pytest.fixture(scope="module")
-def models():
+def models(request):
+    """The target and a one-layer draft of a family (GPT unless a test
+    asks for another), each as the JAX model and the port's with the same
+    weights."""
+    jax_cls, jax_cfg, cls, cfg, fkw = FAMILIES[getattr(request, "param",
+                                                       "gpt")]
+
     def pair(seed, **kw):
         paddle.seed(seed)
-        jm = JaxGPT(jax_tiny(**kw))
+        jm = jax_cls(jax_cfg(**fkw, **kw))
         jm.eval()
         state = {k: np.asarray(v._value)
                  for k, v in jm.state_dict().items()}
-        tm = GPTForCausalLM(gpt3_tiny(**kw), device="cpu", seed=1)
-        tm.load_state_dict(gpt_state_from_numpy(state))
+        tm = cls(cfg(**fkw, **kw), device="cpu", seed=1)
+        tm.load_state_dict(state_from_numpy(state, tm))
         return jm, tm
     return pair(0), pair(5, num_layers=1)
 
@@ -237,10 +259,18 @@ def _serve(engine_cls, req_cls, model, mix=_mix, overlap=False, **kw):
     return [list(r.output_ids) for r in reqs], st
 
 
-@pytest.mark.parametrize("overlap", [False, True])
-@pytest.mark.parametrize("case", SPEC_CASES,
-                         ids=["ngram-k4", "ngram-adaptive-chunked",
-                              "model-k3", "model-adaptive-chunked"])
+SPEC_IDS = ["ngram-k4", "ngram-adaptive-chunked", "model-k3",
+            "model-adaptive-chunked"]
+
+
+@pytest.mark.parametrize(
+    "models,case,overlap",
+    [pytest.param("gpt", c, o, id=f"{i}-{o}")
+     for c, i in zip(SPEC_CASES, SPEC_IDS) for o in (False, True)]
+    # one n-gram case of the Llama family, overlap on (n-gram ticks never
+    # chain)
+    + [pytest.param("llama", SPEC_CASES[0], True, id="llama-ngram-k4-True")],
+    indirect=["models"])
 def test_engine_matches_the_jax_engine(models, case, overlap):
     (jm, tm), (jd, td) = models
     kw = dict(spec_decode=True, overlap=overlap, **case)

@@ -36,7 +36,7 @@ from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as toptim
 from paddle_tpu_torch.models.convert import (adamw_state_from_numpy,
-                                             gpt_state_from_numpy)
+                                             state_from_numpy)
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import flash_attention as tflash
@@ -240,7 +240,7 @@ def _gpt_pair(seed=0, **kw):
     jm.train()
     state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
     tm = GPTForCausalLM(gpt3_tiny(**kw), device="cpu", seed=1)
-    tm.load_state_dict(gpt_state_from_numpy(state))
+    tm.load_state_dict(state_from_numpy(state, tm))
     tm.train()
     return jm, tm
 
@@ -301,8 +301,8 @@ def _assert_params_match(jm, tm, atol, noise_atol):
     times the steps.  (The learning rate is bench.py's 1e-4: Adam divides
     by sqrt(v), so a weight whose gradient is tiny moves by up to lr on
     rounding noise, and lr 1e-2 would put such weights 1e-5 apart.)"""
-    state = gpt_state_from_numpy(
-        {k: np.asarray(v._value) for k, v in jm.state_dict().items()})
+    state = state_from_numpy(
+        {k: np.asarray(v._value) for k, v in jm.state_dict().items()}, tm)
     H = tm.cfg.hidden_size
     for name, p in tm.state_dict().items():
         got, want = p.numpy(), state[name].numpy()
@@ -367,7 +367,7 @@ def test_adamw_state_carries_a_jax_run_into_the_port():
         jopt.step()
         jopt.clear_grad()
     state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
-    tm.load_state_dict(gpt_state_from_numpy(state))
+    tm.load_state_dict(state_from_numpy(state, tm))
     jsd = jopt.remap_state_keys(jm, jopt.state_dict(), to_structured=True)
     jsd = {k: (np.asarray(v._value) if hasattr(v, "_value") else v)
            for k, v in jsd.items()}
