@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs seventeen phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs eighteen phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -194,6 +194,34 @@ into ``build/paddle_tpu_torch/``), then runs seventeen phases on card 0:
    times per run, on the tensor-core kernels by name in a profiled step.
    Then a 2-layer fp32 cut with padded rows, 2 AdamW steps card against
    CPU at B 2 x S 128 with phase 5's tolerances.
+18. Weight-only quantized serving (the kernel and the serving run after
+   phase 14 on its model, the cuts after phase 17):
+   ``weight_only_matmul`` (int8 and fp8 codes) against its plain version
+   computed in float32 on the same codes and inputs (bf16: atol 2e-2, rtol
+   1e-2; fp32: phase 1's) at Llama-2 7B's and GPT-3 1.3B's linear shapes,
+   bf16 at M 8, 40 and 128, fp32 at 4096 x 4096, and M 1, 127, 128 with
+   N 4100 and K 4112 (off the kernel's tiles) and a bias; timed at M 8 from
+   replayed graphs over weights that do not fit in L2, beside its bound,
+   ``dequantize`` + ``torch.matmul`` (the plain version) and
+   ``torch.matmul`` on the bf16 weight, and summed over one Llama-2 7B
+   decode step.  Then ``llama2_7b`` served with ``quant="int8"`` and
+   ``"fp8"`` on phase 14's mix: whole-prompt (int8: median of 3 runs;
+   fp8: one run; each: one with the overlapped loop off for ms per decode
+   step, one profiled: idle share, weight-only launches on
+   ``weight_only_mma_kernel`` by name), and in int8 also 256-token chunks
+   and the shared prefix; every decode step's 225 linear layers launch
+   the kernel (counted under replay), wide prompt products
+   take the dequantize route (``dequant_calls``), budgets met, no leaked
+   block; prints ``stats()["quant"]``, the twin's resident bytes, peak
+   memory and the twin's largest logit deviation from bf16 on one prompt
+   (informational: random weights).  Then an activation quanter's scales,
+   codes and gradients card against CPU; phase 3's GPT cut and phase
+   15's Llama cut (2 layers) quantized int8 and fp8, card (default engine
+   and eager programs) against the CPU quant engine, 8 new tokens,
+   whole-prompt, the Llama int8 cut also chunked and the GPT int8 cut
+   also with n-gram speculation, with phase 3's checks; and a 2-layer
+   fp32 GPT cut under ``QAT`` (fake-quantized weights), 2 AdamW steps
+   card against CPU with phase 5's tolerances.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -969,12 +997,14 @@ def _counters():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import moe as mo
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import weight_only as wo
     return {"flash_fwd": fa.flash_attention_fwd,
             "paged_decode": pa.paged_attention,
             "paged_chunk": pa.paged_chunk_attention,
             "paged_verify_attention": pa.paged_verify_attention,
             "moe_dispatch": mo.moe_dispatch,
-            "moe_combine": mo.moe_combine}
+            "moe_combine": mo.moe_combine,
+            "weight_only_matmul": wo.weight_only_matmul}
 
 
 def _plain_counters():
@@ -989,10 +1019,12 @@ def _plain_counters():
 
 
 def _zero_counts():
+    from paddle_tpu_torch.ops import weight_only as wo
     for fn in _counters().values():
         fn.launches = 0
     for fn in _plain_counters().values():
         fn.plain_calls = 0
+    wo.weight_only_matmul.dequant_calls = 0
 
 
 def _plain_calls():
@@ -1061,7 +1093,9 @@ def serve(model, prompts, chunk, time_ticks=False, profile=False,
         # engine (its pools and graphs) goes with its last reference and
         # not with the cyclic collector, after the next engine is built
         del eng._dispatch_tick, eng._harvest
+    from paddle_tpu_torch.ops import weight_only as wo
     launches = {name: fn.launches for name, fn in _counters().items()}
+    dequant_calls = wo.weight_only_matmul.dequant_calls
     plain = _plain_calls()
     if any(plain.values()):
         raise AssertionError(f"serving at full width took plain routes: "
@@ -1083,7 +1117,8 @@ def serve(model, prompts, chunk, time_ticks=False, profile=False,
                 ttft_mean_s=sum(ttfts) / len(ttfts), ttfts=ttfts,
                 ttft_max_s=max(ttfts), steps=st["steps"], ticks=st["ticks"],
                 prefill_chunks=st["prefill_chunks"], launches=launches,
-                plain_calls=plain, tick_s=tick_s[0], stats=st,
+                plain_calls=plain, dequant_calls=dequant_calls,
+                tick_s=tick_s[0], stats=st,
                 warmup=warm, replays=st["graphs"]["replays"],
                 overlapped=st["overlapped_ticks"], kernels=kernels,
                 streams=[list(r.output_ids) for r in reqs])
@@ -1342,50 +1377,59 @@ def where_the_time_goes(model, prompts, chunk, label=None, nh=NH, **kw):
 # --------------------------------------------------------------- phase 3
 
 def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", prompt_len=96,
-                chunks=(0,)):
-    """One greedy request of ``prompt_len`` tokens served with each
-    prefill chunk of ``chunks`` (0: whole-prompt) on the card (the default
-    engine and the eager programs) and on the CPU, from one state dict:
-    all streams equal, first-token logits within atol 1e-3."""
+                chunks=(0,), quant=None, specs=(False,), new_tokens=16,
+                models=None):
+    """One greedy request of ``prompt_len`` tokens (``new_tokens`` new
+    ones) served with each
+    prefill chunk of ``chunks`` (0: whole-prompt), and with n-gram
+    speculation where ``specs`` asks for it, on the card (the default
+    engine and the eager programs) and on the CPU, from one state dict,
+    weight-only quantized in ``quant`` mode if given: all streams equal,
+    first-token logits (of the quantized twin, if quantized) within atol
+    1e-3.  ``models``: the CPU and card pair of :func:`_cut_models`, if
+    built already."""
     import torch
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
 
-    cpu = _model(cfg, "cpu", 1).eval()
-    card = _model(cfg, "cuda", 2).eval()
-    card.load_state_dict(cpu.state_dict())
+    cpu, card = models or _cut_models(cfg)
     gen = torch.Generator().manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (prompt_len,), generator=gen)
-    ctx = -(-(prompt_len + 16) // BS) * BS
+    ctx = -(-(prompt_len + new_tokens) // BS) * BS
     streams, first = {}, []
     # the default card engine (graphs, overlap), the eager card programs,
     # the CPU
     for model, dev, graphs in ((card, "cuda", True), (card, "cuda", False),
                                (cpu, "cpu", False)):
         for chunk in chunks:
-            eng = ServingEngine(model, max_batch=1, max_context=ctx,
-                                block_size=BS, steps_per_tick=8, device=dev,
-                                cuda_graphs=graphs, prefill_chunk=chunk)
-            req = eng.add_request(Request(prompt.tolist(),
-                                          max_new_tokens=16))
-            eng.run()
-            _check_graphs(eng, eng.stats())
-            streams[dev, graphs, chunk] = list(req.output_ids)
+            for spec in specs:
+                eng = ServingEngine(model, max_batch=1, max_context=ctx,
+                                    block_size=BS, steps_per_tick=8,
+                                    device=dev, cuda_graphs=graphs,
+                                    prefill_chunk=chunk, quant=quant,
+                                    spec_decode=spec, spec_draft="ngram")
+                req = eng.add_request(Request(prompt.tolist(),
+                                              max_new_tokens=new_tokens))
+                eng.run()
+                _check_graphs(eng, eng.stats())
+                streams[dev, graphs, chunk, spec] = list(req.output_ids)
         if graphs:
             continue
+        # the last engine's model: the quantized twin, if quantized
         caches = model.init_caches(1, ctx, BS)
         with torch.no_grad():
-            logits, _ = model.forward_with_cache(prompt[None].to(dev),
-                                                 caches, 0)
+            logits, _ = eng.model.forward_with_cache(prompt[None].to(dev),
+                                                     caches, 0)
         first.append(logits[0, -1].float().cpu())
+        del eng
     err = (first[0] - first[1]).abs().max().item()
     torch.testing.assert_close(first[0], first[1], atol=1e-3, rtol=0.0)
     if len({str(x) for x in streams.values()}) != 1:
         raise AssertionError(f"card and CPU streams differ (device, graphs, "
-                             f"chunk): {streams}")
+                             f"chunk, n-gram spec): {streams}")
     _log(f"card vs CPU, {label}: first-token logits "
-         f"max_abs_err={err:.3e}, 16-token greedy streams of a "
+         f"max_abs_err={err:.3e}, {new_tokens}-token greedy streams of a "
          f"{prompt_len}-token prompt equal (card graphs, card eager, CPU; "
-         f"prefill chunks {list(chunks)})")
+         f"prefill chunks {list(chunks)}; n-gram spec {list(specs)})")
 
 
 # -------------------------------------------------------------- phase 10
@@ -1708,10 +1752,10 @@ def spec_phase(model, draft):
 
 
 def _cut_models(cfg):
-    """The fp32 cut on the CPU and on the card from one state dict."""
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
-    cpu = GPTForCausalLM(cfg, device="cpu", seed=1).eval()
-    card = GPTForCausalLM(cfg, device="cuda", seed=2).eval()
+    """The fp32 cut of ``cfg``'s family on the CPU and on the card from
+    one state dict."""
+    cpu = _model(cfg, "cpu", 1).eval()
+    card = _model(cfg, "cuda", 2).eval()
     card.load_state_dict(cpu.state_dict())
     return cpu, card
 
@@ -1809,13 +1853,14 @@ def _model(cfg, device, seed, dtype=None):
                **({} if dtype is None else dict(dtype=dtype)))
 
 
-def _train_setup(cfg, device, seed, B, S, masked=False):
+def _train_setup(cfg, device, seed, B, S, masked=False, wrap=None):
     """The model, AdamW with global-norm clipping, and one fixed batch of
     random tokens from a numpy seed: the arguments of ``compute_loss``.
     GPT and Llama: random labels.  BERT (MLM): a label on 15% of the
     tokens (the token itself), -100 elsewhere; ``masked`` pads every second
     row from a random length in [S / 4, S) (``attention_mask`` 0 there,
-    and no label)."""
+    and no label).  ``wrap`` (QAT) rewrites the model before the optimizer
+    takes its parameters."""
     import numpy as np
     import torch
     from paddle_tpu_torch.models.bert import BertConfig
@@ -1823,6 +1868,8 @@ def _train_setup(cfg, device, seed, B, S, masked=False):
     from paddle_tpu_torch.optimizer import AdamW
 
     model = _model(cfg, device, seed)
+    if wrap is not None:
+        model = wrap(model)
     model.train()
     opt = AdamW(learning_rate=LR, parameters=model.parameters(),
                 weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
@@ -2102,7 +2149,7 @@ def _feed_uniforms(model, uniforms):
 
 
 def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", B=1, S=256,
-                      masked=False):
+                      masked=False, wrap=None):
     """2 AdamW steps of an fp32 cut on the card and on the CPU at B x S
     from one state dict (and, for MoE, one set of routing uniforms).  Losses
     within atol 1e-4.  Parameters within 2 x lr x steps: Adam divides by
@@ -2115,7 +2162,7 @@ def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", B=1, S=256,
     uniforms = torch.rand((steps * _n_moe_blocks(cfg), 256),
                           generator=torch.Generator().manual_seed(5))
     for dev in ("cpu", "cuda"):
-        model, opt, batch = _train_setup(cfg, dev, 2, B, S, masked)
+        model, opt, batch = _train_setup(cfg, dev, 2, B, S, masked, wrap)
         if init is None:
             init = {k: v.clone() for k, v in model.state_dict().items()}
         else:
@@ -2316,9 +2363,10 @@ def bert_flash_checks(rows):
     torch.cuda.empty_cache()
 
 
-def llama_serving_phase(lens):
-    """Phase 14: Llama-2 7B at full width in bf16 (6.74 B parameters,
-    random weights from seed 0) on phase 2's mix and engine settings:
+def llama_serving_phase(model, lens):
+    """Phase 14: Llama-2 7B at full width in bf16 (``model``: 6.74 B
+    parameters, random weights from seed 0) on phase 2's mix and engine
+    settings:
     whole-prompt prefill (median of ``REPEATS`` runs; one more with the
     overlapped loop off for ms per decode step; one profiled), 256-token
     chunks (one profiled run) and phase 11's shared-prefix mix with the
@@ -2326,14 +2374,8 @@ def llama_serving_phase(lens):
     profiled ones by name on the tensor-core and split kernels), takes no
     plain route and leaks no block."""
     import torch
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cfg = llama2_7b()
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             seed=0)
+    cfg = model.cfg
     gen = torch.Generator().manual_seed(0)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
                .tolist() for n in lens]
@@ -2388,18 +2430,32 @@ def llama_serving_phase(lens):
     runs["peak_bytes"] = peak
     _log(f"{label}: peak memory {peak / 2 ** 30:.2f} GiB (weights "
          f"{model.num_params() * 2 / 2 ** 30:.2f} GiB)")
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
     return runs
 
 
 def llama_phases(lens):
-    """Phases 14-16: Llama-2 7B served at full width, the GQA fp32 cuts
-    card against CPU, and the 8-layer cut trained at full width."""
-    from paddle_tpu_torch.models.llama import llama2_7b
+    """Phases 14-16 and 18's kernel and serving parts: Llama-2 7B served
+    at full width in bf16, the weight-only kernel's checks and the int8
+    and fp8 serving on the same model, the GQA fp32 cuts card against
+    CPU, and the 8-layer cut trained at full width."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
-    serving = llama_serving_phase(lens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(llama2_7b(), device="cuda",
+                             dtype=torch.bfloat16, seed=0)
+    serving = llama_serving_phase(model, lens)
+    t = time.perf_counter()
+    wo_row = weight_only_checks()
+    t1 = time.perf_counter()
+    quant = llama_quant_phase(model, lens)
+    _log(f"[phase 18, kernel: {t1 - t:.1f} s; llama2_7b serving: "
+         f"{time.perf_counter() - t1:.1f} s]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     # four kv heads over 32 query heads: Llama-2-70B's group of 8
     card_vs_cpu(llama2_7b(num_layers=4, num_kv_heads=4),
                 "llama2_7b 4 layers, 4 kv heads, fp32", prompt_len=260,
@@ -2409,7 +2465,7 @@ def llama_phases(lens):
     train = train_full_width(llama2_7b(num_layers=LLAMA_TRAIN_LAYERS),
                              f"training llama2_7b {LLAMA_TRAIN_LAYERS} "
                              "layers", B=1, S=LLAMA_TRAIN_S)
-    return serving, train
+    return serving, train, quant, wo_row
 
 
 def bert_phase():
@@ -2426,6 +2482,354 @@ def bert_phase():
                       "bert_base 2 layers fp32, padded rows", B=2, S=128,
                       masked=True)
     return runs
+
+
+# -------------------------------------------------------------- phase 18
+
+# (N, K) of the linear layers, with their launches in one Llama-2 7B
+# decode step (q, k, v, o: 4 a layer; gate, up: 2; down: 1; the head)
+WO_SHAPES = {"llama2_7b q/k/v/o_proj": (4096, 4096, 4 * 32),
+             "llama2_7b gate/up_proj": (11008, 4096, 2 * 32),
+             "llama2_7b down_proj": (4096, 11008, 32),
+             "llama2_7b lm_head": (32000, 4096, 1),
+             "gpt3_1p3b qkv": (6144, 2048, 0),
+             "gpt3_1p3b proj": (2048, 2048, 0),
+             "gpt3_1p3b fc1": (8192, 2048, 0),
+             "gpt3_1p3b fc2": (2048, 8192, 0),
+             "gpt3_1p3b head": (50304, 2048, 0)}
+WO_ROW_SHAPE = "llama2_7b gate/up_proj"    # the kernels line's row
+WO_TOL = dict(atol=2e-2, rtol=1e-2)        # bf16 against fp32 on the codes
+WO_NAMES = ("weight_only_mma_kernel", "weight_only_fma_kernel")
+QUANT_MODES = ("int8", "fp8")
+
+
+def _wo_operands(gen, M, N, K, dtype, mode, copies=1):
+    """``copies`` sets of codes and scales of an N x K weight (N(0, 0.02)
+    in ``dtype``, quantized per output channel) and an x of M rows."""
+    import torch
+    from paddle_tpu_torch.quantization import weight_only as two
+    quantize = two.quantize_absmax_int8 if mode == "int8" \
+        else two.quantize_absmax_fp8
+    ops = []
+    for _ in range(copies):
+        w = (torch.randn((N, K), generator=gen, device="cuda") * 0.02) \
+            .to(dtype)
+        q, s = quantize(w, axis=1)
+        ops.append((w, q, s.reshape(-1)))
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    return x, ops
+
+
+def _cold_ms(call, operands, iters=60):
+    """ms per ``call(operand)`` from a replayed CUDA graph that cycles
+    through ``operands`` (together past the 50 MB L2 cache: each call
+    reads its weight from device memory, as a decode step's layers do)."""
+    i = [0]
+
+    def fn():
+        call(operands[i[0] % len(operands)])
+        i[0] += 1
+    return _graph_ms(fn, iters)
+
+
+def weight_only_checks():
+    """Phase 18, the kernel: ``weight_only_matmul`` against its plain
+    version computed in float32 on the same codes and inputs (bf16: atol
+    2e-2, rtol 1e-2; fp32: phase 1's), int8 and fp8 codes, at Llama-2 7B's
+    and GPT-3 1.3B's linear shapes (bf16 at M 8, 40 and 128, the 128-row
+    prompt bucket; fp32 at one shape) and at the edges M 1, 127, 128 with
+    N and K off the kernel's tiles.  Timed at M 8 in bf16 from replayed
+    graphs over weights that do not fit in L2, beside its bound, the plain
+    version (``dequantize`` then ``torch.matmul``) and ``torch.matmul`` on
+    the bf16 weight.  Returns the kernels line's row."""
+    import torch
+    from paddle_tpu_torch.ops import weight_only as wo
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errs, shapes = [], []
+
+    def check(label, x, q, s, dtype, bias=None):
+        got = wo.weight_only_matmul(x, q, s, bias)
+        want = wo.weight_only_matmul_reference(
+            x.float(), q, s, None if bias is None else bias.float())
+        torch.cuda.synchronize()
+        tol = TOL if dtype == torch.float32 else \
+            {str(torch.bfloat16): WO_TOL}
+        err = _compare(f"weight_only_matmul {label}", got, want, dtype, tol)
+        errs.append(err)
+        return err
+
+    for mode in QUANT_MODES:
+        for name, (N, K, _) in WO_SHAPES.items():
+            x, [(w, q, s)] = _wo_operands(gen, 128, N, K, torch.bfloat16,
+                                          mode)
+            for M in (8, 40, 128):
+                check(f"{name} {mode} M {M}", x[:M].contiguous(), q, s,
+                      torch.bfloat16)
+            del w, q, s, x
+        x, [(w, q, s)] = _wo_operands(gen, 8, 4096, 4096, torch.float32,
+                                      mode)
+        err = check(f"fp32 {mode} 4096 x 4096", x, q, s, torch.float32)
+        _log(f"weight_only_matmul fp32 {mode} M 8 N 4096 K 4096: "
+             f"max_abs_err={err:.3e}")
+        for M in (1, 127, 128):
+            x, [(w, q, s)] = _wo_operands(gen, M, 4100, 4112,
+                                          torch.bfloat16, mode)
+            bias = torch.randn((4100,), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            err = check(f"edge {mode} M {M}", x, q, s, torch.bfloat16, bias)
+            _log(f"weight_only_matmul bf16 {mode} edge M {M} N 4100 K 4112 "
+                 f"(bias): max_abs_err={err:.3e}")
+    _log(f"weight_only_matmul: {len(errs)} cases within tolerance, largest "
+         f"max_abs_err {max(errs):.3e}")
+
+    M = BATCH
+    for name, (N, K, per_step) in WO_SHAPES.items():
+        copies = max(1, math.ceil(120e6 / (N * K)))
+        for mode in QUANT_MODES:
+            x, ops = _wo_operands(gen, M, N, K, torch.bfloat16, mode, copies)
+            ms = _cold_ms(lambda o: wo.weight_only_matmul(x, o[1], o[2]),
+                          ops)
+            plain = _cold_ms(lambda o: wo.weight_only_matmul_reference(
+                x, o[1], o[2]), ops, 20)
+            lib = _cold_ms(lambda o: torch.matmul(x, o[0].t()), ops)
+            nbytes = N * K + N * 2 + M * K * 2 + M * N * 2
+            bound, by = _bound(nbytes, 2 * M * N * K, torch.bfloat16)
+            shapes.append(dict(shape=name, N=N, K=K, M=M, mode=mode, ms=ms,
+                               plain_ms=plain, library_ms=lib,
+                               bound_ms=bound, bound_by=by,
+                               per_decode_step=per_step,
+                               gbytes_per_s=nbytes / ms / 1e6))
+            _log(f"weight_only_matmul {mode} {name} (N {N}, K {K}) at M {M}"
+                 f": {ms:.4f} ms = {nbytes / ms / 1e6:.0f} GB/s, bound "
+                 f"{bound:.4f} ms ({by}), {ms / bound:.2f}x the bound; "
+                 f"dequantize + torch.matmul {plain:.4f} ms; torch.matmul "
+                 f"on the bf16 weight {lib:.4f} ms ({lib / ms:.2f}x the "
+                 "kernel's time)")
+            del x, ops
+    torch.cuda.empty_cache()
+    step = {}
+    for mode in QUANT_MODES:
+        rows = [r for r in shapes if r["mode"] == mode
+                and r["per_decode_step"]]
+        step[mode] = {k: sum(r[k] * r["per_decode_step"] for r in rows)
+                      for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        _log(f"weight_only_matmul {mode}, one llama2_7b decode step's "
+             f"{sum(r['per_decode_step'] for r in rows)} linear layers at M "
+             f"{M}: {step[mode]['ms']:.3f} ms, bound "
+             f"{step[mode]['bound_ms']:.3f} ms, dequantize + torch.matmul "
+             f"{step[mode]['plain_ms']:.3f} ms, torch.matmul bf16 "
+             f"{step[mode]['library_ms']:.3f} ms")
+    row = next(r for r in shapes if r["shape"] == WO_ROW_SHAPE
+               and r["mode"] == "int8")
+    return dict(max_abs_err=max(errs), ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                library_call="torch.matmul on the bf16 weight",
+                plain_call="dequantize, then torch.matmul",
+                timed_at=f"{WO_ROW_SHAPE} int8, M {M}", shapes=shapes,
+                llama_decode_step=step)
+
+
+def llama_quant_phase(model, lens):
+    """Phase 18, serving: ``llama2_7b`` (phase 14's bf16 model) served
+    through ``ServingEngine(model, quant=...)`` in int8 and in fp8 on
+    phase 14's mix.  int8: whole-prompt (median of ``REPEATS`` runs, one
+    more with the overlapped loop off for ms per decode step, one
+    profiled: the idle share, and every weight-only launch on the
+    tensor-core kernel by name), 256-token chunks and phase 11's shared
+    prefix (one run each).  fp8, whose engine differs only in the codes'
+    type: one whole-prompt run, the run with the overlapped loop off and
+    the profiled run.
+    Every decode step's linear layers launch ``weight_only_matmul``
+    (counted under replay); wide prompt products take the dequantize route
+    (``dequant_calls``).  Also the twin's resident bytes and its logits'
+    largest deviation from bf16 on one prompt (informational: random
+    weights)."""
+    import torch
+    from paddle_tpu_torch.inference.quant import quantize_model
+
+    cfg = model.cfg
+    per_step = sum(n for _, _, n in WO_SHAPES.values()
+                   if n) if cfg.num_layers == 32 else None
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in lens]
+    ids = torch.tensor(prompts[1], device="cuda")[None]
+    with torch.no_grad():
+        ref = model(ids).float()
+    out = {}
+    for mode in QUANT_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"serving llama2_7b {mode}"
+        base = torch.cuda.memory_allocated()
+        twin, snap = quantize_model(model, mode)
+        resident = torch.cuda.memory_allocated() - base
+        with torch.no_grad():
+            dev = (twin(ids).float() - ref).abs().max().item()
+        del twin
+        bf16_gib = model.num_params() * 2 / 2 ** 30
+        _log(f"{label}: the twin holds {resident / 2 ** 30:.3f} GiB on the "
+             f"card against the bf16 model's {bf16_gib:.3f} GiB; stats "
+             f"{snap.stats()}; logits' largest deviation from "
+             f"bf16 on a {ids.shape[1]}-token prompt {dev:.4f} (bf16 "
+             f"logits up to {ref.abs().max().item():.3f}; random weights, "
+             "informational)")
+        del snap
+        full = mode == QUANT_MODES[0]
+        whole = [serve(model, prompts, 0, quant=mode)
+                 for _ in range(REPEATS if full else 1)]
+        ticks = serve(model, prompts, 0, time_ticks=True, overlap=False,
+                      quant=mode)
+        prof = where_the_time_goes(model, prompts, 0, f"{label} whole-prompt",
+                                   nh=cfg.num_heads, quant=mode)
+        names = _by_name(prof["run"]["kernels"], WO_NAMES)
+        if names["weight_only_mma_kernel"][0] == 0 or \
+                names["weight_only_fma_kernel"][0] != 0:
+            raise AssertionError(f"{label}: weight-only launches by kernel "
+                                 f"{names}")
+        extra = {}
+        if full:
+            extra["256-token chunks"] = serve(model, prompts, 256,
+                                              quant=mode)
+            extra["shared 1024-token prefix, prefix cache on"] = serve(
+                model, _prefix_prompts(cfg.vocab_size), 0,
+                prefix_cache=True, quant=mode)
+        runs = whole + [ticks, prof["run"]] + list(extra.values())
+        for run in runs:
+            n = run["launches"]["weight_only_matmul"]
+            if per_step is not None and n < run["steps"] * per_step:
+                raise AssertionError(
+                    f"{label}: {n} weight-only launches for "
+                    f"{run['steps']} decode steps of {per_step} linear "
+                    f"layers")
+            if n <= 0 or run["launches"]["paged_decode"] <= 0:
+                raise AssertionError(f"{label}: launches {run['launches']}")
+            if run["stats"]["quant"]["mode"] != mode:
+                raise AssertionError(f"{label}: {run['stats']['quant']}")
+        if whole[0]["dequant_calls"] <= 0:
+            raise AssertionError(f"{label}: no prompt took the dequantize "
+                                 "route")
+        prefix = extra.get("shared 1024-token prefix, prefix cache on")
+        if prefix is not None and \
+                prefix["stats"]["prefix_cache"]["hits"] <= 0:
+            raise AssertionError(f"{label}: no prefix hit")
+        r = dict(whole[0])
+        r["tokens_per_s_runs"] = [x["tokens_per_s"] for x in whole]
+        r["tokens_per_s"] = _median(r["tokens_per_s_runs"])
+        r["ttft_mean_s"] = _median([x["ttft_mean_s"] for x in whole])
+        r["ms_per_step"] = ticks["tick_s"] / ticks["steps"] * 1e3
+        r.update(idle=prof["idle"], weight_only_by_name=names,
+                 resident_bytes=resident, logit_deviation=dev, extra=extra,
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        _log(f"{label}, whole-prompt prefill: median of {len(whole)} runs "
+             f"{r['tokens_per_s']:.1f} tokens/s (runs "
+             + ", ".join(f"{x:.1f}" for x in r["tokens_per_s_runs"])
+             + f"), mean TTFT {r['ttft_mean_s'] * 1e3:.1f} ms, "
+             f"{r['ms_per_step']:.3f} ms per decode step (overlap off), idle "
+             f"share {r['idle']:.3f}, weight-only kernels by name "
+             + ", ".join(f"{n} {c}x {us / 1e3:.2f} ms"
+                         for n, (c, us) in names.items())
+             + f", warmup {r['warmup']['programs']} programs in "
+             f"{r['warmup']['warmup_s']:.2f} s, {r['steps']} steps in "
+             f"{r['ticks']} ticks, dequant_calls {r['dequant_calls']}, "
+             f"stats()['quant'] {r['stats']['quant']}, launches "
+             f"{r['launches']}")
+        for key, run in extra.items():
+            _log(f"{label}, {key} (one run): {run['tokens']} tokens in "
+                 f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} "
+                 f"tokens/s, mean TTFT {run['ttft_mean_s'] * 1e3:.1f} ms, "
+                 f"{run['prefill_chunks']} chunks, dequant_calls "
+                 f"{run['dequant_calls']}, launches {run['launches']}")
+        _log(f"{label}: peak memory {r['peak_bytes'] / 2 ** 30:.2f} GiB")
+        out[mode] = r
+    return out
+
+
+def activation_fake_quant_check():
+    """Phase 18: an activation quanter (``FakeQuanterWithAbsMaxObserver``
+    in training: the first call's absmax, then the EMA) on the card and on
+    the CPU over the same float32 activations of a GPT-3 1.3B hidden state
+    (B 2 x S 256 x 2048, a value past the EMA in the last call): scales
+    and codes equal bit for bit, the round trip within 2.4e-7 relative
+    (its last division is by a Python number, which the card computes as
+    a product with the reciprocal), the straight-through gradients
+    equal."""
+    import torch
+    from paddle_tpu_torch.quantization import FakeQuanterWithAbsMaxObserver
+
+    gen = torch.Generator().manual_seed(18)
+    card = FakeQuanterWithAbsMaxObserver().cuda().train()
+    cpu = FakeQuanterWithAbsMaxObserver().train()
+    for i in range(3):
+        x = torch.randn((2, 256, 2048), generator=gen) * (1.0 + i)
+        if i == 2:
+            x[0, 0, 0] = 100.0
+        xc, xh = x.cuda().requires_grad_(), x.clone().requires_grad_()
+        yc, yh = card(xc), cpu(xh)
+        if not torch.equal(card.scale.cpu(), cpu.scale):
+            raise AssertionError(f"activation quanter: scale "
+                                 f"{card.scale.item()!r} on the card, "
+                                 f"{cpu.scale.item()!r} on the CPU")
+        codes = [torch.round(y.detach().cpu() / sc * 127.0)
+                 for y, sc in ((yc, card.scale.cpu()), (yh, cpu.scale))]
+        if not torch.equal(codes[0], codes[1]):
+            raise AssertionError("activation quanter: codes differ")
+        torch.testing.assert_close(yc.detach().cpu(), yh.detach(),
+                                   atol=0.0, rtol=2.4e-7)
+        yc.sum().backward()
+        yh.sum().backward()
+        if not torch.equal(xc.grad.cpu(), xh.grad):
+            raise AssertionError("activation quanter: STE gradients differ")
+    _log(f"activation fake quant, card vs CPU: 3 training calls on "
+         f"{tuple(x.shape)} fp32 activations, scales (last "
+         f"{cpu.scale.item():.6f}) and codes equal, round trip within "
+         "2.4e-7 relative, STE gradients equal")
+
+
+def quant_cuts_phase():
+    """Phase 18, card against CPU: an activation quanter
+    (:func:`activation_fake_quant_check`); phase 3's 4-layer GPT cut and
+    phase 15's GQA Llama cut (each built once for both modes) quantized
+    int8 and fp8, 8 new tokens, whole-prompt, in 256-token chunks (Llama
+    int8) and with n-gram speculation (GPT int8): the CPU's plain version
+    dequantizes every weight at every step, ten times the fp32 model's
+    time, so the Llama cut has 2 layers; then a 2-layer fp32 GPT cut under ``QAT`` for 2
+    AdamW steps."""
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    from paddle_tpu_torch.models.llama import llama2_7b
+    from paddle_tpu_torch.quantization import (QAT,
+                                               FakeQuanterWithAbsMaxObserver,
+                                               QuantConfig)
+    activation_fake_quant_check()
+    for cfg, label, prompt_len, int8_only in (
+            (gpt3_1p3b(num_layers=4), "gpt3_1p3b 4 layers fp32", 96,
+             dict(specs=(False, True))),
+            (llama2_7b(num_layers=2, num_kv_heads=4),
+             "llama2_7b 2 layers, 4 kv heads, fp32", 260,
+             dict(chunks=(0, 256)))):
+        t = time.perf_counter()
+        models = _cut_models(cfg)
+        for mode in QUANT_MODES:
+            card_vs_cpu(cfg, f"{label}, {mode}", prompt_len, quant=mode,
+                        new_tokens=8, models=models,
+                        **(int8_only if mode == "int8" else {}))
+        del models
+        _log(f"[{label}, int8 and fp8: {time.perf_counter() - t:.1f} s]")
+    # fake-quantized weights: identical on both sides, so their codes are.
+    # Activations would be rounded on the card's and the CPU's sums, which
+    # differ in the last bits: a discontinuity that moves this cut's fp32
+    # loss by ~4e-4 on the CPU alone (fp32 against fp64), past phase 5's
+    # 1e-4 (the CPU tests hold activation fake quant against JAX, and
+    # activation_fake_quant_check the quanter alone card against CPU)
+    t = time.perf_counter()
+    cfg = QuantConfig(weight=FakeQuanterWithAbsMaxObserver)
+    train_card_vs_cpu(gpt3_1p3b(num_layers=2),
+                      "gpt3_1p3b 2 layers fp32 under QAT (weights)",
+                      wrap=lambda m: QAT(cfg).quantize(m, inplace=True))
+    _log(f"[QAT cut: {time.perf_counter() - t:.1f} s]")
 
 
 # ------------------------------------------------------------------ main
@@ -2524,8 +2928,10 @@ def main() -> int:
     timed("training card vs CPU", train_card_vs_cpu,
           gpt3_1p3b(num_layers=4))
     moe_serve, moe_train = timed("MoE", moe_phases, lens, rows)
-    llama, llama_train = timed("Llama", llama_phases, lens)
+    llama, llama_train, quant, wo_row = timed("Llama", llama_phases, lens)
     bert = timed("BERT", bert_phase)
+    timed("quantized cuts card vs CPU, QAT", quant_cuts_phase)
+    rows["weight_only_matmul"] = wo_row
 
     sources = {"flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/ops/pallas_flash.py:159"),
@@ -2540,7 +2946,11 @@ def main() -> int:
                "moe_dispatch": ("paddle_tpu_torch/csrc/moe.cu",
                                 "paddle_tpu/ops/pallas_moe.py:85"),
                "moe_combine": ("paddle_tpu_torch/csrc/moe.cu",
-                               "paddle_tpu/ops/pallas_moe.py:133")}
+                               "paddle_tpu/ops/pallas_moe.py:133"),
+               "weight_only_matmul": (
+                   "paddle_tpu_torch/csrc/weight_only.cu",
+                   "paddle_tpu/quantization/weight_only.py:90 (dequantize,"
+                   " fused by XLA into the consuming matmul)")}
     # each path's counts are its own run's, read from 0; `launches` is the
     # count of the first path that runs the kernel
     paths = {"whole_prompt": runs[0]["launches"],
@@ -2559,7 +2969,9 @@ def main() -> int:
              "llama_prefix": llama["prefix"]["launches"],
              "llama_train": llama_train["launches"],
              "bert_train": bert[False]["launches"],
-             "bert_train_masked": bert[True]["launches"]}
+             "bert_train_masked": bert[True]["launches"],
+             "llama_int8": quant["int8"]["launches"],
+             "llama_fp8": quant["fp8"]["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}

@@ -5,8 +5,10 @@ It serves GPT and Llama through the paged continuous-batching engine
 ``optimizer``, ``nn``; ``models.gpt``, ``models.llama``, ``models.bert``),
 GPT dense or GPT-MoE (``incubate.distributed.models.moe``), with
 hand-written CUDA kernels for the flash attention forward
-and backward, paged decode, chunked prefill and the MoE token dispatch
-and combine (``ops/``, ``csrc/``).  Entry points run on the card (``device="cuda"``) unless the
+and backward, paged decode, chunked prefill, the MoE token dispatch
+and combine and the weight-only int8/fp8 linear layers of quantized
+serving (``ops/``, ``csrc/``; ``quantization``, ``inference.quant``,
+``nn.quant``).  Entry points run on the card (``device="cuda"``) unless the
 caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
 run instead.  The package imports ``torch``, never ``jax`` or
 ``paddle_tpu``.

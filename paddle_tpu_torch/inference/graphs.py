@@ -21,9 +21,9 @@ copy ran.
 
 The kernel wrappers count their launches in Python, so under replay they
 would count once, at capture.  A capture records each wrapper's
-increments (``launches`` and ``plain_calls``) and :meth:`Program.replay`
-adds them again at every replay; the captures' own warm-up runs are not
-counted.
+increments (``launches``, ``plain_calls``, ``dequant_calls``) and
+:meth:`Program.replay` adds them again at every replay; the captures' own
+warm-up runs are not counted.
 """
 
 from __future__ import annotations
@@ -36,13 +36,13 @@ _TURNS = 2      # ticks in flight at most: one harvested, one dispatched
 
 
 def counters():
-    """``(function, attribute)`` of every launch and plain-route count of
-    the kernel wrappers."""
-    from ..ops import flash_attention, moe, paged_attention
+    """``(function, attribute)`` of every launch, plain-route and
+    dequantize-route count of the kernel wrappers."""
+    from ..ops import flash_attention, moe, paged_attention, weight_only
     out = {}
-    for mod in (flash_attention, paged_attention, moe):
+    for mod in (flash_attention, paged_attention, moe, weight_only):
         for fn in vars(mod).values():
-            for attr in ("launches", "plain_calls"):
+            for attr in ("launches", "plain_calls", "dequant_calls"):
                 if callable(fn) and isinstance(getattr(fn, attr, None), int):
                     out[id(fn), attr] = (fn, attr)
     return list(out.values())

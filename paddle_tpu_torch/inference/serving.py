@@ -42,9 +42,11 @@ the whole grid before traffic; ``run()`` calls it on the card.  With
 one tick in flight: tick t+1 is replayed on the lengths and last tokens
 tick t left on the card before t is harvested, and non-final prefill
 chunks ride behind it (the JAX flag ``serving_chunk_overlap``'s
-default).  Streams depend on neither.  The prefix cache's export and
-import, quantization, tensor parallelism, crash-only handling, drain, the
-HTTP endpoint and telemetry are later slices (see ROADMAP.md).
+default).  Streams depend on neither.  ``quant="int8"`` or ``"fp8"``
+serves a weight-only quantized twin of the model (``inference/quant.py``):
+its linear layers run the ``weight_only_matmul`` kernel.  The prefix
+cache's export and import, tensor parallelism, crash-only handling, drain,
+the HTTP endpoint and telemetry are later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from ..ops import _build
 from . import graphs, speculative
 from .drafting import NGramDraft
 from .prefix_cache import PrefixCache
+from .quant import quantize_model
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -308,6 +311,13 @@ class ServingEngine:
     ``spec_adaptive``, a rung of ``spec_k_ladder`` chosen by the
     acceptance rate.
 
+    ``quant`` (the JAX engine's ``quant`` argument, ``None`` by default)
+    serves weight-only ``"int8"`` or ``"fp8"`` codes: the engine quantizes
+    the model (and a draft model) at construction into a serving twin
+    (``inference/quant.py:quantize_model``), so later edits of the live
+    model do not reach it, and ``stats()["quant"]`` gives the snapshot's
+    byte counts.
+
     ``overlap`` is the JAX flag ``serving_overlap`` (on by default):
     ``run()`` dispatches tick t+1 before it harvests tick t, and
     non-final prefill chunks ride behind such a tick (the JAX flag
@@ -332,12 +342,21 @@ class ServingEngine:
                  prefix_cache: bool = True, draft_model=None,
                  spec_decode: bool = False, spec_k: int = 4,
                  spec_draft: str = "model", spec_adaptive: bool = False,
-                 spec_k_ladder="2,4,8", overlap: bool = True,
-                 cuda_graphs: bool = True, device=None):
+                 spec_k_ladder="2,4,8", quant: Optional[str] = None,
+                 overlap: bool = True, cuda_graphs: bool = True,
+                 device=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}, the engine "
                              f"on {self.device}")
+        # weight-only quantization: a twin of the model over the codes,
+        # built once; like the JAX engine's snapshot, later edits of the
+        # live model do not reach it
+        self.quant_mode = str(quant or "")
+        self._quant_stats = None
+        if self.quant_mode:
+            model, snap = quantize_model(model, self.quant_mode)
+            self._quant_stats = snap.stats()
         self.model = model
         cfg = model.cfg
         self.B = int(max_batch)
@@ -455,6 +474,8 @@ class ServingEngine:
         if draft_model.device.type != self.device.type:
             raise ValueError(f"the draft model is on {draft_model.device}, "
                              f"the engine on {self.device}")
+        if self.quant_mode:
+            self.draft, _ = quantize_model(draft_model, self.quant_mode)
 
     def _models(self):
         return [self.model] + ([self.draft] if self.draft is not None
@@ -1247,6 +1268,8 @@ class ServingEngine:
                                 else round(self._accept_ewma, 4)),
                 "ineligible_slots": self.spec_ineligible_slots,
                 "per_slot_accept_rate": per_slot}
+        if self._quant_stats is not None:
+            out["quant"] = dict(self._quant_stats)
         if self.prefix is not None:
             out["prefix_cache"] = {
                 "entries": len(self.prefix),

@@ -35,9 +35,9 @@ from ..nn.functional import (cross_entropy, dropout,
 from ..observability.flops import training_flops_per_token
 from .kv_cache import PagedKVCache
 
-__all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
-           "GPTForCausalLM", "gpt3_tiny", "gpt3_124m", "gpt3_350m",
-           "gpt3_1p3b", "gpt3_6p7b"]
+__all__ = ["GPTConfig", "TiedEmbedding", "GPTAttention", "GPTMLP",
+           "GPTBlock", "GPTModel", "GPTForCausalLM", "gpt3_tiny",
+           "gpt3_124m", "gpt3_350m", "gpt3_1p3b", "gpt3_6p7b"]
 
 
 @dataclass
@@ -71,6 +71,16 @@ class GPTConfig:
             raise NotImplementedError(
                 "activation recompute (use_recompute, recompute_interval, "
                 "recompute_policy) is not ported yet: see ROADMAP.md")
+
+
+class TiedEmbedding(nn.Embedding):
+    """The token embedding, which is also the output head: ``attend(h)`` =
+    ``h @ weight.T``.  The head goes through this call, so that the
+    quantized serving twin (``inference/quant.py``) can substitute a module
+    with the same two calls."""
+
+    def attend(self, h):
+        return F.linear(h, self.weight)
 
 
 class GPTAttention(nn.Module):
@@ -150,7 +160,7 @@ class GPTModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.generator = generator
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.wte = TiedEmbedding(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
         def _is_moe(i):
             return cfg.moe_num_experts > 0 and \
@@ -228,13 +238,14 @@ class GPTForCausalLM(nn.Module):
             if isinstance(m, MoELayer):
                 m.experts.reset_parameters(gen)
 
+    # read from the final norm, which the quantized serving twin keeps
     @property
     def device(self) -> torch.device:
-        return self.gpt.wte.weight.device
+        return self.gpt.ln_f.weight.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.gpt.wte.weight.dtype
+        return self.gpt.ln_f.weight.dtype
 
     def init_caches(self, batch_size: int, max_context: int,
                     block_size: int = 64):
@@ -249,12 +260,12 @@ class GPTForCausalLM(nn.Module):
     def forward_with_cache(self, input_ids, caches, pos_offset=0):
         """Returns ``(logits [B, s, vocab], new_caches)``."""
         h, new_caches = self.gpt(input_ids, caches, pos_offset)
-        return F.linear(h, self.gpt.wte.weight), new_caches
+        return self.gpt.wte.attend(h), new_caches
 
     def forward(self, input_ids):
         """Logits ``[B, S, vocab]`` of ``input_ids`` ``[B, S]`` through
         the tied head, causal attention without a cache."""
-        return F.linear(self.gpt(input_ids), self.gpt.wte.weight)
+        return self.gpt.wte.attend(self.gpt(input_ids))
 
     def compute_loss(self, input_ids, labels):
         """Mean cross-entropy of the logits against ``labels`` ``[B, S]``

@@ -204,13 +204,14 @@ class LlamaForCausalLM(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=gen)
 
+    # read from the final norm, which the quantized serving twin keeps
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.model.norm.weight.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.lm_head.weight.dtype
+        return self.model.norm.weight.dtype
 
     def init_caches(self, batch_size: int, max_context: int,
                     block_size: int = 64):

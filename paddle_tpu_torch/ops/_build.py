@@ -50,6 +50,7 @@ _SIGNATURES = {
     "ptt_paged_chunk": [_P] * 7 + [_I] * 9 + [_P],
     "ptt_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
     "ptt_moe_combine": [_P] * 4 + [_I] * 5 + [_P],
+    "ptt_weight_only_matmul": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

@@ -998,3 +998,145 @@ def test_bert_with_a_padding_mask_trains_like_the_cpu(gen):
                                torch.tensor(losses[0]), atol=1e-4, rtol=0.0)
     assert err <= 2 * 1e-4 * 2
     assert torch.equal(card.bert.pooler.weight.cpu(), pooler)
+
+
+# ----------------------------------------------------- weight-only matmul
+
+# (M, N, K): single rows to the kernel's largest row count, N and K off
+# the 16- and 32-channel slabs and the 64-code chunk (N 8500 takes the
+# 32-channel slab), and Llama-2 7B's gate_proj at the decode batch and at
+# the 128-row prompt bucket (8 row tiles on 32-channel slabs)
+WO_CASES = [(1, 40, 48), (8, 4100, 4112), (40, 1000, 2064), (72, 96, 512),
+            (127, 33, 80), (128, 257, 1040), (3, 8500, 2064),
+            (8, 11008, 4096), (128, 11008, 4096)]
+
+
+def _wo_case(gen, M, N, K, dtype, mode, bias=True):
+    from paddle_tpu_torch.quantization import weight_only as two
+    quantize = two.quantize_absmax_int8 if mode == "int8" \
+        else two.quantize_absmax_fp8
+    w = _randn(gen, (N, K), torch.float32) * 0.02
+    w[3] = 0.0                                  # an all-zero channel
+    q, s = quantize(w.to(dtype), axis=1)
+    x = _randn(gen, (M, K), dtype)
+    b = _randn(gen, (N,), dtype) if bias else None
+    return x, q, s.reshape(-1), b
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantizers_on_the_card_equal_the_cpu(gen, dtype, mode):
+    """Codes and scales quantized on the card are the CPU's, bit for bit
+    (so a quantized engine on the card serves the CPU's weights)."""
+    from paddle_tpu_torch.quantization import weight_only as two
+    quantize = two.quantize_absmax_int8 if mode == "int8" \
+        else two.quantize_absmax_fp8
+    w = (_randn(gen, (512, 1024), torch.float32)
+         * torch.rand((1, 1024), generator=gen, device="cuda") * 3).to(dtype)
+    w[:, 7] = 0.0
+    def raw(t):                       # fp8 has no equality: its bytes
+        return t.cpu().view(torch.uint8) if t.element_size() == 1 \
+            else t.cpu()
+    for axis in (0, 1):
+        got = quantize(w, axis=axis)
+        want = quantize(w.cpu(), axis=axis)
+        assert all(torch.equal(raw(g), raw(t)) for g, t in zip(got, want))
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WO_CASES)
+def test_weight_only_matmul(gen, case, dtype, mode):
+    """The kernel against its plain version computed in float32 on the
+    same codes and inputs (the dequantized weight rounded to x's type, as
+    the kernel rounds it): fp32 at TOL; bf16 atol 2e-2, rtol 1e-2 (one
+    bf16 rounding of the output, sums in another order)."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    M, N, K = case
+    x, q, s, b = _wo_case(gen, M, N, K, dtype, mode, bias=M % 2 == 0)
+    n = wo.weight_only_matmul.launches
+    got = wo.weight_only_matmul(x, q, s, b)
+    want = wo.weight_only_matmul_reference(
+        x.float(), q, s, None if b is None else b.float())
+    torch.cuda.synchronize()
+    assert wo.weight_only_matmul.launches == n + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    tol = TOL[torch.float32] if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+def test_weight_only_matmul_routes(gen):
+    """Rows above the kernel's range take the callers' dequantize route
+    (counted in dequant_calls, not launches) and the wrapper raises for
+    them; a K the kernel does not take raises."""
+    from paddle_tpu_torch.inference.quant import WeightOnlyLinear
+    from paddle_tpu_torch.ops import weight_only as wo
+    x, q, s, b = _wo_case(gen, 129, 64, 128, torch.bfloat16, "int8")
+    n, d = wo.weight_only_matmul.launches, wo.weight_only_matmul.dequant_calls
+    got = WeightOnlyLinear(q, s, b)(x.view(3, 43, 128))
+    assert got.shape == (3, 43, 64)
+    assert (wo.weight_only_matmul.launches,
+            wo.weight_only_matmul.dequant_calls) == (n, d + 1)
+    torch.testing.assert_close(
+        got.reshape(129, 64), wo.weight_only_matmul_reference(x, q, s, b))
+    with pytest.raises(ValueError, match="at most 128"):
+        wo.weight_only_matmul(x, q, s, b)
+    x, q, s, b = _wo_case(gen, 8, 64, 72, torch.bfloat16, "fp8")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wo.weight_only_matmul(x, q, s, b)
+
+
+def test_activation_fake_quant_on_the_card_equals_the_cpu(gen):
+    """An activation quanter in training (the first call's absmax, then
+    the EMA) on the card and on the CPU over the same activations: scales
+    and codes equal bit for bit, the round trip within one float32
+    rounding (its last division is by a Python number, a product with the
+    reciprocal on the card), the straight-through gradients equal."""
+    from paddle_tpu_torch.quantization import FakeQuanterWithAbsMaxObserver
+    card = FakeQuanterWithAbsMaxObserver().cuda().train()
+    cpu = FakeQuanterWithAbsMaxObserver().train()
+    for i in range(3):
+        x = _randn(gen, (2, 256, 512), torch.float32) * (1.0 + i)
+        x[0, 0, 0] = 100.0 if i == 2 else x[0, 0, 0]  # outside the EMA
+        xc, xh = x.clone().requires_grad_(), x.cpu().requires_grad_()
+        yc, yh = card(xc), cpu(xh)
+        assert torch.equal(card.scale.cpu(), cpu.scale)
+        codes = [torch.round(y.detach().cpu() / s * 127.0)
+                 for y, s in ((yc, card.scale.cpu()), (yh, cpu.scale))]
+        assert torch.equal(codes[0], codes[1])
+        torch.testing.assert_close(yc.detach().cpu(), yh.detach(),
+                                   atol=0.0, rtol=2.4e-7)
+        yc.sum().backward()
+        yh.sum().backward()
+        assert torch.equal(xc.grad.cpu(), xh.grad)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_graph_quant_serving_matches_eager(gen, mode):
+    """A quantized engine's graphs against its eager programs, bit for
+    bit, with the tick's products on the weight-only kernel."""
+    st = _graphs_against_eager(_tiny_card(), _graph_mix(True), quant=mode,
+                               prefill_chunk=32)
+    assert st["quant"]["mode"] == mode
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quant_serving_matches_the_cpu(gen, mode):
+    """gpt3_tiny at hd 64 in fp32, quantized: whole-prompt, chunked and
+    n-gram speculative streams on the card equal the CPU's, and the card
+    launched the weight-only kernel."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    cfg = gpt3_tiny(num_heads=2)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3).eval()
+    card = GPTForCausalLM(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    runs = (dict(), dict(prefill_chunk=16),
+            dict(spec_decode=True, spec_draft="ngram", spec_k=3))
+    n = wo.weight_only_matmul.launches
+    for kw in runs:
+        want = _serve_prefix_spec(cpu, None, "cpu", quant=mode, **kw)
+        got = _serve_prefix_spec(card, None, "cuda", quant=mode, **kw)
+        assert got == want, kw
+    assert wo.weight_only_matmul.launches > n
