@@ -204,24 +204,30 @@ into ``build/paddle_tpu_torch/``), then runs eighteen phases on card 0:
    replayed graphs over weights that do not fit in L2, beside its bound,
    ``dequantize`` + ``torch.matmul`` (the plain version) and
    ``torch.matmul`` on the bf16 weight, and summed over one Llama-2 7B
-   decode step.  Then ``llama2_7b`` served with ``quant="int8"`` and
-   ``"fp8"`` on phase 14's mix: whole-prompt (int8: median of 3 runs;
-   fp8: one run; each: one with the overlapped loop off for ms per decode
-   step, one profiled: idle share, weight-only launches on
-   ``weight_only_mma_kernel`` by name), and in int8 also 256-token chunks
-   and the shared prefix; every decode step's 225 linear layers launch
-   the kernel (counted under replay), wide prompt products
-   take the dequantize route (``dequant_calls``), budgets met, no leaked
-   block; prints ``stats()["quant"]``, the twin's resident bytes, peak
-   memory and the twin's largest logit deviation from bf16 on one prompt
-   (informational: random weights).  Then an activation quanter's scales,
-   codes and gradients card against CPU; phase 3's GPT cut and phase
-   15's Llama cut (2 layers) quantized int8 and fp8, card (default engine
-   and eager programs) against the CPU quant engine, 8 new tokens,
-   whole-prompt, the Llama int8 cut also chunked and the GPT int8 cut
-   also with n-gram speculation, with phase 3's checks; and a 2-layer
-   fp32 GPT cut under ``QAT`` (fake-quantized weights), 2 AdamW steps
-   card against CPU with phase 5's tolerances.
+   decode step.  ``weight_only_gemm`` (the prompts' wide products) the
+   same way at every one of those shapes at M 256, 512, 1024 and 2048 and
+   at the edges M 129, 300, 2047 with N 4100, K 4112 and a bias; timed at
+   each shape (CUDA events over an eager loop past L2) with TFLOP/s and
+   summed over one 2048-row Llama-2 7B prompt; and the crossover against
+   ``weight_only_matmul`` at M 64, 128, 256.  Then ``llama2_7b`` served
+   with ``quant="int8"`` and ``"fp8"`` on phase 14's mix: whole-prompt
+   (int8: median of 3 runs; fp8: one run; each: one with the overlapped
+   loop off for ms per decode step, one profiled: idle share, weight-only
+   launches on ``weight_only_mma_kernel`` and ``weight_only_gemm_kernel``
+   by name), and in int8 also 256-token chunks and the shared prefix;
+   every decode step's 225 linear layers launch ``weight_only_matmul``
+   (counted under replay), every run launches ``weight_only_gemm`` for its
+   prompts and none takes the dequantize route (``dequant_calls`` 0),
+   budgets met, no leaked block; prints ``stats()["quant"]``, the twin's
+   resident bytes, peak memory and the twin's largest logit deviation from
+   bf16 on one prompt (informational: random weights). Then an activation
+   quanter's scales, codes and gradients card against CPU; phase 3's GPT
+   cut and phase 15's Llama cut (2 layers) quantized int8 and fp8, card
+   (default engine and eager programs) against the CPU quant engine, 8 new
+   tokens, whole-prompt, the Llama int8 cut also chunked and the GPT int8
+   cut also with n-gram speculation, with phase 3's checks; and a 2-layer
+   fp32 GPT cut under ``QAT`` (fake-quantized weights), 2 AdamW steps card
+   against CPU with phase 5's tolerances.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -1004,7 +1010,8 @@ def _counters():
             "paged_verify_attention": pa.paged_verify_attention,
             "moe_dispatch": mo.moe_dispatch,
             "moe_combine": mo.moe_combine,
-            "weight_only_matmul": wo.weight_only_matmul}
+            "weight_only_matmul": wo.weight_only_matmul,
+            "weight_only_gemm": wo.weight_only_gemm}
 
 
 def _plain_counters():
@@ -2450,9 +2457,12 @@ def llama_phases(lens):
     t = time.perf_counter()
     wo_row = weight_only_checks()
     t1 = time.perf_counter()
+    wg_row = weight_only_gemm_checks()
+    t2 = time.perf_counter()
     quant = llama_quant_phase(model, lens)
-    _log(f"[phase 18, kernel: {t1 - t:.1f} s; llama2_7b serving: "
-         f"{time.perf_counter() - t1:.1f} s]")
+    _log(f"[phase 18, weight_only_matmul: {t1 - t:.1f} s; weight_only_gemm:"
+         f" {t2 - t1:.1f} s; llama2_7b serving: "
+         f"{time.perf_counter() - t2:.1f} s]")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2465,7 +2475,7 @@ def llama_phases(lens):
     train = train_full_width(llama2_7b(num_layers=LLAMA_TRAIN_LAYERS),
                              f"training llama2_7b {LLAMA_TRAIN_LAYERS} "
                              "layers", B=1, S=LLAMA_TRAIN_S)
-    return serving, train, quant, wo_row
+    return serving, train, quant, wo_row, wg_row
 
 
 def bert_phase():
@@ -2487,7 +2497,8 @@ def bert_phase():
 # -------------------------------------------------------------- phase 18
 
 # (N, K) of the linear layers, with their launches in one Llama-2 7B
-# decode step (q, k, v, o: 4 a layer; gate, up: 2; down: 1; the head)
+# decode step or prompt (q, k, v, o: 4 a layer; gate, up: 2; down: 1; the
+# head)
 WO_SHAPES = {"llama2_7b q/k/v/o_proj": (4096, 4096, 4 * 32),
              "llama2_7b gate/up_proj": (11008, 4096, 2 * 32),
              "llama2_7b down_proj": (4096, 11008, 32),
@@ -2499,7 +2510,10 @@ WO_SHAPES = {"llama2_7b q/k/v/o_proj": (4096, 4096, 4 * 32),
              "gpt3_1p3b head": (50304, 2048, 0)}
 WO_ROW_SHAPE = "llama2_7b gate/up_proj"    # the kernels line's row
 WO_TOL = dict(atol=2e-2, rtol=1e-2)        # bf16 against fp32 on the codes
-WO_NAMES = ("weight_only_mma_kernel", "weight_only_fma_kernel")
+WO_NAMES = ("weight_only_mma_kernel", "weight_only_fma_kernel",
+            "weight_only_gemm_kernel")
+WG_ROWS = (256, 512, 1024, 2048)    # the chunk and the prompt buckets
+WG_ROW = 2048                       # the kernels line's weight_only_gemm
 QUANT_MODES = ("int8", "fp8")
 
 
@@ -2520,16 +2534,22 @@ def _wo_operands(gen, M, N, K, dtype, mode, copies=1):
     return x, ops
 
 
-def _cold_ms(call, operands, iters=60):
-    """ms per ``call(operand)`` from a replayed CUDA graph that cycles
-    through ``operands`` (together past the 50 MB L2 cache: each call
-    reads its weight from device memory, as a decode step's layers do)."""
+def _cycle(call, operands):
+    """A function that calls ``call`` on the next of ``operands`` (together
+    past the 50 MB L2 cache: each call reads its weight from device
+    memory, as the layers of a step or a prompt do)."""
     i = [0]
 
     def fn():
         call(operands[i[0] % len(operands)])
         i[0] += 1
-    return _graph_ms(fn, iters)
+    return fn
+
+
+def _cold_ms(call, operands, iters=60):
+    """ms per ``call(operand)`` from a replayed CUDA graph that cycles
+    through ``operands``."""
+    return _graph_ms(_cycle(call, operands), iters)
 
 
 def weight_only_checks():
@@ -2631,6 +2651,143 @@ def weight_only_checks():
                 llama_decode_step=step)
 
 
+def _gemm_raw(x, q, s):
+    """``weight_only_gemm``'s kernel at any row count, called outside the
+    wrapper (which takes only more than 128 rows) and counted nowhere: the
+    crossover sweep's GEMM below 129 rows."""
+    import torch
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import weight_only as wo
+    (M, K), N = x.shape, q.shape[0]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.check(_build.library().ptt_weight_only_gemm(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), None, y.data_ptr(), M, N,
+        K, wo.CODE_DTYPES[q.dtype], _build.stream(x.device)),
+        "weight_only_gemm")
+    return y
+
+
+def weight_only_gemm_checks():
+    """Phase 18, the wide-M kernel: ``weight_only_gemm`` against its plain
+    version computed in float32 on the same codes and bf16 inputs (atol
+    2e-2, rtol 1e-2), int8 and fp8 codes, at every ``WO_SHAPES`` shape at
+    M 256 (a chunk), 512, 1024 and 2048 (prompt buckets), and at the edges
+    M 129, 300 and 2047 with N 4100, K 4112 and a bias.  Each shape timed
+    with CUDA events over an eager loop that cycles through copies of the
+    weight past the L2, beside its bound, the plain version (``dequantize``
+    then ``torch.matmul``) and ``torch.matmul`` on the bf16 weight, with
+    TFLOP/s; one 2048-row Llama-2 7B prompt's 225 products summed.  Then
+    the crossover: ``weight_only_matmul`` at M 64 and 128 against the
+    GEMM's kernel at M 64, 128 and 256 (replayed graphs) at Llama's gate/up
+    and q/k/v.  Returns the kernels line's row (gate/up, int8, M 2048)."""
+    import torch
+    from paddle_tpu_torch.ops import weight_only as wo
+
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    tol = {str(torch.bfloat16): WO_TOL}
+    errs, shapes = [], []
+
+    def check(label, x, q, s, bias=None):
+        got = wo.weight_only_gemm(x, q, s, bias)
+        want = wo.weight_only_matmul_reference(
+            x.float(), q, s, None if bias is None else bias.float())
+        torch.cuda.synchronize()
+        errs.append(_compare(f"weight_only_gemm {label}", got, want,
+                             torch.bfloat16, tol))
+        return errs[-1]
+
+    for mode in QUANT_MODES:
+        for name, (N, K, per_prompt) in WO_SHAPES.items():
+            copies = max(1, math.ceil(120e6 / (N * K)))
+            x, ops = _wo_operands(gen, max(WG_ROWS), N, K, torch.bfloat16,
+                                  mode, copies)
+            for M in WG_ROWS:
+                xm = x[:M]
+                check(f"{name} {mode} M {M}", xm, ops[0][1], ops[0][2])
+                ms = _time_ms(_cycle(
+                    lambda o: wo.weight_only_gemm(xm, o[1], o[2]), ops), 20)
+                plain = _time_ms(_cycle(
+                    lambda o: wo.weight_only_matmul_reference(
+                        xm, o[1], o[2]), ops), 10)
+                lib = _time_ms(_cycle(
+                    lambda o: torch.matmul(xm, o[0].t()), ops), 20)
+                flops = 2 * M * N * K
+                nbytes = N * K + N * 2 + M * K * 2 + M * N * 2
+                bound, by = _bound(nbytes, flops, torch.bfloat16)
+                shapes.append(dict(shape=name, N=N, K=K, M=M, mode=mode,
+                                   ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=bound, bound_by=by,
+                                   per_prompt=per_prompt,
+                                   tflops=flops / ms / 1e9))
+                _log(f"weight_only_gemm {mode} {name} (N {N}, K {K}) at M "
+                     f"{M}: {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"bound {bound:.4f} ms ({by}), {ms / bound:.2f}x the "
+                     f"bound; dequantize + torch.matmul {plain:.4f} ms; "
+                     f"torch.matmul on the bf16 weight {lib:.4f} ms = "
+                     f"{flops / lib / 1e9:.1f} TFLOP/s ({ms / lib:.2f}x "
+                     "its time)")
+            del x, ops
+        for M in (129, 300, 2047):
+            x, [(w, q, s)] = _wo_operands(gen, M, 4100, 4112,
+                                          torch.bfloat16, mode)
+            bias = torch.randn((4100,), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            err = check(f"edge {mode} M {M}", x, q, s, bias)
+            _log(f"weight_only_gemm {mode} edge M {M} N 4100 K 4112 (bias):"
+                 f" max_abs_err={err:.3e}")
+    torch.cuda.empty_cache()
+    _log(f"weight_only_gemm: {len(errs)} cases within tolerance, largest "
+         f"max_abs_err {max(errs):.3e}")
+    prompt = {}
+    for mode in QUANT_MODES:
+        rows = [r for r in shapes if r["mode"] == mode and r["M"] == WG_ROW
+                and r["per_prompt"]]
+        prompt[mode] = {k: sum(r[k] * r["per_prompt"] for r in rows)
+                        for k in ("ms", "plain_ms", "library_ms",
+                                  "bound_ms")}
+        _log(f"weight_only_gemm {mode}, one {WG_ROW}-row llama2_7b "
+             f"prompt's {sum(r['per_prompt'] for r in rows)} linear layers:"
+             f" {prompt[mode]['ms']:.3f} ms, bound "
+             f"{prompt[mode]['bound_ms']:.3f} ms, dequantize + torch.matmul"
+             f" {prompt[mode]['plain_ms']:.3f} ms, torch.matmul bf16 "
+             f"{prompt[mode]['library_ms']:.3f} ms")
+
+    sweep = []
+    for name in ("llama2_7b gate/up_proj", "llama2_7b q/k/v/o_proj"):
+        N, K, _ = WO_SHAPES[name]
+        copies = max(1, math.ceil(120e6 / (N * K)))
+        for mode in QUANT_MODES:
+            x, ops = _wo_operands(gen, 256, N, K, torch.bfloat16, mode,
+                                  copies)
+            for M in (64, 128, 256):
+                xm = x[:M]
+                r = dict(shape=name, mode=mode, M=M, gemm_ms=_cold_ms(
+                    lambda o: _gemm_raw(xm, o[1], o[2]), ops, 30),
+                    library_ms=_cold_ms(
+                        lambda o: torch.matmul(xm, o[0].t()), ops, 30))
+                if M <= wo.KERNEL_MAX_ROWS:
+                    r["matmul_ms"] = _cold_ms(
+                        lambda o: wo.weight_only_matmul(xm, o[1], o[2]),
+                        ops, 30)
+                sweep.append(r)
+                _log(f"crossover {mode} {name} at M {M}: weight_only_gemm's"
+                     f" kernel {r['gemm_ms']:.4f} ms, weight_only_matmul "
+                     + (f"{r['matmul_ms']:.4f} ms" if "matmul_ms" in r
+                        else "(takes at most 128 rows)")
+                     + f", torch.matmul bf16 {r['library_ms']:.4f} ms")
+            del x, ops
+    torch.cuda.empty_cache()
+    row = next(r for r in shapes if r["shape"] == WO_ROW_SHAPE
+               and r["mode"] == "int8" and r["M"] == WG_ROW)
+    return dict(max_abs_err=max(errs), ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                library_call="torch.matmul on the bf16 weight",
+                plain_call="dequantize, then torch.matmul",
+                timed_at=f"{WO_ROW_SHAPE} int8, M {WG_ROW}", shapes=shapes,
+                llama_prompt=prompt, crossover=sweep)
+
+
 def llama_quant_phase(model, lens):
     """Phase 18, serving: ``llama2_7b`` (phase 14's bf16 model) served
     through ``ServingEngine(model, quant=...)`` in int8 and in fp8 on
@@ -2642,10 +2799,10 @@ def llama_quant_phase(model, lens):
     type: one whole-prompt run, the run with the overlapped loop off and
     the profiled run.
     Every decode step's linear layers launch ``weight_only_matmul``
-    (counted under replay); wide prompt products take the dequantize route
-    (``dequant_calls``).  Also the twin's resident bytes and its logits'
-    largest deviation from bf16 on one prompt (informational: random
-    weights)."""
+    (counted under replay); every run's prompts launch ``weight_only_gemm``
+    and none takes the dequantize route (``dequant_calls`` 0: bf16
+    activations).  Also the twin's resident bytes and its logits' largest
+    deviation from bf16 on one prompt (informational: random weights)."""
     import torch
     from paddle_tpu_torch.inference.quant import quantize_model
 
@@ -2687,6 +2844,7 @@ def llama_quant_phase(model, lens):
                                    nh=cfg.num_heads, quant=mode)
         names = _by_name(prof["run"]["kernels"], WO_NAMES)
         if names["weight_only_mma_kernel"][0] == 0 or \
+                names["weight_only_gemm_kernel"][0] == 0 or \
                 names["weight_only_fma_kernel"][0] != 0:
             raise AssertionError(f"{label}: weight-only launches by kernel "
                                  f"{names}")
@@ -2705,13 +2863,14 @@ def llama_quant_phase(model, lens):
                     f"{label}: {n} weight-only launches for "
                     f"{run['steps']} decode steps of {per_step} linear "
                     f"layers")
-            if n <= 0 or run["launches"]["paged_decode"] <= 0:
+            if n <= 0 or run["launches"]["paged_decode"] <= 0 or \
+                    run["launches"]["weight_only_gemm"] <= 0:
                 raise AssertionError(f"{label}: launches {run['launches']}")
+            if run["dequant_calls"] != 0:
+                raise AssertionError(f"{label}: {run['dequant_calls']} "
+                                     "products took the dequantize route")
             if run["stats"]["quant"]["mode"] != mode:
                 raise AssertionError(f"{label}: {run['stats']['quant']}")
-        if whole[0]["dequant_calls"] <= 0:
-            raise AssertionError(f"{label}: no prompt took the dequantize "
-                                 "route")
         prefix = extra.get("shared 1024-token prefix, prefix cache on")
         if prefix is not None and \
                 prefix["stats"]["prefix_cache"]["hits"] <= 0:
@@ -2928,10 +3087,12 @@ def main() -> int:
     timed("training card vs CPU", train_card_vs_cpu,
           gpt3_1p3b(num_layers=4))
     moe_serve, moe_train = timed("MoE", moe_phases, lens, rows)
-    llama, llama_train, quant, wo_row = timed("Llama", llama_phases, lens)
+    llama, llama_train, quant, wo_row, wg_row = timed("Llama", llama_phases,
+                                                      lens)
     bert = timed("BERT", bert_phase)
     timed("quantized cuts card vs CPU, QAT", quant_cuts_phase)
     rows["weight_only_matmul"] = wo_row
+    rows["weight_only_gemm"] = wg_row
 
     sources = {"flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/ops/pallas_flash.py:159"),
@@ -2949,6 +3110,10 @@ def main() -> int:
                                "paddle_tpu/ops/pallas_moe.py:133"),
                "weight_only_matmul": (
                    "paddle_tpu_torch/csrc/weight_only.cu",
+                   "paddle_tpu/quantization/weight_only.py:90 (dequantize,"
+                   " fused by XLA into the consuming matmul)"),
+               "weight_only_gemm": (
+                   "paddle_tpu_torch/csrc/weight_only_gemm.cu",
                    "paddle_tpu/quantization/weight_only.py:90 (dequantize,"
                    " fused by XLA into the consuming matmul)")}
     # each path's counts are its own run's, read from 0; `launches` is the
@@ -2971,7 +3136,11 @@ def main() -> int:
              "bert_train": bert[False]["launches"],
              "bert_train_masked": bert[True]["launches"],
              "llama_int8": quant["int8"]["launches"],
-             "llama_fp8": quant["fp8"]["launches"]}
+             "llama_fp8": quant["fp8"]["launches"],
+             "llama_int8_chunked":
+                 quant["int8"]["extra"]["256-token chunks"]["launches"],
+             "llama_int8_prefix": quant["int8"]["extra"][
+                 "shared 1024-token prefix, prefix cache on"]["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}

@@ -2,8 +2,9 @@
 // flash_fwd_tc_kernel, flash_bwd.cu's flash_bwd_dq_tc_kernel and
 // flash_bwd_dkv_tc_kernel), in inline PTX for sm_90a: 16-byte cp.async
 // copies into a 128-byte-swizzled shared layout, the wgmma shared-memory
-// descriptor of that layout, and the two warpgroup products the kernels
-// need, both m64n64k16 bf16 -> fp32:
+// descriptor of that layout, and the warpgroup products the kernels need,
+// m64n64k16 bf16 -> fp32 (and, for weight_only_gemm.cu, wgmma_ss at
+// m64n128k16):
 //   wgmma_ss    A and B from shared memory, both K-major (S = Q K^T,
 //               dP = dO V^T: a K or V tile [key][d] is K-major in d; and
 //               transposed, S^T = K Q^T, dP^T = V dO^T);
@@ -71,6 +72,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// The same with at most N of this thread's committed groups still in
+// flight (a ring of N + 1 stages).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // Copy `rows` rows of D bf16 into an SW128 tile; row r comes from
 // base + row_off(r) (elements), or is zeros when row_off(r) < 0.  All
@@ -134,6 +142,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Pin registers at this point of the program: the compiler may not move
 // their reads or writes across it.  Called on accumulators and register
@@ -188,7 +201,43 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define PTT_D64(d)                                                           \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),      \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),      \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),      \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),      \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PTT_D64_LIST                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "       \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "       \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// The same for a 64 x 128 x 16 step (B: 128 rows of the K-major tile,
+// SW128 like the n64 operands); the accumulator extends the n64 layout
+// below to 16 column blocks of 8.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PTT_D64_LIST
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PTT_D64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef PTT_D32
+#undef PTT_D64
+#undef PTT_D64_LIST
 #undef PTT_D32_LIST
 
 // Accumulator layout of a 64 x 64 fp32 wgmma result in the warpgroup:

@@ -9,11 +9,12 @@ multiply into the consuming matmuls.  The port keeps the snapshot and its
 accounting, key for key (the port's state-dict keys are the JAX keys,
 ``models/convert.py``), and serves it through a twin of the model
 (:func:`quantize_model`): every quantized ``nn.Linear`` becomes a
-:class:`WeightOnlyLinear` whose forward is the ``weight_only_matmul``
-kernel (``ops/weight_only.py``), and the token embedding a
+:class:`WeightOnlyLinear` whose forward is ``ops/weight_only.py``'s
+``weight_only_forward`` (the ``weight_only_matmul`` kernel for the tick's
+rows, ``weight_only_gemm`` for the prompts'), and the token embedding a
 :class:`WeightOnlyEmbedding` (the lookup gathers code rows times scale
-rows; GPT's tied head runs through the kernel with the per-vocabulary-row
-scale).  The twin holds no reference to the model's floating-point matmul
+rows; GPT's tied head runs through the kernels with the per-vocabulary-row
+scale). The twin holds no reference to the model's floating-point matmul
 weights, and later edits of the live model do not reach it: the JAX
 engine's snapshot semantics.
 
@@ -40,8 +41,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 
-from ..ops.weight_only import (dequant_route, dequantize, weight_only_matmul,
-                               weight_only_matmul_reference)
+from ..ops.weight_only import dequantize, weight_only_forward
 from ..quantization.weight_only import (quantize_absmax_fp8,
                                         quantize_absmax_int8)
 
@@ -138,21 +138,12 @@ def dequant_values(values, axes) -> List[Any]:
             for v, a in zip(values, axes)]
 
 
-def _matmul(x, q, scale, bias=None):
-    """``weight_only_matmul``; a product wider than the kernel's rows (a
-    prompt program's pad bucket) takes the dequantize route, counted in
-    ``dequant_calls``."""
-    if dequant_route(x):
-        weight_only_matmul.dequant_calls += 1
-        return weight_only_matmul_reference(x, q, scale, bias)
-    return weight_only_matmul(x, q, scale, bias)
-
-
 class WeightOnlyLinear(nn.Module):
     """An ``nn.Linear`` of the serving twin: ``qweight`` ``[out, in]`` int8
     or fp8 codes, ``scale`` ``[out]`` and ``bias`` ``[out]`` (or None) in
     the activations' type, all buffers; the forward is
-    ``weight_only_matmul`` (wide products: its dequantize route)."""
+    ``weight_only_forward`` (the weight-only kernels; shapes or types they
+    do not take: the counted dequantize route)."""
 
     def __init__(self, qweight, scale, bias=None):
         super().__init__()
@@ -163,7 +154,7 @@ class WeightOnlyLinear(nn.Module):
                              else bias.detach().clone())
 
     def forward(self, x):
-        return _matmul(x, self.qweight, self.scale, self.bias)
+        return weight_only_forward(x, self.qweight, self.scale, self.bias)
 
 
 class WeightOnlyEmbedding(nn.Module):
@@ -171,7 +162,7 @@ class WeightOnlyEmbedding(nn.Module):
     codes and ``scale`` ``[V]``, one per vocabulary row.  The lookup is
     the code rows times their scales (the rows of the JAX program's
     dequantized table, bit for bit); ``attend(h)``, GPT's tied head, runs
-    through ``weight_only_matmul``."""
+    through ``weight_only_forward``."""
 
     def __init__(self, qweight, scale):
         super().__init__()
@@ -185,7 +176,7 @@ class WeightOnlyEmbedding(nn.Module):
         return dequantize(codes, self.scale[ids][..., None])
 
     def attend(self, h):
-        return _matmul(h, self.qweight, self.scale)
+        return weight_only_forward(h, self.qweight, self.scale)
 
 
 def quantize_model(model: nn.Module, mode: str = "int8"):

@@ -8,21 +8,21 @@ differ from ``quantization/weight_only.py``'s: the weight is ``[K, N]``
 (in, out), the scale float32 ``[N]``, ``max(absmax, 1e-8) / 127`` (an
 all-zero channel gets the scale 1e-8 / 127, not 1).
 
-The kernel (``weight_only_matmul``) reads an output channel's codes
-contiguously, the ``[N, K]`` layout of ``nn.Linear``.  That layout reaches
-it through a transposed copy made at quantize time: :func:`weight_quantize`
-returns its ``[K, N]`` codes as the transposed view of an ``[N, K]``
-contiguous tensor, and :func:`weight_only_linear` hands the kernel that
-tensor, no copy at the call.  A contiguous ``[K, N]`` weight from anywhere
-else is transposed at each call (one more read and write of its codes).
+The kernels (``weight_only_matmul``, ``weight_only_gemm``) read an output
+channel's codes contiguously, the ``[N, K]`` layout of ``nn.Linear``. That
+layout reaches them through a transposed copy made at quantize time:
+:func:`weight_quantize` returns its ``[K, N]`` codes as the transposed view
+of an ``[N, K]`` contiguous tensor, and :func:`weight_only_linear` hands
+the kernels that tensor, no copy at the call. A contiguous ``[K, N]``
+weight from anywhere else is transposed at each call (one more read and
+write of its codes).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...ops.weight_only import (dequant_route, weight_only_matmul,
-                                weight_only_matmul_reference)
+from ...ops.weight_only import weight_only_forward
 
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear",
            "llm_int8_linear"]
@@ -61,9 +61,9 @@ def weight_only_linear(x, weight, bias=None, weight_scale=None,
                        name=None):
     """``x @ (weight * weight_scale) + bias`` over int8 codes ``[K, N]``
     (scale and bias optional, cast to x's type), through
-    ``weight_only_matmul``: the kernel on the card (more rows than it
-    takes: its dequantize route), the plain version on the CPU.  Parity:
-    the ``weight_only_linear`` op."""
+    ``weight_only_forward``: a kernel on the card (a shape or type neither
+    takes: the counted dequantize route), the plain version on the CPU.
+    Parity: the ``weight_only_linear`` op."""
     if weight_dtype != "int8":
         raise NotImplementedError("weight_only_linear: int8 weights only")
     if group_size != -1:
@@ -74,10 +74,7 @@ def weight_only_linear(x, weight, bias=None, weight_scale=None,
     scale = torch.ones(q.shape[0], dtype=x.dtype, device=x.device) \
         if weight_scale is None else weight_scale.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
-    if dequant_route(x):
-        weight_only_matmul.dequant_calls += 1
-        return weight_only_matmul_reference(x, q, scale, bias)
-    return weight_only_matmul(x, q, scale, bias)
+    return weight_only_forward(x, q, scale, bias)
 
 
 def llm_int8_linear(x, weight, bias=None, weight_scale=None, threshold=6.0,

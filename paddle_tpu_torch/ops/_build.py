@@ -51,6 +51,7 @@ _SIGNATURES = {
     "ptt_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
     "ptt_moe_combine": [_P] * 4 + [_I] * 5 + [_P],
     "ptt_weight_only_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "ptt_weight_only_gemm": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 

@@ -1,30 +1,32 @@
-"""Weight-only quantized linear layers: the ``weight_only_matmul`` CUDA
-kernel and its plain PyTorch version.
+"""Weight-only quantized linear layers: the ``weight_only_matmul`` and
+``weight_only_gemm`` CUDA kernels and their plain PyTorch version.
 
 The JAX package has no Pallas kernel here: its serving programs
 dequantize the int8 or fp8 weight snapshot in the trace
 (``paddle_tpu/inference/quant.py`` ``dequant_values``) and XLA fuses the
 per-channel scale multiply into the consuming dot
-(``paddle_tpu/quantization/weight_only.py:90``).  PyTorch fuses nothing,
-so the port's counterpart of that fused product is the hand-written kernel
-``paddle_tpu_torch/csrc/weight_only.cu``, for the serving tick's few rows.
+(``paddle_tpu/quantization/weight_only.py:90``), at any shape.  PyTorch
+fuses nothing, so the port's counterpart of that fused product is two
+hand-written kernels: ``paddle_tpu_torch/csrc/weight_only.cu`` for the
+serving tick's few rows, ``csrc/weight_only_gemm.cu`` (``wgmma`` over codes
+dequantized in shared memory) for the prompts' wide products.
 
-``weight_only_matmul(x, q, scale, bias)`` computes ``x @ W.T + bias``
-with ``W = dequantize(q, scale[:, None])``: q ``[N, K]`` int8 or
-``float8_e4m3fn`` codes in the ``nn.Linear`` layout, scale and bias ``[N]``
-in x's type.  A CPU tensor takes :func:`weight_only_matmul_reference`; a
-CUDA tensor launches the kernel (counted in
-``weight_only_matmul.launches``) or raises if the kernel does not take
-it: more than ``KERNEL_MAX_ROWS`` rows, or K not a multiple of 16.
+Both compute ``x @ W.T + bias`` with ``W = dequantize(q, scale[:, None])``:
+q ``[N, K]`` int8 or ``float8_e4m3fn`` codes in the ``nn.Linear`` layout,
+scale and bias ``[N]`` in x's type.  A CPU tensor takes
+:func:`weight_only_matmul_reference`; a CUDA tensor launches the kernel
+(counted in each wrapper's ``launches``) or raises if the kernel does not
+take it.  ``weight_only_matmul`` takes float32 or bfloat16 x of at most
+``KERNEL_MAX_ROWS`` rows, ``weight_only_gemm`` bfloat16 x of more; both
+K a multiple of 16 and x contiguous and 16-byte aligned.
 
-The kernel covers the serving tick's row counts (the decode tick, the
-speculative verify and the draft steps).  Wider products (the prompt
-programs' pad buckets, where the weight's bytes are shared by many rows)
-are the callers' route, decided from the shape before any launch
-(:func:`dequant_route`): the caller dequantizes into a temporary of x's
-type and multiplies with ``torch.matmul`` (the plain version), as the JAX
-package leaves such a product to XLA, and adds one to
-``weight_only_matmul.dequant_calls``, never to ``launches``.
+The callers (``WeightOnlyLinear``, the tied head, ``nn.quant``) go through
+:func:`weight_only_forward`, which decides from the shape and type before
+any launch: a product no kernel takes (:func:`dequant_route`: K not a
+multiple of 16, float16 or another type, float32 wider than
+``KERNEL_MAX_ROWS``, x not contiguous or not aligned) runs the plain
+version on the card, as the JAX package leaves it to XLA, and adds one to
+``weight_only_matmul.dequant_calls``, never to a ``launches``.
 """
 
 from __future__ import annotations
@@ -36,10 +38,13 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["weight_only_matmul", "weight_only_matmul_reference",
+__all__ = ["weight_only_matmul", "weight_only_gemm",
+           "weight_only_matmul_reference", "weight_only_forward",
            "dequantize", "dequant_route", "KERNEL_MAX_ROWS", "CODE_DTYPES"]
 
-KERNEL_MAX_ROWS = 128       # csrc/weight_only.cu: up to 8 tiles of 16 rows
+# csrc/weight_only.cu: up to 8 tiles of 16 rows; wider bf16 products are
+# csrc/weight_only_gemm.cu's
+KERNEL_MAX_ROWS = 128
 # code type -> the kernel's qtype
 CODE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
@@ -62,30 +67,71 @@ def weight_only_matmul_reference(x, q, scale, bias=None):
     return F.linear(x, w, None if bias is None else bias.to(x.dtype))
 
 
-def dequant_route(x) -> bool:
-    """The callers' route, decided from the shape before any launch: True
-    for a tensor off the CPU with more rows (all dims but the last) than
-    ``KERNEL_MAX_ROWS``.  The caller then runs
-    :func:`weight_only_matmul_reference` and adds one to the wrapper's
-    ``dequant_calls``, never to its ``launches``.  A CPU tensor gives
-    False: the wrapper takes its plain version for it anyway."""
-    return x.device.type != "cpu" and \
-        math.prod(x.shape[:-1]) > KERNEL_MAX_ROWS
+def _rows(x) -> int:
+    return math.prod(x.shape[:-1])
 
 
-def _checks(x, q, scale, bias):
+def dequant_route(x, q) -> bool:
+    """True for an x off the CPU whose product with the codes ``q`` no
+    kernel takes: K not a multiple of 16, x neither float32 nor bfloat16,
+    float32 with more than ``KERNEL_MAX_ROWS`` rows (the float32 kernel,
+    the precision reference of the card-against-CPU checks, stays on FMAs
+    for the tick's rows), or x not contiguous or not 16-byte aligned.
+    Decided before any launch; the caller then runs
+    :func:`weight_only_matmul_reference` and adds one to
+    ``weight_only_matmul.dequant_calls``.  A CPU tensor gives False: the
+    wrappers take their plain version for it anyway."""
+    if x.device.type == "cpu":
+        return False
+    return (q.shape[-1] % 16 != 0
+            or x.dtype not in (torch.float32, torch.bfloat16)
+            or (x.dtype == torch.float32 and _rows(x) > KERNEL_MAX_ROWS)
+            or not x.is_contiguous() or x.data_ptr() % 16 != 0)
+
+
+def weight_only_forward(x, q, scale, bias=None):
+    """The callers' product, routed from the shape and type before any
+    launch: :func:`dequant_route` -> the plain version, counted in
+    ``weight_only_matmul.dequant_calls``; more than ``KERNEL_MAX_ROWS``
+    rows on the card -> :func:`weight_only_gemm`; otherwise
+    :func:`weight_only_matmul` (the plain version for a CPU tensor)."""
+    if dequant_route(x, q):
+        weight_only_matmul.dequant_calls += 1
+        return weight_only_matmul_reference(x, q, scale, bias)
+    if x.device.type != "cpu" and _rows(x) > KERNEL_MAX_ROWS:
+        return weight_only_gemm(x, q, scale, bias)
+    return weight_only_matmul(x, q, scale, bias)
+
+
+def _checks(kernel, x, q, scale, bias):
     if q.dim() != 2 or scale.shape != (q.shape[0],):
-        raise ValueError(f"weight_only_matmul: q {tuple(q.shape)} must be "
+        raise ValueError(f"{kernel}: q {tuple(q.shape)} must be "
                          f"[N, K] and scale {tuple(scale.shape)} [N]")
     if x.shape[-1] != q.shape[1]:
-        raise ValueError(f"weight_only_matmul: x {tuple(x.shape)} does not "
+        raise ValueError(f"{kernel}: x {tuple(x.shape)} does not "
                          f"contract with q {tuple(q.shape)}")
     if q.dtype not in CODE_DTYPES:
-        raise TypeError(f"weight_only_matmul: codes must be int8 or "
+        raise TypeError(f"{kernel}: codes must be int8 or "
                         f"float8_e4m3fn, got {q.dtype}")
     if bias is not None and bias.shape != (q.shape[0],):
-        raise ValueError(f"weight_only_matmul: bias {tuple(bias.shape)} "
+        raise ValueError(f"{kernel}: bias {tuple(bias.shape)} "
                          f"must be [{q.shape[0]}]")
+
+
+def _device_operands(kernel, x, q, scale, bias):
+    """x as ``[M, K]`` after the checks both kernels need on the card."""
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: x must be contiguous")
+    x2 = x.reshape(-1, x.shape[-1])
+    floats = (x2, scale) if bias is None else (x2, scale, bias)
+    _build.check_device_tensors(kernel, floats, ())
+    if q.device != x.device or not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError(f"{kernel}: codes must be contiguous and 16-byte "
+                         "aligned on x's device")
+    if q.shape[1] % 16:
+        raise ValueError(f"{kernel}: K {q.shape[1]} is not a multiple of "
+                         "16 (the kernel loads 16 codes at a time)")
+    return x2
 
 
 def weight_only_matmul(x, q, scale, bias=None):
@@ -93,27 +139,19 @@ def weight_only_matmul(x, q, scale, bias=None):
 
     CUDA tensors: x, scale and bias float32 or bfloat16 of one type,
     contiguous, at most ``KERNEL_MAX_ROWS`` rows, K a multiple of 16 (the
-    callers send wider products down :func:`dequant_route`).  CPU tensors
-    take the plain version."""
-    _checks(x, q, scale, bias)
+    callers send other products elsewhere: :func:`weight_only_forward`).
+    CPU tensors take the plain version."""
+    _checks("weight_only_matmul", x, q, scale, bias)
     if x.device.type == "cpu":
         return weight_only_matmul_reference(x, q, scale, bias)
     N, K = q.shape
     lead = x.shape[:-1]
-    M = math.prod(lead)
+    M = _rows(x)
     if M > KERNEL_MAX_ROWS:
         raise ValueError(f"weight_only_matmul: {M} rows, the kernel takes "
-                         f"at most {KERNEL_MAX_ROWS} (wider products take "
-                         "the callers' dequant_route)")
-    x2 = x.reshape(M, K)
-    floats = (x2, scale) if bias is None else (x2, scale, bias)
-    _build.check_device_tensors("weight_only_matmul", floats, ())
-    if q.device != x.device or not q.is_contiguous() or q.data_ptr() % 16:
-        raise ValueError("weight_only_matmul: codes must be contiguous and "
-                         "16-byte aligned on x's device")
-    if K % 16:
-        raise ValueError(f"weight_only_matmul: K {K} is not a multiple of "
-                         "16 (the kernel loads 16 codes at a time)")
+                         f"at most {KERNEL_MAX_ROWS} (wider products are "
+                         "weight_only_gemm's)")
+    x2 = _device_operands("weight_only_matmul", x, q, scale, bias)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
         err = _build.library().ptt_weight_only_matmul(
@@ -127,4 +165,38 @@ def weight_only_matmul(x, q, scale, bias=None):
 
 
 weight_only_matmul.launches = 0
-weight_only_matmul.dequant_calls = 0    # callers' wide routes (dequant_route)
+weight_only_matmul.dequant_calls = 0    # the callers' dequant_route
+
+
+def weight_only_gemm(x, q, scale, bias=None):
+    """``x [..., K] @ dequantize(q, scale).T (+ bias)`` -> ``[..., N]`` for
+    wide products (the prompts).
+
+    CUDA tensors: x, scale and bias bfloat16, contiguous, 16-byte aligned,
+    more than ``KERNEL_MAX_ROWS`` rows, K a multiple of 16.  CPU tensors
+    take the plain version."""
+    _checks("weight_only_gemm", x, q, scale, bias)
+    if x.device.type == "cpu":
+        return weight_only_matmul_reference(x, q, scale, bias)
+    N, K = q.shape
+    lead = x.shape[:-1]
+    M = _rows(x)
+    if M <= KERNEL_MAX_ROWS:
+        raise ValueError(f"weight_only_gemm: {M} rows, the kernel takes "
+                         f"more than {KERNEL_MAX_ROWS} (narrower products "
+                         "are weight_only_matmul's)")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"weight_only_gemm: x must be bfloat16, got "
+                        f"{x.dtype}")
+    x2 = _device_operands("weight_only_gemm", x, q, scale, bias)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _build.library().ptt_weight_only_gemm(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, K,
+        CODE_DTYPES[q.dtype], _build.stream(x.device))
+    _build.check(err, "weight_only_gemm")
+    weight_only_gemm.launches += 1
+    return y.reshape(*lead, N)
+
+
+weight_only_gemm.launches = 0

@@ -778,14 +778,14 @@ def _tiny_card(**kw):
                           seed=3).eval()
 
 
-def _serve_card(model, mix, **kw):
+def _serve_card(model, mix, max_context=128, **kw):
     """Serve ``mix`` on the card (block 16, 2 slots, 4 steps a tick);
     returns the streams, every wrapper count's growth over the run (the
     warmup's not included) and the stats."""
     from paddle_tpu_torch.inference import graphs
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
-    eng = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
-                        steps_per_tick=4, device="cuda", **kw)
+    eng = ServingEngine(model, max_batch=2, max_context=max_context,
+                        block_size=16, steps_per_tick=4, device="cuda", **kw)
     if eng.cuda_graphs:
         eng.warmup()
     before = graphs.snapshot()
@@ -1066,25 +1066,103 @@ def test_weight_only_matmul(gen, case, dtype, mode):
     torch.testing.assert_close(got.float(), want, **tol)
 
 
+def _wo_counts():
+    from paddle_tpu_torch.ops import weight_only as wo
+    return (wo.weight_only_matmul.launches, wo.weight_only_gemm.launches,
+            wo.weight_only_matmul.dequant_calls)
+
+
 def test_weight_only_matmul_routes(gen):
-    """Rows above the kernel's range take the callers' dequantize route
-    (counted in dequant_calls, not launches) and the wrapper raises for
-    them; a K the kernel does not take raises."""
+    """The callers' three ways on the card: 129 bf16 rows launch
+    ``weight_only_gemm`` (``weight_only_matmul`` raises for them); fp32 at
+    129 rows, K 72 at M 8 and float16 take the counted dequantize route
+    against the plain version (the wrappers raise for each); K 72 raises
+    in both wrappers."""
     from paddle_tpu_torch.inference.quant import WeightOnlyLinear
     from paddle_tpu_torch.ops import weight_only as wo
     x, q, s, b = _wo_case(gen, 129, 64, 128, torch.bfloat16, "int8")
-    n, d = wo.weight_only_matmul.launches, wo.weight_only_matmul.dequant_calls
+    n = _wo_counts()
     got = WeightOnlyLinear(q, s, b)(x.view(3, 43, 128))
     assert got.shape == (3, 43, 64)
-    assert (wo.weight_only_matmul.launches,
-            wo.weight_only_matmul.dequant_calls) == (n, d + 1)
+    assert _wo_counts() == (n[0], n[1] + 1, n[2])
     torch.testing.assert_close(
-        got.reshape(129, 64), wo.weight_only_matmul_reference(x, q, s, b))
+        got.reshape(129, 64).float(), wo.weight_only_matmul_reference(
+            x.float(), q, s, b.float()), atol=2e-2, rtol=1e-2)
     with pytest.raises(ValueError, match="at most 128"):
         wo.weight_only_matmul(x, q, s, b)
-    x, q, s, b = _wo_case(gen, 8, 64, 72, torch.bfloat16, "fp8")
-    with pytest.raises(ValueError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="more than 128"):
+        wo.weight_only_gemm(x[:128].contiguous(), q, s, b)
+    routed = [_wo_case(gen, 129, 64, 128, torch.float32, "int8"),
+              _wo_case(gen, 8, 64, 72, torch.bfloat16, "fp8"),
+              _wo_case(gen, 8, 64, 72, torch.float32, "int8"),
+              _wo_case(gen, 130, 64, 72, torch.bfloat16, "int8"),
+              _wo_case(gen, 8, 64, 128, torch.float16, "int8")]
+    for x, q, s, b in routed:
+        n = _wo_counts()
+        got = WeightOnlyLinear(q, s, b)(x)
+        assert _wo_counts() == (n[0], n[1], n[2] + 1)
+        torch.testing.assert_close(
+            got, wo.weight_only_matmul_reference(x, q, s, b), atol=0.0,
+            rtol=0.0)
+    x, q, s, b = routed[0]
+    with pytest.raises(TypeError, match="bfloat16"):
+        wo.weight_only_gemm(x, q, s, b)
+    for x, q, s, b in routed[1:4]:
+        wrapper = wo.weight_only_gemm if len(x) > 128 \
+            else wo.weight_only_matmul
+        with pytest.raises(ValueError, match="multiple of 16"):
+            wrapper(x, q, s, b)
+    x, q, s, b = routed[4]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         wo.weight_only_matmul(x, q, s, b)
+
+
+# (M, N, K): past the narrow kernel's 128 rows; Llama-2 7B's gate/up and
+# down at a 129-row, a 256-row (chunk) and a 2048-row prompt; N and K off
+# the 128 x 128 tiles and the 64-code step (N 4100, K 4112, with a bias);
+# odd N (element stores) and narrow N (64-wide tiles)
+WG_CASES = [(129, 11008, 4096), (256, 4096, 11008), (2048, 11008, 4096),
+            (2048, 4096, 11008), (129, 4100, 4112), (256, 4100, 4112),
+            (2048, 4100, 4112), (300, 33, 80), (130, 257, 1040),
+            (1000, 96, 512)]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("case", WG_CASES)
+def test_weight_only_gemm(gen, case, mode):
+    """The wide-M kernel against its plain version computed in float32 on
+    the same codes and bf16 inputs (the dequantized weight rounded to bf16,
+    as the kernel rounds it): atol 2e-2, rtol 1e-2 (one bf16 rounding of
+    the output, sums in another order)."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    M, N, K = case
+    x, q, s, b = _wo_case(gen, M, N, K, torch.bfloat16, mode,
+                          bias=N == 4100 or M % 2 == 1)
+    n = wo.weight_only_gemm.launches
+    got = wo.weight_only_gemm(x, q, s, b)
+    want = wo.weight_only_matmul_reference(
+        x.float(), q, s, None if b is None else b.float())
+    torch.cuda.synchronize()
+    assert wo.weight_only_gemm.launches == n + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=1e-2)
+
+
+def test_weight_only_k72_serves_like_the_cpu(gen):
+    """A quantized fp32 GPT cut whose hidden width (72) no weight-only
+    kernel takes serves on the card through the counted dequantize route,
+    its streams those of the CPU quant engine."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    from paddle_tpu_torch.ops import weight_only as wo
+    cfg = gpt3_tiny(hidden_size=72, num_heads=1, num_layers=1)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3).eval()
+    card = GPTForCausalLM(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    n = _wo_counts()
+    want = _serve_prefix_spec(cpu, None, "cpu", quant="int8")
+    got = _serve_prefix_spec(card, None, "cuda", quant="int8")
+    assert got == want
+    assert _wo_counts()[2] > n[2]
 
 
 def test_activation_fake_quant_on_the_card_equals_the_cpu(gen):
@@ -1119,6 +1197,35 @@ def test_graph_quant_serving_matches_eager(gen, mode):
     st = _graphs_against_eager(_tiny_card(), _graph_mix(True), quant=mode,
                                prefill_chunk=32)
     assert st["quant"]["mode"] == mode
+
+
+def _wide_mix():
+    """Prompts of 140 and 200 tokens (the 256-row bucket), one sampled."""
+    g = torch.Generator().manual_seed(12)
+    return [dict(prompt_ids=torch.randint(1, 1024, (n,), generator=g)
+                 .tolist(), max_new_tokens=24, do_sample=i == 1,
+                 temperature=0.9, top_k=40, top_p=0.95, seed=200 + i)
+            for i, n in enumerate((140, 200, 150))]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_graph_quant_wide_prompts_match_eager(gen, mode):
+    """A quantized bf16 ``gpt3_tiny`` whose prompts exceed 128 rows: the
+    prompt products launch ``weight_only_gemm``, none takes the dequantize
+    route, and graphs equal eager programs bit for bit."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    model = GPTForCausalLM(gpt3_tiny(num_heads=2), device="cuda",
+                           dtype=torch.bfloat16, seed=3).eval()
+    want, want_n, _ = _serve_card(model, _wide_mix(), max_context=256,
+                                  cuda_graphs=False, overlap=False,
+                                  quant=mode)
+    got, got_n, st = _serve_card(model, _wide_mix(), max_context=256,
+                                 overlap=False, quant=mode)
+    assert got == want and got_n == want_n
+    assert st["graphs"]["replays"] > 0 and st["quant"]["mode"] == mode
+    assert got_n["weight_only_gemm", "launches"] > 0
+    assert got_n["weight_only_matmul", "launches"] > 0
+    assert got_n["weight_only_matmul", "dequant_calls"] == 0
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])

@@ -22,8 +22,11 @@ against the JAX package's, on the CPU.
 * The serving twin holds codes, not the model's float matmul weights, and
   later edits of the live model do not reach the engine.
 * `inference/graphs.py`'s counts, which a capture records and a replay
-  adds again, include `weight_only_matmul`'s; products wider than the
-  kernel's rows take the callers' dequantize route.
+  adds again, include both weight-only kernels'.  The callers' three ways,
+  decided from the whole shape on `meta` tensors (the library a stub):
+  `weight_only_matmul` up to 128 rows, `weight_only_gemm` for wider bf16,
+  and the counted dequantize route for what neither takes (K 72, float16,
+  float32 past 128 rows, a non-contiguous or misaligned x).
 * QAT and PTQ on a small MLP: forward, the straight-through gradient mask,
   the EMA and observer scales, `convert`.
 """
@@ -230,6 +233,17 @@ def test_nn_quant_matches_jax():
         tnq.llm_int8_linear(tx, tqv, tb, ts).numpy(),
         np.asarray(jnq.llm_int8_linear(jx, jqv, jb, js)._value),
         atol=1e-5, rtol=0)
+    # K 72: a width no kernel takes (the card's dequantize route), which
+    # JAX's weight_only_linear computes like any other
+    w = _weight(rng, (72, 40))
+    x = rng.standard_normal((6, 72)).astype(np.float32)
+    jqv, js = jnq.weight_quantize(paddle.to_tensor(w))
+    tqv, ts = tnq.weight_quantize(torch.from_numpy(w))
+    np.testing.assert_array_equal(_bits(tqv), _bits(jqv._value))
+    np.testing.assert_allclose(
+        tnq.weight_only_linear(torch.from_numpy(x), tqv, tb, ts).numpy(),
+        np.asarray(jnq.weight_only_linear(paddle.to_tensor(x), jqv, jb,
+                                          js)._value), atol=1e-5, rtol=0)
 
 
 # --------------------------------------------------------------- engines
@@ -389,40 +403,139 @@ def test_quant_engine_is_a_snapshot_of_the_model():
 
 def test_replayed_program_counts_weight_only_launches():
     """``counters()`` names every count a capture records and each replay
-    adds again: ``weight_only_matmul``'s launches and dequantize routes
-    are among them."""
+    adds again: both weight-only kernels' launches and the dequantize
+    routes are among them."""
     fn = wo.weight_only_matmul
     assert (fn, "launches") in graphs.counters()
     assert (fn, "dequant_calls") in graphs.counters()
+    assert (wo.weight_only_gemm, "launches") in graphs.counters()
+
+
+class _StubLibrary:
+    """The kernel library off the card: records the entry points called
+    (``meta`` tensors reach it with the wrappers' checks passed)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ptt_weight_only_matmul(self, *args):
+        self.calls.append("weight_only_matmul")
+        return 0
+
+    def ptt_weight_only_gemm(self, *args):
+        self.calls.append("weight_only_gemm")
+        return 0
+
+
+@pytest.fixture
+def stub_library(monkeypatch):
+    from paddle_tpu_torch.ops import _build
+    lib = _StubLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    return lib
+
+
+def _three_callers(x, q, s, N):
+    """One product through each caller: ``WeightOnlyLinear``, the tied
+    head ``WeightOnlyEmbedding.attend`` and ``nn.quant.weight_only_linear``
+    (Paddle's ``[K, N]`` codes)."""
+    bias = torch.zeros((N,), dtype=s.dtype, device=s.device)
+    ys = [tquant.WeightOnlyLinear(q, s, bias)(x),
+          tquant.WeightOnlyEmbedding(q, s).attend(x),
+          tnq.weight_only_linear(x, q.t(), None, s)]
+    for y in ys:
+        assert y.shape == (*x.shape[:-1], N) and y.device == x.device
+    return ys
 
 
 @pytest.mark.parametrize("rows", [(128,), (129,), (3, 43)])
-def test_wide_products_take_the_callers_dequant_route(rows):
-    """The route is the callers': a tensor off the CPU (here on ``meta``,
-    which runs no kernel) with more rows than the kernel takes goes
-    through the plain version in ``WeightOnlyLinear``, the tied head and
-    ``nn.quant.weight_only_linear``, counted in ``dequant_calls``; the
-    wrapper itself raises for it.  A CPU tensor never takes the route."""
+def test_wide_products_take_the_callers_dequant_route(stub_library, rows):
+    """The callers' three ways off the CPU (here on ``meta``, the library a
+    stub): at most 128 rows launch ``weight_only_matmul``; more rows launch
+    ``weight_only_gemm`` in bfloat16 and take the counted dequantize route
+    in float32 (``dequant_calls``, never a launch).  Each wrapper raises
+    for the other's rows.  A CPU tensor never takes the route."""
     K, N = 32, 24
-    q = torch.zeros((N, K), dtype=torch.int8, device="meta")
-    s = torch.ones((N,), device="meta")
-    x = torch.empty(*rows, K, device="meta")
     wide = math.prod(rows) > wo.KERNEL_MAX_ROWS
-    assert wo.dequant_route(x) == wide
-    assert not wo.dequant_route(torch.empty(*rows, K))
-    if not wide:
+    q = torch.zeros((N, K), dtype=torch.int8, device="meta")
+    assert not wo.dequant_route(torch.empty(*rows, K), q)
+    for dtype in (torch.float32, torch.bfloat16):
+        s = torch.ones((N,), dtype=dtype, device="meta")
+        x = torch.empty(*rows, K, dtype=dtype, device="meta")
+        routed = wide and dtype == torch.float32
+        assert wo.dequant_route(x, q) == routed
+        mm, gemm = wo.weight_only_matmul, wo.weight_only_gemm
+        n = (mm.launches, gemm.launches, mm.dequant_calls)
+        del stub_library.calls[:]
+        _three_callers(x, q, s, N)
+        if routed:
+            want, grew = [], (0, 0, 3)
+        elif wide:
+            want, grew = ["weight_only_gemm"] * 3, (0, 3, 0)
+        else:
+            want, grew = ["weight_only_matmul"] * 3, (3, 0, 0)
+        assert stub_library.calls == want
+        assert (mm.launches - n[0], gemm.launches - n[1],
+                mm.dequant_calls - n[2]) == grew
+        mm.launches, gemm.launches, mm.dequant_calls = n
+        wrong, match = (mm, "at most 128") if wide else \
+            (gemm, "more than 128")
+        with pytest.raises(ValueError, match=match):
+            wrong(x, q, s)
+
+
+# x of each shape or type no kernel takes on the card, and bf16 past the
+# narrow kernel's rows (the GEMM's: not routed)
+ROUTE_CASES = {
+    "k72": dict(rows=(8,), K=72, dtype=torch.bfloat16, routed=True),
+    "k72-wide": dict(rows=(130,), K=72, dtype=torch.bfloat16, routed=True),
+    "float16": dict(rows=(8,), K=64, dtype=torch.float16, routed=True),
+    "fp32-129": dict(rows=(129,), K=64, dtype=torch.float32, routed=True),
+    "non-contiguous": dict(rows=(8,), K=64, dtype=torch.bfloat16,
+                           routed=True, layout="transposed"),
+    "misaligned": dict(rows=(8,), K=64, dtype=torch.bfloat16, routed=True,
+                       layout="offset"),
+    "bf16-129": dict(rows=(129,), K=64, dtype=torch.bfloat16, routed=False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_route_decision_from_the_whole_shape(stub_library, case):
+    """``dequant_route(x, q)`` on ``meta`` tensors (the wrappers' off-CPU
+    path up to the launch): K 72, float16, float32 past 128 rows, a
+    non-contiguous or misaligned x compute through the plain version in
+    all three callers, each counted in ``dequant_calls`` and never
+    launched; bf16 at 129 rows with K 64 goes to ``weight_only_gemm``.
+    The wrappers themselves raise for every routed case."""
+    c = ROUTE_CASES[case]
+    K, N = c["K"], 40
+    q = torch.zeros((N, K), dtype=torch.int8, device="meta")
+    s = torch.ones((N,), dtype=c["dtype"], device="meta")
+    layout = c.get("layout")
+    if layout == "transposed":
+        x = torch.empty(K, *c["rows"], dtype=c["dtype"], device="meta").t()
+    elif layout == "offset":
+        x = torch.empty(math.prod(c["rows"]) * K + 1, dtype=c["dtype"],
+                        device="meta")[1:].view(*c["rows"], K)
+    else:
+        x = torch.empty(*c["rows"], K, dtype=c["dtype"], device="meta")
+    assert wo.dequant_route(x, q) == c["routed"]
+    mm, gemm = wo.weight_only_matmul, wo.weight_only_gemm
+    n = (mm.launches, gemm.launches, mm.dequant_calls)
+    _three_callers(x, q, s, N)
+    grew = (mm.launches - n[0], gemm.launches - n[1],
+            mm.dequant_calls - n[2])
+    mm.launches, gemm.launches, mm.dequant_calls = n
+    if not c["routed"]:
+        assert grew == (0, 3, 0)
+        assert stub_library.calls == ["weight_only_gemm"] * 3
         return
-    fn = wo.weight_only_matmul
-    n, d = fn.launches, fn.dequant_calls
-    lin = tquant.WeightOnlyLinear(q, s, torch.zeros((N,), device="meta"))
-    emb = tquant.WeightOnlyEmbedding(q, s)
-    for y in (lin(x), emb.attend(x),
-              tnq.weight_only_linear(x, q.t(), None, s)):
-        assert y.shape == (*rows, N) and y.device.type == "meta"
-    assert (fn.launches, fn.dequant_calls) == (n, d + 3)
-    fn.dequant_calls = d
-    with pytest.raises(ValueError, match="at most 128"):
-        fn(x, q, s)
+    assert grew == (0, 0, 3) and stub_library.calls == []
+    wrapper = gemm if math.prod(c["rows"]) > wo.KERNEL_MAX_ROWS else mm
+    with pytest.raises((ValueError, TypeError)):
+        wrapper(x, q, s)
+    assert stub_library.calls == []
 
 
 # ------------------------------------------------------------- QAT, PTQ
