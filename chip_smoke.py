@@ -50,7 +50,9 @@ into ``build/paddle_tpu_torch/``), then runs eighteen phases on card 0:
    the achieved TFLOP/s and the ratio to sdpa.  Before it, the
    ``-Xptxas -v`` reports give every kernel's registers and spills; the
    tensor-core kernels (bf16 ``flash_fwd``, ``flash_bwd_dq``,
-   ``flash_bwd_dkv``) must not spill at hd 64 and 128.
+   ``flash_bwd_dkv``) must not spill at hd 64 and 128, and none of the
+   six ``weight_only_gemm_kernel`` instances may spill or have its
+   ``wgmma``s serialised by ptxas.
 2. Serving at full width: GPT-3 1.3B in bfloat16 with random weights from a
    seed, 8 requests (prompts of 100 to 1500 tokens, 64 new tokens each,
    half greedy, half sampled) through ``ServingEngine`` with whole-prompt
@@ -207,9 +209,11 @@ into ``build/paddle_tpu_torch/``), then runs eighteen phases on card 0:
    decode step.  ``weight_only_gemm`` (the prompts' wide products) the
    same way at every one of those shapes at M 256, 512, 1024 and 2048 and
    at the edges M 129, 300, 2047 with N 4100, K 4112 and a bias; timed at
-   each shape (CUDA events over an eager loop past L2) with TFLOP/s and
-   summed over one 2048-row Llama-2 7B prompt; and the crossover against
-   ``weight_only_matmul`` at M 64, 128, 256.  Then ``llama2_7b`` served
+   each shape (from replayed graphs, past L2) with TFLOP/s and
+   the tile schedule chosen, and summed over one 2048-row Llama-2 7B
+   prompt; the crossover against ``weight_only_matmul`` at M 64, 128,
+   256; and every schedule the kernel takes at Llama's shapes, M 256 to
+   1024, beside the chosen one.  Then ``llama2_7b`` served
    with ``quant="int8"`` and ``"fp8"`` on phase 14's mix: whole-prompt
    (int8: median of 3 runs; fp8: one run; each: one with the overlapped
    loop off for ms per decode step, one profiled: idle share, weight-only
@@ -2651,20 +2655,50 @@ def weight_only_checks():
                 llama_decode_step=step)
 
 
-def _gemm_raw(x, q, s):
-    """``weight_only_gemm``'s kernel at any row count, called outside the
-    wrapper (which takes only more than 128 rows) and counted nowhere: the
-    crossover sweep's GEMM below 129 rows."""
+def _gemm_raw(x, q, s, sched=None):
+    """``weight_only_gemm``'s kernel at any row count and on any schedule
+    (default: ``gemm_schedule``'s), called outside the wrapper (which takes
+    only more than 128 rows and its own schedule) and counted nowhere: the
+    crossover sweep's GEMM below 129 rows, the schedule sweep."""
     import torch
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import weight_only as wo
     (M, K), N = x.shape, q.shape[0]
+    if sched is None:
+        sched = wo.gemm_schedule(M, N, K, _build.sm_count(x.device))
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ws = None if sched.splits == 1 else torch.empty(
+        (sched.splits, M, N), dtype=torch.float32, device=x.device)
     _build.check(_build.library().ptt_weight_only_gemm(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), None, y.data_ptr(), M, N,
-        K, wo.CODE_DTYPES[q.dtype], _build.stream(x.device)),
-        "weight_only_gemm")
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), None, y.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K,
+        wo.CODE_DTYPES[q.dtype], sched.rows, sched.splits, sched.k_steps,
+        sched.blocks, _build.stream(x.device)), "weight_only_gemm")
     return y
+
+
+def _sched_text(sched):
+    return (f"{sched.rows}-row tiles x {sched.splits} split"
+            f"{'s' if sched.splits > 1 else ''} of {sched.k_steps} steps, "
+            f"{sched.blocks} blocks")
+
+
+def _schedules(M, N, K, sms):
+    """Every schedule the kernel takes for this shape: each tile height
+    at 1, 2, 3 and 4 K splits (each split non-empty), on all SMs."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    nk = -(-K // wo.GEMM_K_STEP)
+    out = []
+    for rows in wo.GEMM_ROWS:
+        m_tiles, n_tiles = -(-M // rows), -(-N // wo.GEMM_CHANNELS)
+        for want in range(1, 5):
+            k_steps = -(-nk // want)
+            splits = -(-nk // k_steps)
+            if splits == want:
+                units = m_tiles * n_tiles * splits
+                out.append(wo.GemmSchedule(rows, splits, k_steps,
+                                           min(units, sms)))
+    return out
 
 
 def weight_only_gemm_checks():
@@ -2673,19 +2707,26 @@ def weight_only_gemm_checks():
     2e-2, rtol 1e-2), int8 and fp8 codes, at every ``WO_SHAPES`` shape at
     M 256 (a chunk), 512, 1024 and 2048 (prompt buckets), and at the edges
     M 129, 300 and 2047 with N 4100, K 4112 and a bias.  Each shape timed
-    with CUDA events over an eager loop that cycles through copies of the
-    weight past the L2, beside its bound, the plain version (``dequantize``
-    then ``torch.matmul``) and ``torch.matmul`` on the bf16 weight, with
-    TFLOP/s; one 2048-row Llama-2 7B prompt's 225 products summed.  Then
-    the crossover: ``weight_only_matmul`` at M 64 and 128 against the
-    GEMM's kernel at M 64, 128 and 256 (replayed graphs) at Llama's gate/up
-    and q/k/v.  Returns the kernels line's row (gate/up, int8, M 2048)."""
+    from a replayed CUDA graph that cycles through copies of the weight
+    past the L2 (the card's time: an eager loop of the smaller shapes
+    times the host's launches), beside its bound, the plain version
+    (``dequantize`` then ``torch.matmul``, an eager loop) and
+    ``torch.matmul`` on the bf16 weight (replayed), with
+    TFLOP/s and the schedule ``gemm_schedule`` chose; one 2048-row
+    Llama-2 7B prompt's 225 products summed.  Then the crossover:
+    ``weight_only_matmul`` at M 64 and 128 against the GEMM's kernel at M
+    64, 128 and 256 (replayed graphs) at Llama's gate/up and q/k/v; and
+    every schedule the kernel takes (tile heights x K splits) at Llama's
+    q/k/v/o, gate/up and down, M 256, 512 and 1024, int8, beside the one
+    chosen.  Returns the kernels line's row (gate/up, int8, M 2048)."""
     import torch
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import weight_only as wo
 
     gen = torch.Generator(device="cuda").manual_seed(181)
     tol = {str(torch.bfloat16): WO_TOL}
     errs, shapes = [], []
+    sms = _build.sm_count(torch.device("cuda"))
 
     def check(label, x, q, s, bias=None):
         got = wo.weight_only_gemm(x, q, s, bias)
@@ -2704,23 +2745,26 @@ def weight_only_gemm_checks():
             for M in WG_ROWS:
                 xm = x[:M]
                 check(f"{name} {mode} M {M}", xm, ops[0][1], ops[0][2])
-                ms = _time_ms(_cycle(
-                    lambda o: wo.weight_only_gemm(xm, o[1], o[2]), ops), 20)
+                ms = _cold_ms(
+                    lambda o: wo.weight_only_gemm(xm, o[1], o[2]), ops, 20)
                 plain = _time_ms(_cycle(
                     lambda o: wo.weight_only_matmul_reference(
                         xm, o[1], o[2]), ops), 10)
-                lib = _time_ms(_cycle(
-                    lambda o: torch.matmul(xm, o[0].t()), ops), 20)
+                lib = _cold_ms(lambda o: torch.matmul(xm, o[0].t()), ops,
+                               20)
                 flops = 2 * M * N * K
                 nbytes = N * K + N * 2 + M * K * 2 + M * N * 2
                 bound, by = _bound(nbytes, flops, torch.bfloat16)
+                sched = wo.gemm_schedule(M, N, K, sms)
                 shapes.append(dict(shape=name, N=N, K=K, M=M, mode=mode,
                                    ms=ms, plain_ms=plain, library_ms=lib,
                                    bound_ms=bound, bound_by=by,
                                    per_prompt=per_prompt,
-                                   tflops=flops / ms / 1e9))
+                                   tflops=flops / ms / 1e9,
+                                   schedule=sched._asdict()))
                 _log(f"weight_only_gemm {mode} {name} (N {N}, K {K}) at M "
-                     f"{M}: {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"{M} [{_sched_text(sched)}]: {ms:.4f} ms = "
+                     f"{flops / ms / 1e9:.1f} TFLOP/s, "
                      f"bound {bound:.4f} ms ({by}), {ms / bound:.2f}x the "
                      f"bound; dequantize + torch.matmul {plain:.4f} ms; "
                      f"torch.matmul on the bf16 weight {lib:.4f} ms = "
@@ -2777,6 +2821,38 @@ def weight_only_gemm_checks():
                      + f", torch.matmul bf16 {r['library_ms']:.4f} ms")
             del x, ops
     torch.cuda.empty_cache()
+
+    # every schedule the kernel takes, at the chunk and the smaller prompt
+    # buckets, against gemm_schedule's choice
+    alternatives = []
+    for name in ("llama2_7b q/k/v/o_proj", "llama2_7b gate/up_proj",
+                 "llama2_7b down_proj"):
+        N, K, _ = WO_SHAPES[name]
+        copies = max(1, math.ceil(120e6 / (N * K)))
+        x, ops = _wo_operands(gen, 1024, N, K, torch.bfloat16, "int8",
+                              copies)
+        for M in (256, 512, 1024):
+            xm = x[:M]
+            chosen = wo.gemm_schedule(M, N, K, sms)
+            times = []
+            for sched in _schedules(M, N, K, sms):
+                times.append((_cold_ms(
+                    lambda o: _gemm_raw(xm, o[1], o[2], sched), ops, 20),
+                    sched))
+            best_ms, best = min(times, key=lambda r: r[0])
+            chosen_ms = next(ms for ms, sc in times if sc == chosen)
+            alternatives.append(dict(
+                shape=name, M=M, chosen=chosen._asdict(),
+                chosen_ms=chosen_ms, fastest=best._asdict(),
+                fastest_ms=best_ms,
+                all=[dict(ms=ms, **sc._asdict()) for ms, sc in times]))
+            _log(f"schedules int8 {name} at M {M}: chosen "
+                 f"[{_sched_text(chosen)}] {chosen_ms:.4f} ms, fastest "
+                 f"[{_sched_text(best)}] {best_ms:.4f} ms; all: "
+                 + "; ".join(f"{sc.rows}x{sc.splits} {ms:.4f}"
+                             for ms, sc in times))
+        del x, ops
+    torch.cuda.empty_cache()
     row = next(r for r in shapes if r["shape"] == WO_ROW_SHAPE
                and r["mode"] == "int8" and r["M"] == WG_ROW)
     return dict(max_abs_err=max(errs), ms=row["ms"],
@@ -2785,7 +2861,8 @@ def weight_only_gemm_checks():
                 library_call="torch.matmul on the bf16 weight",
                 plain_call="dequantize, then torch.matmul",
                 timed_at=f"{WO_ROW_SHAPE} int8, M {WG_ROW}", shapes=shapes,
-                llama_prompt=prompt, crossover=sweep)
+                llama_prompt=prompt, crossover=sweep,
+                schedules=alternatives)
 
 
 def llama_quant_phase(model, lens):
@@ -2995,24 +3072,30 @@ def quant_cuts_phase():
 
 def ptxas_report(build_dir):
     """Registers and spills of every kernel from the ``-Xptxas -v``
-    reports; the tensor-core kernels must not spill at hd 64 and 128.
-    Returns {kernel: {hd: "N registers, S spill stores, L spill loads"}}
-    for the tensor-core kernels."""
+    reports; the tensor-core kernels must not spill at hd 64 and 128, and
+    no instance of ``weight_only_gemm_kernel`` (int8 and fp8 codes, tiles
+    of 64, 128 and 256 rows) may spill, keep a stack frame or have its
+    ``wgmma`` serialised by ptxas (C7513/C7515).  Returns ({kernel: {hd:
+    "N registers, S spill stores, L spill loads"}} for the tensor-core
+    kernels, {"int8/fp8 BM rows": text} for the GEMM)."""
     import re
-    tc = {}
+    tc, gemm = {}, {}
     for f in sorted(build_dir.glob("*.ptxas.txt")):
         entry = None
         for line in f.read_text().splitlines():
+            if "serialized" in line and "weight_only_gemm" in line:
+                raise AssertionError(f"ptxas serialises wgmma: {line}")
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 entry = m.group(1)
                 continue
             if entry is None:
                 continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
             if m:
-                spills = (int(m.group(1)), int(m.group(2)))
+                frame = int(m.group(1))
+                spills = (int(m.group(2)), int(m.group(3)))
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if not m:
@@ -3023,18 +3106,29 @@ def ptxas_report(build_dir):
             hd = int(hd.group(1)) if hd else None
             text = (f"{m.group(1)} registers, {spills[0]} bytes spill "
                     f"stores, {spills[1]} bytes spill loads")
-            _log(f"  {f.name.split('.')[0]}: {name} hd {hd}: {text}")
+            _log(f"  {f.name.split('.')[0]}: {name} hd {hd}: {text}, "
+                 f"{frame} bytes stack frame")
             if name.endswith("_tc_kernel"):
                 tc.setdefault(name, {})[hd] = text
                 if hd in (64, 128) and spills != (0, 0):
                     raise AssertionError(f"{name} hd {hd} spills: {text}")
+            if name == "weight_only_gemm_kernel":
+                qt, rows = re.search(r"ILi(\d)ELi(\d+)E", entry).groups()
+                key = f"{('int8', 'fp8')[int(qt)]} {rows} rows"
+                gemm[key] = text
+                if spills != (0, 0) or frame:
+                    raise AssertionError(f"{name} {key}: {text}, {frame} "
+                                         "bytes stack frame")
             entry = None
     for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                  "flash_bwd_dkv_tc_kernel", "paged_chunk_tc_kernel"):
         if sorted(tc.get(name, {})) != [64, 128, 256]:
             raise AssertionError(f"ptxas report: {name} at hd "
                                  f"{sorted(tc.get(name, {}))}")
-    return tc
+    if len(gemm) != 6:
+        raise AssertionError(f"ptxas report: weight_only_gemm_kernel "
+                             f"instances {sorted(gemm)}")
+    return tc, gemm
 
 
 def main() -> int:
@@ -3063,7 +3157,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     _log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    tc_regs = ptxas_report(_build.BUILD_DIR)
+    tc_regs, gemm_regs = ptxas_report(_build.BUILD_DIR)
 
     lens = [100 + 200 * i for i in range(BATCH)]       # 100 .. 1500
 
@@ -3155,6 +3249,8 @@ def main() -> int:
                 p: paths[p]["paged_verify_attention"]
                 for p in ("spec_ngram", "spec_ngram_adaptive", "spec_model",
                           "spec_self")}
+        if name == "weight_only_gemm":
+            kernels[-1]["ptxas_by_instance"] = gemm_regs
         tc_name = name + "_tc_kernel"
         if tc_name in tc_regs:
             kernels[-1]["bf16_kernel"] = tc_name

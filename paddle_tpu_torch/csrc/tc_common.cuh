@@ -3,8 +3,7 @@
 // flash_bwd_dkv_tc_kernel), in inline PTX for sm_90a: 16-byte cp.async
 // copies into a 128-byte-swizzled shared layout, the wgmma shared-memory
 // descriptor of that layout, and the warpgroup products the kernels need,
-// m64n64k16 bf16 -> fp32 (and, for weight_only_gemm.cu, wgmma_ss at
-// m64n128k16):
+// m64n64k16 bf16 -> fp32:
 //   wgmma_ss    A and B from shared memory, both K-major (S = Q K^T,
 //               dP = dO V^T: a K or V tile [key][d] is K-major in d; and
 //               transposed, S^T = K Q^T, dP^T = V dO^T);
@@ -12,6 +11,12 @@
 //               dQ += dS K: the same [key][d] tile read with the
 //               transpose bit; dV += P^T dO, dK += dS^T Q: a [query][d]
 //               Q or dO tile read the same way).
+//   wgmma_rs    A from registers, B K-major at n 64, 128 or 256
+//               (weight_only_gemm.cu: y^T = W x^T, the dequantized codes
+//               in registers, rows of x as TMA writes them).
+// For weight_only_gemm.cu also the Hopper pipeline's pieces: mbarriers
+// (init, arrive, expect_tx, parity wait), 2-D TMA loads that complete on
+// an mbarrier, and setmaxnreg.
 // The fp32 accumulator of a 64 x 64 product is, register for register,
 // the A fragment of the next product once rounded to bf16 (see
 // acc_to_a), so P and dS never pass through shared memory.
@@ -70,13 +75,6 @@ __device__ __forceinline__ void cp_async_commit() {
 // async proxy); a barrier must follow before other threads' wgmma reads.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// The same with at most N of this thread's committed groups still in
-// flight (a ring of N + 1 stages).
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
@@ -201,44 +199,115 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-#define PTT_D64(d)                                                           \
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),      \
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),      \
-      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),      \
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),      \
+#define PTT_D64(d)                                                         \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-#define PTT_D64_LIST                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "       \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "       \
+#define PTT_D64_LIST                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "        \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "        \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "        \
   "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define PTT_D128(d)                                                        \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),       \
+      "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),       \
+      "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),       \
+      "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),       \
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),       \
+      "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),       \
+      "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),       \
+      "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),       \
+      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),                \
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),                \
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),                \
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),                \
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),                \
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),                \
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define PTT_D128_LIST                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "        \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "        \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "        \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "        \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "        \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "        \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "        \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "       \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "       \
+  "%127}"
 
-// The same for a 64 x 128 x 16 step (B: 128 rows of the K-major tile,
-// SW128 like the n64 operands); the accumulator extends the n64 layout
-// below to 16 column blocks of 8.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
+// d (+)= A B for a 64 x N x 16 step (N 64, 128 or 256), A the register
+// fragment a[4] (bf16 pairs, acc_to_a's layout), B K-major in shared
+// memory (an SW128 tile of N rows, as wgmma_ss reads it); accumulate 0
+// overwrites d.  The accumulator extends the n64 layout below to N / 8
+// column blocks of 8.  weight_only_gemm.cu's products: A the dequantized
+// weight codes, B the rows of x.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : PTT_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PTT_D64_LIST
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : PTT_D64(d)
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " PTT_D128_LIST
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : PTT_D128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 #undef PTT_D32
 #undef PTT_D64
-#undef PTT_D64_LIST
+#undef PTT_D128
 #undef PTT_D32_LIST
+#undef PTT_D64_LIST
+#undef PTT_D128_LIST
 
 // Accumulator layout of a 64 x 64 fp32 wgmma result in the warpgroup:
 // warp w holds rows 16 w .. 16 w + 15; lane l (g = l / 4, t = l % 4)
@@ -300,6 +369,77 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   const uint32_t a = smem_addr(p);
   return p + ((kGroupBytes - (a & (kGroupBytes - 1))) & (kGroupBytes - 1));
+}
+
+// mbarriers (64-bit words in shared memory, by shared address).  A
+// barrier completes a phase when its arrivals reach the count given at
+// init and the bytes announced by expect_tx have landed; waiters name the
+// phase by its parity.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// After the inits, before any other thread or the TMA unit uses them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// One arrival that also announces `bytes` of TMA writes to come.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  A wait that
+// never ends (a parity out of step: a bug) traps after 2^26 polls, so a
+// fault surfaces as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// TMA: the box at (c0 innermost, c1) of the tensor map `map` (a kernel
+// parameter, __grid_constant__) into shared memory at `dst`, completing
+// on the mbarrier `bar`; elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_prefetch_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Move registers between the warpgroups of a warp-specialised block:
+// every warp of a warpgroup executes the same one.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace tc

@@ -1,7 +1,7 @@
 // Code dequantization shared by the weight-only kernels (weight_only.cu's
 // weight_only_mma_kernel, weight_only_gemm.cu's weight_only_gemm_kernel):
-// int8 or fp8 (e4m3) codes to float, and 16 codes times their channel's
-// scale rounded to bf16.  Both kernels round every weight here, so a
+// int8 or fp8 (e4m3) codes to float, and 16 codes (or a pair) times their
+// channel's scale rounded to bf16.  Both kernels round every weight here, so a
 // prompt (the GEMM) and a decode tick (the narrow kernel) multiply by the
 // same bf16 weights, those of the plain version (`dequantize(q, s)` in
 // bf16, then the product).
@@ -57,6 +57,34 @@ __device__ __forceinline__ void wo_dequant_bf16(const uint4& c, float s,
     b[2 * i] = *reinterpret_cast<const uint32_t*>(&p0);
     b[2 * i + 1] = *reinterpret_cast<const uint32_t*>(&p1);
   }
+}
+
+// The two codes in bytes h, h + 1 of w (h 0 or 2) -> bf16(float(code) * s)
+// packed, the lower byte in the low half: wo_dequant_bf16's rounding, one
+// pair at a time (a register fragment's pair of k).
+template <int QT>
+__device__ __forceinline__ uint32_t wo_pair_bf16(uint32_t w, int h, float s);
+
+template <>
+__device__ __forceinline__ uint32_t wo_pair_bf16<0>(uint32_t w, int h,
+                                                    float s) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + h)) - 8388736.f;
+  const float f1 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + h)) - 8388736.f;
+  const __nv_bfloat162 p = __floats2bfloat162_rn(f0 * s, f1 * s);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <>
+__device__ __forceinline__ uint32_t wo_pair_bf16<1>(uint32_t w, int h,
+                                                    float s) {
+  const __half2 v(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w >> (8 * h)), __NV_E4M3));
+  const float2 f = __half22float2(v);
+  const __nv_bfloat162 p = __floats2bfloat162_rn(f.x * s, f.y * s);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
 }  // namespace ptt

@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "build", "check", "stream", "dtype_code",
+__all__ = ["library", "build", "check", "stream", "sm_count", "dtype_code",
            "check_device_tensors", "BUILD_DIR", "CSRC"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -51,7 +51,7 @@ _SIGNATURES = {
     "ptt_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
     "ptt_moe_combine": [_P] * 4 + [_I] * 5 + [_P],
     "ptt_weight_only_matmul": [_P] * 5 + [_I] * 5 + [_P],
-    "ptt_weight_only_gemm": [_P] * 5 + [_I] * 4 + [_P],
+    "ptt_weight_only_gemm": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
@@ -145,6 +145,12 @@ def check(err: int, kernel: str) -> None:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (schedules that fill them)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -8,8 +8,10 @@ per-channel scale multiply into the consuming dot
 (``paddle_tpu/quantization/weight_only.py:90``), at any shape.  PyTorch
 fuses nothing, so the port's counterpart of that fused product is two
 hand-written kernels: ``paddle_tpu_torch/csrc/weight_only.cu`` for the
-serving tick's few rows, ``csrc/weight_only_gemm.cu`` (``wgmma`` over codes
-dequantized in shared memory) for the prompts' wide products.
+serving tick's few rows, ``csrc/weight_only_gemm.cu`` (warp-specialised:
+a TMA producer, ``wgmma`` over codes dequantized into its register
+operand) for the prompts' wide products, on the tile schedule that
+:func:`gemm_schedule` fixes from the shape.
 
 Both compute ``x @ W.T + bias`` with ``W = dequantize(q, scale[:, None])``:
 q ``[N, K]`` int8 or ``float8_e4m3fn`` codes in the ``nn.Linear`` layout,
@@ -31,7 +33,9 @@ version on the card, as the JAX package leaves it to XLA, and adds one to
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,13 +44,77 @@ from . import _build
 
 __all__ = ["weight_only_matmul", "weight_only_gemm",
            "weight_only_matmul_reference", "weight_only_forward",
-           "dequantize", "dequant_route", "KERNEL_MAX_ROWS", "CODE_DTYPES"]
+           "dequantize", "dequant_route", "gemm_schedule", "GemmSchedule",
+           "KERNEL_MAX_ROWS", "CODE_DTYPES"]
 
 # csrc/weight_only.cu: up to 8 tiles of 16 rows; wider bf16 products are
 # csrc/weight_only_gemm.cu's
 KERNEL_MAX_ROWS = 128
 # code type -> the kernel's qtype
 CODE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+# csrc/weight_only_gemm.cu's tiles: 128 channels (two warpgroups of 64)
+# by one of GEMM_ROWS rows of x, in 64-deep k steps
+GEMM_CHANNELS = 128
+GEMM_ROWS = (256, 128, 64)
+GEMM_K_STEP = 64
+# A k step's cost by tile height, relative to a 256-row step (the code
+# gathers and the dequantize do not shrink with the rows); the time of a
+# 256-row step; a split's extra cost: the reduce's launch, and the
+# partials' fp32 bytes written and read (and y's) at about this rate.
+# Fitted to chip_smoke.py's schedule sweep on an H100 (PERF.md §6).
+_GEMM_STEP_COST = {256: 1.0, 128: 0.72, 64: 0.6}
+_GEMM_STEP_S = 0.78e-6
+_GEMM_REDUCE_S = 2.5e-6
+_GEMM_REDUCE_BYTES_PER_S = 2.5e12
+_GEMM_MAX_SPLITS = 4
+_GEMM_MIN_SPLIT_STEPS = 8       # k steps a split keeps at least
+
+
+class GemmSchedule(NamedTuple):
+    """``weight_only_gemm``'s launch: tiles of ``rows`` rows of x by
+    ``GEMM_CHANNELS`` channels, K cut into ``splits`` runs of ``k_steps``
+    steps (fp32 partials summed by a second kernel when ``splits`` > 1),
+    walked by ``blocks`` persistent blocks."""
+    rows: int
+    splits: int
+    k_steps: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_schedule(M: int, N: int, K: int, sms: int) -> GemmSchedule:
+    """The schedule of an ``[M, K] x [N, K]^T`` product on a card of
+    ``sms`` SMs: a pure function of the four, so a captured launch replays
+    the same work.  Of the tile heights ``GEMM_ROWS`` and K splits (only
+    while the tiles leave SMs idle, each split at least
+    ``_GEMM_MIN_SPLIT_STEPS`` steps) it takes the least estimated time:
+    waves of units times steps a unit times a step's cost at that height,
+    plus the reduce's for a split; ties to taller tiles, fewer splits.
+    Cached: the wrapper asks at every launch."""
+    nk = -(-K // GEMM_K_STEP)
+    n_tiles = -(-N // GEMM_CHANNELS)
+    best = None
+    for rows in GEMM_ROWS:
+        m_tiles = -(-M // rows)
+        tiles = m_tiles * n_tiles
+        for want in range(1, _GEMM_MAX_SPLITS + 1):
+            k_steps = -(-nk // want)
+            splits = -(-nk // k_steps)
+            if splits != want or (splits > 1 and (
+                    tiles * (splits - 1) >= sms
+                    or k_steps < _GEMM_MIN_SPLIT_STEPS)):
+                continue
+            units = tiles * splits
+            cost = -(-units // sms) * k_steps * _GEMM_STEP_COST[rows]
+            if splits > 1:
+                cost += (_GEMM_REDUCE_S + M * N * (8 * splits + 2)
+                         / _GEMM_REDUCE_BYTES_PER_S) / _GEMM_STEP_S
+            key = (cost, -rows, splits)
+            if best is None or key < best[0]:
+                best = (key, GemmSchedule(rows, splits, k_steps,
+                                          min(units, sms)))
+    return best[1]
 
 
 def dequantize(q, scale):
@@ -173,8 +241,10 @@ def weight_only_gemm(x, q, scale, bias=None):
     wide products (the prompts).
 
     CUDA tensors: x, scale and bias bfloat16, contiguous, 16-byte aligned,
-    more than ``KERNEL_MAX_ROWS`` rows, K a multiple of 16.  CPU tensors
-    take the plain version."""
+    more than ``KERNEL_MAX_ROWS`` rows, K a multiple of 16; launched on
+    :func:`gemm_schedule`'s tiles (a split K sums its fp32 partials, in
+    split order, from a workspace allocated here).  CPU tensors take the
+    plain version."""
     _checks("weight_only_gemm", x, q, scale, bias)
     if x.device.type == "cpu":
         return weight_only_matmul_reference(x, q, scale, bias)
@@ -190,10 +260,15 @@ def weight_only_gemm(x, q, scale, bias=None):
                         f"{x.dtype}")
     x2 = _device_operands("weight_only_gemm", x, q, scale, bias)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    sched = gemm_schedule(M, N, K, _build.sm_count(x.device))
+    ws = None if sched.splits == 1 else torch.empty(
+        (sched.splits, M, N), dtype=torch.float32, device=x.device)
     err = _build.library().ptt_weight_only_gemm(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, K,
-        CODE_DTYPES[q.dtype], _build.stream(x.device))
+        None if bias is None else bias.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K,
+        CODE_DTYPES[q.dtype], sched.rows, sched.splits, sched.k_steps,
+        sched.blocks, _build.stream(x.device))
     _build.check(err, "weight_only_gemm")
     weight_only_gemm.launches += 1
     return y.reshape(*lead, N)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Serving throughput of two trees of the port, in turns on one card.
+"""Serving throughput (or, with ``--gemm``, ``weight_only_gemm``'s times)
+of two trees of the port, in turns on one card.
 
-    python3 serving_ab.py [--runs N] ROOT [ROOT ...]
+    python3 serving_ab.py [--runs N] [--gemm] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository (for a change against its
 parent: unpack the parent with ``git archive`` into a directory that
@@ -18,6 +19,12 @@ each run the output tokens per second (wall clock from the first
 step ((wall - the largest time to first token) / decode steps: every
 prefill runs before the decode ticks there).  The last lines give the
 medians per ROOT, then the card's name and power limit.
+
+With ``--gemm`` each ROOT's process instead times that tree's
+``weight_only_gemm`` at every ``chip_smoke.WO_SHAPES`` x ``WG_ROWS``
+shape, int8 and fp8, from replayed CUDA graphs (the card's time), and
+one 2048-row Llama-2 7B prompt's 225 products; the last lines give each
+shape's median ms per ROOT.
 """
 
 from __future__ import annotations
@@ -79,14 +86,47 @@ def _one(root: str, runs: int) -> dict:
     return out
 
 
+def _gemm(root: str) -> dict:
+    """That tree's ``weight_only_gemm`` at every ``chip_smoke.WO_SHAPES``
+    x ``WG_ROWS`` shape, int8 and fp8, each from a replayed CUDA graph
+    that cycles through copies of the weight past the L2 (``_cold_ms``),
+    and one 2048-row Llama-2 7B prompt's 225 products summed."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import weight_only as wo
+
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    times, prompt = {}, {}
+    for mode in cs.QUANT_MODES:
+        prompt[mode] = 0.0
+        for name, (N, K, per_prompt) in cs.WO_SHAPES.items():
+            copies = max(1, -(-120_000_000 // (N * K)))
+            x, ops = cs._wo_operands(gen, max(cs.WG_ROWS), N, K,
+                                     torch.bfloat16, mode, copies)
+            for M in cs.WG_ROWS:
+                xm = x[:M]
+                ms = cs._cold_ms(
+                    lambda o: wo.weight_only_gemm(xm, o[1], o[2]), ops, 20)
+                times[f"{name} M {M} {mode}"] = ms
+                if M == max(cs.WG_ROWS):
+                    prompt[mode] += ms * per_prompt
+            del x, ops
+            torch.cuda.empty_cache()
+    return {"root": root, "gemm": times, "prompt": prompt}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--gemm", action="store_true")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(_one(args.roots[0], args.runs)), flush=True)
+        out = _gemm(args.roots[0]) if args.gemm else \
+            _one(args.roots[0], args.runs)
+        print(json.dumps(out), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -95,7 +135,8 @@ def main() -> int:
     results = []
     for root in args.roots:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", "--runs", str(args.runs), root],
+                              "--one", "--runs", str(args.runs), root]
+                             + ["--gemm"] * args.gemm,
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
@@ -104,6 +145,12 @@ def main() -> int:
         print(json.dumps(results[-1]), flush=True)
     for root in dict.fromkeys(args.roots):
         mine = [r for r in results if r["root"] == root]
+        if args.gemm:
+            med = {key: statistics.median(r[part][key] for r in mine)
+                   for part in ("gemm", "prompt") for key in mine[0][part]}
+            print(f"{root}: medians of {len(mine)} runs: "
+                  + json.dumps(med), flush=True)
+            continue
         med = {}
         for label in ("whole_prompt", "chunked"):
             runs = [x for r in mine for x in r[label]]

@@ -1118,13 +1118,18 @@ def test_weight_only_matmul_routes(gen):
 
 
 # (M, N, K): past the narrow kernel's 128 rows; Llama-2 7B's gate/up and
-# down at a 129-row, a 256-row (chunk) and a 2048-row prompt; N and K off
-# the 128 x 128 tiles and the 64-code step (N 4100, K 4112, with a bias);
-# odd N (element stores) and narrow N (64-wide tiles)
+# down at a 129-row, a 256-row (chunk) and a 2048-row prompt (688 tiles:
+# each persistent block walks several); N and K off the tiles and the
+# 64-code step (N 4100, K 4112, with a bias); odd N and N below one
+# 128-channel tile; and each kind of schedule (ops/weight_only.py
+# gemm_schedule at 132 SMs): tiles of 256, 128 and 64 rows of x, K whole
+# or split in 2, 3 or 4, the last split as long as the others or shorter
 WG_CASES = [(129, 11008, 4096), (256, 4096, 11008), (2048, 11008, 4096),
             (2048, 4096, 11008), (129, 4100, 4112), (256, 4100, 4112),
             (2048, 4100, 4112), (300, 33, 80), (130, 257, 1040),
-            (1000, 96, 512)]
+            (1000, 96, 512), (129, 4096, 11008), (256, 2048, 8192),
+            (129, 2048, 4112), (300, 1000, 4096), (129, 96, 4112),
+            (300, 1000, 2048), (129, 6144, 4112)]
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
@@ -1146,6 +1151,67 @@ def test_weight_only_gemm(gen, case, mode):
     assert wo.weight_only_gemm.launches == n + 1
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=1e-2)
+
+
+def _all_codes(mode, channels):
+    """Codes [channels, 256]: every int8 code, or every finite e4m3 code
+    (the two NaNs as 0), in each channel, rolled by the channel's index;
+    scales of many magnitudes (bf16), one a channel."""
+    k = torch.arange(256)
+    rows = torch.stack([(k + c) % 256 for c in range(channels)])
+    if mode == "int8":
+        q = (rows - 128).to(torch.int8)
+    else:
+        rows[(rows == 0x7F) | (rows == 0xFF)] = 0
+        q = rows.to(torch.uint8).view(torch.float8_e4m3fn)
+    mags = torch.tensor([2.0 ** -20, 1e-4, 3.3e-3, 7.8e-3, 0.031, 0.5, 1.0,
+                         1.7, 7.3, 100.0, 6.1e-5, 0.25, 2.0 ** -7])
+    s = mags[torch.arange(channels) % len(mags)].to(torch.bfloat16)
+    return q.cuda(), s.cuda()
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+# (rows of x, channels): tiles of 64, 128 and 256 rows of x at 132 SMs
+@pytest.mark.parametrize("shape", [(256, 13), (512, 4100), (2048, 4100)])
+def test_weight_only_gemm_weights_are_dequantize_bit_for_bit(gen, mode,
+                                                             shape):
+    """Every code at several scales: with x the 256 x 256 identity
+    (stacked), row m of y is column m % 256 of the bf16 weight the kernel
+    multiplied, and it equals ``dequantize(q, s)`` in bf16 exactly (a zero
+    of either sign compares equal: a sum of zeros keeps no sign)."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    M, channels = shape
+    q, s = _all_codes(mode, channels)
+    x = torch.eye(256, dtype=torch.bfloat16, device="cuda").repeat(
+        M // 256, 1)
+    got = wo.weight_only_gemm(x, q, s)
+    want = wo.dequantize(q, s[:, None]).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.t().repeat(M // 256, 1))
+
+
+@pytest.mark.parametrize("case", [(2048, 4100, 4112), (129, 4096, 11008),
+                                  (300, 1000, 4096)])
+def test_weight_only_gemm_launches_and_replays_are_bit_equal(gen, case):
+    """Two launches, and a CUDA graph's replay against an eager launch,
+    give the same bits: one unsplit and two split schedules (the fp32
+    partials summed in split order, no atomics)."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    M, N, K = case
+    x, q, s, b = _wo_case(gen, M, N, K, torch.bfloat16, "int8")
+    first = wo.weight_only_gemm(x, q, s, b)
+    second = wo.weight_only_gemm(x, q, s, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wo.weight_only_gemm(x, q, s, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = wo.weight_only_gemm(x, q, s, b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replayed)
 
 
 def test_weight_only_k72_serves_like_the_cpu(gen):

@@ -27,6 +27,10 @@ against the JAX package's, on the CPU.
   `weight_only_matmul` up to 128 rows, `weight_only_gemm` for wider bf16,
   and the counted dequantize route for what neither takes (K 72, float16,
   float32 past 128 rows, a non-contiguous or misaligned x).
+* `weight_only_gemm`'s tile schedule (`gemm_schedule`): pure in (M, N, K,
+  SMs), its units covering every output and every k once over Llama-2
+  7B's and GPT-3 1.3B's shapes at M 129-4096 and 132 or 114 SMs, and
+  passed to the kernel with a workspace exactly when K is split.
 * QAT and PTQ on a small MLP: forward, the straight-through gradient mask,
   the EMA and observer scales, `convert`.
 """
@@ -424,15 +428,18 @@ class _StubLibrary:
 
     def ptt_weight_only_gemm(self, *args):
         self.calls.append("weight_only_gemm")
+        self.gemm_args = args
         return 0
 
 
 @pytest.fixture
 def stub_library(monkeypatch):
+    """The library a stub and the card an H100's 132 SMs."""
     from paddle_tpu_torch.ops import _build
     lib = _StubLibrary()
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda device: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
     return lib
 
 
@@ -483,6 +490,113 @@ def test_wide_products_take_the_callers_dequant_route(stub_library, rows):
             (gemm, "more than 128")
         with pytest.raises(ValueError, match=match):
             wrong(x, q, s)
+
+
+# (N, K) of Llama-2 7B's and GPT-3 1.3B's linear layers (q/k/v/o, gate/up,
+# down, head; qkv, proj, fc1, fc2, head)
+GEMM_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096),
+               (6144, 2048), (2048, 2048), (8192, 2048), (2048, 8192),
+               (50304, 2048)]
+GEMM_ROWS = [129, 200, 256, 300, 512, 1000, 1024, 2047, 2048, 4096]
+
+
+def _gemm_units(M, N, K, sched):
+    """The work of each unit as csrc/weight_only_gemm.cu walks it (its
+    ``wg_unit``): ``(block, m0, m1, n0, n1, k0, k1)``; block b takes
+    units b, b + blocks, ...; a unit's index has the tile's rows of x
+    fastest, then its channels, then the split."""
+    nk = -(-K // wo.GEMM_K_STEP)
+    m_tiles, n_tiles = -(-M // sched.rows), -(-N // wo.GEMM_CHANNELS)
+    units = m_tiles * n_tiles * sched.splits
+    out = []
+    for b in range(sched.blocks):
+        for u in range(b, units, sched.blocks):
+            mt, rest = u % m_tiles, u // m_tiles
+            nt, split = rest % n_tiles, rest // n_tiles
+            m0, n0 = mt * sched.rows, nt * wo.GEMM_CHANNELS
+            kb = split * sched.k_steps
+            ke = min(nk, kb + sched.k_steps)
+            out.append((b, m0, min(M, m0 + sched.rows), n0,
+                        min(N, n0 + wo.GEMM_CHANNELS), kb * wo.GEMM_K_STEP,
+                        min(K, ke * wo.GEMM_K_STEP)))
+    return out
+
+
+def _covers_once(M, N, K, sched):
+    """The units' rectangles tile [0, M) x [0, N) x [0, K) exactly: the
+    rows and channels of the tiles partition M and N, and each tile's k
+    ranges, one per split, partition K."""
+    units = _gemm_units(M, N, K, sched)
+    tiles = -(-M // sched.rows) * -(-N // wo.GEMM_CHANNELS)
+    assert len(units) == tiles * sched.splits
+    assert {u[0] for u in units} == set(range(sched.blocks))
+
+    def partition(ranges, end):
+        ranges = sorted(set(ranges))
+        assert ranges[0][0] == 0 and ranges[-1][1] == end
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(lo < hi for lo, hi in ranges)
+
+    partition([(u[1], u[2]) for u in units], M)
+    partition([(u[3], u[4]) for u in units], N)
+    ks = {}
+    for _, m0, _, n0, _, k0, k1 in units:
+        ks.setdefault((m0, n0), []).append((k0, k1))
+    assert len(ks) == tiles
+    for spans in ks.values():
+        assert len(spans) == sched.splits
+        partition(spans, K)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("N,K", GEMM_SHAPES)
+def test_gemm_schedule_is_pure_and_covers_every_output_and_k_once(N, K,
+                                                                  sms):
+    """``gemm_schedule`` is a function of (M, N, K, SMs) alone (a captured
+    launch replays the same schedule) and its units, walked as the kernel
+    walks them, cover every output element and every k exactly once, with
+    at most one block per SM, a tile height the kernel has and every
+    split non-empty; a split only where the tiles leave SMs idle."""
+    for M in GEMM_ROWS:
+        sched = wo.gemm_schedule(M, N, K, sms)
+        assert sched == wo.gemm_schedule(M, N, K, sms)
+        assert sched.rows in wo.GEMM_ROWS and 1 <= sched.blocks <= sms
+        tiles = -(-M // sched.rows) * -(-N // wo.GEMM_CHANNELS)
+        assert sched.blocks == min(tiles * sched.splits, sms)
+        assert sched.splits == 1 or tiles < sms
+        _covers_once(M, N, K, sched)
+
+
+@pytest.mark.parametrize("shape", [(129, 96, 4112), (300, 1000, 4096),
+                                   (256, 4096, 11008), (2048, 4100, 4112),
+                                   (64, 11008, 4096), (1, 33, 16)])
+def test_gemm_units_cover_edges_once(shape):
+    """The same at the kernel's edges: N below a tile, K off the 64-deep
+    step with a shorter last split, one row, and the crossover's rows
+    below the wrapper's (the raw kernel takes any M)."""
+    M, N, K = shape
+    for sms in (132, 114, 1):
+        _covers_once(M, N, K, wo.gemm_schedule(M, N, K, sms))
+
+
+@pytest.mark.parametrize("shape", [(256, 4096, 11008), (2048, 11008, 4096)])
+def test_weight_only_gemm_passes_its_schedule(stub_library, shape):
+    """Off the CPU (``meta``, the library a stub) the wrapper hands the
+    kernel ``gemm_schedule``'s tile height, splits, steps and blocks for
+    the card's SMs, and a workspace exactly when K is split."""
+    M, N, K = shape
+    q = torch.zeros((N, K), dtype=torch.int8, device="meta")
+    s = torch.ones((N,), dtype=torch.bfloat16, device="meta")
+    x = torch.empty((M, K), dtype=torch.bfloat16, device="meta")
+    n = wo.weight_only_gemm.launches
+    y = wo.weight_only_gemm(x, q, s)
+    wo.weight_only_gemm.launches = n
+    assert y.shape == (M, N)
+    sched = wo.gemm_schedule(M, N, K, 132)
+    args = stub_library.gemm_args
+    assert args[6:14] == (M, N, K, 0, sched.rows, sched.splits,
+                          sched.k_steps, sched.blocks)
+    assert (args[5] is None) == (sched.splits == 1)
 
 
 # x of each shape or type no kernel takes on the card, and bf16 past the
