@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs eighteen phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs nineteen phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -80,6 +80,37 @@ into ``build/paddle_tpu_torch/``), then runs eighteen phases on card 0:
    overlap off (the card synchronised before each tick), the idle share
    of one profiled run each (decode kernels by name, as above), the
    warmup's time and grid.
+19. Crash-only serving (in phase 2's run, after phase 13, on its model):
+   a. ``serve_forever`` on a thread; the main thread adds a request whose
+   prompt dispatch chaos fails twice (``serving.prefill.dispatch``), then
+   one whose prompt row ``nan_logits`` poisons under the NaN watchdog,
+   phase 2's 8 requests at priorities 0 and 1 and two on phase 11's
+   system prompt (the second a prefix hit), cancels one running request
+   after its 16th token and asks for a drain, which exports the prefix
+   cache under ``build/crash_only_export``.  Both poisoned requests end
+   ``poisoned`` with ``tick_errors`` exactly 4, the cancelled one
+   ``cancelled`` on a prefix of its fault-free stream, every other one
+   ``finished`` with the stream of the same request served by a
+   fault-free engine's ``run()``; no block leaks; ``flash_fwd``,
+   ``paged_decode`` and ``paged_chunk`` launch (the ``crash_only`` path).
+   b. With ``device_sampling=False`` (the ``decode`` program, replayed
+   from its graph) and the watchdog on, NaN written on the card into the
+   keys of one running request's first private block in every layer:
+   that slot alone ends ``error`` at its next tick, the other 7 streams
+   equal a fault-free run's.  c. ``tick_timeout_s=0.5`` against a 3 s
+   stall of the first harvest (``delay_at("serving.harvest")``): the tick
+   fails (``error``, blocks freed), ``run()`` returns, and the same engine
+   then serves the fault-free stream.  d. A new engine with the same
+   export directory imports part a's export: the hit streams as part a's
+   did, on ``paged_chunk``, the pools keep their addresses; the export's
+   blocks, bytes and seconds, the construction's seconds with and
+   without the import, and the hit's TTFT against a cold miss are
+   printed with the card's name and power limit.  e. A 4-layer fp32 cut,
+   card against CPU, the block ledger armed on both, through the CPU
+   tests' fault schedule (poison, a decode NaN, a failed tick, a drain
+   with its export, the import): outcomes, streams, strikes, ``stats()``
+   and the drain report (without seconds, paths and the graph counters)
+   equal.
 3. Card against CPU: a 4-layer cut of GPT-3 1.3B in float32 serves one
    greedy request on the card (kernels; the default engine and the eager
    programs) and on the CPU (plain versions) from one state dict; the
@@ -1181,6 +1212,9 @@ def serving_phase(lens):
     # the whole-prompt run is profiled in graphs_phase, per engine mode
     where_the_time_goes(model, prompts, 256)
     runs["graphs"] = graphs_phase(model, prompts)
+    t = time.perf_counter()
+    runs["crash_only"] = crash_only_phase(model, prompts)
+    _log(f"[phase 19: {time.perf_counter() - t:.1f} s]")
     sampling_cost(cfg.vocab_size)
     return runs
 
@@ -1243,6 +1277,375 @@ def graphs_phase(model, prompts):
          "eager programs: graphs {:.2f}x, graphs with overlap {:.2f}x".format(
              out["graphs"]["tokens_per_s"] / out["eager"]["tokens_per_s"],
              out["overlap"]["tokens_per_s"] / out["eager"]["tokens_per_s"]))
+    return out
+
+
+# -------------------------------------------------------------- phase 19
+
+def _wait(cond, what, timeout=300.0):
+    """Poll ``cond`` until it holds; raises after ``timeout`` seconds."""
+    end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"crash-only phase: timed out waiting for "
+                                 f"{what}")
+        time.sleep(0.005)
+
+
+def _crash_requests(prompts, vocab):
+    """Phase 19's traffic: phase 2's 8 requests (64 new tokens, odd ones
+    sampled) at priorities 0 and 1, then two greedy requests on phase 11's
+    1024-token system prompt: with a 101-token suffix (it registers the
+    prompt's 17 full blocks), then with a 37-token one (it hits the 16
+    blocks of the system prompt, and so does it again after an import)."""
+    from paddle_tpu_torch.inference.serving import Request
+    system = _prefix_prompts(vocab)[1::-1]
+    return ([Request(p, max_new_tokens=64, do_sample=bool(i % 2),
+                     temperature=0.9, top_k=40, top_p=0.95, seed=1000 + i,
+                     priority=i % 2) for i, p in enumerate(prompts)]
+            + [Request(p, max_new_tokens=32, seed=1100 + i)
+               for i, p in enumerate(system)])
+
+
+def _engine(model, **kw):
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    kw = {"steps_per_tick": 8, **kw}
+    return ServingEngine(model, max_batch=BATCH, max_context=MAX_CONTEXT,
+                         block_size=BS, device="cuda", **kw)
+
+
+def _no_leak(label, eng):
+    st = eng.stats()
+    if st["free_blocks"] != eng.num_blocks or st["reserved"] != 0:
+        raise AssertionError(f"{label}: blocks leaked: {st}")
+    return st
+
+
+def crash_only_phase(model, prompts):
+    """Phase 19: crash-only serving of GPT-3 1.3B in bf16 (phase 2's
+    model), parts a-e of the module docstring.  Returns the launches of
+    part a's run (the ``crash_only`` path) and the printed numbers."""
+    import shutil
+    import threading
+    import torch
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    from paddle_tpu_torch.observability import flight_recorder
+    from paddle_tpu_torch.testing import chaos
+
+    vocab = model.cfg.vocab_size
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "crash_only_export")
+    shutil.rmtree(root, ignore_errors=True)
+    gen = torch.Generator().manual_seed(19)
+    bad_prompts = [torch.randint(1, vocab, (n,), generator=gen).tolist()
+                   for n in (200, 260)]
+
+    # the fault-free reference: the same requests through run()
+    ref = _crash_requests(prompts, vocab)
+    eng = _engine(model)
+    for r in ref:
+        eng.add_request(r)
+    eng.run()
+    _no_leak("phase 19 reference", eng)
+    want = [list(r.output_ids) for r in ref]
+    del eng
+
+    # a. quarantine, cancellation and drain through serve_forever
+    reqs = _crash_requests(prompts, vocab)
+    target = reqs[2]                       # cancelled after 16 tokens
+    eng = _engine(model, prefix_export_dir=root)
+    stop = threading.Event()
+    loop = threading.Thread(target=eng.serve_forever, args=(stop,),
+                            daemon=True)
+    old = flight_recorder.set_enabled(True)
+    try:
+        loop.start()
+        _wait(lambda: eng.ready, "warmup")
+        _zero_counts()
+        bad1 = Request(bad_prompts[0], max_new_tokens=16, seed=7)
+        with chaos.fail_at("serving.prefill.dispatch", on_calls=[1, 2],
+                           exc=RuntimeError) as fault:
+            eng.add_request(bad1)
+            _wait(lambda: bad1.outcome is not None, "the first poison")
+        bad2 = Request(bad_prompts[1], max_new_tokens=16, seed=8,
+                       priority=1)
+        with chaos.nan_logits("serving.prefill", rids=[bad2.rid]) as nan:
+            eng.add_request(bad2)
+            for r in reqs:
+                eng.add_request(r)
+            _wait(lambda: len(target.output_ids) >= 16, "16 tokens")
+            target.cancel()
+            _wait(lambda: bad2.outcome is not None
+                  and all(r.outcome is not None for r in reqs),
+                  "every request")
+        eng.request_drain()
+        loop.join(120)
+        if loop.is_alive():
+            raise AssertionError("serve_forever did not return after the "
+                                 "drain")
+    finally:
+        flight_recorder.set_enabled(old)
+        stop.set()
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    if any(_plain_calls().values()):
+        raise AssertionError(f"phase 19a took plain routes: "
+                             f"{_plain_calls()}")
+    st = _no_leak("phase 19a", eng)
+    drain = st["drain"]
+    if (bad1.outcome, bad2.outcome, fault.fires, nan.fires) != \
+            ("poisoned", "poisoned", 2, 2) or st["tick_errors"] != 4 \
+            or st["poisoned_requests"] != 2:
+        raise AssertionError(f"phase 19a: poison {bad1.outcome} "
+                             f"{bad2.outcome}, fires {fault.fires} "
+                             f"{nan.fires}, stats {st}")
+    if target.outcome != "cancelled" or \
+            target.output_ids != want[2][:len(target.output_ids)]:
+        raise AssertionError(f"phase 19a: cancelled request "
+                             f"{target.outcome}, {target.output_ids}")
+    for i, r in enumerate(reqs):
+        if r is not target and (r.outcome != "finished"
+                                or r.output_ids != want[i]):
+            raise AssertionError(f"phase 19a: request {i} {r.outcome}, "
+                                 "stream differs from the fault-free run")
+    for name in ("flash_fwd", "paged_decode", "paged_chunk"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 19a: {name} never launched")
+    export = drain["export"]
+    if export is None or "error" in export or export["blocks"] <= 0 \
+            or st["prefix_cache"]["hits"] < 1:
+        raise AssertionError(f"phase 19a: export {export}, "
+                             f"{st['prefix_cache']}")
+    hit_stream = reqs[-1].output_ids
+    _log(f"phase 19a, serve_forever: 2 poisoned (tick_errors "
+         f"{st['tick_errors']}), 1 cancelled after "
+         f"{len(target.output_ids)} tokens, {BATCH + 1} finished equal to "
+         f"the fault-free run; drain {drain['drained_s']:.3f} s (cancelled "
+         f"waiting {drain['cancelled_waiting']}, evicted "
+         f"{drain['evicted_running']}); export of {export['blocks']} "
+         f"blocks, {export['bytes']} bytes in {export['export_s']:.3f} s; "
+         f"launches {launches} ({card_name()})")
+    del eng, loop
+
+    # b. a real NaN on the card, attributed to its slot by the decode
+    # program (host sampling), the watchdog on
+    from paddle_tpu_torch.ops import paged_attention
+    pa_decode = paged_attention.paged_attention
+
+    def nan_run(poison):
+        eng = _engine(model, steps_per_tick=1, device_sampling=False)
+        eng.warmup()
+        rs = [Request(p, max_new_tokens=16, do_sample=bool(i % 2),
+                      temperature=0.9, top_k=40, top_p=0.95, seed=1000 + i)
+              for i, p in enumerate(prompts)]
+        for r in rs:
+            eng.add_request(r)
+        before = pa_decode.launches
+        old = flight_recorder.set_enabled(True)
+        try:
+            eng.step()
+            if poison:
+                victim = rs[3]
+                col = len(victim.prompt_ids) // BS
+                blk = int(eng.tables[victim.slot, col])
+                for kk, _ in eng.pools:
+                    kk[:, blk] = float("nan")
+            eng.run()
+        finally:
+            flight_recorder.set_enabled(old)
+        prog = eng._programs[("decode",)]
+        if prog.graph is None or prog.replays <= 0 or \
+                pa_decode.launches <= before:
+            raise AssertionError("phase 19b: the decode program was not "
+                                 "replayed from its graph")
+        # a decode row's NaN evicts its slot at the harvest: no tick fails
+        if _no_leak("phase 19b", eng)["tick_errors"] != 0:
+            raise AssertionError("phase 19b: a tick failed")
+        return rs
+    clean = nan_run(False)
+    hit = nan_run(True)
+    for i, (a, b) in enumerate(zip(clean, hit)):
+        ok = (b.outcome == "error" and len(b.output_ids) == 2) if i == 3 \
+            else (b.outcome == "finished" and b.output_ids == a.output_ids)
+        if not ok:
+            raise AssertionError(f"phase 19b: request {i} {b.outcome} "
+                                 f"after {len(b.output_ids)} tokens")
+    _log(f"phase 19b, NaN keys in one slot's block on the card: that slot "
+         f"alone ended error after 2 tokens (no tick failed), the other "
+         f"{BATCH - 1} streams equal the fault-free run's; decode program "
+         "replayed from its graph")
+
+    # c. the tick watchdog
+    eng = _engine(model, tick_timeout_s=0.5)
+    eng.warmup()
+    first = Request(prompts[0], max_new_tokens=64, seed=1000)
+    eng.add_request(first)
+    t0 = time.perf_counter()
+    with chaos.delay_at("serving.harvest", 3.0, on_calls=[1]) as delay:
+        eng.run()
+    took = time.perf_counter() - t0
+    again = Request(prompts[0], max_new_tokens=64, seed=1000)
+    eng.add_request(again)
+    eng.run()
+    _no_leak("phase 19c", eng)
+    if (first.outcome, delay.fires, eng.tick_errors, again.outcome) != \
+            ("error", 1, 1, "finished") or again.output_ids != want[0]:
+        raise AssertionError(f"phase 19c: {first.outcome}, "
+                             f"{eng.tick_errors} tick errors, then "
+                             f"{again.outcome}")
+    _log(f"phase 19c, tick watchdog 0.5 s against a 3 s harvest stall: the "
+         f"tick failed (error, blocks freed) and run() returned in "
+         f"{took:.3f} s; the same engine then served the fault-free stream "
+         f"({card_name()})")
+    del eng
+
+    # d. import, against a cold engine
+    t0 = time.perf_counter()
+    cold = _engine(model)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = _engine(model, prefix_export_dir=root)
+    ctor_s = time.perf_counter() - t0
+    imp = eng.stats()["prefix_cache"].get("import")
+    if imp is None or imp["blocks"] != export["blocks"] \
+            or imp["skipped_corrupt"] != 0:
+        raise AssertionError(f"phase 19d: import {imp}")
+    ptrs = [t.data_ptr() for pair in eng.pools for t in pair]
+    ttft = {}
+    for key, e in (("cold", cold), ("import", eng)):
+        e.warmup()
+        _zero_counts()
+        r = Request(reqs[-1].prompt_ids, max_new_tokens=32, seed=1101)
+        e.add_request(r)
+        e.run()
+        ttft[key] = r.t_first - r.t_enqueue
+        if key == "import":
+            if r.output_ids != hit_stream:
+                raise AssertionError("phase 19d: the imported hit's stream "
+                                     "differs from the warm engine's")
+            if paged_attention.paged_chunk_attention.launches <= 0 or \
+                    e.stats()["prefix_cache"]["hits"] != 1:
+                raise AssertionError("phase 19d: no prefix hit on paged_chunk")
+    if [t.data_ptr() for pair in eng.pools for t in pair] != ptrs:
+        raise AssertionError("phase 19d: a pool moved")
+    if eng.stats()["tick_errors"] or cold.stats()["tick_errors"]:
+        raise AssertionError("phase 19d: a tick failed")
+    _log(f"phase 19d, import: {imp['blocks']} blocks; engine construction "
+         f"with the import {ctor_s:.3f} s, without {cold_s:.3f} s; the "
+         f"hit streams as the warm engine's; TTFT of the "
+         f"{len(reqs[-1].prompt_ids)}-token prompt {ttft['import'] * 1e3:.1f}"
+         f" ms (hit on imported blocks) against {ttft['cold'] * 1e3:.1f} ms "
+         f"(cold miss) ({card_name()})")
+    del eng, cold
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # e. the CPU tests' fault schedule, card against CPU
+    cpu, card = _cut_models(gpt3_1p3b(num_layers=4))
+    got = [crash_schedule(m, dev, os.path.join(root, f"cut_{dev}"))
+           for m, dev in ((card, "cuda"), (cpu, "cpu"))]
+    if got[0] != got[1]:
+        raise AssertionError(f"phase 19e: card {got[0]} != CPU {got[1]}")
+    _log(f"phase 19e, the fault schedule on a 4-layer fp32 cut: card equal "
+         f"to CPU (outcomes, streams, counters, stats, drain report): "
+         f"{json.dumps(got[0]['summary'])}")
+    return dict(launches=launches, tick_errors=st["tick_errors"],
+                export=export, import_=imp, ttft=ttft, ctor_s=ctor_s,
+                cold_s=cold_s, watchdog_s=took)
+
+
+_SECONDS = ("drained_s", "export_s", "path", "warmup", "graphs")
+
+
+def _plain(doc):
+    """A stats or drain document without its seconds, paths and the
+    card's graph counters."""
+    if isinstance(doc, dict):
+        return {k: _plain(v) for k, v in doc.items() if k not in _SECONDS}
+    return doc
+
+
+def crash_schedule(model, dev, root):
+    """The fault schedule of ``tests/test_torch_chaos.py`` on one device,
+    the block ledger armed: poison by two dispatch failures, a decode NaN
+    (host sampling, the watchdog on), a failed tick, a drain with a
+    waiting request and the export, then the import and its hit.  Returns
+    everything that must be equal on the card and the CPU."""
+    import torch
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.observability import flight_recorder
+    from paddle_tpu_torch.testing import chaos
+
+    gen = torch.Generator().manual_seed(23)
+    vocab = model.cfg.vocab_size
+    ps = [torch.randint(1, vocab, (n,), generator=gen).tolist()
+          for n in (70, 90, 100, 60)]
+    system = torch.randint(1, vocab, (128,), generator=gen).tolist()
+    out = {}
+
+    def engine(**kw):
+        kw = {"steps_per_tick": 8, **kw}
+        return ServingEngine(model, max_batch=2, max_context=256,
+                             block_size=BS, device=dev, blocksan=True, **kw)
+
+    injected = dict(poison=2, decode_nan=0, tick_failure=1, drain=0,
+                    import_=0)
+
+    def record(key, eng, reqs):
+        st = eng.stats()
+        out[key] = dict(outcomes=[r.outcome for r in reqs],
+                        streams=[list(r.output_ids) for r in reqs],
+                        strikes=[r._strikes for r in reqs],
+                        stats=_plain(st))
+        if st["free_blocks"] != eng.num_blocks:
+            raise AssertionError(f"{key} on {dev}: blocks leaked")
+        if st["tick_errors"] != injected[key]:
+            raise AssertionError(f"{key} on {dev}: tick_errors "
+                                 f"{st['tick_errors']}, {injected[key]} "
+                                 "injected")
+
+    eng = engine()
+    bad = eng.add_request(Request(ps[0], max_new_tokens=8))
+    with chaos.fail_at("serving.prefill.dispatch", on_calls=[1, 2],
+                       exc=RuntimeError):
+        eng.run()
+    ok = eng.add_request(Request(ps[1], max_new_tokens=8))
+    eng.run()
+    record("poison", eng, [bad, ok])
+    old = flight_recorder.set_enabled(True)
+    try:
+        eng = engine(device_sampling=False, steps_per_tick=1)
+        reqs = [eng.add_request(Request(p, max_new_tokens=8,
+                                        do_sample=i == 1, seed=5 + i))
+                for i, p in enumerate(ps[1:])]
+        with chaos.nan_logits("serving.decode", rids=[reqs[0].rid]):
+            eng.run()
+        record("decode_nan", eng, reqs)
+    finally:
+        flight_recorder.set_enabled(old)
+    eng = engine()
+    reqs = [eng.add_request(Request(p, max_new_tokens=8)) for p in ps[:2]]
+    with chaos.fail_at("serving.tick.dispatch", on_calls=[1],
+                       exc=RuntimeError):
+        eng.run()
+    record("tick_failure", eng, reqs)
+    eng = engine(prefix_export_dir=root)
+    reqs = [eng.add_request(Request(system + p[:9], max_new_tokens=8))
+            for p in ps[:2]]
+    eng.run()
+    reqs.append(eng.add_request(Request(ps[2], max_new_tokens=8)))
+    eng.request_drain()
+    out["drain_report"] = _plain(eng.drain())
+    record("drain", eng, reqs)
+    eng = engine(prefix_export_dir=root)
+    reqs = [eng.add_request(Request(system + ps[1][:9], max_new_tokens=8))]
+    eng.run()
+    record("import_", eng, reqs)
+    out["summary"] = {k: v["outcomes"] for k, v in out.items()
+                      if isinstance(v, dict) and "outcomes" in v}
+    out["summary"]["tick_errors"] = sum(
+        v["stats"]["tick_errors"] for v in out.values()
+        if isinstance(v, dict) and "stats" in v)
     return out
 
 
@@ -3131,6 +3534,14 @@ def ptxas_report(build_dir):
     return tc, gemm
 
 
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3150,10 +3561,7 @@ def main() -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
          f"cudnn={torch.backends.cudnn.allow_tf32}")
-    card = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
+    card = card_name()
     t0 = time.perf_counter()
     _build.library()
     _log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
@@ -3214,6 +3622,7 @@ def main() -> int:
     # count of the first path that runs the kernel
     paths = {"whole_prompt": runs[0]["launches"],
              "chunked": runs[256]["launches"],
+             "crash_only": runs["crash_only"]["launches"],
              "train": train["launches"],
              "moe_serve": moe_serve["launches"],
              "moe_train": moe_train["launches"],

@@ -287,10 +287,12 @@ __global__ void __launch_bounds__(kTcThreads, fwd_tc_min_blocks(D))
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = l[r] > 0.f ? 1.f / (l[r] * keep_p) : 0.f;
+    // l == 0: a row that sees no key (zeros); a NaN l stays NaN, as in
+    // the plain version
+    inv[r] = l[r] != 0.f ? 1.f / (l[r] * keep_p) : 0.f;
     if (t == 0 && row[r] < Sq)
       lse[(long long)bh * Sq + row[r]] =
-          l[r] > 0.f ? (m[r] * scale_log2 + log2f(l[r])) * 0.69314718055994531f
+          l[r] != 0.f ? (m[r] * scale_log2 + log2f(l[r])) * 0.69314718055994531f
                      : kMaskedInit;
   }
   tc::store_rows(out, o, row, inv, Sq, b, nh, h, t);

@@ -349,10 +349,11 @@ __global__ void __launch_bounds__(kChunkThreads, chunk_tc_min_blocks(D))
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   if (n_split == 1) {
-    // out = O / l (l == 0: zeros), rows past s not written
+    // out = O / l (l == 0: zeros; a NaN l stays NaN, as in the plain
+    // version), rows past s not written
     float inv[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    for (int r = 0; r < 2; ++r) inv[r] = l[r] != 0.f ? 1.f / l[r] : 0.f;
     tc::store_rows(out, o, row, inv, s, b, nh, h, t);
     return;
   }
@@ -366,7 +367,7 @@ __global__ void __launch_bounds__(kChunkThreads, chunk_tc_min_blocks(D))
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= s) continue;
     if (t == 0)
-      ml[row[r]] = make_float2(l[r] > 0.f ? m[r] * scale_log2 : -INFINITY,
+      ml[row[r]] = make_float2(l[r] != 0.f ? m[r] * scale_log2 : -INFINITY,
                                l[r]);
     if (l[r] == 0.f) continue;
     float* dst = work + (part * s + row[r]) * D;
@@ -412,7 +413,7 @@ __global__ void __launch_bounds__(kChunkThreads)
     acc[2] = fmaf(w, a.z, acc[2]);
     acc[3] = fmaf(w, a.w, acc[3]);
   }
-  const float inv = lall > 0.f ? 1.f / lall : 0.f;
+  const float inv = lall != 0.f ? 1.f / lall : 0.f;
   uint2 packed;
   packed.x = tc::pack_bf16(acc[0] * inv, acc[1] * inv);
   packed.y = tc::pack_bf16(acc[2] * inv, acc[3] * inv);

@@ -275,7 +275,9 @@ __global__ void __launch_bounds__(kDecodeThreads)
     float o = 0.f;
     for (int i = 0; i < n_split; ++i)
       if (w_s[i] != 0.f) o = fmaf(w_s[i], part[i * (D + 2) + d], o);
-    orow[d] = from_float<T>(lall > 0.f ? o / lall : 0.f);
+    // lall == 0: a row with no key (zeros); a NaN score or value makes
+    // lall or o NaN, and the row stays NaN, as in the plain version
+    orow[d] = from_float<T>(lall != 0.f ? o / lall : 0.f);
   }
 }
 

@@ -28,6 +28,8 @@ warm-up runs are not counted.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 __all__ = ["Program", "counters", "snapshot", "restore"]
@@ -72,7 +74,9 @@ def _capture_stream(device) -> "torch.cuda.Stream":
 
 class _Fetch:
     """Outputs on their way to the host: pinned copies enqueued behind the
-    replay, and the event that says they landed."""
+    replay, and the event that says they landed.  :meth:`sync` only waits
+    (a watchdog may run it on a helper thread); :meth:`copy` takes the
+    host copies after it."""
 
     __slots__ = ("arrays", "event")
 
@@ -80,10 +84,16 @@ class _Fetch:
         self.arrays = arrays
         self.event = event
 
-    def wait(self) -> dict:
+    def sync(self) -> None:
         if self.event is not None:
             self.event.synchronize()
+
+    def copy(self) -> dict:
         return {n: a.copy() for n, a in self.arrays.items()}
+
+    def wait(self) -> dict:
+        self.sync()
+        return self.copy()
 
 
 class Program:
@@ -225,4 +235,27 @@ class Program:
         ev = self._back_ev[turn] = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         return _Fetch({n: back[n].numpy() for n in names}, ev)
+
+    def abandon(self, fetch: _Fetch, timeout: float) -> bool:
+        """Give up on a fetch that will never be harvested: wait at most
+        ``timeout`` seconds for its copies to land.  If they have not, its
+        turn gets new pinned buffers and no event, so the turn's next
+        :meth:`fetch` neither waits on the hung event nor shares buffers
+        with copies still pending.  Returns whether the copies landed."""
+        ev = fetch.event
+        if ev is None:
+            return True
+        end = time.monotonic() + timeout
+        while not ev.query():
+            if time.monotonic() >= end:
+                for turn in range(_TURNS):
+                    if self._back_ev[turn] is ev:
+                        self._back[turn] = {
+                            n: torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=True)
+                            for n, t in self.outputs.items()}
+                        self._back_ev[turn] = None
+                return False
+            time.sleep(0.001)
+        return True
 

@@ -36,22 +36,48 @@ programs per pad-ladder bucket (``prefill`` from an empty sequence through
 ``flash_fwd``, ``prefill_cont`` at an offset through ``paged_chunk``).
 Each is a function of static buffers (``inference/graphs.py``): on the
 card a CUDA graph captured once and replayed (``cuda_graphs=True``, the
-default), on the CPU a direct call.  :meth:`ServingEngine.warmup` captures
-the whole grid before traffic; ``run()`` calls it on the card.  With
+default), on the CPU a direct call; with ``device_sampling=False`` the
+JAX engine's host-sampling ``decode`` program takes the k = 1 ticks (the
+logits come to the host, which samples the sampled rows).
+:meth:`ServingEngine.warmup` captures the whole grid before traffic;
+``run()`` calls it on the card.  With
 ``overlap`` (default on, the JAX flag ``serving_overlap``) ``run()`` keeps
 one tick in flight: tick t+1 is replayed on the lengths and last tokens
 tick t left on the card before t is harvested, and non-final prefill
 chunks ride behind it (the JAX flag ``serving_chunk_overlap``'s
 default).  Streams depend on neither.  ``quant="int8"`` or ``"fp8"``
 serves a weight-only quantized twin of the model (``inference/quant.py``):
-its linear layers run the ``weight_only_matmul`` kernel.  The prefix
-cache's export and import, tensor parallelism, crash-only handling, drain,
-the HTTP endpoint and telemetry are later slices (see ROADMAP.md).
+its linear layers run the ``weight_only_matmul`` kernel.
+
+Serving is crash-only, as the JAX engine's: ``run()``, ``serve_forever()``
+and ``drain()`` drive every boundary and tick under a guard.  A request
+whose prompt program raises or whose prompt logits are not finite (with
+the flight recorder's watchdog on) is struck and queued again, and
+quarantined (``outcome="poisoned"``) at its second strike; a failed tick
+evicts the slots it covered (``outcome="error"``); with
+``device_sampling=False`` a non-finite decode row evicts its slot alone.
+``dispatch_retries`` retries a failed dispatch in place, and
+``tick_timeout_s`` bounds the wait for a tick's harvest
+(:class:`TickTimeout`).  The guard never absorbs a CUDA error
+(``torch.AcceleratorError``: the context is lost), a kernel wrapper's
+(``ops/_build.py``'s ``KernelError``: a failed launch, which also reports
+an earlier kernel's sticky fault, or arguments a kernel does not take) or
+the block ledger's (``testing/blocksan.py``).  ``Request.cancel()`` and
+``priority`` act at the next boundary; ``request_drain()`` (SIGTERM under
+``serve_forever``) closes admission and drains, exporting the prefix
+cache when ``prefix_export_dir`` is set, and an engine built with that
+directory imports the newest valid export.  Tensor parallelism, the
+scheduler's chunk budget and SLO shedding, the HTTP endpoint and
+telemetry are later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import signal
+import threading
 import time
 from collections import deque
 from typing import List, Optional
@@ -61,16 +87,40 @@ import torch
 
 from ..core import threefry
 from ..core.device import resolve_device
+from ..distributed.checkpoint import manager as _ckpt
+from ..distributed.checkpoint.io_retry import call_with_retries
 from ..incubate.distributed.models.moe import MoELayer
 from ..models.generation import _process_logits_rows, sample_rows
 from ..models.kv_cache import PagedChunkKernelView, PagedKVCache
+from ..observability import flight_recorder as _flight
 from ..ops import _build
+from ..testing import blocksan as _blocksan
+from ..testing import chaos as _chaos
 from . import graphs, speculative
 from .drafting import NGramDraft
 from .prefix_cache import PrefixCache
 from .quant import quantize_model
 
-__all__ = ["Request", "ServingEngine"]
+__all__ = ["Request", "ServingEngine", "TickTimeout", "NonFiniteLogits"]
+
+# failures the crash-only guard never absorbs or retries: a CUDA error
+# (sticky: the context is lost, every later launch fails), a kernel
+# wrapper's (a failed launch or build, or arguments a kernel does not
+# take: the program's fault, never a request's) and the block ledger's
+# findings
+_LOUD = (torch.AcceleratorError, _build.KernelError,
+         _blocksan.BlocksanError)
+
+
+class TickTimeout(RuntimeError):
+    """A tick's harvest did not arrive within ``tick_timeout_s``: a hung
+    device program.  The guard absorbs it (the tick's slots end
+    ``outcome="error"``)."""
+
+
+class NonFiniteLogits(RuntimeError):
+    """A request's prompt logits went NaN/Inf (the watchdog's probe): a
+    poison strike."""
 
 
 class Request:
@@ -83,7 +133,13 @@ class Request:
     (:meth:`_sample`), the decode tokens on the card from
     ``fold_in(key(seed), position)`` (``sample_rows``).  ``t_enqueue``
     and ``t_first`` are host ``perf_counter`` stamps at ``add_request``
-    and at the first token."""
+    and at the first token.
+
+    A higher ``priority`` is admitted first (FIFO within a priority).
+    :meth:`cancel` drops the request at the engine's next boundary, from
+    any thread.  ``outcome`` is None while the request lives, then
+    ``"finished"``, ``"cancelled"``, ``"error"``, ``"poisoned"`` or
+    ``"drained"``."""
 
     _counter = 0
 
@@ -91,7 +147,7 @@ class Request:
                  eos_token_id: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, priority: int = 0):
         Request._counter += 1
         self.rid = Request._counter
         self.prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
@@ -108,6 +164,10 @@ class Request:
         self.slot: Optional[int] = None
         self.t_enqueue: Optional[float] = None
         self.t_first: Optional[float] = None
+        self.priority = int(priority)
+        self.cancelled = False          # a bare bool store: thread-safe
+        self.outcome: Optional[str] = None
+        self._strikes = 0               # admission-stage poison strikes
         # engine-owned admission state
         self._growth_left = 0
         self._prefilling = False
@@ -122,6 +182,12 @@ class Request:
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._drafter: Optional[NGramDraft] = None
+
+    def cancel(self) -> None:
+        """Ask the engine to drop this request at its next boundary
+        (waiting: dropped; mid-chunked-prefill: aborted; running: evicted,
+        its blocks released)."""
+        self.cancelled = True
 
     def _sample(self, row) -> int:
         """The first token from the prompt's last logits row ``[V]``:
@@ -138,6 +204,42 @@ class Request:
         p = np.exp(filtered - filtered.max())
         p = p / p.sum()
         return int(self._rng.choice(len(p), p=p))
+
+
+def _tag(exc: BaseException, req: Request) -> None:
+    """Name the request an admission-stage failure belongs to: the guard
+    strikes it instead of failing the tick."""
+    try:
+        exc._serving_req = req
+    except AttributeError:      # an exception type without a __dict__
+        pass
+
+
+def _median(xs) -> float:
+    srt = sorted(xs)
+    return srt[len(srt) // 2]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16, which numpy lacks, as its
+    16-bit words."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`_to_host` for a pool of ``dtype``."""
+    if dtype == torch.bfloat16:
+        if a.dtype.itemsize != 2:
+            raise ValueError(f"bfloat16 blocks stored as {a.dtype}")
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.dtype != dtype:
+        raise ValueError(f"{dtype} blocks stored as {t.dtype}")
+    return t
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -231,6 +333,27 @@ def _tick_fn(model, pools, bs: int, k: int, sampled: bool):
     return tick
 
 
+def _decode_fn(model, pools, bs: int):
+    """The counterpart of ``_decode_program``, the host-sampling tick
+    (``device_sampling=False``): one decode step over every slot, its
+    greedy tokens ``[B, 1]`` and its logits ``[B, V]`` in float32 for
+    the host to screen and sample.  Free slots as in :func:`_tick_fn`."""
+    def decode(i, o):
+        tables, lens, last = i["tables"], i["lens"], i["last"]
+        views = [PagedKVCache.from_parts(kp, vp, tables, lens, bs)
+                 for kp, vp in pools]
+        logits, _ = model.forward_with_cache(last[:, None], views,
+                                             pos_offset=lens[:, None])
+        logits = logits[:, -1].float()
+        active = lens > 0
+        nxt = torch.where(active, logits.argmax(-1), torch.zeros_like(last))
+        o["toks"].copy_(nxt[:, None])
+        o["logits"].copy_(logits)
+        i["lens"].copy_(torch.where(active, lens + 1, torch.zeros_like(lens)))
+        i["last"].copy_(nxt)
+    return decode
+
+
 def _spec_fn(model, pools, draft, dpools, bs: int, k: int, sampled: bool):
     """The counterparts of ``_spec_program`` (the draft model's k steps;
     ``draft`` given) and ``_spec_hd_program`` (the host's proposals
@@ -275,15 +398,30 @@ def _spec_fn(model, pools, draft, dpools, bs: int, k: int, sampled: bool):
     return spec
 
 
+class _RetryCounter:
+    """Counts the engine's dispatch retries (``io_retry``'s counter)."""
+
+    __slots__ = ("_engine",)
+
+    def __init__(self, engine):
+        self._engine = engine
+
+    def inc(self, **labels):
+        self._engine.dispatch_retries += 1
+
+
 class _Pending:
     """One tick in flight (the JAX engine's ``_PendingTick``): the slots it
     decodes, its k, the slot -> request map at dispatch, for a spec tick
     the per-slot caps, its program (a chained tick reads what it left on
-    the card) and the pending copy of its tokens to the host."""
+    the card), the pending copy of its tokens to the host and when it
+    was built (just after its dispatch)."""
 
-    __slots__ = ("active", "k", "reqs", "spec", "kcap", "prog", "fetch")
+    __slots__ = ("active", "k", "reqs", "spec", "kcap", "prog", "fetch",
+                 "t0")
 
     def __init__(self, active, k, reqs, spec, kcap, prog, fetch):
+        self.t0 = time.perf_counter()
         self.active = active
         self.k = k
         self.reqs = reqs
@@ -325,7 +463,16 @@ class ServingEngine:
     (default on) captures every device program into a CUDA graph on the
     card; only a caller that wants the eager programs on the card turns
     it off, and the engine never does so on its own: a failed capture
-    raises.  The CPU runs the programs eagerly."""
+    raises.  The CPU runs the programs eagerly.
+
+    The crash-only arguments are the JAX flags of the same names:
+    ``dispatch_retries`` (transient dispatch failures retried in place,
+    0 by default), ``tick_timeout_s`` (the tick watchdog, off at 0.0),
+    ``device_sampling`` (on; off, the k = 1 ticks run the ``decode``
+    program and sample on the host), ``blocksan`` (``enable_jaxsan``:
+    the block ledger, off), ``drain_timeout_s`` (30 s) and
+    ``prefix_export_dir`` (None: no export at drain, no import at
+    construction)."""
 
     # the adaptive-k controller: a rung up while the acceptance EWMA is at
     # least _ADAPT_UP, down at most _ADAPT_DOWN, after at least
@@ -344,7 +491,10 @@ class ServingEngine:
                  spec_draft: str = "model", spec_adaptive: bool = False,
                  spec_k_ladder="2,4,8", quant: Optional[str] = None,
                  overlap: bool = True, cuda_graphs: bool = True,
-                 device=None):
+                 dispatch_retries: int = 0, tick_timeout_s: float = 0.0,
+                 device_sampling: bool = True, blocksan: bool = False,
+                 drain_timeout_s: float = 30.0,
+                 prefix_export_dir: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}, the engine "
@@ -390,6 +540,8 @@ class ServingEngine:
         # references per physical block: its table and one per prefix
         # index entry (1 everywhere with the cache off)
         self.block_rc = np.zeros((self.num_blocks + 1,), np.int64)
+        # the block ledger, fed by every _alloc/_ref/_release_block
+        self._blocksan = _blocksan.block_ledger(self.num_blocks, blocksan)
         self.prefix = PrefixCache(self.bs) if prefix_cache else None
         self.free_slots = deque(range(self.B))
         self.reserved = 0                      # growth blocks promised
@@ -422,6 +574,34 @@ class ServingEngine:
         self._programs: dict = {}
         self._pool = None                  # the graphs' shared memory pool
         self._warmup_info: Optional[dict] = None
+        # crash-only serving
+        self.retries = max(0, int(dispatch_retries))
+        self.tick_timeout_s = float(tick_timeout_s)
+        self.device_sampling = bool(device_sampling)
+        self.drain_timeout_s = float(drain_timeout_s)
+        self.tick_errors = 0
+        self.poisoned_requests = 0
+        self.dispatch_retries = 0          # retries taken
+        # add_request may run on other threads than the loop: the lock
+        # covers the waiting queue's rebuilds and the drain's closing
+        self._lock = threading.Lock()
+        self._ready = False
+        self._t_serve_start: Optional[float] = None
+        self._draining = False
+        self._drain_requested = False      # a bare bool store: thread-safe
+        self._drain_info: Optional[dict] = None
+        # readiness evidence: recent admissions, TTFTs and tick-level
+        # seconds per token; finished requests and their tokens
+        self._admit_times: deque = deque(maxlen=64)
+        self._ttft_recent: deque = deque(maxlen=64)
+        self._tpot_recent: deque = deque(maxlen=64)
+        self._last_harvest_t: Optional[float] = None
+        self._finished_n = 0
+        self._finished_tokens = 0
+        self._export_dir = str(prefix_export_dir or "")
+        self._prefix_import_info: Optional[dict] = None
+        if self.prefix is not None and self._export_dir:
+            self._import_prefix_cache(self._export_dir)
 
     def _init_spec(self, draft_model, spec_decode, spec_k, spec_draft,
                    spec_adaptive, spec_k_ladder) -> None:
@@ -517,15 +697,21 @@ class ServingEngine:
     # --------------------------------------------------- block refcounts
     def _alloc_block(self) -> int:
         blk = int(self.free_blocks.popleft())
+        if self._blocksan is not None:
+            self._blocksan.alloc(blk)
         self.block_rc[blk] = 1
         return blk
 
     def _ref_block(self, blk: int) -> None:
+        if self._blocksan is not None:
+            self._blocksan.ref(blk)
         self.block_rc[blk] += 1
 
     def _release_block(self, blk: int) -> bool:
         """Drop one reference; the block is freed (True) only when none
         is left: a shared block outlives each of its holders."""
+        if self._blocksan is not None:
+            self._blocksan.release(blk)
         self.block_rc[blk] -= 1
         if self.block_rc[blk] <= 0:
             self.block_rc[blk] = 0
@@ -533,22 +719,187 @@ class ServingEngine:
             return True
         return False
 
+    # ------------------------------------------------ the crash-only guard
+    _POISON_STRIKES = 2
+    _DISPATCH_BACKOFF_S = 0.05
+    _ABANDON_S = 1.0
+
+    def _dispatch_call(self, site: str, call):
+        """One program dispatch through the chaos site and, with
+        ``dispatch_retries``, the retry policy: a ``RuntimeError`` or
+        ``OSError`` retries in place with exponential backoff before it
+        reaches the guard; a CUDA or kernel error never retries."""
+        def attempt():
+            _chaos.inject(site)
+            return call()
+        if self.retries <= 0:
+            return attempt()
+        return call_with_retries(
+            attempt, retries=self.retries,
+            backoff_s=self._DISPATCH_BACKOFF_S, site=site,
+            retry_on=(RuntimeError, OSError), never=_LOUD,
+            counter=_RetryCounter(self))
+
+    def _screen_row(self, row, slot: int, req: Request):
+        """A prompt's last logits row: chaos may make it NaN, and with the
+        watchdog on a non-finite row raises :class:`NonFiniteLogits`
+        before the prompt registers in the prefix index or emits a token.
+        The probe is one host sync; with the watchdog off the row is
+        returned untouched."""
+        if _chaos.nan_payload("serving.prefill", slot=slot, rid=req.rid):
+            row = torch.full_like(row, float("nan"))
+        if _flight.enabled() and not _flight.check_finite(
+                row.float().sum().item(), site="serving.prefill.logits"):
+            raise NonFiniteLogits(
+                f"prefill logits non-finite for rid={req.rid}")
+        return row
+
+    def _screen_decode_logits(self, pend: "_Pending", logits) -> dict:
+        """The ``decode`` program's host logits ``[B, V]``: chaos may make
+        a row NaN (in place), and with the watchdog on a non-finite row
+        names its slot.  Returns ``{slot: error}``."""
+        if not _flight.enabled() and not _chaos.active_faults():
+            return {}
+        bad = {}
+        for slot in pend.active:
+            req = pend.reqs[slot]
+            if req is None or req.done:
+                continue
+            if _chaos.nan_payload("serving.decode", slot=slot, rid=req.rid):
+                logits[slot] = np.nan
+            if _flight.enabled() and not _flight.check_finite(
+                    float(np.sum(logits[slot])),
+                    site="serving.decode.logits"):
+                bad[slot] = "non-finite decode logits"
+        return bad
+
+    def _materialize(self, fetch) -> dict:
+        """Wait for a tick's outputs, under the tick watchdog: with
+        ``tick_timeout_s`` > 0 the wait runs on a helper thread, and a
+        harvest that does not arrive in time raises :class:`TickTimeout`
+        instead of wedging the loop.  The host copies run on this thread
+        after the wait."""
+        if self.tick_timeout_s <= 0:
+            _chaos.maybe_delay("serving.harvest")
+            return fetch.wait()
+        box = {}
+
+        def work():
+            try:
+                _chaos.maybe_delay("serving.harvest")
+                fetch.sync()
+            except BaseException as e:  # noqa: BLE001 - raised below
+                box["exc"] = e
+        t = threading.Thread(target=work, name="serving-harvest",
+                             daemon=True)
+        t.start()
+        t.join(self.tick_timeout_s)
+        if t.is_alive():
+            raise TickTimeout(
+                f"tick harvest did not arrive within tick_timeout_s="
+                f"{self.tick_timeout_s}s: device program hung")
+        if "exc" in box:
+            raise box["exc"]
+        return fetch.copy()
+
+    def _error_evict(self, slot: int, error: str) -> None:
+        """A running (or mid-chunked-prefill) slot ends ``outcome="error"``,
+        its blocks released."""
+        req = self.slot_req[slot]
+        if req is None:
+            return
+        _flight.default_recorder().record_event(
+            "slot_error", slot=slot, rid=req.rid, error=error[:200])
+        if req._prefilling:
+            self._abort_prefill(req, outcome="error")
+            return
+        req.outcome = "error"
+        self._evict(slot)
+
+    def _strike(self, req: Request, error: str) -> None:
+        """An admission-stage strike: the request's prompt program raised
+        or its logits were not finite.  The first strike queues it again
+        at the back; the second (or any while cancelled or draining)
+        quarantines it, ``outcome="poisoned"``."""
+        req._strikes += 1
+        if req._strikes >= self._POISON_STRIKES or req.cancelled \
+                or self._draining:
+            self.poisoned_requests += 1
+            req.outcome = "poisoned"
+            _flight.default_recorder().record_event(
+                "poison_quarantine", rid=req.rid, strikes=req._strikes,
+                error=error[:200])
+            self.finished.append(req)
+        else:
+            self.waiting.append(req)
+
+    def _abandon(self, pend: "_Pending") -> None:
+        """A tick that will never be harvested: wait briefly for its
+        device work, so its blocks are not reused under a running
+        program, and leave its fetch turn (``Program.abandon``) so the
+        next fetch of that turn does not wait on a hung event."""
+        pend.prog.abandon(pend.fetch, self._ABANDON_S)
+
+    def _absorb_failure(self, exc: BaseException, pends) -> bool:
+        """The guard's decision.  False (propagate) for a CUDA error or
+        a block-ledger finding.  An admission-stage failure (tagged with
+        ``_serving_req``) strikes its request alone.  Any other failure
+        is the tick's: the ticks in flight are abandoned and the slots
+        they covered end ``outcome="error"`` (all occupied slots when no
+        tick was in flight)."""
+        if isinstance(exc, _LOUD):
+            return False
+        self.tick_errors += 1
+        err = f"{type(exc).__name__}: {exc}"[:200]
+        req = getattr(exc, "_serving_req", None)
+        _flight.default_recorder().record_event(
+            "tick_error", error=err,
+            scope="request" if req is not None else "tick",
+            rid=getattr(req, "rid", None))
+        if req is not None:
+            self._strike(req, err)
+            return True
+        slots = set()
+        for p in pends:
+            if p is not None:
+                self._abandon(p)
+                slots.update(p.active)
+        if not slots:
+            slots = {s for s in range(self.B)
+                     if self.slot_req[s] is not None}
+        for slot in sorted(slots):
+            r = self.slot_req[slot]
+            if r is None:
+                continue
+            if r.done:
+                self._evict(slot)
+            else:
+                self._error_evict(slot, err)
+        self._last_harvest_t = None
+        return True
+
     # --------------------------------------------------------- admission
     def add_request(self, req: Request) -> Request:
-        L = len(req.prompt_ids)
-        if L == 0:
-            raise ValueError("empty prompt")
-        if L + req.max_new_tokens > self.max_context:
-            raise ValueError(f"request needs {L + req.max_new_tokens} tokens "
-                             f"> max_context {self.max_context}")
-        worst = self._blocks_for(self._pad_bucket(L)) + max(
-            0, self._blocks_for(L + req.max_new_tokens) - self._blocks_for(L))
-        if worst > self.num_blocks:
-            raise ValueError(f"request needs {worst} blocks worst-case but "
-                             f"the pool has {self.num_blocks}")
-        req.t_enqueue = time.perf_counter()
-        self.waiting.append(req)
-        return req
+        """Queue a request; raises ``ValueError`` if it can never be
+        served here or while the engine drains (admission is closed)."""
+        L, n = len(req.prompt_ids), req.max_new_tokens
+        with self._lock:
+            if self._draining or self._drain_requested:
+                raise ValueError("engine is draining: admission closed "
+                                 "(retry against another replica)")
+            if L == 0:
+                raise ValueError("empty prompt")
+            if L + n > self.max_context:
+                raise ValueError(f"request needs {L + n} tokens > "
+                                 f"max_context {self.max_context}")
+            worst = self._blocks_for(self._pad_bucket(L)) + max(
+                0, self._blocks_for(L + n) - self._blocks_for(L))
+            if worst > self.num_blocks:
+                raise ValueError(f"request needs {worst} blocks worst-case "
+                                 f"but the pool has {self.num_blocks}")
+            req.t_enqueue = time.perf_counter()
+            self.waiting.append(req)
+            return req
 
     def _lookup(self, req: Request):
         """The request's resident prefix chain, looked up once per index
@@ -568,6 +919,7 @@ class ServingEngine:
         chunked, queued for the boundaries' chunks."""
         if not self.waiting or not self.free_slots:
             return False
+        self._promote_waiting()
         req = self.waiting[0]
         L = len(req.prompt_ids)
         chunked = self.chunk > 0
@@ -634,6 +986,7 @@ class ServingEngine:
                 req._chunk_row = row
                 req._chunk_off = cached_len
                 req._prefilling = True
+                req._prefill_chunks = 0
                 self.slot_req[slot] = req
                 self.prefilling.append(req)
                 self._count_prefix(bool(chain), shared)
@@ -646,9 +999,13 @@ class ServingEngine:
             else:
                 first_row = self._forward_prompt("prefill", row,
                                                  req.prompt_ids, 0)
-        except BaseException:
+            # screened before the prefix index registers anything: a
+            # poisoned prompt never enters the index
+            first_row = self._screen_row(first_row, slot, req)
+        except BaseException as e:
             # undo every host-side draw: references (shared blocks survive
-            # their other holders), the slot, the growth reservation
+            # their other holders), the slot, the growth reservation; the
+            # error names the request, which the guard strikes
             for b in row:
                 if b:
                     self._release_block(int(b))
@@ -658,6 +1015,7 @@ class ServingEngine:
             self.free_slots.appendleft(slot)
             self.reserved -= growth
             req._growth_left = 0
+            _tag(e, req)
             raise
         if not chain:
             # blocks of the pad bucket beyond the prompt go back to the pool
@@ -688,6 +1046,7 @@ class ServingEngine:
         self.prefix.register(
             req.prompt_ids, [int(self.tables[slot, c]) for c in range(fullb)],
             self._ref_block, match=req._prefix_match)
+        _blocksan.blocksan_snapshot(self)
 
     def _cow(self, src: int, dst: int) -> None:
         """Copy block ``src`` to ``dst`` in every layer's K and V pools,
@@ -704,7 +1063,8 @@ class ServingEngine:
         ladder bucket; ``kind`` "prefill" (from an empty sequence, so
         ``start`` is 0) or "prefill_cont" (at an offset: prefix hits and
         chunks).  Returns the last real token's logits row ``[V]``: the
-        program's static output, valid until its next replay."""
+        program's static output, valid until its next replay.  The
+        dispatch is the chaos site ``serving.prefill.dispatch``."""
         n = len(tokens)
         ids = np.zeros((1, self._pad_bucket(n)), np.int64)
         ids[0, :n] = tokens
@@ -712,8 +1072,11 @@ class ServingEngine:
         arrays = dict(table=row[None], ids=ids, idx=n - 1)
         if kind == "prefill_cont":
             arrays["start"] = start
-        prog.load(**arrays)
-        prog.replay()
+
+        def dispatch():
+            prog.load(**arrays)
+            prog.replay()
+        self._dispatch_call("serving.prefill.dispatch", dispatch)
         return prog.outputs["row"]
 
     def _prefill_chunk_step(self, req: Request) -> None:
@@ -723,8 +1086,17 @@ class ServingEngine:
         L = len(req.prompt_ids)
         off = req._chunk_off
         n = min(self.chunk, L - off)
-        row = self._forward_prompt("prefill_cont", req._chunk_row,
-                                   req.prompt_ids[off:off + n], off)
+        try:
+            row = self._forward_prompt("prefill_cont", req._chunk_row,
+                                       req.prompt_ids[off:off + n], off)
+            if off + n >= L:
+                # the last chunk is screened before the row installs and
+                # the prompt registers
+                row = self._screen_row(row, req.slot, req)
+        except BaseException as e:
+            self._abort_prefill(req)
+            _tag(e, req)
+            raise
         req._chunk_off = off + n
         req._prefill_chunks += 1
         self.prefill_chunks_total += 1
@@ -743,6 +1115,8 @@ class ServingEngine:
         the request's sampling stream); the slot joins the decode ticks."""
         first = req._sample(row)
         req.t_first = time.perf_counter()
+        self._admit_times.append(req.t_first)
+        self._ttft_recent.append(req.t_first - req.t_enqueue)
         req.output_ids.append(first)
         req.slot = slot
         self.slot_req[slot] = req
@@ -763,6 +1137,9 @@ class ServingEngine:
         if (req.eos_token_id is not None and tok == req.eos_token_id) or \
                 len(req.output_ids) >= req.max_new_tokens:
             req.done = True
+            req.outcome = "finished"
+            self._finished_n += 1
+            self._finished_tokens += len(req.output_ids)
 
     def _evict(self, slot: int) -> None:
         req = self.slot_req[slot]
@@ -792,6 +1169,66 @@ class ServingEngine:
             if req is not None and not req._prefilling and req.done:
                 self._evict(slot)
 
+    def _abort_prefill(self, req: Request,
+                       outcome: Optional[str] = None) -> None:
+        """Tear down a chunked admission mid-prompt: every shadow-row
+        reference, the slot and the growth reservation come back.  With
+        ``outcome`` the request ends there (into ``finished``)."""
+        for b in req._chunk_row:
+            if b:
+                self._release_block(int(b))
+        req._chunk_row = None
+        req._prefilling = False
+        self.reserved -= req._growth_left
+        req._growth_left = 0
+        self.slot_req[req.slot] = None
+        self.free_slots.appendleft(req.slot)
+        req.slot = None
+        if req in self.prefilling:
+            self.prefilling.remove(req)
+        if outcome is not None:
+            req.outcome = outcome
+            self.finished.append(req)
+
+    def _promote_waiting(self) -> None:
+        """Move the highest-priority waiting request (the oldest among
+        equals) to the head of the queue."""
+        if len(self.waiting) < 2:
+            return
+        best = 0
+        for i in range(1, len(self.waiting)):
+            if self.waiting[i].priority > self.waiting[best].priority:
+                best = i
+        if best:
+            req = self.waiting[best]
+            del self.waiting[best]
+            self.waiting.appendleft(req)
+
+    def _cancel_requested(self) -> None:
+        """Cancellations take effect at a boundary: a running request is
+        evicted, a chunked admission aborted, a waiting one dropped; each
+        ends ``outcome="cancelled"``."""
+        for slot in range(self.B):
+            req = self.slot_req[slot]
+            if req is None or not req.cancelled:
+                continue
+            if req._prefilling:
+                self._abort_prefill(req, outcome="cancelled")
+            elif not req.done:
+                req.outcome = "cancelled"
+                self._evict(slot)
+        with self._lock:
+            if not any(r.cancelled for r in self.waiting):
+                return
+            kept = deque()
+            for r in self.waiting:
+                if r.cancelled:
+                    r.outcome = "cancelled"
+                    self.finished.append(r)
+                else:
+                    kept.append(r)
+            self.waiting = kept
+
     def _active_slots(self) -> List[int]:
         # mid-chunked-prefill slots are occupied but not decodable yet
         return [s for s in range(self.B)
@@ -804,7 +1241,8 @@ class ServingEngine:
         the finished (the JAX engine's order: a slot freed here takes a
         request at the next boundary).  Chunked: evict first, then one
         prefill chunk per boundary, finishing the oldest chunked admission
-        before starting the next."""
+        before starting the next.  Cancellations come first, in both."""
+        self._cancel_requested()
         if self.chunk <= 0:
             while self._try_admit():
                 pass
@@ -845,7 +1283,9 @@ class ServingEngine:
         out the logits row ``[V]``.  Ticks: tables ``[B, nb]``, lengths,
         last tokens, the sampling arrays, the seeds and (plain) the stream
         positions or (spec) the per-slot caps and the host's proposals;
-        out the tokens ``[B, k]`` (spec: with the counts and accepts)."""
+        out the tokens ``[B, k]`` (spec: with the counts and accepts).
+        The ``decode`` program: tables, lengths and last tokens; out the
+        greedy tokens ``[B, 1]`` and the logits ``[B, V]``."""
         dev, B, nb = self.device, self.B, self.nb_per_seq
 
         def z(shape, dtype):
@@ -862,6 +1302,14 @@ class ServingEngine:
             return graphs.Program(
                 _prompt_fn(kind, self.model, self.pools, self.draft,
                            self.dpools, self.bs), ins, outs)
+        if kind == "decode":
+            ins = dict(tables=z((B, nb), torch.int32),
+                       lens=z((B,), torch.int32), last=z((B,), torch.int64))
+            outs = dict(toks=z((B, 1), torch.int64),
+                        logits=z((B, self.model.cfg.vocab_size),
+                                 torch.float32))
+            return graphs.Program(_decode_fn(self.model, self.pools,
+                                             self.bs), ins, outs)
         _, k, sampled = key
         ins = dict(tables=z((B, nb), torch.int32),
                    lens=z((B,), torch.int32), last=z((B,), torch.int64),
@@ -885,8 +1333,10 @@ class ServingEngine:
         """Build (on the card: capture) the whole program grid before
         traffic, on inert inputs: all-zero tables and lengths send every
         write to the pad block 0.  The grid is the JAX engine's without its
-        host-sampling ``decode`` and ``cow`` programs: the tick per size in
-        {steps_per_tick, 1}, the spec tick per ladder rung, and per
+        ``cow`` program, and with its host-sampling ``decode`` program only
+        when the engine samples on the host (``device_sampling=False``):
+        the tick per size in {steps_per_tick, 1}, the decode program, the
+        spec tick per ladder rung, and per
         pad-ladder bucket the ``prefill`` program (whole-prompt engines)
         and the ``prefill_cont`` one (prefix cache or chunks).  A tick and
         a spec tick are two programs each, greedy and sampled.  The
@@ -907,6 +1357,9 @@ class ServingEngine:
             for sampled in (False, True):
                 warm(("tick", k, sampled))
             grid.append({"program": "tick", "steps_per_tick": k})
+        if not self.device_sampling:
+            warm(("decode",))
+            grid.append({"program": "decode", "steps_per_tick": 1})
         for sk in self.spec_ladder:
             for sampled in (False, True):
                 warm(("spec_tick", sk, sampled))
@@ -932,10 +1385,13 @@ class ServingEngine:
     def _tick_size(self, active) -> int:
         """Steps this tick: ``steps_per_tick`` if every active request's
         remaining budget allows it, else 1 (the JAX engine's two tick
-        programs; no request decodes past its reservation)."""
+        programs; no request decodes past its reservation); 1 whenever
+        the host samples a row (``device_sampling=False``)."""
         k = self.steps_per_tick
         for slot in active:
             req = self.slot_req[slot]
+            if req.do_sample and not self.device_sampling:
+                return 1             # the host samples: the decode program
             k = min(k, req.max_new_tokens - int(self.tok_pos[slot]))
         return k if k >= self.steps_per_tick else 1
 
@@ -970,8 +1426,10 @@ class ServingEngine:
             if boundary and empty and self.waiting and \
                     not self.prefilling and \
                     all(r is None for r in self.slot_req):
-                raise RuntimeError("the waiting request cannot be admitted "
+                err = RuntimeError("the waiting request cannot be admitted "
                                    "into an empty engine")
+                _tag(err, self.waiting.popleft())
+                raise err
             return None
         return self._dispatch_tick(active, chain)
 
@@ -987,18 +1445,31 @@ class ServingEngine:
         k = self._tick_size(active)
         for slot in active:
             self._draw_blocks(slot, k)
-        prog = self._program(("tick", k, bool(self.samp_do.any())))
-        arrays = self._samp_arrays()
-        arrays.update(lens=self.seq_lens, tok_pos=self.tok_pos)
+        # host sampling: the k = 1 ticks run the decode program, whose
+        # logits come to the host
+        decode = not self.device_sampling and k == 1
+        if decode:
+            prog = self._program(("decode",))
+            arrays = dict(tables=self.tables, lens=self.seq_lens)
+            outs = ("toks", "logits")
+        else:
+            prog = self._program(("tick", k, bool(self.samp_do.any())))
+            arrays = self._samp_arrays()
+            arrays.update(lens=self.seq_lens, tok_pos=self.tok_pos)
+            outs = ("toks",)
         if chain is None:
             arrays["last"] = self.last_tok
-        prog.load(**arrays)
-        if chain is not None:
-            # the last tokens live on the card until the harvest
-            prog.carry(chain.prog, "last")
-        prog.replay()
+
+        def dispatch():
+            prog.load(**arrays)
+            if chain is not None:
+                # the last tokens live on the card until the harvest
+                prog.carry(chain.prog, "last")
+            prog.replay()
+        with _flight.guard("serving.tick"):
+            self._dispatch_call("serving.tick.dispatch", dispatch)
         pend = _Pending(active, k, list(self.slot_req), False, None, prog,
-                        prog.fetch("toks"))
+                        prog.fetch(*outs))
         self.steps += k
         for slot in active:
             self.seq_lens[slot] += k
@@ -1034,10 +1505,14 @@ class ServingEngine:
             arrays["dtoks"] = dtoks
         if chain is None:
             arrays.update(lens=self.seq_lens, last=self.last_tok)
-        prog.load(**arrays)
-        if chain is not None:
-            prog.carry(chain.prog, "lens", "last")
-        prog.replay()
+
+        def dispatch():
+            prog.load(**arrays)
+            if chain is not None:
+                prog.carry(chain.prog, "lens", "last")
+            prog.replay()
+        with _flight.guard("serving.tick"):
+            self._dispatch_call("serving.tick.dispatch", dispatch)
         pend = _Pending(active, k, list(self.slot_req), True, kcap, prog,
                         prog.fetch("out"))
         self.steps += k + 1 if self.spec_model else 1
@@ -1048,22 +1523,47 @@ class ServingEngine:
 
     def _harvest(self, pend: "_Pending") -> None:
         """The JAX engine's ``_harvest_tick``: wait for the tick's tokens
-        and feed the requests.  ``pend.reqs`` is the slot's request at
-        dispatch: one that finished while this tick was in flight has its
-        rows discarded."""
-        out = pend.fetch.wait()
-        k = pend.k
-        if not pend.spec:
-            toks = out["toks"]
+        (under the tick watchdog) and feed the requests.  ``pend.reqs`` is
+        the slot's request at dispatch: one that finished, or left its
+        slot, while this tick was in flight has its rows discarded.  A
+        ``decode`` tick's rows are screened (a non-finite row evicts its
+        slot, ``outcome="error"``) and its sampled rows sampled here."""
+        with _flight.guard("serving.tick"):
+            out = self._materialize(pend.fetch)
+        before = self.tokens_out
+        bad = {}
+        if pend.spec:
+            self._harvest_spec(pend, out["out"])
+        else:
+            toks, logits = out["toks"], out.get("logits")
+            if logits is not None:
+                bad = self._screen_decode_logits(pend, logits)
             for slot in pend.active:
                 req = pend.reqs[slot]
-                if req.done:
+                if req.done or slot in bad or self.slot_req[slot] is not req:
+                    continue
+                if logits is not None and req.do_sample:
+                    tok = req._sample(torch.from_numpy(logits[slot]))
+                    self.last_tok[slot] = tok
+                    self._emit(req, [tok])
                     continue
                 self.last_tok[slot] = int(toks[slot, -1])
                 self._emit(req, toks[slot])
-            self.ticks += 1
-            return
-        out = out["out"]
+        self.ticks += 1
+        # tick-level seconds per token for health(): the gap since the
+        # last harvest, or since this tick's dispatch
+        t = time.perf_counter()
+        t_from = pend.t0 if self._last_harvest_t is None \
+            else max(pend.t0, self._last_harvest_t)
+        self._last_harvest_t = t
+        if self.tokens_out > before and t > t_from:
+            self._tpot_recent.append((t - t_from) / max(pend.k, 1))
+        for slot, err in bad.items():
+            self._error_evict(slot, err)
+        _blocksan.blocksan_verify(self)
+
+    def _harvest_spec(self, pend: "_Pending", out) -> None:
+        k = pend.k
         toks, counts, accepts = out[:, :k], out[:, k], out[:, k + 1]
         proposed = accepted = 0
         for slot in pend.active:
@@ -1083,7 +1583,6 @@ class ServingEngine:
             req._spec_accepted += a
             self.last_tok[slot] = int(toks[slot, c - 1])
             self._emit(req, toks[slot, :c])
-        self.ticks += 1
         self.spec_ticks += 1
         self.spec_proposed += proposed
         self.spec_accepted += accepted
@@ -1107,8 +1606,8 @@ class ServingEngine:
         """A spec tick needs one active slot able to take more than one
         token (at rung 1, one token); a short-budget slot rides it capped
         at its own budget."""
-        if not self.spec:
-            return False
+        if not self.spec or not self.device_sampling:
+            return False             # the verify samples on the card
         need = min(2, self.spec_k_now)
         return any(self.slot_req[s].max_new_tokens - int(self.tok_pos[s])
                    >= need for s in active)
@@ -1158,6 +1657,9 @@ class ServingEngine:
         if pend.spec:
             if not self.spec_model or self._adapt_step():
                 return False
+        elif not self.device_sampling and any(
+                pend.reqs[s].do_sample for s in pend.active):
+            return False         # the host samples the next last token
         elif self.spec and self._spec_eligible(pend.active):
             return False         # plain -> spec: a boundary first
         for slot in pend.active:
@@ -1189,39 +1691,384 @@ class ServingEngine:
         """One scheduler boundary and one decode tick (a speculative one
         when some slot can take more than one token), harvested before it
         returns.  Returns True while work remains."""
+        return self._step([])
+
+    def _step(self, in_flight: list) -> bool:
+        """:meth:`step`, appending the tick it dispatches to
+        ``in_flight`` (the guard abandons it if the harvest fails)."""
         pend = self._dispatch(boundary=True)
         if pend is None:
             return bool(self.waiting or self.prefilling
                         or any(r is not None for r in self.slot_req))
+        in_flight.append(pend)
         self._harvest(pend)
         return True
 
+    def _guarded_step(self) -> bool:
+        """:meth:`step` under the crash-only guard."""
+        in_flight = []
+        try:
+            return self._step(in_flight)
+        except Exception as e:  # noqa: BLE001 - the guard's whole job
+            if not self._absorb_failure(e, in_flight):
+                raise
+            return True
+
     def run(self) -> List[Request]:
-        """Drive until every queued request finishes; returns them in
-        completion order.  On the card the program grid is captured first
-        (:meth:`warmup`).  With ``overlap`` one tick stays in flight: tick
-        t+1 is dispatched, then t harvested."""
+        """Drive until every queued request finishes or ends otherwise;
+        returns them in completion order.  On the card the program grid
+        is captured first (:meth:`warmup`).  With ``overlap`` one tick
+        stays in flight: tick t+1 is dispatched, then t harvested.  Every
+        boundary and tick runs under the crash-only guard; a failure
+        between a chained dispatch and the harvest (a non-final chunk
+        behind the chained tick included) drops both ticks in flight
+        unharvested, their tokens with them, as the JAX engine does."""
         if self.cuda_graphs:
             self.warmup()
+        self._mark_ready()
         pend = None
         while True:
             if pend is None:
                 if not (self.waiting or self.prefilling
                         or self._active_slots()):
                     break
-                pend = self._dispatch(boundary=True)
+                try:
+                    pend = self._dispatch(boundary=True)
+                except Exception as e:  # noqa: BLE001 - the guard
+                    if not self._absorb_failure(e, ()):
+                        raise
+                    continue
                 if pend is None:
                     continue
             nxt = None
-            if self.overlap and self._can_overlap(pend):
-                nxt = self._dispatch(boundary=False, chain=pend)
-                if nxt is not None:
-                    self.overlapped_ticks += 1
-                    self._overlap_chunk_work()
-            self._harvest(pend)
+            try:
+                if self.overlap and self._can_overlap(pend):
+                    nxt = self._dispatch(boundary=False, chain=pend)
+                    if nxt is not None:
+                        self.overlapped_ticks += 1
+                        self._overlap_chunk_work()
+                self._harvest(pend)
+            except Exception as e:  # noqa: BLE001 - the guard
+                if not self._absorb_failure(e, (pend, nxt)):
+                    raise
+                pend = None
+                continue
             pend = nxt
         self._evict_done()
+        _blocksan.blocksan_verify(self)
         return self.finished
+
+    def serve_forever(self, stop_event, idle_s: float = 0.002) -> None:
+        """Serve requests added from other threads until ``stop_event``
+        (a ``threading.Event``) is set, napping ``idle_s`` when idle; a
+        requested drain (:meth:`request_drain`, or SIGTERM when this runs
+        on the main thread) drains and returns.  The grid is captured
+        before admission opens; every step is synchronous (admissions and
+        cancellations at every boundary) and guarded."""
+        old_handler = None
+        try:
+            old_handler = signal.signal(
+                signal.SIGTERM, lambda signum, frame: self.request_drain())
+        except ValueError:
+            pass                     # not the main thread
+        try:
+            if self.cuda_graphs:
+                self.warmup()
+            self._mark_ready()
+            while not stop_event.is_set():
+                if self._drain_requested and not self._draining:
+                    self.drain()
+                    return
+                if self.waiting or self.prefilling \
+                        or any(r is not None for r in self.slot_req):
+                    self._guarded_step()
+                else:
+                    time.sleep(idle_s)
+        finally:
+            if old_handler is not None:
+                signal.signal(signal.SIGTERM, old_handler)
+
+    # ------------------------------------------------------------- drain
+    def request_drain(self) -> None:
+        """Ask the engine to drain at its next boundary; admission closes
+        now.  A bare bool store: safe from a signal handler or another
+        thread."""
+        self._drain_requested = True
+
+    def drain(self, deadline_s: Optional[float] = None) -> dict:
+        """Graceful drain: admission closes, the waiting queue ends
+        ``outcome="drained"``, the running requests tick under the guard
+        until they finish or ``deadline_s`` (``drain_timeout_s``) passes,
+        stragglers end ``"drained"``, the ledger is verified, and the
+        prefix cache is exported when ``prefix_export_dir`` is set.
+        Idempotent; returns (and ``stats()`` keeps) the report."""
+        if self._drain_info is not None:
+            return self._drain_info
+        if deadline_s is None:
+            deadline_s = self.drain_timeout_s
+        t0 = time.monotonic()
+        with self._lock:
+            self._drain_requested = True
+            self._draining = True
+            waiting, self.waiting = list(self.waiting), deque()
+        _flight.default_recorder().record_event(
+            "drain_start", waiting=len(waiting),
+            running=self.B - len(self.free_slots))
+        for r in waiting:
+            r.outcome = "drained"
+            self.finished.append(r)
+        deadline = t0 + max(float(deadline_s), 0.0)
+        while (self.prefilling or self._active_slots()) \
+                and time.monotonic() < deadline:
+            self._guarded_step()
+        evicted = 0
+        for slot in range(self.B):
+            req = self.slot_req[slot]
+            if req is None:
+                continue
+            if req._prefilling:
+                self._abort_prefill(req, outcome="drained")
+                evicted += 1
+            elif req.done:
+                self._evict(slot)
+            else:
+                req.outcome = "drained"
+                self._evict(slot)
+                evicted += 1
+        _blocksan.blocksan_verify(self)
+        export = None
+        if self.prefix is not None and self._export_dir:
+            try:
+                export = self.export_prefix_cache(self._export_dir)
+            except _LOUD:
+                raise
+            except Exception as e:  # noqa: BLE001 - the drain must end
+                export = {"error": f"{type(e).__name__}: {e}"[:200]}
+                _flight.default_recorder().record_event(
+                    "prefix_export_failed", error=export["error"])
+        self._drain_info = {
+            "drained_s": round(time.monotonic() - t0, 4),
+            "deadline_s": float(deadline_s),
+            "cancelled_waiting": len(waiting),
+            "evicted_running": evicted,
+            "export": export}
+        _flight.default_recorder().record_event(
+            "drain_complete", **{k: v for k, v in self._drain_info.items()
+                                 if k != "export"})
+        return self._drain_info
+
+    # ------------------------------------- the prefix cache's persistence
+    def _prefix_fingerprint(self) -> dict:
+        """What an export's blocks are a function of, besides the prompt
+        tokens: the pools' geometry and type, the quantization and the
+        draft's geometry; the JAX engine's keys and values (the type as
+        numpy names it), so either package reads the other's exports.
+        Weights are not fingerprinted: restarting with other weights
+        under the same geometry is the operator's contract."""
+        cfg = self.model.cfg
+        nh, _, _, hd = self.pools[0][0].shape
+        fp = {"num_layers": int(cfg.num_layers), "nh": int(nh),
+              "hd": int(hd), "block_size": self.bs,
+              "vocab_size": int(cfg.vocab_size),
+              "dtype": str(self.pools[0][0].dtype).replace("torch.", ""),
+              "quant": self.quant_mode, "draft": bool(self.spec_model)}
+        if self.spec_model:
+            dcfg = self.draft.cfg
+            fp["draft_layers"] = int(dcfg.num_layers)
+            fp["draft_nh"] = int(dcfg.num_heads)
+            fp["draft_hd"] = int(dcfg.hidden_size // dcfg.num_heads)
+        return fp
+
+    def export_prefix_cache(self, root: str) -> dict:
+        """Write the prefix index and the KV contents of every block it
+        references (every layer's pools, the draft's too) as an atomic,
+        integrity-checked version under ``root``
+        (``distributed/checkpoint/manager.py``: a reader never sees a torn
+        export).  The blocks are gathered on the card (``index_select``,
+        outside every graph) and only they cross to the host; bfloat16
+        blocks are stored as their 16-bit words.  Returns ``{step, path,
+        entries, blocks, bytes, export_s}``."""
+        if self.prefix is None:
+            raise ValueError("prefix cache is disabled on this engine")
+        t0 = time.perf_counter()
+        index = self.prefix.export_state()
+        blocks = sorted({e["block"] for e in index["entries"]})
+        ids = np.asarray(blocks, np.int64)
+        idx = torch.as_tensor(ids, device=self.device)
+        arrays = {"block_ids": ids}
+        for tag, pools in (("", self.pools), ("d", self.dpools or ())):
+            for li, (kk, vv) in enumerate(pools):
+                arrays[f"{tag}k{li}"] = _to_host(kk.index_select(1, idx))
+                arrays[f"{tag}v{li}"] = _to_host(vv.index_select(1, idx))
+        index["meta"] = self._prefix_fingerprint()
+        step = max(_ckpt.all_steps(root), default=0) + 1
+
+        def write(tmp):
+            with _chaos.checked_open(
+                    os.path.join(tmp, "prefix_index.json"), "w") as f:
+                json.dump(index, f)
+            with _chaos.checked_open(
+                    os.path.join(tmp, "prefix_blocks.npz"), "wb") as f:
+                np.savez(f, **arrays)
+            return ["prefix_index.json", "prefix_blocks.npz"]
+
+        path = _ckpt.commit_single_rank(root, step, write)
+        info = {"step": step, "path": path,
+                "entries": len(index["entries"]), "blocks": len(blocks),
+                "bytes": int(sum(a.nbytes for a in arrays.values())),
+                "export_s": round(time.perf_counter() - t0, 4)}
+        _flight.default_recorder().record_event("prefix_export", **info)
+        return info
+
+    def release_exported_prefix(self) -> int:
+        """The export side of a handoff: drop every index-only entry, so
+        the blocks just exported return to the pool (entries a running
+        request still references stay).  Returns the blocks freed."""
+        if self.prefix is None:
+            return 0
+        freed = self.prefix.evict(self.num_blocks, self._release_block,
+                                  lambda b: int(self.block_rc[b]) == 1)
+        _blocksan.blocksan_verify(self)
+        _flight.default_recorder().record_event("prefix_handoff_release",
+                                                blocks=freed)
+        return freed
+
+    def _import_prefix_cache(self, root: str) -> None:
+        """Construction-time warm restart: the newest version under
+        ``root`` that validates and matches this engine's fingerprint
+        rebuilds the index; every entry takes a fresh block through
+        ``_alloc_block``.  Versions that fail are skipped and counted in
+        ``stats()["prefix_cache"]["import"]["skipped_corrupt"]``, never
+        loaded."""
+        skipped = 0
+        for step in reversed(_ckpt.all_steps(root)):
+            path = os.path.join(root, _ckpt.step_dir(step))
+            reason = _ckpt.verify_version(path)
+            if reason is None:
+                try:
+                    with open(os.path.join(path,
+                                           "prefix_index.json")) as f:
+                        index = json.load(f)
+                    if index.get("meta") != self._prefix_fingerprint():
+                        reason = "engine fingerprint mismatch"
+                    else:
+                        n = self._install_prefix_export(path, index)
+                except _LOUD:
+                    raise
+                except Exception as e:  # noqa: BLE001 - restart must live
+                    reason = f"{type(e).__name__}: {e}"[:200]
+            if reason is not None:
+                skipped += 1
+                _flight.default_recorder().record_event(
+                    "prefix_import_skip", step=step, reason=reason)
+                continue
+            self._prefix_import_info = {
+                "step": step, "blocks": n, "skipped_corrupt": skipped}
+            _flight.default_recorder().record_event(
+                "prefix_import", step=step, blocks=n, skipped=skipped)
+            _blocksan.blocksan_snapshot(self)
+            return
+        if skipped:
+            self._prefix_import_info = {
+                "step": None, "blocks": 0, "skipped_corrupt": skipped}
+
+    def _install_prefix_export(self, path: str, index: dict) -> int:
+        """Rebuild the index and the blocks' contents from one valid
+        version; returns the blocks imported.  Every array is checked
+        before the index changes, so a malformed version leaves the
+        engine as it was.  The contents are written into the existing
+        pools in place (one host-to-card copy per pool): captured graphs
+        read the pools at their addresses."""
+        data = np.load(os.path.join(path, "prefix_blocks.npz"),
+                       allow_pickle=False)
+        pos = {int(b): i for i, b in enumerate(data["block_ids"])}
+        if any(int(e["block"]) not in pos for e in index["entries"]):
+            raise ValueError("an index entry's block is not exported")
+        pools = [(f"{tag}{name}{li}", pool)
+                 for tag, ps in (("", self.pools), ("d", self.dpools or ()))
+                 for li, (kk, vv) in enumerate(ps)
+                 for name, pool in (("k", kk), ("v", vv))]
+        host = []
+        for key, pool in pools:
+            blocks = _from_host(data[key], pool.dtype)
+            want = (pool.shape[0], len(pos)) + tuple(pool.shape[2:])
+            if tuple(blocks.shape) != want:
+                raise ValueError(f"{key}: blocks {tuple(blocks.shape)}, "
+                                 f"the pool takes {want}")
+            host.append(blocks)
+        mapping: dict = {}
+
+        def alloc():
+            return self._alloc_block() if self.free_blocks else None
+
+        n = self.prefix.import_state(index, alloc, mapping.__setitem__)
+        if not mapping:
+            return 0
+        src = torch.as_tensor([pos[old] for old in mapping])
+        dst = torch.as_tensor(list(mapping.values()), device=self.device)
+        for (_, pool), blocks in zip(pools, host):
+            pool[:, dst] = blocks[:, src].to(pool.device)
+        return n
+
+    # ------------------------------------------------------------ health
+    def _mark_ready(self) -> None:
+        """Admission is open and (on the card) the grid captured."""
+        if not self._ready:
+            self._ready = True
+            self._t_serve_start = time.monotonic()
+
+    @property
+    def ready(self) -> bool:
+        return self._ready
+
+    def health(self) -> dict:
+        """The readiness document (the JAX engine's ``/healthz``): not
+        ready with ``reason="warmup"`` until ``run()`` or
+        ``serve_forever()`` opened admission, ``reason="draining"`` with
+        the in-flight and waiting counts once a drain was asked for, else
+        ready with the queue, uptime and TTFT evidence.  Reads host
+        counters only: safe from other threads."""
+        if not self._ready:
+            return {"ready": False, "reason": "warmup"}
+        running = self.B - len(self.free_slots)
+        if self._draining or self._drain_requested:
+            doc = {"ready": False, "reason": "draining",
+                   "in_flight": running, "waiting": len(self.waiting),
+                   "prefilling": len(self.prefilling)}
+            if self._drain_info is not None:
+                doc["drained"] = True
+                doc["drained_s"] = self._drain_info["drained_s"]
+            return doc
+        doc = {"ready": True, "running": running,
+               "waiting": len(self.waiting),
+               "queue_depth": running + len(self.waiting),
+               "slots": self.B, "free_slots": len(self.free_slots),
+               "prefilling": len(self.prefilling),
+               "uptime_s": round(time.monotonic() - self._t_serve_start, 3),
+               "ttft_evidence": self._ttft_evidence()}
+        if self._warmup_info is not None:
+            doc["warmup"] = {k: self._warmup_info[k]
+                             for k in ("warmup_s", "programs")}
+        return doc
+
+    def _ttft_evidence(self) -> dict:
+        """Recent admission rate, median TTFT and median tick-level
+        seconds per token (each over its last 64), and the mean length
+        of finished requests."""
+        ev = {"admit_rate_per_s": 0.0, "ttft_p50_s": 0.0,
+              "samples": len(self._ttft_recent)}
+        times = list(self._admit_times)
+        if len(times) >= 2 and times[-1] > times[0]:
+            ev["admit_rate_per_s"] = round(
+                (len(times) - 1) / (times[-1] - times[0]), 4)
+        if self._ttft_recent:
+            ev["ttft_p50_s"] = round(_median(self._ttft_recent), 6)
+        if self._tpot_recent:
+            ev["tpot_p50_s"] = round(_median(self._tpot_recent), 6)
+        if self._finished_n:
+            ev["avg_tokens_out"] = round(
+                self._finished_tokens / self._finished_n, 3)
+        return ev
 
     def stats(self) -> dict:
         """Counters.  ``free_blocks`` counts the blocks the prefix index
@@ -1240,6 +2087,10 @@ class ServingEngine:
                "pad_buckets": list(self.pad_ladder),
                "overlapped_ticks": self.overlapped_ticks,
                "overlap_chunks": self.overlap_chunks,
+               "tick_errors": self.tick_errors,
+               "poisoned_requests": self.poisoned_requests,
+               "dispatch_retries": self.dispatch_retries,
+               "draining": bool(self._draining or self._drain_requested),
                "graphs": {
                    "enabled": self.cuda_graphs,
                    "captured": sum(p.graph is not None
@@ -1248,6 +2099,8 @@ class ServingEngine:
                                   if p.graph is not None)}}
         if self._warmup_info is not None:
             out["warmup"] = dict(self._warmup_info)
+        if self._drain_info is not None:
+            out["drain"] = dict(self._drain_info)
         if self.spec:
             per_slot = {slot: round(r._spec_accepted / r._spec_proposed, 4)
                         for slot, r in enumerate(self.slot_req)
@@ -1278,4 +2131,6 @@ class ServingEngine:
                 "blocks_shared": self.prefix.blocks_shared,
                 "evictions": self.prefix.evictions,
                 "reclaimable_blocks": reclaim}
+            if self._prefix_import_info is not None:
+                out["prefix_cache"]["import"] = dict(self._prefix_import_info)
         return out

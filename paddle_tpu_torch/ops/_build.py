@@ -12,6 +12,9 @@ kept beside it as ``<source>.ptxas.txt``.
 Each C entry point returns the ``cudaError_t`` of its launch; the wrappers
 pass it to :func:`check`, which raises.  Nothing here falls back to a plain
 version: a missing ``nvcc``, a failed build or a refused launch raises.
+Every such failure, and every wrapper's refusal of its arguments, raises a
+:class:`KernelError`: the fault of the program or the card, never of the
+data it serves, so the serving engine's crash-only guard lets it through.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build", "check", "stream", "sm_count", "dtype_code",
-           "check_device_tensors", "BUILD_DIR", "CSRC"]
+           "check_device_tensors", "BUILD_DIR", "CSRC", "KernelError",
+           "KernelLaunchError", "KernelValueError", "KernelTypeError"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -55,12 +59,31 @@ _SIGNATURES = {
 }
 
 
+class KernelError(Exception):
+    """A kernel wrapper's failure.  A launch that fails also reports a
+    sticky fault of an earlier kernel (an illegal address, a trap), which
+    ``cudaGetLastError`` returns at the next launch."""
+
+
+class KernelLaunchError(KernelError, RuntimeError):
+    """No ``nvcc``, a failed build, or a launch that returned a CUDA
+    error."""
+
+
+class KernelValueError(KernelError, ValueError):
+    """Tensors of a shape, layout or device a kernel does not take."""
+
+
+class KernelTypeError(KernelError, TypeError):
+    """Tensors of a type a kernel does not take."""
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError(
+        raise KernelLaunchError(
             "nvcc not found: the CUDA kernels of paddle_tpu_torch build only "
             "where the CUDA toolkit is installed (CPU tensors use the plain "
             "PyTorch versions and need no build)")
@@ -107,7 +130,7 @@ def build() -> Path:
             failed.append(f"{src.name} (exit {rc}):\n"
                           + (BUILD_DIR / f"{src.stem}.ptxas.txt").read_text())
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelLaunchError("nvcc failed for " + "\n".join(failed))
     tmp = BUILD_DIR / f"{_LIB_NAME}.{tag}"
     cmd = [nvcc, *NVCC_FLAGS[:4], "-shared", "-o", str(tmp),
            *(str(o) for _, o, _, _ in procs)]
@@ -115,7 +138,7 @@ def build() -> Path:
     for _, obj, _, _ in procs:
         obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        raise KernelLaunchError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
     os.replace(tmp, lib)          # atomic: a concurrent reader sees old or new
     stamp.write_text(digest)
     return lib
@@ -139,8 +162,8 @@ def check(err: int, kernel: str) -> None:
     runs, and a later synchronize would not report it)."""
     if err != 0:
         what = library().ptt_error_string(err).decode()
-        raise RuntimeError(f"{kernel}: CUDA launch failed: error {err} "
-                           f"({what})")
+        raise KernelLaunchError(f"{kernel}: CUDA launch failed: error {err} "
+                                f"({what})")
 
 
 def stream(device: torch.device) -> int:
@@ -158,7 +181,7 @@ def dtype_code(dtype: torch.dtype) -> int:
         return 0
     if dtype == torch.bfloat16:
         return 1
-    raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    raise KernelTypeError(f"kernels take float32 or bfloat16, got {dtype}")
 
 
 def check_device_tensors(kernel: str, floats, ints=()) -> None:
@@ -168,17 +191,19 @@ def check_device_tensors(kernel: str, floats, ints=()) -> None:
     dev = floats[0].device
     for t in (*floats, *ints):
         if t.device != dev:
-            raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")
+            raise KernelValueError(
+                f"{kernel}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"{kernel}: tensors must be contiguous")
+            raise KernelValueError(f"{kernel}: tensors must be contiguous")
     for t in floats:
         if t.dtype != floats[0].dtype:
-            raise TypeError(f"{kernel}: mixed dtypes {t.dtype} and "
-                            f"{floats[0].dtype}")
+            raise KernelTypeError(f"{kernel}: mixed dtypes {t.dtype} and "
+                                  f"{floats[0].dtype}")
         if t.data_ptr() % 16:
-            raise ValueError(f"{kernel}: tensor data must be 16-byte aligned")
+            raise KernelValueError(
+                f"{kernel}: tensor data must be 16-byte aligned")
     dtype_code(floats[0].dtype)
     for t in ints:
         if t.dtype != torch.int32:
-            raise TypeError(f"{kernel}: index tensors must be int32, "
-                            f"got {t.dtype}")
+            raise KernelTypeError(f"{kernel}: index tensors must be int32, "
+                                  f"got {t.dtype}")

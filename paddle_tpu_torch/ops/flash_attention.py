@@ -32,6 +32,7 @@ import math
 import torch
 
 from . import _build
+from ._build import KernelValueError
 
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
            "KERNEL_HEAD_DIMS", "plain_route",
@@ -101,31 +102,32 @@ def _autocast_off(device):
 
 def _check_shapes(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}: want "
-                         "[B, S, heads, hd] with k and v alike")
+        raise KernelValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                               f"{tuple(k.shape)}, v {tuple(v.shape)}: want "
+                               "[B, S, heads, hd] with k and v alike")
     B, _, nh, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or k.shape[2] == 0 \
             or nh % k.shape[2]:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} against "
-                         f"k {tuple(k.shape)}: batch and hd must match and "
-                         "kv heads divide query heads")
+        raise KernelValueError(
+            f"flash_attention: q {tuple(q.shape)} against "
+            f"k {tuple(k.shape)}: batch and hd must match and "
+            "kv heads divide query heads")
 
 
 def _check_training_args(k, kv_mask, dropout_rate, seed):
     """Validates the kv mask and dropout arguments; returns the mask as
     contiguous int32 ``[B, Sk]`` (or None) and the seed as an int."""
     if not 0.0 <= dropout_rate < 1.0:
-        raise ValueError(f"flash_attention: dropout_rate {dropout_rate} "
-                         "not in [0, 1)")
+        raise KernelValueError(f"flash_attention: dropout_rate {dropout_rate} "
+                               "not in [0, 1)")
     if dropout_rate and seed is None:
-        raise ValueError("flash_attention: dropout needs an int32 seed")
+        raise KernelValueError("flash_attention: dropout needs an int32 seed")
     if kv_mask is not None:
         B, Sk = k.shape[0], k.shape[1]
         if tuple(kv_mask.shape) != (B, Sk):
-            raise ValueError(f"flash_attention: kv_mask "
-                             f"{tuple(kv_mask.shape)}, want [B, Sk] = "
-                             f"{[B, Sk]}")
+            raise KernelValueError(f"flash_attention: kv_mask "
+                                   f"{tuple(kv_mask.shape)}, want [B, Sk] = "
+                                   f"{[B, Sk]}")
         if kv_mask.dtype != torch.int32 or not kv_mask.is_contiguous():
             kv_mask = (kv_mask != 0).to(torch.int32).contiguous()
     return kv_mask, int(seed or 0)
@@ -145,8 +147,8 @@ def _kernel_dims(kernel, q, k, floats, kv_mask):
                                 () if kv_mask is None else (kv_mask,))
     B, Sq, nh, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{kernel}: head dim {hd} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+        raise KernelValueError(f"{kernel}: head dim {hd} not in "
+                               f"{KERNEL_HEAD_DIMS}")
     return B, Sq, k.shape[1], nh, k.shape[2], hd
 
 
@@ -255,9 +257,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
     """
     _check_shapes(q, k, v)
     if out.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
-                         f"do {tuple(do.shape)} must be like q "
-                         f"{tuple(q.shape)}")
+        raise KernelValueError(
+            f"flash_attention_bwd: out {tuple(out.shape)} and "
+            f"do {tuple(do.shape)} must be like q "
+            f"{tuple(q.shape)}")
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
@@ -275,8 +278,8 @@ def _bwd_launch(kernel, entry, q, k, v, out, lse, do, grads, causal,
                                           kv_mask)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, nh, Sq) \
             or not lse.is_contiguous() or lse.device != q.device:
-        raise ValueError(f"{kernel}: lse must be contiguous float32 "
-                         f"[B, nh, Sq] = {[B, nh, Sq]} on {q.device}")
+        raise KernelValueError(f"{kernel}: lse must be contiguous float32 "
+                               f"[B, nh, Sq] = {[B, nh, Sq]} on {q.device}")
     mask_ptr, seed, thresh, keep_p = _launch_args(kv_mask, dropout_rate, seed)
     err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

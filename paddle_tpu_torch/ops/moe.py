@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._build import KernelTypeError, KernelValueError
 
 __all__ = ["routing_indices", "moe_dispatch", "moe_combine", "MoEDispatch",
            "MoECombine", "moe_dispatch_reference", "moe_combine_reference"]
@@ -54,8 +55,9 @@ def routing_indices(eid, slot, keep, num_experts: int, capacity: int):
 
 def _row_checks(kernel, x, M):
     if M * x.element_size() % 16:
-        raise ValueError(f"{kernel}: a row of {M} {x.dtype} elements is not "
-                         "a whole number of 16-byte vectors")
+        raise KernelValueError(
+            f"{kernel}: a row of {M} {x.dtype} elements is not "
+            "a whole number of 16-byte vectors")
 
 
 # ---------------------------------------------------------------- dispatch
@@ -64,8 +66,9 @@ def _dispatch(x, inv):
     """The forward of :func:`moe_dispatch`: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
     if x.dim() != 2 or inv.dim() != 1:
-        raise ValueError(f"moe_dispatch: x {tuple(x.shape)} must be [T, M] "
-                         f"and inv {tuple(inv.shape)} [E * C]")
+        raise KernelValueError(
+            f"moe_dispatch: x {tuple(x.shape)} must be [T, M] "
+            f"and inv {tuple(inv.shape)} [E * C]")
     if x.device.type == "cpu":
         return moe_dispatch_reference(x, inv)
     _build.check_device_tensors("moe_dispatch", (x,), (inv,))
@@ -134,22 +137,23 @@ def _combine(expert_rows, w, flat):
     """The forward of :func:`moe_combine`: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
     if expert_rows.dim() != 2 or w.dim() != 2 or flat.shape != w.shape:
-        raise ValueError(f"moe_combine: rows {tuple(expert_rows.shape)} "
-                         f"must be [E * C, M], w {tuple(w.shape)} and flat "
-                         f"{tuple(flat.shape)} alike [T, k]")
+        raise KernelValueError(
+            f"moe_combine: rows {tuple(expert_rows.shape)} "
+            f"must be [E * C, M], w {tuple(w.shape)} and flat "
+            f"{tuple(flat.shape)} alike [T, k]")
     if expert_rows.device.type == "cpu":
         return moe_combine_reference(expert_rows, w, flat)
     _build.check_device_tensors("moe_combine", (expert_rows,), (flat,))
     if w.device != expert_rows.device or not w.is_contiguous():
-        raise ValueError("moe_combine: w must be contiguous on "
-                         f"{expert_rows.device}")
+        raise KernelValueError("moe_combine: w must be contiguous on "
+                               f"{expert_rows.device}")
     if w.dtype != torch.float32:
-        raise TypeError(f"moe_combine: w must be float32, got {w.dtype}")
+        raise KernelTypeError(f"moe_combine: w must be float32, got {w.dtype}")
     EC, M = expert_rows.shape
     T, k = w.shape
     _row_checks("moe_combine", expert_rows, M)
     if not 1 <= k <= _MAX_K:
-        raise ValueError(f"moe_combine: k = {k} not in [1, {_MAX_K}]")
+        raise KernelValueError(f"moe_combine: k = {k} not in [1, {_MAX_K}]")
     out = torch.empty((T, M), dtype=expert_rows.dtype,
                       device=expert_rows.device)
     if T == 0:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import KernelValueError
 from .flash_attention import KERNEL_HEAD_DIMS
 
 __all__ = ["paged_attention", "paged_attention_reference", "decode_split",
@@ -71,17 +72,19 @@ def chunk_split(B: int, nh: int, s: int, max_blocks: int, bs: int):
 
 def _check_pool(q, k_cache, v_cache, tables, lens, name):
     if k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"{name}: pools must be [nh, num_blocks, bs, hd] "
-                         f"and alike, got {tuple(k_cache.shape)} and "
-                         f"{tuple(v_cache.shape)}")
+        raise KernelValueError(
+            f"{name}: pools must be [nh, num_blocks, bs, hd] "
+            f"and alike, got {tuple(k_cache.shape)} and "
+            f"{tuple(v_cache.shape)}")
     B, nh, hd = q.shape[0], q.shape[-2], q.shape[-1]
     if k_cache.shape[0] != nh or k_cache.shape[3] != hd:
-        raise ValueError(f"{name}: q heads/hd ({nh}, {hd}) do not match "
-                         f"the pool {tuple(k_cache.shape)}")
+        raise KernelValueError(f"{name}: q heads/hd ({nh}, {hd}) do not match "
+                               f"the pool {tuple(k_cache.shape)}")
     if tables.dim() != 2 or tables.shape[0] != B or lens.shape != (B,):
-        raise ValueError(f"{name}: tables {tuple(tables.shape)} and lengths "
-                         f"{tuple(lens.shape)} must be [{B}, max_blocks] "
-                         f"and [{B}]")
+        raise KernelValueError(
+            f"{name}: tables {tuple(tables.shape)} and lengths "
+            f"{tuple(lens.shape)} must be [{B}, max_blocks] "
+            f"and [{B}]")
 
 
 # ------------------------------------------------------------------ decode
@@ -110,11 +113,12 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
                                 (block_tables, seq_lens))
     B, nh, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_decode: head dim {hd} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+        raise KernelValueError(f"paged_decode: head dim {hd} not in "
+                               f"{KERNEL_HEAD_DIMS}")
     if block_tables.shape[1] > _DECODE_MAX_TABLE:
-        raise ValueError(f"paged_decode: a table of {block_tables.shape[1]} "
-                         f"blocks exceeds the kernel's {_DECODE_MAX_TABLE}")
+        raise KernelValueError(
+            f"paged_decode: a table of {block_tables.shape[1]} "
+            f"blocks exceeds the kernel's {_DECODE_MAX_TABLE}")
     _, num_blocks, bs, _ = k_cache.shape
     max_blocks = block_tables.shape[1]
     per, n_split = decode_split(max_blocks, bs)
@@ -170,8 +174,8 @@ def paged_attention_reference(q, k_cache, v_cache, block_tables, seq_lens):
 
 def _chunk_checks(q, k_cache, v_cache, block_tables, start_lens, name):
     if q.dim() != 4:
-        raise ValueError(f"{name}: q must be [B, s, nh, hd], got "
-                         f"{tuple(q.shape)}")
+        raise KernelValueError(f"{name}: q must be [B, s, nh, hd], got "
+                               f"{tuple(q.shape)}")
     _check_pool(q, k_cache, v_cache, block_tables, start_lens, name)
 
 
@@ -180,8 +184,8 @@ def _launch_chunk(q, k_cache, v_cache, block_tables, start_lens):
                                 (block_tables, start_lens))
     B, s, nh, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_chunk: head dim {hd} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+        raise KernelValueError(f"paged_chunk: head dim {hd} not in "
+                               f"{KERNEL_HEAD_DIMS}")
     _, num_blocks, bs, _ = k_cache.shape
     max_blocks = block_tables.shape[1]
     per, n_split, work = 64, 1, None

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import KernelTypeError, KernelValueError
 
 __all__ = ["weight_only_matmul", "weight_only_gemm",
            "weight_only_matmul_reference", "weight_only_forward",
@@ -173,32 +174,34 @@ def weight_only_forward(x, q, scale, bias=None):
 
 def _checks(kernel, x, q, scale, bias):
     if q.dim() != 2 or scale.shape != (q.shape[0],):
-        raise ValueError(f"{kernel}: q {tuple(q.shape)} must be "
-                         f"[N, K] and scale {tuple(scale.shape)} [N]")
+        raise KernelValueError(f"{kernel}: q {tuple(q.shape)} must be "
+                               f"[N, K] and scale {tuple(scale.shape)} [N]")
     if x.shape[-1] != q.shape[1]:
-        raise ValueError(f"{kernel}: x {tuple(x.shape)} does not "
-                         f"contract with q {tuple(q.shape)}")
+        raise KernelValueError(f"{kernel}: x {tuple(x.shape)} does not "
+                               f"contract with q {tuple(q.shape)}")
     if q.dtype not in CODE_DTYPES:
-        raise TypeError(f"{kernel}: codes must be int8 or "
-                        f"float8_e4m3fn, got {q.dtype}")
+        raise KernelTypeError(f"{kernel}: codes must be int8 or "
+                              f"float8_e4m3fn, got {q.dtype}")
     if bias is not None and bias.shape != (q.shape[0],):
-        raise ValueError(f"{kernel}: bias {tuple(bias.shape)} "
-                         f"must be [{q.shape[0]}]")
+        raise KernelValueError(f"{kernel}: bias {tuple(bias.shape)} "
+                               f"must be [{q.shape[0]}]")
 
 
 def _device_operands(kernel, x, q, scale, bias):
     """x as ``[M, K]`` after the checks both kernels need on the card."""
     if not x.is_contiguous():
-        raise ValueError(f"{kernel}: x must be contiguous")
+        raise KernelValueError(f"{kernel}: x must be contiguous")
     x2 = x.reshape(-1, x.shape[-1])
     floats = (x2, scale) if bias is None else (x2, scale, bias)
     _build.check_device_tensors(kernel, floats, ())
     if q.device != x.device or not q.is_contiguous() or q.data_ptr() % 16:
-        raise ValueError(f"{kernel}: codes must be contiguous and 16-byte "
-                         "aligned on x's device")
+        raise KernelValueError(
+            f"{kernel}: codes must be contiguous and 16-byte "
+            "aligned on x's device")
     if q.shape[1] % 16:
-        raise ValueError(f"{kernel}: K {q.shape[1]} is not a multiple of "
-                         "16 (the kernel loads 16 codes at a time)")
+        raise KernelValueError(
+            f"{kernel}: K {q.shape[1]} is not a multiple of "
+            "16 (the kernel loads 16 codes at a time)")
     return x2
 
 
@@ -216,9 +219,10 @@ def weight_only_matmul(x, q, scale, bias=None):
     lead = x.shape[:-1]
     M = _rows(x)
     if M > KERNEL_MAX_ROWS:
-        raise ValueError(f"weight_only_matmul: {M} rows, the kernel takes "
-                         f"at most {KERNEL_MAX_ROWS} (wider products are "
-                         "weight_only_gemm's)")
+        raise KernelValueError(
+            f"weight_only_matmul: {M} rows, the kernel takes "
+            f"at most {KERNEL_MAX_ROWS} (wider products are "
+            "weight_only_gemm's)")
     x2 = _device_operands("weight_only_matmul", x, q, scale, bias)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
@@ -252,12 +256,13 @@ def weight_only_gemm(x, q, scale, bias=None):
     lead = x.shape[:-1]
     M = _rows(x)
     if M <= KERNEL_MAX_ROWS:
-        raise ValueError(f"weight_only_gemm: {M} rows, the kernel takes "
-                         f"more than {KERNEL_MAX_ROWS} (narrower products "
-                         "are weight_only_matmul's)")
+        raise KernelValueError(
+            f"weight_only_gemm: {M} rows, the kernel takes "
+            f"more than {KERNEL_MAX_ROWS} (narrower products "
+            "are weight_only_matmul's)")
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"weight_only_gemm: x must be bfloat16, got "
-                        f"{x.dtype}")
+        raise KernelTypeError(f"weight_only_gemm: x must be bfloat16, got "
+                              f"{x.dtype}")
     x2 = _device_operands("weight_only_gemm", x, q, scale, bias)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     sched = gemm_schedule(M, N, K, _build.sm_count(x.device))

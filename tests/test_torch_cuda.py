@@ -902,6 +902,246 @@ def test_a_failed_capture_raises(gen, monkeypatch):
     torch.cuda.synchronize()
 
 
+# ------------------------------------------------ crash-only serving
+
+def _same_nans(out, ref, dtype):
+    """NaN exactly where the plain version has NaN, and some; the rest
+    equal within the dtype's tolerance."""
+    bad = torch.isnan(ref)
+    assert bad.any() and torch.equal(torch.isnan(out.float()), bad)
+    torch.testing.assert_close(out.float()[~bad], ref[~bad], **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", ["k", "v"])
+def test_nan_keys_and_values_reach_what_reads_them(gen, dtype, pool):
+    """A NaN key or value reaches exactly the outputs that read it, as in
+    the plain versions (the crash-only watchdog sees a corrupted block);
+    a row that sees no key still gives zeros.  paged_decode over several
+    splits, paged_chunk split (B 1) and not, flash_fwd."""
+    nh, hd = 2, 64
+
+    def poison(t, head, blk):
+        t[head, blk] = float("nan")
+    k = _randn(gen, (nh, 49, 64, hd), dtype)
+    v = _randn(gen, (nh, 49, 64, hd), dtype)
+    tables = _tables(gen, 3, 16, [0, 100, 700], 64)
+    sl = torch.tensor([0, 100, 700], dtype=torch.int32, device="cuda")
+    poison(k if pool == "k" else v, 0, int(tables[2, 3]))
+    q = _randn(gen, (3, nh, hd), dtype)
+    out = pa.paged_attention(q, k, v, tables, sl)
+    _same_nans(out, pa.paged_attention_reference(
+        q.float(), k.float(), v.float(), tables, sl), dtype)
+    assert not out[0].any()
+    for B, starts in ((1, [300]), (2, [0, 90])):
+        q, k, v, tables, st = _chunk_case(gen, B, 64, nh, hd, 16, 32,
+                                          starts, dtype)
+        poison(k if pool == "k" else v, 1, int(tables[B - 1, 5]))
+        out = pa.paged_chunk_attention(q, k, v, tables, st)
+        _same_nans(out, pa.paged_chunk_attention_reference(
+            q.float(), k.float(), v.float(), tables, st), dtype)
+    q, k, v = (_randn(gen, (1, 80, nh, hd), dtype) for _ in range(3))
+    (k if pool == "k" else v)[0, 10, 0] = float("nan")
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_fwd_reference(
+        q.float(), k.float(), v.float(), causal=True)
+    _same_nans(out, ref, dtype)
+    assert torch.equal(torch.isnan(lse), torch.isnan(ref_lse))
+
+
+def test_decode_program_graph_matches_eager(gen):
+    """Host sampling (``device_sampling=False``): the ``decode`` program
+    is in the warmup grid and captured; served mixes (greedy and
+    host-sampled rows) and one replay's tokens and logits are bit-equal
+    to the eager program's, with equal launch counts."""
+    import numpy as np
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    model = _tiny_card()
+    st = _graphs_against_eager(model, _graph_mix(True),
+                               device_sampling=False)
+    assert {"program": "decode", "steps_per_tick": 1} in \
+        st["warmup"]["grid"]
+    outs = []
+    tables = np.zeros((2, 8), np.int32)
+    tables[0, :2], tables[1, :1] = (1, 2), (3,)
+    for graphs_on in (False, True):
+        eng = ServingEngine(model, max_batch=2, max_context=128,
+                            block_size=16, device="cuda",
+                            cuda_graphs=graphs_on, device_sampling=False)
+        eng._forward_prompt("prefill", tables[0], list(range(1, 21)), 0)
+        eng._forward_prompt("prefill", tables[1], list(range(7, 15)), 0)
+        prog = eng._program(("decode",))
+        assert (prog.graph is not None) == graphs_on
+        prog.load(tables=tables, lens=np.array([20, 8], np.int32),
+                  last=np.array([5, 9], np.int64))
+        prog.replay()
+        outs.append(prog.fetch("toks", "logits").wait())
+    assert np.array_equal(outs[0]["toks"], outs[1]["toks"])
+    assert np.array_equal(outs[0]["logits"], outs[1]["logits"])
+    assert np.isfinite(outs[1]["logits"]).all()
+
+
+def test_device_nan_evicts_its_slot_on_the_card(gen):
+    """NaN keys written into one running request's private block on the
+    card: that slot alone ends ``error`` at its next tick (the watchdog
+    on, host sampling), the other slot's stream is the fault-free one."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.observability import flight_recorder
+    model = _tiny_card()
+
+    def serve(poison):
+        eng = ServingEngine(model, max_batch=2, max_context=128,
+                            block_size=16, steps_per_tick=1, device="cuda",
+                            device_sampling=False, blocksan=True)
+        eng.warmup()
+        reqs = [eng.add_request(Request(list(range(3 + i, 40 + i)),
+                                        max_new_tokens=10))
+                for i in range(2)]
+        eng.step()
+        if poison:
+            blk = int(eng.tables[reqs[1].slot, 37 // 16])
+            for kk, _ in eng.pools:
+                kk[:, blk] = float("nan")
+        eng.run()
+        assert eng.stats()["free_blocks"] == eng.num_blocks
+        return reqs
+    old = flight_recorder.set_enabled(True)
+    try:
+        want, got = serve(False), serve(True)
+    finally:
+        flight_recorder.set_enabled(old)
+    assert [r.outcome for r in got] == ["finished", "error"]
+    assert got[0].output_ids == want[0].output_ids
+    assert len(got[1].output_ids) == 2
+
+
+def _sys_hit(model, root):
+    """Serve the shared prompt with a suffix, then the hit, drain and
+    export under ``root``; returns the hit's stream and the engine."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    eng = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
+                        steps_per_tick=4, device="cuda",
+                        prefix_export_dir=root)
+    shared = list(range(1, 40))
+    for suffix in ([77], [88]):
+        req = eng.add_request(Request(shared + suffix, max_new_tokens=8))
+        eng.run()
+    assert eng.stats()["prefix_cache"]["hits"] == 1
+    assert eng.drain()["export"]["blocks"] == 2
+    return req, eng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_import_into_captured_pools(gen, tmp_path, dtype):
+    """An export imported into an engine whose grid is already captured:
+    every pool keeps its address (the graphs read them there), the blocks
+    are the exporter's bit for bit (bf16 through its 16-bit words), and
+    the replayed prefix-hit stream equals the exporter's."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    model = _tiny_card().to(dtype)
+    root = str(tmp_path / "export")
+    hit, src = _sys_hit(model, root)
+    eng = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
+                        steps_per_tick=4, device="cuda")
+    eng.warmup()
+    ptrs = [t.data_ptr() for pair in eng.pools for t in pair]
+    eng._import_prefix_cache(root)
+    assert eng.stats()["prefix_cache"]["import"] == \
+        {"step": 1, "blocks": 2, "skipped_corrupt": 0}
+    assert [t.data_ptr() for pair in eng.pools for t in pair] == ptrs
+    shared = list(range(1, 40))
+    a = src.prefix.lookup(shared + [88]).blocks
+    b = eng.prefix.lookup(shared + [88]).blocks
+    assert len(a) == len(b) == 2
+    for (sk, sv), (dk, dv) in zip(src.pools, eng.pools):
+        assert torch.equal(sk[:, a], dk[:, b])
+        assert torch.equal(sv[:, a], dv[:, b])
+    before = pa.paged_chunk_attention.launches
+    req = eng.add_request(Request(shared + [88], max_new_tokens=8))
+    eng.run()
+    assert req.output_ids == hit.output_ids
+    assert pa.paged_chunk_attention.launches > before
+    assert eng.stats()["graphs"]["replays"] > 0
+    assert eng._prefix_fingerprint()["dtype"] == str(dtype)[6:]
+
+
+def test_tick_timeout_leaves_the_turn_unblocked(gen, monkeypatch):
+    """A tick whose copies wait behind a spinning kernel: the watchdog
+    fails it, the guard abandons both ticks in flight (their fetch turns
+    get fresh buffers), a fetch of the same turn returns at once while
+    the card still spins, and after it the engine serves the fault-free
+    stream."""
+    import time
+    from paddle_tpu_torch.inference import graphs
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    model = _tiny_card()
+    ref = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
+                        steps_per_tick=4, device="cuda")
+    want = ref.add_request(Request([5, 6, 7], max_new_tokens=12))
+    ref.run()
+    # cycles of torch.cuda._sleep in one second on this card
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    end.synchronize()
+    per_s = 10 ** 8 / (start.elapsed_time(end) / 1e3)
+    eng = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
+                        steps_per_tick=4, device="cuda", tick_timeout_s=0.3)
+    eng.warmup()
+    fetch, hung = graphs.Program.fetch, []
+
+    def stalled(prog, *names):
+        if not hung and "toks" in names:
+            torch.cuda._sleep(int(6 * per_s))
+            hung.append((prog, fetch(prog, *names)))
+            return hung[-1][1]
+        return fetch(prog, *names)
+    monkeypatch.setattr(graphs.Program, "fetch", stalled)
+    req = eng.add_request(Request([5, 6, 7], max_new_tokens=12))
+    t0 = time.monotonic()
+    eng.run()
+    assert time.monotonic() - t0 < 4.0
+    assert req.outcome == "error" and eng.tick_errors == 1
+    prog, f = hung[0]
+    assert not f.event.query()              # the card still spins
+    for _ in range(2):                      # both turns, without waiting
+        t0 = time.monotonic()
+        prog.replay()
+        prog.fetch("toks")
+        assert time.monotonic() - t0 < 0.1
+    torch.cuda.synchronize()
+    again = eng.add_request(Request([5, 6, 7], max_new_tokens=12))
+    eng.run()
+    assert again.outcome == "finished"
+    assert again.output_ids == want.output_ids
+    assert eng.stats()["free_blocks"] == eng.num_blocks
+
+
+@pytest.mark.parametrize("entry", ["ptt_flash_fwd", "ptt_paged_decode"])
+def test_a_failed_launch_stops_run_unretried(gen, monkeypatch, entry):
+    """A kernel whose launch returns a CUDA error (as a refused launch, or
+    the sticky fault of an earlier kernel, does) stops `run()` with its
+    wrapper's `KernelLaunchError`: the crash-only guard neither retries
+    nor absorbs it, with eager programs as with graphs."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.ops import _build
+    calls = []
+
+    def failing(*args):
+        calls.append(1)
+        return 700                  # cudaErrorIllegalAddress
+    monkeypatch.setattr(_build.library(), entry, failing)
+    eng = ServingEngine(_tiny_card(), max_batch=2, max_context=128,
+                        block_size=16, steps_per_tick=4, device="cuda",
+                        cuda_graphs=False, dispatch_retries=2)
+    req = eng.add_request(Request([5, 6, 7], max_new_tokens=8))
+    with pytest.raises(_build.KernelLaunchError, match="illegal memory"):
+        eng.run()
+    assert len(calls) == 1 and req.outcome is None
+    assert eng.dispatch_retries == 0 and eng.tick_errors == 0
+
+
 def _train_card_vs_cpu(cpu, card, batch, steps=2):
     """``steps`` AdamW steps with clipping on each model from one state;
     returns the losses (CPU, card) and the largest parameter difference."""
