@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs nineteen phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs twenty phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -111,6 +111,29 @@ into ``build/paddle_tpu_torch/``), then runs nineteen phases on card 0:
    with its export, the import): outcomes, streams, strikes, ``stats()``
    and the drain report (without seconds, paths and the graph counters)
    equal.
+20. Observability and the scheduler's budget (in phase 2's run, after
+   phase 19, on its model and mix): a. phase 13's default engine and its
+   overlap-off twin with the metrics gate on and off, 3 runs each in
+   turns (one capture per engine; the prefix index emptied between
+   runs): median tokens/s, mean TTFT and ms per decode step of each,
+   streams equal.  b. ``serve_forever`` behind ``http_port``: 8 clients
+   ``POST /generate`` the mix at once; every SSE stream equals ``run()``'s,
+   the ``/metrics`` scrape counts 8 TTFTs and every token, ``/requests``
+   8 finished records; a client that hangs up after 10 tokens ends
+   ``cancelled`` with its blocks back; ``/healthz`` 200, then 503
+   ``draining`` after ``POST /drain``.  c. 256-token chunks at chunk
+   budgets 1, 2 and the controller (at most 4, ``tpot_slo_ms`` 1.5 x part
+   a's step): streams and chunks equal; mean TTFT, p99 TPOT, ticks.  d.
+   ``ttft_slo_ms=1e-6``, ``shed_queue_depth=2``: after one request, the 8
+   queued through ``POST /generate`` at priorities 0 and 1; the shed ones
+   are the JAX rule's and end in ``error`` frames with reason
+   ``slo_shed``, the others stream as ``run()``.  e. Phase 11's system
+   prompt alone after its registration (1023 tokens reused): the ``cow``
+   program replays from its graph, streams equal ``cuda_graphs=False``'s.
+   f. A 4-layer fp32 cut, card against CPU: chunk budget 2, shedding and
+   the trace records (without seconds) equal.  ``flash_fwd``,
+   ``paged_chunk`` and ``paged_decode`` launch in parts b, c and e (the
+   ``observability`` path).
 3. Card against CPU: a 4-layer cut of GPT-3 1.3B in float32 serves one
    greedy request on the card (kernels; the default engine and the eager
    programs) and on the CPU (plain versions) from one state dict; the
@@ -1215,6 +1238,9 @@ def serving_phase(lens):
     t = time.perf_counter()
     runs["crash_only"] = crash_only_phase(model, prompts)
     _log(f"[phase 19: {time.perf_counter() - t:.1f} s]")
+    t = time.perf_counter()
+    runs["observability"] = observability_phase(model, prompts)
+    _log(f"[phase 20: {time.perf_counter() - t:.1f} s]")
     sampling_cost(cfg.vocab_size)
     return runs
 
@@ -1554,12 +1580,474 @@ def crash_only_phase(model, prompts):
                 cold_s=cold_s, watchdog_s=took)
 
 
-_SECONDS = ("drained_s", "export_s", "path", "warmup", "graphs")
+_SECONDS = ("drained_s", "export_s", "path", "warmup", "graphs",
+            "latency")
+
+
+# -------------------------------------------------------------- phase 20
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _post(url, path, body=None, timeout=300):
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def _sse(url, body, stop_after=None):
+    """POST /generate and read the stream: the token ids and the terminal
+    ``(event, payload)``; with ``stop_after`` the client hangs up after
+    that many tokens (no terminal frame)."""
+    toks, event = [], None
+    resp = _post(url, "/generate", body)
+    try:
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: "):
+                d = json.loads(line[6:])
+                if event is not None:
+                    return toks, (event, d)
+                toks.append(d["token"])
+                if stop_after is not None and len(toks) >= stop_after:
+                    return toks, None
+    finally:
+        resp.close()
+    raise AssertionError("an SSE stream ended without a terminal frame")
+
+
+def _get(url, path):
+    import urllib.error
+    import urllib.request
+    try:
+        r = urllib.request.urlopen(url + path, timeout=60)
+        return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _bodies(prompts, **kw):
+    """Phase 2's 8 requests as ``POST /generate`` bodies."""
+    return [dict(prompt_ids=p, max_new_tokens=64, do_sample=bool(i % 2),
+                 temperature=0.9, top_k=40, top_p=0.95, seed=1000 + i,
+                 timeout_s=300, **kw) for i, p in enumerate(prompts)]
+
+
+def _add_launches(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _gate_runs(model, prompts):
+    """20a: phase 13's default engine (graphs, overlap) and its overlap-off
+    twin (ms per decode step), each warmed once; ``REPEATS`` rounds of the
+    mix with the metrics gate on and off in turns.  Between runs the
+    prefix index lets go of every block, so each run starts as a fresh
+    engine's would, without a second capture."""
+    import torch
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.observability import metrics
+
+    engines = {"overlap": _engine(model),
+               "timed": _engine(model, overlap=False)}
+    for eng in engines.values():
+        eng.warmup()
+    eng = engines["timed"]
+    dispatch, harvest, tick = eng._dispatch_tick, eng._harvest, [0.0, 0.0]
+
+    def timed_dispatch(*a):
+        torch.cuda.synchronize()
+        tick[0] = time.perf_counter()
+        return dispatch(*a)
+
+    def timed_harvest(*a):
+        out = harvest(*a)
+        tick[1] += time.perf_counter() - tick[0]
+        return out
+    eng._dispatch_tick, eng._harvest = timed_dispatch, timed_harvest
+
+    def traffic(eng):
+        eng.release_exported_prefix()
+        reqs = [Request(p, max_new_tokens=64, do_sample=bool(i % 2),
+                        temperature=0.9, top_k=40, top_p=0.95,
+                        seed=1000 + i) for i, p in enumerate(prompts)]
+        steps0, tick[1] = eng.steps, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _no_leak("phase 20a", eng)
+        n = sum(len(r.output_ids) for r in reqs)
+        return dict(tokens_per_s=n / wall,
+                    ttft_mean_s=sum(r.t_first - r.t_enqueue for r in reqs)
+                    / len(reqs),
+                    ms_per_step=tick[1] / max(eng.steps - steps0, 1) * 1e3,
+                    streams=[list(r.output_ids) for r in reqs])
+    runs = {True: [], False: []}
+    old = metrics.enabled()
+    try:
+        for _ in range(REPEATS):
+            for gate in (True, False):
+                metrics.set_enabled(gate)
+                runs[gate].append((traffic(engines["overlap"]),
+                                   traffic(engines["timed"])))
+    finally:
+        metrics.set_enabled(old)
+        del eng._dispatch_tick, eng._harvest
+    base = runs[True][0][0]["streams"]
+    for gate, rs in runs.items():
+        for a, b in rs:
+            if a["streams"] != base or b["streams"] != base:
+                raise AssertionError("phase 20a: streams differ between "
+                                     "runs or gates")
+    out = {}
+    for gate, rs in runs.items():
+        out[gate] = dict(
+            tokens_per_s=_median([a["tokens_per_s"] for a, _ in rs]),
+            tokens_per_s_runs=[a["tokens_per_s"] for a, _ in rs],
+            ttft_mean_s=_median([a["ttft_mean_s"] for a, _ in rs]),
+            ms_per_step=_median([b["ms_per_step"] for _, b in rs]))
+    out["streams"] = base
+    return out
+
+
+def observability_phase(model, prompts):
+    """Phase 20: the serving engine's observability and its scheduler's
+    budget on GPT-3 1.3B in bf16 (phase 2's model and mix), parts a-f of
+    the module docstring.  Returns the launches of parts b, c and e (the
+    ``observability`` path) and the printed numbers."""
+    import threading
+    import torch
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    from paddle_tpu_torch.observability import export, metrics
+
+    card = card_name()
+    launches = {}
+
+    # a. the metrics gate's cost on phase 13's run
+    t = time.perf_counter()
+    gate = _gate_runs(model, prompts)
+    on, off = gate[True], gate[False]
+    _log(f"phase 20a, metrics gate on / off, median of {REPEATS} runs each "
+         f"in turns: {on['tokens_per_s']:.1f} / {off['tokens_per_s']:.1f} "
+         f"tokens/s (on/off {on['tokens_per_s'] / off['tokens_per_s']:.4f};"
+         " runs on " + ", ".join(f"{x:.1f}" for x in on["tokens_per_s_runs"])
+         + "; off " + ", ".join(f"{x:.1f}" for x in off["tokens_per_s_runs"])
+         + f"), mean TTFT {on['ttft_mean_s'] * 1e3:.2f} / "
+         f"{off['ttft_mean_s'] * 1e3:.2f} ms, {on['ms_per_step']:.3f} / "
+         f"{off['ms_per_step']:.3f} ms per decode step (overlap off); "
+         f"streams equal in all runs ({time.perf_counter() - t:.1f} s; "
+         f"{card})")
+    want = gate["streams"]
+
+    # b. the HTTP frontend: serve_forever behind http_port
+    metrics.reset()
+    export.clear_requests()
+    port = _free_port()
+    eng = _engine(model, http_port=port)
+    url = f"http://127.0.0.1:{port}"
+    stop = threading.Event()
+    loop = threading.Thread(target=eng.serve_forever, args=(stop,),
+                            daemon=True)
+    bodies = _bodies(prompts)
+    out = [None] * len(bodies)
+    errors = []
+
+    def client(i):
+        try:
+            out[i] = _sse(url, bodies[i])
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+    try:
+        loop.start()
+        _wait(lambda: eng.ready, "warmup")
+        _zero_counts()
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(300)
+        sse_s = time.perf_counter() - t0
+        if errors or any(c.is_alive() for c in clients):
+            raise AssertionError(f"phase 20b: clients failed: {errors}")
+        _, scrape = _get(url, "/metrics")
+        _, recent = _get(url, "/requests")
+        code_ok, _ = _get(url, "/healthz")
+        # a client that hangs up after 10 tokens
+        gone, _ = _sse(url, dict(bodies[0], seed=77, max_new_tokens=min(
+            512, MAX_CONTEXT - len(prompts[0]))), stop_after=10)
+        _wait(lambda: eng.stats()["running"] == 0, "the cancelled request")
+        cancelled = eng.finished[-1]
+        st_cancel = eng.stats()
+        drain = _post(url, "/drain")
+        drain_code = drain.status
+        drain.close()
+        code_drain, health = _get(url, "/healthz")
+        loop.join(120)
+        if loop.is_alive():
+            raise AssertionError("phase 20b: serve_forever did not return "
+                                 "after POST /drain")
+    finally:
+        stop.set()
+        from paddle_tpu_torch.observability import http as obs_http
+        obs_http.stop()
+    _add_launches(launches, {n: fn.launches
+                             for n, fn in _counters().items()})
+    streams = [o[0] for o in out]
+    if streams != want or [o[1][0] for o in out] != ["done"] * BATCH:
+        raise AssertionError(
+            "phase 20b: SSE streams differ from run()'s: "
+            f"{sum(a == b for a, b in zip(streams, want))} of {BATCH} equal")
+    n_tok = sum(len(s) for s in streams)
+    lines = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+             for ln in scrape.splitlines() if not ln.startswith("#")}
+    records = json.loads(recent)
+    if lines.get("serving_ttft_seconds_count") != BATCH or \
+            lines.get("serving_tokens_out") != n_tok or \
+            [r["outcome"] for r in records] != ["finished"] * BATCH:
+        raise AssertionError(
+            f"phase 20b: scrape ttft count "
+            f"{lines.get('serving_ttft_seconds_count')}, tokens "
+            f"{lines.get('serving_tokens_out')} of {n_tok}, records "
+            f"{[r['outcome'] for r in records]}")
+    if cancelled.outcome != "cancelled" or len(gone) != 10 or \
+            st_cancel["free_blocks"] != eng.num_blocks:
+        raise AssertionError(f"phase 20b: the hung-up request "
+                             f"{cancelled.outcome}, {st_cancel}")
+    if code_ok != 200 or drain_code != 202 or code_drain != 503 or \
+            json.loads(health)["reason"] != "draining":
+        raise AssertionError(f"phase 20b: healthz {code_ok}, drain "
+                             f"{drain_code}, then {code_drain} {health}")
+    _no_leak("phase 20b", eng)
+    if any(_plain_calls().values()):
+        raise AssertionError(f"phase 20b took plain routes: "
+                             f"{_plain_calls()}")
+    p99 = {q: lines.get(f'serving_ttft_seconds{{quantile="{q}"}}')
+           for q in ("0.5", "0.99")}
+    _log(f"phase 20b, POST /generate x {BATCH} concurrent on serve_forever: "
+         f"every SSE stream equals run()'s, {n_tok} tokens in {sse_s:.3f} s; "
+         f"/metrics: serving_ttft_seconds_count {BATCH}, p50 / p99 "
+         f"{p99['0.5']} / {p99['0.99']} s, tokens {n_tok}; /requests "
+         f"{BATCH} finished; a client gone after 10 tokens ended "
+         f"{cancelled.outcome} with its blocks back; /healthz 200, then "
+         f"503 draining after POST /drain ({card})")
+    del eng, loop
+
+    # c. 256-token chunks at chunk budgets 1, 2 and auto
+    step_ms = on["ms_per_step"]
+    budgets = (("1", dict(prefill_chunks_per_tick=1)),
+               ("2", dict(prefill_chunks_per_tick=2)),
+               ("auto", dict(prefill_chunks_per_tick=4,
+                             chunks_per_tick_auto=True,
+                             tpot_slo_ms=1.5 * step_ms)))
+    chunked = {}
+    for label, kw in budgets:
+        metrics.reset()
+        run = serve(model, prompts, 256, **kw)
+        _add_launches(launches, run["launches"])
+        lat = run["stats"]["latency"]
+        chunked[label] = dict(run, tpot_p99_s=lat["tpot"]["p99"],
+                              budget=run["stats"]["chunk_budget"])
+    base = chunked["1"]
+    for label, r in chunked.items():
+        if r["streams"] != base["streams"] or \
+                r["prefill_chunks"] != base["prefill_chunks"]:
+            raise AssertionError(f"phase 20c: budget {label}: streams or "
+                                 "chunks differ from budget 1's")
+    _log("phase 20c, 256-token chunks by budget (streams and "
+         f"{base['prefill_chunks']} chunks equal): " + "; ".join(
+             f"{label}: mean TTFT {r['ttft_mean_s'] * 1e3:.1f} ms, p99 TPOT "
+             f"{r['tpot_p99_s'] * 1e3:.3f} ms, {r['ticks']} ticks, "
+             f"{r['tokens_per_s']:.1f} tokens/s, budget at the end "
+             f"{r['budget']}" for label, r in chunked.items())
+         + f" (auto: tpot_slo_ms {1.5 * step_ms:.3f} = 1.5 x 20a's step; "
+         f"{card})")
+
+    # d. SLO shedding through POST /generate
+    metrics.reset()
+    eng = _engine(model, slo_shed=True, ttft_slo_ms=1e-6,
+                  shed_queue_depth=2)
+    eng.warmup()
+    eng.add_request(Request(prompts[0], max_new_tokens=8, seed=1))
+    eng.run()                                  # primes the TTFT sketch
+    from paddle_tpu_torch.observability import http as obs_http
+    srv = obs_http.MetricsServer(0, "127.0.0.1", engine=eng)
+    bodies = _bodies(prompts)
+    for i, b in enumerate(bodies):
+        b["priority"] = i % 2
+    out = [None] * len(bodies)
+    errors = []
+
+    def client_d(i):
+        try:
+            out[i] = _sse(srv.url, bodies[i])
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+    try:
+        clients = []
+        for i in range(len(bodies)):
+            # one at a time, so the queue's order is the bodies' order
+            clients.append(threading.Thread(target=client_d, args=(i,),
+                                            daemon=True))
+            clients[-1].start()
+            _wait(lambda: len(eng.waiting) == i + 1, "an enqueue")
+        eng.run()
+        for c in clients:
+            c.join(300)
+    finally:
+        srv.close()
+    if errors or any(c.is_alive() for c in clients):
+        raise AssertionError(f"phase 20d: clients failed: {errors}")
+    # the JAX rule: while more than 2 wait, the newest of the lowest
+    # priority goes
+    queue = list(range(len(bodies)))
+    victims = []
+    while len(queue) > 2:
+        v = len(queue) - 1
+        for j in range(len(queue) - 2, -1, -1):
+            if bodies[queue[j]]["priority"] < bodies[queue[v]]["priority"]:
+                v = j
+        victims.append(queue.pop(v))
+    shed = [i for i, o in enumerate(out) if o[1][0] == "error"]
+    st = _no_leak("phase 20d", eng)
+    if sorted(victims) != shed or st["slo_sheds"] != len(victims) or any(
+            out[i][1][1]["reason"] != "slo_shed" for i in shed) or any(
+            out[i][0] != want[i] for i in queue):
+        raise AssertionError(f"phase 20d: shed {shed}, the rule's "
+                             f"{sorted(victims)}, slo_sheds "
+                             f"{st['slo_sheds']}")
+    _log(f"phase 20d, ttft_slo_ms 1e-6 with one request served: 8 queued "
+         f"at priorities 0/1, depth 2: shed {shed} (the JAX rule's), each "
+         f"ending in an SSE error frame with reason slo_shed; slo_sheds "
+         f"{st['slo_sheds']}; {queue} streamed as run()'s")
+    del eng
+
+    # e. the cow program at a partial-block prefix hit
+    system = _prefix_prompts(model.cfg.vocab_size)
+    cow = {}
+    for graphs_on in (True, False):
+        e = _engine(model, cuda_graphs=graphs_on)
+        if graphs_on:
+            e.warmup()
+            _zero_counts()
+        rs = []
+        for p in (system[0], system[-1]):
+            rs.append(e.add_request(Request(p, max_new_tokens=32,
+                                            seed=2000)))
+            e.run()
+        prog = e._programs[("cow",)]
+        cow[graphs_on] = dict(streams=[r.output_ids for r in rs],
+                              replays=prog.replays,
+                              captured=prog.graph is not None,
+                              hits=e.stats()["prefix_cache"]["hits"])
+        if graphs_on:
+            _add_launches(launches, {n: fn.launches
+                                     for n, fn in _counters().items()})
+        _no_leak("phase 20e", e)
+        del e
+    if cow[True]["streams"] != cow[False]["streams"] or \
+            not cow[True]["captured"] or cow[True]["replays"] <= 0 or \
+            cow[True]["hits"] != 1:
+        raise AssertionError(f"phase 20e: {cow}")
+    _log(f"phase 20e, the {len(system[-1])}-token system prompt after its "
+         f"registration (1023 tokens reused, its last block copied on "
+         f"write): the cow program replayed {cow[True]['replays']} time "
+         "from its graph; streams equal cuda_graphs=False's")
+
+    # f. card against CPU on a 4-layer fp32 cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu, cut = _cut_models(gpt3_1p3b(num_layers=4))
+    got = [observability_schedule(m, dev) for m, dev in ((cut, "cuda"),
+                                                         (cpu, "cpu"))]
+    if got[0] != got[1]:
+        raise AssertionError(f"phase 20f: card {got[0]} != CPU {got[1]}")
+    _log(f"phase 20f, chunk budget 2, shedding and tracing on a 4-layer "
+         f"fp32 cut: card equal to CPU (streams, outcomes, stats, trace "
+         f"records without seconds): {json.dumps(got[0]['summary'])}")
+    for name in ("flash_fwd", "paged_chunk", "paged_decode"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"phase 20: {name} never launched")
+    return dict(launches=launches, gate=gate, chunked={
+        k: {f: v[f] for f in ("ttft_mean_s", "tpot_p99_s", "ticks",
+                              "tokens_per_s", "budget")}
+        for k, v in chunked.items()}, shed=shed, cow=cow[True])
+
+
+_TRACE_SECONDS = ("queue_wait_s", "prefill_s", "ttft_s", "tpot_mean_s",
+                  "e2e_s", "unix_time")
+
+
+def observability_schedule(model, dev):
+    """Phase 20f on one device: 3 requests in 64-token chunks at budget 2,
+    then shedding (ttft_slo_ms 1e-6, depth 1) of 4 queued requests after
+    one primes the sketch; returns what must be equal on card and CPU."""
+    import torch
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.observability import metrics
+
+    gen = torch.Generator().manual_seed(29)
+    vocab = model.cfg.vocab_size
+    ps = [torch.randint(1, vocab, (n,), generator=gen).tolist()
+          for n in (150, 70, 100, 40, 60, 80, 90)]
+    out = {}
+
+    def record(key, eng, reqs):
+        st = _plain(eng.stats())
+        out[key] = dict(
+            streams=[list(r.output_ids) for r in reqs],
+            outcomes=[r.outcome for r in reqs], stats=st,
+            traces=[None if r.trace is None else
+                    {k: (v == r.rid if k == "rid" else v)
+                     for k, v in r.trace.items() if k not in _TRACE_SECONDS}
+                    for r in reqs])
+        if st["free_blocks"] != eng.num_blocks:
+            raise AssertionError(f"{key} on {dev}: blocks leaked")
+
+    metrics.reset()
+    eng = ServingEngine(model, max_batch=2, max_context=256, block_size=BS,
+                        steps_per_tick=8, device=dev, prefill_chunk=64,
+                        prefill_chunks_per_tick=2)
+    reqs = [eng.add_request(Request(p, max_new_tokens=12, seed=3 + i,
+                                    do_sample=i == 1))
+            for i, p in enumerate(ps[:3])]
+    eng.run()
+    record("budget2", eng, reqs)
+    metrics.reset()
+    eng = ServingEngine(model, max_batch=2, max_context=256, block_size=BS,
+                        steps_per_tick=8, device=dev, slo_shed=True,
+                        ttft_slo_ms=1e-6, shed_queue_depth=1)
+    eng.add_request(Request(ps[3], max_new_tokens=4))
+    eng.run()
+    reqs = [eng.add_request(Request(p, max_new_tokens=8, priority=i % 2))
+            for i, p in enumerate(ps[3:])]
+    eng.run()
+    record("shed", eng, reqs)
+    out["summary"] = {k: v["outcomes"] for k, v in out.items()}
+    return out
+
+
 
 
 def _plain(doc):
-    """A stats or drain document without its seconds, paths and the
-    card's graph counters."""
+    """A stats or drain document without its seconds (the latency
+    sketches' too), paths and the card's graph counters."""
     if isinstance(doc, dict):
         return {k: _plain(v) for k, v in doc.items() if k not in _SECONDS}
     return doc
@@ -3623,6 +4111,7 @@ def main() -> int:
     paths = {"whole_prompt": runs[0]["launches"],
              "chunked": runs[256]["launches"],
              "crash_only": runs["crash_only"]["launches"],
+             "observability": runs["observability"]["launches"],
              "train": train["launches"],
              "moe_serve": moe_serve["launches"],
              "moe_train": moe_train["launches"],

@@ -66,9 +66,20 @@ the block ledger's (``testing/blocksan.py``).  ``Request.cancel()`` and
 ``priority`` act at the next boundary; ``request_drain()`` (SIGTERM under
 ``serve_forever``) closes admission and drains, exporting the prefix
 cache when ``prefix_export_dir`` is set, and an engine built with that
-directory imports the newest valid export.  Tensor parallelism, the
-scheduler's chunk budget and SLO shedding, the HTTP endpoint and
-telemetry are later slices (see ROADMAP.md).
+directory imports the newest valid export.
+
+The scheduler spends up to ``prefill_chunks_per_tick`` chunks per
+boundary (``chunks_per_tick_auto`` walks that budget from the live TPOT
+against ``tpot_slo_ms``) and, with ``slo_shed``, rejects the newest
+lowest-priority waiting requests while the TTFT or TPOT p99 is over its
+target and more than ``shed_queue_depth`` wait.  Every request's life is
+traced into the process's metrics registry (``observability/metrics.py``:
+the ``serving.*`` counters, gauges, histograms and the TTFT / TPOT / e2e /
+queue-wait sketches), the engine's flight recorder and the ``/requests``
+ring, unless ``metrics.set_enabled(False)`` turns the gate off, which
+leaves no per-request tracing work at all; ``http_port`` serves the
+engine as ``POST /generate`` (``observability/http.py``).  Tensor
+parallelism is a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -92,7 +103,10 @@ from ..distributed.checkpoint.io_retry import call_with_retries
 from ..incubate.distributed.models.moe import MoELayer
 from ..models.generation import _process_logits_rows, sample_rows
 from ..models.kv_cache import PagedChunkKernelView, PagedKVCache
+from ..observability import export as _export
 from ..observability import flight_recorder as _flight
+from ..observability import metrics as _metrics
+from ..observability import quantiles as _quantiles
 from ..ops import _build
 from ..testing import blocksan as _blocksan
 from ..testing import chaos as _chaos
@@ -110,6 +124,123 @@ __all__ = ["Request", "ServingEngine", "TickTimeout", "NonFiniteLogits"]
 # findings
 _LOUD = (torch.AcceleratorError, _build.KernelError,
          _blocksan.BlocksanError)
+
+
+_M_ADMISSIONS = _metrics.counter(
+    "serving.admissions", "requests admitted into a decode slot")
+_M_REJECTIONS = _metrics.counter(
+    "serving.rejections",
+    "requests rejected or stalled, by reason: over_context (prompt + "
+    "budget exceed max_context), capacity (worst-case blocks exceed the "
+    "whole pool: can never fit), pool_exhausted (admission deferred "
+    "because the pool is currently drained; counted once per request), "
+    "error (admission failed mid-flight), poisoned, slo_shed, draining")
+_M_TICKS = _metrics.counter(
+    "serving.ticks", "scheduler ticks that ran a decode program")
+_M_TOKENS = _metrics.counter(
+    "serving.tokens_out", "tokens emitted to requests")
+_M_TICK_S = _metrics.histogram(
+    "serving.tick_seconds", "wall time of one decode tick (k decode "
+    "steps + host scheduling)")
+_M_POOL = _metrics.gauge(
+    "serving.pool_occupancy", "fraction of physical KV blocks in use")
+_M_SLOTS = _metrics.gauge(
+    "serving.slot_occupancy", "fraction of batch slots holding a request")
+_M_TPS = _metrics.gauge(
+    "serving.tokens_per_sec", "decode tokens/sec over the last tick")
+_M_SAMPLED = _metrics.counter(
+    "serving.sampled_tokens", "tokens drawn by the sampler (card or host) "
+    "rather than argmax")
+_M_OVERLAP = _metrics.counter(
+    "serving.overlap_dispatches", "ticks dispatched before the previous "
+    "tick was harvested (the double-buffered loop)")
+_M_PREFIX_HITS = _metrics.counter(
+    "serving.prefix_hits", "admissions whose prompt prefix was resident "
+    "in the shared-block index (prefill skipped for those blocks)")
+_M_PREFIX_MISSES = _metrics.counter(
+    "serving.prefix_misses", "admissions that found no resident prefix "
+    "(full prefill ran); counted only with the prefix cache on")
+_M_PREFIX_SHARED = _metrics.counter(
+    "serving.prefix_blocks_shared", "physical KV blocks reused from the "
+    "prefix index instead of recomputed (incl. copy-on-write sources)")
+_M_SPEC_PROPOSED = _metrics.counter(
+    "serving.spec_proposed_tokens", "draft tokens proposed to the "
+    "speculative verify (k per live slot per spec tick); the acceptance "
+    "rate is spec_accepted_tokens / spec_proposed_tokens")
+_M_SPEC_ACCEPTED = _metrics.counter(
+    "serving.spec_accepted_tokens", "draft tokens accepted by the verify "
+    "(greedy argmax match or rejection-sampling accept)")
+_M_SPEC_INELIGIBLE = _metrics.counter(
+    "serving.spec_ineligible_slots", "active slots dispatched into a spec "
+    "tick with an emit cap below the tick's k (remaining budget under k): "
+    "they ride the same program capped")
+_M_SPEC_K = _metrics.gauge(
+    "serving.spec_k_now", "speculative k of the most recent spec dispatch "
+    "(steps through spec_k_ladder when spec_adaptive drives it)")
+_M_SPEC_SLOT_ACC = _metrics.gauge(
+    "serving.spec_slot_accept_rate", "per-slot lifetime draft acceptance "
+    "rate of the slot's current request (labelled slot=i)")
+_M_PREFILL_CHUNKS = _metrics.counter(
+    "serving.prefill_chunks", "chunk prefill programs dispatched by the "
+    "scheduler (prefill_chunk > 0: an arriving prompt is absorbed in "
+    "bounded chunks between decode ticks)")
+_M_SLO_SHEDS = _metrics.counter(
+    "serving.slo_sheds", "waiting requests rejected by SLO-aware load "
+    "shedding (slo_shed: live TTFT/TPOT p99 over target and the queue "
+    "past shed_queue_depth); every shed also counts on "
+    "serving.rejections{reason=slo_shed}")
+_M_TICK_ERRORS = _metrics.counter(
+    "serving.tick_errors", "tick-loop failures absorbed by the crash-only "
+    "guard: a dispatch or harvest exception or a tick-watchdog timeout "
+    "that evicted the slots it covered (outcome=error) or struck an "
+    "admission-stage request")
+_M_POISONED = _metrics.counter(
+    "serving.poisoned_requests", "requests quarantined after two "
+    "admission-stage strikes (program raised, or prompt logits "
+    "non-finite under the NaN watchdog)")
+_M_DISPATCH_RETRIES = _metrics.counter(
+    "serving.dispatch_retries", "transient program dispatch failures "
+    "retried in place (dispatch_retries, labelled site=)")
+_M_PREFIX_IMPORT = _metrics.counter(
+    "serving.prefix_import_blocks", "physical KV blocks restored from a "
+    "drain-time prefix-cache export at engine construction")
+_M_PREFIX_IMPORT_SKIP = _metrics.counter(
+    "serving.prefix_import_skipped_corrupt", "prefix-cache export "
+    "versions skipped at import, by reason=corrupt (manifest, sentinel or "
+    "sha256 check failed) | mismatch (another engine's geometry, type or "
+    "quant mode) | unreadable (payload failed to parse); a skipped "
+    "version is never loaded")
+
+# request lifecycle tracing: enqueue -> admit (queue wait) -> prefill ->
+# first token -> decode ticks -> finish, into streaming quantile sketches
+# (p50/p90/p99 at any moment from stats(), the snapshot or /metrics);
+# gated with everything else (off: no timestamps are taken)
+_M_TTFT = _metrics.quantile(
+    "serving.ttft_seconds", "time to first token: request enqueue to the "
+    "first output token on the host (queue wait + prefill)")
+_M_TPOT = _metrics.quantile(
+    "serving.tpot_seconds", "inter-token latency (TPOT): per decoded "
+    "token, the harvest-to-harvest gap divided by the tokens it yielded")
+_M_E2E = _metrics.quantile(
+    "serving.e2e_seconds", "end-to-end request latency: enqueue to the "
+    "token that finished the request")
+_M_QWAIT = _metrics.quantile(
+    "serving.queue_wait_seconds", "enqueue to admission start (deferred "
+    "requests accumulate their pool-exhausted wait here)")
+_M_SLO = _metrics.counter(
+    "serving.slo_violations", "latency SLO breaches, by metric=ttft (per "
+    "request, against ttft_slo_ms) or metric=tpot (per token, against "
+    "tpot_slo_ms); targets of 0 turn the checks off")
+_M_QUEUE_DEPTH = _metrics.gauge(
+    "serving.queue_depth", "requests inside the engine (admission queue "
+    "+ running slots)")
+_M_RUNNING = _metrics.gauge(
+    "serving.running", "batch slots currently holding a request")
+_M_WAITING = _metrics.gauge(
+    "serving.waiting", "requests queued for admission")
+_M_OUTCOMES = _metrics.counter(
+    "serving.request_outcomes", "terminal request outcomes, by outcome= "
+    "finished | cancelled | error | drained | rejected:<reason>")
 
 
 class TickTimeout(RuntimeError):
@@ -133,13 +264,18 @@ class Request:
     (:meth:`_sample`), the decode tokens on the card from
     ``fold_in(key(seed), position)`` (``sample_rows``).  ``t_enqueue``
     and ``t_first`` are host ``perf_counter`` stamps at ``add_request``
-    and at the first token.
+    and at the first token, always taken (the engine's readiness
+    evidence); the lifecycle trace's ``_t_enqueue`` / ``_t_admit`` /
+    ``_t_first`` / ``_t_last`` are taken only while the metrics gate is
+    on, and ``trace`` is the request's record once it ended.
 
     A higher ``priority`` is admitted first (FIFO within a priority).
     :meth:`cancel` drops the request at the engine's next boundary, from
     any thread.  ``outcome`` is None while the request lives, then
-    ``"finished"``, ``"cancelled"``, ``"error"``, ``"poisoned"`` or
-    ``"drained"``."""
+    ``"finished"``, ``"cancelled"``, ``"error"``, ``"poisoned"``,
+    ``"slo_shed"`` (``shed`` is set) or ``"drained"``.  ``trace_id`` and
+    ``parent_span`` (the ``X-Graft-Trace`` header of ``POST /generate``)
+    tag every record of the request."""
 
     _counter = 0
 
@@ -147,7 +283,9 @@ class Request:
                  eos_token_id: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0,
-                 seed: Optional[int] = None, priority: int = 0):
+                 seed: Optional[int] = None, priority: int = 0,
+                 trace_id: Optional[str] = None,
+                 parent_span: Optional[str] = None):
         Request._counter += 1
         self.rid = Request._counter
         self.prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
@@ -166,6 +304,7 @@ class Request:
         self.t_first: Optional[float] = None
         self.priority = int(priority)
         self.cancelled = False          # a bare bool store: thread-safe
+        self.shed = False               # rejected by SLO load shedding
         self.outcome: Optional[str] = None
         self._strikes = 0               # admission-stage poison strikes
         # engine-owned admission state
@@ -174,6 +313,22 @@ class Request:
         self._prefill_chunks = 0
         self._chunk_row: Optional[np.ndarray] = None  # shadow table row
         self._chunk_off = 0                           # prompt tokens written
+        self._chunk_t_admit: Optional[float] = None
+        self._deferral_counted = False  # pool_exhausted, once a request
+        # the token stream's listener (POST /generate): each emitted token
+        # id, then None when the request ends
+        self._stream_q = None
+        # the lifecycle trace (perf_counter), stamped only while the
+        # metrics gate is on: None means "not traced"
+        self._t_enqueue: Optional[float] = None
+        self._t_admit: Optional[float] = None
+        self._t_first: Optional[float] = None
+        self._t_last: Optional[float] = None
+        self._ticks = 0
+        self._prefix_blocks = 0         # shared blocks reused at admission
+        self.trace_id: Optional[str] = trace_id
+        self.parent_span: Optional[str] = parent_span
+        self.trace: Optional[dict] = None   # the final record
         # the prefix-cache lookup, cached within one index epoch
         self._prefix_match = None
         self._prefix_epoch = -1
@@ -188,6 +343,21 @@ class Request:
         (waiting: dropped; mid-chunked-prefill: aborted; running: evicted,
         its blocks released)."""
         self.cancelled = True
+
+    def _trace_ctx(self) -> dict:
+        """``{trace_id, parent_span}`` when traced, else ``{}``: the splat
+        that tags a record with this request's trace."""
+        if self.trace_id is None:
+            return {}
+        ctx = {"trace_id": self.trace_id}
+        if self.parent_span is not None:
+            ctx["parent_span"] = self.parent_span
+        return ctx
+
+    def _stream_push(self, tok: Optional[int]) -> None:
+        q = self._stream_q
+        if q is not None:
+            q.put(tok)
 
     def _sample(self, row) -> int:
         """The first token from the prompt's last logits row ``[V]``:
@@ -213,11 +383,6 @@ def _tag(exc: BaseException, req: Request) -> None:
         exc._serving_req = req
     except AttributeError:      # an exception type without a __dict__
         pass
-
-
-def _median(xs) -> float:
-    srt = sorted(xs)
-    return srt[len(srt) // 2]
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -398,6 +563,19 @@ def _spec_fn(model, pools, draft, dpools, bs: int, k: int, sampled: bool):
     return spec
 
 
+def _cow_fn(pools, dpools):
+    """The counterpart of ``_cow_program``: block ``src`` copied to
+    ``dst`` in every layer's K and V pools, the draft's too.  ``src`` and
+    ``dst`` are one-element index tensors on the card, so a captured copy
+    reads them at replay and nothing touches the host."""
+    def cow(i, o):
+        src, dst = i["src"], i["dst"]
+        for kk, vv in list(pools) + list(dpools or ()):
+            kk.index_copy_(1, dst, kk.index_select(1, src))
+            vv.index_copy_(1, dst, vv.index_select(1, src))
+    return cow
+
+
 class _RetryCounter:
     """Counts the engine's dispatch retries (``io_retry``'s counter)."""
 
@@ -408,20 +586,26 @@ class _RetryCounter:
 
     def inc(self, **labels):
         self._engine.dispatch_retries += 1
+        _M_DISPATCH_RETRIES.inc(**labels)
 
 
 class _Pending:
     """One tick in flight (the JAX engine's ``_PendingTick``): the slots it
     decodes, its k, the slot -> request map at dispatch, for a spec tick
     the per-slot caps, its program (a chained tick reads what it left on
-    the card), the pending copy of its tokens to the host and when it
-    was built (just after its dispatch)."""
+    the card), the pending copy of its tokens to the host, when its
+    dispatch began, the step count after it, whether it was chained, the
+    chunks run at its boundary and its host phases (boundary schedule,
+    chunk dispatch, its own dispatch; seconds, taken with the metrics
+    gate on)."""
 
     __slots__ = ("active", "k", "reqs", "spec", "kcap", "prog", "fetch",
-                 "t0")
+                 "t0", "step_no", "overlapped", "chunks", "ph_sched",
+                 "ph_chunk", "ph_dispatch")
 
-    def __init__(self, active, k, reqs, spec, kcap, prog, fetch):
-        self.t0 = time.perf_counter()
+    def __init__(self, active, k, reqs, spec, kcap, prog, fetch, t0,
+                 step_no):
+        self.t0 = t0
         self.active = active
         self.k = k
         self.reqs = reqs
@@ -429,6 +613,12 @@ class _Pending:
         self.kcap = kcap
         self.prog = prog
         self.fetch = fetch
+        self.step_no = step_no
+        self.overlapped = False
+        self.chunks = 0
+        self.ph_sched = 0.0
+        self.ph_chunk = 0.0
+        self.ph_dispatch = 0.0
 
 
 class ServingEngine:
@@ -472,7 +662,18 @@ class ServingEngine:
     program and sample on the host), ``blocksan`` (``enable_jaxsan``:
     the block ledger, off), ``drain_timeout_s`` (30 s) and
     ``prefix_export_dir`` (None: no export at drain, no import at
-    construction)."""
+    construction).
+
+    The scheduler's and the frontend's arguments are the JAX flags of the
+    same names too: ``prefill_chunks_per_tick`` (1: chunks spent per
+    boundary), ``chunks_per_tick_auto`` (off: walk that budget in [1,
+    prefill_chunks_per_tick] from the live TPOT p90 against
+    ``tpot_slo_ms``), ``ttft_slo_ms`` and ``tpot_slo_ms`` (0.0: no
+    target), ``slo_shed`` (off) with ``shed_queue_depth`` (8),
+    ``http_port`` and ``metrics_port`` (0: off; the serve and scrape
+    endpoints on loopback, started by ``run()`` and ``serve_forever()``)
+    and ``flight_recorder`` (None: the process's default recorder; give
+    each engine of a process its own to keep their rings apart)."""
 
     # the adaptive-k controller: a rung up while the acceptance EWMA is at
     # least _ADAPT_UP, down at most _ADAPT_DOWN, after at least
@@ -494,7 +695,14 @@ class ServingEngine:
                  dispatch_retries: int = 0, tick_timeout_s: float = 0.0,
                  device_sampling: bool = True, blocksan: bool = False,
                  drain_timeout_s: float = 30.0,
-                 prefix_export_dir: Optional[str] = None, device=None):
+                 prefix_export_dir: Optional[str] = None,
+                 prefill_chunks_per_tick: int = 1,
+                 chunks_per_tick_auto: bool = False,
+                 ttft_slo_ms: float = 0.0, tpot_slo_ms: float = 0.0,
+                 slo_shed: bool = False, shed_queue_depth: int = 8,
+                 http_port: int = 0, metrics_port: int = 0,
+                 flight_recorder: Optional[_flight.FlightRecorder] = None,
+                 device=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}, the engine "
@@ -568,6 +776,20 @@ class ServingEngine:
         self.overlap = bool(overlap)
         self.overlapped_ticks = 0          # ticks dispatched on a chain
         self.overlap_chunks = 0            # chunks run behind such a tick
+        # the scheduler's chunk budget and SLO shedding
+        self.chunks_per_tick = max(1, int(prefill_chunks_per_tick))
+        self.chunks_per_tick_auto = bool(chunks_per_tick_auto)
+        self.ttft_slo_ms = float(ttft_slo_ms)
+        self.tpot_slo_ms = float(tpot_slo_ms)
+        self.slo_shed = bool(slo_shed)
+        self.shed_queue_depth = int(shed_queue_depth)
+        self.slo_sheds = 0
+        self._chunk_budget_now: Optional[int] = None   # the controller's
+        self._chunks_this_boundary = 0
+        self._chunk_s_this_boundary = 0.0
+        self.http_port = int(http_port)
+        self.metrics_port = int(metrics_port)
+        self._flight_rec = flight_recorder
         # the device programs by key: ("tick", k, sampled), ("spec_tick",
         # k, sampled), ("prefill", L_pad), ("prefill_cont", L_pad)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
@@ -590,14 +812,19 @@ class ServingEngine:
         self._draining = False
         self._drain_requested = False      # a bare bool store: thread-safe
         self._drain_info: Optional[dict] = None
-        # readiness evidence: recent admissions, TTFTs and tick-level
-        # seconds per token; finished requests and their tokens
+        # readiness evidence, always on (whatever the metrics gate): recent
+        # admissions and TTFTs; the tick-level TPOT sketch over every
+        # harvest (one harvest's gap imputed to the tokens it yielded: no
+        # per-request timing); terminal outcomes, TTFT-SLO violations,
+        # finished requests and their tokens
         self._admit_times: deque = deque(maxlen=64)
         self._ttft_recent: deque = deque(maxlen=64)
-        self._tpot_recent: deque = deque(maxlen=64)
+        self._ev_tpot = _quantiles.QuantileSketch()
+        self._ev_outcomes: dict = {}
+        self._ev_slo_viol = 0
+        self._ev_finished = 0
+        self._ev_finished_tokens = 0
         self._last_harvest_t: Optional[float] = None
-        self._finished_n = 0
-        self._finished_tokens = 0
         self._export_dir = str(prefix_export_dir or "")
         self._prefix_import_info: Optional[dict] = None
         if self.prefix is not None and self._export_dir:
@@ -808,13 +1035,14 @@ class ServingEngine:
         req = self.slot_req[slot]
         if req is None:
             return
-        _flight.default_recorder().record_event(
+        self._flightrec().record_event(
             "slot_error", slot=slot, rid=req.rid, error=error[:200])
         if req._prefilling:
             self._abort_prefill(req, outcome="error")
             return
-        req.outcome = "error"
+        self._terminal_trace(req, "error")
         self._evict(slot)
+        req._stream_push(None)
 
     def _strike(self, req: Request, error: str) -> None:
         """An admission-stage strike: the request's prompt program raised
@@ -825,13 +1053,19 @@ class ServingEngine:
         if req._strikes >= self._POISON_STRIKES or req.cancelled \
                 or self._draining:
             self.poisoned_requests += 1
+            _M_POISONED.inc()
+            _M_REJECTIONS.inc(reason="poisoned")
             req.outcome = "poisoned"
-            _flight.default_recorder().record_event(
+            if _metrics.enabled():
+                self._reject_trace(req, "poisoned")
+            self._flightrec().record_event(
                 "poison_quarantine", rid=req.rid, strikes=req._strikes,
                 error=error[:200])
             self.finished.append(req)
+            req._stream_push(None)
         else:
             self.waiting.append(req)
+        self._update_pressure()
 
     def _abandon(self, pend: "_Pending") -> None:
         """A tick that will never be harvested: wait briefly for its
@@ -850,9 +1084,10 @@ class ServingEngine:
         if isinstance(exc, _LOUD):
             return False
         self.tick_errors += 1
+        _M_TICK_ERRORS.inc()
         err = f"{type(exc).__name__}: {exc}"[:200]
         req = getattr(exc, "_serving_req", None)
-        _flight.default_recorder().record_event(
+        self._flightrec().record_event(
             "tick_error", error=err,
             scope="request" if req is not None else "tick",
             rid=getattr(req, "rid", None))
@@ -876,6 +1111,7 @@ class ServingEngine:
             else:
                 self._error_evict(slot, err)
         self._last_harvest_t = None
+        self._update_occupancy()
         return True
 
     # --------------------------------------------------------- admission
@@ -883,23 +1119,124 @@ class ServingEngine:
         """Queue a request; raises ``ValueError`` if it can never be
         served here or while the engine drains (admission is closed)."""
         L, n = len(req.prompt_ids), req.max_new_tokens
+        traced = _metrics.enabled()
         with self._lock:
             if self._draining or self._drain_requested:
+                self._reject(req, "draining", traced)
                 raise ValueError("engine is draining: admission closed "
                                  "(retry against another replica)")
             if L == 0:
                 raise ValueError("empty prompt")
             if L + n > self.max_context:
+                self._reject(req, "over_context", traced)
                 raise ValueError(f"request needs {L + n} tokens > "
                                  f"max_context {self.max_context}")
             worst = self._blocks_for(self._pad_bucket(L)) + max(
                 0, self._blocks_for(L + n) - self._blocks_for(L))
             if worst > self.num_blocks:
+                self._reject(req, "capacity", traced)
                 raise ValueError(f"request needs {worst} blocks worst-case "
                                  f"but the pool has {self.num_blocks}")
+            if traced:
+                req._t_enqueue = time.perf_counter()
             req.t_enqueue = time.perf_counter()
             self.waiting.append(req)
-            return req
+        self._update_pressure()
+        return req
+
+    # ------------------------------------------------------ the instruments
+    def _flightrec(self) -> _flight.FlightRecorder:
+        """This engine's flight recorder: the one it was given, else the
+        process's default."""
+        rec = self._flight_rec
+        return rec if rec is not None else _flight.default_recorder()
+
+    def _ev_note(self, outcome: str) -> None:
+        """The always-on tally of terminal outcomes, and its counter."""
+        self._ev_outcomes[outcome] = self._ev_outcomes.get(outcome, 0) + 1
+        _M_OUTCOMES.inc(outcome=outcome)
+
+    def _reject(self, req: Request, reason: str, traced: bool) -> None:
+        """A request refused at ``add_request``."""
+        _M_REJECTIONS.inc(reason=reason)
+        self._ev_note(f"rejected:{reason}")
+        if traced:
+            self._reject_trace(req, reason)
+
+    def _record(self, req: Request, rec: dict) -> None:
+        req.trace = rec
+        self._flightrec().record_event("request", **rec)
+        _export.record_request(rec)
+
+    def _reject_trace(self, req: Request, reason: str) -> None:
+        """A rejection is a lifecycle end too: ``/requests`` shows why
+        traffic bounced."""
+        req.outcome = reason
+        self._record(req, {"rid": req.rid, "outcome": f"rejected:{reason}",
+                           "prompt_len": len(req.prompt_ids),
+                           "max_new_tokens": req.max_new_tokens,
+                           **req._trace_ctx()})
+
+    def _terminal_trace(self, req: Request, outcome: str) -> None:
+        """Ends other than finishing (cancelled, error, drained): the
+        outcome always (the SSE frame needs it), the record with the
+        metrics gate on."""
+        req.outcome = outcome
+        self._ev_note(outcome)
+        if not _metrics.enabled():
+            return
+        self._record(req, {"rid": req.rid, "outcome": outcome,
+                           "prompt_len": len(req.prompt_ids),
+                           "max_new_tokens": req.max_new_tokens,
+                           "tokens_out": len(req.output_ids),
+                           **req._trace_ctx()})
+
+    def _finish_trace(self, req: Request) -> None:
+        """The request's last token: e2e into its sketch, its record into
+        the flight ring and the ``/requests`` ring."""
+        t = time.perf_counter()
+        e2e = t - req._t_enqueue
+        _M_E2E.observe(e2e)
+        n_out = len(req.output_ids)
+        rec = {"rid": req.rid, "outcome": "finished",
+               "prompt_len": len(req.prompt_ids), "tokens_out": n_out,
+               "ticks": req._ticks,
+               "queue_wait_s": round(req._t_admit - req._t_enqueue, 6),
+               "prefill_s": round(req._t_first - req._t_admit, 6),
+               "ttft_s": round(req._t_first - req._t_enqueue, 6),
+               "tpot_mean_s": round((t - req._t_first)
+                                    / max(n_out - 1, 1), 6),
+               "e2e_s": round(e2e, 6),
+               "prefix_blocks": req._prefix_blocks,
+               "prefill_chunks": req._prefill_chunks,
+               **req._trace_ctx()}
+        if self.spec:
+            rec["spec_accept_rate"] = round(
+                req._spec_accepted / max(req._spec_proposed, 1), 4)
+            rec["spec_draft"] = self.spec_kind
+        self._record(req, rec)
+
+    def _free_capacity(self) -> int:
+        """Free blocks, with those the prefix index alone holds (reclaimed
+        on demand): what an admission could get."""
+        free = len(self.free_blocks)
+        if self.prefix is not None:
+            free += self.prefix.reclaimable(self.block_rc)
+        return free
+
+    def _update_occupancy(self) -> None:
+        if not _metrics.enabled():
+            return
+        _M_POOL.set(round(1.0 - self._free_capacity()
+                          / max(self.num_blocks, 1), 4))
+        _M_SLOTS.set(round(1.0 - len(self.free_slots) / max(self.B, 1), 4))
+        self._update_pressure()
+
+    def _update_pressure(self) -> None:
+        running = self.B - len(self.free_slots)
+        _M_RUNNING.set(running)
+        _M_WAITING.set(len(self.waiting))
+        _M_QUEUE_DEPTH.set(running + len(self.waiting))
 
     def _lookup(self, req: Request):
         """The request's resident prefix chain, looked up once per index
@@ -962,8 +1299,14 @@ class ServingEngine:
         if short > 0:
             for b in pinned:
                 self._release_block(b)
+            # admission deferred on a drained pool: counted once a request
+            if not req._deferral_counted:
+                req._deferral_counted = True
+                _M_REJECTIONS.inc(reason="pool_exhausted")
             return False
         self.waiting.popleft()
+        # admission starts now: everything before was queue wait
+        t_admit = time.perf_counter() if _metrics.enabled() else None
         slot = self.free_slots.popleft()
         row = np.zeros((self.nb_per_seq,), np.int32)
         row[:split_col] = chain[:split_col]
@@ -985,11 +1328,13 @@ class ServingEngine:
                 req.slot = slot
                 req._chunk_row = row
                 req._chunk_off = cached_len
+                req._chunk_t_admit = t_admit
                 req._prefilling = True
                 req._prefill_chunks = 0
                 self.slot_req[slot] = req
                 self.prefilling.append(req)
-                self._count_prefix(bool(chain), shared)
+                self._count_prefix(req, bool(chain), shared)
+                self._update_occupancy()
                 return True
             self.tables[slot, :] = row
             if chain:
@@ -1015,6 +1360,7 @@ class ServingEngine:
             self.free_slots.appendleft(slot)
             self.reserved -= growth
             req._growth_left = 0
+            _M_REJECTIONS.inc(reason="error")
             _tag(e, req)
             raise
         if not chain:
@@ -1023,18 +1369,23 @@ class ServingEngine:
                 self._release_block(int(self.tables[slot, col]))
                 self.tables[slot, col] = 0
         self._register(req, slot)
-        self._count_prefix(bool(chain), shared)
-        self._finish_admission(req, slot, first_row)
+        self._count_prefix(req, bool(chain), shared)
+        self._finish_admission(req, slot, first_row, t_admit)
         return True
 
-    def _count_prefix(self, hit: bool, shared: int) -> None:
+    def _count_prefix(self, req: Request, hit: bool, shared: int) -> None:
         if self.prefix is None:
             return
+        req._prefix_blocks = shared
         if hit:
             self.prefix.hits += 1
+            _M_PREFIX_HITS.inc()
             self.prefix.blocks_shared += shared
+            if shared:
+                _M_PREFIX_SHARED.inc(shared)
         else:
             self.prefix.misses += 1
+            _M_PREFIX_MISSES.inc()
 
     def _register(self, req: Request, slot: int) -> None:
         """The prompt's full blocks become shareable (one index reference
@@ -1050,12 +1401,11 @@ class ServingEngine:
 
     def _cow(self, src: int, dst: int) -> None:
         """Copy block ``src`` to ``dst`` in every layer's K and V pools,
-        the draft's too: the suffix's write must land in a private
-        block."""
-        for pools in (self.pools, self.dpools or ()):
-            for kk, vv in pools:
-                kk[:, dst] = kk[:, src]
-                vv[:, dst] = vv[:, src]
+        the draft's too, through the ``cow`` program (captured at warmup
+        on the card): the suffix's write must land in a private block."""
+        prog = self._program(("cow",))
+        prog.load(src=src, dst=dst)
+        prog.replay()
 
     def _forward_prompt(self, kind: str, row, tokens, start: int):
         """One prompt program over a single sequence: ``tokens`` at
@@ -1082,42 +1432,75 @@ class ServingEngine:
     def _prefill_chunk_step(self, req: Request) -> None:
         """One chunk of a chunked admission: prompt tokens [off, off + n)
         padded to their bucket; the last chunk's logits give the first
-        token."""
+        token.  With the metrics gate on, its host dispatch time adds to
+        the boundary's chunk phase and a ``prefill_chunk`` event goes to
+        the flight ring."""
         L = len(req.prompt_ids)
         off = req._chunk_off
         n = min(self.chunk, L - off)
+        slot = req.slot
+        t_c0 = time.perf_counter() if _metrics.enabled() else None
         try:
             row = self._forward_prompt("prefill_cont", req._chunk_row,
                                        req.prompt_ids[off:off + n], off)
             if off + n >= L:
                 # the last chunk is screened before the row installs and
                 # the prompt registers
-                row = self._screen_row(row, req.slot, req)
+                row = self._screen_row(row, slot, req)
         except BaseException as e:
             self._abort_prefill(req)
+            _M_REJECTIONS.inc(reason="error")
             _tag(e, req)
             raise
+        if t_c0 is not None:
+            self._chunk_s_this_boundary += time.perf_counter() - t_c0
         req._chunk_off = off + n
         req._prefill_chunks += 1
         self.prefill_chunks_total += 1
+        self._chunks_this_boundary += 1
+        _M_PREFILL_CHUNKS.inc()
+        if _metrics.enabled():
+            self._flightrec().record_event(
+                "prefill_chunk", rid=req.rid, slot=slot, start=off,
+                tokens=n, done=req._chunk_off >= L)
         if req._chunk_off >= L:
             # the last chunk: the shadow row installs, and only now may
             # the prompt's blocks be registered (each chunk writes blocks
             # the one before filled)
-            self.tables[req.slot, :] = req._chunk_row
+            self.tables[slot, :] = req._chunk_row
             req._chunk_row = None
             req._prefilling = False
-            self._register(req, req.slot)
-            self._finish_admission(req, req.slot, row)
+            self._register(req, slot)
+            self._finish_admission(req, slot, row, req._chunk_t_admit)
 
-    def _finish_admission(self, req: Request, slot: int, row) -> None:
+    def _finish_admission(self, req: Request, slot: int, row,
+                          t_admit: Optional[float]) -> None:
         """First token from the prompt's last logits row (position 0 of
-        the request's sampling stream); the slot joins the decode ticks."""
+        the request's sampling stream); the slot joins the decode ticks.
+        ``t_admit`` (the metrics gate on at admission) stamps the queue
+        wait and TTFT into their sketches."""
         first = req._sample(row)
-        req.t_first = time.perf_counter()
-        self._admit_times.append(req.t_first)
-        self._ttft_recent.append(req.t_first - req.t_enqueue)
+        _M_ADMISSIONS.inc()
+        t_now = time.perf_counter()
+        if t_admit is not None:
+            # the sample above read the row on the host: the first token
+            # exists now
+            req._t_admit, req._t_first = t_admit, t_now
+            req._t_last = t_now
+            if req._t_enqueue is not None:
+                ttft = t_now - req._t_enqueue
+                _M_QWAIT.observe(t_admit - req._t_enqueue)
+                _M_TTFT.observe(ttft)
+                if self.ttft_slo_ms > 0 and ttft * 1e3 > self.ttft_slo_ms:
+                    _M_SLO.inc(metric="ttft")
+        req.t_first = t_now
+        self._admit_times.append(t_now)
+        ttft_ev = t_now - req.t_enqueue
+        self._ttft_recent.append(ttft_ev)
+        if self.ttft_slo_ms > 0 and ttft_ev * 1e3 > self.ttft_slo_ms:
+            self._ev_slo_viol += 1
         req.output_ids.append(first)
+        req._stream_push(first)
         req.slot = slot
         self.slot_req[slot] = req
         self.seq_lens[slot] = len(req.prompt_ids)
@@ -1129,6 +1512,8 @@ class ServingEngine:
         self.samp_seed[slot] = req.seed & 0xFFFFFFFF
         self.tok_pos[slot] = 1
         self.tokens_out += 1
+        _M_TOKENS.inc()
+        self._update_occupancy()
         self._maybe_finish(req, first)
 
     def _maybe_finish(self, req: Request, tok: int) -> None:
@@ -1138,8 +1523,14 @@ class ServingEngine:
                 len(req.output_ids) >= req.max_new_tokens:
             req.done = True
             req.outcome = "finished"
-            self._finished_n += 1
-            self._finished_tokens += len(req.output_ids)
+            self._ev_note("finished")
+            self._ev_finished += 1
+            self._ev_finished_tokens += len(req.output_ids)
+            req._stream_push(None)      # the end of the token stream
+            # trace only whole timelines (the gate may have flipped)
+            if _metrics.enabled() and req._t_enqueue is not None \
+                    and req._t_first is not None:
+                self._finish_trace(req)
 
     def _evict(self, slot: int) -> None:
         req = self.slot_req[slot]
@@ -1162,6 +1553,7 @@ class ServingEngine:
         self.slot_req[slot] = None
         self.free_slots.append(slot)
         self.finished.append(req)
+        self._update_occupancy()
 
     def _evict_done(self) -> None:
         for slot in range(self.B):
@@ -1187,8 +1579,10 @@ class ServingEngine:
         if req in self.prefilling:
             self.prefilling.remove(req)
         if outcome is not None:
-            req.outcome = outcome
+            self._terminal_trace(req, outcome)
             self.finished.append(req)
+            req._stream_push(None)
+        self._update_occupancy()
 
     def _promote_waiting(self) -> None:
         """Move the highest-priority waiting request (the oldest among
@@ -1215,19 +1609,66 @@ class ServingEngine:
             if req._prefilling:
                 self._abort_prefill(req, outcome="cancelled")
             elif not req.done:
-                req.outcome = "cancelled"
+                self._terminal_trace(req, "cancelled")
                 self._evict(slot)
+                req._stream_push(None)
         with self._lock:
             if not any(r.cancelled for r in self.waiting):
                 return
             kept = deque()
             for r in self.waiting:
                 if r.cancelled:
-                    r.outcome = "cancelled"
+                    self._terminal_trace(r, "cancelled")
                     self.finished.append(r)
+                    r._stream_push(None)
                 else:
                     kept.append(r)
             self.waiting = kept
+        self._update_pressure()
+
+    def _slo_breached(self) -> bool:
+        """Is a live p99 sketch over its target?  Shedding reads observed
+        violation, not a prediction; with the metrics gate off the
+        sketches stay empty and nothing sheds."""
+        if self.ttft_slo_ms > 0 and _M_TTFT.count() \
+                and _M_TTFT.quantile(0.99) * 1e3 > self.ttft_slo_ms:
+            return True
+        if self.tpot_slo_ms > 0 and _M_TPOT.count() \
+                and _M_TPOT.quantile(0.99) * 1e3 > self.tpot_slo_ms:
+            return True
+        return False
+
+    def _shed_waiting(self) -> None:
+        """SLO-aware load shedding (``slo_shed``): while a target is
+        already breached and more than ``shed_queue_depth`` requests wait,
+        reject the newest lowest-priority waiting ones (``outcome=
+        "slo_shed"``) down to that depth."""
+        if not self.waiting or not self.slo_shed:
+            return
+        if len(self.waiting) <= self.shed_queue_depth \
+                or not self._slo_breached():
+            return
+        with self._lock:
+            while len(self.waiting) > self.shed_queue_depth:
+                # the victim: lowest priority, newest within it (the
+                # oldest keep their queue-time investment)
+                victim = len(self.waiting) - 1
+                for i in range(len(self.waiting) - 2, -1, -1):
+                    if self.waiting[i].priority \
+                            < self.waiting[victim].priority:
+                        victim = i
+                req = self.waiting[victim]
+                del self.waiting[victim]
+                req.shed = True
+                req.outcome = "slo_shed"
+                self.slo_sheds += 1
+                _M_SLO_SHEDS.inc()
+                _M_REJECTIONS.inc(reason="slo_shed")
+                if _metrics.enabled():
+                    self._reject_trace(req, "slo_shed")
+                self.finished.append(req)
+                req._stream_push(None)
+        self._update_pressure()
 
     def _active_slots(self) -> List[int]:
         # mid-chunked-prefill slots are occupied but not decodable yet
@@ -1237,27 +1678,57 @@ class ServingEngine:
                 and not self.slot_req[s].done]
 
     def _boundary_schedule(self) -> None:
-        """Whole-prompt: admit every waiting request that fits, then evict
-        the finished (the JAX engine's order: a slot freed here takes a
-        request at the next boundary).  Chunked: evict first, then one
-        prefill chunk per boundary, finishing the oldest chunked admission
-        before starting the next.  Cancellations come first, in both."""
+        """Cancellations first, then SLO shedding.  Whole-prompt: admit
+        every waiting request that fits, then evict the finished (the JAX
+        engine's order: a slot freed here takes a request at the next
+        boundary).  Chunked: evict first (their slots and blocks fund the
+        boundary), then up to the chunk budget of chunks, finishing the
+        oldest chunked admission before starting the next; beginning an
+        admission costs no budget, its first chunk does."""
         self._cancel_requested()
+        self._shed_waiting()
         if self.chunk <= 0:
             while self._try_admit():
                 pass
             self._evict_done()
             return
         self._evict_done()
-        while True:
+        budget = self.chunks_per_tick
+        if self.chunks_per_tick_auto:
+            budget = self._auto_chunk_budget(budget)
+        spent = 0
+        while spent < budget:
             if self.prefilling:
                 req = self.prefilling[0]
                 self._prefill_chunk_step(req)
-                if not req._prefilling:
+                if not req._prefilling and self.prefilling \
+                        and self.prefilling[0] is req:
                     self.prefilling.popleft()
-                return
+                spent += 1
+                continue
             if not self._try_admit():
-                return
+                break
+
+    def _auto_chunk_budget(self, max_budget: int) -> int:
+        """The chunk budget's controller (``chunks_per_tick_auto``): one
+        step at a time inside [1, ``max_budget``] from the always-on TPOT
+        sketch against ``tpot_slo_ms``: its p90 over the target spends
+        one chunk fewer per boundary, under half the target one more.
+        No target or fewer than 16 samples: the budget holds.  Only the
+        budget moves; the programs and the warmup grid do not."""
+        cur = self._chunk_budget_now
+        if cur is None:
+            cur = max_budget
+        cur = min(cur, max_budget)
+        if self.tpot_slo_ms > 0 and self._ev_tpot.count >= 16:
+            p90 = self._ev_tpot.quantile(0.9)
+            if p90 is not None:
+                if p90 * 1e3 > self.tpot_slo_ms:
+                    cur = max(1, cur - 1)
+                elif p90 * 1e3 < 0.5 * self.tpot_slo_ms:
+                    cur = min(max_budget, cur + 1)
+        self._chunk_budget_now = cur
+        return cur
 
     # ---------------------------------------------------------- programs
     def _program(self, key) -> graphs.Program:
@@ -1285,7 +1756,8 @@ class ServingEngine:
         positions or (spec) the per-slot caps and the host's proposals;
         out the tokens ``[B, k]`` (spec: with the counts and accepts).
         The ``decode`` program: tables, lengths and last tokens; out the
-        greedy tokens ``[B, 1]`` and the logits ``[B, V]``."""
+        greedy tokens ``[B, 1]`` and the logits ``[B, V]``.  The ``cow``
+        program: the source and destination blocks, no output."""
         dev, B, nb = self.device, self.B, self.nb_per_seq
 
         def z(shape, dtype):
@@ -1302,6 +1774,11 @@ class ServingEngine:
             return graphs.Program(
                 _prompt_fn(kind, self.model, self.pools, self.draft,
                            self.dpools, self.bs), ins, outs)
+        if kind == "cow":
+            # inert: block 0 copied onto itself
+            return graphs.Program(
+                _cow_fn(self.pools, self.dpools),
+                dict(src=z((1,), torch.int64), dst=z((1,), torch.int64)), {})
         if kind == "decode":
             ins = dict(tables=z((B, nb), torch.int32),
                        lens=z((B,), torch.int32), last=z((B,), torch.int64))
@@ -1332,13 +1809,13 @@ class ServingEngine:
     def warmup(self) -> dict:
         """Build (on the card: capture) the whole program grid before
         traffic, on inert inputs: all-zero tables and lengths send every
-        write to the pad block 0.  The grid is the JAX engine's without its
-        ``cow`` program, and with its host-sampling ``decode`` program only
-        when the engine samples on the host (``device_sampling=False``):
-        the tick per size in {steps_per_tick, 1}, the decode program, the
-        spec tick per ladder rung, and per
-        pad-ladder bucket the ``prefill`` program (whole-prompt engines)
-        and the ``prefill_cont`` one (prefix cache or chunks).  A tick and
+        write to the pad block 0.  The grid is the JAX engine's, with its
+        host-sampling ``decode`` program only when the engine samples on
+        the host (``device_sampling=False``): the tick per size in
+        {steps_per_tick, 1}, the decode program, the spec tick per ladder
+        rung, per pad-ladder bucket the ``prefill`` program (whole-prompt
+        engines) and the ``prefill_cont`` one (prefix cache or chunks),
+        and with the prefix cache the ``cow`` block copy.  A tick and
         a spec tick are two programs each, greedy and sampled.  The
         warm-up runs' launches are not counted.  Idempotent; returns, and
         ``stats()["warmup"]`` keeps, ``{warmup_s, programs, grid}``."""
@@ -1373,6 +1850,9 @@ class ServingEngine:
             for L_pad in self.pad_ladder:
                 warm(("prefill_cont", L_pad))
                 grid.append({"program": "prefill_cont", "L_pad": L_pad})
+            if self.prefix is not None:
+                warm(("cow",))
+                grid.append({"program": "cow"})
         graphs.restore(snap)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1417,10 +1897,19 @@ class ServingEngine:
         flight (None when no slot decodes).  ``chain`` is the tick in
         flight before it (overlap): its kind continues, and what it left
         on the card feeds this one."""
+        timed = _metrics.enabled()
+        ph_sched = ph_chunk = 0.0
         if boundary:
             self._check_mode()
             empty = not any(r is not None for r in self.slot_req)
+            t_b0 = time.perf_counter() if timed else 0.0
+            self._chunk_s_this_boundary = 0.0
             self._boundary_schedule()
+            if timed:
+                # the boundary's host phases: the chunks' dispatch time,
+                # and the rest (cancel, shed, admit, evict)
+                ph_chunk = self._chunk_s_this_boundary
+                ph_sched = max(0.0, time.perf_counter() - t_b0 - ph_chunk)
         active = self._active_slots()
         if not active:
             if boundary and empty and self.waiting and \
@@ -1431,9 +1920,17 @@ class ServingEngine:
                 _tag(err, self.waiting.popleft())
                 raise err
             return None
-        return self._dispatch_tick(active, chain)
+        t0 = time.perf_counter()
+        pend = self._dispatch_tick(active, t0, chain)
+        pend.chunks = self._chunks_this_boundary
+        self._chunks_this_boundary = 0
+        pend.ph_sched, pend.ph_chunk = ph_sched, ph_chunk
+        if timed:
+            pend.ph_dispatch = time.perf_counter() - t0
+        return pend
 
-    def _dispatch_tick(self, active, chain=None) -> "_Pending":
+    def _dispatch_tick(self, active, t0: float,
+                       chain=None) -> "_Pending":
         """Launch a plain or speculative tick over ``active``; the host's
         lengths and stream positions advance now (a spec tick's by each
         slot's cap, refunded at harvest), so a chained dispatch sees the
@@ -1441,7 +1938,7 @@ class ServingEngine:
         spec = chain.spec if chain is not None \
             else self._spec_eligible(active)
         if spec:
-            return self._dispatch_spec(active, chain)
+            return self._dispatch_spec(active, t0, chain)
         k = self._tick_size(active)
         for slot in active:
             self._draw_blocks(slot, k)
@@ -1468,28 +1965,34 @@ class ServingEngine:
             prog.replay()
         with _flight.guard("serving.tick"):
             self._dispatch_call("serving.tick.dispatch", dispatch)
-        pend = _Pending(active, k, list(self.slot_req), False, None, prog,
-                        prog.fetch(*outs))
         self.steps += k
+        pend = _Pending(active, k, list(self.slot_req), False, None, prog,
+                        prog.fetch(*outs), t0, self.steps)
         for slot in active:
             self.seq_lens[slot] += k
             self.tok_pos[slot] += k
         return pend
 
-    def _dispatch_spec(self, active, chain=None) -> "_Pending":
+    def _dispatch_spec(self, active, t0: float,
+                       chain=None) -> "_Pending":
         """One speculative tick in flight: per-slot caps ``kcap = min(k,
         remaining budget)`` with their blocks, the proposals, one verify.
         A chained tick (model drafts only) keeps its predecessor's k and
         reads the lengths and last tokens it left on the card."""
         k = chain.k if chain is not None else self._adapt_k()
         kcap = np.zeros((self.B,), np.int64)
+        ineligible = 0
         for slot in active:
             req = self.slot_req[slot]
             cap = min(k, req.max_new_tokens - int(self.tok_pos[slot]))
             kcap[slot] = cap
             if cap < k:
-                self.spec_ineligible_slots += 1
+                ineligible += 1
             self._draw_blocks(slot, cap)
+        if ineligible:
+            self.spec_ineligible_slots += ineligible
+            _M_SPEC_INELIGIBLE.inc(ineligible)
+        _M_SPEC_K.set(k)
         prog = self._program(("spec_tick", k, bool(self.samp_do.any())))
         arrays = self._samp_arrays()
         arrays["kcap"] = kcap
@@ -1513,9 +2016,9 @@ class ServingEngine:
             prog.replay()
         with _flight.guard("serving.tick"):
             self._dispatch_call("serving.tick.dispatch", dispatch)
-        pend = _Pending(active, k, list(self.slot_req), True, kcap, prog,
-                        prog.fetch("out"))
         self.steps += k + 1 if self.spec_model else 1
+        pend = _Pending(active, k, list(self.slot_req), True, kcap, prog,
+                        prog.fetch("out"), t0, self.steps)
         for slot in active:
             self.seq_lens[slot] += int(kcap[slot])
             self.tok_pos[slot] += int(kcap[slot])
@@ -1523,17 +2026,27 @@ class ServingEngine:
 
     def _harvest(self, pend: "_Pending") -> None:
         """The JAX engine's ``_harvest_tick``: wait for the tick's tokens
-        (under the tick watchdog) and feed the requests.  ``pend.reqs`` is
-        the slot's request at dispatch: one that finished, or left its
-        slot, while this tick was in flight has its rows discarded.  A
-        ``decode`` tick's rows are screened (a non-finite row evicts its
-        slot, ``outcome="error"``) and its sampled rows sampled here."""
+        (under the tick watchdog) and feed the requests and their token
+        streams.  ``pend.reqs`` is the slot's request at dispatch: one
+        that finished, or left its slot, while this tick was in flight has
+        its rows discarded.  A ``decode`` tick's rows are screened (a
+        non-finite row evicts its slot, ``outcome="error"``) and its
+        sampled rows sampled here.  Then the tick's evidence: the
+        always-on TPOT sketch, and with the metrics gate on the per-token
+        TPOT, the tick counters and gauges and the tick's flight
+        record."""
+        timed = _metrics.enabled()
+        t_h0 = time.perf_counter() if timed else 0.0
         with _flight.guard("serving.tick"):
             out = self._materialize(pend.fetch)
+        t_wait_end = time.perf_counter() if timed else 0.0
         before = self.tokens_out
         bad = {}
+        harvested_by = []      # (request, its tokens before this tick)
+        sampled = accepted = 0
         if pend.spec:
-            self._harvest_spec(pend, out["out"])
+            sampled, accepted = self._harvest_spec(pend, out["out"],
+                                                   harvested_by)
         else:
             toks, logits = out["toks"], out.get("logits")
             if logits is not None:
@@ -1542,30 +2055,94 @@ class ServingEngine:
                 req = pend.reqs[slot]
                 if req.done or slot in bad or self.slot_req[slot] is not req:
                     continue
+                harvested_by.append((req, len(req.output_ids)))
+                req._ticks += 1
                 if logits is not None and req.do_sample:
                     tok = req._sample(torch.from_numpy(logits[slot]))
                     self.last_tok[slot] = tok
-                    self._emit(req, [tok])
+                    sampled += self._emit(req, [tok])
                     continue
                 self.last_tok[slot] = int(toks[slot, -1])
-                self._emit(req, toks[slot])
+                sampled += self._emit(req, toks[slot])
         self.ticks += 1
-        # tick-level seconds per token for health(): the gap since the
-        # last harvest, or since this tick's dispatch
-        t = time.perf_counter()
+        # the wall time this tick accounts for: from the last harvest (a
+        # chained tick was dispatched before it), or from its dispatch
+        t_done = time.perf_counter()
         t_from = pend.t0 if self._last_harvest_t is None \
             else max(pend.t0, self._last_harvest_t)
-        self._last_harvest_t = t
-        if self.tokens_out > before and t > t_from:
-            self._tpot_recent.append((t - t_from) / max(pend.k, 1))
+        self._last_harvest_t = t_done
+        dt = t_done - t_from
+        harvested = self.tokens_out - before
+        if harvested > 0 and dt > 0:
+            # always on: one harvest's gap imputed to the k tokens of each
+            # slot, weighted by the tokens it yielded
+            self._ev_tpot.add(dt / max(pend.k, 1), weight=harvested)
+        if timed:
+            self._trace_harvest(pend, harvested_by, t_done, dt, harvested,
+                                sampled, accepted, t_wait_end - t_h0,
+                                t_done - t_wait_end)
         for slot, err in bad.items():
             self._error_evict(slot, err)
         _blocksan.blocksan_verify(self)
 
-    def _harvest_spec(self, pend: "_Pending", out) -> None:
+    def _trace_harvest(self, pend, harvested_by, t_done, dt, harvested,
+                       sampled, accepted, ph_wait, ph_emit) -> None:
+        """The metrics-gated part of a harvest: each request's new tokens
+        take an equal share of the gap since its last token (TPOT, and
+        the TPOT SLO), the tick counters and gauges, and the tick's
+        record with its phases in the flight ring."""
+        for req, n_before in harvested_by:
+            n_new = len(req.output_ids) - n_before
+            if n_new <= 0 or req._t_last is None:
+                continue
+            gap = (t_done - req._t_last) / n_new
+            req._t_last = t_done
+            _M_TPOT.observe(gap, weight=n_new)
+            if self.tpot_slo_ms > 0 and gap * 1e3 > self.tpot_slo_ms:
+                _M_SLO.inc(n_new, metric="tpot")
+        _M_TICKS.inc()
+        _M_TICK_S.observe(dt)
+        _M_TOKENS.inc(harvested)
+        if sampled:
+            _M_SAMPLED.inc(sampled)
+        if dt > 0:
+            _M_TPS.set(round(harvested / dt, 1))
+        self._update_occupancy()
+        rec = {"timeline": "serving", "step": pend.step_no,
+               "t_unix": round(time.time(), 6),
+               "wall_s": round(dt, 6), "decode_steps": pend.k,
+               "tokens": harvested, "overlap": pend.overlapped,
+               "tokens_per_sec": round(harvested / dt, 1) if dt else 0.0,
+               "active": len(pend.active), "waiting": len(self.waiting),
+               "free_blocks": self._free_capacity(),
+               "phases": {
+                   "schedule_ms": round(pend.ph_sched * 1e3, 4),
+                   "chunk_prefill_ms": round(pend.ph_chunk * 1e3, 4),
+                   "dispatch_ms": round(pend.ph_dispatch * 1e3, 4),
+                   "harvest_wait_ms": round(ph_wait * 1e3, 4),
+                   "emit_ms": round(ph_emit * 1e3, 4),
+                   "host_ms": round((pend.ph_sched + pend.ph_chunk
+                                     + pend.ph_dispatch + ph_emit) * 1e3,
+                                    4),
+                   "device_wait_ms": round(ph_wait * 1e3, 4)}}
+        if pend.spec:
+            rec["spec"] = True
+            rec["spec_kind"] = self.spec_kind
+            rec["spec_k"] = pend.k
+            rec["spec_accepted"] = accepted
+        if pend.chunks:
+            rec["prefill_chunks"] = pend.chunks
+        tids = sorted({r.trace_id for r, _ in harvested_by if r.trace_id})
+        if tids:
+            rec["trace_ids"] = tids
+        self._flightrec().record_step(rec)
+
+    def _harvest_spec(self, pend: "_Pending", out, harvested_by) -> tuple:
+        """A spec tick's rows; returns the tokens sampled and the drafts
+        accepted."""
         k = pend.k
         toks, counts, accepts = out[:, :k], out[:, k], out[:, k + 1]
-        proposed = accepted = 0
+        proposed = accepted = sampled = 0
         for slot in pend.active:
             req = pend.reqs[slot]
             c, a = int(counts[slot]), int(accepts[slot])
@@ -1575,31 +2152,47 @@ class ServingEngine:
             self.tok_pos[slot] -= refund
             if req.done:
                 continue
+            harvested_by.append((req, len(req.output_ids)))
+            req._ticks += 1
             # acceptance counts all k proposals (the drafter's quality,
             # which the controller reads), whatever the slot's cap
             proposed += k
             accepted += a
             req._spec_proposed += k
             req._spec_accepted += a
+            if _metrics.enabled():
+                _M_SPEC_SLOT_ACC.set(
+                    round(req._spec_accepted / max(req._spec_proposed, 1),
+                          4), slot=slot)
             self.last_tok[slot] = int(toks[slot, c - 1])
-            self._emit(req, toks[slot, :c])
+            sampled += self._emit(req, toks[slot, :c])
         self.spec_ticks += 1
         self.spec_proposed += proposed
         self.spec_accepted += accepted
         if proposed:
+            _M_SPEC_PROPOSED.inc(proposed)
             rate = accepted / proposed
             self._accept_ewma = rate if self._accept_ewma is None else (
                 self._EWMA_BETA * self._accept_ewma
                 + (1.0 - self._EWMA_BETA) * rate)
             self._spec_ticks_since_adapt += 1
+        if accepted:
+            _M_SPEC_ACCEPTED.inc(accepted)
+        return sampled, accepted
 
-    def _emit(self, req: Request, toks) -> None:
+    def _emit(self, req: Request, toks) -> int:
+        """Append a tick's tokens to the request and its stream; returns
+        how many were sampled."""
+        n = 0
         for tok in toks:
             if req.done:
                 break        # tokens past eos are discarded
             req.output_ids.append(int(tok))
+            req._stream_push(int(tok))
             self.tokens_out += 1
+            n += req.do_sample
             self._maybe_finish(req, int(tok))
+        return n
 
     # ------------------------------------------------------ speculation
     def _spec_eligible(self, active) -> bool:
@@ -1679,13 +2272,28 @@ class ServingEngine:
         req = self.prefilling[0]
         return len(req.prompt_ids) - req._chunk_off > self.chunk
 
-    def _overlap_chunk_work(self) -> None:
-        """One non-final chunk of the head chunked admission, enqueued
-        behind the chained tick: its writes land in the admission's own
-        blocks, apart from every decoding slot's, so the order commutes."""
-        if self.prefilling and self._chunk_overlap_ok():
-            self._prefill_chunk_step(self.prefilling[0])
+    def _overlap_chunk_work(self, nxt: "_Pending") -> None:
+        """Non-final chunks of the head chunked admission, enqueued behind
+        the chained tick ``nxt``: their writes land in the admission's own
+        blocks, apart from every decoding slot's, so the order commutes.
+        As the JAX engine does, this spends ``prefill_chunks_per_tick``
+        (the argument, not the controller's budget); the chunks count in
+        ``nxt``'s record."""
+        if not self.prefilling or not self._chunk_overlap_ok():
+            return
+        req = self.prefilling[0]
+        self._chunks_this_boundary = 0
+        self._chunk_s_this_boundary = 0.0
+        spent = 0
+        while spent < self.chunks_per_tick \
+                and len(req.prompt_ids) - req._chunk_off > self.chunk:
+            self._prefill_chunk_step(req)
+            spent += 1
             self.overlap_chunks += 1
+        nxt.chunks += self._chunks_this_boundary
+        nxt.ph_chunk += self._chunk_s_this_boundary
+        self._chunks_this_boundary = 0
+        self._chunk_s_this_boundary = 0.0
 
     def step(self) -> bool:
         """One scheduler boundary and one decode tick (a speculative one
@@ -1722,7 +2330,10 @@ class ServingEngine:
         boundary and tick runs under the crash-only guard; a failure
         between a chained dispatch and the harvest (a non-final chunk
         behind the chained tick included) drops both ticks in flight
-        unharvested, their tokens with them, as the JAX engine does."""
+        unharvested, their tokens with them, as the JAX engine does.  The
+        engine is attached to the HTTP endpoint, which starts on
+        ``metrics_port`` / ``http_port`` when they are set."""
+        self._start_http()
         if self.cuda_graphs:
             self.warmup()
         self._mark_ready()
@@ -1745,8 +2356,10 @@ class ServingEngine:
                 if self.overlap and self._can_overlap(pend):
                     nxt = self._dispatch(boundary=False, chain=pend)
                     if nxt is not None:
+                        nxt.overlapped = True
                         self.overlapped_ticks += 1
-                        self._overlap_chunk_work()
+                        _M_OVERLAP.inc()
+                        self._overlap_chunk_work(nxt)
                 self._harvest(pend)
             except Exception as e:  # noqa: BLE001 - the guard
                 if not self._absorb_failure(e, (pend, nxt)):
@@ -1758,13 +2371,25 @@ class ServingEngine:
         _blocksan.blocksan_verify(self)
         return self.finished
 
+    def _start_http(self) -> None:
+        """Attach this engine to the HTTP endpoint (``POST /generate``,
+        ``/healthz``); start the scrape and serve endpoints on their
+        ports when set.  Never raises (a busy port does not stop
+        serving)."""
+        from ..observability import http as _http
+        _http.start_metrics(self.metrics_port)
+        _http.attach_engine(self)
+        _http.start_serving(self.http_port)
+
     def serve_forever(self, stop_event, idle_s: float = 0.002) -> None:
         """Serve requests added from other threads until ``stop_event``
         (a ``threading.Event``) is set, napping ``idle_s`` when idle; a
         requested drain (:meth:`request_drain`, or SIGTERM when this runs
         on the main thread) drains and returns.  The grid is captured
         before admission opens; every step is synchronous (admissions and
-        cancellations at every boundary) and guarded."""
+        cancellations at every boundary) and guarded.  The HTTP endpoint
+        is attached (and started) as by :meth:`run`."""
+        self._start_http()
         old_handler = None
         try:
             old_handler = signal.signal(
@@ -1811,12 +2436,14 @@ class ServingEngine:
             self._drain_requested = True
             self._draining = True
             waiting, self.waiting = list(self.waiting), deque()
-        _flight.default_recorder().record_event(
+        self._flightrec().record_event(
             "drain_start", waiting=len(waiting),
             running=self.B - len(self.free_slots))
         for r in waiting:
-            r.outcome = "drained"
+            self._terminal_trace(r, "drained")
             self.finished.append(r)
+            r._stream_push(None)
+        self._update_pressure()
         deadline = t0 + max(float(deadline_s), 0.0)
         while (self.prefilling or self._active_slots()) \
                 and time.monotonic() < deadline:
@@ -1832,8 +2459,9 @@ class ServingEngine:
             elif req.done:
                 self._evict(slot)
             else:
-                req.outcome = "drained"
+                self._terminal_trace(req, "drained")
                 self._evict(slot)
+                req._stream_push(None)
                 evicted += 1
         _blocksan.blocksan_verify(self)
         export = None
@@ -1844,7 +2472,7 @@ class ServingEngine:
                 raise
             except Exception as e:  # noqa: BLE001 - the drain must end
                 export = {"error": f"{type(e).__name__}: {e}"[:200]}
-                _flight.default_recorder().record_event(
+                self._flightrec().record_event(
                     "prefix_export_failed", error=export["error"])
         self._drain_info = {
             "drained_s": round(time.monotonic() - t0, 4),
@@ -1852,7 +2480,7 @@ class ServingEngine:
             "cancelled_waiting": len(waiting),
             "evicted_running": evicted,
             "export": export}
-        _flight.default_recorder().record_event(
+        self._flightrec().record_event(
             "drain_complete", **{k: v for k, v in self._drain_info.items()
                                  if k != "export"})
         return self._drain_info
@@ -1917,7 +2545,7 @@ class ServingEngine:
                 "entries": len(index["entries"]), "blocks": len(blocks),
                 "bytes": int(sum(a.nbytes for a in arrays.values())),
                 "export_s": round(time.perf_counter() - t0, 4)}
-        _flight.default_recorder().record_event("prefix_export", **info)
+        self._flightrec().record_event("prefix_export", **info)
         return info
 
     def release_exported_prefix(self) -> int:
@@ -1929,7 +2557,7 @@ class ServingEngine:
         freed = self.prefix.evict(self.num_blocks, self._release_block,
                                   lambda b: int(self.block_rc[b]) == 1)
         _blocksan.blocksan_verify(self)
-        _flight.default_recorder().record_event("prefix_handoff_release",
+        self._flightrec().record_event("prefix_handoff_release",
                                                 blocks=freed)
         return freed
 
@@ -1944,27 +2572,33 @@ class ServingEngine:
         for step in reversed(_ckpt.all_steps(root)):
             path = os.path.join(root, _ckpt.step_dir(step))
             reason = _ckpt.verify_version(path)
+            kind = "corrupt"
             if reason is None:
                 try:
                     with open(os.path.join(path,
                                            "prefix_index.json")) as f:
                         index = json.load(f)
                     if index.get("meta") != self._prefix_fingerprint():
-                        reason = "engine fingerprint mismatch"
+                        reason, kind = "engine fingerprint mismatch", \
+                            "mismatch"
                     else:
                         n = self._install_prefix_export(path, index)
                 except _LOUD:
                     raise
                 except Exception as e:  # noqa: BLE001 - restart must live
-                    reason = f"{type(e).__name__}: {e}"[:200]
+                    reason, kind = f"{type(e).__name__}: {e}"[:200], \
+                        "unreadable"
             if reason is not None:
                 skipped += 1
-                _flight.default_recorder().record_event(
+                _M_PREFIX_IMPORT_SKIP.inc(reason=kind)
+                self._flightrec().record_event(
                     "prefix_import_skip", step=step, reason=reason)
                 continue
+            if n:
+                _M_PREFIX_IMPORT.inc(n)
             self._prefix_import_info = {
                 "step": step, "blocks": n, "skipped_corrupt": skipped}
-            _flight.default_recorder().record_event(
+            self._flightrec().record_event(
                 "prefix_import", step=step, blocks=n, skipped=skipped)
             _blocksan.blocksan_snapshot(self)
             return
@@ -2052,9 +2686,10 @@ class ServingEngine:
         return doc
 
     def _ttft_evidence(self) -> dict:
-        """Recent admission rate, median TTFT and median tick-level
-        seconds per token (each over its last 64), and the mean length
-        of finished requests."""
+        """Recent admission rate and median TTFT (over the last 64), the
+        median tick-level seconds per token (the always-on sketch over
+        every harvest, weighted by the tokens each yielded: the JAX
+        engine's), and the mean length of finished requests."""
         ev = {"admit_rate_per_s": 0.0, "ttft_p50_s": 0.0,
               "samples": len(self._ttft_recent)}
         times = list(self._admit_times)
@@ -2062,28 +2697,52 @@ class ServingEngine:
             ev["admit_rate_per_s"] = round(
                 (len(times) - 1) / (times[-1] - times[0]), 4)
         if self._ttft_recent:
-            ev["ttft_p50_s"] = round(_median(self._ttft_recent), 6)
-        if self._tpot_recent:
-            ev["tpot_p50_s"] = round(_median(self._tpot_recent), 6)
-        if self._finished_n:
+            srt = sorted(self._ttft_recent)
+            ev["ttft_p50_s"] = round(srt[len(srt) // 2], 6)
+        if self._ev_tpot.count > 0:
+            ev["tpot_p50_s"] = round(self._ev_tpot.quantile(0.5), 6)
+        if self._ev_finished:
             ev["avg_tokens_out"] = round(
-                self._finished_tokens / self._finished_n, 3)
+                self._ev_finished_tokens / self._ev_finished, 3)
         return ev
+
+    def telemetry_snapshot(self) -> dict:
+        """The engine's always-on evidence (``/metrics/snapshot``):
+        terminal outcomes, TTFT-SLO violations, finished requests and
+        tokens, the TPOT sketch's state and the TTFT evidence.  Host
+        numbers only, whatever the metrics gate."""
+        return {"outcomes": dict(self._ev_outcomes),
+                "slo_violations_ttft": self._ev_slo_viol,
+                "finished": self._ev_finished,
+                "finished_tokens": self._ev_finished_tokens,
+                "tpot_sketch": self._ev_tpot.to_state(),
+                "ttft_evidence": self._ttft_evidence()}
 
     def stats(self) -> dict:
         """Counters.  ``free_blocks`` counts the blocks the prefix index
         alone holds (reclaimable on demand), so a drained engine that
-        leaked nothing reads ``free_blocks == num_blocks``."""
+        leaked nothing reads ``free_blocks == num_blocks``.  ``latency``
+        holds p50 / p90 / p99 of the TTFT, TPOT, e2e and queue-wait
+        sketches, which are process-wide (every engine of the process
+        feeds them, as the ``/metrics`` scrape reads them)."""
         reclaim = self.prefix.reclaimable(self.block_rc) \
             if self.prefix is not None else 0
+        running = self.B - len(self.free_slots)
         out = {"steps": self.steps, "ticks": self.ticks,
                "tokens_out": self.tokens_out,
                "free_blocks": len(self.free_blocks) + reclaim,
                "reserved": self.reserved,
                "active": len(self._active_slots()),
+               "running": running,
                "waiting": len(self.waiting),
+               "queue_depth": running + len(self.waiting),
                "prefilling": len(self.prefilling),
+               "prefill_chunk": self.chunk,
                "prefill_chunks": self.prefill_chunks_total,
+               "chunk_budget": (self.chunks_per_tick
+                                if self._chunk_budget_now is None
+                                else self._chunk_budget_now),
+               "slo_sheds": self.slo_sheds,
                "pad_buckets": list(self.pad_ladder),
                "overlapped_ticks": self.overlapped_ticks,
                "overlap_chunks": self.overlap_chunks,
@@ -2133,4 +2792,12 @@ class ServingEngine:
                 "reclaimable_blocks": reclaim}
             if self._prefix_import_info is not None:
                 out["prefix_cache"]["import"] = dict(self._prefix_import_info)
+        lat = {}
+        for key, sk in (("ttft", _M_TTFT), ("tpot", _M_TPOT),
+                        ("e2e", _M_E2E), ("queue_wait", _M_QWAIT)):
+            if sk.count():
+                lat[key] = {f"p{round(q * 100)}": round(sk.quantile(q), 6)
+                            for q in (0.5, 0.9, 0.99)}
+        if lat:
+            out["latency"] = lat
         return out

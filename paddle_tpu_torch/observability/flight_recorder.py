@@ -11,8 +11,11 @@ non-finite).
 The watchdog is the JAX flag ``enable_nan_watchdog``: process-wide, off
 by default, set here with :func:`set_enabled`.  Off, :func:`check_finite`
 and :class:`guard` are one boolean check and never touch their value (no
-host sync); on, each check reads its value on the host.  A dump's
-``"metrics"`` holds ``{}``: the metrics registry is not ported yet.
+host sync); on, each check reads its value on the host.  A dump carries
+the metrics registry's snapshot (``"metrics"``).  A serving engine writes
+into the recorder it was given (``ServingEngine(flight_recorder=)``), the
+process's default one otherwise: engines that share a process keep their
+rings apart.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
+
+from . import metrics as _metrics
 
 __all__ = ["FlightRecorder", "default_recorder", "check_finite", "guard",
            "enabled", "set_enabled", "FLIGHT_SCHEMA"]
@@ -69,6 +74,17 @@ class FlightRecorder:
             self._events.append(dict(info, kind=kind,
                                      unix_time=round(time.time(), 3)))
 
+    def record_span(self, name: str, cat: str, start_s: float,
+                    end_s: float, **info) -> None:
+        """One completed span as a ``kind="span"`` event: explicit start
+        and end unix seconds (the chrome exporter draws a slice on a row
+        per ``cat``), plus any trace context."""
+        self.record_event("span", name=name, cat=cat,
+                          start_s=round(float(start_s), 6),
+                          end_s=round(float(end_s), 6),
+                          dur_s=round(float(end_s) - float(start_s), 6),
+                          **info)
+
     def note_nonfinite(self, site: str, step: Optional[int] = None,
                        value: Optional[float] = None) -> bool:
         """Record a non-finite observation; only the first of a run is
@@ -91,6 +107,12 @@ class FlightRecorder:
         with self._lock:
             return list(self._events)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._steps.clear()
+            self._events.clear()
+            self.first_nonfinite = None
+
     def snapshot(self, reason: str = "manual") -> Dict[str, Any]:
         return {"schema": FLIGHT_SCHEMA,
                 "unix_time": round(time.time(), 3),
@@ -98,7 +120,7 @@ class FlightRecorder:
                 "capacity": self.capacity,
                 "first_nonfinite": self.first_nonfinite,
                 "steps": self.steps(), "events": self.events(),
-                "metrics": {}}
+                "metrics": _metrics.snapshot()}
 
     def dump(self, path: Optional[str] = None,
              reason: str = "manual") -> Dict[str, Any]:

@@ -884,7 +884,7 @@ def test_call_with_retries(never):
 def test_flight_recorder_matches_the_jax_recorder(tmp_path):
     """Off, the watchdog never touches its value; on, the first
     non-finite site is kept and dumped; the ring is bounded; the dump's
-    keys are the JAX recorder's."""
+    keys are the JAX recorder's, its metrics the registry's snapshot."""
     class Untouchable:
         def __float__(self):
             raise AssertionError("read while off")
@@ -911,7 +911,10 @@ def test_flight_recorder_matches_the_jax_recorder(tmp_path):
     assert rec.first_nonfinite["step"] == 7
     doc = rec.dump(str(tmp_path / "d.json"))
     jdoc = jrec.snapshot()
-    assert set(doc) == set(jdoc) - {"xray"} and doc["metrics"] == {}
+    # the dump carries the port's registry, as the JAX one carries its own
+    from paddle_tpu_torch.observability import metrics as tmetrics
+    assert set(doc) == set(jdoc) - {"xray"}
+    assert doc["metrics"] == tmetrics.snapshot()
     assert json.loads((tmp_path / "d.json").read_text())["reason"] == \
         "manual"
 

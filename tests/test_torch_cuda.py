@@ -1553,3 +1553,120 @@ def test_quant_serving_matches_the_cpu(gen, mode):
         got = _serve_prefix_spec(card, None, "cuda", quant=mode, **kw)
         assert got == want, kw
     assert wo.weight_only_matmul.launches > n
+
+
+def _sse_stream(url, body):
+    """POST /generate; the token ids and the terminal frame."""
+    import json
+    import urllib.request
+    req = urllib.request.Request(url + "/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, event = [], None
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: "):
+                d = json.loads(line[6:])
+                if event is not None:
+                    return toks, event, d
+                toks.append(d["token"])
+    raise AssertionError("the stream ended without a terminal frame")
+
+
+def test_http_frontend_over_a_captured_engine(gen):
+    """``serve_forever`` on a thread behind the HTTP endpoint, its grid
+    captured: each of three concurrent SSE streams equals ``run()``'s
+    stream of the same request (one sampled), every token came from a
+    graph replay, and nothing leaks after a drain."""
+    import threading
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    from paddle_tpu_torch.observability import http as obs_http
+    model = _tiny_card().to(torch.bfloat16)
+    mix = [dict(prompt_ids=list(range(1, 30)), max_new_tokens=12),
+           dict(prompt_ids=list(range(7, 60)), max_new_tokens=9,
+                do_sample=True, temperature=0.9, top_k=40, top_p=0.95,
+                seed=5),
+           dict(prompt_ids=[5, 9, 14, 2] * 5, max_new_tokens=16)]
+    want, _, _ = _serve_card(model, mix)
+    eng = ServingEngine(model, max_batch=2, max_context=128, block_size=16,
+                        steps_per_tick=4, device="cuda")
+    srv = obs_http.MetricsServer(0, "127.0.0.1", engine=eng)
+    stop = threading.Event()
+    loop = threading.Thread(target=eng.serve_forever, args=(stop,),
+                            daemon=True)
+    out = [None] * len(mix)
+
+    def client(i):
+        out[i] = _sse_stream(srv.url, dict(mix[i], timeout_s=120))
+    try:
+        loop.start()
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(mix))]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(120)
+            assert not t.is_alive()
+        eng.request_drain()
+        loop.join(60)
+        assert not loop.is_alive()
+    finally:
+        stop.set()
+        srv.close()
+    assert [o[0] for o in out] == want
+    assert [o[1] for o in out] == ["done"] * len(mix)
+    st = eng.stats()
+    assert st["graphs"]["replays"] > 0 and st["tick_errors"] == 0
+    assert st["free_blocks"] == eng.num_blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cow_program_replay_equals_the_eager_copy(gen, dtype):
+    """The captured ``cow`` program, replayed at a partial-block prefix
+    hit, leaves every pool (the draft's too) equal, bit for bit, to the
+    eager copy of the same block (bf16 compared as 16-bit words); the
+    hit's stream equals an eager engine's."""
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+    model = _tiny_card().to(dtype)
+    draft = _tiny_card(num_layers=1).to(dtype)
+    shared = list(range(1, 33))              # two full blocks of 16
+
+    def serve(cuda_graphs):
+        eng = ServingEngine(model, max_batch=2, max_context=128,
+                            block_size=16, steps_per_tick=4, device="cuda",
+                            cuda_graphs=cuda_graphs, draft_model=draft,
+                            spec_decode=True, spec_k=2)
+        if cuda_graphs:
+            eng.warmup()
+        first = eng.add_request(Request(shared + [77, 78],
+                                        max_new_tokens=6))
+        eng.run()
+        hit = eng.add_request(Request(shared, max_new_tokens=6))
+        eng.run()
+        return eng, first, hit
+    eng, _, hit = serve(True)
+    ref, _, ref_hit = serve(False)
+    prog = eng._programs[("cow",)]
+    assert prog.graph is not None and prog.replays == 1
+    assert hit.output_ids == ref_hit.output_ids
+    assert eng.stats()["prefix_cache"]["hits"] == 1
+    # the copy itself: a replay against the eager indexed copy
+    src = int(eng.prefix.lookup(shared).blocks[-1])
+    dst = int(eng.free_blocks[0])
+    pools = eng.pools + eng.dpools
+    want = [(k.clone(), v.clone()) for k, v in pools]
+    for k, v in want:
+        k[:, dst] = k[:, src]
+        v[:, dst] = v[:, src]
+    eng._cow(src, dst)
+    torch.cuda.synchronize()
+
+    def words(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    for (k, v), (wk, wv) in zip(pools, want):
+        assert torch.equal(words(k), words(wk))
+        assert torch.equal(words(v), words(wv))
+    assert prog.replays == 2

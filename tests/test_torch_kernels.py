@@ -523,7 +523,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch/models/convert.py",
             "paddle_tpu_torch/ops/moe.py",
             "paddle_tpu_torch/incubate/distributed/models/moe/gate.py",
-            "paddle_tpu_torch/incubate/distributed/models/moe/moe_layer.py"
+            "paddle_tpu_torch/incubate/distributed/models/moe/moe_layer.py",
+            "paddle_tpu_torch/observability/metrics.py",
+            "paddle_tpu_torch/observability/descriptions.py",
+            "paddle_tpu_torch/observability/quantiles.py",
+            "paddle_tpu_torch/observability/export.py",
+            "paddle_tpu_torch/observability/http.py",
+            "paddle_tpu_torch/observability/tracing.py",
+            "paddle_tpu_torch/observability/chrome.py",
+            "paddle_tpu_torch/observability/flight_recorder.py"
             } <= names
     for f in files:
         hits = [m.group(0) for m in _FORBIDDEN.finditer(f.read_text())]
