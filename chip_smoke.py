@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs twenty phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs twenty-one phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -286,6 +286,38 @@ into ``build/paddle_tpu_torch/``), then runs twenty phases on card 0:
    cut also with n-gram speculation, with phase 3's checks; and a 2-layer
    fp32 GPT cut under ``QAT`` (fake-quantized weights), 2 AdamW steps card
    against CPU with phase 5's tolerances.
+21. The rest of training (after phase 5): a. GPT-3 1.3B at B 4 x S 2048,
+   O1 bf16, AdamW (weight decay 0.01) under ``LinearWarmup`` into
+   ``CosineAnnealingDecay``, ``ClipGradByGlobalNorm(1.0)``, a dynamic
+   ``GradScaler`` and the fused step on the ``fused_adamw`` kernels, 6
+   steps with a ``StepTimeline`` record each: step time, tokens/s, MFU,
+   peak memory; ``optimizer.fused`` hits and no fallback; one profiled
+   step (idle share, the fused kernels' device time against their
+   bound); then the kernel pair alone at GPT-3 1.3B's 292 tensors against
+   its bound, its plain version and the library call (``_foreach_norm``
+   clip + ``torch.optim.AdamW(fused=True)``), the path a step the fused
+   one declines takes (the list rules behind the same clip), and whole
+   steps with
+   ``torch.optim.AdamW`` foreach (phase 4's former optimizer) and fused.
+   b. Three more steps, an inf in one gradient at the third, every scaler
+   step under ``set_sync_debug_mode("error")``: parameters and moments
+   bit-identical, the scale halved, ``global_step`` kept.  c. Recompute
+   off, full and ``dots_with_no_batch_dims_saveable``, 3 steps each: peak
+   memory, step time, flash forwards per step (24, 48, 48), losses equal
+   to the run without recompute (bit for bit, else within GRAD_TOL, said
+   which); with dropout 0.1, off and full, losses and the generator's
+   position equal.  d. O2 ``decorate``: bf16 parameters with float32
+   masters, 6 steps, step time and peak memory against a.  e. A 4-layer
+   fp32 cut with full recompute, card against CPU, 2 steps with the
+   scheduler, scaler and fused step: losses within 1e-4, parameters
+   within 2 x lr x steps.  f. ``fused_adamw`` against its plain version
+   at GPT-3 1.3B's parameter list, O1 and O2, clip none / global 1.0 /
+   norm / value, scaler finite / overflow / none, lr 1e-2 and decay 0.1,
+   the states drawn to the clipped gradients' size: skips bit for bit,
+   clip coefficients within rtol 1e-6 (the plain version's phase 2 then
+   takes the kernels'), each float32 tensor's change in the step within
+   1e-4 of the plain version's (2-norm), the decay above 100 times that
+   share of every weight's change, bf16 copies within one bf16 step.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -2382,7 +2414,11 @@ def plain_route_phase():
     train_card_vs_cpu(cfg, "gpt3_tiny (hd 32) on the plain routes")
     train_plain = _plain_calls()
     train_launches = {n: fn.launches for n, fn in _train_counters().items()}
-    if train_plain["flash_fwd"] <= 0 or any(train_launches.values()):
+    # the plain routes are attention's; the optimizer step is the fused
+    # kernel's whatever the head dim
+    if train_plain["flash_fwd"] <= 0 or train_launches["fused_adamw"] \
+            != 2 or any(n for k, n in train_launches.items()
+                         if k != "fused_adamw"):
         raise AssertionError(f"gpt3_tiny hd 32 training: plain routes "
                              f"{train_plain}, launches {train_launches}")
     _log(f"gpt3_tiny hd 32 on the card: greedy streams (whole-prompt, "
@@ -2807,12 +2843,14 @@ def _train_step(model, opt, batch, autocast):
 
 def _train_counters():
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_optimizer as fo
     from paddle_tpu_torch.ops import moe as mo
     return {"flash_fwd": fa.flash_attention_fwd,
             "flash_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_bwd_dkv": fa.flash_attention_bwd_dkv,
             "moe_dispatch": mo.moe_dispatch,
-            "moe_combine": mo.moe_combine}
+            "moe_combine": mo.moe_combine,
+            "fused_adamw": fo.fused_adamw}
 
 
 def _n_moe_blocks(cfg):
@@ -2823,10 +2861,11 @@ def _n_moe_blocks(cfg):
 
 def _check_train_launches(label, cfg, launches, steps):
     """Each flash kernel once per layer and step; each MoE kernel once per
-    MoE block and step (the MoE backward launches no kernel)."""
+    MoE block and step (the MoE backward launches no kernel); the fused
+    optimizer step once per step."""
     for name, n in launches.items():
         per_step = (_n_moe_blocks(cfg) if name.startswith("moe_")
-                    else cfg.num_layers)
+                    else 1 if name == "fused_adamw" else cfg.num_layers)
         if n != per_step * steps:
             raise AssertionError(f"{label}: {name} launched {n} times, "
                                  f"want {per_step} x {steps}")
@@ -3085,6 +3124,673 @@ def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", B=1, S=256,
     _log(f"train card vs CPU, {label}, B={B} S={S}, {steps} "
          f"AdamW steps: losses card {card_l} cpu {cpu_l}, parameters max "
          f"abs diff {err:.3e}")
+
+
+# -------------------------------------------------------------- phase 21
+
+REST_STEPS = 6                        # 21a and 21d
+
+
+def _fused_counts():
+    """The ``optimizer.fused`` counter by kind (the port's registry)."""
+    from paddle_tpu_torch.observability import metrics
+    c = metrics.get("optimizer.fused")
+    return {k: int(c.value(kind=k)) if c else 0
+            for k in ("hit", "miss", "fallback")}
+
+
+def _rest_setup(cfg, device="cuda", seed=0, level="O1", B=TRAIN_B,
+                S=TRAIN_S):
+    """Phase 21's training setup: the model, AdamW (weight decay 0.01)
+    under ``LinearWarmup`` (2 steps from 0) into ``CosineAnnealingDecay``
+    (100 steps), ``ClipGradByGlobalNorm(1.0)``, a dynamic GradScaler
+    (2^12), and at O2 ``amp.decorate`` (bf16 parameters, float32
+    masters); a fixed batch of random tokens from a numpy seed."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+
+    model = _model(cfg, device, seed)
+    model.train()
+    sched = lr_mod.LinearWarmup(lr_mod.CosineAnnealingDecay(LR, 100), 2,
+                                0.0, LR)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    if level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 12)
+    rng = np.random.RandomState(seed)
+    batch = tuple(torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, S)),
+                                  device=device) for _ in range(2))
+    return model, opt, sched, scaler, batch
+
+
+def _rest_step(model, opt, sched, scaler, batch, level="O1", inject=False,
+               no_sync=False):
+    """One step: the loss under ``auto_cast`` at ``level`` (O0: float32),
+    the scaled backward, ``scaler.step`` (the fused step), the scheduler.
+    ``inject`` puts an inf into the first gradient; ``no_sync`` runs the
+    scaler's step under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(level != "O0", level=level if level != "O0"
+                       else "O1", dtype="bfloat16", device=batch[0].device):
+        loss = model.compute_loss(*batch)
+    scaler.scale(loss).backward()
+    if inject:
+        next(p for p in model.parameters()
+             if p.grad is not None).grad.view(-1)[0] = float("inf")
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        scaler.step(opt)
+    finally:
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("default")
+    opt.clear_grad()
+    sched.step()
+    return loss.detach()
+
+
+def _rest_run(model, opt, sched, scaler, batch, steps, level="O1",
+              timeline=None):
+    """``steps`` timed steps from launch counts of 0 (each bracketed by the
+    StepTimeline, synchronised inside); returns losses, step seconds,
+    the launches and the ``optimizer.fused`` counts of the run."""
+    import torch
+    for fn in _train_counters().values():
+        fn.launches = 0
+    fused0 = _fused_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if timeline is not None:
+            with timeline.step(tokens=batch[0].numel(), mode=level) as st:
+                loss = _rest_step(model, opt, sched, scaler, batch, level)
+                torch.cuda.synchronize()
+                st.annotate(synced=True)
+        else:
+            loss = _rest_step(model, opt, sched, scaler, batch, level)
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if timeline is not None:
+            st.annotate(loss=losses[-1])
+    launches = {n: fn.launches for n, fn in _train_counters().items()}
+    fused = {k: v - fused0[k] for k, v in _fused_counts().items()}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 21: a loss is not finite: {losses}")
+    return losses, times, launches, fused
+
+
+def _fused_table(opt):
+    (table,) = opt._fused_tables.values()
+    return table
+
+
+def _opt_tensors(model, opt):
+    """Every tensor a step writes: parameters, masters, moments."""
+    out = [p.detach() for p in model.parameters()]
+    for store in opt._accumulators.values():
+        out.extend(store.values())
+    return out
+
+
+def _equal_bits(a, b):
+    import torch
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def overflow_phase(model, opt, sched, scaler, batch):
+    """21b: three more steps, an inf in one gradient at the third; every
+    scaler step under the sync debug mode "error".  The overflow step
+    leaves parameters, moments and masters bit-identical, halves the
+    scale and keeps ``global_step``."""
+    import torch
+    for i in range(3):
+        if i == 2:
+            before = [t.clone() for t in _opt_tensors(model, opt)]
+            scale, step = scaler._scale, opt._global_step
+        _rest_step(model, opt, sched, scaler, batch, inject=(i == 2),
+                   no_sync=True)
+    torch.cuda.synchronize()
+    after = _opt_tensors(model, opt)
+    changed = sum(not _equal_bits(a, b) for a, b in zip(before, after))
+    if changed or scaler._scale != scale / 2 or \
+            opt._global_step != step or not scaler._found_inf:
+        raise AssertionError(
+            f"21b: {changed} of {len(after)} tensors changed, scale "
+            f"{scale} -> {scaler._scale}, global_step {step} -> "
+            f"{opt._global_step}, found_inf {scaler._found_inf}")
+    del before
+    _log(f"21b overflow: an inf in one gradient at the third step: "
+         f"{len(after)} tensors (parameters, moments) bit-identical, scale "
+         f"{scale} -> {scaler._scale}, global_step {step} kept; the three "
+         f"scaler steps under set_sync_debug_mode('error'): no host sync")
+
+
+def _optimizer_yardsticks(model, opt, batch):
+    """On 21a's model: the fused kernel pair alone (CUDA events over 10
+    calls at GPT-3 1.3B's parameter list: O1, global clip, a scaler), its
+    bound and plain version; the path a declined step takes (the list
+    rules, ``torch._foreach_*``, behind the global clip); the library call (``torch._foreach_norm``
+    clip plus ``torch.optim.AdamW(fused=True)``); and whole train steps
+    with phase 4's former optimizer (``torch.optim.AdamW(foreach=True)``
+    behind the same clip) and with the library one."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    dev = batch[0].device
+    with amp.auto_cast(True, level="O1", dtype="bfloat16", device=dev):
+        model.compute_loss(*batch).backward()
+    table = _fused_table(opt)
+    grads = [p.grad for p in table.params]
+    step = torch.zeros(1, dtype=torch.int32, device=dev)
+    scale = torch.full((1,), 1.0, device=dev)
+    counts = torch.zeros(4, dtype=torch.int32, device=dev)
+    sc = (scale, counts, fo.ScalerConfig())
+    clip = ("global", 1.0)
+    n0 = fo.fused_adamw.launches
+    ms = _time_ms(lambda: fo.fused_adamw(table, grads, LR, step, clip=clip,
+                                         scaler=sc), 10)
+    plain_ms = _time_ms(lambda: fo.fused_adamw_reference(
+        table, grads, LR, step, clip=clip, scaler=sc), 2)
+    fo.fused_adamw.launches = n0           # comparisons are not the path's
+    # the path a step the fused one declines takes (a clip subclass, L1
+    # decay, ...): the list rules behind the same clip
+    work, all_pg = opt._collect_work()
+    declined_ms = _time_ms(lambda: opt._apply_per_leaf(
+        [list(w) for w in work], all_pg), 3)
+    nbytes = fo.table_bytes(table, grads, clip, sc)
+    bound_ms, bound_by = _bound(nbytes, 0, "torch.float32")
+    n_chunks = table.n_chunks
+    # the port's optimizer is done: its state makes room for torch's
+    opt._accumulators.clear()
+    opt._fused_tables.clear()
+    del table
+    torch.cuda.empty_cache()
+    params = [p for p in model.parameters() if p.grad is not None]
+    tclip = ClipGradByGlobalNorm(1.0)
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, tensors=len(grads),
+               chunks=n_chunks, declined_ms=declined_ms)
+    for mode in ("fused", "foreach"):
+        topt = torch.optim.AdamW(params, lr=LR, weight_decay=0.01,
+                                 **{mode: True})
+
+        def lib_step():
+            tclip([(p, p.grad) for p in params])
+            topt.step()
+        if mode == "fused":
+            out["library_ms"] = _time_ms(lib_step, 10)
+        # whole train steps with this optimizer (O1, no scaler)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp.auto_cast(True, level="O1", dtype="bfloat16",
+                               device=dev):
+                loss = model.compute_loss(*batch)
+            loss.backward()
+            lib_step()
+            topt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[f"{mode}_step_ms"] = statistics.median(times[1:]) * 1e3
+        del topt
+        torch.cuda.empty_cache()
+    opt.clear_grad()
+    _log(f"21a optimizer step alone at gpt3_1p3b's {len(grads)} tensors "
+         f"({n_chunks} chunks of {fo.CHUNK}; O1, global clip, "
+         f"scaler): fused_adamw {ms:.3f} ms (CUDA events over 10), bound "
+         f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB by bytes), plain "
+         f"version {plain_ms:.3f} ms, the declined path (list rules "
+         f"behind the same clip) {declined_ms:.3f} ms, library "
+         f"(_foreach_norm clip + "
+         f"torch.optim.AdamW(fused=True)) {out['library_ms']:.3f} ms; "
+         f"whole steps: torch AdamW foreach {out['foreach_step_ms']:.1f} "
+         f"ms, fused=True {out['fused_step_ms']:.1f} ms")
+    return out
+
+
+def rest_of_training_phase():
+    """21a-21d at GPT-3 1.3B, B 4 x S 2048 (see the module docstring)."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    from paddle_tpu_torch.observability import flops as tflops
+    from paddle_tpu_torch.observability import telemetry
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    cfg = gpt3_1p3b()
+    tokens = TRAIN_B * TRAIN_S
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, sched, scaler, batch = _rest_setup(cfg)
+    kind = torch.cuda.get_device_name(0)
+    tl = telemetry.StepTimeline(name="rest_of_training",
+                                flops_per_token=model.flops_per_token(
+                                    TRAIN_S), device_kind=kind)
+    losses, times, launches, fused = _rest_run(model, opt, sched, scaler,
+                                               batch, REST_STEPS,
+                                               timeline=tl)
+    _check_train_launches("21a", cfg, launches, REST_STEPS)
+    if fused["hit"] <= 0 or fused["fallback"]:
+        raise AssertionError(f"21a: optimizer.fused {fused}")
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    summary = tl.summary()
+    mfu = tokens / step_s * model.flops_per_token(TRAIN_S) / \
+        tflops.peak_flops(kind)
+    keys = sorted(tl.records[-1])
+    _log(f"21a gpt3_1p3b O1 bf16, AdamW under LinearWarmup -> "
+         f"CosineAnnealingDecay, clip 1.0, GradScaler, fused step, B="
+         f"{TRAIN_B} S={TRAIN_S}: losses {[round(x, 4) for x in losses]}; "
+         f"step times (s) {[round(t, 4) for t in times]}, median of steps "
+         f"2-{REST_STEPS} {step_s * 1e3:.1f} ms = {tokens / step_s:.1f} "
+         f"tokens/s, MFU {mfu:.4f}; peak memory {peak / 2 ** 30:.2f} GiB; "
+         f"launches {launches}; optimizer.fused {fused}")
+    _log(f"21a StepTimeline: {len(tl.records)} records (keys {keys}); "
+         f"summary steps {summary['steps']}, steady {summary['steady_steps']}"
+         f", synced {summary['synced_steps']}, tokens/s "
+         f"{summary['tokens_per_sec']}, mfu {summary.get('mfu')}, step "
+         f"seconds {summary['step_seconds']}, compile_s "
+         f"{summary['compile_s']}, fractions {summary['fractions']}")
+
+    def step():
+        t0 = time.perf_counter()
+        _rest_step(model, opt, sched, scaler, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    wall, kernels = _profiled(step, step)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    fk = _by_name(kernels, ("fused_norm_kernel", "fused_update_kernel",
+                            "table_upload_kernel"))
+    fused_us = sum(us for _, us in fk.values())
+    # a gradient has its parameter's shape and type
+    table = _fused_table(opt)
+    nbytes = fo.table_bytes(table, table.params, ("global", 1.0), scaler)
+    bound_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    idle = 1 - busy_us / 1e6 / wall
+    if fk["fused_norm_kernel"][0] != 1 or fk["fused_update_kernel"][0] != 1:
+        raise AssertionError(f"21a profiled step: fused kernels {fk}")
+    _log(f"21a profiled step: wall {wall * 1e3:.1f} ms, card busy "
+         f"{busy_us / 1e3:.1f} ms, idle share {idle:.3f}; fused step on the "
+         f"card {fused_us / 1e3:.3f} ms ("
+         + ", ".join(f"{n} {c}x {us / 1e3:.3f} ms" for n, (c, us)
+                     in fk.items())
+         + f") against a {bound_ms:.3f} ms bound ({nbytes / 1e9:.2f} GB)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+             f"{e.key[:90]}")
+    del table                # it holds the parameters and moments
+    overflow_phase(model, opt, sched, scaler, batch)
+    yard = _optimizer_yardsticks(model, opt, batch)
+    names = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    del model, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+               peak_bytes=peak, idle_share=idle, launches=launches,
+               fused=fused, losses=losses, profiled_fused_ms=fused_us / 1e3,
+               **yard)
+    run["recompute"] = recompute_phase(cfg)
+    run["o2"] = o2_phase(cfg, run)
+    return run, names
+
+
+def recompute_phase(cfg):
+    """21c: recompute off, full and ``dots_with_no_batch_dims_saveable`` at
+    21a's shape: peak memory, step ms, a profiled step's card time and
+    idle share, and flash launches per step; the
+    losses against the run without recompute; then dropout 0.1 off and
+    full, losses and the generator's position equal."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    modes = {"off": {}, "full": dict(use_recompute=True),
+             "selective": dict(use_recompute=True, recompute_policy=(
+                 "dots_with_no_batch_dims_saveable"))}
+    out = {}
+    for name, kw in modes.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, sched, scaler, batch = _rest_setup(
+            dataclasses.replace(cfg, **kw))
+        losses, times, launches, _ = _rest_run(model, opt, sched, scaler,
+                                               batch, 3)
+        per_step = launches["flash_fwd"] / 3
+        want = cfg.num_layers * (2 if kw else 1)
+        if per_step != want or launches["flash_bwd_dkv"] != \
+                3 * cfg.num_layers or launches["fused_adamw"] != 3:
+            raise AssertionError(f"21c {name}: launches {launches}")
+        peak = torch.cuda.max_memory_allocated()
+
+        def step():
+            t0 = time.perf_counter()
+            _rest_step(model, opt, sched, scaler, batch)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        wall, kernels = _profiled(step, step)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        out[name] = dict(losses=losses, step_s=statistics.median(times[1:]),
+                         peak_bytes=peak, flash_fwd_per_step=per_step,
+                         idle_share=1 - busy / wall, busy_s=busy)
+        del model, opt, scaler
+    base = out["off"]["losses"]
+    for name in ("full", "selective"):
+        got = out[name]["losses"]
+        if got[0] != base[0]:
+            raise AssertionError(f"21c {name}: first loss {got[0]} against "
+                                 f"{base[0]} (the forwards differ)")
+        exact = got == base
+        if not exact:
+            torch.testing.assert_close(torch.tensor(got), torch.tensor(base),
+                                       **GRAD_TOL["torch.bfloat16"])
+        out[name]["bit_equal"] = exact
+    for name, r in out.items():
+        _log(f"21c recompute {name}: peak memory "
+             f"{r['peak_bytes'] / 2 ** 30:.2f} GiB, step "
+             f"{r['step_s'] * 1e3:.1f} ms (profiled: card busy "
+             f"{r['busy_s'] * 1e3:.1f} ms, idle share "
+             f"{r['idle_share']:.3f}), flash_fwd launches per step "
+             f"{r['flash_fwd_per_step']:.0f}, losses "
+             f"{[round(x, 6) for x in r['losses']]}"
+             + ("" if name == "off" else
+                f", {'bit for bit' if r['bit_equal'] else 'within GRAD_TOL'}"
+                " of the run without recompute"))
+    # dropout 0.1: the recomputed forward replays the generator's draws
+    drop = {}
+    for name in ("off", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opt, sched, scaler, batch = _rest_setup(
+            dataclasses.replace(cfg, dropout=0.1, **modes[name]), seed=1)
+        losses, _, _, _ = _rest_run(model, opt, sched, scaler, batch, 2)
+        drop[name] = (losses, model.generator.get_state())
+        del model, opt, scaler
+    (l_off, g_off), (l_full, g_full) = drop["off"], drop["full"]
+    if l_full[0] != l_off[0] or not torch.equal(g_off, g_full):
+        raise AssertionError(f"21c dropout 0.1: losses {l_off} / {l_full}, "
+                             f"generators equal {torch.equal(g_off, g_full)}")
+    if l_full != l_off:
+        torch.testing.assert_close(torch.tensor(l_full), torch.tensor(l_off),
+                                   **GRAD_TOL["torch.bfloat16"])
+    out["dropout"] = dict(off=l_off, full=l_full, bit_equal=l_full == l_off)
+    _log(f"21c dropout 0.1, 2 steps: losses off {l_off}, full recompute "
+         f"{l_full} ({'bit for bit' if l_full == l_off else 'GRAD_TOL'}); "
+         f"the model generator's position equal after both")
+    return out
+
+
+def o2_phase(cfg, o1):
+    """21d: O2 ``decorate`` (bf16 parameters, LayerNorms float32, float32
+    masters) through the kernel's O2 form: step ms and peak memory
+    against 21a."""
+    import statistics
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, sched, scaler, batch = _rest_setup(cfg, level="O2")
+    losses, times, launches, fused = _rest_run(model, opt, sched, scaler,
+                                               batch, REST_STEPS, level="O2")
+    _check_train_launches("21d", cfg, launches, REST_STEPS)
+    table = _fused_table(opt)
+    n_masters = sum(m is not None for m in table.masters)
+    if fused["fallback"] or not n_masters or not losses[-1] < losses[0]:
+        raise AssertionError(f"21d: optimizer.fused {fused}, {n_masters} "
+                             f"masters, losses {losses}")
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"21d O2 decorate: {n_masters} of {len(table.masters)} tensors "
+         f"bf16 with float32 masters; losses "
+         f"{[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms "
+         f"(21a O1 {o1['step_s'] * 1e3:.1f} ms, x{step_s / o1['step_s']:.3f})"
+         f", peak memory {peak / 2 ** 30:.2f} GiB (21a "
+         f"{o1['peak_bytes'] / 2 ** 30:.2f}); optimizer.fused {fused}")
+    del model, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, peak_bytes=peak, losses=losses,
+                launches=launches)
+
+
+def rest_card_vs_cpu(cfg):
+    """21e: the fp32 4-layer cut, card against CPU: two steps with the
+    scheduler, the scaler, the fused step (the kernels on the card, the
+    plain version on the CPU) and full recompute, B 1 x S 256, from one
+    state dict.  Losses within 1e-4, parameters within 2 x lr x steps."""
+    import dataclasses
+
+    import torch
+    cfg = dataclasses.replace(cfg, use_recompute=True)
+    steps, init, runs = 2, None, []
+    for dev in ("cpu", "cuda"):
+        model, opt, sched, scaler, batch = _rest_setup(cfg, dev, 2, B=1,
+                                                       S=256)
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        losses = [_rest_step(model, opt, sched, scaler, batch,
+                             level="O0").item() for _ in range(steps)]
+        runs.append((losses, {k: v.detach().cpu() for k, v in
+                              model.state_dict().items()},
+                     scaler._scale, opt._global_step))
+        del model, opt
+    (cpu_l, cpu_p, cpu_s, cpu_g), (card_l, card_p, card_s, card_g) = runs
+    torch.testing.assert_close(torch.tensor(card_l), torch.tensor(cpu_l),
+                               atol=1e-4, rtol=0.0)
+    err = max((card_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+    if err > 2 * LR * steps or (card_s, card_g) != (cpu_s, cpu_g):
+        raise AssertionError(f"21e: parameters {err:.3e} apart (limit "
+                             f"{2 * LR * steps:.1e}), scale {card_s} / "
+                             f"{cpu_s}, global_step {card_g} / {cpu_g}")
+    _log(f"21e card vs CPU, gpt3_1p3b 4 layers fp32, full recompute, "
+         f"scheduler + scaler + fused step, B=1 S=256, {steps} steps: "
+         f"losses card {card_l} cpu {cpu_l}, parameters max abs diff "
+         f"{err:.3e}, scale {card_s}, global_step {card_g} on both")
+
+
+FUSED_LR, FUSED_WD, FUSED_RTOL = 1e-2, 0.1, 1e-4      # 21f
+
+
+def _clipped_rms(grads, clip, scale):
+    """Each gradient's root mean square after the unscale and the clip
+    (float32, one gradient at a time)."""
+    import torch
+    kind = clip and clip[0]
+    sq = [float((g.float() / scale).pow(2).sum()) for g in grads]
+    coef = [1.0] * len(grads)
+    if kind == "global":
+        coef = [min(1.0, clip[1] / math.sqrt(sum(sq)))] * len(grads)
+    elif kind == "norm":
+        coef = [min(1.0, clip[1] / math.sqrt(x)) for x in sq]
+    out = [math.sqrt(x / g.numel()) * c for x, g, c in zip(sq, grads, coef)]
+    if kind == "value":
+        out = [float(torch.clamp(g.float() / scale, clip[1], clip[2])
+                     .pow(2).mean().sqrt()) for g in grads]
+    return out
+
+
+def _fused_draw(seed, shape, size):
+    """One tensor's weight (about 0.1), m (about size / 8) and v >= m^2
+    (about m^2 + size^2 / 64), from a generator of its own: drawn again
+    after the step, they are the values before it."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.1
+    q = size / 8
+    m = torch.randn(shape, generator=gen, device="cuda") * q
+    v = m * m + (0.5 + torch.rand(shape, generator=gen, device="cuda")) \
+        * q * q
+    return w, m, v
+
+
+def fused_kernel_checks(names):
+    """21f: ``fused_adamw`` against ``fused_adamw_reference`` on the card
+    at GPT-3 1.3B's parameter list (``names``: 21a's shapes), float32
+    (O1) and bf16 with float32 masters (O2), each clip kind (global 1.0,
+    as 21a and 21d run it), with a scaler whose step is finite or
+    overflows, and without a scaler; lr 1e-2, decay 0.1 on every tensor,
+    weights about 0.1, the states drawn to the clipped gradients' size
+    (so that m and v each change by much more than a float32 ulp).
+
+    Exactly: the skip (every tensor bit-identical to its value before the
+    step), the scaler's scale and counts, the step count.  The clip
+    coefficients within rtol 1e-6 (the norms are summed in other orders);
+    phase 2 of the plain version then takes the kernels' coefficients, so
+    that a coefficient one ulp apart cannot round a clipped bf16 gradient
+    (O2) to its neighbour.  Each float32 tensor's change in the step
+    (weight or master, m, v) within 1e-4 of the plain version's, in
+    2-norm, with the decay's share of every weight's change above 100
+    times that; bf16 copies within one bf16 step (rtol 2^-7)."""
+    import torch
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = [s for _, s in names]
+    n = len(shapes)
+    err = change_err = 0.0
+    share = math.inf
+    cases = 0
+    n0 = fo.fused_adamw.launches
+    for o2 in (False, True):
+        pdt = torch.bfloat16 if o2 else torch.float32
+
+        def tensors():
+            params = [torch.empty(s, dtype=pdt, device="cuda")
+                      for s in shapes]
+            masters = [torch.empty(s, device="cuda") if o2 else None
+                       for s in shapes]
+            states = [[torch.empty(s, device="cuda") for _ in range(2)]
+                      for s in shapes]
+            return params, masters, states
+        kp, km, ks = tensors()
+        rp, rm, rs = tensors()
+        grads = [torch.empty(s, dtype=pdt, device="cuda") for s in shapes]
+        kt = fo.FusedTable(kp, km, ks, [FUSED_WD] * n, [1.0] * n, [True] * n)
+        rt = fo.FusedTable(rp, rm, rs, [FUSED_WD] * n, [1.0] * n, [True] * n)
+        combos = [(c, s) for c in (None, "global", "norm", "value")
+                  for s in ("finite", "inf")] + [("global", None)]
+        for case, (clip, scaled) in enumerate(combos):
+            gscale = 2.0 ** 12 if scaled else 1.0
+            gen = torch.Generator(device="cuda").manual_seed(21 + case)
+            for g in grads:
+                g.copy_(torch.randn(g.shape, generator=gen, device="cuda")
+                        * gscale)
+            c = {None: None, "global": ("global", 1.0),
+                 "norm": ("norm", 0.5), "value": ("value", -1e-3, 1e-3)}[clip]
+            sizes = _clipped_rms(grads, c, gscale)
+            seed0 = 1000 * (case + 1) + 100000 * o2
+            for i, s in enumerate(shapes):
+                w, m, v = _fused_draw(seed0 + i, s, sizes[i])
+                kp[i].copy_(w)
+                if o2:
+                    km[i].copy_(w)
+                ks[i][0].copy_(m)
+                ks[i][1].copy_(v)
+            if scaled == "inf":
+                grads[n // 2].view(-1)[-1] = float("inf")
+            for a, b in zip(_table_all(kt), _table_all(rt)):
+                b.copy_(a)
+            steps = [torch.full((1,), 4, dtype=torch.int32, device="cuda")
+                     for _ in range(2)]
+            scalers = [None, None] if scaled is None else [
+                (torch.full((1,), gscale, device="cuda"),
+                 torch.zeros(4, dtype=torch.int32, device="cuda"),
+                 fo.ScalerConfig(2.0, 0.5, 2, 1, True)) for _ in range(2)]
+            fo.fused_adamw(kt, grads, FUSED_LR, steps[0], clip=c,
+                           scaler=scalers[0])
+            fo.fused_adamw_reference(rt, grads, FUSED_LR, steps[1], clip=c,
+                                     scaler=scalers[1], coef=kt.coef)
+            torch.cuda.synchronize()
+            label = f"21f {'O2' if o2 else 'O1'} clip {clip} {scaled}"
+            if not torch.equal(steps[0], steps[1]) or (scaled and not (
+                    torch.equal(scalers[0][0], scalers[1][0])
+                    and torch.equal(scalers[0][1], scalers[1][1]))):
+                raise AssertionError(f"{label}: step {steps}, scaler "
+                                     f"{scalers}")
+            if not torch.allclose(kt.coef, rt.coef, rtol=1e-6, atol=0.0):
+                raise AssertionError(f"{label}: clip coefficients "
+                                     f"{kt.coef} / {rt.coef}")
+            # per tensor: the values before the step, drawn again
+            worst, bad16, changed = 0.0, 0, 0
+            for i, s in enumerate(shapes):
+                w0, m0, v0 = _fused_draw(seed0 + i, s, sizes[i])
+                p0 = w0.to(pdt)
+                kw, rw = (km[i], rm[i]) if o2 else (kp[i], rp[i])
+                trip = [(kw, rw, w0), (ks[i][0], rs[i][0], m0),
+                        (ks[i][1], rs[i][1], v0)]
+                if scaled == "inf":
+                    changed += sum(not _equal_bits(a, b0) for a, _, b0 in
+                                   trip + [(kp[i], None, p0)])
+                    continue
+                for a, b, b0 in trip:
+                    d = b - b0
+                    worst = max(worst, float(((a - b0) - d).norm()
+                                             / d.norm()))
+                    err = max(err, float((a - b).abs().max()))
+                dw = (rw - w0).norm()
+                share = min(share, float(FUSED_LR * FUSED_WD * w0.norm()
+                                         / dw))
+                if o2:
+                    bad16 += int(((kp[i].float() - rp[i].float()).abs()
+                                  > 1e-6 + 2 ** -7 * rp[i].float().abs())
+                                 .sum())
+            if changed:
+                raise AssertionError(f"{label}: the skipped step wrote "
+                                     f"{changed} tensors")
+            if worst > FUSED_RTOL or bad16:
+                raise AssertionError(f"{label}: a step's change "
+                                     f"{worst:.3e} from the plain "
+                                     f"version's (limit {FUSED_RTOL}), "
+                                     f"{bad16} bf16 values beyond one "
+                                     "bf16 step")
+            change_err = max(change_err, worst)
+            cases += 1
+        del kp, km, ks, rp, rm, rs, grads, kt, rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not share > 100 * FUSED_RTOL:
+        raise AssertionError(f"21f: the decay's share of a weight's "
+                             f"change {share:.3e} is too small to check")
+    fo.fused_adamw.launches = n0       # comparisons are not a path's
+    _log(f"21f fused_adamw against fused_adamw_reference at gpt3_1p3b's "
+         f"{n} tensors: {cases} cases (O1 and O2; clip none, global 1.0, "
+         f"norm, value; scaler finite, overflow, none; lr {FUSED_LR}, "
+         f"decay {FUSED_WD}): skips bit for bit; each float32 tensor's "
+         f"change in the step within {change_err:.3e} of the plain "
+         f"version's (2-norm, limit {FUSED_RTOL}), the decay at least "
+         f"{share:.3e} of every weight's change; float32 values max abs "
+         f"err {err:.3e}")
+    return err
+
+
+def _table_all(table):
+    out = list(table.params)
+    out += [m for m in table.masters if m is not None]
+    return out + [s for st in table.states for s in st if s is not None]
 
 
 # ------------------------------------------------------------ phases 7-9
@@ -4076,6 +4782,18 @@ def main() -> int:
     train = timed("training", training_phase)
     timed("training card vs CPU", train_card_vs_cpu,
           gpt3_1p3b(num_layers=4))
+    rest, shapes = timed("rest of training", rest_of_training_phase)
+    timed("rest of training card vs CPU", rest_card_vs_cpu,
+          gpt3_1p3b(num_layers=4))
+    fused_err = timed("fused_adamw checks", fused_kernel_checks, shapes)
+    rows["fused_adamw"] = dict(
+        max_abs_err=fused_err, ms=rest["ms"], plain_ms=rest["plain_ms"],
+        bound_ms=rest["bound_ms"], bound_by=rest["bound_by"],
+        library_ms=rest["library_ms"],
+        profiled_step_ms=rest["profiled_fused_ms"],
+        step_ms_fused_foreach_library=[rest["step_s"] * 1e3,
+                                       rest["foreach_step_ms"],
+                                       rest["fused_step_ms"]])
     moe_serve, moe_train = timed("MoE", moe_phases, lens, rows)
     llama, llama_train, quant, wo_row, wg_row = timed("Llama", llama_phases,
                                                       lens)
@@ -4105,7 +4823,12 @@ def main() -> int:
                "weight_only_gemm": (
                    "paddle_tpu_torch/csrc/weight_only_gemm.cu",
                    "paddle_tpu/quantization/weight_only.py:90 (dequantize,"
-                   " fused by XLA into the consuming matmul)")}
+                   " fused by XLA into the consuming matmul)"),
+               "fused_adamw": (
+                   "paddle_tpu_torch/csrc/fused_adamw.cu",
+                   "paddle_tpu/optimizer/fused.py:192 (_build_program: the"
+                   " whole-tree optimizer step as one XLA program; no "
+                   "Pallas kernel)")}
     # each path's counts are its own run's, read from 0; `launches` is the
     # count of the first path that runs the kernel
     paths = {"whole_prompt": runs[0]["launches"],
@@ -4113,6 +4836,8 @@ def main() -> int:
              "crash_only": runs["crash_only"]["launches"],
              "observability": runs["observability"]["launches"],
              "train": train["launches"],
+             "rest_of_training": rest["launches"],
+             "rest_o2": rest["o2"]["launches"],
              "moe_serve": moe_serve["launches"],
              "moe_train": moe_train["launches"],
              "prefix_whole": prefix["whole"]["launches"],
@@ -4136,7 +4861,9 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
-        path = next(p for p, n in by_path.items() if n > 0)
+        # the fused step's main path is phase 21a's (phase 4 runs it too)
+        path = "rest_of_training" if name == "fused_adamw" else \
+            next(p for p, n in by_path.items() if n > 0)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": by_path[path],
                         "launches_path": path, "launches_by_path": by_path,

@@ -1,5 +1,5 @@
 """Mixed precision: counterpart of ``paddle_tpu/amp/auto_cast.py``
-(``auto_cast`` at level O1, bfloat16).
+(``auto_cast`` at levels O1 and O2 in bfloat16, ``decorate``).
 
 ``auto_cast`` is a context over ``torch.autocast`` on the device the
 port runs on (``cuda`` unless ``device="cpu"``).  Which ops run in
@@ -9,49 +9,67 @@ bfloat16 differs in detail between the two frameworks:
   from the op specs (``amp: white`` in ``paddle_tpu/ops/specs/*.yaml``):
   matmul, linear, bmm, einsum, sdpa, flash_attention, conv and a few more;
   the black list (softmax, layer_norm, cross_entropy, ...) is promoted to
-  float32; everything else runs in the type it receives.
+  float32; everything else runs in the type it receives.  Its O2 casts
+  every op but the black list to bfloat16.
 - torch's autocast casts linear, matmul, bmm, einsum and convolutions to
   bfloat16 and keeps layer_norm, softmax, log_softmax and the losses in
-  float32; everything else runs in the type it receives.
+  float32 (on the card; on the CPU layer_norm follows its input);
+  everything else runs in the type it receives.
 
 On the port's GPT the two agree where it matters: the qkv, projection and
 MLP matrix products and the tied head run in bfloat16, the LayerNorms and
 the loss in float32, and the flash kernels receive bfloat16 q/k/v from the
-bfloat16 ``qkv`` product and return gradients in bfloat16.  Parameters,
-their gradients and the optimizer state stay float32.
+bfloat16 ``qkv`` product and return gradients in bfloat16.
 
-Level O2 (``decorate``, bfloat16 parameters with float32 masters), float16
-(which needs a ``GradScaler``) and custom op lists are later work: the
-first two raise, and the lists are not taken.
+O1 keeps parameters, gradients and optimizer state in float32.  O2 is
+``decorate``: the parameters and buffers become bfloat16 except those of
+normalisation layers (LayerNorm, RMSNorm, batch, group and instance
+norms: ``_cast_model_keep_norms``), whose inputs are then cast to their
+float32 parameters' type on the way in (the JAX black list's promotion;
+``F.layer_norm`` takes one type), and the optimizer keeps float32 master
+weights (``multi_precision``).  Under ``auto_cast(level="O2")`` the
+bfloat16 parameters carry the rest: torch's autocast has one policy for
+both levels.  float16 (which needs fp16 paths in the flash kernels) and
+custom op lists are not ported yet: they raise (ROADMAP.md, A.7).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
 
 from ..core.device import resolve_device
 
-__all__ = ["auto_cast", "decorate"]
+__all__ = ["auto_cast", "amp_guard", "decorate"]
+
+_BF16 = ("bfloat16", torch.bfloat16)
+
+
+def _check_dtype(dtype, what):
+    if dtype not in _BF16:
+        raise NotImplementedError(
+            f"{what} dtype {dtype}: only bfloat16 is ported (float16 needs "
+            "fp16 paths in the flash kernels, ROADMAP.md A.7)")
 
 
 class auto_cast:
     """``with auto_cast(True, level="O1", dtype="bfloat16"):`` runs the
     forward in mixed precision; level ``O0`` (or ``enable=False``) runs it
-    in float32."""
+    in the parameters' type."""
 
-    def __init__(self, enable: bool = True, level: str = "O1",
-                 dtype: str = "bfloat16", device=None):
+    def __init__(self, enable: bool = True, custom_white_list=None,
+                 custom_black_list=None, level: str = "O1",
+                 dtype: str = "bfloat16", use_promote: bool = True,
+                 device=None):
         if level not in ("O0", "O1", "O2"):
             raise ValueError(f"level must be O0/O1/O2, got {level}")
-        if level == "O2":
+        _check_dtype(dtype, "auto_cast")
+        if custom_white_list or custom_black_list:
             raise NotImplementedError(
-                "auto_cast level O2 (bfloat16 parameters, decorate) is not "
-                "ported yet: see ROADMAP.md")
-        if dtype not in ("bfloat16", torch.bfloat16):
-            raise NotImplementedError(
-                f"auto_cast dtype {dtype}: only bfloat16 is ported (float16 "
-                "needs a GradScaler, see ROADMAP.md)")
+                "auto_cast: custom white and black lists are not ported yet "
+                "(torch's autocast has fixed op lists; ROADMAP.md A.7)")
         self._enable = bool(enable) and level != "O0"
+        self._level = level
         self._device = resolve_device(device)
         self._ctx = None
 
@@ -65,7 +83,67 @@ class auto_cast:
         return self._ctx.__exit__(*exc)
 
 
+amp_guard = auto_cast
 
-def decorate(*args, **kwargs):
-    raise NotImplementedError(
-        "amp.decorate (level O2) is not ported yet: see ROADMAP.md")
+# the port's normalisation layers, which O2 keeps in float32
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm,
+          nn.modules.instancenorm._InstanceNorm)
+
+
+def _norm_types():
+    from ..nn.norm import RMSNorm
+    return _NORMS + (RMSNorm, nn.RMSNorm)
+
+
+def _to_norm_type(module, args):
+    """Forward pre-hook of a kept norm: its floating inputs in its
+    parameters' type."""
+    dt = next(module.parameters()).dtype
+    return tuple(a.to(dt) if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def _cast_model_keep_norms(model: nn.Module, dtype=torch.bfloat16):
+    """O2's cast: every floating parameter and buffer to ``dtype`` in place
+    (the Parameter objects stay, so an optimizer built before keeps them),
+    except those of normalisation layers, which stay float32 and cast
+    their inputs to float32."""
+    norms = _norm_types()
+    for sub in model.modules():
+        if isinstance(sub, norms):
+            if any(True for _ in sub.parameters()) and \
+                    not getattr(sub, "_o2_input_hook", None):
+                sub._o2_input_hook = sub.register_forward_pre_hook(
+                    _to_norm_type)
+            continue
+        for p in sub.parameters(recurse=False):
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+        for name, b in sub.named_buffers(recurse=False):
+            if b is not None and b.is_floating_point():
+                setattr(sub, name, b.to(dtype))
+    return model
+
+
+def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
+             master_weight=None, save_dtype=None):
+    """``paddle.amp.decorate``: at O2 casts the models' parameters to
+    bfloat16 (norm layers stay float32) and turns on the optimizers'
+    float32 master weights (unless ``master_weight=False``).  Returns
+    what it was given, as paddle does."""
+    _check_dtype(dtype, "decorate")
+    single_model = isinstance(models, nn.Module)
+    model_list = [models] if single_model else list(models)
+    if level == "O2":
+        for m in model_list:
+            _cast_model_keep_norms(m, torch.bfloat16)
+    if optimizers is None:
+        return models if single_model else model_list
+    opt_list = list(optimizers) if isinstance(optimizers, (list, tuple)) \
+        else [optimizers]
+    for o in opt_list:
+        if master_weight is not False:
+            o._multi_precision = True
+    if single_model:
+        return models, optimizers
+    return model_list, opt_list

@@ -32,6 +32,8 @@ import time
 
 import torch
 
+from ..observability import telemetry
+
 __all__ = ["Program", "counters", "snapshot", "restore"]
 
 _TURNS = 2      # ticks in flight at most: one harvested, one dispatched
@@ -157,6 +159,7 @@ class Program:
         on the same stream into the graph pool ``pool`` shared by the
         engine's programs.  A failed capture raises; nothing falls back to the
         eager path."""
+        t0 = time.perf_counter()
         snap = snapshot()
         graph = torch.cuda.CUDAGraph()
         main = torch.cuda.current_stream(self.device)
@@ -179,6 +182,7 @@ class Program:
         finally:
             restore(snap)
         self.graph = graph
+        telemetry.observe_compile("graph_capture", time.perf_counter() - t0)
 
     # ------------------------------------------------------------ traffic
     def load(self, **arrays) -> None:

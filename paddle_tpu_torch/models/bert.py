@@ -14,8 +14,10 @@ Attention is bidirectional through ``scaled_dot_product_attention``: an
 boolean ``[B, 1, 1, S]`` mask that the flash kernels take as their kv
 mask; the attention dropout is the kernels' hashed dropout.  Dropout
 draws from ``self.generator``, a host ``torch.Generator`` that the model
-owns, seeded with ``seed`` (as in ``models/gpt.py``).  Activation
-recompute and tensor parallelism wait for later slices (see ROADMAP.md).
+owns, seeded with ``seed`` (as in ``models/gpt.py``).  ``use_recompute``
+(in training) checkpoints every layer (``distributed/fleet/recompute.py``,
+full recompute; the dropout draws are replayed).  Tensor parallelism
+waits for a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..nn.functional import (cross_entropy, dropout,
                              scaled_dot_product_attention)
 from ..observability.flops import training_flops_per_token
@@ -49,13 +52,9 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     tensor_parallel: bool = False  # True is not ported yet
-    use_recompute: bool = False   # True is not ported yet
+    use_recompute: bool = False
 
     def __post_init__(self):
-        if self.use_recompute:
-            raise NotImplementedError(
-                "activation recompute (use_recompute) is not ported yet: "
-                "see ROADMAP.md")
         if self.tensor_parallel:
             raise NotImplementedError(
                 "tensor parallelism (tensor_parallel) is not ported yet: "
@@ -165,7 +164,10 @@ class BertModel(nn.Module):
             attention_mask = (attention_mask > 0)[:, None, None, :]
         x = self.embeddings(input_ids, token_type_ids)
         for layer in self.layers:
-            x = layer(x, attention_mask)
+            if self.cfg.use_recompute and self.training:
+                x = recompute(layer, x, attention_mask)
+            else:
+                x = layer(x, attention_mask)
         return x, torch.tanh(self.pooler(x[:, 0]))
 
 

@@ -1,4 +1,4 @@
-"""Carry the JAX package's model weights and AdamW state into the port.
+"""Carry the JAX package's model weights and optimizer state into the port.
 
 ``paddle_tpu`` names its parameters as the port does
 (``gpt.blocks.0.attn.qkv.weight``, ``model.layers.0.self_attn.q_proj.weight``,
@@ -13,8 +13,9 @@ gate; Llama's q/k/v/o, gate/up/down projections and its untied
 classifier).  Everything else passes as it is: embeddings (BERT's tied
 decoder among them), biases, LayerNorm and RMSNorm parameters,
 ``decoder_bias`` and the stacked MoE expert weights
-(``experts.w1/b1/w2/b2``, whose layout the port keeps).  The AdamW moments
-of a linear weight are transposed like the weight.
+(``experts.w1/b1/w2/b2``, whose layout the port keeps).  An optimizer's
+accumulators and master weights of a linear weight are transposed like
+the weight.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["state_from_numpy", "adamw_state_from_numpy"]
+__all__ = ["state_from_numpy", "optimizer_state_from_numpy",
+           "adamw_state_from_numpy"]
 
 
 def _linear_weights(model: nn.Module) -> set:
@@ -54,23 +56,32 @@ def state_from_numpy(state: Dict[str, np.ndarray], model: nn.Module
             for name, arr in state.items()}
 
 
-def adamw_state_from_numpy(state: Dict[str, np.ndarray], model
-                           ) -> Dict[str, torch.Tensor]:
-    """Map the JAX ``AdamW.state_dict()``, remapped to structured keys
+def optimizer_state_from_numpy(state: Dict[str, np.ndarray], model
+                               ) -> Dict[str, torch.Tensor]:
+    """Map a JAX optimizer's ``state_dict()``, remapped to structured keys
     (``opt.remap_state_keys(model, sd, to_structured=True)``:
-    ``"gpt.blocks.0.attn.qkv.weight@moment1"``, ``"global_step"``) and
-    taken as numpy arrays, onto the port's ``AdamW.set_state_dict``, on
-    the device of ``model``'s parameters.  Keys without a moment (the
-    empty ``LR_Scheduler``) are dropped; any other accumulator raises."""
+    ``"gpt.blocks.0.attn.qkv.weight@moment1"``, ``"global_step"``,
+    ``"LR_Scheduler"``) and taken as numpy arrays, onto the port's
+    ``Optimizer.set_state_dict``, on the device of ``model``'s parameters.
+    Every accumulator of every optimizer (moments, velocity, Adagrad's
+    moment, RMSProp's three, Adadelta's two, Adamax's two) and the
+    ``master_weight`` copies are elementwise, so a linear weight's are
+    transposed like the weight; the scheduler's state passes as it is.
+    A key that names no parameter of the model raises."""
     params = dict(model.named_parameters())
     linear = _linear_weights(model)
-    out = {"global_step": int(np.asarray(state["global_step"]))}
+    out = {"global_step": int(np.asarray(state["global_step"])),
+           "LR_Scheduler": dict(state.get("LR_Scheduler") or {})}
     for key, arr in state.items():
-        if "@" not in key:
+        if key in ("global_step", "LR_Scheduler"):
             continue
-        name, acc = key.rsplit("@", 1)
-        if acc not in ("moment1", "moment2") or name not in params:
-            raise ValueError(f"adamw_state_from_numpy: {key!r} is not a "
-                             "moment of a parameter of the model")
+        name, sep, acc = key.rpartition("@")
+        if not sep or name not in params:
+            raise ValueError(f"optimizer_state_from_numpy: {key!r} is not "
+                             "an accumulator of a parameter of the model")
         out[key] = _tensor(key, arr, name in linear).to(params[name].device)
     return out
+
+
+# the name of earlier slices, which carried AdamW's moments alone
+adamw_state_from_numpy = optimizer_state_from_numpy

@@ -15,9 +15,13 @@ to transpose the linear weights.
 
 Training: ``forward(input_ids)`` and ``compute_loss(input_ids, labels)``
 run cache-less causal attention through the flash kernels (forward and
-backward).  Serving: ``forward_with_cache`` over paged KV caches, always
-under ``torch.no_grad()``.  Activation recompute and tensor parallelism
-wait for later slices (see ROADMAP.md).
+backward).  ``use_recompute`` (in training) checkpoints every
+``recompute_interval``-th dense block through
+``distributed/fleet/recompute.py`` with ``recompute_policy`` (None: full
+recompute); MoE blocks run without it, as in the JAX model.  Serving:
+``forward_with_cache`` over paged KV caches, always under
+``torch.no_grad()``.  Tensor parallelism waits for a later slice (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..incubate.distributed.models.moe import MoELayer
 from ..nn.functional import (cross_entropy, dropout,
                              scaled_dot_product_attention)
@@ -49,7 +54,7 @@ class GPTConfig:
     max_seq_len: int = 1024
     intermediate_size: int = 0  # 0 -> 4 * hidden
     dropout: float = 0.0
-    use_recompute: bool = False  # True is not ported yet, nor its knobs
+    use_recompute: bool = False
     recompute_interval: int = 1
     recompute_policy: str = None
     # GPT-MoE: the MLP of every moe_every_n_layers-th block is a mixture
@@ -66,11 +71,6 @@ class GPTConfig:
             raise ValueError(
                 "moe_every_n_layers must be >= 1 when moe_num_experts > 0 "
                 "(1 = every block is MoE)")
-        if self.use_recompute or self.recompute_interval != 1 \
-                or self.recompute_policy is not None:
-            raise NotImplementedError(
-                "activation recompute (use_recompute, recompute_interval, "
-                "recompute_policy) is not ported yet: see ROADMAP.md")
 
 
 class TiedEmbedding(nn.Embedding):
@@ -182,8 +182,20 @@ class GPTModel(nn.Module):
         x = dropout(self.wte(input_ids) + self.wpe(pos), self.cfg.dropout,
                     self.training, self.generator)
         if kv_caches is None:
-            for block in self.blocks:
-                x = block(x)
+            if self.cfg.use_recompute and self.training:
+                k = max(1, self.cfg.recompute_interval)
+                for i, block in enumerate(self.blocks):
+                    if isinstance(block.mlp, MoELayer) or i % k:
+                        # the gate's aux loss leaves an MoE block as an
+                        # attribute: MoE blocks are not checkpointed (as
+                        # in the JAX model)
+                        x = block(x)
+                    else:
+                        x = recompute(block, x,
+                                      policy=self.cfg.recompute_policy)
+            else:
+                for block in self.blocks:
+                    x = block(x)
             return self.ln_f(x)
         new_caches = []
         for block, cache in zip(self.blocks, kv_caches):

@@ -18,9 +18,10 @@ RoPE positions are ``arange(s) + pos_offset``, for the three forms the
 serving engine passes: an int (whole-prompt prefill from 0), a 0-d tensor
 (a chunk at its start) and a ``[B, 1]`` tensor (decode, verify and draft
 steps, one position per row).  cos and sin are computed once per forward
-and shared by the layers.  Activation recompute, tensor parallelism and
-``generate`` with the static and block caches wait for later slices (see
-ROADMAP.md).
+and shared by the layers.  ``use_recompute`` (in training) checkpoints
+every layer (``distributed/fleet/recompute.py``, full recompute).  Tensor
+parallelism and ``generate`` with the static and block caches wait for
+later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..incubate.nn.functional import (fused_rotary_position_embedding,
                                       rope_cos_sin, swiglu)
 from ..nn import RMSNorm
@@ -54,7 +56,7 @@ class LlamaConfig:
     max_seq_len: int = 4096
     rms_eps: float = 1e-6
     rope_base: float = 10000.0
-    use_recompute: bool = False   # True is not ported yet
+    use_recompute: bool = False
     tensor_parallel: bool = False  # True is not ported yet
 
     def __post_init__(self):
@@ -63,10 +65,6 @@ class LlamaConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"num_kv_heads {self.num_kv_heads} does not "
                              f"divide num_heads {self.num_heads}")
-        if self.use_recompute:
-            raise NotImplementedError(
-                "activation recompute (use_recompute) is not ported yet: "
-                "see ROADMAP.md")
         if self.tensor_parallel:
             raise NotImplementedError(
                 "tensor parallelism (tensor_parallel) is not ported yet: "
@@ -160,8 +158,12 @@ class LlamaModel(nn.Module):
                             cfg.rope_base)
         x = self.embed_tokens(input_ids)
         if kv_caches is None:
-            for layer in self.layers:
-                x = layer(x, rope)
+            if cfg.use_recompute and self.training:
+                for layer in self.layers:
+                    x = recompute(layer, x, rope)
+            else:
+                for layer in self.layers:
+                    x = layer(x, rope)
             return self.norm(x)
         new_caches = []
         for layer, cache in zip(self.layers, kv_caches):

@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -42,10 +43,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # the flash kernels' dropout: seed, keep threshold (uint32), keep probability
 _DROPOUT = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
 # C signature of every entry point: pointer arguments, then int arguments,
-# then (flash) the dropout arguments, then the stream
+# then (flash) the dropout arguments, then the stream; the fused
+# optimizer's mix pointers, counts and float hyperparameters
 _SIGNATURES = {
     "ptt_flash_fwd": [_P] * 6 + [_I] * 8 + _DROPOUT + [_P],
     "ptt_flash_bwd_dq": [_P] * 8 + [_I] * 8 + _DROPOUT + [_P],
@@ -56,6 +60,11 @@ _SIGNATURES = {
     "ptt_moe_combine": [_P] * 4 + [_I] * 5 + [_P],
     "ptt_weight_only_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "ptt_weight_only_gemm": [_P] * 6 + [_I] * 8 + [_P],
+    "ptt_fused_table_upload": [_P, _P, _L, _P],
+    "ptt_fused_norm": [_P, _P, _I, _I, _L] + [_P] * 7 + [_I, _F, _I, _I,
+                                                        _F, _F, _I, _I, _P],
+    "ptt_fused_update": [_P, _P, _I, _I, _L] + [_P] * 4 + [_I] * 3
+                        + [_F] * 4 + [_I, _F, _F, _I, _P],
 }
 
 
@@ -146,7 +155,10 @@ def build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (its seconds are
+    charged to the training step in progress: ``compile.seconds``)."""
+    from ..observability import telemetry
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -154,6 +166,7 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ptt_error_string.argtypes = [ctypes.c_int]
     lib.ptt_error_string.restype = ctypes.c_char_p
+    telemetry.observe_compile("kernel_build", time.perf_counter() - t0)
     return lib
 
 

@@ -199,8 +199,7 @@ def test_sequence_classification_and_max_position():
     # the presets are the JAX package's; the refusals
     assert vars(bert_base()) == vars(jax_base())
     assert vars(bert_tiny(num_layers=3)) == vars(jax_tiny(num_layers=3))
-    with pytest.raises(NotImplementedError, match="recompute"):
-        bert_tiny(use_recompute=True)
+    assert bert_tiny(use_recompute=True).use_recompute    # ported
     with pytest.raises(NotImplementedError, match="tensor parallel"):
         bert_tiny(tensor_parallel=True)
     mlm_ = BertForMaskedLM(bert_tiny(), device="cpu")

@@ -1670,3 +1670,260 @@ def test_cow_program_replay_equals_the_eager_copy(gen, dtype):
         assert torch.equal(words(k), words(wk))
         assert torch.equal(words(v), words(wv))
     assert prog.replays == 2
+
+
+# ------------------------------------------------------------ fused_adamw
+
+# shapes: a vector, a ragged length (scalar tail), one past a chunk of
+# 64 Ki elements, a matrix
+FUSED_SHAPES = [(7,), (1029,), (65536 + 3,), (96, 130)]
+
+
+def _fused_case(gen, o2, sizes=None, wd=0.01):
+    """Parameters (float32, or bfloat16 with float32 masters), Adam's two
+    states, and a misaligned parameter (a view one element into a
+    buffer: the scalar loop).  ``sizes``: per parameter the size of its
+    clipped gradient (``_clipped_rms``); the states are then drawn to it,
+    m about an eighth of it and v >= m^2 with v about m^2 + sizes^2 / 64,
+    so that both states change by much more than a float32 ulp in a step
+    (else m about 0.005, v about 5e-5)."""
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    params, masters, states = [], [], []
+    for i, shape in enumerate(FUSED_SHAPES + [(33,)]):
+        w = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        if i == len(FUSED_SHAPES):
+            buf = torch.empty(w.numel() + 1, device="cuda")
+            w = buf[1:].view(shape).copy_(w)
+        masters.append(w.clone() if o2 else None)
+        params.append(w.to(torch.bfloat16) if o2 else w)
+        if sizes is None:
+            states.append([
+                torch.rand(shape, generator=gen, device="cuda") * 0.01,
+                torch.rand(shape, generator=gen, device="cuda") * 1e-4])
+        else:
+            q = sizes[i] / 8
+            m = torch.randn(shape, generator=gen, device="cuda") * q
+            states.append([m, m * m + (0.5 + torch.rand(
+                shape, generator=gen, device="cuda")) * q * q])
+    n = len(params)
+    table = fo.FusedTable(params, masters, states,
+                          [wd * (i % 2) for i in range(n)],
+                          [1.0, 0.5] * (n // 2) + [1.0] * (n % 2),
+                          [i != 1 for i in range(n)])
+    return table
+
+
+def _clipped_rms(grads, clip, need_clip, scale=1.0):
+    """Each gradient's root mean square after the unscale and the clip
+    (the JAX package's rules, in float32)."""
+    us = [g.float() / scale for g in grads]
+    kind = clip and clip[0]
+    if kind == "global":
+        norm = torch.sqrt(sum((u * u).sum() for u, c in zip(us, need_clip)
+                              if c))
+        coef = clip[1] / torch.clamp(norm, min=clip[1])
+        us = [u * coef if c else u for u, c in zip(us, need_clip)]
+    elif kind == "norm":
+        us = [u * torch.clamp(clip[1] / u.norm(), max=1.0) if c else u
+              for u, c in zip(us, need_clip)]
+    elif kind == "value":
+        us = [torch.clamp(u, clip[1], clip[2]) if c else u
+              for u, c in zip(us, need_clip)]
+    return [float(u.pow(2).mean().sqrt()) for u in us]
+
+
+def _step_change_err(got, got0, want, want0):
+    """How far the kernels' change of a tensor in one step lies from the
+    plain version's, relative to the plain version's (2-norms)."""
+    dk = got.float() - got0.float()
+    dr = want.float() - want0.float()
+    return float((dk - dr).norm() / dr.norm())
+
+
+def _clone_table(table):
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    return fo.FusedTable([p.clone() for p in table.params],
+                         [None if m is None else m.clone()
+                          for m in table.masters],
+                         [[None if s is None else s.clone() for s in st]
+                          for st in table.states],
+                         table.wds, table.lr_ratios, table.need_clip)
+
+
+def _table_tensors(table):
+    """Masters and states (float32) first, then the parameters."""
+    out = [m for m in table.masters if m is not None]
+    out += [s for st in table.states for s in st if s is not None]
+    return out + list(table.params)
+
+
+@pytest.mark.parametrize("o2", [False, True])
+@pytest.mark.parametrize("clip", [None, ("global", 1.0), ("norm", 0.5),
+                                  ("value", -0.01, 0.02)])
+@pytest.mark.parametrize("scaled", [None, "finite", "inf"])
+def test_fused_adamw_matches_its_plain_version(gen, o2, clip, scaled):
+    """Three steps of the kernel pair against ``fused_adamw_reference``
+    on copies of the same tensors, at lr 1e-2 with decay 0.1 on every
+    other tensor and the states drawn to the clipped gradients' size.
+    Exactly: the step count, the scaler's scale and counts, and an
+    overflow step, which leaves every tensor bit-identical.  The clip
+    coefficients within rtol 1e-6 (the norms are summed in other
+    orders); phase 2 of the plain version then takes the kernels'
+    coefficients, so that a coefficient one ulp apart cannot round a
+    clipped bf16 gradient (O2) to its neighbour.  Each float32 tensor's
+    change in a step (weight or master, m, v) within 1e-4 of the plain
+    version's, in 2-norm: the decay's share of a weight's change is
+    checked to be above 100 times that, and both states change by much
+    more than an ulp.  bfloat16 copies within one bf16 step (2^-7 of the
+    value: masters 1e-6 apart may round to neighbours)."""
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    lr, rtol = 1e-2, 1e-4
+    shapes = FUSED_SHAPES + [(33,)]
+    pdt = torch.bfloat16 if o2 else torch.float32
+    gscale = 1024.0 if scaled else 1.0
+    all_grads = [[torch.randn(s, generator=gen, device="cuda").to(pdt)
+                  * gscale for s in shapes] for _ in range(3)]
+    need_clip = [i != 1 for i in range(len(shapes))]
+    table = _fused_case(gen, o2, _clipped_rms(all_grads[0], clip, need_clip,
+                                              gscale), wd=0.1)
+    ref = _clone_table(table)
+    steps = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    scalers = None
+    if scaled:
+        scalers = [(torch.full((1,), gscale, device="cuda"),
+                    torch.tensor([0, 1, 0, 0], dtype=torch.int32,
+                                 device="cuda"),
+                    fo.ScalerConfig(2.0, 0.5, 2, 1, True))
+                   for _ in range(2)]
+    for it, grads in enumerate(all_grads):
+        if scaled == "inf" and it == 1:
+            grads[2].view(-1)[65537] = float("inf")
+        before = [t.clone() for t in _table_tensors(table)]
+        ref_before = [t.clone() for t in _table_tensors(ref)]
+        n = fo.fused_adamw.launches
+        fo.fused_adamw(table, grads, lr, steps[0], clip=clip,
+                       scaler=scalers and scalers[0])
+        assert fo.fused_adamw.launches == n + 1
+        fo.fused_adamw_reference(ref, [g.clone() for g in grads], lr,
+                                 steps[1], clip=clip,
+                                 scaler=scalers and scalers[1],
+                                 coef=table.coef)
+        torch.cuda.synchronize()
+        assert torch.equal(steps[0], steps[1])
+        if scaled:
+            assert torch.equal(scalers[0][0], scalers[1][0])
+            assert torch.equal(scalers[0][1], scalers[1][1])
+        torch.testing.assert_close(table.coef, ref.coef, atol=0.0,
+                                   rtol=1e-6)
+        if scaled == "inf" and it == 1:
+            assert int(scalers[0][1][0]) == 1            # found_inf
+            for b, t in zip(before, _table_tensors(table)):
+                assert torch.equal(b.view(torch.uint8) if b.dtype ==
+                                   torch.bfloat16 else b, t.view(torch.uint8)
+                                   if t.dtype == torch.bfloat16 else t)
+            continue
+        for got, got0, want, want0 in zip(_table_tensors(table), before,
+                                          _table_tensors(ref), ref_before):
+            if got.dtype == torch.bfloat16:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=1e-6, rtol=2 ** -7)
+            else:
+                assert _step_change_err(got, got0, want, want0) <= rtol
+        # the float32 weights: the masters (first) at O2, else the
+        # parameters (last)
+        n = len(ref.params)
+        first = 0 if o2 else len(ref_before) - n
+        for i in range(n):
+            if ref.wds[i]:
+                w0 = ref_before[first + i]
+                w = _table_tensors(ref)[first + i]
+                decay = lr * ref.lr_ratios[i] * ref.wds[i] * w0
+                assert float(decay.norm() / (w - w0).norm()) > 100 * rtol
+    assert int(steps[0]) == (2 if scaled == "inf" else 3)
+
+
+@pytest.mark.parametrize("rule", ["sgd", "momentum"])
+def test_fused_sgd_and_momentum_match_their_plain_version(gen, rule):
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    table = _fused_case(gen, False)
+    if rule == "sgd":
+        for st in table.states:
+            st[:] = [None, None]
+        table = fo.FusedTable(table.params, table.masters, table.states,
+                              table.wds, table.lr_ratios, table.need_clip)
+    else:
+        for st in table.states:
+            st[1] = None
+        table = fo.FusedTable(table.params, table.masters, table.states,
+                              table.wds, table.lr_ratios, table.need_clip)
+    ref = _clone_table(table)
+    steps = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    for _ in range(2):
+        grads = [torch.randn(p.shape, generator=gen, device="cuda")
+                 for p in table.params]
+        for t, s in ((table, steps[0]), (ref, steps[1])):
+            (fo.fused_adamw if t is table else fo.fused_adamw_reference)(
+                t, grads, 0.1, s, rule=rule, momentum=0.9, nesterov=True,
+                clip=("global", 1.0))
+    for got, want in zip(_table_tensors(table), _table_tensors(ref)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0.0)
+
+
+def test_fused_step_refuses_what_it_does_not_take(gen):
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    p = torch.zeros(8, device="cuda")
+    with pytest.raises(_build.KernelTypeError):
+        fo.FusedTable([p.bfloat16()], [None], [[None, None]], [0.0], [1.0],
+                      [True])
+    table = fo.FusedTable([p], [None], [[None, None]], [0.0], [1.0], [True])
+    step = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(_build.KernelTypeError):
+        fo.fused_adamw(table, [p.bfloat16()], 0.1, step, rule="sgd")
+    with pytest.raises(_build.KernelValueError):
+        fo.fused_adamw(table, [torch.zeros(9, device="cuda")], 0.1, step,
+                       rule="sgd")
+
+
+def test_scaler_step_makes_no_host_sync_and_skips_an_overflow(gen):
+    """A GradScaler step through the kernels under the sync debug mode
+    "error": found_inf, the scale and the step count stay on the card;
+    an injected inf leaves the parameters, moments and masters
+    bit-identical, halves the scale and keeps global_step."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(gpt3_tiny(hidden_size=256), device="cuda")
+    opt = AdamW(learning_rate=1e-3, parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    ids = torch.randint(0, 1024, (2, 64), generator=gen, device="cuda")
+    for it in range(3):
+        with amp.auto_cast(True, level="O2"):
+            loss = model.compute_loss(ids, ids)
+        scaler.scale(loss).backward()
+        if it == 2:
+            next(model.parameters()).grad.view(-1)[0] = float("inf")
+        state = {k: v.clone() for k, v in opt.state_dict().items()
+                 if torch.is_tensor(v)} if it == 2 else None
+        params = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scaler.step(opt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        opt.clear_grad()
+    assert scaler._scale == 2.0 ** 9 and scaler._bad_steps == 0
+    assert opt.state_dict()["global_step"] == 2
+    for p, q in zip(model.parameters(), params):
+        assert torch.equal(p.view(torch.int16) if p.dtype == torch.bfloat16
+                           else p, q.view(torch.int16)
+                           if q.dtype == torch.bfloat16 else q)
+    after = opt.state_dict()
+    for k, v in state.items():
+        assert torch.equal(after[k], v), k

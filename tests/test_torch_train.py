@@ -405,10 +405,15 @@ def test_auto_cast_o1_bf16_loss_matches_jax():
         assert tm.gpt.blocks[0].ln1(x).dtype == torch.float32
     with tamp.auto_cast(True, level="O0", device="cpu"):
         assert tm.gpt.blocks[0].attn.qkv(x).dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        tamp.auto_cast(True, level="O2", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tamp.decorate(tm)
+    # O2 and decorate are ported (tests/test_torch_amp.py); float16 and
+    # custom op lists still raise, pointing to ROADMAP.md
+    tamp.auto_cast(True, level="O2", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tamp.auto_cast(True, dtype="float16", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tamp.auto_cast(True, custom_white_list={"softmax"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tamp.decorate(tm, dtype="float16")
 
 
 def test_gpt_dropout_draws_from_the_model_generator():
@@ -434,5 +439,10 @@ def test_model_counts_flops_and_refuses_recompute():
     assert tm.num_params() == int(jm.num_params())
     assert tm.flops_per_token(64) == pytest.approx(float(
         jm.flops_per_token(64)))
-    with pytest.raises(NotImplementedError, match="recompute"):
-        gpt3_tiny(use_recompute=True)
+    # recompute is ported (tests/test_torch_recompute.py); a policy torch
+    # has no meaning for is refused at the forward, by its name
+    cfg = gpt3_tiny(use_recompute=True, recompute_interval=2,
+                    recompute_policy="save_only_these_names")
+    ids = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="save_only_these_names"):
+        GPTForCausalLM(cfg, device="cpu").compute_loss(ids, ids)
