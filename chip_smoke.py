@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs twenty-one phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -16,10 +16,17 @@ into ``build/paddle_tpu_torch/``), then runs twenty-one phases on card 0:
    for outputs, atol 1e-4, rtol 1e-4 for gradients.  bfloat16: against the
    plain version computed in float32 on the same bfloat16 inputs, atol
    2e-2, and for gradients also rtol 1e-2 (one bf16 rounding of a
-   gradient that sums over a whole sequence).  ``paged_decode`` also at
-   Llama-2 7B's serving shape (nh 32, timed beside its bound), the three
-   flash kernels also at BERT-base's training shape (B 8, S 512, nh 12, hd
-   64, non-causal, padded rows through the kv mask, dropout 0.1; timed
+   gradient that sums over a whole sequence).  float16 (the flash
+   kernels, on the same tensor-core kernels): every training case and
+   BERT-base's shape as bf16 runs them, against the plain version in
+   float32 on the same fp16 inputs, atol 4e-3 and rtol 2e-3 (one fp16
+   rounding is 2^-11, bf16's 2^-8); the three kernels timed in fp16 at
+   the training shape beside bf16 and beside
+   ``F.scaled_dot_product_attention`` in fp16 (forward; backward
+   alone).  ``paged_decode`` also at Llama-2 7B's serving shape (nh
+   32, timed beside its bound), the three flash kernels also at
+   BERT-base's training shape (B 8, S 512, nh 12, hd 64, non-causal,
+   padded rows through the kv mask, dropout 0.1; timed
    beside ``F.scaled_dot_product_attention`` with the same mask and
    rate), and ``paged_decode`` at
    the edges of its 256-key splits (255, 256, 257, 511, 512), 0 and the
@@ -49,7 +56,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-one phases on card 0:
    loop's time and its time at other split lengths); the flash lines print
    the achieved TFLOP/s and the ratio to sdpa.  Before it, the
    ``-Xptxas -v`` reports give every kernel's registers and spills; the
-   tensor-core kernels (bf16 ``flash_fwd``, ``flash_bwd_dq``,
+   tensor-core kernels (bf16 and fp16 ``flash_fwd``, ``flash_bwd_dq``,
    ``flash_bwd_dkv``) must not spill at hd 64 and 128, and none of the
    six ``weight_only_gemm_kernel`` instances may spill or have its
    ``wgmma``s serialised by ptxas.
@@ -192,7 +199,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-one phases on card 0:
    with its own suffix of 37 + 64 i tokens, and a ninth that is the
    system prompt alone (its last block copied on write), 64 new tokens
    each, odd ones sampled; served with the prefix cache off, on with
-   whole-prompt prefill, and on with 256-token chunks, 3 runs each in
+   whole-prompt prefill, and on with 256-token chunks, 2 runs each in
    turns (medians of tokens/s, mean TTFT of all and of the first 8).
    Every budget met, hits > 0, ``paged_chunk``
    launched in the whole-prompt hit run, no plain route, no leaked block;
@@ -206,7 +213,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-one phases on card 0:
    odd ones sampled; plain decoding, n-gram drafts at k 4, n-gram with
    the adaptive ladder 2, 4, 8, and a GPT-3 350M draft (hd 64, random
    weights from a seed) at k 4, and the target as its own draft at k 4
-   (acceptance near 1: it must exceed 0.5), 3 runs each in turns.  Every
+   (acceptance near 1: it must exceed 0.5), 2 runs each in turns.  Every
    spec run launches ``paged_verify_attention``; budgets met, no leak;
    the acceptance rate, ``k_now``, ``k_switches`` and the greedy
    streams' agreement with plain decoding printed; the n-gram
@@ -311,13 +318,40 @@ into ``build/paddle_tpu_torch/``), then runs twenty-one phases on card 0:
    fp32 cut with full recompute, card against CPU, 2 steps with the
    scheduler, scaler and fused step: losses within 1e-4, parameters
    within 2 x lr x steps.  f. ``fused_adamw`` against its plain version
-   at GPT-3 1.3B's parameter list, O1 and O2, clip none / global 1.0 /
-   norm / value, scaler finite / overflow / none, lr 1e-2 and decay 0.1,
-   the states drawn to the clipped gradients' size: skips bit for bit,
-   clip coefficients within rtol 1e-6 (the plain version's phase 2 then
-   takes the kernels'), each float32 tensor's change in the step within
-   1e-4 of the plain version's (2-norm), the decay above 100 times that
-   share of every weight's change, bf16 copies within one bf16 step.
+   at GPT-3 1.3B's parameter list, O1, O2 bf16 and O2 fp16, clip none /
+   global 1.0 / norm / value, scaler finite / overflow / none, lr 1e-2
+   and decay 0.1, the states drawn to the clipped gradients' size: skips
+   bit for bit, the gradients after the step bit for bit (a scaler's
+   step writes them back unscaled, applied or skipped), clip
+   coefficients within rtol 1e-6 (the plain version's phase 2 then takes
+   the kernels'), each float32 tensor's change in the step within 1e-4 of
+   the plain version's (2-norm), the decay above 100 times that share of
+   every weight's change, 16-bit copies within one step of their type.
+   The scaler step's time in a includes the write-back.
+22. float16 training (after phase 21): a. GPT-3 1.3B, phase 4's setup and
+   batch under ``auto_cast(dtype="float16")`` O1 with ``GradScaler()`` at
+   its defaults (65536), 8 steps: every loss finite, at least half the
+   steps applied (the skipped ones and the final scale printed), each
+   flash kernel 24 x 8 launches, on the fp16 tensor-core instances by
+   name in a profiled step, ``fused_adamw`` every step with no fallback;
+   step time, tokens/s, MFU and peak memory beside 21a's bf16.  b. O2
+   ``decorate(dtype="float16")``, 2 steps, no fallback.  c. A 4-layer
+   fp32-weights cut under fp16 O1, card against CPU, 2 steps: losses
+   within 5e-3, scale and applied steps equal.
+23. ``generate`` (after phase 22; c inside phase 14's model lifetime, d
+   after phase 15): a. a 4-layer fp32 cut of GPT-3 1.3B, card against
+   CPU: 4 prompts of uneven content at 64 tokens, 32 new, each of
+   ``dense``, ``static``, ``paged`` and ``paged_eager`` on the card:
+   greedy streams equal to the CPU's, sampled ones (seed 7, top-k 50,
+   top-p 0.9) equal to the CPU's of the same draw scheme, prompt logits
+   within 1e-3 (equal, or parted at a near-tie under 1e-3, printed).
+   b. GPT-3 1.3B in bf16, B 4, a 512-token prompt, 128 new tokens, each
+   implementation: ms per new
+   token, tokens/s, ``flash_fwd`` and ``paged_decode`` launches, no plain
+   route; ``static`` and ``paged`` replay one captured decode step per
+   token.  c. Llama-2 7B in bf16, B 1, a 256-token prompt, 32 new,
+   ``static`` and ``paged``.  d. a's checks on phase 15's GQA cut (2
+   layers).
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -327,6 +361,7 @@ numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -337,19 +372,27 @@ import time
 
 MEM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS = {"torch.bfloat16": 989e12,   # dense bf16 tensor-core rate
+            "torch.float16": 989e12,    # dense fp16 tensor-core rate
             "torch.float32": 67e12}     # fp32 outside the tensor cores
 NH, HD, BS, BATCH, MAX_CONTEXT = 16, 128, 64, 8, 2048
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 4, 2048, 6, 1e-4
 MOE_E = 4                            # experts of the GPT-MoE phases
-REPEATS = 3                          # serving runs per median (phases 11-12)
+REPEATS = 3                          # serving runs per median (13, 14, 20)
+# phases 11-12's rounds: 2 since phases 22-23 joined the run (the
+# script's time limit), their medians the means of 2 runs
+EXTRAS_REPEATS = 2
 SPEC_LENS = [400 + 600 * i // (BATCH - 1) for i in range(BATCH)]  # phase 12
 LLAMA_NH = 32                        # llama2_7b's heads (phase 14)
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_S = 8, 4096    # phase 16
 BERT_B, BERT_S = 8, 512              # phase 17, bench.py's bench_bert_base
+# fp16: one rounding of P, dS and the output is 2^-11 relative, bf16's
+# 2^-8 eight times finer: bf16's limits about five-fold tighter
 TOL = {"torch.float32": dict(atol=2e-5, rtol=1e-4),
-       "torch.bfloat16": dict(atol=2e-2, rtol=0.0)}
+       "torch.bfloat16": dict(atol=2e-2, rtol=0.0),
+       "torch.float16": dict(atol=4e-3, rtol=2e-3)}
 GRAD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
-            "torch.bfloat16": dict(atol=2e-2, rtol=1e-2)}
+            "torch.bfloat16": dict(atol=2e-2, rtol=1e-2),
+            "torch.float16": dict(atol=4e-3, rtol=2e-3)}
 # the two kernels of a paged_decode launch, by name on the card's timeline
 DECODE_KERNELS = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
 # paged_chunk's: bf16 on the tensor cores (and the merge of its key
@@ -812,14 +855,16 @@ def _train_flash_case(gen, B, Sq, Sk, nkv, dtype, masked, hd=HD):
 
 def flash_train_checks(rows):
     """flash_fwd (with its kv mask and dropout), flash_bwd_dq and
-    flash_bwd_dkv against their plain versions; times at the training
-    shape (bf16, B 4, S 2048, causal).  Updates ``rows``."""
+    flash_bwd_dkv against their plain versions in fp32, bf16 and fp16;
+    times at the training shape (bf16, B 4, S 2048, causal), and in fp16
+    beside bf16 and beside ``F.scaled_dot_product_attention`` in fp16 on
+    the same inputs.  Updates ``rows``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bf16 = torch.bfloat16
+    bf16, fp16 = torch.bfloat16, torch.float16
     # (label, B, Sq, Sk, nkv, causal, masked, dropout rate)
     cases = [("training shape", TRAIN_B, TRAIN_S, TRAIN_S, NH, True, False,
               0.0),
@@ -829,11 +874,13 @@ def flash_train_checks(rows):
              ("Sq > Sk", 2, 1000, 300, NH, True, False, 0.0),
              ("kv mask", 2, 512, 512, NH, False, True, 0.0),
              ("dropout 0.1", 2, 1024, 1024, NH, True, False, 0.1)]
-    # every case at hd 128 in both types, and bf16 (the tensor-core
-    # kernels) at hd 64 and 256 too, the training shape aside
-    runs = [(dtype, HD, case) for dtype in (torch.float32, bf16)
+    # every case at hd 128 in the three types, and bf16 and fp16 (the
+    # tensor-core kernels) at hd 64 and 256 too, the training shape aside
+    runs = [(dtype, HD, case) for dtype in (torch.float32, bf16, fp16)
             for case in cases]
-    runs += [(bf16, hd, case) for hd in (64, 256) for case in cases[1:]]
+    runs += [(dtype, hd, case) for dtype in (bf16, fp16) for hd in (64, 256)
+             for case in cases[1:]]
+    fp16_errs = {}
     for dtype, hd, (label, B, Sq, Sk, nkv, causal, masked, rate) in runs:
         q, k, v, do, mask = _train_flash_case(gen, B, Sq, Sk, nkv, dtype,
                                               masked, hd)
@@ -863,8 +910,13 @@ def flash_train_checks(rows):
              f"max_abs_err out="
              f"{errs[0]:.3e} lse={errs[1]:.3e} dq={errs[2]:.3e} "
              f"dk={errs[3]:.3e} dv={errs[4]:.3e}")
+        if dtype == fp16:
+            for key, e in zip(("out", "lse", "dq", "dk", "dv"), errs):
+                fp16_errs[key] = max(fp16_errs.get(key, 0.0), e)
         if (dtype, label) == (bf16, "training shape"):
             timed = (q, k, v, do, out, lse, errs)
+        if (dtype, label) == (fp16, "training shape"):
+            timed16 = (q, k, v, do, out, lse)
         del q, k, v, do, out, lse, dq, dk, dv, ref, ref_lse, want
         torch.cuda.empty_cache()
 
@@ -948,6 +1000,47 @@ def flash_train_checks(rows):
     _log(f"flash_bwd_dq + flash_bwd_dkv = {pair:.4f} ms beside the sdpa "
          f"backward on its own {lib_bwd:.4f} ms: {pair / lib_bwd:.2f}x")
     del timed, q, k, v, do, out, lse, qt, kt, vt, lib_out
+    torch.cuda.empty_cache()
+    # float16 at the training shape: the same tensor-core kernels on fp16
+    # tiles, beside bf16 (same bound: 2-byte operands, the same rate) and
+    # beside sdpa in fp16 on the same inputs
+    q, k, v, do, out, lse = timed16
+    fp16_ms = {
+        "flash_fwd": _time_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
+                              10),
+        "flash_bwd_dq": _time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, out, lse, do, True), 10),
+        "flash_bwd_dkv": _time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, out, lse, do, True), 10)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib16_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 10)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib16_bwd = _time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
+    errs16 = {"flash_fwd": max(fp16_errs["out"], fp16_errs["lse"]),
+              "flash_bwd_dq": fp16_errs["dq"],
+              "flash_bwd_dkv": max(fp16_errs["dk"], fp16_errs["dv"])}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        r = rows[name]
+        r["fp16_ms"] = fp16_ms[name]
+        r["fp16_max_abs_err"] = errs16[name]
+        r["fp16_library_ms"] = lib16_fwd if name == "flash_fwd" \
+            else lib16_bwd
+        _log(f"{name} fp16 timing B={B} S={S} causal: ms={r['fp16_ms']:.4f}"
+             f" (bf16 {r['ms']:.4f}: x{r['fp16_ms'] / r['ms']:.3f}) "
+             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) fp16 "
+             f"library_ms={r['fp16_library_ms']:.4f}"
+             + (" (sdpa backward, dq+dkv)" if name != "flash_fwd" else "")
+             + f"; worst fp16 error over every case {errs16[name]:.3e} "
+             f"(atol {TOL['torch.float16']['atol']}, rtol "
+             f"{TOL['torch.float16']['rtol']})")
+    pair16 = fp16_ms["flash_bwd_dq"] + fp16_ms["flash_bwd_dkv"]
+    _log(f"fp16 flash_bwd_dq + flash_bwd_dkv = {pair16:.4f} ms beside the "
+         f"fp16 sdpa backward on its own {lib16_bwd:.4f} ms: "
+         f"{pair16 / lib16_bwd:.2f}x")
+    del timed16, q, k, v, do, out, lse, qt, kt, vt, lib_out
     torch.cuda.empty_cache()
 
 
@@ -2349,7 +2442,8 @@ def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", prompt_len=96,
         if graphs:
             continue
         # the last engine's model: the quantized twin, if quantized
-        caches = model.init_caches(1, ctx, BS)
+        caches = model.init_caches(1, cache_impl="paged", max_context=ctx,
+                                   block_size=BS)
         with torch.no_grad():
             logits, _ = eng.model.forward_with_cache(prompt[None].to(dev),
                                                      caches, 0)
@@ -2436,7 +2530,7 @@ def _median(xs):
 
 
 def _interleaved(label, model, prompts, configs):
-    """``REPEATS`` rounds of one serving run per configuration, in turns
+    """``EXTRAS_REPEATS`` rounds of one serving run per configuration, in turns
     (so a drift of the card or the host spreads over all of them); each
     configuration's first run gives the launches and stats (each run
     counts from 0), its runs the medians of tokens/s and mean TTFT (of all
@@ -2444,7 +2538,7 @@ def _interleaved(label, model, prompts, configs):
     are the default ones (graphs and overlap): no tick is timed on its
     own.  ``configs``: (key, label, chunk, engine keywords)."""
     runs = {key: [] for key, _, _, _ in configs}
-    for _ in range(REPEATS):
+    for _ in range(EXTRAS_REPEATS):
         for key, _, chunk, kw in configs:
             runs[key].append(serve(model, prompts, chunk, **kw))
     out = {}
@@ -2456,7 +2550,8 @@ def _interleaved(label, model, prompts, configs):
         r["ttft_mean_s"] = _median([x["ttft_mean_s"] for x in rs])
         r["ttft_first_mean_s"] = _median(
             [sum(x["ttfts"][:BATCH]) / BATCH for x in rs])
-        _log(f"{label}, {name}: {r['tokens']} tokens, median of {REPEATS} "
+        _log(f"{label}, {name}: {r['tokens']} tokens, median of "
+             f"{EXTRAS_REPEATS} "
              f"runs {r['tokens_per_s']:.1f} tokens/s (runs "
              + ", ".join(f"{x:.1f}" for x in r["tokens_per_s_runs"])
              + f"), mean TTFT {r['ttft_mean_s'] * 1e3:.1f} ms (the first "
@@ -3241,9 +3336,13 @@ def _opt_tensors(model, opt):
 
 
 def _equal_bits(a, b):
+    """Equal bit for bit (infinities and NaNs included)."""
     import torch
-    if a.dtype == torch.bfloat16:
-        a, b = a.view(torch.int16), b.view(torch.int16)
+    if a.dtype != b.dtype:
+        return False
+    ints = {2: torch.int16, 4: torch.int32}.get(a.element_size())
+    if ints is not None:
+        a, b = a.view(ints), b.view(ints)
     return torch.equal(a, b)
 
 
@@ -3287,7 +3386,6 @@ def _optimizer_yardsticks(model, opt, batch):
 
     import torch
     from paddle_tpu_torch import amp
-    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.ops import fused_optimizer as fo
 
     dev = batch[0].device
@@ -3320,7 +3418,6 @@ def _optimizer_yardsticks(model, opt, batch):
     del table
     torch.cuda.empty_cache()
     params = [p for p in model.parameters() if p.grad is not None]
-    tclip = ClipGradByGlobalNorm(1.0)
     out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, bytes=nbytes, tensors=len(grads),
                chunks=n_chunks, declined_ms=declined_ms)
@@ -3329,7 +3426,12 @@ def _optimizer_yardsticks(model, opt, batch):
                                  **{mode: True})
 
         def lib_step():
-            tclip([(p, p.grad) for p in params])
+            # the global clip in place, in torch's list ops (the port's
+            # clips give new tensors)
+            grads = [p.grad for p in params]
+            total = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+            torch._foreach_mul_(grads, 1.0 / total.clamp_min(1.0))
             topt.step()
         if mode == "fused":
             out["library_ms"] = _time_ms(lib_step, 10)
@@ -3649,21 +3751,27 @@ def _fused_draw(seed, shape, size):
 def fused_kernel_checks(names):
     """21f: ``fused_adamw`` against ``fused_adamw_reference`` on the card
     at GPT-3 1.3B's parameter list (``names``: 21a's shapes), float32
-    (O1) and bf16 with float32 masters (O2), each clip kind (global 1.0,
-    as 21a and 21d run it), with a scaler whose step is finite or
-    overflows, and without a scaler; lr 1e-2, decay 0.1 on every tensor,
-    weights about 0.1, the states drawn to the clipped gradients' size
-    (so that m and v each change by much more than a float32 ulp).
+    (O1), bf16 with float32 masters (O2) and fp16 with float32 masters
+    (O2 in float16), each clip kind (global 1.0, as 21a and 21d run it),
+    with a scaler whose step is finite or overflows, and without a
+    scaler; lr 1e-2, decay 0.1 on every tensor, weights about 0.1, the
+    states drawn to the clipped gradients' size (so that m and v each
+    change by much more than a float32 ulp).  Each version gets its own
+    copy of the gradients.
 
     Exactly: the skip (every tensor bit-identical to its value before the
-    step), the scaler's scale and counts, the step count.  The clip
+    step), the scaler's scale and counts, the step count, and the
+    gradients after the step (with a scaler both write ``g * (1 /
+    scale)`` back over them, applied or skipped, ROADMAP §C.8; without
+    one both leave them).  The clip
     coefficients within rtol 1e-6 (the norms are summed in other orders);
     phase 2 of the plain version then takes the kernels' coefficients, so
     that a coefficient one ulp apart cannot round a clipped bf16 gradient
     (O2) to its neighbour.  Each float32 tensor's change in the step
     (weight or master, m, v) within 1e-4 of the plain version's, in
     2-norm, with the decay's share of every weight's change above 100
-    times that; bf16 copies within one bf16 step (rtol 2^-7)."""
+    times that; 16-bit copies within one step of their type (rtol 2^-7
+    for bf16, 2^-10 for fp16)."""
     import torch
     from paddle_tpu_torch.ops import fused_optimizer as fo
 
@@ -3675,8 +3783,11 @@ def fused_kernel_checks(names):
     share = math.inf
     cases = 0
     n0 = fo.fused_adamw.launches
-    for o2 in (False, True):
-        pdt = torch.bfloat16 if o2 else torch.float32
+    for pdt in (torch.float32, torch.bfloat16, torch.float16):
+        o2 = pdt != torch.float32
+        one_step = 2 ** -7 if pdt == torch.bfloat16 else 2 ** -10
+        kind = {torch.float32: "O1", torch.bfloat16: "O2",
+                torch.float16: "O2 fp16"}[pdt]
 
         def tensors():
             params = [torch.empty(s, dtype=pdt, device="cuda")
@@ -3689,6 +3800,7 @@ def fused_kernel_checks(names):
         kp, km, ks = tensors()
         rp, rm, rs = tensors()
         grads = [torch.empty(s, dtype=pdt, device="cuda") for s in shapes]
+        rgrads = [torch.empty_like(g) for g in grads]
         kt = fo.FusedTable(kp, km, ks, [FUSED_WD] * n, [1.0] * n, [True] * n)
         rt = fo.FusedTable(rp, rm, rs, [FUSED_WD] * n, [1.0] * n, [True] * n)
         combos = [(c, s) for c in (None, "global", "norm", "value")
@@ -3712,7 +3824,8 @@ def fused_kernel_checks(names):
                 ks[i][1].copy_(v)
             if scaled == "inf":
                 grads[n // 2].view(-1)[-1] = float("inf")
-            for a, b in zip(_table_all(kt), _table_all(rt)):
+            for a, b in zip(_table_all(kt) + grads,
+                            _table_all(rt) + rgrads):
                 b.copy_(a)
             steps = [torch.full((1,), 4, dtype=torch.int32, device="cuda")
                      for _ in range(2)]
@@ -3722,10 +3835,21 @@ def fused_kernel_checks(names):
                  fo.ScalerConfig(2.0, 0.5, 2, 1, True)) for _ in range(2)]
             fo.fused_adamw(kt, grads, FUSED_LR, steps[0], clip=c,
                            scaler=scalers[0])
-            fo.fused_adamw_reference(rt, grads, FUSED_LR, steps[1], clip=c,
+            fo.fused_adamw_reference(rt, rgrads, FUSED_LR, steps[1], clip=c,
                                      scaler=scalers[1], coef=kt.coef)
             torch.cuda.synchronize()
-            label = f"21f {'O2' if o2 else 'O1'} clip {clip} {scaled}"
+            label = f"21f {kind} clip {clip} {scaled}"
+            # the gradients after the step: the same bits in both, the
+            # unscaled ones with a scaler (the draw again without one)
+            g_bad = sum(not _equal_bits(a, b) for a, b in zip(grads, rgrads))
+            if scaled is None:
+                gen = torch.Generator(device="cuda").manual_seed(21 + case)
+                g_bad += sum(not _equal_bits(g, torch.randn(
+                    g.shape, generator=gen, device="cuda").to(pdt))
+                    for g in grads)
+            if g_bad:
+                raise AssertionError(f"{label}: {g_bad} gradients differ "
+                                     "after the step")
             if not torch.equal(steps[0], steps[1]) or (scaled and not (
                     torch.equal(scalers[0][0], scalers[1][0])
                     and torch.equal(scalers[0][1], scalers[1][1]))):
@@ -3756,7 +3880,7 @@ def fused_kernel_checks(names):
                                          / dw))
                 if o2:
                     bad16 += int(((kp[i].float() - rp[i].float()).abs()
-                                  > 1e-6 + 2 ** -7 * rp[i].float().abs())
+                                  > 1e-6 + one_step * rp[i].float().abs())
                                  .sum())
             if changed:
                 raise AssertionError(f"{label}: the skipped step wrote "
@@ -3765,11 +3889,11 @@ def fused_kernel_checks(names):
                 raise AssertionError(f"{label}: a step's change "
                                      f"{worst:.3e} from the plain "
                                      f"version's (limit {FUSED_RTOL}), "
-                                     f"{bad16} bf16 values beyond one "
-                                     "bf16 step")
+                                     f"{bad16} {pdt} values beyond one "
+                                     "step of their type")
             change_err = max(change_err, worst)
             cases += 1
-        del kp, km, ks, rp, rm, rs, grads, kt, rt
+        del kp, km, ks, rp, rm, rs, grads, rgrads, kt, rt
         gc.collect()
         torch.cuda.empty_cache()
     if not share > 100 * FUSED_RTOL:
@@ -3777,9 +3901,11 @@ def fused_kernel_checks(names):
                              f"change {share:.3e} is too small to check")
     fo.fused_adamw.launches = n0       # comparisons are not a path's
     _log(f"21f fused_adamw against fused_adamw_reference at gpt3_1p3b's "
-         f"{n} tensors: {cases} cases (O1 and O2; clip none, global 1.0, "
-         f"norm, value; scaler finite, overflow, none; lr {FUSED_LR}, "
-         f"decay {FUSED_WD}): skips bit for bit; each float32 tensor's "
+         f"{n} tensors: {cases} cases (O1, O2 bf16 and O2 fp16; clip none, "
+         f"global 1.0, norm, value; scaler finite, overflow, none; lr "
+         f"{FUSED_LR}, decay {FUSED_WD}): skips bit for bit, the gradients "
+         f"after every step bit for bit (unscaled with a scaler, written "
+         f"back by the update launch); each float32 tensor's "
          f"change in the step within {change_err:.3e} of the plain "
          f"version's (2-norm, limit {FUSED_RTOL}), the decay at least "
          f"{share:.3e} of every weight's change; float32 values max abs "
@@ -3905,7 +4031,8 @@ def bert_flash_checks(rows):
     for b in range(1, B, 2):
         mask[b, int(lengths[b]):] = 0
     args = (False, mask, rate, 12345)
-    for dtype in (torch.float32, torch.bfloat16):
+    # bf16 last: its tensors are the ones timed below
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
         q, k, v, do = (torch.randn((B, S, nh, hd), generator=gen,
                                    device="cuda").to(dtype)
                        for _ in range(4))
@@ -3928,6 +4055,9 @@ def bert_flash_checks(rows):
              f"hd={hd} non-causal kv mask dropout {rate}: max_abs_err out="
              f"{errs[0]:.3e} lse={errs[1]:.3e} dq={errs[2]:.3e} "
              f"dk={errs[3]:.3e} dv={errs[4]:.3e}")
+        if dtype == torch.float16:
+            errs16 = {"flash_fwd": max(errs[:2]), "flash_bwd_dq": errs[2],
+                      "flash_bwd_dkv": max(errs[3:])}
     kept = int(mask.sum()) * nh * S                # (query, key) pairs
     qbytes, lse_b = B * S * nh * hd * 2, B * nh * S * 4
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -3962,6 +4092,7 @@ def bert_flash_checks(rows):
                  keys_kept=int(mask.sum()), max_abs_err=err, ms=ms,
                  plain_ms=_time_ms(plain, 3), bound_ms=bound, bound_by=by,
                  library_ms=lib, tflops=per_pair * hd * kept / ms / 1e9)
+        r["fp16_max_abs_err"] = errs16[name]
         rows[name]["bert_shape"] = r
         _log(f"{name} bf16 at BERT-base's shape: ms={ms:.4f} plain_ms="
              f"{r['plain_ms']:.4f} bound_ms={bound:.4f} ({by}) library_ms="
@@ -4056,6 +4187,11 @@ def llama_phases(lens):
                              dtype=torch.bfloat16, seed=0)
     serving = llama_serving_phase(model, lens)
     t = time.perf_counter()
+    llama_gen = generate_runs(model, "23c generate llama2_7b bf16", 1,
+                              LLAMA_GEN_PROMPT, LLAMA_GEN_NEW,
+                              ("static", "paged"), 25)
+    _log(f"[phase 23c, llama2_7b generate: {time.perf_counter() - t:.1f} s]")
+    t = time.perf_counter()
     wo_row = weight_only_checks()
     t1 = time.perf_counter()
     wg_row = weight_only_gemm_checks()
@@ -4073,10 +4209,12 @@ def llama_phases(lens):
                 chunks=(0, 256))
     train_card_vs_cpu(llama2_7b(num_layers=2, num_kv_heads=4),
                       "llama2_7b 2 layers, 4 kv heads, fp32")
+    generate_card_vs_cpu(llama2_7b(num_layers=2, num_kv_heads=4),
+                         "llama2_7b 2 layers, 4 kv heads, fp32")
     train = train_full_width(llama2_7b(num_layers=LLAMA_TRAIN_LAYERS),
                              f"training llama2_7b {LLAMA_TRAIN_LAYERS} "
                              "layers", B=1, S=LLAMA_TRAIN_S)
-    return serving, train, quant, wo_row, wg_row
+    return serving, train, quant, wo_row, wg_row, llama_gen
 
 
 def bert_phase():
@@ -4665,6 +4803,434 @@ def quant_cuts_phase():
     _log(f"[QAT cut: {time.perf_counter() - t:.1f} s]")
 
 
+# -------------------------------------------------------------- phase 22
+
+FP16_STEPS = 8                        # 22a
+FP16_O2_STEPS = 2                     # 22b
+FP16_CUT_LOSS_ATOL = 5e-3             # 22c
+
+
+def _fp16_step(model, opt, scaler, batch, level="O1"):
+    """One float16 step: the loss under ``auto_cast(dtype="float16")`` at
+    ``level``, the scaled backward, ``scaler.step`` (the fused step),
+    clear the gradients."""
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(True, level=level, dtype="float16",
+                       device=batch[0].device):
+        loss = model.compute_loss(*batch)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    opt.clear_grad()
+    return loss.detach()
+
+
+def _fp16_run(model, opt, scaler, batch, steps, level="O1"):
+    """``steps`` timed float16 steps from launch counts of 0; returns
+    losses, step seconds, launches and the ``optimizer.fused`` counts."""
+    import torch
+    for fn in _train_counters().values():
+        fn.launches = 0
+    for fn in _plain_counters().values():
+        fn.plain_calls = 0
+    fused0 = _fused_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _fp16_step(model, opt, scaler, batch, level)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = {n: fn.launches for n, fn in _train_counters().items()}
+    fused = {k: v - fused0[k] for k, v in _fused_counts().items()}
+    if any(_plain_calls().values()):
+        raise AssertionError(f"fp16 training took plain routes: "
+                             f"{_plain_calls()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fp16 training: a loss is not finite: "
+                             f"{losses}")
+    return losses, times, launches, fused
+
+
+def fp16_training_phase(o1):
+    """Phase 22: float16 training of GPT-3 1.3B at full width.  a. Phase
+    4's setup (fp32 weights, AdamW lr 1e-4, decay 0.01, global clip 1.0,
+    its batch of B 4 x S 2048) under ``auto_cast(dtype="float16")`` O1
+    with ``GradScaler()`` at its defaults (65536), 8 steps: every loss
+    finite, at least half the steps applied, the skipped ones and the
+    final scale printed; each flash kernel launched 24 x 8 times, on the
+    fp16 tensor-core kernels by name in one profiled step; ``fused_adamw``
+    every step with no fallback; step time, tokens/s, MFU and peak memory
+    beside 21a's bf16 numbers (``o1``).  b. O2 ``decorate(dtype=
+    "float16")``: 2 steps, ``fused_adamw`` hits, no fallback.  c. A
+    4-layer fp32-weights cut under fp16 O1, card against CPU, 2 steps with
+    a default scaler: losses within FP16_CUT_LOSS_ATOL (the card's fp16
+    products sum in other orders than the CPU's: their fp16 activations
+    part by an ulp here and there), the scale and applied steps equal.
+    The CPU's fp16 matrix products run under
+    :func:`_fp16_products_in_fp32` (see there)."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    from paddle_tpu_torch.observability import flops as tflops
+
+    cfg = gpt3_1p3b()
+    tokens = TRAIN_B * TRAIN_S
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, batch = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
+    scaler = amp.GradScaler()
+    init_scale = scaler._scale
+    losses, times, launches, fused = _fp16_run(model, opt, scaler, batch,
+                                               FP16_STEPS)
+    _check_train_launches("22a", cfg, launches, FP16_STEPS)
+    applied = opt._global_step
+    skipped = FP16_STEPS - applied
+    if fused["fallback"] or fused["hit"] + fused["miss"] != FP16_STEPS \
+            or 2 * applied < FP16_STEPS:
+        raise AssertionError(f"22a: optimizer.fused {fused}, {applied} of "
+                             f"{FP16_STEPS} steps applied")
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    kind = torch.cuda.get_device_name(0)
+    mfu = tokens / step_s * model.flops_per_token(TRAIN_S) / \
+        tflops.peak_flops(kind)
+    _log(f"22a gpt3_1p3b fp32 weights, auto_cast O1 float16, AdamW, clip "
+         f"1.0, GradScaler() (init {init_scale}), B={TRAIN_B} S={TRAIN_S},"
+         f" {FP16_STEPS} steps: losses {[round(x, 4) for x in losses]}; "
+         f"{applied} applied, {skipped} skipped, final scale "
+         f"{scaler._scale}; step times (s) {[round(t, 4) for t in times]}, "
+         f"median of steps 2-{FP16_STEPS} {step_s * 1e3:.1f} ms = "
+         f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f}; peak memory "
+         f"{peak / 2 ** 30:.2f} GiB; against 21a's bf16 "
+         f"{o1['step_s'] * 1e3:.1f} ms (x{step_s / o1['step_s']:.3f}), "
+         f"{o1['tokens_per_s']:.1f} "
+         f"tokens/s, MFU {o1['mfu']:.4f}, {o1['peak_bytes'] / 2 ** 30:.2f} "
+         f"GiB; launches {launches}; optimizer.fused {fused}")
+
+    def step():
+        t0 = time.perf_counter()
+        _fp16_step(model, opt, scaler, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    wall, kernels = _profiled(step, step)
+    _check_flash_kernels("22a fp16", cfg, kernels)
+    tc = [e for e in kernels if "flash_" in e.key and "_tc_kernel" in e.key]
+    if not tc or any("__half" not in e.key for e in tc):
+        raise AssertionError("22a: flash launches not on the fp16 "
+                             "tensor-core instances: "
+                             + "; ".join(e.key[:80] for e in tc))
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    idle = 1 - busy_us / 1e6 / wall
+    _log(f"22a profiled step: wall {wall * 1e3:.1f} ms, card busy "
+         f"{busy_us / 1e3:.1f} ms, idle share {idle:.3f}; flash on "
+         + ", ".join(sorted({e.key.split('(')[0][-60:] for e in tc})))
+    run = dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+               peak_bytes=peak, idle_share=idle, launches=launches,
+               fused=fused, losses=losses, applied=applied,
+               skipped=skipped, final_scale=scaler._scale)
+    del model, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. O2 in float16
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, batch = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler()
+    losses, times, launches, fused = _fp16_run(model, opt, scaler, batch,
+                                               FP16_O2_STEPS, level="O2")
+    table = _fused_table(opt)
+    n16 = sum(p.dtype == torch.float16 for p in table.params)
+    if fused["fallback"] or fused["hit"] + fused["miss"] != FP16_O2_STEPS \
+            or launches["fused_adamw"] != FP16_O2_STEPS or not n16:
+        raise AssertionError(f"22b: optimizer.fused {fused}, launches "
+                             f"{launches}, {n16} fp16 tensors")
+    _check_train_launches("22b", cfg, launches, FP16_O2_STEPS)
+    run["o2"] = dict(losses=losses, step_s=times[-1], launches=launches,
+                     fused=fused, peak_bytes=torch.cuda.max_memory_allocated(),
+                     applied=opt._global_step, scale=scaler._scale)
+    _log(f"22b O2 decorate float16: {n16} of {len(table.params)} tensors "
+         f"fp16 with float32 masters; losses {[round(x, 4) for x in losses]}"
+         f", {opt._global_step} applied, scale {scaler._scale}; last step "
+         f"{times[-1] * 1e3:.1f} ms (21d O2 bf16 "
+         f"{o1['o2']['step_s'] * 1e3:.1f} ms); peak "
+         f"{run['o2']['peak_bytes'] / 2 ** 30:.2f} GiB; launches {launches};"
+         f" optimizer.fused {fused}")
+    del model, opt, scaler, table
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. card against CPU on a 4-layer cut
+    cut = gpt3_1p3b(num_layers=4)
+    init, runs = None, []
+    rate = _cpu_fp16_gemm_rate()
+    for dev in ("cpu", "cuda"):
+        t = time.perf_counter()
+        model, opt, batch = _train_setup(cut, dev, 2, 1, 256)
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        scaler = amp.GradScaler()
+        with _fp16_products_in_fp32() if dev == "cpu" else \
+                contextlib.nullcontext():
+            ls = [_fp16_step(model, opt, scaler, batch).item()
+                  for _ in range(2)]
+        runs.append((ls, scaler._scale, opt._global_step))
+        _log(f"22c {dev}: 2 steps in {time.perf_counter() - t:.1f} s")
+        del model, opt
+    (cpu_l, cpu_s, cpu_g), (card_l, card_s, card_g) = runs
+    diff = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+    if diff > FP16_CUT_LOSS_ATOL or (card_s, card_g) != (cpu_s, cpu_g):
+        raise AssertionError(f"22c: losses card {card_l} cpu {cpu_l}, scale "
+                             f"{card_s} / {cpu_s}, applied {card_g} / "
+                             f"{cpu_g}")
+    _log(f"22c card vs CPU, gpt3_1p3b 4 layers fp32 weights under fp16 O1, "
+         f"GradScaler(), B=1 S=256, 2 steps: losses card {card_l} cpu "
+         f"{cpu_l} ({diff:.3e} apart, limit {FP16_CUT_LOSS_ATOL}), scale "
+         f"{card_s}, {card_g} applied on both (the host's own fp16 GEMM: "
+         f"{rate:.2f} GFLOP/s at 64 x 2048 x 2048)")
+    run["card_vs_cpu_loss_diff"] = diff
+    return run
+
+
+def _fp16_products_in_fp32():
+    """A dispatch mode for phase 22c's CPU side: each fp16 matrix product
+    (``mm``, ``addmm``, ``bmm``) runs on its inputs converted to float32
+    and rounds its result to fp16 once, which is what an fp16 GEMM with
+    float32 accumulation (cuBLAS's on the card) computes, up to the order
+    of its sums.  The CPU's own fp16 GEMM gives the same values but runs
+    far slower on some hosts (``_cpu_fp16_gemm_rate``): on the H100
+    machine's host a run of 22c without it took most of 1055 s."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    products = (aten.mm.default, aten.addmm.default, aten.bmm.default)
+
+    def fp32(a):
+        return a.float() if isinstance(a, torch.Tensor) and \
+            a.dtype == torch.float16 else a
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in products and any(
+                    isinstance(a, torch.Tensor) and a.dtype == torch.float16
+                    for a in args):
+                return func(*map(fp32, args), **kwargs).half()
+            return func(*args, **kwargs)
+    return Mode()
+
+
+def _cpu_fp16_gemm_rate():
+    """The host's own fp16 GEMM rate, GFLOP/s, at 64 x 2048 x 2048."""
+    import torch
+    a = torch.randn(64, 2048).half()
+    b = torch.randn(2048, 2048).half()
+    a @ b
+    t = time.perf_counter()
+    a @ b
+    return 2 * 64 * 2048 * 2048 / (time.perf_counter() - t) / 1e9
+
+
+# -------------------------------------------------------------- phase 23
+
+GEN_IMPLS = ("dense", "static", "paged", "paged_eager")
+GEN_CUT_B, GEN_CUT_PROMPT, GEN_CUT_NEW = 4, 64, 32
+GEN_B, GEN_PROMPT, GEN_NEW = 4, 512, 128
+LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 256, 32
+
+
+def _gen_prompts(vocab, B, S, seed):
+    """``B`` prompts of ``S`` tokens of uneven content: row b draws from
+    the vocabulary's first ``vocab >> b`` tokens."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return torch.stack([torch.randint(1, max(2, vocab >> b), (S,),
+                                      generator=gen) for b in range(B)])
+
+
+def _top2_gap(model, ids):
+    """The gap between the two largest logits of the next token of each
+    row of ``ids`` (a full forward)."""
+    import torch
+    with torch.no_grad():
+        top = model(ids)[:, -1].float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def _same_stream(label, model, a, b, prompt_len):
+    """Streams ``a`` and ``b`` equal, or at their first divergence a
+    near-tie: the two top logits of ``model`` there within 1e-3 (the
+    logits' tolerance); returns the number of rows that part."""
+    if a.shape == b.shape and bool((a.cpu() == b.cpu()).all()):
+        return 0
+    parted = 0
+    for r in range(a.shape[0]):
+        x, y = a[r].cpu(), b[r].cpu()
+        n = min(len(x), len(y))
+        diff = (x[:n] != y[:n]).nonzero()
+        if len(diff) == 0:
+            continue
+        i = int(diff[0])
+        gap = _top2_gap(model, x[None, :i].to(model.device))[0]
+        if gap > 1e-3:
+            raise AssertionError(f"{label}: row {r} parts at token "
+                                 f"{i - prompt_len} with a top-2 logit gap "
+                                 f"{gap:.3e} (> 1e-3)")
+        _log(f"{label}: row {r} parts at new token {i - prompt_len}, a "
+             f"near-tie (top-2 logit gap {gap:.3e})")
+        parted += 1
+    return parted
+
+
+def generate_card_vs_cpu(cfg, label):
+    """23a: ``generate`` on an fp32 cut, card (kernels) against CPU (plain
+    versions), from one state dict: 4 prompts of uneven content at 64
+    tokens, 32 new ones, each cache implementation on the card; greedy:
+    the four card streams equal one another and the CPU's (its dense
+    loop's; the CPU tests hold the four equal there); sampled (seed 7,
+    top-k 50, top-p 0.9): each card stream equal to the CPU's of the
+    same draw scheme (``dense`` and ``paged_eager`` draw one key a token,
+    ``static`` and ``paged`` ``fold_in(key, step)``: the CPU's dense and
+    static runs); the prompt's logits within atol 1e-3.  (Equal, or
+    parted at a near-tie of the logits, which is printed:
+    :func:`_same_stream`.)"""
+    import torch
+    from paddle_tpu_torch.core import random as trandom
+
+    t = time.perf_counter()
+    cpu, card = _cut_models(cfg)
+    ids = _gen_prompts(cfg.vocab_size, GEN_CUT_B, GEN_CUT_PROMPT, 23)
+    with torch.no_grad():
+        lc = card.forward_with_cache(ids.cuda(), card.init_caches(
+            GEN_CUT_B), 0)[0]
+        lh = cpu.forward_with_cache(ids, cpu.init_caches(GEN_CUT_B), 0)[0]
+    err = (lc.cpu() - lh).abs().max().item()
+    if err > 1e-3:
+        raise AssertionError(f"23a {label}: prompt logits {err:.3e} apart")
+    sample = dict(do_sample=True, top_k=50, top_p=0.9)
+    cpu_greedy = cpu.generate(ids, GEN_CUT_NEW, cache_impl="dense")
+    cpu_sampled = {}
+    for impl in ("dense", "static"):
+        trandom.seed(7)
+        cpu_sampled[impl] = cpu.generate(ids, GEN_CUT_NEW, cache_impl=impl,
+                                         **sample)
+    parted, replays = 0, {}
+    for impl in GEN_IMPLS:
+        got = card.generate(ids.cuda(), GEN_CUT_NEW, cache_impl=impl)
+        replays[impl] = dict(card.last_generate)
+        parted += _same_stream(f"23a {label} greedy {impl} card against "
+                               "CPU", cpu, got, cpu_greedy, GEN_CUT_PROMPT)
+        trandom.seed(7)
+        got = card.generate(ids.cuda(), GEN_CUT_NEW, cache_impl=impl,
+                            **sample)
+        want = cpu_sampled["static" if impl in ("static", "paged")
+                           else "dense"]
+        parted += _same_stream(f"23a {label} sampled {impl} card against "
+                               "CPU", cpu, got, want, GEN_CUT_PROMPT)
+    for impl in ("static", "paged"):
+        if not (replays[impl]["captured"] and
+                replays[impl]["replays"] == GEN_CUT_NEW):
+            raise AssertionError(f"23a {label} {impl}: {replays[impl]}")
+    _log(f"23a generate card vs CPU, {label}: {GEN_CUT_B} prompts of "
+         f"{GEN_CUT_PROMPT} tokens, {GEN_CUT_NEW} new, cache_impl "
+         f"{', '.join(GEN_IMPLS)}: greedy streams of the four equal on the "
+         f"card and to the CPU's, sampled (seed 7, top-k 50, top-p 0.9) "
+         f"card equal to CPU for each, {parted} rows parted at near-ties; "
+         f"prompt logits max abs diff {err:.3e} (limit 1e-3); static and "
+         f"paged replayed their captured step {GEN_CUT_NEW} times "
+         f"[{time.perf_counter() - t:.1f} s]")
+    del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _gen_counters():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return {"flash_fwd": fa.flash_attention_fwd,
+            "paged_decode": pa.paged_attention}
+
+
+def generate_runs(model, label, B, prompt_len, new, impls, seed):
+    """``generate`` at full width with each of ``impls``: the counts from
+    0 (replays count their capture's launches), no plain route; the
+    static and paged programs captured and replayed once a token.  Timed
+    on the host clock, synchronised: the whole call, and ms per new token
+    as the difference against a call of 1 new token over ``new - 1`` (the
+    prompt and the capture cancel).  Returns per implementation the
+    launches and times."""
+    import torch
+    ids = _gen_prompts(model.cfg.vocab_size, B, prompt_len, seed).cuda()
+    out = {}
+    for impl in impls:
+        walls = {}
+        for n in (1, new):
+            for fn in _gen_counters().values():
+                fn.launches = 0
+            for fn in _plain_counters().values():
+                fn.plain_calls = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = model.generate(ids, n, cache_impl=impl)
+            torch.cuda.synchronize()
+            walls[n] = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in _gen_counters().items()}
+        plain = _plain_calls()
+        last = dict(model.last_generate)
+        need = ("flash_fwd",) + (("paged_decode",)
+                                 if impl.startswith("paged") else ())
+        if any(plain.values()) or toks.shape != (B, prompt_len + new) or \
+                any(launches[k] <= 0 for k in need):
+            raise AssertionError(f"{label} {impl}: launches {launches}, "
+                                 f"plain_calls {plain}, shape "
+                                 f"{tuple(toks.shape)}")
+        if impl in ("static", "paged") and not (
+                last["captured"] and last["replays"] == new):
+            raise AssertionError(f"{label} {impl}: {last}")
+        ms_tok = (walls[new] - walls[1]) / (new - 1) * 1e3
+        out[impl] = dict(launches=launches, plain_calls=plain,
+                         wall_s=walls[new], wall_1_s=walls[1],
+                         ms_per_token=ms_tok,
+                         tokens_per_s=B * (new - 1) / (walls[new]
+                                                       - walls[1]),
+                         replays=last["replays"],
+                         captured=last["captured"])
+        _log(f"{label} {impl}: B={B} prompt {prompt_len}, {new} new tokens "
+             f"in {walls[new]:.3f} s (1 new token: {walls[1]:.3f} s): "
+             f"{ms_tok:.3f} ms per new token (a step of {B} rows) = "
+             f"{out[impl]['tokens_per_s']:.1f} tokens/s; captured "
+             f"{last['captured']}, replays {last['replays']}; launches "
+             f"{launches}; plain_calls {plain}")
+    return out
+
+
+def generate_phase():
+    """Phase 23 (GPT): 23a the fp32 4-layer cut card against CPU, then
+    23b GPT-3 1.3B in bf16 at full width: B 4, a 512-token prompt, 128
+    new tokens, each cache implementation."""
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    generate_card_vs_cpu(gpt3_1p3b(num_layers=4), "gpt3_1p3b 4 layers fp32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _model(gpt3_1p3b(), "cuda", 0, torch.bfloat16).eval()
+    runs = generate_runs(model, "23b generate gpt3_1p3b bf16", GEN_B,
+                         GEN_PROMPT, GEN_NEW, GEN_IMPLS, 24)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 # ------------------------------------------------------------------ main
 
 def ptxas_report(build_dir):
@@ -4701,14 +5267,18 @@ def ptxas_report(build_dir):
             name = name.group(1) if name else entry
             hd = re.search(r"Li(\d+)E", entry)
             hd = int(hd.group(1)) if hd else None
+            # the flash tensor-core kernels' element type (T = __half or
+            # __nv_bfloat16 in the mangled name)
+            ty = "fp16" if "6__half" in entry else "bf16"
             text = (f"{m.group(1)} registers, {spills[0]} bytes spill "
                     f"stores, {spills[1]} bytes spill loads")
-            _log(f"  {f.name.split('.')[0]}: {name} hd {hd}: {text}, "
+            _log(f"  {f.name.split('.')[0]}: {name} {ty} hd {hd}: {text}, "
                  f"{frame} bytes stack frame")
             if name.endswith("_tc_kernel"):
-                tc.setdefault(name, {})[hd] = text
+                tc.setdefault(name, {})[f"{ty} hd {hd}"] = text
                 if hd in (64, 128) and spills != (0, 0):
-                    raise AssertionError(f"{name} hd {hd} spills: {text}")
+                    raise AssertionError(f"{name} {ty} hd {hd} spills: "
+                                         f"{text}")
             if name == "weight_only_gemm_kernel":
                 qt, rows = re.search(r"ILi(\d)ELi(\d+)E", entry).groups()
                 key = f"{('int8', 'fp8')[int(qt)]} {rows} rows"
@@ -4719,8 +5289,11 @@ def ptxas_report(build_dir):
             entry = None
     for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                  "flash_bwd_dkv_tc_kernel", "paged_chunk_tc_kernel"):
-        if sorted(tc.get(name, {})) != [64, 128, 256]:
-            raise AssertionError(f"ptxas report: {name} at hd "
+        types = ("bf16",) if name == "paged_chunk_tc_kernel" else \
+            ("bf16", "fp16")
+        want = sorted(f"{t} hd {hd}" for t in types for hd in (64, 128, 256))
+        if sorted(tc.get(name, {})) != want:
+            raise AssertionError(f"ptxas report: {name} instances "
                                  f"{sorted(tc.get(name, {}))}")
     if len(gemm) != 6:
         raise AssertionError(f"ptxas report: weight_only_gemm_kernel "
@@ -4794,9 +5367,11 @@ def main() -> int:
         step_ms_fused_foreach_library=[rest["step_s"] * 1e3,
                                        rest["foreach_step_ms"],
                                        rest["fused_step_ms"]])
+    fp16 = timed("float16 training", fp16_training_phase, rest)
+    gen = timed("generate", generate_phase)
     moe_serve, moe_train = timed("MoE", moe_phases, lens, rows)
-    llama, llama_train, quant, wo_row, wg_row = timed("Llama", llama_phases,
-                                                      lens)
+    llama, llama_train, quant, wo_row, wg_row, llama_gen = timed(
+        "Llama", llama_phases, lens)
     bert = timed("BERT", bert_phase)
     timed("quantized cuts card vs CPU, QAT", quant_cuts_phase)
     rows["weight_only_matmul"] = wo_row
@@ -4857,7 +5432,15 @@ def main() -> int:
              "llama_int8_chunked":
                  quant["int8"]["extra"]["256-token chunks"]["launches"],
              "llama_int8_prefix": quant["int8"]["extra"][
-                 "shared 1024-token prefix, prefix cache on"]["launches"]}
+                 "shared 1024-token prefix, prefix cache on"]["launches"],
+             "train_fp16": fp16["launches"],
+             "train_fp16_o2": fp16["o2"]["launches"],
+             "generate_dense": gen["dense"]["launches"],
+             "generate_static": gen["static"]["launches"],
+             "generate_paged": gen["paged"]["launches"],
+             "generate_paged_eager": gen["paged_eager"]["launches"],
+             "llama_generate_static": llama_gen["static"]["launches"],
+             "llama_generate_paged": llama_gen["paged"]["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -4879,6 +5462,8 @@ def main() -> int:
         tc_name = name + "_tc_kernel"
         if tc_name in tc_regs:
             kernels[-1]["bf16_kernel"] = tc_name
+            if name.startswith("flash_"):
+                kernels[-1]["fp16_kernel"] = tc_name
             kernels[-1]["ptxas_by_hd"] = tc_regs[tc_name]
     _log(card)
     _log(json.dumps({"kernels": kernels}))

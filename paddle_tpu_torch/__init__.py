@@ -1,8 +1,11 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for the NVIDIA H100.
 
 It serves GPT and Llama through the paged continuous-batching engine
-(``inference.serving.ServingEngine``) and trains them and BERT (``amp``,
-``optimizer``, ``nn``; ``models.gpt``, ``models.llama``, ``models.bert``),
+(``inference.serving.ServingEngine``), generates with them
+(``model.generate``, ``models.generation``; seeded through
+``core.random.seed``) and trains them and BERT in bfloat16 or float16
+(``amp``, ``optimizer``, ``nn``; ``models.gpt``, ``models.llama``,
+``models.bert``),
 GPT dense or GPT-MoE (``incubate.distributed.models.moe``), with
 hand-written CUDA kernels for the flash attention forward
 and backward, paged decode, chunked prefill, the MoE token dispatch

@@ -1,9 +1,11 @@
 """Mixed precision: counterpart of ``paddle_tpu/amp/auto_cast.py``
-(``auto_cast`` at levels O1 and O2 in bfloat16, ``decorate``).
+(``auto_cast`` at levels O1 and O2 in bfloat16 or float16, ``decorate``).
 
 ``auto_cast`` is a context over ``torch.autocast`` on the device the
-port runs on (``cuda`` unless ``device="cpu"``).  Which ops run in
-bfloat16 differs in detail between the two frameworks:
+port runs on (``cuda`` unless ``device="cpu"``) in the type it is given
+(``dtype="bfloat16"`` or ``"float16"``; below, "bfloat16" stands for
+either).  Which ops run in it differs in detail between the two
+frameworks:
 
 - The JAX package's O1 casts to bfloat16 the ops of its white list, taken
   from the op specs (``amp: white`` in ``paddle_tpu/ops/specs/*.yaml``):
@@ -29,8 +31,11 @@ float32 parameters' type on the way in (the JAX black list's promotion;
 ``F.layer_norm`` takes one type), and the optimizer keeps float32 master
 weights (``multi_precision``).  Under ``auto_cast(level="O2")`` the
 bfloat16 parameters carry the rest: torch's autocast has one policy for
-both levels.  float16 (which needs fp16 paths in the flash kernels) and
-custom op lists are not ported yet: they raise (ROADMAP.md, A.7).
+both levels.  float16 trains as the JAX package does, with a dynamic
+``GradScaler`` (``amp/grad_scaler.py``, default scale 65536): the flash
+kernels and ``fused_adamw`` take float16; the paged serving kernels do
+not yet and raise (ROADMAP.md).  Custom op lists are not ported yet:
+they raise (ROADMAP.md, A.7).
 """
 
 from __future__ import annotations
@@ -42,20 +47,23 @@ from ..core.device import resolve_device
 
 __all__ = ["auto_cast", "amp_guard", "decorate"]
 
-_BF16 = ("bfloat16", torch.bfloat16)
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           torch.bfloat16: torch.bfloat16, torch.float16: torch.float16}
 
 
-def _check_dtype(dtype, what):
-    if dtype not in _BF16:
-        raise NotImplementedError(
-            f"{what} dtype {dtype}: only bfloat16 is ported (float16 needs "
-            "fp16 paths in the flash kernels, ROADMAP.md A.7)")
+def _check_dtype(dtype, what) -> torch.dtype:
+    """The torch type of an AMP ``dtype`` (the JAX package's
+    ``amp dtype must be float16 or bfloat16``)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"{what}: amp dtype must be float16 or bfloat16, "
+                         f"got {dtype}")
+    return _DTYPES[dtype]
 
 
 class auto_cast:
     """``with auto_cast(True, level="O1", dtype="bfloat16"):`` runs the
-    forward in mixed precision; level ``O0`` (or ``enable=False``) runs it
-    in the parameters' type."""
+    forward in mixed precision (``dtype="float16"`` too); level ``O0`` (or
+    ``enable=False``) runs it in the parameters' type."""
 
     def __init__(self, enable: bool = True, custom_white_list=None,
                  custom_black_list=None, level: str = "O1",
@@ -63,7 +71,7 @@ class auto_cast:
                  device=None):
         if level not in ("O0", "O1", "O2"):
             raise ValueError(f"level must be O0/O1/O2, got {level}")
-        _check_dtype(dtype, "auto_cast")
+        self._dtype = _check_dtype(dtype, "auto_cast")
         if custom_white_list or custom_black_list:
             raise NotImplementedError(
                 "auto_cast: custom white and black lists are not ported yet "
@@ -74,7 +82,7 @@ class auto_cast:
         self._ctx = None
 
     def __enter__(self):
-        self._ctx = torch.autocast(self._device.type, dtype=torch.bfloat16,
+        self._ctx = torch.autocast(self._device.type, dtype=self._dtype,
                                    enabled=self._enable)
         self._ctx.__enter__()
         return self
@@ -128,15 +136,16 @@ def _cast_model_keep_norms(model: nn.Module, dtype=torch.bfloat16):
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """``paddle.amp.decorate``: at O2 casts the models' parameters to
-    bfloat16 (norm layers stay float32) and turns on the optimizers'
-    float32 master weights (unless ``master_weight=False``).  Returns
-    what it was given, as paddle does."""
-    _check_dtype(dtype, "decorate")
+    ``dtype`` (bfloat16 or float16; norm layers stay float32) and turns on
+    the optimizers' float32 master weights (unless
+    ``master_weight=False``).  Returns what it was given, as paddle
+    does."""
+    dt = _check_dtype(dtype, "decorate")
     single_model = isinstance(models, nn.Module)
     model_list = [models] if single_model else list(models)
     if level == "O2":
         for m in model_list:
-            _cast_model_keep_norms(m, torch.bfloat16)
+            _cast_model_keep_norms(m, dt)
     if optimizers is None:
         return models if single_model else model_list
     opt_list = list(optimizers) if isinstance(optimizers, (list, tuple)) \

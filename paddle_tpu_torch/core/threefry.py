@@ -11,7 +11,8 @@ product is formed.  Works on any device; the key is a pair ``(k1, k2)`` of such
 tensors with any common shape.
 
 Counterparts, in ``jax/_src/prng.py`` and ``jax/_src/random.py``:
-:func:`key` is ``threefry_seed``, :func:`fold_in` ``threefry_fold_in``,
+:func:`key` is ``threefry_seed``, :func:`split` ``threefry_split`` (its
+partitionable, fold-like form), :func:`fold_in` ``threefry_fold_in``,
 :func:`random_bits` the partitionable ``threefry_random_bits`` (counters
 from ``iota_2x32_shape``), :func:`uniform` ``_uniform`` for float32,
 :func:`gumbel` ``_gumbel`` in its default "low" mode and
@@ -23,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["threefry2x32", "key", "fold_in", "random_bits", "uniform",
-           "gumbel", "categorical"]
+__all__ = ["threefry2x32", "key", "split", "fold_in", "random_bits",
+           "uniform", "gumbel", "categorical", "categorical_shaped"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -60,6 +61,16 @@ def key(seed):
     jax's conversion to uint32 does)."""
     seed = torch.as_tensor(seed).long() & _M32
     return torch.zeros_like(seed), seed
+
+
+def split(k, num: int = 2):
+    """``jax.random.split(k, num)``: key i is ``threefry2x32(k, (0, i))``,
+    the pair of the cipher's outputs.  Returns a list of ``num`` keys, each
+    a pair of tensors shaped like ``k``'s words."""
+    k1, k2 = (x[..., None] for x in k)
+    count = torch.arange(num, dtype=torch.int64, device=k1.device)
+    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(count), count)
+    return [(y1[..., i], y2[..., i]) for i in range(num)]
 
 
 def fold_in(k, data):
@@ -114,3 +125,14 @@ def categorical(k, logits):
     argmax of Gumbel noise plus the logits (the first index on ties, as
     ``jnp.argmax``).  Returns int64 ``[...]``."""
     return (gumbel(k, logits.shape[-1]) + logits).argmax(dim=-1)
+
+
+def categorical_shaped(k, logits):
+    """``jax.random.categorical(k, logits)`` with ONE key for all of
+    ``logits [..., V]`` (the JAX ``generate``'s draw over ``[B, V]``): the
+    Gumbel noise of the whole shape comes from the counters ``0 ..
+    numel - 1`` in row-major order (``iota_2x32_shape``), not one stream
+    per row as :func:`categorical`.  Returns int64 ``[...]``."""
+    n = logits.numel()
+    g = gumbel(k, n).reshape(logits.shape)
+    return (g + logits).argmax(dim=-1)

@@ -31,22 +31,25 @@
 // 128, causal) dq 103.1 GFLOP, 0.1043 ms, and dk/dv 137.5 GFLOP, 0.1390
 // ms, at 989 TFLOP/s bf16.
 //
-// flash_bwd_dq, bfloat16: flash_bwd_dq_tc_kernel, on the tensor cores
-// (tc_common.cuh), the forward's machinery.  One block of two warpgroups
+// flash_bwd_dq, bfloat16 and float16: flash_bwd_dq_tc_kernel<T>, on the
+// tensor cores (tc_common.cuh), the forward's machinery (T: bf16 or fp16;
+// the two share every line but the products' type strings and the
+// rounding of the A fragments).  One block of two warpgroups
 // per (batch * head, tile of 128 query rows), heaviest tiles first; Q and
-// dO stay bf16 in shared memory, D and lse in registers; K and V tiles of
+// dO stay T in shared memory, D and lse in registers; K and V tiles of
 // 64 keys come in by cp.async, double-buffered (hd 256: one stage, for
 // shared memory).  S = Q K^T and dP = dO V^T run on wgmma from shared
-// memory; dS is rounded to bf16 in registers, as the TPU kernel casts ds
+// memory; dS is rounded to T in registers, as the TPU kernel casts ds
 // to k's type, and dQ += dS K runs on wgmma with dS as the register A
 // operand and the K tile read transposed.
 //
-// flash_bwd_dkv, bfloat16: flash_bwd_dkv_tc_kernel, on the tensor cores
+// flash_bwd_dkv, bfloat16 and float16: flash_bwd_dkv_tc_kernel<T>, on the
+// tensor cores
 // with the same machinery, key-stationary and transposed.  One block of
 // two warpgroups per (batch * KV head, tile of 128 keys), each warpgroup
 // owning 64 keys; key tiles are launched in ascending order, since under
 // the causal mask key tile 0 is seen by every query and is the heaviest.
-// The K and V tiles are loaded once and stay bf16 (SW128) in shared
+// The K and V tiles are loaded once and stay T (SW128) in shared
 // memory.  The block loops over the query heads of its GQA group and, for
 // each, over the query tiles of 64 rows from the causal diagonal on (a
 // warpgroup skips the tiles none of whose rows sees its keys), summing dK
@@ -79,13 +82,15 @@
 // recomputing S^T and dP^T (their products over the whole hd): 1.5x the
 // operations of one block.
 //
-// Precision.  bf16 takes the tensor-core kernels or raises, and never
-// drops to an FMA kernel.  The JAX _bwd_dkv_kernel keeps p_v and ds in
+// Precision.  bf16 and fp16 take the tensor-core kernels or raise, and never
+// drop to an FMA kernel.  The JAX _bwd_dkv_kernel keeps p_v and ds in
 // fp32 for its second products (pallas_flash.py:455-472); in interpret
 // mode on a CPU they are not rounded, while on the TPU's MXU at default
 // precision they would be rounded to bf16.  This kernel rounds P_drop^T
-// and dS^T to bf16 in registers (the A operand), as FlashAttention-2/3
-// do, and accumulates in fp32.
+// and dS^T to T in registers (the A operand), as FlashAttention-2/3
+// do, and accumulates in fp32.  One fp16 rounding is 2^-11 relative
+// against bf16's 2^-8; fp16's range (6.1e-5 .. 65504 normal) holds P in
+// [0, 1] and dS at the scales of a loss-scaled gradient.
 //
 // flash_bwd_dq, float32, and flash_bwd_dkv, float32: fp32 FMAs on the
 // CUDA cores, 256 threads per block, kept by design as the precision
@@ -108,7 +113,7 @@ struct BwdArgs {
   const float* lse;
   const int* mask;        // [B, Sk] int32, or null
   void *dq, *dk, *dv;
-  void* stats;            // bf16 dk/dv: the pre-pass's row statistics
+  void* stats;            // bf16 / fp16 dk/dv: the row statistics
   int B, Sq, Sk, nh, nkv, causal;
   float scale;
   unsigned seed, thresh;  // dropout on when thresh > 0
@@ -361,7 +366,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd_dq, bfloat16 on the tensor cores
+// flash_bwd_dq, bfloat16 and float16 on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int kDqRows = 128;     // query rows per block: two warpgroups
 constexpr int kDqKeys = tc::kKeys;
@@ -392,7 +397,7 @@ struct DqTcSmem {
   static constexpr int bytes = delta + rows * 4 + tc::kGroupBytes;
 };
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
     flash_bwd_dq_tc_kernel(const BwdArgs a, float scale_log2) {
   using S = DqTcSmem<D>;
@@ -417,16 +422,16 @@ __global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
   const bool drop = a.thresh > 0;
   const unsigned word = dropout_word(a.seed, bh);
   const float inv_keep = 1.f / a.keep_p;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO);
-  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o);
+  const T* q = static_cast<const T*>(a.q);
+  const T* dO = static_cast<const T*>(a.dO);
+  const T* o = static_cast<const T*>(a.o);
   auto load_kv = [&](int st, int k0) {
     tc::load_kv_tile<D, kDqThreads>(
         tc::smem_addr(base + S::k + st * S::kv_stage),
         tc::smem_addr(base + S::v + st * S::kv_stage),
         reinterpret_cast<int*>(base + S::kok) + st * kDqKeys,
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v), a.mask, b, Sk, a.nkv, hk, k0);
+        static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.mask, b,
+        Sk, a.nkv, hk, k0);
   };
   auto qrow = [=](int r) -> long long {
     const int qp = q0 + r;
@@ -451,12 +456,12 @@ __global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
       for (int c = half * (D / 2); c < (half + 1) * (D / 2); c += 8) {
         const uint4 x = *reinterpret_cast<const uint4*>(dO + off + c);
         const uint4 y = *reinterpret_cast<const uint4*>(o + off + c);
-        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+        const uint32_t* xp = reinterpret_cast<const uint32_t*>(&x);
+        const uint32_t* yp = reinterpret_cast<const uint32_t*>(&y);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 xf = __bfloat1622float2(xp[e]);
-          const float2 yf = __bfloat1622float2(yp[e]);
+          const float2 xf = tc::unpack2<T>(xp[e]);
+          const float2 yf = tc::unpack2<T>(yp[e]);
           sum = fmaf(xf.x, yf.x, sum);
           sum = fmaf(xf.y, yf.y, sum);
         }
@@ -506,14 +511,16 @@ __global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
-      tc::wgmma_ss(s, tc::desc(qa + cb * kDqRows * tc::kRowBytes + ko),
-                   tc::desc(ka + cb * kDqKeys * tc::kRowBytes + ko), kk > 0);
+      tc::wgmma_ss<T>(s, tc::desc(qa + cb * kDqRows * tc::kRowBytes + ko),
+                      tc::desc(ka + cb * kDqKeys * tc::kRowBytes + ko),
+                      kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
-      tc::wgmma_ss(dp, tc::desc(da + cb * kDqRows * tc::kRowBytes + ko),
-                   tc::desc(va + cb * kDqKeys * tc::kRowBytes + ko), kk > 0);
+      tc::wgmma_ss<T>(dp, tc::desc(da + cb * kDqRows * tc::kRowBytes + ko),
+                      tc::desc(va + cb * kDqKeys * tc::kRowBytes + ko),
+                      kk > 0);
     }
     tc::wgmma_commit();
     tc::wgmma_wait_all();
@@ -539,15 +546,15 @@ __global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
     }
     uint32_t dsa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) tc::acc_to_a(s, kk, dsa[kk]);
+    for (int kk = 0; kk < 4; ++kk) tc::acc_to_a<T>(s, kk, dsa[kk]);
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
-        tc::wgmma_rs_t(dq[nb], dsa[kk],
-                       tc::desc(ka + nb * kDqKeys * tc::kRowBytes +
-                                kk * 16 * tc::kRowBytes));
+        tc::wgmma_rs_t<T>(dq[nb], dsa[kk],
+                          tc::desc(ka + nb * kDqKeys * tc::kRowBytes +
+                                   kk * 16 * tc::kRowBytes));
     tc::wgmma_commit();
     tc::wgmma_wait_all();
 #pragma unroll
@@ -557,14 +564,13 @@ __global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
   }
 
   const float one[2] = {1.f, 1.f};
-  tc::store_rows(static_cast<__nv_bfloat16*>(a.dq), dq, row, one, Sq, b, nh,
-                 h, t);
+  tc::store_rows(static_cast<T*>(a.dq), dq, row, one, Sq, b, nh, h, t);
 }
 
-template <int D>
+template <class T, int D>
 cudaError_t launch_dq_tc(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = DqTcSmem<D>::bytes;
-  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  auto kernel = flash_bwd_dq_tc_kernel<T, D>;
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid(a.B * a.nh, (a.Sq + kDqRows - 1) / kDqRows);
@@ -573,23 +579,24 @@ cudaError_t launch_dq_tc(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 dq takes the tensor-core kernel or nothing (an hd it does not take
-// raises; it never drops to the FMA kernel).
+// bf16 and fp16 dq take the tensor-core kernel or nothing (an hd it does
+// not take raises; they never drop to the FMA kernel).
+template <class T>
 cudaError_t dispatch_dq_tc(int hd, const BwdArgs& a, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_dq_tc<64>(a, stream);
+      return launch_dq_tc<T, 64>(a, stream);
     case 128:
-      return launch_dq_tc<128>(a, stream);
+      return launch_dq_tc<T, 128>(a, stream);
     case 256:
-      return launch_dq_tc<256>(a, stream);
+      return launch_dq_tc<T, 256>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd_dkv, bfloat16 on the tensor cores
+// flash_bwd_dkv, bfloat16 and float16 on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int kDkvKeys = 128;    // keys per block: two warpgroups of 64
 constexpr int kDkvRows = 64;     // query rows per step
@@ -607,7 +614,7 @@ __host__ __device__ constexpr int dkv_cols(int D) {
 // and (0, 0) up to Sq_pad (Sq rounded up to 64): the start values of the
 // kernel's S^T and dP^T accumulators.  Eight lanes per row, each reading
 // 16-byte chunks of dO and out.
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_rowstats_kernel(const BwdArgs a, float2* __restrict__ stats,
                               int Sq_pad) {
@@ -616,18 +623,18 @@ __global__ void __launch_bounds__(256)
   float sum = 0.f;
   if (i < a.Sq) {
     const long long off = ((b * (long long)a.Sq + i) * a.nh + h) * D;
-    const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO) + off;
-    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o) + off;
+    const T* dO = static_cast<const T*>(a.dO) + off;
+    const T* o = static_cast<const T*>(a.o) + off;
 #pragma unroll
     for (int c = sub * 8; c < D; c += 64) {
       const uint4 x = *reinterpret_cast<const uint4*>(dO + c);
       const uint4 y = *reinterpret_cast<const uint4*>(o + c);
-      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+      const uint32_t* xp = reinterpret_cast<const uint32_t*>(&x);
+      const uint32_t* yp = reinterpret_cast<const uint32_t*>(&y);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 xf = __bfloat1622float2(xp[e]);
-        const float2 yf = __bfloat1622float2(yp[e]);
+        const float2 xf = tc::unpack2<T>(xp[e]);
+        const float2 yf = tc::unpack2<T>(yp[e]);
         sum = fmaf(xf.x, yf.x, sum);
         sum = fmaf(xf.y, yf.y, sum);
       }
@@ -662,7 +669,7 @@ struct DkvTcSmem {
   static constexpr int bytes = kok + kDkvKeys * 4 + tc::kGroupBytes;
 };
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     flash_bwd_dkv_tc_kernel(const BwdArgs a, int Sq_pad, float scale_log2) {
   using S = DkvTcSmem<D>;
@@ -691,8 +698,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int n_it = group * per_head;        // (head, query tile) steps
   const bool drop = a.thresh > 0;
   const float inv_keep = 1.f / a.keep_p;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO);
+  const T* q = static_cast<const T*>(a.q);
+  const T* dO = static_cast<const T*>(a.dO);
   const float2* stats = static_cast<const float2*>(a.stats);
   int* kok = reinterpret_cast<int*>(base + S::kok);
 
@@ -725,11 +732,11 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       return (row * nkv + hk) * D;
     };
     tc::load_tile<D, kDkvThreads>(tc::smem_addr(base + S::k),
-                                  static_cast<const __nv_bfloat16*>(a.k),
-                                  kDkvKeys, krow);
+                                  static_cast<const T*>(a.k), kDkvKeys,
+                                  krow);
     tc::load_tile<D, kDkvThreads>(tc::smem_addr(base + S::v),
-                                  static_cast<const __nv_bfloat16*>(a.v),
-                                  kDkvKeys, krow);
+                                  static_cast<const T*>(a.v), kDkvKeys,
+                                  krow);
     if (tid < kDkvKeys) kok[tid] = krow(tid) >= 0;
     load_q(0, 0);
     tc::cp_async_commit();
@@ -781,14 +788,14 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
-      tc::wgmma_ss(s, tc::desc(ka + cb * kDkvKeys * tc::kRowBytes + ko),
-                   tc::desc(qa + cb * kDkvRows * tc::kRowBytes + ko), 1);
+      tc::wgmma_ss<T>(s, tc::desc(ka + cb * kDkvKeys * tc::kRowBytes + ko),
+                      tc::desc(qa + cb * kDkvRows * tc::kRowBytes + ko), 1);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
-      tc::wgmma_ss(dp, tc::desc(va + cb * kDkvKeys * tc::kRowBytes + ko),
-                   tc::desc(da + cb * kDkvRows * tc::kRowBytes + ko), 1);
+      tc::wgmma_ss<T>(dp, tc::desc(va + cb * kDkvKeys * tc::kRowBytes + ko),
+                      tc::desc(da + cb * kDkvRows * tc::kRowBytes + ko), 1);
     }
     tc::wgmma_commit();
     tc::wgmma_wait_all();
@@ -819,8 +826,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     uint32_t pa[4][4], sa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      tc::acc_to_a(s, kk, pa[kk]);
-      tc::acc_to_a(dp, kk, sa[kk]);
+      tc::acc_to_a<T>(s, kk, pa[kk]);
+      tc::acc_to_a<T>(dp, kk, sa[kk]);
     }
     // dV += P_drop^T dO, dK += dS^T Q: the [query][d] tiles read
     // transposed, this block's column blocks c0 .. c0 + NC - 1
@@ -829,16 +836,16 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nb = 0; nb < NC; ++nb)
-        tc::wgmma_rs_t(dv[nb], pa[kk],
-                       tc::desc(da + (c0 + nb) * kDkvRows * tc::kRowBytes +
-                                kk * 16 * tc::kRowBytes));
+        tc::wgmma_rs_t<T>(dv[nb], pa[kk],
+                          tc::desc(da + (c0 + nb) * kDkvRows * tc::kRowBytes +
+                                   kk * 16 * tc::kRowBytes));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nb = 0; nb < NC; ++nb)
-        tc::wgmma_rs_t(dk[nb], sa[kk],
-                       tc::desc(qa + (c0 + nb) * kDkvRows * tc::kRowBytes +
-                                kk * 16 * tc::kRowBytes));
+        tc::wgmma_rs_t<T>(dk[nb], sa[kk],
+                          tc::desc(qa + (c0 + nb) * kDkvRows * tc::kRowBytes +
+                                   kk * 16 * tc::kRowBytes));
     tc::wgmma_commit();
     tc::wgmma_wait_all();
 #pragma unroll
@@ -855,22 +862,22 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 
   // keys past Sk are not written; every other key is, zeros included
   const float one[2] = {1.f, 1.f};
-  tc::store_rows<NC, D>(static_cast<__nv_bfloat16*>(a.dk), dk, key, one, Sk,
-                        b, nkv, hk, t, c0 * 64);
-  tc::store_rows<NC, D>(static_cast<__nv_bfloat16*>(a.dv), dv, key, one, Sk,
-                        b, nkv, hk, t, c0 * 64);
+  tc::store_rows<NC, D>(static_cast<T*>(a.dk), dk, key, one, Sk, b, nkv, hk,
+                        t, c0 * 64);
+  tc::store_rows<NC, D>(static_cast<T*>(a.dv), dv, key, one, Sk, b, nkv, hk,
+                        t, c0 * 64);
 }
 
-template <int D>
+template <class T, int D>
 cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
   const int Sq_pad = (a.Sq + kDkvRows - 1) / kDkvRows * kDkvRows;
-  flash_bwd_rowstats_kernel<D><<<dim3(Sq_pad / 32, a.B * a.nh), 256, 0,
+  flash_bwd_rowstats_kernel<T, D><<<dim3(Sq_pad / 32, a.B * a.nh), 256, 0,
                                  stream>>>(a, static_cast<float2*>(a.stats),
                                            Sq_pad);
   const cudaError_t pre = cudaGetLastError();
   if (pre != cudaSuccess) return pre;
   const size_t smem = DkvTcSmem<D>::bytes;
-  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  auto kernel = flash_bwd_dkv_tc_kernel<T, D>;
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid(a.B * a.nkv * (D / dkv_cols(D)),
@@ -879,16 +886,17 @@ cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 dk/dv takes the tensor-core kernel or nothing, like dq.
+// bf16 and fp16 dk/dv take the tensor-core kernel or nothing, like dq.
+template <class T>
 cudaError_t dispatch_dkv_tc(int hd, const BwdArgs& a, cudaStream_t stream) {
   if (a.stats == nullptr) return cudaErrorInvalidValue;
   switch (hd) {
     case 64:
-      return launch_dkv_tc<64>(a, stream);
+      return launch_dkv_tc<T, 64>(a, stream);
     case 128:
-      return launch_dkv_tc<128>(a, stream);
+      return launch_dkv_tc<T, 128>(a, stream);
     case 256:
-      return launch_dkv_tc<256>(a, stream);
+      return launch_dkv_tc<T, 256>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -937,7 +945,11 @@ int run_bwd(BwdArgs a, int hd, int dtype, bool dkv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1)
-    err = dkv ? dispatch_dkv_tc(hd, a, s) : dispatch_dq_tc(hd, a, s);
+    err = dkv ? dispatch_dkv_tc<__nv_bfloat16>(hd, a, s)
+              : dispatch_dq_tc<__nv_bfloat16>(hd, a, s);
+  else if (dtype == 2)
+    err = dkv ? dispatch_dkv_tc<__half>(hd, a, s)
+              : dispatch_dq_tc<__half>(hd, a, s);
   else if (dtype == 0)
     err = dkv ? dispatch_bwd<float, true>(hd, a, s)
               : dispatch_bwd<float, false>(hd, a, s);
@@ -948,8 +960,9 @@ int run_bwd(BwdArgs a, int hd, int dtype, bool dkv, void* stream) {
 
 // q, out, dO, dq [B, Sq, nh, hd]; k, v, dk, dv [B, Sk, nkv, hd]; lse
 // [B, nh, Sq] fp32; mask [B, Sk] int32 or null; all contiguous on the
-// device.  dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core
-// kernels).  stats (bf16 dk/dv only, else null): scratch of
+// device.  dtype: 0 = float32 (FMA kernels), 1 = bfloat16, 2 = float16
+// (tensor-core kernels); any other code is refused.  stats (bf16 and
+// fp16 dk/dv only, else null): scratch of
 // [B, nh, Sq rounded up to 64, 2] fp32 for the row statistics.
 // seed, thresh and keep_p are the forward's (dropout on when thresh > 0).
 // Each returns the cudaError_t of its launch (0 = success).

@@ -24,15 +24,17 @@
 // per byte, so arithmetic bounds it: 68.75 GFLOP at the training shape
 // (B 4, S 2048, nh 16, hd 128, causal), 0.0695 ms at 989 TFLOP/s bf16.
 //
-// bfloat16: flash_fwd_tc_kernel, on the tensor cores (tc_common.cuh).
+// bfloat16 and float16: flash_fwd_tc_kernel<T>, on the tensor cores
+// (tc_common.cuh); the two types share every line but the products' type
+// strings and the rounding of P (T below is bf16 or fp16).
 // One block of two warpgroups per (batch * head, tile of 128 query rows),
 // each warpgroup owning 64 rows; the query tiles are launched heaviest
-// (last, under the causal diagonal) first.  Q stays bf16 in shared memory
+// (last, under the causal diagonal) first.  Q stays T in shared memory
 // for the whole walk; K and V tiles of 64 keys come in by 16-byte cp.async
 // into a two-stage ring, so that tile j + 1 is in flight while tile j is
 // multiplied.  S = Q K^T and O += P V run on wgmma (m64n64k16, fp32
-// accumulation); P is rounded to bf16 in registers, as the TPU kernel
-// casts p to v's type, and fed as the register A operand.  The softmax
+// accumulation); P is rounded to T in registers, as the TPU kernel casts
+// p to v's type, and fed as the register A operand.  The softmax
 // state (row max, row sum) lives in registers, reduced over the four lanes
 // that share a row; exp2 with log2(e) / sqrt(hd) folded into one multiply.
 // Masks run only on the tiles that need them (the causal diagonal, the
@@ -111,7 +113,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
+// bfloat16 and float16 on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int kTcRows = 128;     // query rows per block: two warpgroups
 constexpr int kTcKeys = tc::kKeys;
@@ -135,12 +137,10 @@ struct FwdTcSmem {
 // one another's softmax with their products), one at hd 256.
 constexpr int fwd_tc_min_blocks(int D) { return D <= 128 ? 2 : 1; }
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kTcThreads, fwd_tc_min_blocks(D))
-    flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out,
+    flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out,
                         float* __restrict__ lse, const int* __restrict__ mask,
                         int Sq, int Sk, int nh, int nkv, int causal,
                         float scale_log2, Dropout drop) {
@@ -207,8 +207,9 @@ __global__ void __launch_bounds__(kTcThreads, fwd_tc_min_blocks(D))
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
-      tc::wgmma_ss(s, tc::desc(qa + cb * kTcRows * tc::kRowBytes + ko),
-                   tc::desc(ka + cb * kTcKeys * tc::kRowBytes + ko), kk > 0);
+      tc::wgmma_ss<T>(s, tc::desc(qa + cb * kTcRows * tc::kRowBytes + ko),
+                      tc::desc(ka + cb * kTcKeys * tc::kRowBytes + ko),
+                      kk > 0);
     }
     tc::wgmma_commit();
     tc::wgmma_wait_all();
@@ -262,15 +263,15 @@ __global__ void __launch_bounds__(kTcThreads, fwd_tc_min_blocks(D))
 
     uint32_t pa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) tc::acc_to_a(s, kk, pa[kk]);
+    for (int kk = 0; kk < 4; ++kk) tc::acc_to_a<T>(s, kk, pa[kk]);
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
-        tc::wgmma_rs_t(o[nb], pa[kk],
-                       tc::desc(va + nb * kTcKeys * tc::kRowBytes +
-                                kk * 16 * tc::kRowBytes));
+        tc::wgmma_rs_t<T>(o[nb], pa[kk],
+                          tc::desc(va + nb * kTcKeys * tc::kRowBytes +
+                                   kk * 16 * tc::kRowBytes));
     tc::wgmma_commit();
     tc::wgmma_wait_all();
 #pragma unroll
@@ -298,22 +299,20 @@ __global__ void __launch_bounds__(kTcThreads, fwd_tc_min_blocks(D))
   tc::store_rows(out, o, row, inv, Sq, b, nh, h, t);
 }
 
-template <int D>
+template <class T, int D>
 cudaError_t launch_flash_tc(const void* q, const void* k, const void* v,
                             void* out, float* lse, const int* mask, int B,
                             int Sq, int Sk, int nh, int nkv, int causal,
                             Dropout drop, cudaStream_t stream) {
   const size_t smem = FwdTcSmem<D>::bytes;
-  auto kernel = flash_fwd_tc_kernel<D>;
+  auto kernel = flash_fwd_tc_kernel<T, D>;
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid(B * nh, (Sq + kTcRows - 1) / kTcRows);
   kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), lse, mask, Sq, Sk, nh, nkv, causal,
-      1.4426950408889634f / sqrtf((float)D), drop);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, mask, Sq, Sk, nh,
+      nkv, causal, 1.4426950408889634f / sqrtf((float)D), drop);
   return cudaGetLastError();
 }
 
@@ -337,23 +336,24 @@ cudaError_t dispatch_flash_f32(int hd, const void* q, const void* k,
   }
 }
 
-// bf16 takes the tensor-core kernel or nothing: an hd it does not take
-// raises, it never drops to the FMA kernel
-cudaError_t dispatch_flash_bf16(int hd, const void* q, const void* k,
-                                const void* v, void* out, float* lse,
-                                const int* mask, int B, int Sq, int Sk,
-                                int nh, int nkv, int causal, Dropout drop,
-                                cudaStream_t stream) {
+// bf16 and fp16 take the tensor-core kernel or nothing: an hd it does
+// not take raises, they never drop to the FMA kernel
+template <class T>
+cudaError_t dispatch_flash_tc(int hd, const void* q, const void* k,
+                              const void* v, void* out, float* lse,
+                              const int* mask, int B, int Sq, int Sk, int nh,
+                              int nkv, int causal, Dropout drop,
+                              cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_flash_tc<64>(q, k, v, out, lse, mask, B, Sq, Sk, nh, nkv,
-                                 causal, drop, stream);
+      return launch_flash_tc<T, 64>(q, k, v, out, lse, mask, B, Sq, Sk, nh,
+                                    nkv, causal, drop, stream);
     case 128:
-      return launch_flash_tc<128>(q, k, v, out, lse, mask, B, Sq, Sk, nh,
-                                  nkv, causal, drop, stream);
+      return launch_flash_tc<T, 128>(q, k, v, out, lse, mask, B, Sq, Sk, nh,
+                                     nkv, causal, drop, stream);
     case 256:
-      return launch_flash_tc<256>(q, k, v, out, lse, mask, B, Sq, Sk, nh,
-                                  nkv, causal, drop, stream);
+      return launch_flash_tc<T, 256>(q, k, v, out, lse, mask, B, Sq, Sk, nh,
+                                     nkv, causal, drop, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -363,7 +363,8 @@ cudaError_t dispatch_flash_bf16(int hd, const void* q, const void* k,
 
 // q [B, Sq, nh, hd], k/v [B, Sk, nkv, hd], out like q, lse [B, nh, Sq]
 // fp32; all contiguous on the device.  mask: [B, Sk] int32 or null.
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16, 2 = float16 (the
+// tensor-core kernel); any other code is refused.
 // Dropout is on when thresh > 0: keep when the bits of (seed, bh, row,
 // col) are below thresh, kept p / keep_p.  Returns the cudaError_t of the
 // launch (0 = success).
@@ -383,8 +384,12 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   drop.keep_p = keep_p;
   drop.on = thresh > 0;
   cudaError_t err =
-      dtype == 1   ? ptt::dispatch_flash_bf16(hd, q, k, v, out, l, m, B, Sq,
-                                              Sk, nh, nkv, causal, drop, s)
+      dtype == 1   ? ptt::dispatch_flash_tc<__nv_bfloat16>(
+                       hd, q, k, v, out, l, m, B, Sq, Sk, nh, nkv, causal,
+                       drop, s)
+      : dtype == 2 ? ptt::dispatch_flash_tc<__half>(hd, q, k, v, out, l, m, B,
+                                                    Sq, Sk, nh, nkv, causal,
+                                                    drop, s)
       : dtype == 0 ? ptt::dispatch_flash_f32(hd, q, k, v, out, l, m, B, Sq,
                                              Sk, nh, nkv, causal, drop, s)
                    : cudaErrorInvalidValue;

@@ -38,22 +38,37 @@
 //
 // Launch 2, `fused_update_kernel`: reads found_inf, the learning rate, the
 // inverse scale and the applied-step count from device memory (so the
-// pair can be captured in a CUDA graph) and returns at once on overflow:
-// nothing is written.  Otherwise, per element: unscale, clip (the
+// pair can be captured in a CUDA graph).  Per element: unscale, clip (the
 // tensor's coefficient, or a clamp for ClipGradByValue), then the rule on
-// the float32 weight (the master under O2, whose bfloat16 copy is written
-// beside it).  Adam's bias correction uses the applied-step count.
+// the float32 weight (the master under O2, whose 16-bit copy is written
+// beside it).  Adam's bias correction uses the applied-step count.  With
+// a scaler it also writes the unscaled gradient g * (1 / scale), rounded
+// to the gradient's type, back over g: the JAX program returns those into
+// p.grad on every scaler step, applied or skipped ("legacy parity: grads
+// end up unscaled", paddle_tpu/optimizer/fused.py:399-401), so after a
+// step p.grad is the same on every route.  On overflow (found_inf) the
+// rule is skipped: without a scaler nothing is written (found_inf is
+// never set there), with one only that gradient write runs.
+//
+// Types: float32 parameters (O1), or bfloat16 or float16 parameters with
+// float32 masters (O2); a gradient has its parameter's type.  The
+// unscaled and the global-norm-clipped gradient are rounded to that type,
+// as the JAX program computes them in it.
 //
 // What bounds it: bytes.  Launch 1 reads each gradient once; launch 2
 // reads p, g, m, v and writes p, m, v: 4 + 28 bytes a parameter in
-// float32 (O2: g 2, master, m, v 12 read; master, m, v 12 and p 2
-// written).  GPT-3 1.3B's 1.32 G parameters: 42 GB, 12.6 ms at 3.35 TB/s.
-// Loads are 16-byte vectors of 4 elements (8 bytes for bfloat16) with a
-// scalar tail; a tensor whose pointers are not 16-byte aligned takes the
-// scalar loop.
+// float32, and 4 more with a scaler, the gradient written back (O2: g 2,
+// master, m, v 12 read; master, m, v 12, p 2 and with a scaler g 2
+// written).  GPT-3 1.3B's 1.32 G parameters: 42 GB, 12.6 ms at 3.35 TB/s;
+// 47 GB, 14.1 ms with a scaler.  Loads are 16-byte vectors of 4 elements
+// (8 bytes for a 16-bit type) with a scalar tail; a tensor whose pointers
+// are not 16-byte aligned takes the scalar loop.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 
@@ -65,7 +80,8 @@ constexpr int kUploadWords = 480;       // 3840 bytes of kernel arguments
 constexpr int kP = 0, kM = 1, kV = 2, kMaster = 3, kNumel = 4,
               kChunkBegin = 5, kHyper = 6, kFlags = 7;
 // flags
-constexpr long long kPBf16 = 1, kGBf16 = 2, kNeedClip = 4, kAligned = 8;
+constexpr long long kPBf16 = 1, kGBf16 = 2, kNeedClip = 4, kAligned = 8,
+                    kPF16 = 16, kGF16 = 32;
 // clip kinds
 constexpr int kClipNone = 0, kClipGlobal = 1, kClipNorm = 2, kClipValue = 3;
 // rules
@@ -84,8 +100,15 @@ __global__ void table_upload_kernel(UploadArgs a, long long* dst, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = a.w[i];
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// x rounded to the type T (round to nearest even), back as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__float2half_rn(x));
+  else
+    return x;
 }
 
 __device__ __forceinline__ float lo_float(long long w) {
@@ -124,6 +147,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
 }
 
+__device__ __forceinline__ void load4(const __half* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
 __device__ __forceinline__ void store4(float* p, const float* f) {
   *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
 }
@@ -137,13 +167,28 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+__device__ __forceinline__ void store4(__half* p, const float* f) {
+  __half2 a = __floats2half2_rn(f[0], f[1]);
+  __half2 b = __floats2half2_rn(f[2], f[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load1(const __half* p) {
+  return __half2float(*p);
+}
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store1(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // Deterministic block sums: warp shuffles in a fixed order, then warp 0
@@ -171,7 +216,6 @@ __device__ __forceinline__ T block_sum(T x, T* smem) {
 template <typename GT>
 __device__ void chunk_norm(const GT* g, long long start, long long end,
                            bool aligned, float inv, float& sq, int& bad) {
-  constexpr bool kBf16 = sizeof(GT) == 2;
   long long i = start + 4 * (long long)threadIdx.x;
   const long long vend = aligned ? start + ((end - start) & ~3ll) : start;
   for (; i < vend; i += 4 * (long long)blockDim.x) {
@@ -179,15 +223,13 @@ __device__ void chunk_norm(const GT* g, long long start, long long end,
     load4(g + i, f);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      float u = f[k] * inv;
-      if (kBf16) u = round_bf16(u);
+      const float u = round_to<GT>(f[k] * inv);
       bad |= !isfinite(u);
       sq += u * u;
     }
   }
   for (long long j = vend + threadIdx.x; j < end; j += blockDim.x) {
-    float u = load1(g + j) * inv;
-    if (kBf16) u = round_bf16(u);
+    const float u = round_to<GT>(load1(g + j) * inv);
     bad |= !isfinite(u);
     sq += u * u;
   }
@@ -218,7 +260,10 @@ __global__ void __launch_bounds__(kFusedThreads)
     int bad = 0;
     if (flags & kGBf16)
       chunk_norm(reinterpret_cast<const __nv_bfloat16*>(gptr[t]), start, end,
-                 aligned, round_bf16(inv), sq, bad);
+                 aligned, round_to<__nv_bfloat16>(inv), sq, bad);
+    else if (flags & kGF16)
+      chunk_norm(reinterpret_cast<const __half*>(gptr[t]), start, end,
+                 aligned, round_to<__half>(inv), sq, bad);
     else
       chunk_norm(reinterpret_cast<const float*>(gptr[t]), start, end,
                  aligned, inv, sq, bad);
@@ -301,19 +346,14 @@ struct Rule {
   float b1, b2, eps, mu, lo, hi, lr, wd, coef, inv_g, bc1, bc2;
 };
 
-// One element: the gradient u (raw), the float32 weight w and states m,
-// v; updates w, m, v in place.
-template <bool kGBf16>
+// One element: the unscaled gradient u, the float32 weight w and states
+// m, v; updates w, m, v in place.  GT: the gradient's type.
+template <typename GT>
 __device__ __forceinline__ void update1(const Rule& r, float u, float& w,
                                         float& m, float& v) {
-  if (r.use_scaler) {
-    u = u * r.inv_g;
-    if (kGBf16) u = round_bf16(u);
-  }
   if (r.need_clip) {
     if (r.clip_kind == kClipGlobal) {
-      u = u * r.coef;
-      if (kGBf16) u = round_bf16(u);
+      u = round_to<GT>(u * r.coef);
     } else if (r.clip_kind == kClipNorm) {
       u = u * r.coef;
     } else if (r.clip_kind == kClipValue) {
@@ -340,13 +380,14 @@ __device__ __forceinline__ void update1(const Rule& r, float u, float& w,
   }
 }
 
-// One chunk of one tensor.  PT: the parameter's type (bfloat16 only with
-// a float32 master); GT: the gradient's.
+// One chunk of one tensor.  PT: the parameter's type (bfloat16 or
+// float16 only with a float32 master); GT: the gradient's.  With a scaler
+// the unscaled gradient goes back over g; `skip` (found_inf) runs only
+// that write.
 template <typename PT, typename GT>
 __device__ void update_chunk(const Rule& r, const long long* d,
-                             const GT* __restrict__ g, long long start,
-                             long long end) {
-  constexpr bool kGB = sizeof(GT) == 2;
+                             GT* __restrict__ g, long long start,
+                             long long end, bool skip) {
   PT* p = reinterpret_cast<PT*>(d[kP]);
   float* m = reinterpret_cast<float*>(d[kM]);
   float* v = reinterpret_cast<float*>(d[kV]);
@@ -360,21 +401,33 @@ __device__ void update_chunk(const Rule& r, const long long* d,
     float gf[4], w[4], mf[4] = {0.f, 0.f, 0.f, 0.f},
                        vf[4] = {0.f, 0.f, 0.f, 0.f};
     load4(g + i, gf);
+    if (r.use_scaler) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) gf[k] = round_to<GT>(gf[k] * r.inv_g);
+      store4(g + i, gf);
+    }
+    if (skip) continue;
     if (master != nullptr) load4(master + i, w);
     else load4(p + i, w);
     if (has_m) load4(m + i, mf);
     if (has_v) load4(v + i, vf);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) update1<kGB>(r, gf[k], w[k], mf[k], vf[k]);
+    for (int k = 0; k < 4; ++k) update1<GT>(r, gf[k], w[k], mf[k], vf[k]);
     if (master != nullptr) store4(master + i, w);
     store4(p + i, w);
     if (has_m) store4(m + i, mf);
     if (has_v) store4(v + i, vf);
   }
   for (long long j = vend + threadIdx.x; j < end; j += blockDim.x) {
+    float u = load1(g + j);
+    if (r.use_scaler) {
+      u = round_to<GT>(u * r.inv_g);
+      store1(g + j, u);
+    }
+    if (skip) continue;
     float w = master != nullptr ? master[j] : load1(p + j);
     float mj = has_m ? m[j] : 0.f, vj = has_v ? v[j] : 0.f;
-    update1<kGB>(r, load1(g + j), w, mj, vj);
+    update1<GT>(r, u, w, mj, vj);
     if (master != nullptr) master[j] = w;
     store1(p + j, w);
     if (has_m) m[j] = mj;
@@ -392,7 +445,10 @@ __global__ void __launch_bounds__(kFusedThreads)
                         int decoupled,
                         int nesterov, float b1, float b2, float eps, float mu,
                         int clip_kind, float lo, float hi, int use_scaler) {
-  if (wsi[kFound]) return;                 // overflow: the step is skipped
+  // overflow: the step is skipped; a scaler's unscaled gradients are
+  // still written (found_inf is set only with a scaler)
+  const bool skip = wsi[kFound] != 0;
+  if (skip && !use_scaler) return;
   const long long b = blockIdx.x;
   const int t = find_tensor(desc, n_tensors, b);
   const long long* d = desc + (size_t)t * kDescWords;
@@ -416,23 +472,22 @@ __global__ void __launch_bounds__(kFusedThreads)
   r.lr = wsf[kLr] * hi_float(d[kHyper]);
   r.wd = lo_float(d[kHyper]);
   r.coef = coef[t];
-  r.inv_g = (flags & kGBf16) ? round_bf16(wsf[kInv]) : wsf[kInv];
+  r.inv_g = (flags & kGBf16)  ? round_to<__nv_bfloat16>(wsf[kInv])
+            : (flags & kGF16) ? round_to<__half>(wsf[kInv])
+                              : wsf[kInv];
   r.bc1 = 1.f - powf(b1, step);
   r.bc2 = 1.f - powf(b2, step);
-  const bool pb = (flags & kPBf16) != 0, gb = (flags & kGBf16) != 0;
-  const void* g = reinterpret_cast<const void*>(gptr[t]);
-  if (!pb && !gb)
-    update_chunk<float, float>(r, d, static_cast<const float*>(g), start,
-                               end);
-  else if (!pb && gb)
-    update_chunk<float, __nv_bfloat16>(
-        r, d, static_cast<const __nv_bfloat16*>(g), start, end);
-  else if (pb && gb)
+  // a gradient has its parameter's type (the table's flags set both)
+  void* g = reinterpret_cast<void*>(gptr[t]);
+  if (flags & kPBf16)
     update_chunk<__nv_bfloat16, __nv_bfloat16>(
-        r, d, static_cast<const __nv_bfloat16*>(g), start, end);
+        r, d, static_cast<__nv_bfloat16*>(g), start, end, skip);
+  else if (flags & kPF16)
+    update_chunk<__half, __half>(r, d, static_cast<__half*>(g), start, end,
+                                 skip);
   else
-    update_chunk<__nv_bfloat16, float>(r, d, static_cast<const float*>(g),
-                                       start, end);
+    update_chunk<float, float>(r, d, static_cast<float*>(g), start, end,
+                               skip);
 }
 
 }  // namespace ptt
@@ -489,7 +544,8 @@ extern "C" int ptt_fused_norm(const void* desc, const void* gptr,
 }
 
 // Launch 2 (see the head of the file).  rule: 0 Adam (decoupled: AdamW),
-// 1 SGD, 2 Momentum (mu, nesterov).  Returns the launch's cudaError_t.
+// 1 SGD, 2 Momentum (mu, nesterov).  use_scaler: the gradients are
+// unscaled, and written back unscaled.  Returns the launch's cudaError_t.
 extern "C" int ptt_fused_update(const void* desc, const void* gptr,
                                 int n_tensors, int n_chunks, long long chunk,
                                 const void* coef, const void* wsf,

@@ -138,6 +138,8 @@ inline int row_threads(int nvec) {
   return nvec >= kMoeThreads ? kMoeThreads : ((nvec + 31) / 32) * 32;
 }
 
+// 0 for a code the kernels do not take (float16, 2, among them): the
+// entry points refuse it before any launch.
 inline int elem_bytes(int dtype) {
   return dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
 }
@@ -182,8 +184,10 @@ extern "C" int ptt_moe_combine(const void* rows, const void* w,
   if (dtype == 0)
     ptt::moe_combine_kernel<float><<<T, threads, 0, st>>>(r, wt, f, o, EC, k,
                                                           nvec);
-  else
+  else if (dtype == 1)
     ptt::moe_combine_kernel<__nv_bfloat16><<<T, threads, 0, st>>>(
         r, wt, f, o, EC, k, nvec);
+  else
+    return (int)cudaErrorInvalidValue;   // elem_bytes refused it already
   return (int)cudaGetLastError();
 }

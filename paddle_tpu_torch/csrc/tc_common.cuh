@@ -1,9 +1,10 @@
-// Tensor-core pieces of the bf16 flash kernels (flash_fwd.cu's
+// Tensor-core pieces of the 16-bit flash kernels (flash_fwd.cu's
 // flash_fwd_tc_kernel, flash_bwd.cu's flash_bwd_dq_tc_kernel and
 // flash_bwd_dkv_tc_kernel), in inline PTX for sm_90a: 16-byte cp.async
 // copies into a 128-byte-swizzled shared layout, the wgmma shared-memory
 // descriptor of that layout, and the warpgroup products the kernels need,
-// m64n64k16 bf16 -> fp32:
+// m64n64k16 with 16-bit operands (bfloat16 or float16, the template
+// argument T of each product) -> fp32:
 //   wgmma_ss    A and B from shared memory, both K-major (S = Q K^T,
 //               dP = dO V^T: a K or V tile [key][d] is K-major in d; and
 //               transposed, S^T = K Q^T, dP^T = V dO^T);
@@ -13,23 +14,25 @@
 //               Q or dO tile read the same way).
 //   wgmma_rs    A from registers, B K-major at n 64, 128 or 256
 //               (weight_only_gemm.cu: y^T = W x^T, the dequantized codes
-//               in registers, rows of x as TMA writes them).
+//               in registers, rows of x as TMA writes them; bf16 only).
 // For weight_only_gemm.cu also the Hopper pipeline's pieces: mbarriers
 // (init, arrive, expect_tx, parity wait), 2-D TMA loads that complete on
 // an mbarrier, and setmaxnreg.
 // The fp32 accumulator of a 64 x 64 product is, register for register,
-// the A fragment of the next product once rounded to bf16 (see
-// acc_to_a), so P and dS never pass through shared memory.
+// the A fragment of the next product once rounded to the 16-bit type (see
+// acc_to_a: __floats2bfloat162_rn for bf16, __float22half2_rn for fp16),
+// so P and dS never pass through shared memory.
 //
 // What bounds the kernels built on it: arithmetic.  At the training shape
 // (B 4, S 2048, nh 16, hd 128, causal) the forward does 68.75 GFLOP, the
 // dq kernel 103.1 and the dk/dv kernel 137.5: 0.0695, 0.1043 and 0.1390
-// ms at the H100's 989 TFLOP/s dense bf16, against 1.03, 1.54 and 2.05 ms
-// at the 67 TFLOP/s of fp32 FMAs.  These pieces move the products onto the tensor cores; operands
-// stay bf16 in shared memory (half the bytes of the fp32 tiles), and
-// copies of the next key tile overlap the products on the current one.
+// ms at the H100's 989 TFLOP/s dense bf16 or fp16, against 1.03, 1.54 and
+// 2.05 ms at the 67 TFLOP/s of fp32 FMAs.  These pieces move the products
+// onto the tensor cores; operands stay 16-bit in shared memory (half the
+// bytes of the fp32 tiles), and copies of the next key tile overlap the
+// products on the current one.
 //
-// Shared layout ("SW128").  A tile of R rows by C bf16 columns (C a
+// Shared layout ("SW128").  A tile of R rows by C 16-bit columns (C a
 // multiple of 64) is stored as C / 64 column blocks of R rows x 128 bytes;
 // in row r the 16-byte chunk c of a block sits at chunk c ^ (r % 8).  This
 // is the layout that TMA's 128-byte swizzle writes and the one wgmma's
@@ -37,16 +40,21 @@
 // in eight different bank groups.  Every block starts 1024-byte aligned.
 // A step of 16 columns (one k-step of a K-major operand) adds 32 bytes to
 // the descriptor's start address; a step of 16 rows (one k-step of an
-// MN-major operand) adds 2048 bytes.
+// MN-major operand) adds 2048 bytes.  Layout, copies and descriptors are
+// the same for both 16-bit types; only the products' type strings and the
+// rounding of a fragment differ.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 namespace tc {
 
-constexpr int kRowBytes = 128;      // one SW128 row: 64 bf16
+constexpr int kRowBytes = 128;      // one SW128 row: 64 16-bit values
 constexpr int kGroupBytes = 1024;   // eight rows: one swizzle atom
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -78,18 +86,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copy `rows` rows of D bf16 into an SW128 tile; row r comes from
-// base + row_off(r) (elements), or is zeros when row_off(r) < 0.  All
-// `nthreads` threads of the block take part.
-template <int D, int NTHREADS, class RowOff>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* base,
+// Copy `rows` rows of D 16-bit values (T: bf16 or fp16) into an SW128
+// tile; row r comes from base + row_off(r) (elements), or is zeros when
+// row_off(r) < 0.  All `nthreads` threads of the block take part.
+template <int D, int NTHREADS, class T, class RowOff>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* base,
                                           int rows, RowOff row_off) {
+  static_assert(sizeof(T) == 2, "SW128 tiles hold 16-bit values");
   constexpr int C = D / 8;
   for (int idx = threadIdx.x; idx < rows * C; idx += NTHREADS) {
     const int r = idx / C, c = idx % C;
     const long long o = row_off(r);
-    const __nv_bfloat16* src = o >= 0 ? base + o + c * 8 : base;
+    const T* src = o >= 0 ? base + o + c * 8 : base;
     cp_async16(dst + sw128_offset(r, c, rows), src, o >= 0 ? 16 : 0);
   }
 }
@@ -100,11 +108,10 @@ constexpr int kKeys = 64;           // keys per K/V tile
 // the K and V rows into the SW128 tiles at kdst and vdst, each key's
 // valid flag into kok[64].  A key past Sk or masked out by the [B, Sk]
 // mask (null: none) is zeros and flag 0, and is never read.
-template <int D, int NTHREADS>
+template <int D, int NTHREADS, class T>
 __device__ __forceinline__ void load_kv_tile(
-    uint32_t kdst, uint32_t vdst, int* kok, const __nv_bfloat16* k,
-    const __nv_bfloat16* v, const int* mask, int b, int Sk, int nkv, int hk,
-    int k0) {
+    uint32_t kdst, uint32_t vdst, int* kok, const T* k, const T* v,
+    const int* mask, int b, int Sk, int nkv, int hk, int k0) {
   auto off = [=](int r) -> long long {
     const int kp = k0 + r;
     if (kp >= Sk) return -1;
@@ -174,30 +181,49 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
 
-// d (+)= A B for a 64 x 64 x 16 step, A and B K-major in shared memory.
-// accumulate 0 overwrites d.
+// BODY(type string) for the 16-bit operand type T: "bf16" or "f16".
+#define PTT_WGMMA_TYPED(T, BODY)                                           \
+  static_assert(std::is_same<T, __nv_bfloat16>::value ||                   \
+                    std::is_same<T, __half>::value,                        \
+                "wgmma operands are bf16 or fp16");                        \
+  if constexpr (std::is_same<T, __half>::value) {                          \
+    BODY("f16");                                                           \
+  } else {                                                                 \
+    BODY("bf16");                                                          \
+  }
+
+// d (+)= A B for a 64 x 64 x 16 step, A and B K-major in shared memory,
+// both of type T.  accumulate 0 overwrites d.
+#define PTT_SS(TY)                                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " " PTT_D32_LIST ", %32, %33, p, 1, 1, 0, 0;\n}\n"         \
+               : PTT_D32(d)                                                \
+               : "l"(da), "l"(db), "r"(accumulate))
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_D32_LIST
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : PTT_D32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
+  PTT_WGMMA_TYPED(T, PTT_SS)
 }
+#undef PTT_SS
 
-// d += A B for a 64 x 64 x 16 step, A the register fragment a[4] (bf16
-// pairs), B MN-major in shared memory (the transpose bit set).
+// d += A B for a 64 x 64 x 16 step, A the register fragment a[4] (pairs
+// of T), B MN-major in shared memory (the transpose bit set).
+#define PTT_RS_T(TY)                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " " PTT_D32_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, "    \
+               "1;\n}\n"                                                  \
+               : PTT_D32(d)                                                \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(1))
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_D32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : PTT_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  PTT_WGMMA_TYPED(T, PTT_RS_T)
 }
+#undef PTT_RS_T
 
 #define PTT_D64(d)                                                         \
       "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
@@ -261,46 +287,59 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
   "%127}"
 
 // d (+)= A B for a 64 x N x 16 step (N 64, 128 or 256), A the register
-// fragment a[4] (bf16 pairs, acc_to_a's layout), B K-major in shared
+// fragment a[4] (pairs of T, acc_to_a's layout), B K-major in shared
 // memory (an SW128 tile of N rows, as wgmma_ss reads it); accumulate 0
 // overwrites d.  The accumulator extends the n64 layout below to N / 8
 // column blocks of 8.  weight_only_gemm.cu's products: A the dequantized
 // weight codes, B the rows of x.
+#define PTT_RS64(TY)                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " " PTT_D32_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, "    \
+               "0;\n}\n"                                                  \
+               : PTT_D32(d)                                                \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(accumulate))
+#define PTT_RS128(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " " PTT_D64_LIST ", {%64, %65, %66, %67}, %68, p, 1, 1, "    \
+               "0;\n}\n"                                                  \
+               : PTT_D64(d)                                                \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(accumulate))
+#define PTT_RS256(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY   \
+               " " PTT_D128_LIST ", {%128, %129, %130, %131}, %132, p, 1, " \
+               "1, 0;\n}\n"                                               \
+               : PTT_D128(d)                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(accumulate))
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_D32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : PTT_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+  PTT_WGMMA_TYPED(T, PTT_RS64)
 }
 
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PTT_D64_LIST
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : PTT_D64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+  PTT_WGMMA_TYPED(T, PTT_RS128)
 }
 
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " PTT_D128_LIST
-      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : PTT_D128(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+  PTT_WGMMA_TYPED(T, PTT_RS256)
 }
+#undef PTT_RS64
+#undef PTT_RS128
+#undef PTT_RS256
+#undef PTT_WGMMA_TYPED
 
 #undef PTT_D32
 #undef PTT_D64
@@ -322,23 +361,46 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two floats rounded to the 16-bit type T (round to nearest even), as the
+// pair a register of a wgmma A fragment holds.
+template <class T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __float22half2_rn(make_float2(lo, hi));
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// The two values of a register of pairs of T, as floats.
+template <class T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 // The A fragment of k-step kk (columns 16 kk .. 16 kk + 15) of a 64 x 64
-// accumulator, rounded to bf16: registers {row g, cols 2t..}, {row g + 8},
+// accumulator, rounded to T: registers {row g, cols 2t..}, {row g + 8},
 // {row g, cols 8 + 2t..}, {row g + 8, cols 8 + 2t..} -- exactly the
 // accumulator's d[8kk .. 8kk + 7] in pairs.
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void acc_to_a(const float (&d)[32], int kk,
                                          uint32_t (&a)[4]) {
 #pragma unroll
   for (int r = 0; r < 4; ++r)
-    a[r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+    a[r] = pack2<T>(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
 // Rows g and g + 8 of a warp's share of a 64 x (64 NB) accumulator
-// (column block nb in acc[nb]), times scale[r], as bf16 into the rows
-// row[r] < Sq of out [B, Sq, nh, W] at batch b, head h, columns col0 ..
-// col0 + 64 NB - 1; lane t of the row's four writes 2 columns of each 8.
-template <int NB, int W = 64 * NB>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+// (column block nb in acc[nb]), times scale[r], as T (bf16 or fp16) into
+// the rows row[r] < Sq of out [B, Sq, nh, W] at batch b, head h, columns
+// col0 .. col0 + 64 NB - 1; lane t of the row's four writes 2 columns of
+// each 8.
+template <int NB, int W = 64 * NB, class T>
+__device__ __forceinline__ void store_rows(T* out,
                                            const float (&acc)[NB][32],
                                            const int (&row)[2],
                                            const float (&scale)[2], int Sq,
@@ -347,15 +409,14 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= Sq) continue;
-    __nv_bfloat16* dst =
-        out + ((b * (long long)Sq + row[r]) * nh + h) * W + col0;
+    T* dst = out + ((b * (long long)Sq + row[r]) * nh + h) * W + col0;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + nb * 64 + j * 8 + 2 * t) =
-            pack_bf16(acc[nb][4 * j + 2 * r] * scale[r],
-                      acc[nb][4 * j + 2 * r + 1] * scale[r]);
+            pack2<T>(acc[nb][4 * j + 2 * r] * scale[r],
+                     acc[nb][4 * j + 2 * r + 1] * scale[r]);
   }
 }
 

@@ -18,10 +18,12 @@ run cache-less causal attention through the flash kernels (forward and
 backward).  ``use_recompute`` (in training) checkpoints every
 ``recompute_interval``-th dense block through
 ``distributed/fleet/recompute.py`` with ``recompute_policy`` (None: full
-recompute); MoE blocks run without it, as in the JAX model.  Serving:
-``forward_with_cache`` over paged KV caches, always under
-``torch.no_grad()``.  Tensor parallelism waits for a later slice (see
-ROADMAP.md).
+recompute); MoE blocks run without it, as in the JAX model.  Serving and
+generation: ``forward_with_cache`` over the caches of ``init_caches``
+(dense ``(k, v)`` tuples, ``StaticKVCache``, ``PagedKVCache`` or
+``BlockKVCache``, ``models/kv_cache.py``), and ``generate``
+(``models/generation.py``).  Tensor parallelism waits for a later slice
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from ..incubate.distributed.models.moe import MoELayer
 from ..nn.functional import (cross_entropy, dropout,
                              scaled_dot_product_attention)
 from ..observability.flops import training_flops_per_token
-from .kv_cache import PagedKVCache
+from .generation import GenerationMixin
+from .kv_cache import BlockKVCache, PagedKVCache, StaticKVCache
 
 __all__ = ["GPTConfig", "TiedEmbedding", "GPTAttention", "GPTMLP",
            "GPTBlock", "GPTModel", "GPTForCausalLM", "gpt3_tiny",
@@ -96,10 +99,22 @@ class GPTAttention(nn.Module):
     def forward(self, x, kv_cache=None):
         """Without a cache: causal attention over ``x`` (training), returns
         the output.  With one: attends through the cache, returns
-        ``(output, new_cache)``."""
+        ``(output, new_cache)``.  A dense cache ``(k, v)`` is concatenated
+        with the new keys and values: the prompt (``k_len == s``) and a
+        chunk (``k_len > s``) attend under flash's end-aligned causal mask
+        (the JAX model's offset mask ``qpos >= kpos``), a decode token
+        (``s == 1``) sees the whole cache."""
         b, s, hidden = x.shape
         q, k, v = self.qkv(x).view(b, s, 3, self.num_heads,
                                    self.head_dim).unbind(2)
+        if isinstance(kv_cache, tuple):
+            k = torch.cat([kv_cache[0], k], dim=1)
+            v = torch.cat([kv_cache[1], v], dim=1)
+            out = scaled_dot_product_attention(
+                q.contiguous(), k, v, dropout_p=self.dropout,
+                is_causal=s > 1, training=self.training,
+                generator=self.generator)
+            return self.proj(out.reshape(b, s, hidden)), (k, v)
         if kv_cache is not None:
             new_cache, out = kv_cache.update_and_attend(q, k, v)
             return self.proj(out.reshape(b, s, hidden)), new_cache
@@ -204,7 +219,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x), new_caches
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(nn.Module, GenerationMixin):
     """GPT with the tied output head.
 
     ``GPTForCausalLM(cfg, device=None, dtype=torch.float32, seed=0)``
@@ -259,15 +274,17 @@ class GPTForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.gpt.ln_f.weight.dtype
 
-    def init_caches(self, batch_size: int, max_context: int,
-                    block_size: int = 64):
-        """One fresh :class:`PagedKVCache` per layer for ``batch_size``
-        sequences of up to ``max_context`` tokens."""
-        cfg = self.cfg
-        return [PagedKVCache(batch_size, max_context, cfg.num_heads,
-                             cfg.hidden_size // cfg.num_heads, self.dtype,
-                             block_size, self.device)
-                for _ in range(cfg.num_layers)]
+    def init_caches(self, batch_size: int, cache_impl: str = "dense",
+                    block_size: int = None, max_context: int = None):
+        """One fresh cache per layer for ``batch_size`` sequences (the
+        JAX model's ``init_caches``): ``"dense"`` ``(k, v)`` tuples of
+        length 0; ``"static"`` :class:`StaticKVCache` over ``max_seq_len``;
+        ``"paged"`` with ``max_context`` a :class:`PagedKVCache` pool sized
+        by that context (blocks of 64), without it a host-allocated
+        :class:`BlockKVCache` over ``max_seq_len`` (blocks of 16)."""
+        return _init_caches(self.cfg, self.cfg.num_heads, self.cfg.num_heads,
+                            self.dtype, self.device, batch_size, cache_impl,
+                            block_size, max_context)
 
     def forward_with_cache(self, input_ids, caches, pos_offset=0):
         """Returns ``(logits [B, s, vocab], new_caches)``."""
@@ -303,6 +320,32 @@ class GPTForCausalLM(nn.Module):
         return training_flops_per_token(
             self.num_params(), self.cfg.num_layers, self.cfg.hidden_size,
             seq_len or self.cfg.max_seq_len)
+
+
+def _init_caches(cfg, num_heads, dense_heads, dtype, device, batch_size,
+                 cache_impl, block_size, max_context):
+    """The caches of ``init_caches`` for GPT and Llama: ``dense_heads``
+    heads in dense caches (Llama's kv heads), ``num_heads`` in the others
+    (Llama repeats its kv heads before those)."""
+    hd = cfg.hidden_size // cfg.num_heads
+    n = cfg.num_layers
+    if cache_impl == "paged" and max_context is not None:
+        return [PagedKVCache(batch_size, max_context, num_heads, hd, dtype,
+                             block_size or 64, device) for _ in range(n)]
+    if cache_impl == "paged":
+        block_size = block_size or 16
+        max_blocks = -(-cfg.max_seq_len // block_size)
+        return [BlockKVCache(batch_size * max_blocks + 1, block_size,
+                             num_heads, hd, batch_size, max_blocks, dtype,
+                             device) for _ in range(n)]
+    if cache_impl == "static":
+        return [StaticKVCache(batch_size, cfg.max_seq_len, num_heads, hd,
+                              dtype, device) for _ in range(n)]
+    if cache_impl != "dense":
+        raise ValueError(f"cache_impl {cache_impl!r}: dense, static or "
+                         "paged")
+    return [(torch.zeros((batch_size, 0, dense_heads, hd), dtype=dtype,
+                         device=device),) * 2 for _ in range(n)]
 
 
 def _preset(defaults, kw):

@@ -10,9 +10,11 @@ Module and parameter names match the JAX model's ``state_dict``
 Training: ``forward(input_ids)`` and ``compute_loss(input_ids, labels)``
 run cache-less causal attention through the flash kernels, which read kv
 head ``h // (nh // nkv)`` themselves: K and V are never repeated.
-Serving: ``forward_with_cache`` over paged KV caches, always under
-``torch.no_grad()``; the pools hold ``num_heads`` heads, so K and V are
-repeated to the query heads BEFORE the cache write, as in the JAX model.
+Serving and generation: ``forward_with_cache`` over the caches of
+``init_caches`` and ``generate`` (``models/generation.py``).  Dense
+caches hold the kv heads; static and paged ones hold ``num_heads`` heads,
+so K and V are repeated to the query heads BEFORE their write, as in the
+JAX model.
 
 RoPE positions are ``arange(s) + pos_offset``, for the three forms the
 serving engine passes: an int (whole-prompt prefill from 0), a 0-d tensor
@@ -38,7 +40,8 @@ from ..incubate.nn.functional import (fused_rotary_position_embedding,
 from ..nn import RMSNorm
 from ..nn.functional import cross_entropy, scaled_dot_product_attention
 from ..observability.flops import training_flops_per_token
-from .kv_cache import PagedKVCache
+from .generation import GenerationMixin
+from .gpt import _init_caches
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaBlock",
            "LlamaModel", "LlamaForCausalLM", "llama_tiny", "llama2_7b",
@@ -94,9 +97,18 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).view(b, s, nkv, hd)
         cos, sin = rope
         q, k, _ = fused_rotary_position_embedding(q, k, cos=cos, sin=sin)
+        if isinstance(kv_cache, tuple):
+            # dense caches hold the kv heads; the flash kernels read kv
+            # head h // (nh // nkv), as in training (the JAX model's)
+            k = torch.cat([kv_cache[0], k], dim=1)
+            v = torch.cat([kv_cache[1], v], dim=1)
+            out = scaled_dot_product_attention(
+                q.contiguous(), k, v, is_causal=s > 1,
+                training=self.training)
+            return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
         if kv_cache is not None:
             if nkv != nh:
-                # the pools hold one kv head per query head
+                # static and paged caches hold one kv head per query head
                 k = k.repeat_interleave(nh // nkv, dim=2)
                 v = v.repeat_interleave(nh // nkv, dim=2)
             new_cache, out = kv_cache.update_and_attend(q, k, v)
@@ -172,7 +184,7 @@ class LlamaModel(nn.Module):
         return self.norm(x), new_caches
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(nn.Module, GenerationMixin):
     """Llama with its untied output head.
 
     ``LlamaForCausalLM(cfg, device=None, dtype=torch.float32, seed=0)``
@@ -215,16 +227,16 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.model.norm.weight.dtype
 
-    def init_caches(self, batch_size: int, max_context: int,
-                    block_size: int = 64):
-        """One fresh :class:`PagedKVCache` per layer for ``batch_size``
-        sequences of up to ``max_context`` tokens, holding ``num_heads``
-        heads (the kv heads repeated)."""
+    def init_caches(self, batch_size: int, cache_impl: str = "dense",
+                    block_size: int = None, max_context: int = None):
+        """One fresh cache per layer, as GPT's ``init_caches``: dense
+        caches hold ``num_kv_heads`` heads, static and paged ones
+        ``num_heads`` (the kv heads repeated before the write, as in the
+        JAX model)."""
         cfg = self.cfg
-        return [PagedKVCache(batch_size, max_context, cfg.num_heads,
-                             cfg.hidden_size // cfg.num_heads, self.dtype,
-                             block_size, self.device)
-                for _ in range(cfg.num_layers)]
+        return _init_caches(cfg, cfg.num_heads, cfg.num_kv_heads, self.dtype,
+                            self.device, batch_size, cache_impl, block_size,
+                            max_context)
 
     def forward_with_cache(self, input_ids, caches, pos_offset=0):
         """Returns ``(logits [B, s, vocab], new_caches)``."""

@@ -2,13 +2,23 @@
 (``ClipGradBase``, ``ClipGradByValue``, ``ClipGradByNorm``,
 ``ClipGradByGlobalNorm``, ``clip_grad_norm_``).
 
-A clip object is called with ``[(param, grad), ...]``, scales or clamps
-the gradients of the parameters whose ``need_clip`` attribute is not
-False IN PLACE (the JAX package returns new arrays; the port saves the
-copy) and returns the list.  Nothing is read back to the host.  The fused
-optimizer step (``optimizer/fused.py``) carries the three kinds into its
-kernels instead of calling these; a subclass of them takes the list
-rules there.
+A clip object is called with ``[(param, grad), ...]`` and returns the
+list with the gradients of the parameters whose ``need_clip`` attribute
+is not False replaced by clipped NEW tensors, as the JAX package returns
+new arrays: the gradients it was given are left as they were, so
+``p.grad`` after an optimizer step is what backward wrote (unscaled by a
+GradScaler), whichever route the step took.  Nothing is read back to the
+host.
+
+Each clip is two parts: :meth:`ClipGradBase._prepare` (what depends on
+all the gradients together: the global norm's scale) and
+:meth:`ClipGradBase._clip_many` (new clipped tensors for a list of
+them).  The optimizer's list rules call the two apart, so that they clip
+one slice of the gradients at a time beside the update and never hold a
+clipped copy of every gradient (``Optimizer._apply_per_leaf``).  The
+fused optimizer step (``optimizer/fused.py``) carries the three kinds
+into its kernels instead of calling these; a subclass of them takes the
+list rules there, through its ``__call__``.
 """
 
 from __future__ import annotations
@@ -20,15 +30,33 @@ __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
 
 
 class ClipGradBase:
+    @torch.no_grad()
     def __call__(self, params_grads):
-        raise NotImplementedError
+        idx = [i for i, (p, g) in enumerate(params_grads)
+               if self._applies(p, g)]
+        out = list(params_grads)
+        if not idx:
+            return out
+        grads = [params_grads[i][1] for i in idx]
+        for i, g in zip(idx, self._clip_many(grads, self._prepare(grads))):
+            out[i] = (params_grads[i][0], g)
+        return out
 
     @staticmethod
-    def _applicable(params_grads):
-        """The gradients this clip applies to: present, and the parameter
-        opted in (``need_clip``)."""
-        return [g for p, g in params_grads
-                if g is not None and getattr(p, "need_clip", True)]
+    def _applies(p, g) -> bool:
+        """Whether this clip applies to ``(p, g)``: a gradient is present
+        and the parameter opted in (``need_clip``)."""
+        return g is not None and getattr(p, "need_clip", True)
+
+    def _prepare(self, grads):
+        """What the clip needs from all the applicable gradients at once
+        (None if nothing)."""
+        return None
+
+    def _clip_many(self, grads, prepared):
+        """New clipped tensors for ``grads`` (a part or all of the
+        applicable ones), given :meth:`_prepare`'s result over all."""
+        raise NotImplementedError
 
 
 class ClipGradByValue(ClipGradBase):
@@ -39,11 +67,8 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    @torch.no_grad()
-    def __call__(self, params_grads):
-        for g in self._applicable(params_grads):
-            g.clamp_(self.min, self.max)
-        return list(params_grads)
+    def _clip_many(self, grads, prepared):
+        return [g.clamp(self.min, self.max) for g in grads]
 
 
 class ClipGradByNorm(ClipGradBase):
@@ -53,14 +78,14 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    @torch.no_grad()
-    def __call__(self, params_grads):
-        cn = self.clip_norm
-        for g in self._applicable(params_grads):
+    def _clip_many(self, grads, prepared):
+        cn, out = self.clip_norm, []
+        for g in grads:
             norm = torch.sqrt(torch.sum(torch.square(g)))
-            g.mul_(torch.where(norm > cn, cn / torch.clamp(norm, min=1e-12),
-                               torch.ones_like(norm)))
-        return list(params_grads)
+            out.append(g * torch.where(
+                norm > cn, cn / torch.clamp(norm, min=1e-12),
+                torch.ones_like(norm)))
+        return out
 
 
 class ClipGradByGlobalNorm(ClipGradBase):
@@ -74,16 +99,13 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    @torch.no_grad()
-    def __call__(self, params_grads):
-        grads = self._applicable(params_grads)
-        if not grads:
-            return list(params_grads)
+    def _prepare(self, grads):
         norms = torch._foreach_norm([g.float() for g in grads])
         total = torch.linalg.vector_norm(torch.stack(norms))
-        scale = self.clip_norm / total.clamp_min(self.clip_norm)
-        torch._foreach_mul_(grads, scale)
-        return list(params_grads)
+        return self.clip_norm / total.clamp_min(self.clip_norm)
+
+    def _clip_many(self, grads, scale):
+        return list(torch._foreach_mul(grads, scale))
 
 
 @torch.no_grad()

@@ -31,8 +31,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build", "check", "stream", "sm_count", "dtype_code",
-           "check_device_tensors", "BUILD_DIR", "CSRC", "KernelError",
-           "KernelLaunchError", "KernelValueError", "KernelTypeError"]
+           "check_device_tensors", "KERNEL_DTYPES", "FLASH_DTYPES",
+           "BUILD_DIR", "CSRC", "KernelError", "KernelLaunchError",
+           "KernelValueError", "KernelTypeError"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -189,18 +190,30 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def dtype_code(dtype: torch.dtype) -> int:
-    if dtype == torch.float32:
-        return 0
-    if dtype == torch.bfloat16:
-        return 1
-    raise KernelTypeError(f"kernels take float32 or bfloat16, got {dtype}")
+# the type codes of the C entry points
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# what most kernels take; the flash kernels (FLASH_DTYPES) and
+# fused_adamw take float16 too
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def check_device_tensors(kernel: str, floats, ints=()) -> None:
+def dtype_code(dtype: torch.dtype, accepts=KERNEL_DTYPES,
+               kernel: str = "kernels") -> int:
+    """The C type code of ``dtype`` (0 float32, 1 bfloat16, 2 float16)
+    for a kernel that takes the types ``accepts``; any other raises
+    :class:`KernelTypeError`, before any launch."""
+    if dtype not in accepts:
+        names = " or ".join(str(t).replace("torch.", "") for t in accepts)
+        raise KernelTypeError(f"{kernel} take {names}, got {dtype}")
+    return _CODES[dtype]
+
+
+def check_device_tensors(kernel: str, floats, ints=(),
+                         accepts=KERNEL_DTYPES) -> None:
     """The checks every wrapper makes before a launch: one CUDA device,
     contiguous, 16-byte aligned (the kernels load 4 elements at a time),
-    one floating type, int32 index tensors."""
+    one floating type of ``accepts``, int32 index tensors."""
     dev = floats[0].device
     for t in (*floats, *ints):
         if t.device != dev:
@@ -215,7 +228,7 @@ def check_device_tensors(kernel: str, floats, ints=()) -> None:
         if t.data_ptr() % 16:
             raise KernelValueError(
                 f"{kernel}: tensor data must be 16-byte aligned")
-    dtype_code(floats[0].dtype)
+    dtype_code(floats[0].dtype, accepts, kernel)
     for t in ints:
         if t.dtype != torch.int32:
             raise KernelTypeError(f"{kernel}: index tensors must be int32, "

@@ -7,12 +7,13 @@ Counterpart of ``paddle_tpu/ops/pallas_flash.py``: ``flash_attention_fwd``
 kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` driven by
 ``_flash_bwd``) and the differentiable ``flash_attention`` (its
 ``custom_vjp``).  The kernels are ``paddle_tpu_torch/csrc/flash_fwd.cu``
-and ``paddle_tpu_torch/csrc/flash_bwd.cu``.  In bfloat16 all three run
-on the tensor cores (``wgmma`` on bf16 tiles in shared memory,
-``tc_common.cuh``), rounding p and ds to bf16 before their second product
-(the forward and dq as the TPU kernels cast them; dk/dv as the TPU's
-matrix unit would round its fp32 p and ds); in float32 they run on fp32
-FMAs, the precision reference of the fp32 checks.
+and ``paddle_tpu_torch/csrc/flash_bwd.cu``.  In bfloat16 and float16
+all three run on the tensor cores (``wgmma`` on 16-bit tiles in shared
+memory, ``tc_common.cuh``), rounding p and ds to the input's type before
+their second product (the forward and dq as the TPU kernels cast them;
+dk/dv as the TPU's matrix unit would round its fp32 p and ds); in float32
+they run on fp32 FMAs, the precision reference of the fp32 checks.  The
+plain versions take any floating type and compute in float32.
 
 Dropout.  The keep mask is a pure function of (seed, batch * head, query
 row, key column): the lowbias32 mix of the JAX package's ``_hash_bits``
@@ -144,7 +145,8 @@ def _launch_args(kv_mask, dropout_rate, seed):
 
 def _kernel_dims(kernel, q, k, floats, kv_mask):
     _build.check_device_tensors(kernel, floats,
-                                () if kv_mask is None else (kv_mask,))
+                                () if kv_mask is None else (kv_mask,),
+                                _build.FLASH_DTYPES)
     B, Sq, nh, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
         raise KernelValueError(f"{kernel}: head dim {hd} not in "
@@ -172,10 +174,11 @@ def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
     across 128 lanes; that layout is an artefact of the TPU's (8, 128)
     tiles and is dropped here.
 
-    CUDA tensors (float32 or bfloat16, contiguous, hd in 64/128/256)
-    launch the ``flash_fwd`` kernel (bfloat16: ``flash_fwd_tc_kernel`` on
-    the tensor cores; float32: ``flash_fwd_kernel`` on FMAs); CPU tensors
-    take :func:`flash_attention_fwd_reference`.
+    CUDA tensors (float32, bfloat16 or float16, contiguous, hd in
+    64/128/256) launch the ``flash_fwd`` kernel (bfloat16 and float16:
+    ``flash_fwd_tc_kernel`` on the tensor cores; float32:
+    ``flash_fwd_kernel`` on FMAs); CPU tensors take
+    :func:`flash_attention_fwd_reference`.
     """
     _check_shapes(q, k, v)
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
@@ -190,8 +193,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
     err = _build.library().ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), mask_ptr, B, Sq, Sk, nh, nkv, hd,
-        int(bool(causal)), _build.dtype_code(q.dtype), seed, thresh, keep_p,
-        _build.stream(q.device))
+        int(bool(causal)), _build.dtype_code(q.dtype, _build.FLASH_DTYPES),
+        seed, thresh, keep_p, _build.stream(q.device))
     _build.check(err, "flash_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -285,16 +288,16 @@ def _bwd_launch(kernel, entry, q, k, v, out, lse, do, grads, causal,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), *(g.data_ptr() for g in grads),
         *scratch, mask_ptr, B, Sq, Sk, nh, nkv, hd, int(bool(causal)),
-        _build.dtype_code(q.dtype), seed, thresh, keep_p,
-        _build.stream(q.device))
+        _build.dtype_code(q.dtype, _build.FLASH_DTYPES), seed, thresh,
+        keep_p, _build.stream(q.device))
     _build.check(err, kernel)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False,
                            kv_mask=None, dropout_rate=0.0, seed=None):
-    """dq through the ``flash_bwd_dq`` kernel (CUDA tensors; bfloat16 on
-    the tensor cores, ``flash_bwd_dq_tc_kernel``, float32 on FMAs) or the
-    plain version (CPU tensors).  Arguments as
+    """dq through the ``flash_bwd_dq`` kernel (CUDA tensors; bfloat16 and
+    float16 on the tensor cores, ``flash_bwd_dq_tc_kernel``, float32 on
+    FMAs) or the plain version (CPU tensors).  Arguments as
     :func:`flash_attention_bwd`."""
     _check_shapes(q, k, v)
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
@@ -315,9 +318,10 @@ flash_attention_bwd_dq.launches = 0
 def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal=False,
                             kv_mask=None, dropout_rate=0.0, seed=None):
     """(dk, dv) through the ``flash_bwd_dkv`` kernel (CUDA tensors;
-    bfloat16 on the tensor cores, ``flash_bwd_dkv_tc_kernel`` after a
-    pre-pass of each query row's lse and D = rowsum(dO * out) into a
-    scratch tensor, float32 on FMAs) or the plain version (CPU tensors).
+    bfloat16 and float16 on the tensor cores, ``flash_bwd_dkv_tc_kernel``
+    after a pre-pass of each query row's lse and D = rowsum(dO * out) into
+    a scratch tensor, float32 on FMAs) or the plain version (CPU
+    tensors).
     Arguments as :func:`flash_attention_bwd`."""
     _check_shapes(q, k, v)
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
@@ -327,8 +331,9 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal=False,
                                              parts=("dkv",))[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stats = None
-    if q.dtype == torch.bfloat16:
-        # (lse log2 e, D) of each query row, rows padded to 64
+    if q.dtype != torch.float32:
+        # the tensor-core kernel's (-lse / scale, -D) of each query row,
+        # rows padded to 64
         B, Sq, nh = q.shape[:3]
         stats = torch.empty((B, nh, -(-Sq // 64) * 64, 2),
                             dtype=torch.float32, device=q.device)

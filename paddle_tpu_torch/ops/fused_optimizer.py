@@ -16,8 +16,11 @@ fused_adamw.cu`` over every tensor (see the head of that file):
    memory;
 2. ``fused_update_kernel``: unscale, clip, and the rule (Adam / AdamW with
    bias correction on the applied-step count, SGD, Momentum) on float32
-   weights (O1) or float32 masters with their bfloat16 copies (O2); it
-   writes nothing when ``found_inf`` is set.
+   weights (O1) or float32 masters with their bfloat16 or float16 copies
+   (O2); it skips the rule when ``found_inf`` is set.  With a scaler it
+   writes each unscaled gradient back over the gradient, applied step or
+   skipped, as the JAX program returns the unscaled gradients into
+   ``p.grad`` (``paddle_tpu/optimizer/fused.py:399-401``).
 
 A third, tiny launch writes the step's gradient addresses into the
 device table from its kernel arguments, so nothing is copied from the
@@ -50,7 +53,11 @@ CHUNK = 1 << 16          # elements a block of either launch takes
 RULES = {"adam": 0, "sgd": 1, "momentum": 2}
 CLIP_KINDS = {None: 0, "global": 1, "norm": 2, "value": 3}
 _DESC_WORDS = 8
-_P_BF16, _G_BF16, _NEED_CLIP, _ALIGNED = 1, 2, 4, 8
+_P_BF16, _G_BF16, _NEED_CLIP, _ALIGNED, _P_F16, _G_F16 = 1, 2, 4, 8, 16, 32
+# the 16-bit parameter types a float32 master may carry (O2)
+_LOW = (torch.bfloat16, torch.float16)
+_TYPE_FLAGS = {torch.float32: 0, torch.bfloat16: _P_BF16 | _G_BF16,
+               torch.float16: _P_F16 | _G_F16}
 
 
 class ScalerConfig(NamedTuple):
@@ -70,8 +77,8 @@ class FusedTable:
     """What a fused step reads besides the gradients, for one parameter
     list.
 
-    ``params``: the parameters (float32; or bfloat16 with a float32
-    ``masters`` entry, O2).  ``states``: per parameter the two state
+    ``params``: the parameters (float32; or bfloat16 or float16 with a
+    float32 ``masters`` entry, O2).  ``states``: per parameter the two state
     tensors in the rule's order (Adam: moment1, moment2; Momentum:
     velocity, None; SGD: None, None), float32, shaped like the parameter.
     ``wds``, ``lr_ratios``, ``need_clip``: per parameter its weight decay
@@ -120,11 +127,11 @@ class FusedTable:
                 raise KernelTypeError(
                     f"fused_adamw: a {p.dtype} parameter needs a float32 "
                     "master (multi_precision)")
-            if mw is not None and (p.dtype != torch.bfloat16
+            if mw is not None and (p.dtype not in _LOW
                                    or mw.dtype != torch.float32):
                 raise KernelTypeError(
                     "fused_adamw: masters are float32 copies of bfloat16 "
-                    f"parameters, got {mw.dtype} for {p.dtype}")
+                    f"or float16 parameters, got {mw.dtype} for {p.dtype}")
             for s in st:
                 if s is not None and s.dtype != torch.float32:
                     raise KernelTypeError(
@@ -152,8 +159,7 @@ class FusedTable:
                                      for s in (st + [None, None])[:2]]
             ptrs.append(0 if mw is None else mw.data_ptr())
             # a gradient has its parameter's type (autograd's rule)
-            flags = (_P_BF16 | _G_BF16 if p.dtype == torch.bfloat16
-                     else 0) | \
+            flags = _TYPE_FLAGS[p.dtype] | \
                 (_NEED_CLIP if self.need_clip[i] else 0) | \
                 (_ALIGNED if all(a % 16 == 0 for a in ptrs) else 0)
             hyper = _float_bits(self.wds[i]) | \
@@ -222,8 +228,11 @@ def fused_adamw(table: FusedTable, grads: Sequence[torch.Tensor], lr: float,
     tensors with ``need_clip``.  ``scaler``: None or ``(scale, counts,
     ScalerConfig)``, ``scale`` float32 ``[1]`` and ``counts`` int32
     ``[4]`` (found_inf, good, bad, skips) updated as ``GradScaler``
-    does; the gradients are unscaled by ``1 / scale`` first and the step
-    is skipped if any is not finite.  Nothing is read back to the host.
+    does; the gradients are unscaled by ``1 / scale`` first, the step is
+    skipped if any is not finite, and every gradient is overwritten IN
+    PLACE with its unscaled value (applied or skipped; the JAX program's
+    unscaled gradients in ``p.grad``).  Nothing is read back to the
+    host.
 
     CUDA tensors launch the kernels; CPU tensors take
     :func:`fused_adamw_reference`."""
@@ -292,8 +301,9 @@ def fused_adamw_reference(table: FusedTable, grads, lr: float,
                           coef: Optional[torch.Tensor] = None) -> None:
     """The plain version of :func:`fused_adamw`: the kernels' two phases
     in ``torch`` ops, on any device, with the same roundings (a bfloat16
-    gradient is rounded to bfloat16 after the unscale and after the
-    global-norm clip, as the JAX program does).
+    or float16 gradient is rounded to its type after the unscale and after
+    the global-norm clip, as the JAX program does), and with a scaler the
+    same write of the unscaled gradients over ``grads``.
 
     ``coef``: clip coefficients (one per parameter) for phase 2 to use
     instead of phase 1's, which still go to ``table.coef``.  A check of
@@ -341,6 +351,8 @@ def fused_adamw_reference(table: FusedTable, grads, lr: float,
     step += (~found).int()
     if scaler is not None:
         _scaler_update(scaler, found)
+        for g, u in zip(grads, us):
+            g.copy_(u)              # the unscaled gradient, in g's type
     if bool(found):
         return
     # phase 2: the update
@@ -409,9 +421,10 @@ def _scaler_update(scaler, found: torch.Tensor) -> None:
 
 def table_bytes(table: FusedTable, grads: Sequence[torch.Tensor],
                 clip=None, scaler=None) -> int:
-    """The bytes one fused step must move: launch 1 reads each gradient
-    once (when it scans them), launch 2 reads p (or the master), g and the
-    states and writes them back (the master's bfloat16 copy too)."""
+    """The bytes one applied fused step must move: launch 1 reads each
+    gradient once (when it scans them), launch 2 reads p (or the master),
+    g and the states and writes them back (the master's 16-bit copy too),
+    and with a scaler writes the unscaled gradient back over g."""
     kind = _clip_args(clip)[0]
     scan = scaler is not None or kind in (1, 2)
     total = 0
@@ -421,7 +434,8 @@ def table_bytes(table: FusedTable, grads: Sequence[torch.Tensor],
         gb = g.element_size() * n
         states = sum(4 * n for s in st if s is not None)
         w = 4 * n
-        total += (gb if scan else 0) + gb + 2 * (w + states)
+        total += (gb if scan else 0) + gb + 2 * (w + states) + \
+            (gb if scaler is not None else 0)
         if mw is not None:
             total += p.element_size() * n
     return total

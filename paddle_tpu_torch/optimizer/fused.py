@@ -8,8 +8,9 @@ host sync.  The port runs the same step on the ``fused_adamw`` kernels
 their plain version on the CPU.
 
 The plan is the JAX package's: which tensors use float32 masters (O2:
-``multi_precision`` and a bfloat16 parameter), each tensor's weight decay
-(after ``apply_decay_param_fun`` / ``exclude_from_weight_decay_fn``),
+``multi_precision`` and a bfloat16 or float16 parameter), each tensor's
+weight decay (after ``apply_decay_param_fun`` /
+``exclude_from_weight_decay_fn``),
 learning-rate ratio and ``need_clip``, the clip's kind (exact types of
 ``nn/clip.py``) and the scaler's rule.  The plan's table is built once per
 parameter list and reused (``optimizer.fused`` kind ``miss`` when built,
@@ -21,15 +22,18 @@ Fallbacks, counted as kind ``fallback`` and served by the list rules
 L1 decay, custom subclasses of the clip classes, optimizers without an
 elementwise rule (LBFGS); and, in the port, the rules the kernel does not
 carry (Adagrad, RMSProp, Adadelta, Adamax, Lamb: the JAX program runs
-them too), a bfloat16 parameter without a master, or a state of another
+them too), a 16-bit parameter without a master, or a state of another
 type than float32.
 
 Scaler steps: the applied-step count depends on ``found_inf``, so it
 stays on the card (``Optimizer._step_dev``) with the scaler's scale and
 counts; the skipped step leaves it unchanged, as the JAX program does.
-The kernels leave the gradients as they are (the JAX program returns them
-unscaled into ``p.grad``; the port does not spend a write of every
-gradient on that).
+The update kernel writes each unscaled gradient back into ``p.grad``,
+applied step or skipped, as the JAX program returns them
+(``paddle_tpu/optimizer/fused.py:399-401``); a step without a scaler
+leaves ``p.grad`` as backward wrote it.  So after any step ``p.grad`` is
+what the reference leaves: unscaled and not clipped, whichever route
+(fused or the list rules, ``Optimizer._apply_per_leaf``) the step took.
 """
 
 from __future__ import annotations
@@ -77,8 +81,7 @@ def _plan(opt, work):
         if l1:
             return None           # L1Decay's sign term: the list rules
         use_master = opt._use_master(p)
-        if p.dtype != torch.float32 and not (use_master
-                                             and p.dtype == torch.bfloat16):
+        if p.dtype != torch.float32 and not use_master:
             return None
         leaves.append((p, use_master, opt._effective_wd(p, wd), ratio,
                        bool(getattr(p, "need_clip", True))))
@@ -123,6 +126,9 @@ def _execute(opt, table, work, clip, scaler=None):
                     clip=clip, scaler=scaler, **opt._fused_hyper())
     if scaler is not None:
         opt._gs_ahead = True
+        for (_, g, *_), gc in zip(work, grads):
+            if gc is not g:          # unscaled into a contiguous copy
+                g.copy_(gc)
 
 
 def try_step(opt, work) -> bool:

@@ -229,36 +229,49 @@ class Optimizer:
 
     def _apply_per_leaf(self, work, all_pg):
         """The rule over every tensor (the fused path declined: no kernel
-        rule, L1 decay, a custom clip, a bfloat16 parameter without a
+        rule, L1 decay, a custom clip, a 16-bit parameter without a
         master): lists of weights, gradients and states through
-        :meth:`_rule_many`, the results copied back in one
-        ``torch._foreach_copy_``."""
-        if self._grad_clip is not None:
-            clipped = self._grad_clip(all_pg)
-            for item, (_, g) in zip(work, clipped):
+        :meth:`_rule_many`, a slice of about ``_LIST_ELEMS`` elements at a
+        time, the results copied back in one ``torch._foreach_copy_`` per
+        slice.  The clip gives new tensors (``nn/clip.py``), made slice by
+        slice beside the update (the global norm's scale once, before the
+        first), so ``p.grad`` keeps what backward wrote, as in the JAX
+        package, and no clipped copy of every gradient is ever held.  A
+        clip with its own ``__call__`` (a subclass) clips the whole list
+        at once."""
+        from ..nn.clip import ClipGradBase
+        clip = self._grad_clip
+        sliced = clip is not None and \
+            type(clip).__call__ is ClipGradBase.__call__
+        prepared = None
+        if sliced:
+            applicable = [g for p, g in all_pg if clip._applies(p, g)]
+            sliced = bool(applicable)
+            if sliced:
+                prepared = clip._prepare(applicable)
+        elif clip is not None:
+            for item, (_, g) in zip(work, clip(all_pg)):
                 item[1] = g
         lr = self.get_lr()
-        params, masters, ws, gs, lrs, wds = [], [], [], [], [], []
+        params, masters, ws, gs, lrs, wds, l1s = [], [], [], [], [], [], []
         states = [[] for _ in self._state_names]
         for p, g, ratio, wd, l1 in work:
             if g is None:
                 continue
-            if l1:
-                g = g + l1 * torch.sign(p.detach().to(g.dtype))
             master = self._create_master_weight(p) if self._use_master(p) \
                 else None
-            w = master if master is not None else p.detach()
             params.append(p)
             masters.append(master)
-            ws.append(w)
-            gs.append(g.to(w.dtype))
+            ws.append(master if master is not None else p.detach())
+            gs.append(g)
             lrs.append(lr * ratio)
             wds.append(self._effective_wd(p, wd))
+            l1s.append(l1)
             for lst, n in zip(states, self._state_names):
                 lst.append(self._get_state(n, p))
         step = torch.tensor(float(self._global_step), dtype=torch.float32)
-        # slices of about _LIST_ELEMS elements: the list ops' temporaries
-        # stay small beside the model's tensors
+        # slices of about _LIST_ELEMS elements: the clipped gradients and
+        # the list ops' temporaries stay small beside the model's tensors
         start = 0
         while start < len(params):
             end, size = start + 1, ws[start].numel()
@@ -267,9 +280,19 @@ class Optimizer:
                 size += ws[end].numel()
                 end += 1
             sl = slice(start, end)
+            sgs = gs[sl]
+            if sliced:
+                idx = [i for i, (p, g) in enumerate(zip(params[sl], sgs))
+                       if clip._applies(p, g)]
+                for i, g in zip(idx, clip._clip_many([sgs[i] for i in idx],
+                                                     prepared)):
+                    sgs[i] = g
+            sgs = [(g + l1 * torch.sign(p.detach().to(g.dtype)) if l1
+                    else g).to(w.dtype)
+                   for p, g, l1, w in zip(params[sl], sgs, l1s[sl], ws[sl])]
             new_ws, new_states = self._rule_many(
-                ws[sl], gs[sl], [[s.to(w.dtype) for s, w in
-                                  zip(lst[sl], ws[sl])] for lst in states],
+                ws[sl], sgs, [[s.to(w.dtype) for s, w in
+                               zip(lst[sl], ws[sl])] for lst in states],
                 lrs[sl], wds[sl], step)
             dst = [m for m in masters[sl] if m is not None]
             src = [nw for nw, m in zip(new_ws, masters[sl]) if m is not None]

@@ -123,17 +123,26 @@ def test_o2_keeps_norms_float32_and_feeds_them_their_type():
 
 
 def test_float16_and_custom_lists_still_raise():
-    for call in (lambda: tamp.auto_cast(True, dtype="float16",
+    """Custom white and black lists still raise, naming ROADMAP A.7
+    (float16 runs now: ``tests/test_torch_fp16.py`` holds it against the
+    JAX package); an unknown level or AMP type raises as in the JAX
+    package."""
+    for call in (lambda: tamp.auto_cast(True, custom_black_list={"matmul"},
                                         device="cpu"),
-                 lambda: tamp.auto_cast(True, custom_black_list={"matmul"},
-                                        device="cpu"),
-                 lambda: tamp.decorate(GPTForCausalLM(gpt3_tiny(),
-                                                      device="cpu"),
-                                       dtype="float16")):
+                 lambda: tamp.auto_cast(True, dtype="float16",
+                                        custom_white_list={"softmax"},
+                                        device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     with pytest.raises(ValueError):
         tamp.auto_cast(True, level="O3", device="cpu")
+    for call in (lambda: tamp.auto_cast(True, dtype="float64",
+                                        device="cpu"),
+                 lambda: tamp.decorate(GPTForCausalLM(gpt3_tiny(),
+                                                      device="cpu"),
+                                       dtype="int8")):
+        with pytest.raises(ValueError, match="float16 or bfloat16"):
+            call()
 
 
 # ------------------------------------------------------------ GradScaler

@@ -1679,8 +1679,9 @@ def test_cow_program_replay_equals_the_eager_copy(gen, dtype):
 FUSED_SHAPES = [(7,), (1029,), (65536 + 3,), (96, 130)]
 
 
-def _fused_case(gen, o2, sizes=None, wd=0.01):
-    """Parameters (float32, or bfloat16 with float32 masters), Adam's two
+def _fused_case(gen, o2, sizes=None, wd=0.01, low=None):
+    """Parameters (float32, or ``low`` (bfloat16 by default) with float32
+    masters), Adam's two
     states, and a misaligned parameter (a view one element into a
     buffer: the scalar loop).  ``sizes``: per parameter the size of its
     clipped gradient (``_clipped_rms``); the states are then drawn to it,
@@ -1695,7 +1696,7 @@ def _fused_case(gen, o2, sizes=None, wd=0.01):
             buf = torch.empty(w.numel() + 1, device="cuda")
             w = buf[1:].view(shape).copy_(w)
         masters.append(w.clone() if o2 else None)
-        params.append(w.to(torch.bfloat16) if o2 else w)
+        params.append(w.to(low or torch.bfloat16) if o2 else w)
         if sizes is None:
             states.append([
                 torch.rand(shape, generator=gen, device="cuda") * 0.01,
@@ -1801,12 +1802,14 @@ def test_fused_adamw_matches_its_plain_version(gen, o2, clip, scaled):
             grads[2].view(-1)[65537] = float("inf")
         before = [t.clone() for t in _table_tensors(table)]
         ref_before = [t.clone() for t in _table_tensors(ref)]
+        # copies taken first: with a scaler the kernels write the
+        # unscaled gradients back over ``grads``
+        ref_grads = [g.clone() for g in grads]
         n = fo.fused_adamw.launches
         fo.fused_adamw(table, grads, lr, steps[0], clip=clip,
                        scaler=scalers and scalers[0])
         assert fo.fused_adamw.launches == n + 1
-        fo.fused_adamw_reference(ref, [g.clone() for g in grads], lr,
-                                 steps[1], clip=clip,
+        fo.fused_adamw_reference(ref, ref_grads, lr, steps[1], clip=clip,
                                  scaler=scalers and scalers[1],
                                  coef=table.coef)
         torch.cuda.synchronize()
@@ -1927,3 +1930,284 @@ def test_scaler_step_makes_no_host_sync_and_skips_an_overflow(gen):
     after = opt.state_dict()
     for k, v in state.items():
         assert torch.equal(after[k], v), k
+
+
+# ---------------------------------------------------------------- float16
+# fp16 on the tensor-core kernels, against the plain version in float32 on
+# the same fp16 inputs.  One fp16 rounding of P, dS and the output is
+# 2^-11 relative (bf16's 2^-8, eight times finer), so the bf16 limits of
+# TOL and GRAD_TOL shrink about five-fold: atol 4e-3, rtol 2e-3.
+FP16_TOL = dict(atol=4e-3, rtol=2e-3)
+
+
+def _fp16_inputs(gen, case, hd):
+    B, Sq, Sk, nh, nkv, causal, masked, rate = case
+    q, k, v, mask = _flash_inputs(gen, B, Sq, Sk, nh, nkv, hd,
+                                  torch.float16)
+    return q, k, v, (causal, mask if masked else None, rate, 99)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_fwd_fp16_tensor_cores(gen, case, hd):
+    q, k, v, args = _fp16_inputs(gen, case, hd)
+    n = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    assert fa.flash_attention_fwd.launches == n + 1
+    assert out.dtype == torch.float16
+    ref, ref_lse = fa.flash_attention_fwd_reference(q.float(), k.float(),
+                                                    v.float(), *args)
+    torch.testing.assert_close(out.float(), ref, **FP16_TOL)
+    torch.testing.assert_close(lse, ref_lse, **FP16_TOL)
+    empty = _no_key_rows(case)
+    assert not out[empty].any()
+    assert torch.all(lse.transpose(1, 2)[empty] == -1e30)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_bwd_fp16_tensor_cores(gen, case, hd):
+    """dq, dk and dv of the fp16 kernels against the fp32 plain version;
+    rows that see no key get dq 0, keys no query sees dk = dv = 0."""
+    q, k, v, args = _fp16_inputs(gen, case, hd)
+    do = _randn(gen, q.shape, torch.float16)
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    n = (fa.flash_attention_bwd_dq.launches,
+         fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, *args)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    want = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+        *args)
+    for name, got, w, x in (("dq", dq, want[0], q), ("dk", dk, want[1], k),
+                            ("dv", dv, want[2], v)):
+        assert got.dtype == torch.float16 and got.shape == x.shape, name
+        torch.testing.assert_close(got.float(), w, **FP16_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+    assert not dq[_no_key_rows(case)].any()
+    if args[1] is not None:
+        unseen = args[1] == 0
+        assert not dk[unseen].any() and not dv[unseen].any()
+
+
+def test_flash_attention_function_fp16(gen):
+    """The autograd Function in fp16 (the O1 path of phase 22) against
+    autograd through the fp32 plain forward on the same fp16 inputs."""
+    B, S, nh, hd = 2, 192, 4, 128
+    q, k, v, mask = _flash_inputs(gen, B, S, S, nh, nh, hd, torch.float16)
+    do = _randn(gen, (B, S, nh, hd), torch.float16)
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*x, True, mask, 0.1, 5)
+    out.backward(do)
+    y = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = fa.flash_attention_fwd_reference(*y, True, mask, 0.1, 5)[0]
+    ref.backward(do.float())
+    torch.testing.assert_close(out.float(), ref, **FP16_TOL)
+    for a, b in zip(x, y):
+        torch.testing.assert_close(a.grad.float(), b.grad, **FP16_TOL)
+
+
+def test_kernels_without_fp16_refuse_it_before_launch(gen):
+    """paged_decode, paged_chunk, the MoE pair and both weight-only
+    kernels raise KernelTypeError for float16 on the card; nothing is
+    launched or counted."""
+    from paddle_tpu_torch.ops import _build, moe, weight_only
+    h = torch.float16
+    q = _randn(gen, (2, 4, 64), h)
+    pool = _randn(gen, (4, 5, 16, 64), h)
+    tables = torch.ones((2, 2), dtype=torch.int32, device="cuda")
+    lens = torch.full((2,), 3, dtype=torch.int32, device="cuda")
+    x = _randn(gen, (6, 64), h)
+    inv = torch.zeros(4, dtype=torch.int32, device="cuda")
+    w = torch.ones((6, 2), device="cuda")
+    flat = torch.zeros((6, 2), dtype=torch.int32, device="cuda")
+    codes = torch.zeros((64, 64), dtype=torch.int8, device="cuda")
+    scale = torch.ones(64, dtype=h, device="cuda")
+    calls = [
+        (pa.paged_attention, lambda: pa.paged_attention(q, pool, pool,
+                                                        tables, lens)),
+        (pa.paged_chunk_attention, lambda: pa.paged_chunk_attention(
+            q[:, None], pool, pool, tables, lens)),
+        (moe.moe_dispatch, lambda: moe.moe_dispatch(x, inv)),
+        (moe.moe_combine, lambda: moe.moe_combine(x, w, flat)),
+        (weight_only.weight_only_matmul, lambda: weight_only
+         .weight_only_matmul(x, codes, scale)),
+        (weight_only.weight_only_gemm, lambda: weight_only
+         .weight_only_gemm(_randn(gen, (256, 64), h), codes, scale)),
+    ]
+    for fn, call in calls:
+        n = fn.launches
+        with pytest.raises(_build.KernelTypeError):
+            call()
+        assert fn.launches == n, fn.__name__
+
+
+def test_fused_adamw_writes_back_unscaled_gradients(gen):
+    """With a scaler the update launch writes g * (1 / scale), rounded to
+    the gradient's type, over each gradient, applied step or skipped,
+    bit for bit the plain version's; without one it leaves them as
+    they were.  float32, bfloat16 and float16 parameters (the 16-bit ones
+    with float32 masters)."""
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    for low in (None, torch.bfloat16, torch.float16):
+        for scaled, inf in ((False, False), (True, False), (True, True)):
+            table = _fused_case(gen, low is not None, low=low)
+            ref = _clone_table(table)
+            grads = [torch.randn(p.shape, generator=gen, device="cuda")
+                     .to(p.dtype) * 1000 for p in table.params]
+            if inf:
+                grads[2].view(-1)[7] = float("inf")
+            rgrads = [g.clone() for g in grads]
+            before = [g.clone() for g in grads]
+            scalers = [(torch.full((1,), 1024.0, device="cuda"),
+                        torch.zeros(4, dtype=torch.int32, device="cuda"),
+                        fo.ScalerConfig()) for _ in range(2)] \
+                if scaled else [None, None]
+            steps = [torch.zeros(1, dtype=torch.int32, device="cuda")
+                     for _ in range(2)]
+            fo.fused_adamw(table, grads, 1e-3, steps[0],
+                           clip=("global", 1.0), scaler=scalers[0])
+            fo.fused_adamw_reference(ref, rgrads, 1e-3, steps[1],
+                                     clip=("global", 1.0),
+                                     scaler=scalers[1], coef=table.coef)
+            torch.cuda.synchronize()
+            for g, r, b in zip(grads, rgrads, before):
+                if scaled:
+                    assert torch.equal(g.view(torch.uint8),
+                                       r.view(torch.uint8)), (low, inf)
+                    assert not torch.equal(g, b)
+                else:
+                    assert torch.equal(g, b)
+
+
+def test_fused_adamw_fp16_parameters_match_their_plain_version(gen):
+    """O2 in float16: float16 parameters with float32 masters, three
+    scaled steps with the global clip, against the plain version on the
+    kernels' coefficients.  Each float32 tensor's change within 1e-4 of
+    the plain version's, float16 copies within one fp16 step (2^-10)."""
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    lr = 1e-2
+    table = _fused_case(gen, True, low=torch.float16)
+    ref = _clone_table(table)
+    assert all(p.dtype == torch.float16 for p in table.params)
+    steps = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    scalers = [(torch.full((1,), 1024.0, device="cuda"),
+                torch.tensor([0, 1, 0, 0], dtype=torch.int32,
+                             device="cuda"),
+                fo.ScalerConfig(2.0, 0.5, 2, 1, True)) for _ in range(2)]
+    for _ in range(3):
+        grads = [torch.randn(p.shape, generator=gen, device="cuda")
+                 .half() * 1024 for p in table.params]
+        before = [t.clone() for t in _table_tensors(table)]
+        ref_before = [t.clone() for t in _table_tensors(ref)]
+        ref_grads = [g.clone() for g in grads]
+        fo.fused_adamw(table, grads, lr, steps[0], clip=("global", 1.0),
+                       scaler=scalers[0])
+        fo.fused_adamw_reference(ref, ref_grads, lr, steps[1],
+                                 clip=("global", 1.0), scaler=scalers[1],
+                                 coef=table.coef)
+        torch.cuda.synchronize()
+        assert torch.equal(steps[0], steps[1])
+        assert torch.equal(scalers[0][0], scalers[1][0])
+        for got, got0, want, want0 in zip(_table_tensors(table), before,
+                                          _table_tensors(ref), ref_before):
+            if got.dtype == torch.float16:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=1e-6, rtol=2 ** -10)
+            else:
+                assert _step_change_err(got, got0, want, want0) <= 1e-4
+    assert int(steps[0]) == 3
+
+
+def test_static_cache_captured_step_equals_eager(gen):
+    """generate() with the static and paged caches: the captured decode
+    step replayed (a CUDA graph) gives the eager step's tokens, the same
+    as the dense host loop's, bit for bit, with the same launches; the
+    step replays once a token."""
+    from paddle_tpu_torch.inference import graphs
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    model = GPTForCausalLM(gpt3_tiny(hidden_size=256), device="cuda")
+    ids = torch.randint(0, 1024, (3, 40), generator=gen, device="cuda")
+    dense = model.generate(ids, max_new_tokens=12, cache_impl="dense")
+    for impl in ("static", "paged"):
+        n = fa.flash_attention_fwd.launches
+        got = model.generate(ids, max_new_tokens=12, cache_impl=impl)
+        assert model.last_generate["captured"]
+        assert model.last_generate["replays"] == 12
+        assert torch.equal(got, dense), impl
+        assert fa.flash_attention_fwd.launches > n
+    # the eager run of the same step: graphs off (Program on the host
+    # path), by hand
+    orig = graphs.Program.capture
+    try:
+        graphs.Program.capture = lambda self, pool: None
+        eager = model.generate(ids, max_new_tokens=12, cache_impl="static")
+    finally:
+        graphs.Program.capture = orig
+    assert not model.last_generate["captured"]
+    assert torch.equal(eager, dense)
+    sampled = [model.generate(ids, max_new_tokens=12, do_sample=True,
+                              top_k=50, top_p=0.9, cache_impl="static")
+               for _ in range(2)]
+    from paddle_tpu_torch.core import random as trandom
+    trandom.seed(3)
+    a = model.generate(ids, max_new_tokens=12, do_sample=True, top_k=50,
+                       top_p=0.9, cache_impl="static")
+    trandom.seed(3)
+    try:
+        graphs.Program.capture = lambda self, pool: None
+        b = model.generate(ids, max_new_tokens=12, do_sample=True,
+                           top_k=50, top_p=0.9, cache_impl="static")
+    finally:
+        graphs.Program.capture = orig
+    assert torch.equal(a, b)
+    assert not torch.equal(sampled[0], sampled[1])
+
+
+def test_block_kv_cache_decodes_through_paged_decode(gen):
+    """BlockKVCache (the host allocator) on the card: a prefill of 37
+    tokens and 20 appends against the plain decode over the dense keys;
+    each attend launches paged_decode once."""
+    from paddle_tpu_torch.models.kv_cache import BlockKVCache
+    B, nh, hd, bs = 2, 4, 128, 16
+    cache = BlockKVCache(2 * 8 + 1, bs, nh, hd, B, 8, torch.bfloat16,
+                         "cuda")
+    k = _randn(gen, (B, 37, nh, hd), torch.bfloat16)
+    v = _randn(gen, (B, 37, nh, hd), torch.bfloat16)
+    cache.append_prefill(k, v)
+    assert cache._lens == [37, 37] and cache._owned[0] == [1, 3, 5]
+    for _ in range(20):
+        kt = _randn(gen, (B, nh, hd), torch.bfloat16)
+        vt = _randn(gen, (B, nh, hd), torch.bfloat16)
+        cache.append(kt, vt)
+        k = torch.cat([k, kt[:, None]], 1)
+        v = torch.cat([v, vt[:, None]], 1)
+        q = _randn(gen, (B, nh, hd), torch.bfloat16)
+        n = pa.paged_attention.launches
+        out = cache.attend(q)
+        assert pa.paged_attention.launches == n + 1
+        ref = fa.flash_attention_fwd_reference(
+            q[:, None].float(), k.float(), v.float())[0][:, 0]
+        torch.testing.assert_close(out.float(), ref, **TOL[torch.bfloat16])
+    cache.free(0)
+    assert cache._lens[0] == 0 and int(cache.seq_lens[0]) == 0
+
+
+def test_fp16_generate_takes_flash_and_refuses_the_paged_pool(gen):
+    """A float16 model generates on the dense and static caches (the
+    flash kernels take fp16) and raises ``KernelTypeError`` on the paged
+    ones, whose kernel does not: nothing routes around it."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_tiny
+    from paddle_tpu_torch.ops import _build
+    model = GPTForCausalLM(gpt3_tiny(hidden_size=256), device="cuda",
+                           dtype=torch.float16)
+    ids = torch.randint(0, 1024, (2, 24), generator=gen, device="cuda")
+    dense = model.generate(ids, max_new_tokens=6, cache_impl="dense")
+    static = model.generate(ids, max_new_tokens=6, cache_impl="static")
+    assert dense.shape == static.shape == (2, 30)
+    for impl in ("paged", "paged_eager"):
+        with pytest.raises(_build.KernelTypeError):
+            model.generate(ids, max_new_tokens=6, cache_impl=impl)

@@ -108,7 +108,8 @@ def test_paged_prefill_and_decode_logits_match_jax(models):
     ids = np.random.RandomState(0).randint(1, 1024, (B, S)).astype(np.int32)
     jc = jm.init_caches(B, cache_impl="paged", max_context=S + steps,
                         block_size=bs)
-    tc = tm.init_caches(B, S + steps, block_size=bs)
+    tc = tm.init_caches(B, cache_impl="paged", max_context=S + steps,
+                        block_size=bs)
     jl, jc = jm.forward_with_cache(paddle.to_tensor(ids), jc, pos_offset=0)
     with torch.no_grad():
         tl, tc = tm.forward_with_cache(torch.from_numpy(ids).long(), tc, 0)

@@ -177,7 +177,8 @@ def test_paged_prefill_chunk_and_decode_match_jax(pair):
     ids = rng.randint(1, 1024, (B, S))
     chunk = rng.randint(1, 1024, (B, C))
     jc = jm.init_caches(B, cache_impl="paged", max_context=32, block_size=bs)
-    tc = tm.init_caches(B, 32, block_size=bs)
+    tc = tm.init_caches(B, cache_impl="paged", max_context=32,
+                        block_size=bs)
 
     def both(j_ids, jcaches, joff, t_ids, tcaches, toff):
         jl, jcaches = jm.forward_with_cache(

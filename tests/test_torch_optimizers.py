@@ -474,6 +474,74 @@ def test_fused_fallbacks_are_the_jax_ones(counters):
     assert (t_fb, j_fb) == (6, 4)
 
 
+class _JSubclassClip(jnn.ClipGradByGlobalNorm):
+    pass
+
+
+class _TSubclassClip(tnn.ClipGradByGlobalNorm):
+    pass
+
+
+# ROADMAP §C.8: the routes a step can take, as (optimizer, its arguments,
+# the clips of both packages); the clip's norm is below the gradients' so
+# that it scales them
+GRAD_ROUTES = {
+    "fused_global": ("AdamW", dict(learning_rate=0.01, weight_decay=0.02),
+                     lambda: (jnn.ClipGradByGlobalNorm(0.05),
+                              tnn.ClipGradByGlobalNorm(0.05))),
+    "fused_norm": ("Momentum", dict(learning_rate=0.05, momentum=0.9),
+                   lambda: (jnn.ClipGradByNorm(0.1),
+                            tnn.ClipGradByNorm(0.1))),
+    "fused_value": ("SGD", dict(learning_rate=0.1),
+                    lambda: (jnn.ClipGradByValue(0.3, -0.2),
+                             tnn.ClipGradByValue(0.3, -0.2))),
+    "clip_subclass": ("AdamW", dict(learning_rate=0.01),
+                      lambda: (_JSubclassClip(0.05), _TSubclassClip(0.05))),
+    "l1_decay": ("Adam", dict(learning_rate=0.01, weight_decay="L1"),
+                 lambda: (jnn.ClipGradByGlobalNorm(0.05),
+                          tnn.ClipGradByGlobalNorm(0.05))),
+    "adagrad": ("Adagrad", dict(learning_rate=0.1),
+                lambda: (jnn.ClipGradByNorm(0.1), tnn.ClipGradByNorm(0.1))),
+}
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "scaler"])
+@pytest.mark.parametrize("route", list(GRAD_ROUTES))
+def test_grads_after_a_step_equal_jax(counters, route, scaled):
+    """After every step ``p.grad`` equals the JAX package's exactly,
+    whichever route the port took (the fused step, or the list rules for
+    a clip subclass, L1 decay or Adagrad): without a scaler backward's
+    gradients, untouched by the clip; with a GradScaler (scale 1024) the
+    unscaled gradients, also on the overflow step (where they hold the
+    inf).  Parameters within 1e-6 as elsewhere."""
+    name, kw, clips = GRAD_ROUTES[route]
+    jp, tp = _params(seed=15)
+    jopt, topt = _build(name, kw, jp, tp, clip=clips())
+    js = jamp.GradScaler(init_loss_scaling=1024.0) if scaled else None
+    ts = tamp.GradScaler(init_loss_scaling=1024.0) if scaled else None
+    for s in range(3):
+        gs = _grads(s, seed=16, inf_at=1 if scaled else None)
+        scale = ts._scale if scaled else 1.0
+        _set_grads(jp, tp, [g * scale for g in gs])
+        if scaled:
+            js.step(jopt)
+            ts.step(topt)
+        else:
+            jopt.step()
+            topt.step()
+        for i, (j, t) in enumerate(zip(jp, tp)):
+            want = np.asarray(j.grad._value)
+            np.testing.assert_array_equal(t.grad.numpy(), want,
+                                          err_msg=f"{route} step {s} w{i}")
+            if not scaled:
+                np.testing.assert_array_equal(want, gs[i])
+        _assert_states_match(jopt, topt, jp, tp)
+        jopt.clear_grad()
+        topt.clear_grad()
+    fused = route.startswith("fused")
+    assert (counters("fallback")[0] == 0) == fused
+
+
 class _PerTensor:
     """Runs an optimizer's rule one tensor at a time (the base
     ``_rule_many``), whatever the optimizer overrides."""

@@ -49,6 +49,41 @@ def test_fold_in_matches_jax(pos):
         assert [int(k1[i]), int(k2[i])] == want.tolist()
 
 
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_split_matches_jax(seed):
+    """``threefry.split`` is ``jax.random.split`` bit for bit (num 2 and
+    5, and a chain of splits), and ``core/random.py`` hands out the JAX
+    package's ``next_key`` stream for a seed."""
+    import paddle_tpu as paddle
+    from paddle_tpu.framework import random as jrandom
+    from paddle_tpu_torch.core import random as trandom
+    jk, tk = jax.random.key(seed), threefry.key(torch.tensor(seed))
+    for num in (2, 5, 2):
+        want = np.asarray(jax.random.key_data(jax.random.split(jk, num)))
+        got = threefry.split(tk, num)
+        assert [[int(a), int(b)] for a, b in got] == want.tolist()
+        jk, tk = jax.random.split(jk)[0], got[0]
+    paddle.seed(seed)
+    trandom.seed(seed)
+    for _ in range(4):
+        want = np.asarray(jax.random.key_data(jrandom.next_key())).tolist()
+        assert [int(x) for x in trandom.next_key()] == want
+
+
+def test_categorical_with_one_key_matches_jax():
+    """``categorical_shaped``: one key for a whole ``[B, V]`` draw (the
+    JAX ``generate``'s), the tokens jax's for every seed tried."""
+    rng = np.random.RandomState(3)
+    for seed in range(6):
+        logits = rng.standard_normal((4, 300)).astype(np.float32) * 3
+        k = jax.random.fold_in(jax.random.key(seed), 9)
+        want = np.asarray(jax.random.categorical(k, logits, axis=-1))
+        got = threefry.categorical_shaped(
+            threefry.fold_in(threefry.key(torch.tensor(seed)), 9),
+            torch.from_numpy(logits))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_threefry2x32_known_answer():
     """The Threefry-2x32 test vector of Salmon et al. (Random123) that
     jax's own tests use: key (0x13198a2e, 0x03707344), counters
