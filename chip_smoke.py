@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -81,8 +81,8 @@ into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
    sampled rows) timed on the card at [8, vocab].
 13. Graphs and overlap (in phase 2's run): phase 2's whole-prompt mix on
    the eager programs (``cuda_graphs=False``), on CUDA graphs with the
-   overlapped loop off, and on the default engine, 3 runs each in turns.
-   Streams equal in all nine runs, launch counts of eager and graphs
+   overlapped loop off, and on the default engine, one run each.
+   Streams equal in all three runs, launch counts of eager and graphs
    equal; medians of tokens/s and mean TTFT, ms per decode step with
    overlap off (the card synchronised before each tick), the idle share
    of one profiled run each (decode kernels by name, as above), the
@@ -120,7 +120,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
    equal.
 20. Observability and the scheduler's budget (in phase 2's run, after
    phase 19, on its model and mix): a. phase 13's default engine and its
-   overlap-off twin with the metrics gate on and off, 3 runs each in
+   overlap-off twin with the metrics gate on and off, one run each in
    turns (one capture per engine; the prefix index emptied between
    runs): median tokens/s, mean TTFT and ms per decode step of each,
    streams equal.  b. ``serve_forever`` behind ``http_port``: 8 clients
@@ -199,8 +199,8 @@ into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
    with its own suffix of 37 + 64 i tokens, and a ninth that is the
    system prompt alone (its last block copied on write), 64 new tokens
    each, odd ones sampled; served with the prefix cache off, on with
-   whole-prompt prefill, and on with 256-token chunks, 2 runs each in
-   turns (medians of tokens/s, mean TTFT of all and of the first 8).
+   whole-prompt prefill, and on with 256-token chunks, one run each
+   (tokens/s, mean TTFT of all and of the first 8).
    Every budget met, hits > 0, ``paged_chunk``
    launched in the whole-prompt hit run, no plain route, no leaked block;
    how far the greedy streams agree with prefix off's, and the logit gap
@@ -213,7 +213,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
    odd ones sampled; plain decoding, n-gram drafts at k 4, n-gram with
    the adaptive ladder 2, 4, 8, and a GPT-3 350M draft (hd 64, random
    weights from a seed) at k 4, and the target as its own draft at k 4
-   (acceptance near 1: it must exceed 0.5), 2 runs each in turns.  Every
+   (acceptance near 1: it must exceed 0.5), one run each.  Every
    spec run launches ``paged_verify_attention``; budgets met, no leak;
    the acceptance rate, ``k_now``, ``k_switches`` and the greedy
    streams' agreement with plain decoding printed; the n-gram
@@ -228,7 +228,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
    and engine freed first): ``llama2_7b()`` (hidden 4096, 32 layers, 32
    heads, hd 128, vocab 32000; 6.74 B parameters) in bfloat16 with random
    weights from a seed, on phase 2's requests and engine settings:
-   whole-prompt prefill (median of 3 runs, one more with the overlapped
+   whole-prompt prefill (one run, one more with the overlapped
    loop off for ms per decode step, one profiled for the idle share),
    256-token chunks and phase 11's shared-prefix mix with the prefix cache
    (one profiled run each).  In the profiled runs every prompt's
@@ -276,7 +276,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
    256; and every schedule the kernel takes at Llama's shapes, M 256 to
    1024, beside the chosen one.  Then ``llama2_7b`` served
    with ``quant="int8"`` and ``"fp8"`` on phase 14's mix: whole-prompt
-   (int8: median of 3 runs; fp8: one run; each: one with the overlapped
+   (int8 and fp8: one run each, and one with the overlapped
    loop off for ms per decode step, one profiled: idle share, weight-only
    launches on ``weight_only_mma_kernel`` and ``weight_only_gemm_kernel``
    by name), and in int8 also 256-token chunks and the shared prefix;
@@ -352,6 +352,59 @@ into ``build/paddle_tpu_torch/``), then runs twenty-three phases on card 0:
    token.  c. Llama-2 7B in bf16, B 1, a 256-token prompt, 32 new,
    ``static`` and ``paged``.  d. a's checks on phase 15's GQA cut (2
    layers).
+24. Custom autocast lists (after phase 23): a. GPT-3 1.3B, phase 4's
+   setup, 6 steps under ``torch.autocast`` and 6 under
+   ``custom_black_list={"divide"}``, ``custom_white_list={"embedding"}``
+   (the JAX per-op policy in a function mode) on one model: medians of
+   steps 2-6, losses, peak, one profiled step each (idle share, every
+   flash launch on the tensor-core kernels by name), the mode's torch
+   function calls per step, ``fused_adamw`` on every step.  b. A 4-layer
+   fp32 cut card against CPU at B 1 x S 128, 2 AdamW steps under those
+   lists and under
+   a black-listed ``matmul``: losses within atol 2e-2, rtol 1e-2 (bf16),
+   every mapped op in the same type, the parameters' difference printed.
+25. The MoE dense path (after phase 8): a. a 4-layer fp32 cut of GPT-MoE,
+   dense and fused, card and CPU, on one set of weights, batch and
+   routing uniforms: loss (atol 1e-5), each block's ``l_aux`` (1e-6) and
+   every gradient (1e-4) against the CPU's fused path; no MoE launch on
+   the dense path.  b. Phase 8's step on the dense path, 4 steps: the
+   (T, E, C) tensors' bytes, the peak, the step beside phase 8's.
+26. ``hapi.Model.fit`` (after phase 24): GPT-3 1.3B, fp32 weights, O1
+   bf16, AdamW under a cosine schedule, clip 1.0, a ``DataLoader`` of 2
+   spawned workers over 32 of 64 synthetic samples of 2048 token ids
+   (shuffled), 8 steps with ``ProgBarLogger``, ``LRScheduler`` and
+   ``ModelCheckpoint`` (``build/hapi_ckpt``, removed after), beside the
+   hand-written step on the same batches: losses (within 1e-4; bit for
+   bit said), step time (timeline, median of the last 6), tokens/s,
+   MFU, peak, the idle share of a profiled ``train_batch`` with every
+   flash launch on the tensor-core kernels, 8 timeline records,
+   ``fused_adamw`` on every step; the final checkpoint loaded into a
+   fresh model gives the same logits bit for bit; ``evaluate`` and
+   ``predict`` on 4 batches; 4 steps with ``amp_configs={"level": "O1",
+   "dtype": "float16", "init_loss_scaling": 65536}`` (skipped steps and
+   the final scale printed).
+27. float16 serving (after phase 26; d inside phase 14's model lifetime):
+   a. GPT-3 1.3B in fp16, phase 2's 8 requests whole-prompt and in
+   256-token chunks on the default engine (a second chunked run profiled:
+   every paged launch on the fp16 instances by name, none on the FMA
+   chunk kernel), on eager programs (streams equal bit for bit), ticks
+   timed with overlap off; tokens/s, mean TTFT and ms per decode step
+   beside phase 2's bf16 numbers; the first decode step's logits (paged)
+   against a dense fp32 forward of the same fp16 weights (atol 5e-2,
+   rtol 5e-2: fp16 rounding compounded over 24 layers).  b. A prefix hit
+   (phase 11's prompts) and n-gram spec verify (phase 12's) in fp16.  c.
+   ``generate`` paged and paged_eager in fp16 at 23b's shape beside 23b's
+   bf16; GPT-MoE in fp16 on 4 requests (the fp16 MoE kernels).  d.
+   Llama-2 7B's weights rounded to fp16, one whole-prompt run of phase
+   14's mix.  e. A 4-layer fp16 cut, card against CPU (the CPU's fp16
+   products in fp32 rounded once): streams compared, a token that parts
+   reported with its top-2 logit gap.
+   Phase 1 runs ``paged_decode`` (edge, draft and path lengths, hd 64,
+   128 and 256, nh 32), ``paged_chunk`` (every bf16 case and split edge),
+   ``paged_verify_attention`` and the MoE pair in fp16 too, against the
+   plain version in fp32 on the same fp16 inputs (atol 4e-3, rtol 2e-3;
+   the dispatch exact, the combine within one fp16 rounding), each fp16
+   kernel timed beside bf16 at the path shape.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -377,10 +430,11 @@ PEAK_OPS = {"torch.bfloat16": 989e12,   # dense bf16 tensor-core rate
 NH, HD, BS, BATCH, MAX_CONTEXT = 16, 128, 64, 8, 2048
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 4, 2048, 6, 1e-4
 MOE_E = 4                            # experts of the GPT-MoE phases
-REPEATS = 3                          # serving runs per median (13, 14, 20)
-# phases 11-12's rounds: 2 since phases 22-23 joined the run (the
-# script's time limit), their medians the means of 2 runs
-EXTRAS_REPEATS = 2
+# serving runs per configuration of phases 13, 14, 18 and 20, and rounds
+# of phases 11-12: one since phases 24-27 joined the run (the script's
+# time limit; 3 and 2 before them)
+REPEATS = 1
+EXTRAS_REPEATS = 1
 SPEC_LENS = [400 + 600 * i // (BATCH - 1) for i in range(BATCH)]  # phase 12
 LLAMA_NH = 32                        # llama2_7b's heads (phase 14)
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_S = 8, 4096    # phase 16
@@ -509,10 +563,13 @@ def kernel_checks(path_lens):
     # three rows of `draft`, lose keys
     edge_bad = ((6, 2, -1), (8, 7, -1), (12, 20, 10 ** 6))
     draft_bad = ((0, 3, -1), (4, 9, 10 ** 6), (7, 16, -1))
-    for dtype in (torch.float32, bf16):
+    errs, path_case = {}, {}
+    for dtype in (torch.float32, bf16, torch.float16):
+        # fp16: bf16's cases and hd 256 (the fp16 instances' third width)
+        extra = ((edge, edge_bad, 256),) if dtype == torch.float16 else ()
         for lens, bad, hd in ((edge, (), HD), (edge, edge_bad, HD),
                               (draft, (), 64), (draft, draft_bad, 64),
-                              (path, (), HD)):
+                              *extra, (path, (), HD)):
             k, v, tables = _pool_case(gen, lens, dtype, hd=hd)
             for r, c, entry in bad:
                 tables[r, c] = entry
@@ -524,11 +581,14 @@ def kernel_checks(path_lens):
                                                v.float(), tables, sl)
             torch.cuda.synchronize()
             err = _compare("paged_decode", out, ref, dtype)
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
             if lens[0] == 0 and out[0].abs().max().item() != 0.0:
                 raise AssertionError("paged_decode: a len-0 row is not zero")
             _log(f"paged_decode {dtype} hd={hd} lens={lens}"
                  + (" out-of-pool entries" if bad else "")
                  + f": max_abs_err={err:.3e}")
+        path_case[dtype] = (q, k, v, tables, sl, err)
+    q, k, v, tables, sl, err = path_case[bf16]
     e = 2
     nbytes = (2 * BATCH * NH * HD + sum(path) * NH * HD * 2) * e \
         + tables.numel() * 4 + BATCH * 4
@@ -557,10 +617,18 @@ def kernel_checks(path_lens):
     _log(f"paged_decode bf16 card ms by keys per split (default "
          f"{default}): " + ", ".join(f"{n}: {t:.4f}"
                                      for n, t in by_split.items()))
+    q16, k16, v16, t16, sl16, _ = path_case[torch.float16]
+    fp16_ms = _graph_ms(lambda: pa.paged_attention(q16, k16, v16, t16, sl16),
+                        200)
+    _log(f"paged_decode fp16 at the path shape: card {fp16_ms:.4f} ms "
+         f"beside bf16 {ms:.4f} ms (x{fp16_ms / ms:.3f}); fp16 max_abs_err "
+         f"over its cases {errs[torch.float16]:.3e}")
     rows["paged_decode"] = dict(max_abs_err=err, ms=ms, host_ms=host_ms,
                                 plain_ms=plain, bound_ms=bound, bound_by=by,
                                 library_ms=None,
-                                ms_by_split_keys=by_split)
+                                ms_by_split_keys=by_split, fp16_ms=fp16_ms,
+                                fp16_max_abs_err=errs[torch.float16])
+    del path_case, q16, k16, v16, t16, sl16
 
     # --- flash_fwd: the largest prefill bucket (one 2048-token prompt),
     # a ragged length, a GQA group, Sq < Sk, hd 64 and 256, Sq > Sk (its
@@ -651,7 +719,8 @@ def paged_chunk_checks(gen):
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    bf16 = torch.bfloat16
+    bf16, fp16 = torch.bfloat16, torch.float16
+    fp16_err = 0.0
     # (label, starts, s, pool shape): 256-row chunks at many starts and one
     # running past the table (its rows attend the whole table), verify-
     # sized and ragged chunks, bs 16, hd 64 and 256, dropped keys
@@ -664,10 +733,12 @@ def paged_chunk_checks(gen):
              ("bs 16", [0, 100, 1024, 1900], 256, dict(bs=16)),
              ("hd 64", [0, 300, 1024], 256, dict(nh=2 * NH, hd=64)),
              ("hd 256", [0, 300, 1024], 256, dict(nh=NH // 2, hd=256))]
-    for dtype in (torch.float32, bf16):
+    for dtype in (torch.float32, bf16, fp16):
         for label, starts, s, shape in cases:
             for bad in (False, True):
                 _, err = _chunk_case(gen, starts, s, dtype, bad, **shape)
+                if dtype == fp16:
+                    fp16_err = max(fp16_err, err)
                 _log(f"paged_chunk {dtype} {label} s={s} starts={starts} "
                      f"{shape or ''}" + (" out-of-pool entries" if bad
                                          else "")
@@ -679,9 +750,11 @@ def paged_chunk_checks(gen):
     try:
         for keys in (64, 128, 512, 1 << 30):
             pa._CHUNK_SPLIT_KEYS = keys
-            for dtype in (torch.float32, bf16):
+            for dtype in (torch.float32, bf16, fp16):
                 _, err = _chunk_case(gen, [0, 187, 441, 953], 70, dtype,
                                      bad=True)
+                if dtype == fp16:
+                    fp16_err = max(fp16_err, err)
                 _log(f"paged_chunk {dtype} split edges, {keys} keys per "
                      f"split: max_abs_err={err:.3e}")
     finally:
@@ -732,8 +805,23 @@ def paged_chunk_checks(gen):
                                atol=2e-2, rtol=0.0)
     sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=allowed), 50)
+    (q16, k16, v16, t16, st16), _ = _chunk_case(gen, [1024], 256, fp16)
+
+    def chunk16():
+        return pa.paged_chunk_attention(q16, k16, v16, t16, st16)
+    fp16_ms = _time_ms(chunk16, 50)
+    # the card's time alone (a replayed graph: the eager loop's ~0.03 ms
+    # launches are the host's)
+    graph_ms, fp16_graph_ms = _graph_ms(chunk, 200), _graph_ms(chunk16, 200)
+    _log(f"paged_chunk fp16 at the serving path's shape: {fp16_ms:.4f} ms "
+         f"beside bf16 {ms:.4f} ms (x{fp16_ms / ms:.3f}) in an eager loop; "
+         f"from a replayed graph {fp16_graph_ms:.4f} beside "
+         f"{graph_ms:.4f} ms (x{fp16_graph_ms / graph_ms:.3f}); fp16 "
+         f"max_abs_err over its cases {fp16_err:.3e}")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                bound_by=by, library_ms=None, tflops=flops / ms / 1e9,
+               fp16_ms=fp16_ms, fp16_max_abs_err=fp16_err,
+               graph_ms=graph_ms, fp16_graph_ms=fp16_graph_ms,
                ms_by_split_keys={str(n): t for n, (t, _) in
                                  by_split.items()},
                yardsticks_without_table={
@@ -786,12 +874,15 @@ def verify_checks(gen, path_lens):
     import torch
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    bf16 = torch.bfloat16
+    bf16, fp16 = torch.bfloat16, torch.float16
+    fp16_err = 0.0
     starts = [0, 0, 63, 64, 700, 1023, 1500, 2040]
-    for dtype in (torch.float32, bf16):
+    for dtype in (torch.float32, bf16, fp16):
         for s in (2, 4, 8):
             for bad in (False, True):
                 _, err = _verify_case(gen, starts, s, dtype, free=2, bad=bad)
+                if dtype == fp16:
+                    fp16_err = max(fp16_err, err)
                 _log(f"paged_verify {dtype} s={s} starts={starts}, rows 0-1 "
                      f"free" + (", out-of-pool entries" if bad else "")
                      + f": max_abs_err={err:.3e}")
@@ -816,8 +907,15 @@ def verify_checks(gen, path_lens):
     q1 = q[:, 0].contiguous()
     decode_ms = _graph_ms(lambda: pa.paged_attention(q1, k, v, tables, st),
                           200)
+    (q16, k16, v16, t16, st16), _ = _verify_case(gen, starts, s, fp16)
+    fp16_ms = _graph_ms(lambda: pa.paged_verify_attention(
+        q16, k16, v16, t16, st16), 200)
+    _log(f"paged_verify fp16 at the verify shape: card {fp16_ms:.4f} ms "
+         f"beside bf16 {ms:.4f} ms (x{fp16_ms / ms:.3f}); fp16 max_abs_err "
+         f"{fp16_err:.3e}")
     row = dict(B=len(starts), s=s, starts=starts, keys_per_split=per,
                n_split=n_split, max_abs_err=err, ms=ms, host_ms=host_ms,
+               fp16_ms=fp16_ms, fp16_max_abs_err=fp16_err,
                plain_ms=plain, bound_ms=bound, bound_by=by,
                tflops=flops / ms / 1e9,
                paged_decode_same_lengths_ms=decode_ms)
@@ -1064,7 +1162,7 @@ def _moe_case(T, M, training, seed):
 
 def _moe_exact(label, x, r, w, flat, inv):
     """Dispatch and combine against their plain versions on the same
-    inputs (both exact), and the combine within one bf16 rounding of the
+    inputs (both exact), and the combine within one 16-bit rounding of the
     float32 sum (exact in float32); returns the first two errors."""
     import torch
     from paddle_tpu_torch.ops import moe as mo
@@ -1079,9 +1177,13 @@ def _moe_exact(label, x, r, w, flat, inv):
     if errs != (0.0, 0.0):
         raise AssertionError(f"moe {label} {x.dtype}: dispatch and combine "
                              f"differ from their plain versions by {errs}")
+    # one rounding of the float32 sum: relative 2^-8 (bf16), 2^-11
+    # (fp16; absolute 2^-25, half the spacing of fp16's subnormals)
     torch.testing.assert_close(
-        got.float(), want32, atol=0.0,
-        rtol=0.0 if x.dtype == torch.float32 else 2.0 ** -8,
+        got.float(), want32,
+        atol=2.0 ** -25 if x.dtype == torch.float16 else 0.0,
+        rtol={torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+              torch.float16: 2.0 ** -11}[x.dtype],
         msg=lambda msg: f"moe_combine {label} {x.dtype}: {msg}")
     return errs, (got.float() - want32).abs().max().item()
 
@@ -1100,7 +1202,7 @@ def moe_kernel_checks():
         EC = MOE_E * cap
         n_empty = int((inv == t).sum())
         n_drop = int((flat == EC).sum())
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             _, err = _moe_exact(label, x32.to(dtype), r32.to(dtype), w, flat,
                                 inv)
             _log(f"moe {label} {dtype} T={t} M={m} C={cap}: dispatch "
@@ -1133,6 +1235,8 @@ def moe_kernel_timing(rows_out, rec):
     errs, _ = _moe_exact("train step routing", x, r, w, flat, inv)
     xb, rb = x.to(torch.bfloat16), r.to(torch.bfloat16)
     _moe_exact("train step routing", xb, rb, w, flat, inv)
+    xh, rh = x.to(torch.float16), r.to(torch.float16)
+    _, fp16_err32 = _moe_exact("train step routing", xh, rh, w, flat, inv)
     filled = int((inv < T).sum())
     kept = int((flat < EC).sum())
     x_pad = torch.cat([x, x.new_zeros((1, M))])
@@ -1165,6 +1269,23 @@ def moe_kernel_timing(rows_out, rec):
         (kept + T) * M * e + flat.numel() * 8, 2 * kept * M, torch.float32)
     disp["bf16_ms"] = _time_ms(lambda: mo.moe_dispatch(xb, inv), 50)
     comb["bf16_ms"] = _time_ms(lambda: mo.moe_combine(rb, w, flat), 50)
+    disp["fp16_ms"] = _time_ms(lambda: mo.moe_dispatch(xh, inv), 50)
+    comb["fp16_ms"] = _time_ms(lambda: mo.moe_combine(rh, w, flat), 50)
+    # the 16-bit types also from replayed graphs (the card's time alone)
+    for row, fn, args in ((disp, mo.moe_dispatch, ((xb, inv), (xh, inv))),
+                          (comb, mo.moe_combine, ((rb, w, flat),
+                                                  (rh, w, flat)))):
+        for ty, a in zip(("bf16", "fp16"), args):
+            row[f"{ty}_graph_ms"] = _graph_ms(lambda: fn(*a), 100)
+    # fp16 dispatch is exact (_moe_exact); combine against the float32
+    # sum of the same fp16 rows: one fp16 rounding
+    disp["fp16_max_abs_err"] = 0.0
+    comb["fp16_max_abs_err"] = fp16_err32
+    # the 16-bit bounds: the same rows in 2 bytes an element
+    disp["fp16_bound_ms"], _ = _bound((filled + EC) * M * 2 + EC * 4, 0,
+                                      torch.float16)
+    comb["fp16_bound_ms"], _ = _bound(
+        (kept + T) * M * 2 + flat.numel() * 8, 2 * kept * M, torch.float32)
     rows_out["moe_dispatch"] = disp
     rows_out["moe_combine"] = comb
     for name in ("moe_dispatch", "moe_combine"):
@@ -1172,11 +1293,14 @@ def moe_kernel_timing(rows_out, rec):
         _log(f"{name} fp32 timing on the train step's block-1 routing "
              f"T={T} M={M} E={MOE_E} C={cap} ({kept} of {flat.numel()} "
              f"choices kept, {filled} of {EC} slots filled): ms="
-             f"{r_['ms']:.4f} (bf16 {r_['bf16_ms']:.4f}) plain_ms="
+             f"{r_['ms']:.4f} (bf16 {r_['bf16_ms']:.4f}, fp16 "
+             f"{r_['fp16_ms']:.4f}; from replayed graphs bf16 "
+             f"{r_['bf16_graph_ms']:.4f}, fp16 {r_['fp16_graph_ms']:.4f}) "
+             f"plain_ms="
              f"{r_['plain_ms']:.4f} bound_ms={r_['bound_ms']:.4f} "
              f"({r_['bound_by']}) library_ms={r_['library_ms']:.4f} "
              f"({r_['library_call']})")
-    del x, r, w, flat, inv, x_pad, r_pad, xb, rb, lib
+    del x, r, w, flat, inv, x_pad, r_pad, xb, rb, xh, rh, lib
     torch.cuda.empty_cache()
 
 
@@ -1374,7 +1498,7 @@ def graphs_phase(model, prompts):
     """Phase 2's whole-prompt mix three ways, ``REPEATS`` runs each in
     turns: the eager programs (``cuda_graphs=False``), CUDA graphs with
     the overlapped loop off, and the default engine (graphs and overlap).
-    Streams must be equal across all nine runs and the launch counts of
+    Streams must be equal across all its runs and the launch counts of
     the eager and graph runs equal.  Medians of tokens/s and mean TTFT; ms
     per decode step where overlap is off (the card synchronised before
     each tick, the tick's wall to its harvest); the idle share from one
@@ -3982,7 +4106,8 @@ def llama_decode_checks(path_lens):
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     nh, lens = LLAMA_NH, [n + 32 for n in path_lens]
-    for dtype in (torch.float32, torch.bfloat16):
+    fp16_err = None
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
         k, v, tables = _pool_case(gen, lens, dtype, nh=nh)
         q = torch.randn((len(lens), nh, HD), generator=gen,
                         device="cuda").to(dtype)
@@ -3992,12 +4117,14 @@ def llama_decode_checks(path_lens):
                                            tables, sl)
         torch.cuda.synchronize()
         err = _compare("paged_decode nh 32", out, ref, dtype)
+        if dtype == torch.float16:
+            fp16_err = err
         _log(f"paged_decode {dtype} nh={nh} hd={HD} lens={lens}: "
              f"max_abs_err={err:.3e}")
     nbytes = (2 * len(lens) * nh * HD + sum(lens) * nh * HD * 2) * 2 \
         + tables.numel() * 4 + len(lens) * 4
     bound, by = _bound(nbytes, 4 * nh * HD * sum(lens), torch.bfloat16)
-    row = dict(nh=nh, max_abs_err=err,
+    row = dict(nh=nh, max_abs_err=err, fp16_max_abs_err=fp16_err,
                ms=_graph_ms(lambda: pa.paged_attention(q, k, v, tables, sl),
                             200),
                plain_ms=_time_ms(lambda: pa.paged_attention_reference(
@@ -4200,6 +4327,9 @@ def llama_phases(lens):
     _log(f"[phase 18, weight_only_matmul: {t1 - t:.1f} s; weight_only_gemm:"
          f" {t2 - t1:.1f} s; llama2_7b serving: "
          f"{time.perf_counter() - t2:.1f} s]")
+    t = time.perf_counter()
+    llama16 = llama_fp16_serving(model, lens, serving["whole"])
+    _log(f"[phase 27d: {time.perf_counter() - t:.1f} s]")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4214,7 +4344,7 @@ def llama_phases(lens):
     train = train_full_width(llama2_7b(num_layers=LLAMA_TRAIN_LAYERS),
                              f"training llama2_7b {LLAMA_TRAIN_LAYERS} "
                              "layers", B=1, S=LLAMA_TRAIN_S)
-    return serving, train, quant, wo_row, wg_row, llama_gen
+    return serving, train, quant, wo_row, wg_row, llama_gen, llama16
 
 
 def bert_phase():
@@ -4868,7 +4998,7 @@ def fp16_training_phase(o1):
     products sum in other orders than the CPU's: their fp16 activations
     part by an ulp here and there), the scale and applied steps equal.
     The CPU's fp16 matrix products run under
-    :func:`_fp16_products_in_fp32` (see there)."""
+    :func:`_half_products_in_fp32` (see there)."""
     import statistics
 
     import torch
@@ -4978,7 +5108,7 @@ def fp16_training_phase(o1):
         else:
             model.load_state_dict(init)
         scaler = amp.GradScaler()
-        with _fp16_products_in_fp32() if dev == "cpu" else \
+        with _half_products_in_fp32() if dev == "cpu" else \
                 contextlib.nullcontext():
             ls = [_fp16_step(model, opt, scaler, batch).item()
                   for _ in range(2)]
@@ -5000,31 +5130,34 @@ def fp16_training_phase(o1):
     return run
 
 
-def _fp16_products_in_fp32():
-    """A dispatch mode for phase 22c's CPU side: each fp16 matrix product
-    (``mm``, ``addmm``, ``bmm``) runs on its inputs converted to float32
-    and rounds its result to fp16 once, which is what an fp16 GEMM with
-    float32 accumulation (cuBLAS's on the card) computes, up to the order
-    of its sums.  The CPU's own fp16 GEMM gives the same values but runs
-    far slower on some hosts (``_cpu_fp16_gemm_rate``): on the H100
-    machine's host a run of 22c without it took most of 1055 s."""
+def _half_products_in_fp32():
+    """A dispatch mode for the CPU side of phases 22c, 24b and 27e: each
+    fp16 or bf16 matrix product (``mm``, ``addmm``, ``bmm``) runs on its
+    inputs converted to float32 and rounds its result to that 16-bit type
+    once, which is what a 16-bit GEMM with float32 accumulation (cuBLAS's
+    on the card) computes, up to the order of its sums.  The CPU's own
+    fp16 GEMM gives the same values but runs far slower on some hosts
+    (``_cpu_fp16_gemm_rate``): on the H100 machine's host a run of 22c
+    without it took most of 1055 s."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     aten = torch.ops.aten
     products = (aten.mm.default, aten.addmm.default, aten.bmm.default)
 
+    half = (torch.float16, torch.bfloat16)
+
     def fp32(a):
         return a.float() if isinstance(a, torch.Tensor) and \
-            a.dtype == torch.float16 else a
+            a.dtype in half else a
 
     class Mode(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
-            if func in products and any(
-                    isinstance(a, torch.Tensor) and a.dtype == torch.float16
-                    for a in args):
-                return func(*map(fp32, args), **kwargs).half()
+            low = next((a.dtype for a in args if isinstance(a, torch.Tensor)
+                        and a.dtype in half), None)
+            if func in products and low is not None:
+                return func(*map(fp32, args), **kwargs).to(low)
             return func(*args, **kwargs)
     return Mode()
 
@@ -5233,6 +5366,672 @@ def generate_phase():
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------ phase 24
+
+# PaddleNLP-style lists in this repo's op names (phase 24)
+CUSTOM_LISTS = dict(custom_black_list={"divide"},
+                    custom_white_list={"embedding"})
+LISTS_STEPS = 6
+
+
+def _lists_step(model, opt, batch, lists):
+    """bench.py's step (O1 bf16) with ``lists`` given to ``auto_cast``
+    (none: torch's autocast); returns the loss and the context."""
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(True, level="O1", dtype="bfloat16",
+                       device=batch[0].device, **lists) as ctx:
+        loss = model.compute_loss(*batch)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach(), ctx
+
+
+def custom_lists_phase():
+    """Phase 24a: GPT-3 1.3B, phase 4's step, 6 steps under torch's
+    autocast and 6 under the custom lists on one model, launch counts
+    from 0 each; the median of steps 2-6, the losses, the peak, one
+    profiled step each (idle share, the flash kernels by name), the
+    mode's torch-function calls per step; ``fused_adamw`` takes every
+    step.  Returns the custom-list run's numbers."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    cfg = gpt3_1p3b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt, batch = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
+    out = {}
+    for key, lists in (("default", {}), ("lists", CUSTOM_LISTS)):
+        for fn in _train_counters().values():
+            fn.launches = 0
+        fused0 = _fused_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(LISTS_STEPS):
+            t0 = time.perf_counter()
+            loss, ctx = _lists_step(model, opt, batch, lists)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in _train_counters().items()}
+        fused = {k: v - fused0[k] for k, v in _fused_counts().items()}
+        _check_train_launches(f"24a {key}", cfg, launches, LISTS_STEPS)
+        if fused["fallback"] or fused["hit"] + fused["miss"] != LISTS_STEPS:
+            raise AssertionError(f"24a {key}: optimizer.fused {fused}")
+        peak = torch.cuda.max_memory_allocated()
+
+        def step():
+            t0 = time.perf_counter()
+            _lists_step(model, opt, batch, lists)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        wall, kernels = _profiled(step, step)
+        _check_flash_kernels(f"24a {key}", cfg, kernels)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        run = dict(step_s=statistics.median(times[1:]), losses=losses,
+                   peak_bytes=peak, idle_share=1 - busy / wall,
+                   launches=launches, fused=fused)
+        if ctx.mode is not None:
+            run["mode_calls_per_step"] = ctx.mode.calls
+            run["mapped"] = {f"{n} {str(d)[6:]}": c
+                             for (n, d), c in sorted(ctx.mode.ran.items())}
+        out[key] = run
+        _log(f"24a gpt3_1p3b O1 bf16, {key} "
+             f"({'torch.autocast' if not lists else lists}): losses "
+             f"{[round(x, 4) for x in losses]}; step times (s) "
+             f"{[round(t, 4) for t in times]}, median of steps 2-"
+             f"{LISTS_STEPS} {run['step_s'] * 1e3:.1f} ms; peak "
+             f"{peak / 2 ** 30:.2f} GiB; idle share of a profiled step "
+             f"{run['idle_share']:.3f}; launches {launches}; "
+             f"optimizer.fused {fused}"
+             + (f"; the mode saw {run['mode_calls_per_step']} torch "
+                f"function calls in a step, mapped ops by type "
+                f"{run['mapped']}" if "mapped" in run else ""))
+    ratio = out["lists"]["step_s"] / out["default"]["step_s"]
+    _log(f"24a custom lists against torch.autocast, same call: "
+         f"{out['lists']['step_s'] * 1e3:.1f} against "
+         f"{out['default']['step_s'] * 1e3:.1f} ms a step (x{ratio:.3f}); "
+         f"idle share {out['lists']['idle_share']:.3f} against "
+         f"{out['default']['idle_share']:.3f}")
+    out["lists"]["ratio"] = ratio
+    out["lists"]["default"] = out["default"]
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    lists_card_vs_cpu()
+    return out["lists"]
+
+
+def lists_card_vs_cpu():
+    """Phase 24b: a 4-layer fp32 cut, card against CPU, two AdamW steps
+    under the phase's lists and under a black-listed ``matmul``: the
+    losses and parameters within phase 5's bounds and the bf16 training
+    tolerance of ``tests/test_torch_train.py`` (the loss of each step,
+    atol 2e-2, rtol 1e-2: bf16 products in other orders), and the type
+    each mapped op ran in counted the same on both sides."""
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    cut = gpt3_1p3b(num_layers=4)
+    for lists in (CUSTOM_LISTS, dict(custom_black_list={"matmul"})):
+        init, runs = None, []
+        for dev in ("cpu", "cuda"):
+            model, opt, batch = _train_setup(cut, dev, 2, 1, 128)
+            if init is None:
+                init = {k: v.clone() for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(init)
+            losses, ran = [], None
+            # the CPU's bf16 products in fp32 rounded once (the host's own
+            # 16-bit GEMM may crawl: _half_products_in_fp32)
+            with _half_products_in_fp32() if dev == "cpu" else \
+                    contextlib.nullcontext():
+                for _ in range(2):
+                    loss, ctx = _lists_step(model, opt, batch, lists)
+                    losses.append(loss.item())
+                    ran = ctx.mode.ran if ran is None else ran
+            runs.append((losses, ran, {k: v.detach().float().cpu() for k, v
+                                       in model.state_dict().items()}))
+            del model, opt
+        (cpu_l, cpu_r, cpu_p), (card_l, card_r, card_p) = runs
+        torch.testing.assert_close(torch.tensor(card_l), torch.tensor(cpu_l),
+                                   atol=2e-2, rtol=1e-2)
+        if card_r != cpu_r:
+            raise AssertionError(f"24b {lists}: mapped ops by type card "
+                                 f"{dict(card_r)} cpu {dict(cpu_r)}")
+        err = max((card_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+        _log(f"24b custom lists {lists} card vs CPU, gpt3_1p3b 4 layers "
+             f"fp32 weights, O1 bf16, B=1 S=128, 2 AdamW steps: losses card "
+             f"{card_l} cpu {cpu_l}; parameters max abs diff {err:.3e} "
+             f"(printed: a bf16 gradient's sign may flip between card and "
+             f"CPU, and Adam then moves the weight ~lr the other way); "
+             f"mapped ops by type equal: "
+             f"{ {f'{n} {str(d)[6:]}': c for (n, d), c in cpu_r.items()} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 25
+
+def moe_dense_phase(fused_train):
+    """Phase 25: a. a 4-layer fp32 cut of GPT-MoE, the dense
+    (``moe_fused_dispatch=False``) and fused paths, card against CPU, on
+    the same weights, batch and routing uniforms: the loss (with the aux
+    term), each block's ``l_aux`` and every gradient against the CPU's
+    fused path (fp32: loss atol 1e-5, gradients atol 1e-4), no MoE kernel
+    on the dense path.  b. Phase 8's full-width step on the dense path, 4
+    steps: the (T, E, C) tensors' bytes, the peak, the step beside phase
+    8's fused step (``fused_train``), MoE launches 0 and the flash kernels
+    once a layer."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch.incubate.distributed.models.moe import (MoELayer,
+                                                                  capacity)
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    uniforms = torch.rand((2, 256), generator=torch.Generator()
+                          .manual_seed(5))
+    init, got = None, {}
+    for dev in ("cpu", "cuda"):
+        for fused in (True, False):
+            cut = gpt3_1p3b(num_layers=4, moe_num_experts=MOE_E,
+                            moe_fused_dispatch=fused)
+            model, _, batch = _train_setup(cut, dev, 2, 1, 256)
+            if init is None:
+                init = {k: v.clone() for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(init)
+            _feed_uniforms(model, uniforms)
+            for fn in _train_counters().values():
+                fn.launches = 0
+            loss = model.compute_loss(*batch)
+            loss.backward()
+            moe = [m for m in model.modules() if isinstance(m, MoELayer)]
+            got[dev, fused] = dict(
+                loss=loss.item(), aux=[m.l_aux.item() for m in moe],
+                grads={n: p.grad.detach().cpu()
+                       for n, p in model.named_parameters()},
+                launches={k: fn.launches
+                          for k, fn in _train_counters().items()})
+            del model
+    want = got["cpu", True]
+    for key, run in got.items():
+        if abs(run["loss"] - want["loss"]) > 1e-5 or max(
+                abs(a - b) for a, b in zip(run["aux"], want["aux"])) > 1e-6:
+            raise AssertionError(f"25a {key}: loss {run['loss']} aux "
+                                 f"{run['aux']} against {want['loss']} "
+                                 f"{want['aux']}")
+        err = max((run["grads"][n] - g).abs().max().item()
+                  for n, g in want["grads"].items())
+        if err > 1e-4:
+            raise AssertionError(f"25a {key}: gradients {err:.3e} apart")
+        run["grad_err"] = err
+    dense_card = got["cuda", False]["launches"]
+    if dense_card["moe_dispatch"] or dense_card["moe_combine"] or \
+            got["cuda", True]["launches"]["moe_dispatch"] <= 0:
+        raise AssertionError(f"25a launches: dense {dense_card}, fused "
+                             f"{got['cuda', True]['launches']}")
+    _log("25a GPT-MoE 4 layers fp32, B=1 S=256, dense and fused paths card "
+         "against CPU (the CPU's fused path the reference): " + "; ".join(
+             f"{dev} {'fused' if f else 'dense'} loss {r['loss']:.6f} aux "
+             f"{[round(a, 6) for a in r['aux']]} gradients {r['grad_err']:.2e}"
+             for (dev, f), r in got.items())
+         + f"; card dense launches {dense_card}")
+    del got, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. full width on the dense path
+    cfg = gpt3_1p3b(moe_num_experts=MOE_E, moe_fused_dispatch=False)
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, batch = _train_setup(cfg, "cuda", 0, TRAIN_B, TRAIN_S)
+    steps = 4
+    losses, times, launches = _run_train(model, opt, batch, steps)
+    peak = torch.cuda.max_memory_allocated()
+    blocks = _n_moe_blocks(cfg)
+    if launches["moe_dispatch"] or launches["moe_combine"] or any(
+            launches[k] != cfg.num_layers * steps
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        raise AssertionError(f"25b launches {launches}")
+    T = TRAIN_B * TRAIN_S
+    cap = capacity(T, MOE_E, 1, 1.2)
+    tec = T * MOE_E * cap * 4
+    step_s = statistics.median(times[1:])
+    _log(f"25b GPT-MoE gpt3_1p3b dense path, B={TRAIN_B} S={TRAIN_S}, "
+         f"{steps} steps: losses {[round(x, 4) for x in losses]}; step times "
+         f"(s) {[round(t, 4) for t in times]}, median of steps 2-{steps} "
+         f"{step_s * 1e3:.1f} ms beside phase 8's fused step "
+         f"{fused_train['step_s'] * 1e3:.1f} ms (x"
+         f"{step_s / fused_train['step_s']:.3f}); (T, E, C) = ({T}, {MOE_E}, "
+         f"{cap}): combine and dispatch {tec / 2 ** 20:.1f} MiB each in "
+         f"float32, {2 * tec * blocks / 2 ** 30:.2f} GiB over the {blocks} "
+         f"MoE blocks; peak {peak / 2 ** 30:.2f} GiB (phase 8 fused "
+         f"{fused_train['peak_bytes'] / 2 ** 30:.2f} GiB); launches "
+         f"{launches}")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, peak_bytes=peak, launches=launches,
+                tec_bytes=tec)
+
+
+# ------------------------------------------------------------ phase 26
+
+class _TokenData:
+    """Phase 26's synthetic dataset: ``n`` samples of ``S`` random token
+    ids and labels from a numpy seed (module level: the DataLoader's
+    spawned workers unpickle it)."""
+
+    def __init__(self, n, S, vocab, seed):
+        import numpy as np
+        rng = np.random.RandomState(seed)
+        self.ids = rng.randint(0, vocab, (n, S))
+        self.labels = rng.randint(0, vocab, (n, S))
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return self.ids[i], self.labels[i]
+
+
+HAPI_STEPS, HAPI_WORKERS = 8, 2
+HAPI_DIR = os.path.join("build", "hapi_ckpt")
+
+
+def _hapi_parts(cfg, seed):
+    """The model, AdamW (weight decay 0.01, clip 1.0) under a cosine
+    schedule, and the LM loss of ``hapi.Model``."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    model = _model(cfg, "cuda", seed)
+    model.train()
+    sched = lr_mod.CosineAnnealingDecay(LR, 100)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+
+    def lm_loss(logits, labels):
+        return cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                             labels.reshape(-1))
+    return model, opt, sched, lm_loss
+
+
+def hapi_phase():
+    """Phase 26: ``hapi.Model.fit`` on GPT-3 1.3B (fp32 weights, O1 bf16)
+    over a ``DataLoader`` of 2 spawned workers, 8 shuffled steps, with
+    ``ProgBarLogger``, ``LRScheduler`` and ``ModelCheckpoint``, beside
+    the hand-written step (phase 4's) on the same batches (the same numpy
+    seed before each loader): the losses, the step time (median of the
+    last 6), tokens/s, MFU, the peak, the idle share of a profiled
+    ``train_batch``, the flash kernels by name, 8 timeline records,
+    ``fused_adamw`` on every step; then ``evaluate`` and ``predict`` on 4
+    batches, the final checkpoint loaded into a fresh model (the same
+    logits), and 4 fp16 steps with a GradScaler at 65536."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import hapi, io
+    from paddle_tpu_torch.hapi.callbacks import (LRScheduler,
+                                                 ModelCheckpoint,
+                                                 ProgBarLogger)
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    from paddle_tpu_torch.observability import telemetry
+
+    cfg = gpt3_1p3b()
+    data = _TokenData(64, TRAIN_S, cfg.vocab_size, 0)
+    train = io.Subset(data, range(HAPI_STEPS * TRAIN_B))
+    held = io.Subset(data, range(48, 52))
+    tokens = TRAIN_B * TRAIN_S
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the hand-written step on the same batches
+    model, opt, sched, _ = _hapi_parts(cfg, 0)
+    # the same sampler draws in the main process (fit spawns the workers)
+    np.random.seed(1)
+    loader = io.DataLoader(train, batch_size=TRAIN_B, shuffle=True)
+    hand, hand_t = [], []
+    torch.cuda.synchronize()
+    t_hand = time.perf_counter()
+    for ids, labels in loader:
+        t0 = time.perf_counter()
+        loss = _train_step(model, opt, (ids, labels), True)
+        hand.append(loss.item())
+        hand_t.append(time.perf_counter() - t0)
+        sched.step()
+    t_hand = time.perf_counter() - t_hand
+    del model, opt, sched, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same under hapi.Model.fit
+    model, opt, sched, lm_loss = _hapi_parts(cfg, 0)
+    hm = hapi.Model(model)
+    hm.prepare(optimizer=opt, loss=lm_loss, amp_configs="O1")
+    tl = telemetry.default_timeline()
+    tl.reset()
+    tl.configure(flops_per_token=model.flops_per_token(TRAIN_S),
+                 device_kind=torch.cuda.get_device_name(0))
+    shutil.rmtree(HAPI_DIR, ignore_errors=True)
+    for fn in _train_counters().values():
+        fn.launches = 0
+    fused0 = _fused_counts()
+    torch.cuda.reset_peak_memory_stats()
+    np.random.seed(1)
+    t_fit = time.perf_counter()
+    hm.fit(train, batch_size=TRAIN_B, epochs=1, shuffle=True,
+           num_workers=HAPI_WORKERS, verbose=0,
+           callbacks=[ProgBarLogger(verbose=0), LRScheduler(),
+                      ModelCheckpoint(save_dir=HAPI_DIR)])
+    t_fit = time.perf_counter() - t_fit
+    launches = {k: fn.launches for k, fn in _train_counters().items()}
+    fused = {k: v - fused0[k] for k, v in _fused_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    recs = tl.records
+    fit = [r["loss"] for r in recs]
+    _check_train_launches("26 fit", cfg, launches, HAPI_STEPS)
+    if len(recs) != HAPI_STEPS or not all(r["synced"] for r in recs) or \
+            fused["fallback"] or fused["hit"] + fused["miss"] != HAPI_STEPS:
+        raise AssertionError(f"26 fit: {len(recs)} records, fused {fused}")
+    diff = max(abs(a - b) for a, b in zip(fit, hand))
+    if diff > 1e-4:
+        raise AssertionError(f"26: fit losses {fit} against the hand-"
+                             f"written step's {hand}")
+    step_s = statistics.median(r["wall_s"] for r in recs[2:])
+    period = statistics.median(r["wall_s"] + r["gap_s"] for r in recs[2:])
+    hand_s = statistics.median(hand_t[2:])
+    mfu = statistics.median(r["mfu"] for r in recs[2:])
+    ids, labels = next(iter(io.DataLoader(train, batch_size=TRAIN_B)))
+    # the final checkpoint into a fresh model: the same logits
+    fresh, fresh_opt, _, _ = _hapi_parts(cfg, 5)
+    hm2 = hapi.Model(fresh)
+    hm2.prepare(optimizer=fresh_opt, loss=lm_loss)
+    t0 = time.perf_counter()
+    hm2.load(os.path.join(HAPI_DIR, "final"))
+    t_load = time.perf_counter() - t0
+    a, b = hm.predict_batch([ids[:1]])[0], hm2.predict_batch([ids[:1]])[0]
+    if not np.array_equal(a, b):
+        raise AssertionError("26: the loaded model's logits differ")
+    del a, b
+    ev = hm.evaluate(held, batch_size=1, verbose=0)
+    pred = hm.predict(held, batch_size=1, verbose=0)
+    if len(pred[0]) != 4 or pred[0][0].shape != (1, TRAIN_S,
+                                                 cfg.vocab_size) or \
+            not np.isfinite(ev["loss"]):
+        raise AssertionError(f"26 evaluate {ev}, predict "
+                             f"{[p.shape for p in pred[0]]}")
+    del pred
+
+    def step():
+        t0 = time.perf_counter()
+        hm.train_batch([ids], [labels])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    wall, kernels = _profiled(step, step)
+    _check_flash_kernels("26 fit", cfg, kernels)
+    idle = 1 - sum(e.self_device_time_total for e in kernels) / 1e6 / wall
+    _log(f"26 hapi.Model.fit gpt3_1p3b fp32 weights, O1 bf16, AdamW under "
+         f"a cosine schedule, clip 1.0, B={TRAIN_B} S={TRAIN_S}, "
+         f"{HAPI_WORKERS} workers, {HAPI_STEPS} steps: losses "
+         f"{[round(x, 5) for x in fit]} (the hand-written step's on the same"
+         f" batches {[round(x, 5) for x in hand]}, max diff {diff:.3e}, "
+         f"{'bit for bit' if diff == 0 else 'not bit for bit'}); step "
+         f"(timeline wall, median of the last 6) {step_s * 1e3:.1f} ms = "
+         f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f}, with the loader's "
+         f"gap {period * 1e3:.1f} ms; the hand-written step {hand_s * 1e3:.1f}"
+         f" ms (x{step_s / hand_s:.3f}); whole fit {t_fit:.1f} s (two "
+         f"checkpoints in it), hand-written loop {t_hand:.1f} s; peak "
+         f"{peak / 2 ** 30:.2f} GiB; idle share of a profiled train_batch "
+         f"{idle:.3f}; launches {launches}; optimizer.fused {fused}; "
+         f"{len(recs)} timeline records")
+    del hm, model, opt, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"26 evaluate (4 batches): {ev}; predict: 4 batches of [1, "
+         f"{TRAIN_S}, {cfg.vocab_size}]; the final checkpoint loaded into "
+         f"a fresh model in {t_load:.1f} s: logits bit for bit")
+
+    # fp16: 4 steps with a GradScaler at 65536 on the loaded model
+    hm2.prepare(optimizer=fresh_opt, loss=lm_loss,
+                amp_configs={"level": "O1", "dtype": "float16",
+                             "init_loss_scaling": 65536})
+    for fn in _train_counters().values():
+        fn.launches = 0
+    g0 = int(fresh_opt._global_step)
+    tl.reset()
+    hm2.fit(io.Subset(data, range(16)), batch_size=TRAIN_B, epochs=1,
+            shuffle=False, verbose=0)
+    launches16 = {k: fn.launches for k, fn in _train_counters().items()}
+    st = hm2._scaler.state_dict()
+    applied = int(fresh_opt._global_step) - g0
+    losses16 = [r["loss"] for r in tl.records]
+    if not all(np.isfinite(losses16)) or launches16["flash_fwd"] <= 0 or \
+            launches16["fused_adamw"] != 4:
+        raise AssertionError(f"26 fp16: losses {losses16}, launches "
+                             f"{launches16}")
+    _log(f"26 fit fp16 O1, GradScaler(init_loss_scaling=65536), 4 steps: "
+         f"losses {[round(x, 4) for x in losses16]}; {4 - applied} steps "
+         f"skipped, final scale {st['scale']}; launches {launches16}")
+    del hm2, fresh, fresh_opt
+    shutil.rmtree(HAPI_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, hand_step_s=hand_s, tokens_per_s=tokens /
+                step_s, mfu=mfu, peak_bytes=peak, idle_share=idle,
+                launches=launches, fp16_launches=launches16,
+                loss_diff=diff)
+
+
+# ------------------------------------------------------------ phase 27
+
+FP16_LOGIT_TOL = dict(atol=5e-2, rtol=5e-2)
+
+
+def _fp16_names(label, kernels):
+    """Every paged launch of an fp16 run on the fp16 instances by name:
+    the split decode and its merge, the tensor-core chunk kernel (and
+    its merge), never the FMA chunk kernel."""
+    names = ("paged_decode_split_kernel<__half", "paged_decode_merge_"
+             "kernel<__half", "paged_chunk_tc_kernel<__half",
+             "paged_chunk_merge_kernel<__half", "paged_chunk_kernel<",
+             "flash_fwd_tc_kernel<__half")
+    got = _by_name(kernels, names)
+    if got["paged_chunk_kernel<"][0] or \
+            got["paged_decode_split_kernel<__half"][0] == 0:
+        raise AssertionError(f"{label}: kernels by name {got}")
+    _log(f"{label}, fp16 kernels by name: " + ", ".join(
+        f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in got.items()))
+    return got
+
+
+def _first_decode_logits(model, prompt):
+    """The logits of the first decode step through a paged cache (the
+    fp16 prompt on flash_fwd, the step on paged_decode)."""
+    import torch
+    caches = model.init_caches(1, cache_impl="paged", block_size=BS,
+                               max_context=MAX_CONTEXT)
+    ids = torch.tensor([prompt], device="cuda")
+    with torch.no_grad():
+        logits, caches = model.forward_with_cache(ids, caches)
+        nxt = logits[:, -1:].argmax(-1)
+        step, _ = model.forward_with_cache(nxt, caches,
+                                           pos_offset=len(prompt))
+    return step[0, -1].float(), nxt
+
+
+def fp16_serving_phase(lens, bf16):
+    """Phase 27a-c (GPT): GPT-3 1.3B in fp16 served whole-prompt and in
+    256-token chunks (default engine; the chunked run profiled), on eager
+    programs (streams equal), with the ticks timed (overlap off); the
+    first decode step's logits against a dense fp32 forward of the same
+    fp16 weights; a prefix hit and n-gram spec verify; GPT-MoE in fp16
+    on 4 requests; ``generate`` paged and paged_eager in fp16.  ``bf16``:
+    phase 2's runs and phase 23b's, for the same-call comparison."""
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_1p3b
+
+    cfg = gpt3_1p3b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float16,
+                           seed=0).eval()
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in lens]
+    out = {}
+    out["whole"] = serve(model, prompts, 0)
+    out["chunked"] = serve(model, prompts, 256)
+    _fp16_names("27a chunked fp16 (a second, profiled run)",
+                serve(model, prompts, 256, profile=True)["kernels"])
+    eager = serve(model, prompts, 0, cuda_graphs=False)
+    if eager["streams"] != out["whole"]["streams"]:
+        raise AssertionError("27a: graphs' fp16 streams differ from the "
+                             "eager programs'")
+    ticks = serve(model, prompts, 0, time_ticks=True, overlap=False)
+    ms_step = ticks["tick_s"] / max(ticks["steps"], 1) * 1e3
+    for key, need in (("whole", ("flash_fwd", "paged_decode")),
+                      ("chunked", ("paged_chunk", "paged_decode"))):
+        if any(out[key]["launches"][n] <= 0 for n in need):
+            raise AssertionError(f"27a {key}: {out[key]['launches']}")
+    b_whole, b_chunk = bf16["runs"][0], bf16["runs"][256]
+    b_step = bf16["runs"]["graphs"]["graphs"]["ms_per_step"]
+    b13 = bf16["runs"]["graphs"]["overlap"]
+    _log(f"27a bf16 yardsticks of the same call: phase 13's default engine "
+         f"(median of {REPEATS}) {b13['tokens_per_s']:.1f} tokens/s, mean "
+         f"TTFT {b13['ttft_mean_s'] * 1e3:.1f} ms")
+    for key, b in (("whole", b_whole), ("chunked", b_chunk)):
+        r = out[key]
+        _log(f"27a serving gpt3_1p3b fp16, {key}: {r['tokens_per_s']:.1f} "
+             f"tokens/s (bf16 {b['tokens_per_s']:.1f}, x"
+             f"{r['tokens_per_s'] / b['tokens_per_s']:.3f}), mean TTFT "
+             f"{r['ttft_mean_s'] * 1e3:.1f} ms (bf16 "
+             f"{b['ttft_mean_s'] * 1e3:.1f}), launches {r['launches']}, "
+             f"plain_calls {r['plain_calls']}")
+    _log(f"27a fp16 ms per decode step (graphs, overlap off, one run) "
+         f"{ms_step:.3f} against bf16's {b_step:.3f} (x{ms_step / b_step:.3f}"
+         f"); streams equal to the eager programs' (cuda_graphs=False)")
+    # the first decode step against a dense fp32 forward of the same
+    # fp16 weights
+    got, nxt = _first_decode_logits(model, prompts[0])
+    ref = GPTForCausalLM(cfg, device="cuda", seed=0).eval()
+    ref.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        want = ref(torch.tensor([prompts[0] + [int(nxt)]],
+                                device="cuda"))[0, -1]
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **FP16_LOGIT_TOL)
+    _log(f"27a the first decode step's logits (fp16, paged) against a dense "
+         f"fp32 forward of the same fp16 weights: max abs diff {err:.3e} "
+         f"(logits' max {want.abs().max().item():.3f}; limit atol "
+         f"{FP16_LOGIT_TOL['atol']} rtol {FP16_LOGIT_TOL['rtol']})")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # b. a prefix hit and spec verify
+    out["prefix"] = serve(model, _prefix_prompts(cfg.vocab_size), 0,
+                          prefix_cache=True)
+    out["spec"] = serve(model, _repetitive_prompts(cfg.vocab_size), 0,
+                        spec_decode=True, spec_draft="ngram", spec_k=4)
+    pc = out["prefix"]["stats"]["prefix_cache"]
+    sp = out["spec"]["stats"]["speculative"]
+    if pc["hits"] <= 0 or out["prefix"]["launches"]["paged_chunk"] <= 0 or \
+            out["spec"]["launches"]["paged_verify_attention"] <= 0:
+        raise AssertionError(f"27b: prefix {pc}, launches "
+                             f"{out['prefix']['launches']}, spec "
+                             f"{out['spec']['launches']}")
+    _log(f"27b fp16 prefix hits {pc['hits']} (paged_chunk "
+         f"{out['prefix']['launches']['paged_chunk']} launches), n-gram "
+         f"spec accept rate {sp['accept_rate']} (paged_verify_attention "
+         f"{out['spec']['launches']['paged_verify_attention']} launches)")
+    # c. generate in fp16, then GPT-MoE
+    out["generate"] = generate_runs(model, "27c generate gpt3_1p3b fp16",
+                                    GEN_B, GEN_PROMPT, GEN_NEW,
+                                    ("paged", "paged_eager"), 24)
+    for impl, r in out["generate"].items():
+        b = bf16["generate"][impl]["ms_per_token"]
+        _log(f"27c generate {impl} fp16 {r['ms_per_token']:.3f} ms per new "
+             f"token against bf16's {b:.3f} (x{r['ms_per_token'] / b:.3f})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = GPTForCausalLM(gpt3_1p3b(moe_num_experts=MOE_E), device="cuda",
+                         dtype=torch.float16, seed=0).eval()
+    out["moe"] = serve(moe, prompts[:4], 0)
+    n = out["moe"]["launches"]
+    if n["moe_dispatch"] <= 0 or n["moe_dispatch"] != n["moe_combine"]:
+        raise AssertionError(f"27c GPT-MoE fp16: launches {n}")
+    _log(f"27c serving GPT-MoE fp16, 4 requests: "
+         f"{out['moe']['tokens_per_s']:.1f} tokens/s, launches {n}")
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp16_cut_card_vs_cpu()
+    return out
+
+
+def llama_fp16_serving(model, lens, bf16_whole):
+    """Phase 27d, inside phase 14's model lifetime: the Llama-2 7B weights
+    rounded to fp16, one whole-prompt run of phase 14's mix."""
+    import torch
+    model.half()
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, model.cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in lens]
+    run = serve(model, prompts, 0)
+    if any(run["launches"][k] <= 0 for k in ("flash_fwd", "paged_decode")):
+        raise AssertionError(f"27d: launches {run['launches']}")
+    _log(f"27d serving llama2_7b fp16 (the bf16 weights rounded to fp16), "
+         f"whole-prompt: {run['tokens_per_s']:.1f} tokens/s (bf16 "
+         f"{bf16_whole['tokens_per_s']:.1f}), mean TTFT "
+         f"{run['ttft_mean_s'] * 1e3:.1f} ms (bf16 "
+         f"{bf16_whole['ttft_mean_s'] * 1e3:.1f}), launches "
+         f"{run['launches']}")
+    return run
+
+
+def fp16_cut_card_vs_cpu():
+    """Phase 27e: a 4-layer cut of GPT-3 1.3B in fp16 serves the same
+    greedy prompts on the card (default engine) and on the CPU (its fp16
+    products in fp32 rounded once, ``_half_products_in_fp32``): streams
+    compared; each token that differs is reported with the top-2 logit
+    gap where the streams part (ROADMAP.md reference fact 10: rounding, to
+    be reported, not tuned away)."""
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    cpu, card = _cut_models(gpt3_1p3b(num_layers=4))
+    cpu.half()
+    card.half()
+    gen = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(1, 50000, (n,), generator=gen).tolist()
+               for n in (60, 150)]
+    got, _ = _cut_streams(card, "cuda", prompts)
+    with _half_products_in_fp32():
+        want, _ = _cut_streams(cpu, "cpu", prompts)
+    parted = []
+    for p, a, b in zip(prompts, got, want):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = _top2_gap(card, torch.tensor([p + a[:i]], device="cuda"))[0]
+        parted.append((i, gap))
+    _log(f"27e gpt3_1p3b 4 layers fp16, card against CPU, {len(prompts)} "
+         f"greedy streams of 16 tokens: {len(prompts) - len(parted)} equal"
+         + (f"; parted at (token, top-2 logit gap on the card) {parted}"
+            if parted else ""))
+    del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def ptxas_report(build_dir):
     """Registers and spills of every kernel from the ``-Xptxas -v``
     reports; the tensor-core kernels must not spill at hd 64 and 128, and
@@ -5267,7 +6066,7 @@ def ptxas_report(build_dir):
             name = name.group(1) if name else entry
             hd = re.search(r"Li(\d+)E", entry)
             hd = int(hd.group(1)) if hd else None
-            # the flash tensor-core kernels' element type (T = __half or
+            # the tensor-core kernels' element type (T = __half or
             # __nv_bfloat16 in the mangled name)
             ty = "fp16" if "6__half" in entry else "bf16"
             text = (f"{m.group(1)} registers, {spills[0]} bytes spill "
@@ -5289,9 +6088,8 @@ def ptxas_report(build_dir):
             entry = None
     for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                  "flash_bwd_dkv_tc_kernel", "paged_chunk_tc_kernel"):
-        types = ("bf16",) if name == "paged_chunk_tc_kernel" else \
-            ("bf16", "fp16")
-        want = sorted(f"{t} hd {hd}" for t in types for hd in (64, 128, 256))
+        want = sorted(f"{t} hd {hd}" for t in ("bf16", "fp16")
+                      for hd in (64, 128, 256))
         if sorted(tc.get(name, {})) != want:
             raise AssertionError(f"ptxas report: {name} instances "
                                  f"{sorted(tc.get(name, {}))}")
@@ -5369,8 +6167,13 @@ def main() -> int:
                                        rest["fused_step_ms"]])
     fp16 = timed("float16 training", fp16_training_phase, rest)
     gen = timed("generate", generate_phase)
+    lists = timed("custom autocast lists", custom_lists_phase)
+    hapi = timed("hapi.Model.fit", hapi_phase)
+    serve16 = timed("float16 serving", fp16_serving_phase, lens,
+                    dict(runs=runs, generate=gen))
     moe_serve, moe_train = timed("MoE", moe_phases, lens, rows)
-    llama, llama_train, quant, wo_row, wg_row, llama_gen = timed(
+    dense = timed("MoE dense path", moe_dense_phase, moe_train)
+    llama, llama_train, quant, wo_row, wg_row, llama_gen, llama16 = timed(
         "Llama", llama_phases, lens)
     bert = timed("BERT", bert_phase)
     timed("quantized cuts card vs CPU, QAT", quant_cuts_phase)
@@ -5440,7 +6243,21 @@ def main() -> int:
              "generate_paged": gen["paged"]["launches"],
              "generate_paged_eager": gen["paged_eager"]["launches"],
              "llama_generate_static": llama_gen["static"]["launches"],
-             "llama_generate_paged": llama_gen["paged"]["launches"]}
+             "llama_generate_paged": llama_gen["paged"]["launches"],
+             "train_custom_lists": lists["launches"],
+             "moe_dense_train": dense["launches"],
+             "hapi_fit": hapi["launches"],
+             "hapi_fit_fp16": hapi["fp16_launches"],
+             "serve_fp16_whole": serve16["whole"]["launches"],
+             "serve_fp16_chunked": serve16["chunked"]["launches"],
+             "serve_fp16_prefix": serve16["prefix"]["launches"],
+             "serve_fp16_spec": serve16["spec"]["launches"],
+             "moe_serve_fp16": serve16["moe"]["launches"],
+             "generate_paged_fp16":
+                 serve16["generate"]["paged"]["launches"],
+             "generate_paged_eager_fp16":
+                 serve16["generate"]["paged_eager"]["launches"],
+             "llama_serve_fp16": llama16["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -5456,14 +6273,13 @@ def main() -> int:
             kernels[-1]["verify_launches"] = {
                 p: paths[p]["paged_verify_attention"]
                 for p in ("spec_ngram", "spec_ngram_adaptive", "spec_model",
-                          "spec_self")}
+                          "spec_self", "serve_fp16_spec")}
         if name == "weight_only_gemm":
             kernels[-1]["ptxas_by_instance"] = gemm_regs
         tc_name = name + "_tc_kernel"
         if tc_name in tc_regs:
             kernels[-1]["bf16_kernel"] = tc_name
-            if name.startswith("flash_"):
-                kernels[-1]["fp16_kernel"] = tc_name
+            kernels[-1]["fp16_kernel"] = tc_name
             kernels[-1]["ptxas_by_hd"] = tc_regs[tc_name]
     _log(card)
     _log(json.dumps({"kernels": kernels}))

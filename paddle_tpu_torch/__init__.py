@@ -11,10 +11,13 @@ hand-written CUDA kernels for the flash attention forward
 and backward, paged decode, chunked prefill, the MoE token dispatch
 and combine and the weight-only int8/fp8 linear layers of quantized
 serving (``ops/``, ``csrc/``; ``quantization``, ``inference.quant``,
-``nn.quant``).  Entry points run on the card (``device="cuda"``) unless the
+``nn.quant``); ``hapi.Model`` trains with ``io.DataLoader`` and
+``metric``, and ``save`` / ``load`` read and write the JAX package's file
+format.  Entry points run on the card (``device="cuda"``) unless the
 caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
 run instead.  The package imports ``torch``, never ``jax`` or
 ``paddle_tpu``.
 """
 
 from .core.device import resolve_device  # noqa: F401
+from .framework.io import load, save  # noqa: F401

@@ -33,17 +33,26 @@ weights (``multi_precision``).  Under ``auto_cast(level="O2")`` the
 bfloat16 parameters carry the rest: torch's autocast has one policy for
 both levels.  float16 trains as the JAX package does, with a dynamic
 ``GradScaler`` (``amp/grad_scaler.py``, default scale 65536): the flash
-kernels and ``fused_adamw`` take float16; the paged serving kernels do
-not yet and raise (ROADMAP.md).  Custom op lists are not ported yet:
-they raise (ROADMAP.md, A.7).
+kernels and ``fused_adamw`` take float16 (and the paged and MoE kernels
+serve in it).
+
+Custom op lists (``custom_white_list`` / ``custom_black_list``) switch
+policy: torch's autocast is turned off and the JAX package's per-op rule
+runs instead, with the custom changes applied, in a function mode
+(``amp/op_lists.py``: the JAX lists, the table of op names, the mode).
+Without a custom list ``auto_cast`` stays ``torch.autocast``, at its
+cost.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
+from . import op_lists
 
 __all__ = ["auto_cast", "amp_guard", "decorate"]
 
@@ -63,7 +72,12 @@ def _check_dtype(dtype, what) -> torch.dtype:
 class auto_cast:
     """``with auto_cast(True, level="O1", dtype="bfloat16"):`` runs the
     forward in mixed precision (``dtype="float16"`` too); level ``O0`` (or
-    ``enable=False``) runs it in the parameters' type."""
+    ``enable=False``) runs it in the parameters' type.  With
+    ``custom_white_list`` or ``custom_black_list`` (Paddle op names, from
+    ``op_lists.OPS``; any other raises ``NotImplementedError``) the JAX
+    package's per-op lists run instead of torch's autocast; ``.mode`` is
+    then the :class:`~.op_lists.ListCastMode` (``mode.ran`` counts the
+    type each mapped op ran in)."""
 
     def __init__(self, enable: bool = True, custom_white_list=None,
                  custom_black_list=None, level: str = "O1",
@@ -72,19 +86,27 @@ class auto_cast:
         if level not in ("O0", "O1", "O2"):
             raise ValueError(f"level must be O0/O1/O2, got {level}")
         self._dtype = _check_dtype(dtype, "auto_cast")
-        if custom_white_list or custom_black_list:
-            raise NotImplementedError(
-                "auto_cast: custom white and black lists are not ported yet "
-                "(torch's autocast has fixed op lists; ROADMAP.md A.7)")
         self._enable = bool(enable) and level != "O0"
         self._level = level
         self._device = resolve_device(device)
+        self.mode = None
+        if custom_white_list or custom_black_list:
+            white, black = op_lists.lists_with(custom_white_list,
+                                               custom_black_list)
+            if self._enable:
+                self.mode = op_lists.ListCastMode(self._dtype, level, white,
+                                                  black)
         self._ctx = None
 
     def __enter__(self):
-        self._ctx = torch.autocast(self._device.type, dtype=self._dtype,
-                                   enabled=self._enable)
-        self._ctx.__enter__()
+        # with custom lists torch's autocast is off (it would round a
+        # black-listed op's float32 inputs before the mode saw them)
+        self._ctx = contextlib.ExitStack()
+        self._ctx.enter_context(torch.autocast(
+            self._device.type, dtype=self._dtype,
+            enabled=self._enable and self.mode is None))
+        if self.mode is not None:
+            self._ctx.enter_context(op_lists.enter(self.mode))
         return self
 
     def __exit__(self, *exc):

@@ -11,9 +11,12 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 
@@ -23,6 +26,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -31,6 +35,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // Four consecutive elements as fp32; p must be 4-element aligned.
@@ -42,6 +50,12 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
   uint2 u = *reinterpret_cast<const uint2*>(p);
   float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.x));
   float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+__device__ __forceinline__ void load4(const __half* p, float* f) {
+  uint2 u = *reinterpret_cast<const uint2*>(p);
+  float2 a = __half22float2(*reinterpret_cast<__half2*>(&u.x));
+  float2 b = __half22float2(*reinterpret_cast<__half2*>(&u.y));
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
 }
 

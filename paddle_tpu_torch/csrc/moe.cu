@@ -11,11 +11,11 @@
 // x [T, M], inv [E*C] int32, out [E*C, M].  An empty slot writes zeros and
 // reads nothing, so no zero row is appended to x (the TPU kernel pads x
 // with one, a full copy of the activations).  The kernel moves bytes and
-// never looks at them: float32 and bfloat16 take the same code.
+// never looks at them: float32, bfloat16 and float16 take the same code.
 //
 // moe_combine mixes the experts' output rows back to the tokens:
 //   out[t, :] = sum_j w[t, j] * rows[flat[t, j], :]   (j = 0 .. k-1)
-// rows [E*C, M] float32 or bfloat16, w [T, k] float32, flat [T, k] int32,
+// rows [E*C, M] float32, bfloat16 or float16, w [T, k] float32, flat [T, k] int32,
 // out [T, M] in the rows' type.  A choice whose slot is the dummy E*C
 // (dropped past capacity) contributes 0 and reads nothing.  Each product
 // is rounded to float32, then added in j order to a float32 sum, as the
@@ -33,13 +33,14 @@
 //
 // Layout on the card: one block of up to 128 threads per output row (a
 // slot for dispatch, a token for combine); each thread moves 16-byte
-// vectors (4 float32 or 8 bfloat16), neighbouring threads on neighbouring
+// vectors (4 float32 or 8 bfloat16 or float16), neighbouring threads on neighbouring
 // addresses, so every row moves in whole coalesced lines.  The TPU
 // kernels' single grid step with a sequential loop over rows becomes one
 // block per row, all independent; combine's block reads its token's k
 // slots and weights into shared memory once.  No TMA: a row gather has
 // no tile to stage.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,6 +68,17 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f,
   }
 }
 
+__device__ __forceinline__ void unpack16(const uint4& u, float* f, __half) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __half2 h = *reinterpret_cast<const __half2*>(&w[i]);
+    float2 p = __half22float2(h);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
 __device__ __forceinline__ uint4 pack16(const float* f, float) {
   return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
                     __float_as_uint(f[2]), __float_as_uint(f[3]));
@@ -77,6 +89,16 @@ __device__ __forceinline__ uint4 pack16(const float* f, __nv_bfloat16) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint4 pack16(const float* f, __half) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __half2 h = __float22half2_rn(make_float2(f[2 * i], f[2 * i + 1]));
     w[i] = *reinterpret_cast<uint32_t*>(&h);
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
@@ -138,17 +160,17 @@ inline int row_threads(int nvec) {
   return nvec >= kMoeThreads ? kMoeThreads : ((nvec + 31) / 32) * 32;
 }
 
-// 0 for a code the kernels do not take (float16, 2, among them): the
-// entry points refuse it before any launch.
+// 0 for a code the kernels do not take: the entry points refuse it
+// before any launch.
 inline int elem_bytes(int dtype) {
-  return dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  return dtype == 0 ? 4 : (dtype == 1 || dtype == 2) ? 2 : 0;
 }
 
 }  // namespace ptt
 
 // x [T, M], inv [rows] int32, out [rows, M]; all contiguous on the device,
 // 16-byte aligned, M * element size a multiple of 16.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns the launch's cudaError_t.
+// 1 = bfloat16, 2 = float16.  Returns the launch's cudaError_t.
 extern "C" int ptt_moe_dispatch(const void* x, const void* inv, void* out,
                                 int T, int rows, int M, int dtype,
                                 void* stream) {
@@ -165,7 +187,8 @@ extern "C" int ptt_moe_dispatch(const void* x, const void* inv, void* out,
 
 // rows [EC, M], w [T, k] float32, flat [T, k] int32, out [T, M] like rows;
 // all contiguous on the device, rows and out 16-byte aligned, M * element
-// size a multiple of 16, 1 <= k <= 8.  dtype: 0 = float32, 1 = bfloat16.
+// size a multiple of 16, 1 <= k <= 8.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.
 // Returns the launch's cudaError_t.
 extern "C" int ptt_moe_combine(const void* rows, const void* w,
                                const void* flat, void* out, int T, int EC,
@@ -187,6 +210,9 @@ extern "C" int ptt_moe_combine(const void* rows, const void* w,
   else if (dtype == 1)
     ptt::moe_combine_kernel<__nv_bfloat16><<<T, threads, 0, st>>>(
         r, wt, f, o, EC, k, nvec);
+  else if (dtype == 2)
+    ptt::moe_combine_kernel<__half><<<T, threads, 0, st>>>(r, wt, f, o, EC,
+                                                           k, nvec);
   else
     return (int)cudaErrorInvalidValue;   // elem_bytes refused it already
   return (int)cudaGetLastError();

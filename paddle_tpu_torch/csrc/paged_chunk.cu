@@ -28,13 +28,14 @@
 // block per (sequence x head, 128 query rows) is 32 blocks for the card's
 // 132 SMs, each walking ~1200 keys in order.
 //
-// bfloat16: paged_chunk_tc_kernel, on the tensor cores, built from
-// tc_common.cuh like flash_fwd.cu's flash_fwd_tc_kernel, which it follows:
-// one block of two warpgroups (64 query rows each) per (sequence x head,
-// 128 rows, split of the key axis); Q bf16 SW128 in shared memory; K and V
-// tiles of 64 keys by 16-byte cp.async into a two-stage ring; S = Q K^T
-// and O += P V on wgmma (m64n64k16, fp32 accumulation), P rounded to bf16
-// in registers (the TPU kernel casts p to v's type); the softmax state in
+// bfloat16 and float16: paged_chunk_tc_kernel<T>, on the tensor cores,
+// built from tc_common.cuh like flash_fwd.cu's flash_fwd_tc_kernel, which
+// it follows: one block of two warpgroups (64 query rows each) per
+// (sequence x head, 128 rows, split of the key axis); Q SW128 in shared
+// memory; K and V tiles of 64 keys by 16-byte cp.async into a two-stage
+// ring; S = Q K^T and O += P V on wgmma (m64n64k16, .bf16 or .f16
+// operands, fp32 accumulation), P rounded to T in registers (the TPU
+// kernel casts p to v's type); the softmax state in
 // registers with exp2.  Two changes from the forward: key row kp comes from
 // pool block table[kp / bs], row kp % bs (the block's slice of the table
 // row staged in shared memory once), and the causal offset is start[b].
@@ -140,7 +141,8 @@ cudaError_t dispatch_chunk_f32(int hd, const void* q, const void* k_pool,
 
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
+// bfloat16 and float16 on the tensor cores (one body, T the 16-bit type:
+// wgmma's .bf16 or .f16 operands, P rounded to T by pack2<T>)
 // ---------------------------------------------------------------------------
 constexpr int kChunkRows = 128;    // query rows per block: two warpgroups
 constexpr int kChunkKeys = tc::kKeys;
@@ -167,14 +169,14 @@ struct ChunkTcSmem {
 // Two blocks per SM at hd 64 and 128 (128 registers a thread), one at 256.
 constexpr int chunk_tc_min_blocks(int D) { return D <= 128 ? 2 : 1; }
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kChunkThreads, chunk_tc_min_blocks(D))
-    paged_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k_pool,
-                          const __nv_bfloat16* __restrict__ v_pool,
+    paged_chunk_tc_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k_pool,
+                          const T* __restrict__ v_pool,
                           const int* __restrict__ tables,
                           const int* __restrict__ starts,
-                          __nv_bfloat16* __restrict__ out,
+                          T* __restrict__ out,
                           float* __restrict__ work, int s, int nh,
                           int num_blocks, int bs, int max_blocks,
                           int keys_per_split, float scale_log2) {
@@ -275,7 +277,7 @@ __global__ void __launch_bounds__(kChunkThreads, chunk_tc_min_blocks(D))
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t cb = (kk >> 2), ko = (kk & 3) * 32;
-      tc::wgmma_ss(sc, tc::desc(qa + cb * kChunkRows * tc::kRowBytes + ko),
+      tc::wgmma_ss<T>(sc, tc::desc(qa + cb * kChunkRows * tc::kRowBytes + ko),
                    tc::desc(ka + cb * kChunkKeys * tc::kRowBytes + ko),
                    kk > 0);
     }
@@ -326,13 +328,13 @@ __global__ void __launch_bounds__(kChunkThreads, chunk_tc_min_blocks(D))
 
     uint32_t pa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) tc::acc_to_a(sc, kk, pa[kk]);
+    for (int kk = 0; kk < 4; ++kk) tc::acc_to_a<T>(sc, kk, pa[kk]);
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
-        tc::wgmma_rs_t(o[nb], pa[kk],
+        tc::wgmma_rs_t<T>(o[nb], pa[kk],
                        tc::desc(va + nb * kChunkKeys * tc::kRowBytes +
                                 kk * 16 * tc::kRowBytes));
     tc::wgmma_commit();
@@ -384,10 +386,10 @@ __global__ void __launch_bounds__(kChunkThreads, chunk_tc_min_blocks(D))
 // in split order (deterministic); an empty split (m = -inf) weighs 0 and
 // its acc is never read; out = sum w acc / sum w l, zeros where no split
 // saw a key.
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kChunkThreads)
     paged_chunk_merge_kernel(const float* __restrict__ work,
-                             __nv_bfloat16* __restrict__ out, int s, int nh,
+                             T* __restrict__ out, int s, int nh,
                              int n_split) {
   constexpr int kPerRow = D / 4;                 // threads per row
   constexpr int kRows = kChunkThreads / kPerRow;  // rows per block
@@ -415,13 +417,13 @@ __global__ void __launch_bounds__(kChunkThreads)
   }
   const float inv = lall != 0.f ? 1.f / lall : 0.f;
   uint2 packed;
-  packed.x = tc::pack_bf16(acc[0] * inv, acc[1] * inv);
-  packed.y = tc::pack_bf16(acc[2] * inv, acc[3] * inv);
+  packed.x = tc::pack2<T>(acc[0] * inv, acc[1] * inv);
+  packed.y = tc::pack2<T>(acc[2] * inv, acc[3] * inv);
   *reinterpret_cast<uint2*>(
       out + (((long long)(bh / nh) * s + r) * nh + bh % nh) * D + c) = packed;
 }
 
-template <int D>
+template <class T, int D>
 cudaError_t launch_chunk_tc(const void* q, const void* k_pool,
                             const void* v_pool, const int* tables,
                             const int* starts, void* out, float* work, int B,
@@ -437,29 +439,30 @@ cudaError_t launch_chunk_tc(const void* q, const void* k_pool,
   if (smem > (size_t)kMaxSmem || n_split > 65535 ||
       (n_split > 1 && work == nullptr))
     return cudaErrorInvalidValue;
-  auto kernel = paged_chunk_tc_kernel<D>;
+  auto kernel = paged_chunk_tc_kernel<T, D>;
   static const cudaError_t attr = allow_smem(kernel, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k_pool);
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v_pool);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  const T* kp = static_cast<const T*>(k_pool);
+  const T* vp = static_cast<const T*>(v_pool);
+  T* o = static_cast<T*>(out);
   dim3 grid(B * nh, (s + kChunkRows - 1) / kChunkRows, n_split);
   kernel<<<grid, kChunkThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), kp, vp, tables, starts, o, work,
+      static_cast<const T*>(q), kp, vp, tables, starts, o, work,
       s, nh, num_blocks, bs, max_blocks, keys_per_split,
       1.4426950408889634f / sqrtf((float)D));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   constexpr int kRows = kChunkThreads / (D / 4);
-  paged_chunk_merge_kernel<D>
+  paged_chunk_merge_kernel<T, D>
       <<<dim3((s + kRows - 1) / kRows, B * nh), kChunkThreads, 0, stream>>>(
           work, o, s, nh, n_split);
   return cudaGetLastError();
 }
 
-// bf16 takes the tensor-core kernel or nothing: an hd it does not take
-// raises, it never drops to the FMA kernel
-cudaError_t dispatch_chunk_bf16(int hd, const void* q, const void* k_pool,
+// bf16 and fp16 take the tensor-core kernel or nothing: an hd it does not
+// take raises, they never drop to the FMA kernel
+template <class T>
+cudaError_t dispatch_chunk_tc(int hd, const void* q, const void* k_pool,
                                 const void* v_pool, const int* tables,
                                 const int* starts, void* out, float* work,
                                 int B, int s, int nh, int num_blocks, int bs,
@@ -467,15 +470,15 @@ cudaError_t dispatch_chunk_bf16(int hd, const void* q, const void* k_pool,
                                 cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_chunk_tc<64>(q, k_pool, v_pool, tables, starts, out,
+      return launch_chunk_tc<T, 64>(q, k_pool, v_pool, tables, starts, out,
                                  work, B, s, nh, num_blocks, bs, max_blocks,
                                  keys_per_split, stream);
     case 128:
-      return launch_chunk_tc<128>(q, k_pool, v_pool, tables, starts, out,
+      return launch_chunk_tc<T, 128>(q, k_pool, v_pool, tables, starts, out,
                                   work, B, s, nh, num_blocks, bs, max_blocks,
                                   keys_per_split, stream);
     case 256:
-      return launch_chunk_tc<256>(q, k_pool, v_pool, tables, starts, out,
+      return launch_chunk_tc<T, 256>(q, k_pool, v_pool, tables, starts, out,
                                   work, B, s, nh, num_blocks, bs, max_blocks,
                                   keys_per_split, stream);
     default:
@@ -487,8 +490,8 @@ cudaError_t dispatch_chunk_bf16(int hd, const void* q, const void* k_pool,
 
 // q [B, s, nh, hd], pools [nh, num_blocks, bs, hd], tables [B, max_blocks]
 // int32, starts [B] int32, out like q; all contiguous on the device.
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
-// bfloat16 only: the key axis in splits of keys_per_split keys (a multiple
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16, 2 = float16 (the
+// tensor-core kernel).  16-bit types only: the key axis in splits of keys_per_split keys (a multiple
 // of 64), and work, fp32 scratch of n_split * B * nh * s * (hd + 2) floats
 // for n_split = ceil(max_blocks * bs / keys_per_split) > 1 (null for one
 // split).  Returns the launches' cudaError_t.
@@ -504,10 +507,14 @@ extern "C" int ptt_paged_chunk(const void* q, const void* k_pool,
   const int* t = static_cast<const int*>(tables);
   const int* st0 = static_cast<const int*>(starts);
   cudaError_t err =
-      dtype == 1 ? ptt::dispatch_chunk_bf16(
+      dtype == 1 ? ptt::dispatch_chunk_tc<__nv_bfloat16>(
                        hd, q, k_pool, v_pool, t, st0, out,
                        static_cast<float*>(work), B, s, nh, num_blocks, bs,
                        max_blocks, keys_per_split, st)
+      : dtype == 2 ? ptt::dispatch_chunk_tc<__half>(
+                         hd, q, k_pool, v_pool, t, st0, out,
+                         static_cast<float*>(work), B, s, nh, num_blocks, bs,
+                         max_blocks, keys_per_split, st)
       : dtype == 0 ? ptt::dispatch_chunk_f32(hd, q, k_pool, v_pool, t, st0,
                                              out, B, s, nh, num_blocks, bs,
                                              max_blocks, st)

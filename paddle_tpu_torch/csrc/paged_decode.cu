@@ -59,7 +59,7 @@ constexpr int kMaxSplits = 128;
 
 // One lane's VEC neighbouring elements of a key or value row, kept as the
 // raw 32-bit words they were loaded as (half the registers of fp32 for
-// bf16) until they are used.
+// bf16 and fp16) until they are used.
 template <typename T, int VEC>
 struct Frag {
   static constexpr int W = VEC * (int)sizeof(T) / 4;
@@ -85,6 +85,12 @@ struct Frag {
     if constexpr (sizeof(T) == 4) {
 #pragma unroll
       for (int i = 0; i < W; ++i) f[i] = __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, __half>::value) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+        f[2 * i] = v.x; f[2 * i + 1] = v.y;
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < W; ++i) {
@@ -334,8 +340,8 @@ cudaError_t dispatch_decode(int hd, const void* q, const void* k_pool,
 // int32, seq_lens [B] int32, out like q; all contiguous on the device.
 // work: fp32 scratch of [B, nh, n_split, hd + 2], n_split = ceil(max_blocks
 // / blocks_per_split) (at most 128; blocks_per_split at most 256).  hd in
-// 64/128/256.  dtype: 0 = float32, 1 = bfloat16.  Returns the launches'
-// cudaError_t.
+// 64/128/256.  dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns
+// the launches' cudaError_t.
 extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
                                 const void* v_pool, const void* tables,
                                 const void* seq_lens, void* out, void* work,
@@ -353,6 +359,9 @@ extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
       dtype == 1 ? ptt::dispatch_decode<__nv_bfloat16>(
                        hd, q, k_pool, v_pool, t, lens, out, w, B, nh,
                        num_blocks, bs, max_blocks, blocks_per_split, st)
+      : dtype == 2 ? ptt::dispatch_decode<__half>(
+                         hd, q, k_pool, v_pool, t, lens, out, w, B, nh,
+                         num_blocks, bs, max_blocks, blocks_per_split, st)
       : dtype == 0 ? ptt::dispatch_decode<float>(
                          hd, q, k_pool, v_pool, t, lens, out, w, B, nh,
                          num_blocks, bs, max_blocks, blocks_per_split, st)

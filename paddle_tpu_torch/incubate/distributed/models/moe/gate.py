@@ -1,15 +1,17 @@
 """MoE gates: naive top-k, Switch (top-1), GShard (top-2), in index form.
 
 Counterpart of ``paddle_tpu/incubate/distributed/models/moe/gate.py``:
-``capacity``, ``BaseGate``, ``NaiveGate`` (``_prepare``,
-``_route_indices``, ``_aux``, ``forward_indices``), ``SwitchGate`` and
-``GShardGate`` with its train/eval capacity and random routing.  Each gate
-gives, per token and routing choice, the expert id, the slot in that
-expert's fixed-capacity buffer, a keep flag (0 past capacity or when
-random routing drops the choice) and the renormalised combine weight,
-for the fused dispatch of ``ops/moe.py``.  The JAX gates' dense ``(T, E,
-C)`` form (``_route``, ``forward``) and expert parallelism (the JAX
-gates' ``world_size``) are not ported yet (ROADMAP.md).
+``capacity``, ``BaseGate``, ``NaiveGate`` (``_prepare``, ``_route``,
+``_route_indices``, ``_aux``, ``forward``, ``forward_indices``),
+``SwitchGate`` and ``GShardGate`` with its train/eval capacity and random
+routing.  ``forward_indices`` gives, per token and routing choice, the
+expert id, the slot in that expert's fixed-capacity buffer, a keep flag
+(0 past capacity or when random routing drops the choice) and the
+renormalised combine weight, for the fused dispatch of ``ops/moe.py``;
+``forward`` gives the same decision in the dense form, ``(T, E, C)``
+combine weights and 0/1 dispatch slots, for ``MoELayer``'s einsum path.
+Expert parallelism (the JAX gates' ``world_size``) goes with ROADMAP.md
+A.8.
 
 Two details fix the routing bit for bit against the JAX package:
 
@@ -48,8 +50,9 @@ def _topk_indices(gates, k: int):
 
 
 class BaseGate(nn.Module):
-    """``forward_indices(x)`` gives the routing decision in index form;
-    the aux loss of the last call is ``get_loss()``."""
+    """``forward(x)`` gives the routing decision in the dense form,
+    ``forward_indices(x)`` in index form; the aux loss of the last call is
+    ``get_loss()``."""
 
     def __init__(self, d_model: int, num_expert: int, top_k: int = 2):
         super().__init__()
@@ -77,6 +80,43 @@ class NaiveGate(BaseGate):
         self.capacity_factor = capacity_factor
         self.min_capacity = min_capacity
 
+    @staticmethod
+    def _positions(m, taken):
+        """Exclusive running count of ``m [T, E]`` over tokens, offset by
+        the slots ``taken [E]`` of the higher-priority choices."""
+        # scanned as [E, T]: down the outer dim of [T, 4] the scan took
+        # ~0.7 ms at T 8192 on an H100 (integers below 2**24 either way,
+        # so equal in fp32)
+        pos = torch.cumsum(m.t().contiguous(), 1).t() - m
+        return pos if taken is None else pos + taken[None]
+
+    def _route(self, gates, cap, second_keep=None):
+        """The routing decision of :meth:`_route_indices` in the dense
+        form: ``combine [T, E, C]``, each kept choice's gate weight at its
+        slot, renormalised per token over the kept choices, and
+        ``dispatch [T, E, C]``, 1 at each kept choice's slot.  Returns
+        (combine, dispatch, frac, mean_gate)."""
+        E = self.tot_expert
+        idx = _topk_indices(gates, self.top_k)                  # (T, k)
+        taken = combine = dispatch = frac = None
+        for i in range(self.top_k):
+            m = nn.functional.one_hot(idx[:, i], E).to(gates.dtype)
+            if i == 0:
+                frac = m.mean(0)
+            if i == 1 and second_keep is not None:
+                m = m * second_keep[:, None]
+            pos = self._positions(m, taken)
+            m_kept = m * (pos < float(cap)).to(m.dtype)
+            oh = nn.functional.one_hot(pos.long().clamp(0, cap - 1),
+                                       cap).to(m.dtype) * m_kept[..., None]
+            w = (gates * m_kept)[..., None] * oh
+            combine = w if combine is None else combine + w
+            dispatch = oh if dispatch is None else dispatch + oh
+            counts = m.sum(0)                     # drops included
+            taken = counts if taken is None else taken + counts
+        combine = combine / combine.sum((1, 2), keepdim=True).clamp(min=1e-9)
+        return combine, dispatch, frac, gates.mean(0)
+
     def _route_indices(self, gates, cap, second_keep=None):
         """Per token and routing choice: expert id (the top-k index),
         buffer slot (running position inside that expert, offset by the
@@ -95,12 +135,7 @@ class NaiveGate(BaseGate):
                 frac = m.mean(0)
             if i == 1 and second_keep is not None:
                 m = m * second_keep[:, None]
-            # exclusive running count over tokens, scanned as [E, T]: down
-            # the outer dim of [T, 4] the scan took ~0.7 ms at T 8192 on an
-            # H100 (integers below 2**24 either way, so equal in fp32)
-            pos = torch.cumsum(m.t().contiguous(), 1).t() - m
-            if taken is not None:
-                pos = pos + taken[None]
+            pos = self._positions(m, taken)
             m_kept = m * (pos < float(cap)).float()
             # m is one-hot over E (or all 0 when random routing dropped
             # the choice): the row sums pick this choice's expert column
@@ -132,6 +167,17 @@ class NaiveGate(BaseGate):
 
     def _aux(self, frac, mean_gate):
         return torch.zeros((), dtype=torch.float32, device=frac.device)
+
+    def forward(self, x):
+        """Routing of x ``[T, d_model]`` in the dense form: returns
+        (combine, dispatch, aux) (see :meth:`_route`) and sets the aux
+        loss."""
+        gates, cap, second_keep = self._prepare(x)
+        combine, dispatch, frac, mean_gate = self._route(gates, cap,
+                                                         second_keep)
+        aux = self._aux(frac, mean_gate)
+        self.set_loss(aux)
+        return combine, dispatch, aux
 
     def forward_indices(self, x):
         """Routing of x ``[T, d_model]``: returns (eid, slot, keep, w, cap,

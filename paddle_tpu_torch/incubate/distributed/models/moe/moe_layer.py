@@ -1,12 +1,19 @@
 """MoE layer: gate -> dispatch -> experts -> combine.
 
 Counterpart of ``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``
-(``ExpertMLP``, ``MoELayer``) on its fused data plane: the gate's
-index-form routing drives the ``moe_dispatch`` and ``moe_combine`` kernels
-of ``ops/moe.py``, and no ``(T, E, C)`` tensor is built.  The JAX layer's
-dense einsum path (``FLAGS_moe_fused_dispatch=0``, its oracle),
-``audit_dispatch`` and expert-parallel sharding are not ported yet
-(ROADMAP.md).
+(``ExpertMLP``, ``MoELayer``) with both of its data planes, chosen at
+construction as the JAX layer snapshots ``FLAGS_moe_fused_dispatch``:
+
+- fused (``fused=True``, the default): the gate's index-form routing
+  drives the ``moe_dispatch`` and ``moe_combine`` kernels of
+  ``ops/moe.py``, and no ``(T, E, C)`` tensor is built;
+- dense (``fused=False``, the JAX layer's oracle): the gate's ``(T, E,
+  C)`` combine and dispatch tensors, ``einsum("tec,tm->ecm")`` into the
+  expert buffers and ``einsum("tec,ecm->tm")`` back, plain large
+  products that the JAX package leaves to XLA outside any Pallas kernel.
+
+``audit_dispatch`` goes with the X-ray rewrite and expert-parallel
+sharding with the distributed slice (ROADMAP.md A.9, A.8).
 """
 
 from __future__ import annotations
@@ -71,13 +78,15 @@ class MoELayer(nn.Module):
     The layer lives on ``device``: ``cuda`` by default (raises without
     CUDA unless ``device="cpu"``), where dispatch and combine run the
     kernels; ``"meta"`` leaves the weights for the caller to materialise,
-    as ``GPTForCausalLM`` does.  Given experts or a gate move there."""
+    as ``GPTForCausalLM`` does.  Given experts or a gate move there.
+    ``fused`` picks the data plane once, here (the JAX
+    ``FLAGS_moe_fused_dispatch``): the kernels, or the dense einsums."""
 
     def __init__(self, d_model: int, experts: Optional[ExpertMLP] = None,
                  gate: "BaseGate | str" = "gshard", num_expert: int = None,
                  d_hidden: int = None, top_k: int = 2,
                  capacity_factor: Optional[float] = None, generator=None,
-                 device=None, **gate_kwargs):
+                 device=None, fused: bool = True, **gate_kwargs):
         super().__init__()
         meta = device is not None and torch.device(device).type == "meta"
         device = torch.device("meta") if meta else resolve_device(device)
@@ -110,6 +119,7 @@ class MoELayer(nn.Module):
                 raise ValueError(f"unknown gate {gate!r}")
         self.gate = gate
         self.l_aux = None
+        self.fused = bool(fused)
         self.to(device)
 
     def forward(self, x):
@@ -117,6 +127,13 @@ class MoELayer(nn.Module):
         shape = x.shape
         M = shape[-1]
         xt = x.reshape(-1, M)
+        if not self.fused:
+            combine, dispatch, aux = self.gate(xt)              # (T, E, C)
+            self.l_aux = aux
+            expert_in = torch.einsum("tec,tm->ecm", dispatch, xt)
+            out = torch.einsum("tec,ecm->tm", combine,
+                               self.experts(expert_in))
+            return out.reshape(shape)
         eid, slot, keep, w, cap, aux = self.gate.forward_indices(xt)
         self.l_aux = aux
         E = self.gate.tot_expert

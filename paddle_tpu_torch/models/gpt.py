@@ -66,6 +66,9 @@ class GPTConfig:
     moe_every_n_layers: int = 2
     moe_top_k: int = 2
     moe_aux_weight: float = 0.01
+    # the MoE blocks' data plane (the JAX FLAGS_moe_fused_dispatch): the
+    # moe_dispatch / moe_combine kernels, or the dense (T, E, C) einsums
+    moe_fused_dispatch: bool = True
 
     def __post_init__(self):
         if self.intermediate_size == 0:
@@ -149,7 +152,8 @@ class GPTBlock(nn.Module):
                 d_hidden=cfg.intermediate_size,
                 gate=("gshard" if cfg.moe_top_k == 2 else
                       "switch" if cfg.moe_top_k == 1 else "naive"),
-                top_k=cfg.moe_top_k, generator=generator, device=device)
+                top_k=cfg.moe_top_k, generator=generator, device=device,
+                fused=cfg.moe_fused_dispatch)
         else:
             self.mlp = GPTMLP(cfg)
         self.dropout = cfg.dropout

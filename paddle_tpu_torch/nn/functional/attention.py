@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from ...amp import op_lists
 from ...ops import flash_attention as fa
 from .common import dropout
 
@@ -74,7 +75,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal: bool = False,
                                  training: bool = True, generator=None):
     """Attention over ``[B, S, heads, hd]`` tensors; ``dropout_p`` applies
-    in training only, its randomness drawn from ``generator``."""
+    in training only, its randomness drawn from ``generator``.  Under
+    custom autocast lists it is the op ``sdpa``."""
+    query, key, value = op_lists.cast_inputs("sdpa", query, key, value)
+    with op_lists.outside_lists():
+        return _sdpa(query, key, value, attn_mask, dropout_p, is_causal,
+                     training, generator)
+
+
+def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training,
+          generator):
     B, Sk = query.shape[0], key.shape[1]
     kv_mask = as_kv_padding_mask(attn_mask, B, Sk)
     rate = float(dropout_p) if training else 0.0

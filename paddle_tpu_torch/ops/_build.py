@@ -31,7 +31,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build", "check", "stream", "sm_count", "dtype_code",
-           "check_device_tensors", "KERNEL_DTYPES", "FLASH_DTYPES",
+           "check_device_tensors", "KERNEL_DTYPES", "FP16_DTYPES",
            "BUILD_DIR", "CSRC", "KernelError", "KernelLaunchError",
            "KernelValueError", "KernelTypeError"]
 
@@ -192,10 +192,10 @@ def sm_count(device: torch.device) -> int:
 
 # the type codes of the C entry points
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# what most kernels take; the flash kernels (FLASH_DTYPES) and
-# fused_adamw take float16 too
+# what the weight-only pair takes; the kernels with float16 instances
+# (FP16_DTYPES) are the flash, paged and MoE kernels and fused_adamw
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+FP16_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def dtype_code(dtype: torch.dtype, accepts=KERNEL_DTYPES,

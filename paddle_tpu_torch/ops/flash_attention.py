@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from ..amp import op_lists
 from . import _build
 from ._build import KernelValueError
 
@@ -146,7 +147,7 @@ def _launch_args(kv_mask, dropout_rate, seed):
 def _kernel_dims(kernel, q, k, floats, kv_mask):
     _build.check_device_tensors(kernel, floats,
                                 () if kv_mask is None else (kv_mask,),
-                                _build.FLASH_DTYPES)
+                                _build.FP16_DTYPES)
     B, Sq, nh, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
         raise KernelValueError(f"{kernel}: head dim {hd} not in "
@@ -193,7 +194,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
     err = _build.library().ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), mask_ptr, B, Sq, Sk, nh, nkv, hd,
-        int(bool(causal)), _build.dtype_code(q.dtype, _build.FLASH_DTYPES),
+        int(bool(causal)), _build.dtype_code(q.dtype, _build.FP16_DTYPES),
         seed, thresh, keep_p, _build.stream(q.device))
     _build.check(err, "flash_fwd")
     flash_attention_fwd.launches += 1
@@ -288,7 +289,7 @@ def _bwd_launch(kernel, entry, q, k, v, out, lse, do, grads, causal,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), *(g.data_ptr() for g in grads),
         *scratch, mask_ptr, B, Sq, Sk, nh, nkv, hd, int(bool(causal)),
-        _build.dtype_code(q.dtype, _build.FLASH_DTYPES), seed, thresh,
+        _build.dtype_code(q.dtype, _build.FP16_DTYPES), seed, thresh,
         keep_p, _build.stream(q.device))
     _build.check(err, kernel)
 
@@ -421,5 +422,9 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = False, kv_mask=None,
                     dropout_rate: float = 0.0, seed=None):
     """Differentiable flash attention, ``[B, Sq, nh, hd]`` out; arguments
-    as :func:`flash_attention_fwd`."""
-    return FlashAttention.apply(q, k, v, causal, kv_mask, dropout_rate, seed)
+    as :func:`flash_attention_fwd`.  Under custom autocast lists it is the
+    op ``flash_attention``."""
+    q, k, v = op_lists.cast_inputs("flash_attention", q, k, v)
+    with op_lists.outside_lists():
+        return FlashAttention.apply(q, k, v, causal, kv_mask, dropout_rate,
+                                    seed)

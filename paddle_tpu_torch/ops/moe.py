@@ -71,7 +71,8 @@ def _dispatch(x, inv):
             f"and inv {tuple(inv.shape)} [E * C]")
     if x.device.type == "cpu":
         return moe_dispatch_reference(x, inv)
-    _build.check_device_tensors("moe_dispatch", (x,), (inv,))
+    _build.check_device_tensors("moe_dispatch", (x,), (inv,),
+                                _build.FP16_DTYPES)
     T, M = x.shape
     _row_checks("moe_dispatch", x, M)
     rows = inv.shape[0]
@@ -80,7 +81,8 @@ def _dispatch(x, inv):
         return out
     err = _build.library().ptt_moe_dispatch(
         x.data_ptr(), inv.data_ptr(), out.data_ptr(), T, rows, M,
-        _build.dtype_code(x.dtype), _build.stream(x.device))
+        _build.dtype_code(x.dtype, _build.FP16_DTYPES),
+        _build.stream(x.device))
     _build.check(err, "moe_dispatch")
     moe_dispatch.launches += 1
     return out
@@ -113,8 +115,8 @@ def moe_dispatch(x, inv):
     reshape to ``(E, C, M)`` for the batched experts.  Differentiable in
     x.
 
-    CUDA tensors (float32 or bfloat16, contiguous, 16-byte aligned, M a
-    multiple of 4 or 8) launch the ``moe_dispatch`` kernel; CPU tensors
+    CUDA tensors (float32, bfloat16 or float16, contiguous, 16-byte
+    aligned, M a multiple of 4 or 8) launch the ``moe_dispatch`` kernel; CPU tensors
     take :func:`moe_dispatch_reference`."""
     if torch.is_grad_enabled() and x.requires_grad:
         return MoEDispatch.apply(x, inv)
@@ -143,7 +145,8 @@ def _combine(expert_rows, w, flat):
             f"{tuple(flat.shape)} alike [T, k]")
     if expert_rows.device.type == "cpu":
         return moe_combine_reference(expert_rows, w, flat)
-    _build.check_device_tensors("moe_combine", (expert_rows,), (flat,))
+    _build.check_device_tensors("moe_combine", (expert_rows,), (flat,),
+                                _build.FP16_DTYPES)
     if w.device != expert_rows.device or not w.is_contiguous():
         raise KernelValueError("moe_combine: w must be contiguous on "
                                f"{expert_rows.device}")
@@ -160,7 +163,8 @@ def _combine(expert_rows, w, flat):
         return out
     err = _build.library().ptt_moe_combine(
         expert_rows.data_ptr(), w.data_ptr(), flat.data_ptr(),
-        out.data_ptr(), T, EC, k, M, _build.dtype_code(expert_rows.dtype),
+        out.data_ptr(), T, EC, k, M,
+        _build.dtype_code(expert_rows.dtype, _build.FP16_DTYPES),
         _build.stream(expert_rows.device))
     _build.check(err, "moe_combine")
     moe_combine.launches += 1
@@ -202,8 +206,8 @@ def moe_combine(expert_rows, w, flat):
     float32 either way); flat ``[T, k]`` int32.  Returns ``[T, M]``.
     Differentiable in expert_rows and w.
 
-    CUDA tensors (rows float32 or bfloat16, contiguous, 16-byte aligned, M
-    a multiple of 4 or 8; k <= 8) launch the ``moe_combine`` kernel; CPU
+    CUDA tensors (rows float32, bfloat16 or float16, contiguous, 16-byte
+    aligned, M a multiple of 4 or 8; k <= 8) launch the ``moe_combine`` kernel; CPU
     tensors take :func:`moe_combine_reference`."""
     w = w.float()
     if torch.is_grad_enabled() and (expert_rows.requires_grad

@@ -33,7 +33,7 @@ _NEG_INF = -1e30
 _DECODE_MAX_TABLE = 8192    # the widest block table paged_decode takes
 _DECODE_SPLIT_KEYS = 256    # keys one block of paged_decode streams
 _DECODE_MAX_SPLITS = 128
-_CHUNK_SPLIT_KEYS = 256     # keys one block of bf16 paged_chunk takes
+_CHUNK_SPLIT_KEYS = 256     # keys one block of 16-bit paged_chunk takes
 _CHUNK_MAX_SPLITS = 64
 _CHUNK_FILL_BLOCKS = 132    # the H100's SMs: fewer blocks split the keys
 
@@ -51,7 +51,7 @@ def decode_split(max_blocks: int, bs: int):
 
 
 def chunk_split(B: int, nh: int, s: int, max_blocks: int, bs: int):
-    """``(keys_per_split, n_split)`` of bf16 ``paged_chunk`` for ``B``
+    """``(keys_per_split, n_split)`` of bf16 or fp16 ``paged_chunk`` for ``B``
     sequences of ``s`` chunk rows and ``nh`` heads over a table of
     ``max_blocks`` blocks of ``bs`` keys.  A grid of fewer blocks (one per
     sequence x head x 128 rows) than the card has SMs splits the key axis
@@ -98,7 +98,7 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
     row with length 0 gives zeros.  Keys whose table entry lies outside the
     pool are dropped, on the card and on the CPU alike.
 
-    CUDA tensors (float32 or bfloat16, hd in 64/128/256) launch
+    CUDA tensors (float32, bfloat16 or float16, hd in 64/128/256) launch
     ``paged_decode`` (a split kernel over runs of about 256 keys, then a
     merge of their partial softmax states, :func:`decode_split`; one
     launch in the count); CPU tensors take
@@ -110,7 +110,7 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
         return paged_attention_reference(q, k_cache, v_cache, block_tables,
                                          seq_lens)
     _build.check_device_tensors("paged_decode", (q, k_cache, v_cache),
-                                (block_tables, seq_lens))
+                                (block_tables, seq_lens), _build.FP16_DTYPES)
     B, nh, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
         raise KernelValueError(f"paged_decode: head dim {hd} not in "
@@ -130,7 +130,8 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         work.data_ptr(), B, nh, hd, num_blocks, bs, max_blocks, per,
-        _build.dtype_code(q.dtype), _build.stream(q.device))
+        _build.dtype_code(q.dtype, _build.FP16_DTYPES),
+        _build.stream(q.device))
     _build.check(err, "paged_decode")
     paged_attention.launches += 1
     return out
@@ -181,7 +182,7 @@ def _chunk_checks(q, k_cache, v_cache, block_tables, start_lens, name):
 
 def _launch_chunk(q, k_cache, v_cache, block_tables, start_lens):
     _build.check_device_tensors("paged_chunk", (q, k_cache, v_cache),
-                                (block_tables, start_lens))
+                                (block_tables, start_lens), _build.FP16_DTYPES)
     B, s, nh, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
         raise KernelValueError(f"paged_chunk: head dim {hd} not in "
@@ -189,7 +190,7 @@ def _launch_chunk(q, k_cache, v_cache, block_tables, start_lens):
     _, num_blocks, bs, _ = k_cache.shape
     max_blocks = block_tables.shape[1]
     per, n_split, work = 64, 1, None
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:        # the tensor-core kernel
         per, n_split = chunk_split(B, nh, s, max_blocks, bs)
     if n_split > 1:
         # each split's partial states: acc [hd] and (m, l) per row
@@ -200,8 +201,8 @@ def _launch_chunk(q, k_cache, v_cache, block_tables, start_lens):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), start_lens.data_ptr(), out.data_ptr(),
         None if work is None else work.data_ptr(), B, s, nh, hd,
-        num_blocks, bs, max_blocks, per, _build.dtype_code(q.dtype),
-        _build.stream(q.device))
+        num_blocks, bs, max_blocks, per,
+        _build.dtype_code(q.dtype, _build.FP16_DTYPES), _build.stream(q.device))
     _build.check(err, "paged_chunk")
     return out
 
@@ -218,8 +219,8 @@ def paged_chunk_attention(q, k_cache, v_cache, block_tables, start_lens):
     outside the pool are dropped, as in :func:`paged_attention`.  Returns
     ``[B, s, nh, hd]``.
 
-    CUDA tensors (float32 or bfloat16, hd in 64/128/256) launch
-    ``paged_chunk`` (bfloat16: ``paged_chunk_tc_kernel`` on the tensor
+    CUDA tensors (float32, bfloat16 or float16, hd in 64/128/256) launch
+    ``paged_chunk`` (16-bit: ``paged_chunk_tc_kernel`` on the tensor
     cores, its key axis split as :func:`chunk_split` says and the splits
     merged by ``paged_chunk_merge_kernel``, one launch in the count;
     float32: ``paged_chunk_kernel`` on FMAs); CPU tensors take

@@ -1,10 +1,14 @@
 """Mixed precision in the port against the JAX package, on the CPU: O2
-and ``decorate``, the GradScaler's host path, and ``amp.debugging``.
+and ``decorate``, custom white and black lists, the GradScaler's host
+path, and ``amp.debugging``.
 
-Tolerances: the O2 loss within ``GRAD_TOL`` (atol 2e-2, rtol 1e-2: the
-two frameworks round to bfloat16 at other places); the scaler's scale,
-good and bad counts and ``found_inf`` exactly equal after every step,
-parameters within 1e-6 (float32).
+Tolerances: the O2 loss, and the losses under custom lists, within
+``GRAD_TOL`` (atol 2e-2, rtol 1e-2: the two frameworks round to bfloat16
+or float16 at other places); parameters after two AdamW steps under
+custom lists within 2 x lr x steps (ROADMAP.md reference fact 6: Adam
+moves a weight whose gradient is rounding noise by ~lr a step); the
+scaler's scale, good and bad counts and ``found_inf`` exactly equal after
+every step, parameters within 1e-6 (float32).
 """
 
 import warnings
@@ -20,7 +24,9 @@ from paddle_tpu import optimizer as joptim
 from paddle_tpu.amp import debugging as jdebug
 from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.gpt import gpt3_tiny as jax_tiny
+from paddle_tpu.ops import spec_meta
 from paddle_tpu_torch import amp as tamp
+from paddle_tpu_torch.amp import op_lists
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as toptim
 from paddle_tpu_torch.amp import debugging as tdebug
@@ -123,17 +129,19 @@ def test_o2_keeps_norms_float32_and_feeds_them_their_type():
 
 
 def test_float16_and_custom_lists_still_raise():
-    """Custom white and black lists still raise, naming ROADMAP A.7
-    (float16 runs now: ``tests/test_torch_fp16.py`` holds it against the
-    JAX package); an unknown level or AMP type raises as in the JAX
-    package."""
-    for call in (lambda: tamp.auto_cast(True, custom_black_list={"matmul"},
-                                        device="cpu"),
-                 lambda: tamp.auto_cast(True, dtype="float16",
-                                        custom_white_list={"softmax"},
-                                        device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    """Custom white and black lists run (a black-listed matmul in
+    float32, a white-listed softmax in float16), and a name outside the
+    port's table raises, naming it (float16 runs too:
+    ``tests/test_torch_fp16.py`` holds it against the JAX package); an
+    unknown level or AMP type raises as in the JAX package."""
+    x = torch.randn(4, 4)
+    with tamp.auto_cast(True, custom_black_list={"matmul"}, device="cpu"):
+        assert torch.matmul(x.bfloat16(), x).dtype == torch.float32
+    with tamp.auto_cast(True, dtype="float16", custom_white_list={"softmax"},
+                        device="cpu"):
+        assert torch.softmax(x, -1).dtype == torch.float16
+    with pytest.raises(NotImplementedError, match="reduce_sum"):
+        tamp.auto_cast(True, custom_black_list={"reduce_sum"}, device="cpu")
     with pytest.raises(ValueError):
         tamp.auto_cast(True, level="O3", device="cpu")
     for call in (lambda: tamp.auto_cast(True, dtype="float64",
@@ -143,6 +151,99 @@ def test_float16_and_custom_lists_still_raise():
                                        dtype="int8")):
         with pytest.raises(ValueError, match="float16 or bfloat16"):
             call()
+
+
+# ---------------------------------------------------------- custom lists
+
+def test_autocast_custom_lists_match_jax():
+    """The counterpart of ``tests/test_amp.py::test_autocast_custom_lists``:
+    ``add`` on the white list gives bfloat16 and ``matmul`` on the black
+    list float32, in both packages, on the same values."""
+    v = np.random.RandomState(0).randn(2, 2).astype(np.float32)
+    jx, tx = paddle.to_tensor(v), torch.from_numpy(v)
+    with jamp.auto_cast(custom_white_list={"add"}, level="O1"):
+        jout = jx + jx
+    with tamp.auto_cast(custom_white_list={"add"}, level="O1",
+                        device="cpu") as ctx:
+        tout = tx + tx
+    assert str(jout.dtype) == "bfloat16" and tout.dtype == torch.bfloat16
+    assert ctx.mode.ran == {("add", torch.bfloat16): 1}
+    np.testing.assert_array_equal(
+        np.asarray(jout._value.astype(np.float32)), tout.float().numpy())
+    with jamp.auto_cast(custom_black_list={"matmul"}, level="O1"):
+        jout = paddle.matmul(jx.astype("bfloat16"), jx)
+    with tamp.auto_cast(custom_black_list={"matmul"}, level="O1",
+                        device="cpu"):
+        tout = torch.matmul(tx.bfloat16(), tx)
+    assert str(jout.dtype) == "float32" and tout.dtype == torch.float32
+    np.testing.assert_allclose(jout.numpy(), tout.numpy(), atol=1e-6)
+
+
+def test_list_copies_equal_the_op_specs():
+    """The port's copies of the 17 white and 41 black names are the JAX
+    package's lists from its op specs, and the table of names covers
+    both and ``add``, ``divide`` and ``embedding``; the default path
+    stays ``torch.autocast`` (no mode)."""
+    assert op_lists.WHITE == spec_meta.amp_white()
+    assert op_lists.BLACK == spec_meta.amp_black()
+    assert len(op_lists.WHITE) == 17 and len(op_lists.BLACK) == 41
+    assert set(op_lists.OPS) == (op_lists.WHITE | op_lists.BLACK
+                                 | {"add", "divide", "embedding"})
+    assert tamp.auto_cast(True, device="cpu").mode is None
+    white, black = op_lists.lists_with({"mean"}, {"linear"})
+    assert "mean" in white and "mean" not in black
+    assert "linear" in black and "linear" not in white
+    for bad in ({"reduce_sum"}, {"lookup_table_v2"}):
+        with pytest.raises(NotImplementedError, match="port's table"):
+            tamp.auto_cast(True, custom_white_list=bad, device="cpu")
+
+
+# PaddleNLP-style lists in this repo's op names (chip_smoke.py phase 24)
+LISTS = dict(custom_black_list={"divide"}, custom_white_list={"embedding"})
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_custom_lists_train_like_jax(level, dtype):
+    """gpt3_tiny under ``custom_black_list={"divide"}``,
+    ``custom_white_list={"embedding"}``: the loss of each of two AdamW
+    steps within GRAD_TOL of the JAX package's, and the parameters after
+    them within 2 x lr x steps; at O2 both sides ``decorate`` first."""
+    lr = 1e-3
+    jm, tm = _pair(3)
+    jopt = joptim.AdamW(learning_rate=lr, parameters=jm.parameters())
+    topt = toptim.AdamW(learning_rate=lr, parameters=tm.named_parameters())
+    if level == "O2":
+        jm, jopt = jamp.decorate(jm, jopt, level="O2", dtype=dtype)
+        tm, topt = tamp.decorate(tm, topt, level="O2", dtype=dtype)
+    ids = _ids(4)
+    for _ in range(2):
+        with jamp.auto_cast(True, level=level, dtype=dtype, **LISTS):
+            jl = jm.compute_loss(paddle.to_tensor(ids),
+                                 paddle.to_tensor(ids))
+        jl.backward()
+        jopt.step()
+        jopt.clear_grad()
+        with tamp.auto_cast(True, level=level, dtype=dtype, device="cpu",
+                            **LISTS) as ctx:
+            tl = tm.compute_loss(torch.from_numpy(ids),
+                                 torch.from_numpy(ids))
+        tl.backward()
+        topt.step()
+        topt.clear_grad()
+        torch.testing.assert_close(torch.tensor(tl.item()),
+                                   torch.tensor(float(jl.item())),
+                                   **GRAD_TOL)
+    low = getattr(torch, dtype)
+    assert ctx.mode.ran[("embedding", low)] == 2      # wte and wpe
+    assert ctx.mode.ran[("layer_norm", torch.float32)] > 0
+    jstate = {k: np.asarray(v._value.astype(np.float32))
+              for k, v in jm.state_dict().items()}
+    want = state_from_numpy(jstate, tm)
+    for name, p in tm.state_dict().items():
+        np.testing.assert_allclose(p.float().numpy(), want[name].numpy(),
+                                   atol=2 * lr * 2 + 1e-2 * (level == "O2"),
+                                   err_msg=name)
 
 
 # ------------------------------------------------------------ GradScaler

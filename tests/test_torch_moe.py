@@ -12,8 +12,10 @@ put back for the test only.  Tolerances, fp32:
 - ``moe_dispatch``'s plain version: exact; ``moe_combine``'s: atol 1e-6
   (both sum the same two products; XLA may fuse a multiply-add);
   their gradients against ``jax.vjp``: atol 1e-6;
-- gate weights and aux losses: atol 1e-6;
-- ``MoELayer`` output and every parameter's gradient: atol 1e-5;
+- gate weights and aux losses: atol 1e-6; the dense ``(T, E, C)``
+  combine weights atol 1e-6, dispatch slots exact;
+- ``MoELayer`` output and every parameter's gradient, fused or dense:
+  atol 1e-5;
 - tiny GPT-MoE logits: atol 1e-4, loss with the aux term atol 1e-5, and
   2 AdamW steps with the bounds of ``tests/test_torch_train.py``;
 - greedy serving streams: identical.
@@ -159,6 +161,40 @@ def test_gates_route_like_jax(monkeypatch, kind, zero, training):
         assert set(got[0][:, 0].tolist()) == {0}
         if got[0].shape[1] > 1:
             assert set(got[0][:, 1].tolist()) == {1}
+
+
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("kind,zero,skew", [("naive", False, 0.0),
+                                            ("switch", False, 1.5),
+                                            ("gshard", False, 1.5),
+                                            ("gshard", True, 0.0)])
+def test_gate_forward_is_the_jax_dense_route(monkeypatch, kind, zero, skew,
+                                             training):
+    """``forward``'s ``(T, E, C)`` combine and dispatch equal the JAX
+    gates' (drops counted into the second choice's offsets, GShard's
+    random keep on the same uniforms, the kept weights renormalised), and
+    say the same as the index form: each kept choice's weight at its
+    slot."""
+    jg, tg = _gate_pair(kind, zero, skew=skew)
+    jg.train() if training else jg.eval()
+    tg.train(training)
+    _inject(monkeypatch, 4, [tg])
+    x = _tokens(64, seed=2)
+    jc, jd, jaux = jg(paddle.to_tensor(x))
+    tc, td, taux = tg(torch.from_numpy(x))
+    np.testing.assert_array_equal(td.numpy(), _np(jd))
+    np.testing.assert_allclose(tc.detach().numpy(), _np(jc), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(taux.item(), float(jaux.item()), atol=1e-6)
+    assert tg.get_loss() is taux
+    _inject(monkeypatch, 4, [tg])
+    eid, slot, keep, w, cap, _ = tg.forward_indices(torch.from_numpy(x))
+    assert tc.shape == (64, E, cap)
+    dense = torch.zeros_like(tc)
+    for j in range(eid.shape[1]):
+        dense[torch.arange(64), eid[:, j], slot[:, j]] += w[:, j] * keep[:, j]
+    torch.testing.assert_close(tc.detach(), dense.detach(), atol=1e-6,
+                               rtol=0)
 
 
 def test_routing_indices_match_jax(monkeypatch):
@@ -356,6 +392,68 @@ def test_moe_layer_forward_and_grads_match_jax(monkeypatch, pallas_moe):
         want = jgrads[n].T if n == "gate.gate.weight" else jgrads[n]
         np.testing.assert_allclose(p.grad.numpy(), want, atol=1e-5, rtol=0,
                                    err_msg=n)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_dense_moe_layer_matches_jax_and_the_fused_path(monkeypatch,
+                                                        pallas_moe,
+                                                        training):
+    """``MoELayer(fused=False)`` against the JAX layer under
+    ``FLAGS_moe_fused_dispatch=0`` (its einsum path), and against the
+    port's fused path on the same uniforms: outputs, ``l_aux``, the
+    input's and every parameter's gradient."""
+    paddle.seed(12)
+    with flag_guard(moe_fused_dispatch=False):
+        jl = jmoe.MoELayer(M, num_expert=E, d_hidden=H, gate="gshard")
+    assert not jl._fused
+    dense = tmoe.MoELayer(M, num_expert=E, d_hidden=H, gate="gshard",
+                          device="cpu", fused=False)
+    fused = tmoe.MoELayer(M, num_expert=E, d_hidden=H, gate="gshard",
+                          device="cpu")
+    assert not dense.fused and fused.fused
+    for tl in (dense, fused):
+        tl.load_state_dict(_layer_state(jl))
+        tl.train(training)
+    jl.train() if training else jl.eval()
+    rng = np.random.RandomState(13)
+    x = rng.standard_normal((2, 24, M)).astype(np.float32)
+    r = rng.standard_normal((2, 24, M)).astype(np.float32)
+    _inject(monkeypatch, 14, [dense])
+    jx = paddle.to_tensor(x, stop_gradient=False)
+    jout = jl(jx)
+    ((jout * paddle.to_tensor(r)).sum() + jl.l_aux).backward()
+    want = [_np(jout), np.float32(jl.l_aux.item()), _np(jx.grad)]
+    jgrads = {n: _np(p.grad) for n, p in jl.named_parameters()}
+    for tl in (dense, fused):
+        _inject(monkeypatch, 14, [tl])
+        n = (tops.moe_dispatch.launches, tops.moe_combine.launches)
+        tx = torch.from_numpy(x).requires_grad_()
+        tout = tl(tx)
+        ((tout * torch.from_numpy(r)).sum() + tl.l_aux).backward()
+        for got, w in zip([tout.detach().numpy(), tl.l_aux.item(),
+                           tx.grad.numpy()], want):
+            np.testing.assert_allclose(got, w, atol=1e-5, rtol=0)
+        for name, p in tl.named_parameters():
+            w = jgrads[name].T if name == "gate.gate.weight" \
+                else jgrads[name]
+            np.testing.assert_allclose(p.grad.numpy(), w, atol=1e-5,
+                                       rtol=0, err_msg=name)
+    assert (tops.moe_dispatch.launches, tops.moe_combine.launches) == n
+
+
+def test_gpt_moe_config_picks_the_dense_path():
+    """``moe_fused_dispatch=False`` (the JAX flag's name) builds every MoE
+    block on the dense path; its loss equals the fused model's."""
+    ids, labels = _batch()
+    losses = []
+    for fused in (True, False):
+        tm = GPTForCausalLM(gpt3_tiny(moe_num_experts=4,
+                                      moe_fused_dispatch=fused),
+                            device="cpu", seed=1).eval()
+        assert tm.gpt.blocks[1].mlp.fused == fused
+        losses.append(tm.compute_loss(torch.from_numpy(ids),
+                                      torch.from_numpy(labels)).item())
+    assert abs(losses[0] - losses[1]) < 1e-5
 
 
 # -------------------------------------------------------------------- GPT

@@ -405,15 +405,16 @@ def test_auto_cast_o1_bf16_loss_matches_jax():
         assert tm.gpt.blocks[0].ln1(x).dtype == torch.float32
     with tamp.auto_cast(True, level="O0", device="cpu"):
         assert tm.gpt.blocks[0].attn.qkv(x).dtype == torch.float32
-    # O2, decorate and float16 are ported (tests/test_torch_amp.py,
-    # tests/test_torch_fp16.py); custom op lists still raise, pointing to
-    # ROADMAP.md
+    # O2, decorate, float16 and custom op lists are ported
+    # (tests/test_torch_amp.py, tests/test_torch_fp16.py): a white-listed
+    # softmax runs in bfloat16
     tamp.auto_cast(True, level="O2", device="cpu")
     with tamp.auto_cast(True, dtype="float16", device="cpu"):
         assert tm.gpt.blocks[0].attn.qkv(x).dtype == torch.float16
         assert tm.gpt.blocks[0].ln1(x).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tamp.auto_cast(True, custom_white_list={"softmax"}, device="cpu")
+    with tamp.auto_cast(True, custom_white_list={"softmax"}, device="cpu"):
+        assert torch.softmax(x, -1).dtype == torch.bfloat16
+        assert tm.gpt.blocks[0].ln1(x).dtype == torch.float32
 
 
 def test_gpt_dropout_draws_from_the_model_generator():
