@@ -112,7 +112,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    did, on ``paged_chunk``, the pools keep their addresses; the export's
    blocks, bytes and seconds, the construction's seconds with and
    without the import, and the hit's TTFT against a cold miss are
-   printed with the card's name and power limit.  e. A 4-layer fp32 cut,
+   printed with the card's name and power limit.  e. A 2-layer fp32 cut,
    card against CPU, the block ledger armed on both, through the CPU
    tests' fault schedule (poison, a decode NaN, a failed tick, a drain
    with its export, the import): outcomes, streams, strikes, ``stats()``
@@ -137,11 +137,11 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    ``slo_shed``, the others stream as ``run()``.  e. Phase 11's system
    prompt alone after its registration (1023 tokens reused): the ``cow``
    program replays from its graph, streams equal ``cuda_graphs=False``'s.
-   f. A 4-layer fp32 cut, card against CPU: chunk budget 2, shedding and
+   f. A 2-layer fp32 cut, card against CPU: chunk budget 2, shedding and
    the trace records (without seconds) equal.  ``flash_fwd``,
    ``paged_chunk`` and ``paged_decode`` launch in parts b, c and e (the
    ``observability`` path).
-3. Card against CPU: a 4-layer cut of GPT-3 1.3B in float32 serves one
+3. Card against CPU: a 2-layer cut of GPT-3 1.3B in float32 serves one
    greedy request on the card (kernels; the default engine and the eager
    programs) and on the CPU (plain versions) from one state dict; the
    token streams must match and the first-token logits agree to atol
@@ -155,7 +155,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    profiler), in which every flash launch must be the
    tensor-core kernel by name (24 each of forward, dq and dk/dv, none on
    the FMA kernels), then trains 2 steps with dropout 0.1.
-5. Card against CPU for training: a 4-layer fp32 cut, 2 AdamW steps on
+5. Card against CPU for training: a 2-layer fp32 cut, 2 AdamW steps on
    the card (kernels) and on the CPU (plain versions) from one state dict;
    losses within atol 1e-4, parameters within 2 x lr x steps.
 6. MoE kernels (in phase 1's run): ``moe_dispatch`` and ``moe_combine``
@@ -182,7 +182,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    12 x 6 (the MoE backward runs plain index ops, no kernel).  MFU both
    by 6N + 12LHS over all experts and by the work the step does (each
    expert over its C of the E x C rows).
-9. Card against CPU for GPT-MoE: a 4-layer fp32 cut (blocks 1 and 3 MoE)
+9. Card against CPU for GPT-MoE: a 2-layer fp32 cut (block 1 MoE)
    serves one greedy request (streams equal, first-token logits atol
    1e-3) and trains 2 AdamW steps with the same routing uniforms fed to
    both (losses atol 1e-4, parameters within 2 x lr x steps).
@@ -219,14 +219,16 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    streams' agreement with plain decoding printed; the n-gram
    run once more under the profiler (idle share, every verify launch on
    ``paged_chunk_tc_kernel`` by name).  Then a
-   4-layer fp32 cut, card (default engine and eager programs) against
+   2-layer fp32 cut, card (default engine and eager programs) against
    CPU: greedy streams with the prefix (a miss, a hit, a copy on write)
    equal those without it, and n-gram and same-weights-draft speculation
    equal plain decoding.
 
 14. Llama-2 7B serving at full width (run after phase 9, every GPT model
-   and engine freed first): ``llama2_7b()`` (hidden 4096, 32 layers, 32
-   heads, hd 128, vocab 32000; 6.74 B parameters) in bfloat16 with random
+   and engine freed first): ``llama2_7b(num_layers=LLAMA_SERVE_LAYERS)``
+   (hidden 4096, 8 of its 32 layers for the time limit, 32 heads, hd
+   128, vocab 32000) in
+   bfloat16 with random
    weights from a seed, on phase 2's requests and engine settings:
    whole-prompt prefill (one run, one more with the overlapped
    loop off for ms per decode step, one profiled for the idle share),
@@ -238,7 +240,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    leaked block, the program grid captured and replayed.  Prints tokens/s,
    mean TTFT, ms per decode step, idle share, warmup, the top kernels and
    peak memory.
-15. Llama card against CPU: a 4-layer fp32 cut of ``llama2_7b(num_kv_heads
+15. Llama card against CPU: a 2-layer fp32 cut of ``llama2_7b(num_kv_heads
    =4)`` (Llama-2-70B's group of 8 query heads per kv head) serves one
    greedy 260-token request whole-prompt and in 256-token chunks (card:
    default engine and eager programs) with phase 3's checks; a 2-layer
@@ -287,7 +289,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    resident bytes, peak memory and the twin's largest logit deviation from
    bf16 on one prompt (informational: random weights). Then an activation
    quanter's scales, codes and gradients card against CPU; phase 3's GPT
-   cut and phase 15's Llama cut (2 layers) quantized int8 and fp8, card
+   cut and phase 15's Llama cut (1 layer) quantized int8 and fp8, card
    (default engine and eager programs) against the CPU quant engine, 8 new
    tokens, whole-prompt, the Llama int8 cut also chunked and the GPT int8
    cut also with n-gram speculation, with phase 3's checks; and a 2-layer
@@ -314,7 +316,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    to the run without recompute (bit for bit, else within GRAD_TOL, said
    which); with dropout 0.1, off and full, losses and the generator's
    position equal.  d. O2 ``decorate``: bf16 parameters with float32
-   masters, 6 steps, step time and peak memory against a.  e. A 4-layer
+   masters, 6 steps, step time and peak memory against a.  e. A 2-layer
    fp32 cut with full recompute, card against CPU, 2 steps with the
    scheduler, scaler and fused step: losses within 1e-4, parameters
    within 2 x lr x steps.  f. ``fused_adamw`` against its plain version
@@ -335,11 +337,11 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    flash kernel 24 x 8 launches, on the fp16 tensor-core instances by
    name in a profiled step, ``fused_adamw`` every step with no fallback;
    step time, tokens/s, MFU and peak memory beside 21a's bf16.  b. O2
-   ``decorate(dtype="float16")``, 2 steps, no fallback.  c. A 4-layer
+   ``decorate(dtype="float16")``, 2 steps, no fallback.  c. A 2-layer
    fp32-weights cut under fp16 O1, card against CPU, 2 steps: losses
    within 5e-3, scale and applied steps equal.
 23. ``generate`` (after phase 22; c inside phase 14's model lifetime, d
-   after phase 15): a. a 4-layer fp32 cut of GPT-3 1.3B, card against
+   after phase 15): a. a 2-layer fp32 cut of GPT-3 1.3B, card against
    CPU: 4 prompts of uneven content at 64 tokens, 32 new, each of
    ``dense``, ``static``, ``paged`` and ``paged_eager`` on the card:
    greedy streams equal to the CPU's, sampled ones (seed 7, top-k 50,
@@ -358,18 +360,19 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    (the JAX per-op policy in a function mode) on one model: medians of
    steps 2-6, losses, peak, one profiled step each (idle share, every
    flash launch on the tensor-core kernels by name), the mode's torch
-   function calls per step, ``fused_adamw`` on every step.  b. A 4-layer
+   function calls per step, ``fused_adamw`` on every step.  b. A 2-layer
    fp32 cut card against CPU at B 1 x S 128, 2 AdamW steps under those
    lists and under
    a black-listed ``matmul``: losses within atol 2e-2, rtol 1e-2 (bf16),
    every mapped op in the same type, the parameters' difference printed.
-25. The MoE dense path (after phase 8): a. a 4-layer fp32 cut of GPT-MoE,
+25. The MoE dense path (after phase 8): a. a 2-layer fp32 cut of GPT-MoE,
    dense and fused, card and CPU, on one set of weights, batch and
    routing uniforms: loss (atol 1e-5), each block's ``l_aux`` (1e-6) and
    every gradient (1e-4) against the CPU's fused path; no MoE launch on
    the dense path.  b. Phase 8's step on the dense path, 4 steps: the
    (T, E, C) tensors' bytes, the peak, the step beside phase 8's.
-26. ``hapi.Model.fit`` (after phase 24): GPT-3 1.3B, fp32 weights, O1
+26. ``hapi.Model.fit`` (after phase 24): GPT-3 1.3B at 8 of its 24
+   layers (the time limit), fp32 weights, O1
    bf16, AdamW under a cosine schedule, clip 1.0, a ``DataLoader`` of 2
    spawned workers over 32 of 64 synthetic samples of 2048 token ids
    (shuffled), 8 steps with ``ProgBarLogger``, ``LRScheduler`` and
@@ -396,7 +399,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    ``generate`` paged and paged_eager in fp16 at 23b's shape beside 23b's
    bf16; GPT-MoE in fp16 on 4 requests (the fp16 MoE kernels).  d.
    Llama-2 7B's weights rounded to fp16, one whole-prompt run of phase
-   14's mix.  e. A 4-layer fp16 cut, card against CPU (the CPU's fp16
+   14's mix.  e. A 2-layer fp16 cut, card against CPU (the CPU's fp16
    products in fp32 rounded once): streams compared, a token that parts
    reported with its top-2 logit gap.
    Phase 1 runs ``paged_decode`` (edge, draft and path lengths, hd 64,
@@ -405,6 +408,34 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    plain version in fp32 on the same fp16 inputs (atol 4e-3, rtol 2e-3;
    the dispatch exact, the combine within one fp16 rounding), each fp16
    kernel timed beside bf16 at the path shape.
+28. Tensor-parallel serving (inside phase 2's run, after phase 20, on its
+   model): GPT-3 1.3B in bf16 at ``tp_degree=2``, both ranks on card 0
+   over gloo (the machine has one card; NCCL cannot put two ranks on
+   it), programs eager.  a. Phase 2's 8 requests (16 new tokens) with
+   whole prompts, ticks timed with overlap off: ms per decode step,
+   tokens/s, collectives and bytes per tick, the share of the ticks in
+   collectives; the greedy streams against phase 2's degree-1 streams
+   (the first differing token printed: cuBLAS's algorithm for a column
+   slice may round otherwise); each rank's weight and pool bytes against
+   degree 1's (about and exactly half).  b. One engine, int8
+   (``quantize_plan``), 256-token chunks, n-gram speculation: phase 2's
+   first two requests and two on a shared 1024-token prefix (the second
+   hits).  c. A 4-layer fp32 cut at ``tp_degree=2`` on the card against
+   the CPU: greedy streams equal.  Every rank launches ``flash_fwd`` and
+   ``paged_decode`` (a), ``paged_chunk``, the verify and both weight-only
+   kernels (b), with pools at 8 heads, no plain route, no leaked block,
+   neither jax nor ``paddle_tpu`` imported.
+29. ``DataParallel`` (after phase 2): two ranks on card 0 over gloo,
+   started by ``python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 2 --devices 0,0`` (this script with ``--ddp-rank``),
+   GPT-3 1.3B at full width cut to 4 layers, O1 bf16, AdamW (the fused
+   step), B 2 x S 2048 a rank from ``DistributedBatchSampler`` (rank and
+   world from the environment), 2 steps: the mean loss within 2e-2 of
+   one process on the concatenated batches, the two ranks' parameters
+   bit-equal after the steps, every gradient's bytes all-reduced once a
+   step, rank 0's parameters within 2 x lr x steps of one process's,
+   flash and ``fused_adamw`` launches on each rank; the step times, the
+   all-reduce's share, each rank's peak.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -416,6 +447,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import os
@@ -438,6 +470,15 @@ EXTRAS_REPEATS = 1
 SPEC_LENS = [400 + 600 * i // (BATCH - 1) for i in range(BATCH)]  # phase 12
 LLAMA_NH = 32                        # llama2_7b's heads (phase 14)
 LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_S = 8, 4096    # phase 16
+# Llama-2 7B served at full width in phases 14, 18, 23c and 27d: 8 of
+# its 32 layers (the script's time limit)
+LLAMA_SERVE_LAYERS = 8
+# the fp32 cuts held card against CPU, GPT-3 1.3B's and Llama-2 7B's (the
+# time limit: their CPU sides); phase 28c's at tp_degree=2 is deeper
+CUT_LAYERS = 2
+TP_CUT_LAYERS = 4
+CUT_LABEL = f"gpt3_1p3b {CUT_LAYERS} layers fp32"
+MOE_CUT_LAYERS = 2                   # GPT-MoE's cuts: block 1 is the MoE one
 BERT_B, BERT_S = 8, 512              # phase 17, bench.py's bench_bert_base
 # fp16: one rounding of P, dS and the output is 2^-11 relative, bf16's
 # 2^-8 eight times finer: bf16's limits about five-fold tighter
@@ -1358,7 +1399,16 @@ def serve(model, prompts, chunk, time_ticks=False, profile=False,
     speculative) and sums the ticks' wall time to their harvest, for ms
     per decode step beside the prefills.  ``profile`` runs the traffic
     (not the warmup) under ``torch.profiler`` (:func:`_profiled`) and adds
-    its kernels on the card to the result."""
+    its kernels on the card to the result, with the kernel records the
+    profile lost (:func:`_lost_records`, the graphs counted by
+    :func:`_counted_graphs`)."""
+    counting = _counted_graphs() if profile else contextlib.nullcontext()
+    with counting as tally:
+        return _serve(model, prompts, chunk, time_ticks, profile, tally,
+                      **engine_kw)
+
+
+def _serve(model, prompts, chunk, time_ticks, profile, tally, **engine_kw):
     import torch
     from paddle_tpu_torch.inference.serving import Request, ServingEngine
 
@@ -1395,11 +1445,19 @@ def serve(model, prompts, chunk, time_ticks=False, profile=False,
         eng.run()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
-    kernels = None
+    kernels, lost = None, None
     if profile:
-        wall, kernels = _profiled(traffic, lambda: torch.ones(
+        events = []
+
+        def counted_traffic():
+            tally["kernels"] = 0
+            return traffic()
+        wall, kernels = _profiled(counted_traffic, lambda: torch.ones(
             (256, 256), device="cuda").matmul(torch.ones((256, 256),
-                                                         device="cuda")))
+                                                         device="cuda")),
+                                  events)
+        lost = _lost_records(events, tally["kernels"])
+        del events
     else:
         wall = traffic()
     if time_ticks:
@@ -1435,6 +1493,7 @@ def serve(model, prompts, chunk, time_ticks=False, profile=False,
                 tick_s=tick_s[0], stats=st,
                 warmup=warm, replays=st["graphs"]["replays"],
                 overlapped=st["overlapped_ticks"], kernels=kernels,
+                lost_records=lost,
                 streams=[list(r.output_ids) for r in reqs])
 
 
@@ -1490,6 +1549,9 @@ def serving_phase(lens):
     t = time.perf_counter()
     runs["observability"] = observability_phase(model, prompts)
     _log(f"[phase 20: {time.perf_counter() - t:.1f} s]")
+    t = time.perf_counter()
+    runs["tp"] = tp_phase(model, prompts, runs)
+    _log(f"[phase 28: {time.perf_counter() - t:.1f} s]")
     sampling_cost(cfg.vocab_size)
     return runs
 
@@ -1816,13 +1878,14 @@ def crash_only_phase(model, prompts):
     torch.cuda.empty_cache()
 
     # e. the CPU tests' fault schedule, card against CPU
-    cpu, card = _cut_models(gpt3_1p3b(num_layers=4))
+    cpu, card = _cut_models(gpt3_1p3b(num_layers=CUT_LAYERS))
     got = [crash_schedule(m, dev, os.path.join(root, f"cut_{dev}"))
            for m, dev in ((card, "cuda"), (cpu, "cpu"))]
     if got[0] != got[1]:
         raise AssertionError(f"phase 19e: card {got[0]} != CPU {got[1]}")
-    _log(f"phase 19e, the fault schedule on a 4-layer fp32 cut: card equal "
-         f"to CPU (outcomes, streams, counters, stats, drain report): "
+    _log(f"phase 19e, the fault schedule on a {CUT_LAYERS}-layer fp32 cut: "
+         f"card equal to CPU (outcomes, streams, counters, stats, drain "
+         f"report): "
          f"{json.dumps(got[0]['summary'])}")
     return dict(launches=launches, tick_errors=st["tick_errors"],
                 export=export, import_=imp, ttft=ttft, ctor_s=ctor_s,
@@ -2219,16 +2282,17 @@ def observability_phase(model, prompts):
          f"write): the cow program replayed {cow[True]['replays']} time "
          "from its graph; streams equal cuda_graphs=False's")
 
-    # f. card against CPU on a 4-layer fp32 cut
+    # f. card against CPU on a 1-layer fp32 cut
     gc.collect()
     torch.cuda.empty_cache()
-    cpu, cut = _cut_models(gpt3_1p3b(num_layers=4))
+    cpu, cut = _cut_models(gpt3_1p3b(num_layers=CUT_LAYERS))
     got = [observability_schedule(m, dev) for m, dev in ((cut, "cuda"),
                                                          (cpu, "cpu"))]
     if got[0] != got[1]:
         raise AssertionError(f"phase 20f: card {got[0]} != CPU {got[1]}")
-    _log(f"phase 20f, chunk budget 2, shedding and tracing on a 4-layer "
-         f"fp32 cut: card equal to CPU (streams, outcomes, stats, trace "
+    _log(f"phase 20f, chunk budget 2, shedding and tracing on a "
+         f"{CUT_LAYERS}-layer fp32 cut: card equal to CPU (streams, "
+         f"outcomes, stats, trace "
          f"records without seconds): {json.dumps(got[0]['summary'])}")
     for name in ("flash_fwd", "paged_chunk", "paged_decode"):
         if launches.get(name, 0) <= 0:
@@ -2423,12 +2487,14 @@ def _device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _profiled(fn, warm):
+def _profiled(fn, warm, events=None):
     """``fn()`` under ``torch.profiler`` after a warm-up cycle that runs
     ``warm()`` with the card's tracing already on and discards its
     records (a cycle's first kernel records can otherwise go missing: a
     profiled train step once showed 23 of its 24 forward launches).
-    Returns ``fn``'s result and the active cycle's kernels on the card."""
+    Returns ``fn``'s result and the active cycle's kernels on the card;
+    ``events``, a list, receives the cycle's events for
+    :func:`_lost_records`."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2441,7 +2507,116 @@ def _profiled(fn, warm):
         out = fn()
         torch.cuda.synchronize()
         prof.step()
+    if events is not None:
+        events.extend(prof.events())
     return out, _device_kernels(prof)
+
+
+def _graph_kernel_nodes(graph) -> int:
+    """The kernel nodes of a kept CUDA graph (``raw_cuda_graph``), child
+    graphs' included, through the driver API: what one replay must show
+    the profiler."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def count(handle):
+        n = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        if n.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        total, kind, child = 0, ctypes.c_int(), ctypes.c_void_p()
+        for node in nodes:
+            if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)):
+                raise RuntimeError("cuGraphNodeGetType failed")
+            if kind.value == 0:            # CU_GRAPH_NODE_TYPE_KERNEL
+                total += 1
+            elif kind.value == 4:          # CU_GRAPH_NODE_TYPE_GRAPH
+                if cu.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node),
+                                                    ctypes.byref(child)):
+                    raise RuntimeError("cuGraphChildGraphNodeGetGraph "
+                                       "failed")
+                total += count(ctypes.c_void_p(child.value))
+        return total
+    return count(ctypes.c_void_p(graph.raw_cuda_graph()))
+
+
+@contextlib.contextmanager
+def _counted_graphs():
+    """Inside: every CUDA graph the engine captures is kept and its kernel
+    nodes counted at capture (then instantiated as before), and every
+    replay of an engine program adds its graph's count to the yielded
+    tally's ``"kernels"``: the kernel records a complete profile of the
+    replays holds."""
+    import torch
+    from paddle_tpu_torch.inference import graphs
+
+    tally = {"kernels": 0}
+
+    class CountedGraph(torch.cuda.CUDAGraph):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+        def capture_end(self):
+            super().capture_end()
+            self.kernel_nodes = _graph_kernel_nodes(self)
+            self.instantiate()
+
+    replay = graphs.Program.replay
+
+    def counted_replay(prog):
+        replay(prog)
+        if prog.graph is not None:
+            tally["kernels"] += prog.graph.kernel_nodes
+
+    saved = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph, graphs.Program.replay = CountedGraph, counted_replay
+    try:
+        yield tally
+    finally:
+        torch.cuda.CUDAGraph, graphs.Program.replay = saved, replay
+
+
+def _lost_records(events, graph_kernels):
+    """Kernel records a profile lacks: of the graph replays, the tally of
+    their kernel nodes (:func:`_counted_graphs`) less the kernel records
+    that carry a ``cudaGraphLaunch``'s correlation id; of the kernels
+    launched one by one, the launches with no kernel record of their
+    id.  Returns ``(lost, expected, extra)``: ``extra``, records of graph
+    replays beyond the tally, counts as no loss."""
+    import collections
+
+    import torch
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    seen = collections.Counter(
+        e.id for e in events if e.device_type == cuda
+        and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith(("Memcpy", "Memset")))
+    graph_ids = {e.id for e in events
+                 if e.device_type == cpu and "GraphLaunch" in e.name}
+    direct = [e.id for e in events
+              if e.device_type == cpu and "LaunchKernel" in e.name]
+    in_graphs = sum(seen[i] for i in graph_ids)
+    lost = max(graph_kernels - in_graphs, 0) + sum(
+        1 for i in direct if not seen[i])
+    return lost, graph_kernels + len(direct), max(in_graphs - graph_kernels,
+                                                  0)
+
+
+def _check_by_name(label, got, want, lost):
+    """Launches by kernel name (``got``: name -> (count, us)) against the
+    wrappers' counts (``want``: name -> count), within what the profile
+    measurably lost: no name shows more than its count, and the shortfall
+    over all names is at most ``lost`` records (0: exact)."""
+    short = {n: want[n] - got[n][0] for n in want}
+    if any(v < 0 for v in short.values()) or sum(short.values()) > lost:
+        raise AssertionError(f"{label}: launches by kernel {got}, want "
+                             f"{want} (the profile lost {lost} records)")
 
 
 def _by_name(kernels, names):
@@ -2458,19 +2633,26 @@ def _by_name(kernels, names):
 def where_the_time_goes(model, prompts, chunk, label=None, nh=NH, **kw):
     """A profiled serving run (warm) with whole-prompt (``chunk`` 0) or
     chunked prefill on the engine ``kw`` asks for (by default graphs and
-    overlap): the card's busy time against the wall clock, the kernels
-    that take it, the decode kernels by name, the prompts' bf16 flash_fwd
-    launches on the tensor-core kernel by name (none on the FMA one) and,
-    chunked, every bf16 paged_chunk launch by name: the tensor-core kernel
-    (and its merge when the wrapper splits the keys over ``nh`` heads'
-    blocks), never the FMA kernel; prefix hits' paged_chunk launches
-    likewise on the tensor-core kernel.  Kernels replayed in a CUDA graph
+    overlap), with the kernel records its profile lost (of replayed
+    graphs: the profiler loses a few, more the more profiles a process
+    has taken; in whole runs of this script checks by name saw 231 of
+    232 and 463 of 464 ``paged_chunk`` launches, 127 of 128 and 15 of 16
+    ``flash_fwd``), against which the checks by name are held
+    (:func:`_check_by_name`: exact when none was lost).  The card's
+    busy time against the wall clock, the kernels that take it, the
+    decode kernels by name, every bf16 flash_fwd launch of the prompts by
+    name on the tensor-core kernel (none on the FMA one) and, chunked,
+    every bf16 paged_chunk launch by name: the tensor-core kernel (and
+    its merge when the wrapper splits the keys over ``nh`` heads'
+    blocks), never the FMA kernel; every paged_chunk launch of prefix
+    hits likewise on the tensor-core kernel.  Kernels replayed in a CUDA graph
     show on the timeline one by one.  Returns the idle share, busy and
     wall seconds, the kernel launches and the run."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
     label = label or ("chunked" if chunk else "whole-prompt")
     run = serve(model, prompts, chunk, profile=True, **kw)
+    lost, expected, extra = run["lost_records"]
     kernels = run["kernels"]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n = sum(e.count for e in kernels)
@@ -2478,7 +2660,9 @@ def where_the_time_goes(model, prompts, chunk, label=None, nh=NH, **kw):
     idle = 1 - busy_us / 1e6 / wall
     _log(f"profiled {label} run: wall {wall:.3f} s, card busy "
          f"{busy_us / 1e6:.3f} s in {n} kernel launches, idle share "
-         f"{idle:.3f}; max TTFT {run['ttft_max_s']:.3f} s")
+         f"{idle:.3f}; max TTFT {run['ttft_max_s']:.3f} s; the profile "
+         f"lost {lost} of {expected} kernel records ({extra} beyond the "
+         f"graphs' nodes)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
              f"{e.key[:90]}")
@@ -2490,18 +2674,17 @@ def where_the_time_goes(model, prompts, chunk, label=None, nh=NH, **kw):
         f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in decode.items()))
     if run["launches"]["flash_fwd"]:
         flash = _by_name(kernels, ("flash_fwd_tc_kernel", "flash_fwd_kernel"))
-        if flash["flash_fwd_tc_kernel"][0] == 0 or \
-                flash["flash_fwd_kernel"][0] != 0:
-            raise AssertionError(f"profiled {label} run: flash_fwd "
-                                 f"launches by kernel {flash}")
+        _check_by_name(f"profiled {label} run: flash_fwd", flash,
+                       {"flash_fwd_tc_kernel": run["launches"]["flash_fwd"],
+                        "flash_fwd_kernel": 0}, lost)
         _log(f"profiled {label} run, prompt kernels by name: " + ", ".join(
             f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in flash.items()))
     if not chunk and run["launches"]["paged_chunk"]:
         hits = _by_name(kernels, CHUNK_KERNELS)
-        if hits["paged_chunk_tc_kernel"][0] == 0 or \
-                hits["paged_chunk_kernel"][0] != 0:
-            raise AssertionError(f"profiled {label} run: paged_chunk "
-                                 f"launches by kernel {hits}")
+        _check_by_name(f"profiled {label} run: prefix hits' paged_chunk",
+                       hits, {"paged_chunk_tc_kernel":
+                              run["launches"]["paged_chunk"],
+                              "paged_chunk_kernel": 0}, lost)
         _log(f"profiled {label} run, prefix hits' kernels by name: "
              + ", ".join(f"{n} {c}x {us / 1e3:.2f} ms"
                          for n, (c, us) in hits.items()))
@@ -2512,9 +2695,10 @@ def where_the_time_goes(model, prompts, chunk, label=None, nh=NH, **kw):
         want = {"paged_chunk_tc_kernel": calls,
                 "paged_chunk_merge_kernel": calls if split else 0,
                 "paged_chunk_kernel": 0}
-        if {k: c for k, (c, _) in got.items()} != want or calls == 0:
-            raise AssertionError(f"profiled chunked run: paged_chunk "
-                                 f"launches by kernel {got}, want {want}")
+        if calls == 0:
+            raise AssertionError(f"profiled {label} run: no paged_chunk "
+                                 "launch")
+        _check_by_name(f"profiled {label} run: paged_chunk", got, want, lost)
         chunk_us = sum(us for c, us in got.values())
         _log(f"profiled chunked run, paged_chunk kernels by name: "
              + ", ".join(f"{n} {c}x {us / 1e3:.2f} ms"
@@ -2527,7 +2711,7 @@ def where_the_time_goes(model, prompts, chunk, label=None, nh=NH, **kw):
 
 # --------------------------------------------------------------- phase 3
 
-def card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", prompt_len=96,
+def card_vs_cpu(cfg, label=CUT_LABEL, prompt_len=96,
                 chunks=(0,), quant=None, specs=(False,), new_tokens=16,
                 models=None):
     """One greedy request of ``prompt_len`` tokens (``new_tokens`` new
@@ -2776,7 +2960,8 @@ def profiled_serving(label, model, prompts, chunk, **kw):
     """One serving run under ``torch.profiler`` (after a warm-up cycle):
     the card's busy share of the wall clock, the kernels that take its
     time, and every bf16 ``paged_chunk`` launch (chunk and verify) by
-    name: the tensor-core kernel, never the FMA one.  Returns (idle share,
+    name (within the records the profile lost, :func:`_check_by_name`):
+    the tensor-core kernel, never the FMA one.  Returns (idle share,
     busy s, wall s)."""
     run = serve(model, prompts, chunk, profile=True, **kw)
     kernels = run["kernels"]
@@ -2784,18 +2969,19 @@ def profiled_serving(label, model, prompts, chunk, **kw):
     idle = 1 - busy / run["wall_s"]
     _log(f"  profiled {label}: wall {run['wall_s']:.3f} s, card busy "
          f"{busy:.3f} s in {sum(e.count for e in kernels)} launches, idle "
-         f"share {idle:.3f}, {run['ticks']} ticks")
+         f"share {idle:.3f}, {run['ticks']} ticks; the profile lost "
+         f"{run['lost_records'][0]} of {run['lost_records'][1]} kernel "
+         "records")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         _log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x"
              f"  {e.key[:80]}")
     calls = run["launches"]["paged_chunk"] \
         + run["launches"]["paged_verify_attention"]
     got = _by_name(kernels, CHUNK_KERNELS)
-    if got["paged_chunk_tc_kernel"][0] != calls or \
-            got["paged_chunk_kernel"][0] != 0:
-        raise AssertionError(f"profiled {label}: paged_chunk launches by "
-                             f"kernel {got}, want {calls} on the tensor "
-                             "cores")
+    lost = run["lost_records"][0]
+    _check_by_name(f"profiled {label}: paged_chunk", got,
+                   {"paged_chunk_tc_kernel": calls, "paged_chunk_kernel": 0},
+                   lost)
     _log(f"    paged_chunk kernels by name: " + ", ".join(
         f"{n} {c}x {us / 1e3:.2f} ms" for n, (c, us) in got.items()))
     return idle, busy, run["wall_s"]
@@ -2930,8 +3116,8 @@ def _cut_streams(model, dev, prompts, **kw):
     return [list(r.output_ids) for r in reqs], st
 
 
-def cut_checks(cfg, label="gpt3_1p3b 4 layers fp32"):
-    """The prefix cache and speculation on a 4-layer fp32 cut, card
+def cut_checks(cfg, label=CUT_LABEL):
+    """The prefix cache and speculation on a 2-layer fp32 cut, card
     against CPU: greedy streams with the prefix (a miss, a hit, and the
     128-token shared prompt alone, copied on write) equal the streams
     without it; n-gram and same-weights-draft speculation equal plain
@@ -2978,7 +3164,7 @@ def cut_checks(cfg, label="gpt3_1p3b 4 layers fp32"):
 
 
 def serving_extras_phase():
-    """Phases 11 and 12 on one GPT-3 1.3B (bf16, seed 0), then the 4-layer
+    """Phases 11 and 12 on one GPT-3 1.3B (bf16, seed 0), then the 2-layer
     fp32 cut."""
     import torch
     from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt3_1p3b,
@@ -2991,7 +3177,7 @@ def serving_extras_phase():
     spec = spec_phase(model, draft)
     del model, draft
     torch.cuda.empty_cache()
-    cut_checks(gpt3_1p3b(num_layers=4))
+    cut_checks(gpt3_1p3b(num_layers=CUT_LAYERS))
     return prefix, spec
 
 
@@ -3308,7 +3494,7 @@ def _feed_uniforms(model, uniforms):
             m.uniforms = lambda n, device: next(draws)[:n].to(device)
 
 
-def train_card_vs_cpu(cfg, label="gpt3_1p3b 4 layers fp32", B=1, S=256,
+def train_card_vs_cpu(cfg, label=CUT_LABEL, B=1, S=256,
                       masked=False, wrap=None):
     """2 AdamW steps of an fp32 cut on the card and on the CPU at B x S
     from one state dict (and, for MoE, one set of routing uniforms).  Losses
@@ -3801,7 +3987,7 @@ def o2_phase(cfg, o1):
 
 
 def rest_card_vs_cpu(cfg):
-    """21e: the fp32 4-layer cut, card against CPU: two steps with the
+    """21e: the fp32 2-layer cut, card against CPU: two steps with the
     scheduler, the scaler, the fused step (the kernels on the card, the
     plain version on the CPU) and full recompute, B 1 x S 256, from one
     state dict.  Losses within 1e-4, parameters within 2 x lr x steps."""
@@ -3831,7 +4017,7 @@ def rest_card_vs_cpu(cfg):
         raise AssertionError(f"21e: parameters {err:.3e} apart (limit "
                              f"{2 * LR * steps:.1e}), scale {card_s} / "
                              f"{cpu_s}, global_step {card_g} / {cpu_g}")
-    _log(f"21e card vs CPU, gpt3_1p3b 4 layers fp32, full recompute, "
+    _log(f"21e card vs CPU, {CUT_LABEL}, full recompute, "
          f"scheduler + scaler + fused step, B=1 S=256, {steps} steps: "
          f"losses card {card_l} cpu {cpu_l}, parameters max abs diff "
          f"{err:.3e}, scale {card_s}, global_step {card_g} on both")
@@ -4087,8 +4273,8 @@ def moe_phases(lens, rows_out):
     train_run = train_full_width(gpt3_1p3b(moe_num_experts=MOE_E),
                                  "training gpt3_1p3b MoE")
     moe_kernel_timing(rows_out, train_run.pop("routing"))
-    cut = gpt3_1p3b(num_layers=4, moe_num_experts=MOE_E)
-    label = "gpt3_1p3b MoE 4 layers (blocks 1, 3 MoE) fp32"
+    cut = gpt3_1p3b(num_layers=MOE_CUT_LAYERS, moe_num_experts=MOE_E)
+    label = f"gpt3_1p3b MoE {MOE_CUT_LAYERS} layers (block 1 MoE) fp32"
     card_vs_cpu(cut, label)
     train_card_vs_cpu(cut, label)
     return serve_run, train_run
@@ -4310,8 +4496,8 @@ def llama_phases(lens):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = LlamaForCausalLM(llama2_7b(), device="cuda",
-                             dtype=torch.bfloat16, seed=0)
+    model = LlamaForCausalLM(llama2_7b(num_layers=LLAMA_SERVE_LAYERS),
+                             device="cuda", dtype=torch.bfloat16, seed=0)
     serving = llama_serving_phase(model, lens)
     t = time.perf_counter()
     llama_gen = generate_runs(model, "23c generate llama2_7b bf16", 1,
@@ -4334,12 +4520,12 @@ def llama_phases(lens):
     gc.collect()
     torch.cuda.empty_cache()
     # four kv heads over 32 query heads: Llama-2-70B's group of 8
-    card_vs_cpu(llama2_7b(num_layers=4, num_kv_heads=4),
-                "llama2_7b 4 layers, 4 kv heads, fp32", prompt_len=260,
-                chunks=(0, 256))
-    train_card_vs_cpu(llama2_7b(num_layers=2, num_kv_heads=4),
+    card_vs_cpu(llama2_7b(num_layers=CUT_LAYERS, num_kv_heads=4),
+                f"llama2_7b {CUT_LAYERS} layers, 4 kv heads, fp32",
+                prompt_len=260, chunks=(0, 256))
+    train_card_vs_cpu(llama2_7b(num_layers=CUT_LAYERS, num_kv_heads=4),
                       "llama2_7b 2 layers, 4 kv heads, fp32")
-    generate_card_vs_cpu(llama2_7b(num_layers=2, num_kv_heads=4),
+    generate_card_vs_cpu(llama2_7b(num_layers=CUT_LAYERS, num_kv_heads=4),
                          "llama2_7b 2 layers, 4 kv heads, fp32")
     train = train_full_width(llama2_7b(num_layers=LLAMA_TRAIN_LAYERS),
                              f"training llama2_7b {LLAMA_TRAIN_LAYERS} "
@@ -4892,13 +5078,13 @@ def activation_fake_quant_check():
 
 def quant_cuts_phase():
     """Phase 18, card against CPU: an activation quanter
-    (:func:`activation_fake_quant_check`); phase 3's 4-layer GPT cut and
-    phase 15's GQA Llama cut (each built once for both modes) quantized
-    int8 and fp8, 8 new tokens, whole-prompt, in 256-token chunks (Llama
-    int8) and with n-gram speculation (GPT int8): the CPU's plain version
-    dequantizes every weight at every step, ten times the fp32 model's
-    time, so the Llama cut has 2 layers; then a 2-layer fp32 GPT cut under ``QAT`` for 2
-    AdamW steps."""
+    (:func:`activation_fake_quant_check`); phase 3's GPT cut and phase
+    15's GQA Llama cut (``CUT_LAYERS``; each built once for both modes)
+    quantized int8 and fp8, 8 new tokens, whole-prompt, in 256-token
+    chunks (Llama int8) and with n-gram speculation (GPT int8): the CPU's
+    plain version dequantizes every weight at every step, ten times the
+    fp32 model's time; then the fp32 GPT cut under ``QAT`` for 2 AdamW
+    steps."""
     from paddle_tpu_torch.models.gpt import gpt3_1p3b
     from paddle_tpu_torch.models.llama import llama2_7b
     from paddle_tpu_torch.quantization import (QAT,
@@ -4906,10 +5092,10 @@ def quant_cuts_phase():
                                                QuantConfig)
     activation_fake_quant_check()
     for cfg, label, prompt_len, int8_only in (
-            (gpt3_1p3b(num_layers=4), "gpt3_1p3b 4 layers fp32", 96,
+            (gpt3_1p3b(num_layers=CUT_LAYERS), CUT_LABEL, 96,
              dict(specs=(False, True))),
-            (llama2_7b(num_layers=2, num_kv_heads=4),
-             "llama2_7b 2 layers, 4 kv heads, fp32", 260,
+            (llama2_7b(num_layers=CUT_LAYERS, num_kv_heads=4),
+             f"llama2_7b {CUT_LAYERS} layers, 4 kv heads, fp32", 260,
              dict(chunks=(0, 256)))):
         t = time.perf_counter()
         models = _cut_models(cfg)
@@ -4927,8 +5113,8 @@ def quant_cuts_phase():
     # activation_fake_quant_check the quanter alone card against CPU)
     t = time.perf_counter()
     cfg = QuantConfig(weight=FakeQuanterWithAbsMaxObserver)
-    train_card_vs_cpu(gpt3_1p3b(num_layers=2),
-                      "gpt3_1p3b 2 layers fp32 under QAT (weights)",
+    train_card_vs_cpu(gpt3_1p3b(num_layers=CUT_LAYERS),
+                      f"{CUT_LABEL} under QAT (weights)",
                       wrap=lambda m: QAT(cfg).quantize(m, inplace=True))
     _log(f"[QAT cut: {time.perf_counter() - t:.1f} s]")
 
@@ -4993,7 +5179,7 @@ def fp16_training_phase(o1):
     every step with no fallback; step time, tokens/s, MFU and peak memory
     beside 21a's bf16 numbers (``o1``).  b. O2 ``decorate(dtype=
     "float16")``: 2 steps, ``fused_adamw`` hits, no fallback.  c. A
-    4-layer fp32-weights cut under fp16 O1, card against CPU, 2 steps with
+    2-layer fp32-weights cut under fp16 O1, card against CPU, 2 steps with
     a default scaler: losses within FP16_CUT_LOSS_ATOL (the card's fp16
     products sum in other orders than the CPU's: their fp16 activations
     part by an ulp here and there), the scale and applied steps equal.
@@ -5096,8 +5282,8 @@ def fp16_training_phase(o1):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # c. card against CPU on a 4-layer cut
-    cut = gpt3_1p3b(num_layers=4)
+    # c. card against CPU on a 2-layer cut
+    cut = gpt3_1p3b(num_layers=CUT_LAYERS)
     init, runs = None, []
     rate = _cpu_fp16_gemm_rate()
     for dev in ("cpu", "cuda"):
@@ -5121,8 +5307,9 @@ def fp16_training_phase(o1):
         raise AssertionError(f"22c: losses card {card_l} cpu {cpu_l}, scale "
                              f"{card_s} / {cpu_s}, applied {card_g} / "
                              f"{cpu_g}")
-    _log(f"22c card vs CPU, gpt3_1p3b 4 layers fp32 weights under fp16 O1, "
-         f"GradScaler(), B=1 S=256, 2 steps: losses card {card_l} cpu "
+    _log(f"22c card vs CPU, gpt3_1p3b {CUT_LAYERS} layers fp32 weights under "
+         f"fp16 O1, GradScaler(), B=1 S=256, 2 steps: losses card {card_l} "
+         f"cpu "
          f"{cpu_l} ({diff:.3e} apart, limit {FP16_CUT_LOSS_ATOL}), scale "
          f"{card_s}, {card_g} applied on both (the host's own fp16 GEMM: "
          f"{rate:.2f} GFLOP/s at 64 x 2048 x 2048)")
@@ -5347,12 +5534,12 @@ def generate_runs(model, label, B, prompt_len, new, impls, seed):
 
 
 def generate_phase():
-    """Phase 23 (GPT): 23a the fp32 4-layer cut card against CPU, then
+    """Phase 23 (GPT): 23a the fp32 2-layer cut card against CPU, then
     23b GPT-3 1.3B in bf16 at full width: B 4, a 512-token prompt, 128
     new tokens, each cache implementation."""
     import torch
     from paddle_tpu_torch.models.gpt import gpt3_1p3b
-    generate_card_vs_cpu(gpt3_1p3b(num_layers=4), "gpt3_1p3b 4 layers fp32")
+    generate_card_vs_cpu(gpt3_1p3b(num_layers=CUT_LAYERS), CUT_LABEL)
     gc.collect()
     torch.cuda.empty_cache()
     model = _model(gpt3_1p3b(), "cuda", 0, torch.bfloat16).eval()
@@ -5466,7 +5653,7 @@ def custom_lists_phase():
 
 
 def lists_card_vs_cpu():
-    """Phase 24b: a 4-layer fp32 cut, card against CPU, two AdamW steps
+    """Phase 24b: a 2-layer fp32 cut, card against CPU, two AdamW steps
     under the phase's lists and under a black-listed ``matmul``: the
     losses and parameters within phase 5's bounds and the bf16 training
     tolerance of ``tests/test_torch_train.py`` (the loss of each step,
@@ -5475,7 +5662,7 @@ def lists_card_vs_cpu():
     import torch
     from paddle_tpu_torch.models.gpt import gpt3_1p3b
 
-    cut = gpt3_1p3b(num_layers=4)
+    cut = gpt3_1p3b(num_layers=CUT_LAYERS)
     for lists in (CUSTOM_LISTS, dict(custom_black_list={"matmul"})):
         init, runs = None, []
         for dev in ("cpu", "cuda"):
@@ -5503,8 +5690,9 @@ def lists_card_vs_cpu():
             raise AssertionError(f"24b {lists}: mapped ops by type card "
                                  f"{dict(card_r)} cpu {dict(cpu_r)}")
         err = max((card_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
-        _log(f"24b custom lists {lists} card vs CPU, gpt3_1p3b 4 layers "
-             f"fp32 weights, O1 bf16, B=1 S=128, 2 AdamW steps: losses card "
+        _log(f"24b custom lists {lists} card vs CPU, gpt3_1p3b {CUT_LAYERS} "
+             f"layers fp32 weights, O1 bf16, B=1 S=128, 2 AdamW steps: "
+             f"losses card "
              f"{card_l} cpu {cpu_l}; parameters max abs diff {err:.3e} "
              f"(printed: a bf16 gradient's sign may flip between card and "
              f"CPU, and Adam then moves the weight ~lr the other way); "
@@ -5517,7 +5705,7 @@ def lists_card_vs_cpu():
 # ------------------------------------------------------------ phase 25
 
 def moe_dense_phase(fused_train):
-    """Phase 25: a. a 4-layer fp32 cut of GPT-MoE, the dense
+    """Phase 25: a. a 2-layer fp32 cut of GPT-MoE, the dense
     (``moe_fused_dispatch=False``) and fused paths, card against CPU, on
     the same weights, batch and routing uniforms: the loss (with the aux
     term), each block's ``l_aux`` and every gradient against the CPU's
@@ -5538,7 +5726,7 @@ def moe_dense_phase(fused_train):
     init, got = None, {}
     for dev in ("cpu", "cuda"):
         for fused in (True, False):
-            cut = gpt3_1p3b(num_layers=4, moe_num_experts=MOE_E,
+            cut = gpt3_1p3b(num_layers=MOE_CUT_LAYERS, moe_num_experts=MOE_E,
                             moe_fused_dispatch=fused)
             model, _, batch = _train_setup(cut, dev, 2, 1, 256)
             if init is None:
@@ -5575,8 +5763,10 @@ def moe_dense_phase(fused_train):
             got["cuda", True]["launches"]["moe_dispatch"] <= 0:
         raise AssertionError(f"25a launches: dense {dense_card}, fused "
                              f"{got['cuda', True]['launches']}")
-    _log("25a GPT-MoE 4 layers fp32, B=1 S=256, dense and fused paths card "
-         "against CPU (the CPU's fused path the reference): " + "; ".join(
+    _log(f"25a GPT-MoE {MOE_CUT_LAYERS} layers fp32, B=1 S=256, dense and "
+         f"fused "
+         "paths card against CPU (the CPU's fused path the reference): "
+         + "; ".join(
              f"{dev} {'fused' if f else 'dense'} loss {r['loss']:.6f} aux "
              f"{[round(a, 6) for a in r['aux']]} gradients {r['grad_err']:.2e}"
              for (dev, f), r in got.items())
@@ -5640,6 +5830,9 @@ class _TokenData:
 
 
 HAPI_STEPS, HAPI_WORKERS = 8, 2
+# GPT-3 1.3B at 8 of its 24 layers (the time limit: the two checkpoints
+# of the full depth, 15.6 GB each, took ~40 s)
+HAPI_LAYERS = 8
 HAPI_DIR = os.path.join("build", "hapi_ckpt")
 
 
@@ -5685,7 +5878,7 @@ def hapi_phase():
     from paddle_tpu_torch.models.gpt import gpt3_1p3b
     from paddle_tpu_torch.observability import telemetry
 
-    cfg = gpt3_1p3b()
+    cfg = gpt3_1p3b(num_layers=HAPI_LAYERS)
     data = _TokenData(64, TRAIN_S, cfg.vocab_size, 0)
     train = io.Subset(data, range(HAPI_STEPS * TRAIN_B))
     held = io.Subset(data, range(48, 52))
@@ -5998,7 +6191,7 @@ def llama_fp16_serving(model, lens, bf16_whole):
 
 
 def fp16_cut_card_vs_cpu():
-    """Phase 27e: a 4-layer cut of GPT-3 1.3B in fp16 serves the same
+    """Phase 27e: a 2-layer cut of GPT-3 1.3B in fp16 serves the same
     greedy prompts on the card (default engine) and on the CPU (its fp16
     products in fp32 rounded once, ``_half_products_in_fp32``): streams
     compared; each token that differs is reported with the top-2 logit
@@ -6007,7 +6200,7 @@ def fp16_cut_card_vs_cpu():
     import torch
     from paddle_tpu_torch.models.gpt import gpt3_1p3b
 
-    cpu, card = _cut_models(gpt3_1p3b(num_layers=4))
+    cpu, card = _cut_models(gpt3_1p3b(num_layers=CUT_LAYERS))
     cpu.half()
     card.half()
     gen = torch.Generator().manual_seed(8)
@@ -6023,8 +6216,9 @@ def fp16_cut_card_vs_cpu():
         i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
         gap = _top2_gap(card, torch.tensor([p + a[:i]], device="cuda"))[0]
         parted.append((i, gap))
-    _log(f"27e gpt3_1p3b 4 layers fp16, card against CPU, {len(prompts)} "
-         f"greedy streams of 16 tokens: {len(prompts) - len(parted)} equal"
+    _log(f"27e gpt3_1p3b {CUT_LAYERS} layers fp16, card against CPU, "
+         f"{len(prompts)} greedy streams of 16 tokens: "
+         f"{len(prompts) - len(parted)} equal"
          + (f"; parted at (token, top-2 logit gap on the card) {parted}"
             if parted else ""))
     del cpu, card
@@ -6099,6 +6293,418 @@ def ptxas_report(build_dir):
     return tc, gemm
 
 
+# -------------------------------------------------------------- phase 28
+
+TP_DEVICES = ["cuda:0", "cuda:0"]   # two ranks share the one card (gloo)
+TP_NEW = 16                          # phase 28a's new tokens a request
+
+
+def tp_serve(model, prompts, chunk, extra=(), devices=None, dev="cuda",
+             new_tokens=64, max_batch=BATCH, max_context=MAX_CONTEXT,
+             **engine_kw):
+    """Phase 2's requests (``new_tokens`` new, odd ones sampled), then the
+    ``extra`` prompts (greedy, one after another), on an engine at
+    ``tp_degree=2`` (ranks on ``devices``, card 0 twice by default: gloo,
+    eager programs, overlap off), with every rank's counters at 0 first.
+    Decode ticks are timed (the card synchronised at each dispatch, the
+    clock stopped at the harvest) with the collectives inside them.
+    Returns the numbers and every rank's report; the workers are stopped
+    before it returns."""
+    import torch
+    from paddle_tpu_torch.inference.serving import Request, ServingEngine
+
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, max_batch=max_batch, max_context=max_context,
+                        block_size=BS, steps_per_tick=8,
+                        prefill_chunk=chunk, device=dev, tp_degree=2,
+                        tp_devices=devices or TP_DEVICES, overlap=False,
+                        **engine_kw)
+    start_s = time.perf_counter() - t0
+    try:
+        m = eng.model
+        tick = dict(s=0.0, steps=0, n=0, comm_s=0.0, comm_calls=0,
+                    comm_bytes=0)
+        mark = {}
+        dispatch, harvest = eng._dispatch_tick, eng._harvest
+
+        def sync():
+            if dev == "cuda":
+                torch.cuda.synchronize()
+
+        def timed_dispatch(*a):
+            sync()
+            mark.update(t=time.perf_counter(), c=(m.comm_s, m.comm_calls,
+                                                  m.comm_bytes))
+            return dispatch(*a)
+
+        def timed_harvest(pend):
+            out = harvest(pend)
+            tick["s"] += time.perf_counter() - mark["t"]
+            tick["n"] += 1
+            tick["steps"] += pend.k
+            tick["comm_s"] += m.comm_s - mark["c"][0]
+            tick["comm_calls"] += m.comm_calls - mark["c"][1]
+            tick["comm_bytes"] += m.comm_bytes - mark["c"][2]
+            return out
+        eng._dispatch_tick, eng._harvest = timed_dispatch, timed_harvest
+        eng.tp_reset_counters()
+        reqs = [Request(p, max_new_tokens=new_tokens, do_sample=bool(i % 2),
+                        temperature=0.9, top_k=40, top_p=0.95, seed=1000 + i)
+                for i, p in enumerate(prompts)]
+        sync()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        eng.run()
+        sync()
+        wall = time.perf_counter() - t0
+        ext = []
+        for p in extra:
+            ext.append(eng.add_request(Request(p, max_new_tokens=16)))
+            eng.run()
+        report = eng.tp_report()
+        st = eng.stats()
+        del eng._dispatch_tick, eng._harvest
+    finally:
+        eng.shutdown()
+    vocab = model.cfg.vocab_size
+    for r in reqs + ext:
+        want = r.max_new_tokens
+        if not r.done or len(r.output_ids) != want:
+            raise AssertionError(f"TP request {r.rid}: "
+                                 f"{len(r.output_ids)} of {want} tokens")
+        if not all(0 <= t < vocab for t in r.output_ids):
+            raise AssertionError(f"TP request {r.rid}: token out of range")
+    if st["free_blocks"] != eng.num_blocks or st["reserved"] != 0:
+        raise AssertionError(f"TP engine leaked blocks: {st}")
+    if st["graphs"]["enabled"]:
+        raise AssertionError("a tensor-parallel engine captured graphs")
+    for r, rep in enumerate(report):
+        plain = {k: v for k, v in rep["counters"].items()
+                 if k.endswith("plain_calls") and v}
+        if plain:
+            raise AssertionError(f"TP rank {r} took plain routes: {plain}")
+        if rep.get("modules"):
+            raise AssertionError(f"TP rank {r} imported {rep['modules']}")
+    n_tok = sum(len(r.output_ids) for r in reqs)
+    return dict(wall_s=wall, start_s=start_s, tokens=n_tok,
+                tokens_per_s=n_tok / wall, tick=tick, stats=st,
+                report=report, streams=[list(r.output_ids) for r in reqs],
+                extra=[list(r.output_ids) for r in ext])
+
+
+def _rank_launches(run, names):
+    """Each rank's launch counts of the kernels ``names`` (the wrappers'
+    function names)."""
+    return [{n: rep["counters"].get(f"{n}.launches", 0) for n in names}
+            for rep in run["report"]]
+
+
+def _first_divergence(streams, base):
+    """(request, position) of each greedy request's first differing
+    token, None where the stream equals ``base``'s."""
+    out = []
+    for i in range(0, len(base), 2):
+        n = next((j for j, (a, b) in enumerate(zip(streams[i], base[i]))
+                  if a != b), None)
+        out.append((i, n))
+    return out
+
+
+def tp_phase(model, prompts, runs):
+    """Phase 28: tensor-parallel serving of GPT-3 1.3B in bf16 at full
+    width, ``tp_degree=2`` with both ranks on card 0 over gloo.  a. Phase
+    2's mix, whole prompts, ``TP_NEW`` new tokens: ms per decode step,
+    tokens/s, collectives and bytes per tick, their share of the tick,
+    the greedy streams against degree 1's (phase 2), each rank's resident
+    bytes against degree 1's.  b. The first two requests of the mix
+    (greedy and sampled) and two on a shared 1024-token prefix (the
+    second hits), int8 (``quantize_plan``), 256-token chunks and n-gram
+    speculation in one engine.  c. The 4-layer fp32 cut card against
+    CPU.  On every rank: the kernels launched, the pools at 8 heads, no
+    plain route, no leaked block."""
+    import torch
+    cfg = model.cfg
+    need = {"whole": ("flash_attention_fwd", "paged_attention"),
+            "int8_chunked_prefix_spec": (
+                "paged_chunk_attention", "paged_verify_attention",
+                "paged_attention", "weight_only_matmul",
+                "weight_only_gemm")}
+    gen = torch.Generator().manual_seed(11)
+    shared = torch.randint(1, cfg.vocab_size, (1024,), generator=gen).tolist()
+    out = {}
+    for name, prm, new, kw, extra in (
+            ("whole", prompts, TP_NEW, {}, ()),
+            ("int8_chunked_prefix_spec", prompts[:2], 16,
+             dict(prefill_chunk=256, quant="int8", spec_decode=True,
+                  spec_draft="ngram", spec_k=4),
+             [shared + [7, 8, 9], shared + [10, 11]])):
+        chunk = kw.pop("prefill_chunk", 0)
+        run = tp_serve(model, prm, chunk, extra, new_tokens=new, **kw)
+        for r, counts in enumerate(_rank_launches(run, need[name])):
+            bad = [n for n, c in counts.items() if c <= 0]
+            if bad:
+                raise AssertionError(f"phase 28 {name}: rank {r} never "
+                                     f"launched {bad}: {counts}")
+        heads = {rep["pool_heads"] for rep in run["report"]}
+        if heads != {cfg.num_heads // 2}:
+            raise AssertionError(f"phase 28 {name}: pools hold {heads} heads")
+        if name != "whole" and run["stats"]["prefix_cache"]["hits"] < 1:
+            raise AssertionError("phase 28: the shared prefix never hit")
+        tk = run["tick"]
+        ms_step = tk["s"] / max(tk["steps"], 1) * 1e3
+        _log(f"phase 28 gpt3_1p3b bf16 tp_degree=2 (2 ranks on card 0, "
+             f"gloo), {name}: {run['tokens']} tokens in "
+             f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s; "
+             f"{tk['steps']} decode steps in {tk['n']} ticks, "
+             f"{ms_step:.2f} ms per decode step; collectives per tick "
+             f"{tk['comm_calls'] / max(tk['n'], 1):.1f} "
+             f"({tk['comm_calls'] / max(tk['steps'], 1):.1f} a step), bytes "
+             f"gathered per tick {tk['comm_bytes'] / max(tk['n'], 1):.0f}, "
+             f"share of the ticks in collectives "
+             f"{tk['comm_s'] / max(tk['s'], 1e-9):.3f}; engine start "
+             f"{run['start_s']:.1f} s; {run['stats']['prefix_cache']} ; "
+             f"{run['stats'].get('speculative', {}).get('accept_rate')} "
+             f"accept rate; launches by rank "
+             f"{_rank_launches(run, need[name])}")
+        out[name] = run
+        torch.cuda.empty_cache()
+    got, ref = out["whole"]["streams"], [s[:TP_NEW]
+                                         for s in runs[0]["streams"]]
+    _log(f"phase 28 whole: greedy streams' leading tokens equal to degree "
+         f"1's (phase 2, same prompts): {_agreement(got, ref)} of {TP_NEW}; "
+         f"first differing token (request, position): "
+         f"{_first_divergence(got, ref)}")
+    # resident bytes per rank against degree 1 (the same engine settings)
+    w1 = sum(p.numel() * p.element_size() for p in model.parameters())
+    hd = cfg.hidden_size // cfg.num_heads
+    blocks = BATCH * -(-MAX_CONTEXT // BS) + 1
+    p1 = 2 * cfg.num_layers * cfg.num_heads * blocks * BS * hd * 2
+    for r, rep in enumerate(out["whole"]["report"]):
+        _log(f"phase 28 rank {r}: weights {rep['weight_bytes'] / 2**30:.3f} "
+             f"GiB ({rep['weight_bytes'] / w1:.3f} of degree 1's "
+             f"{w1 / 2**30:.3f}), pools {rep['pool_bytes'] / 2**30:.3f} GiB "
+             f"({rep['pool_bytes'] / p1:.3f} of degree 1's "
+             f"{p1 / 2**30:.3f}), {rep['pool_heads']} heads")
+        if not 0.45 < rep["weight_bytes"] / w1 < 0.55 or \
+                rep["pool_bytes"] * 2 != p1:
+            raise AssertionError(f"phase 28 rank {r}: not half of degree "
+                                 "1's bytes")
+    tp_card_vs_cpu()
+    return {name: dict(launches=run["report"][0]["counters"],
+                       by_rank=run["report"], tokens_per_s=run["tokens_per_s"],
+                       tick=run["tick"]) for name, run in out.items()}
+
+
+def tp_card_vs_cpu():
+    """Phase 28c: the 4-layer fp32 cut (``TP_CUT_LAYERS``) at
+    ``tp_degree=2`` on the card (both ranks on card 0), 64-token chunks,
+    against the CPU's plain model: two greedy streams equal."""
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    cpu, card = _cut_models(gpt3_1p3b(num_layers=TP_CUT_LAYERS))
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, cpu.cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in (96, 200)]
+    # the first prompt in the timed mix (greedy), the second after it
+    run = tp_serve(card, prompts[:1], 64, prompts[1:], new_tokens=16,
+                   max_batch=2, max_context=512)
+    got = run["streams"] + run["extra"]
+    want = _cut_streams(cpu, "cpu", prompts, prefill_chunk=64)[0]
+    if got != want:
+        raise AssertionError(f"phase 28 cut: the card at tp_degree=2 gave "
+                             f"{got}, the CPU {want}")
+    _log(f"phase 28 card vs CPU, gpt3_1p3b {TP_CUT_LAYERS} layers fp32: "
+         "both greedy streams at tp_degree=2 on the card (64-token "
+         "chunks) equal the CPU's")
+
+
+# -------------------------------------------------------------- phase 29
+
+DDP_LAYERS, DDP_B, DDP_S, DDP_STEPS = 4, 2, 2048, 2
+
+
+def _ddp_data(cfg, world):
+    import numpy as np
+    rng = np.random.RandomState(29)
+    n = world * DDP_B * DDP_STEPS
+    return (rng.randint(0, cfg.vocab_size, (n, DDP_S)),
+            rng.randint(0, cfg.vocab_size, (n, DDP_S)))
+
+
+def ddp_rank(out_dir):
+    """A rank of phase 29 (``chip_smoke.py --ddp-rank DIR`` under the
+    launcher): GPT-3 1.3B at full width, ``DDP_LAYERS`` layers, O1 bf16,
+    AdamW (the fused step), ``DDP_STEPS`` steps under ``DataParallel`` on
+    the batches ``DistributedBatchSampler`` gives this rank from the
+    environment; writes its numbers and its parameters' digest (and rank
+    0 its parameters)."""
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.io import DistributedBatchSampler
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    env = dist.init_parallel_env()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = env.device
+    torch.cuda.set_device(dev)
+    cfg = gpt3_1p3b(num_layers=DDP_LAYERS)
+    ids, labels = _ddp_data(cfg, env.world_size)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # every rank builds from its own seed: the broadcast makes rank 0's win
+    model, opt, _ = _train_setup(cfg, dev, env.rank, 1, 8)
+    dp = dist.DataParallel(model)
+    sampler = DistributedBatchSampler(range(len(ids)), DDP_B)
+    for fn in _train_counters().values():
+        fn.launches = 0
+    losses, times, comm = [], [], []
+    for idx in sampler:
+        batch = (torch.as_tensor(ids[idx], device=dev),
+                 torch.as_tensor(labels[idx], device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0 = dp.comm.seconds
+        loss = _train_step(dp, opt, batch, True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        comm.append(dp.comm.seconds - c0)
+        mean = loss.float().clone()
+        dist.all_reduce(mean, "avg")
+        losses.append(mean.item())
+    launches = {n: fn.launches for n, fn in _train_counters().items()}
+    # the parameters' bits: a missing or partial all-reduce parts the ranks
+    digest = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        digest.update(k.encode())
+        digest.update(v.detach().reshape(-1).contiguous()
+                      .view(torch.uint8).cpu().numpy().tobytes())
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters() if p.requires_grad)
+    res = dict(rank=env.rank, world=env.world_size, losses=losses,
+               step_s=times, allreduce_s=comm, launches=launches,
+               buckets=dp.comm.calls, allreduce_bytes=dp.comm.bytes,
+               grad_bytes=grad_bytes, params_sha256=digest.hexdigest(),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               batches=[list(b) for b in sampler],
+               backend=dist.get_group().backend,
+               modules=sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "paddle_tpu")))
+    if env.rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict()
+                    .items()}, os.path.join(out_dir, "params.pt"))
+    with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def ddp_phase(root):
+    """Phase 29: ``DataParallel`` on two ranks sharing card 0 over gloo,
+    started by ``python -m paddle_tpu_torch.distributed.launch``, against
+    one process on the concatenated batches."""
+    import signal
+
+    import torch
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+
+    out_dir = os.path.join(root, "build", "ddp_phase")
+    if os.path.isdir(out_dir):
+        import shutil
+        shutil.rmtree(out_dir)
+    os.makedirs(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--devices", "0,0", "--log_dir", out_dir,
+           "--job_id", "ddp", os.path.abspath(__file__), "--ddp-rank",
+           out_dir]
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    launch_s = time.perf_counter() - t0
+    if rc != 0:
+        for r in range(2):
+            path = os.path.join(out_dir, f"ddp.rank{r}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    _log(f"--- phase 29 rank {r} log tail ---\n"
+                         f"{f.read()[-3000:]}")
+        raise AssertionError(f"phase 29: the launch returned {rc}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    # one process on the concatenated batches, from rank 0's seed
+    cfg = gpt3_1p3b(num_layers=DDP_LAYERS)
+    ids, labels = _ddp_data(cfg, 2)
+    model, opt, _ = _train_setup(cfg, "cuda", 0, 1, 8)
+    ref = []
+    for step in range(DDP_STEPS):
+        idx = sum((rk["batches"][step] for rk in ranks), [])
+        batch = (torch.as_tensor(ids[idx], device="cuda"),
+                 torch.as_tensor(labels[idx], device="cuda"))
+        ref.append(_train_step(model, opt, batch, True).item())
+    got = torch.load(os.path.join(out_dir, "params.pt"))
+    worst = 0.0
+    for k, v in model.state_dict().items():
+        worst = max(worst, (got[k] - v.detach().cpu()).abs().max().item())
+    bound = 2 * LR * DDP_STEPS
+    del model, opt, got
+    torch.cuda.empty_cache()
+    for rk in ranks:
+        if rk["modules"]:
+            raise AssertionError(f"phase 29 rank {rk['rank']} imported "
+                                 f"{rk['modules']}")
+        if rk["backend"] != "gloo":
+            raise AssertionError(f"phase 29: backend {rk['backend']}")
+        bad = [n for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                           "fused_adamw") if rk["launches"][n] <= 0]
+        if bad:
+            raise AssertionError(f"phase 29 rank {rk['rank']} never "
+                                 f"launched {bad}")
+        for a, b in zip(rk["losses"], ref):
+            if not abs(a - b) <= 2e-2:
+                raise AssertionError(f"phase 29 losses {rk['losses']} "
+                                     f"against one process {ref}")
+        # every step all-reduces every gradient once, in buckets
+        want = rk["grad_bytes"] * DDP_STEPS
+        if rk["buckets"] < DDP_STEPS or rk["allreduce_bytes"] != want:
+            raise AssertionError(
+                f"phase 29 rank {rk['rank']}: {rk['buckets']} buckets, "
+                f"{rk['allreduce_bytes']} bytes all-reduced; the gradients "
+                f"of {DDP_STEPS} steps are {want}")
+    if ranks[0]["params_sha256"] != ranks[1]["params_sha256"]:
+        raise AssertionError("phase 29: the ranks' parameters differ after "
+                             "the steps")
+    if not worst <= bound:
+        raise AssertionError(f"phase 29: parameters differ by {worst} "
+                             f"(bound 2 lr steps = {bound})")
+    r0 = ranks[0]
+    step_s = r0["step_s"][-1]
+    _log(f"phase 29 DataParallel gpt3_1p3b {DDP_LAYERS} layers, O1 bf16, "
+         f"AdamW, 2 ranks on card 0 over {r0['backend']} (launcher "
+         f"{launch_s:.1f} s), B {DDP_B} x S {DDP_S} a rank: losses "
+         f"{[rk['losses'] for rk in ranks]} against one process on the "
+         f"concatenated batches {ref}; the ranks' parameters bit-equal, "
+         f"rank 0's within {worst:.3e} of one process's (bound "
+         f"{bound:.0e}); step times (s) by rank "
+         f"{[[round(t, 3) for t in rk['step_s']] for rk in ranks]}, "
+         f"all-reduce share of the last step "
+         f"{[round(r['allreduce_s'][-1] / r['step_s'][-1], 3) for r in ranks]}"
+         f" ({r0['buckets']} buckets, {r0['allreduce_bytes'] / 2**30:.2f} "
+         f"GiB all-reduced in {DDP_STEPS} steps); peak memory by rank "
+         f"{[round(rk['peak_bytes'] / 2**30, 2) for rk in ranks]} GiB; "
+         f"launches by rank {[rk['launches'] for rk in ranks]}")
+    return dict(launches=r0["launches"], step_s=step_s, ranks=ranks,
+                ref=ref, worst=worst)
+
+
 def card_name() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -6147,15 +6753,16 @@ def main() -> int:
     timed("flash at BERT-base's shape", bert_flash_checks, rows)
     timed("MoE kernel checks", moe_kernel_checks)
     runs = timed("serving", serving_phase, lens)
-    timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=4))
+    ddp = timed("DataParallel (phase 29)", ddp_phase, root)
+    timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=CUT_LAYERS))
     prefix, spec = timed("prefix and spec", serving_extras_phase)
     timed("plain routes", plain_route_phase)
     train = timed("training", training_phase)
     timed("training card vs CPU", train_card_vs_cpu,
-          gpt3_1p3b(num_layers=4))
+          gpt3_1p3b(num_layers=CUT_LAYERS))
     rest, shapes = timed("rest of training", rest_of_training_phase)
     timed("rest of training card vs CPU", rest_card_vs_cpu,
-          gpt3_1p3b(num_layers=4))
+          gpt3_1p3b(num_layers=CUT_LAYERS))
     fused_err = timed("fused_adamw checks", fused_kernel_checks, shapes)
     rows["fused_adamw"] = dict(
         max_abs_err=fused_err, ms=rest["ms"], plain_ms=rest["plain_ms"],
@@ -6258,6 +6865,18 @@ def main() -> int:
              "generate_paged_eager_fp16":
                  serve16["generate"]["paged_eager"]["launches"],
              "llama_serve_fp16": llama16["launches"]}
+    # phase 28's paths, each rank's counts (the wrappers' function names
+    # mapped to the kernels'), and phase 29's ranks
+    names = {fn.__name__: k for k, fn in _counters().items()}
+    for name, run in runs["tp"].items():
+        for r, rep in enumerate(run["by_rank"]):
+            paths[f"tp_{name}_rank{r}"] = {
+                names[f]: v for f, v in (
+                    (k.rsplit(".", 1)[0], v)
+                    for k, v in rep["counters"].items()
+                    if k.endswith(".launches")) if f in names}
+    for rk in ddp["ranks"]:
+        paths[f"ddp_rank{rk['rank']}"] = rk["launches"]
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -6273,7 +6892,9 @@ def main() -> int:
             kernels[-1]["verify_launches"] = {
                 p: paths[p]["paged_verify_attention"]
                 for p in ("spec_ngram", "spec_ngram_adaptive", "spec_model",
-                          "spec_self", "serve_fp16_spec")}
+                          "spec_self", "serve_fp16_spec",
+                          "tp_int8_chunked_prefix_spec_rank0",
+                          "tp_int8_chunked_prefix_spec_rank1")}
         if name == "weight_only_gemm":
             kernels[-1]["ptxas_by_instance"] = gemm_regs
         tc_name = name + "_tc_kernel"
@@ -6290,4 +6911,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank(sys.argv[2]))
     sys.exit(main())

@@ -1,3 +1,16 @@
-"""Distributed training and serving.  So far only the atomic,
-integrity-checked version directories of ``checkpoint`` (the prefix
-cache's export uses them)."""
+"""Distributed training and serving: the environment (``env``), groups
+and process-granular collectives (``collective``), ``init_parallel_env``
+and ``DataParallel`` (``parallel``), the collective launcher
+(``python -m paddle_tpu_torch.distributed.launch``), ``fleet.recompute``,
+and the atomic, integrity-checked version directories of
+``checkpoint``."""
+
+from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
+                         all_gather_into_tensor, all_gather_object,
+                         all_reduce, alltoall, alltoall_single, barrier,
+                         broadcast, broadcast_object_list,
+                         destroy_process_group, gather, get_group, irecv,
+                         is_initialized, isend, new_group, recv, reduce,
+                         reduce_scatter, scatter, send, stream, wait)
+from .env import ParallelEnv, get_rank, get_world_size  # noqa: F401
+from .parallel import DataParallel, init_parallel_env  # noqa: F401

@@ -29,8 +29,10 @@ axis 0; the port's ``nn.Linear`` keeps ``[out, in]``, so the same channel
 is reduced over axis 1 (``transposed`` below), and codes and scales are
 the JAX ones transposed, bit for bit.
 
-Not ported: ``quantize_plan`` / ``plan_stats``, the tensor-parallel hook,
-wait for tensor-parallel serving.
+Tensor-parallel serving quantizes its plan instead
+(:func:`quantize_plan`, :func:`plan_stats`; ``inference/tp.py``): the
+plan keeps the JAX layout, so its codes and scales are the JAX plan's,
+and each rank runs its column shard on the weight-only route.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from ..quantization.weight_only import (quantize_absmax_fp8,
                                         quantize_absmax_int8)
 
 __all__ = ["WeightSnapshot", "snapshot", "dequant_values", "MODES",
-           "quantize_model", "WeightOnlyLinear", "WeightOnlyEmbedding"]
+           "quantize_model", "WeightOnlyLinear", "WeightOnlyEmbedding",
+           "quantize_plan", "plan_stats"]
 
 MODES = ("int8", "fp8")
 _QUANTIZERS = {"int8": quantize_absmax_int8, "fp8": quantize_absmax_fp8}
@@ -212,3 +215,53 @@ def quantize_model(model: nn.Module, mode: str = "int8"):
                             "twin")
         parent._modules[name] = new
     return twin, snap
+
+
+def quantize_plan(plan, mode: str = "int8") -> None:
+    """Quantize a tensor-parallel plan (``inference/tp.py``) in place,
+    before it is sharded: every matmul weight (``qkv_w`` ``[H, 3, nh,
+    hd]``, ``proj_w``, ``fc1_w``, ``fc2_w`` ``[in, out]``) becomes
+    ``{"q": codes, "s": scale}`` reduced over its contraction axis 0, and
+    ``wte`` ``[V, H]`` over H, so its per-row scale shards with the
+    vocabulary.  The scale keeps its reduced axis of size 1, so it shards
+    on the weight's own axis.  The JAX ``quantize_plan``."""
+    if mode not in MODES:
+        raise ValueError(f"FLAGS_serving_quant supports {MODES}; "
+                         f"got {mode!r}")
+    quantize = _QUANTIZERS[mode]
+
+    def q(name, holder):
+        qv, s = quantize(holder[name], axis=1 if name == "wte" else 0)
+        holder[name] = {"q": qv, "s": s}
+    q("wte", plan.params)
+    for blk in plan.params["blocks"]:
+        for name in ("qkv_w", "proj_w", "fc1_w", "fc2_w"):
+            q(name, blk)
+    plan.meta["quant"] = mode
+
+
+def plan_stats(plan) -> Dict[str, Any]:
+    """Weight bytes of a quantized plan (before sharding), in
+    :meth:`WeightSnapshot.stats`'s schema: the JAX ``plan_stats``."""
+    acc = {"qb": 0, "fb": 0, "n": 0}
+
+    def walk(x):
+        if isinstance(x, dict) and set(x) == {"q", "s"}:
+            q, s = x["q"], x["s"]
+            acc["qb"] += q.numel() + s.numel() * s.element_size()
+            acc["fb"] += q.numel() * s.element_size()
+            acc["n"] += 1
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            b = x.numel() * x.element_size()
+            acc["qb"] += b
+            acc["fb"] += b
+    walk(plan.params)
+    return {"mode": plan.meta.get("quant"), "quantized_tensors": acc["n"],
+            "weight_bytes": acc["qb"], "fp_weight_bytes": acc["fb"],
+            "ratio": round(acc["fb"] / max(acc["qb"], 1), 2)}

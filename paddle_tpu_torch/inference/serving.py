@@ -90,6 +90,7 @@ import os
 import signal
 import threading
 import time
+import weakref
 from collections import deque
 from typing import List, Optional
 
@@ -110,10 +111,10 @@ from ..observability import quantiles as _quantiles
 from ..ops import _build
 from ..testing import blocksan as _blocksan
 from ..testing import chaos as _chaos
-from . import graphs, speculative
+from . import graphs, speculative, tp as _tp
 from .drafting import NGramDraft
 from .prefix_cache import PrefixCache
-from .quant import quantize_model
+from .quant import plan_stats, quantize_model, quantize_plan
 
 __all__ = ["Request", "ServingEngine", "TickTimeout", "NonFiniteLogits"]
 
@@ -123,7 +124,7 @@ __all__ = ["Request", "ServingEngine", "TickTimeout", "NonFiniteLogits"]
 # take: the program's fault, never a request's) and the block ledger's
 # findings
 _LOUD = (torch.AcceleratorError, _build.KernelError,
-         _blocksan.BlocksanError)
+         _blocksan.BlocksanError, _tp.TPWorkerError)
 
 
 _M_ADMISSIONS = _metrics.counter(
@@ -519,48 +520,67 @@ def _decode_fn(model, pools, bs: int):
     return decode
 
 
-def _spec_fn(model, pools, draft, dpools, bs: int, k: int, sampled: bool):
-    """The counterparts of ``_spec_program`` (the draft model's k steps;
-    ``draft`` given) and ``_spec_hd_program`` (the host's proposals
-    ``dtoks``; ``draft`` None), then the verify and the accept tail.
-    Every key and uniform comes from the lengths on the card (a chained
-    tick's exist only there).  The new lengths and last tokens go back
-    into the inputs."""
-    def spec(i, o):
-        tables, lens, last = i["tables"], i["lens"], i["last"]
-        samp = (i["do_s"], i["temp"], i["topk"], i["topp"])
-        u = resid_keys = draft_keys = None
-        if sampled:
-            seeds, base = i["seeds"], lens.long()
-            u, resid_keys = speculative.host_draws(seeds, base, k)
-            if draft is not None:
-                draft_keys = torch.stack([
-                    torch.stack(speculative.keys_at(
-                        seeds, base + j, speculative.DRAFT_FOLD))
-                    for j in range(k)], dim=1)
-        if draft is not None:
-            dt, dprobs = speculative.draft_phase(
-                draft, dpools, bs, tables, lens, last, samp, draft_keys,
-                sampled, k)
-        else:
-            dt = i["dtoks"]
-            # a host proposal is the point mass at its token
-            dprobs = torch.zeros(
-                dt.shape + (model.cfg.vocab_size,),
-                dtype=torch.float32, device=dt.device).scatter_(
-                    -1, dt[..., None], 1.0) if sampled else None
-        logits = speculative.verify_logits(model, pools, bs, tables, lens,
-                                           last, dt)
-        chosen, counts, accepts = speculative.finish(
-            logits, dt, dprobs, samp, lens, i["kcap"], u, resid_keys,
-            sampled)
-        new_last = chosen.gather(1, (counts.clamp_min(1) - 1)[:, None])
-        o["out"].copy_(torch.cat([chosen, counts[:, None],
-                                  accepts[:, None]], dim=1))
-        i["last"].copy_(torch.where(lens > 0, new_last[:, 0],
-                                    torch.zeros_like(new_last[:, 0])))
-        i["lens"].copy_(lens + counts)
-    return spec
+def _pools_for(model, num_blocks: int, bs: int, device) -> list:
+    """One (K, V) pair of pools ``[heads, num_blocks + 1, bs, hd]`` per
+    layer of ``model``, in its dtype: a tensor-parallel rank's model
+    holds ``pool_heads`` of them (its share of the heads)."""
+    cfg = model.cfg
+    nh = getattr(model, "pool_heads", cfg.num_heads)
+    hd = cfg.hidden_size // cfg.num_heads
+
+    def pool():
+        return torch.zeros((nh, num_blocks + 1, bs, hd), dtype=model.dtype,
+                           device=device)
+    return [(pool(), pool()) for _ in range(cfg.num_layers)]
+
+
+def _program_parts(key, model, pools, draft, dpools, bs: int, B: int,
+                   nb: int, device):
+    """``(fn, inputs, outputs, inert)`` of the device program ``key``
+    (see ``ServingEngine._build``): the engine's and, for a
+    tensor-parallel engine, every worker rank's, each over its own model
+    and pools."""
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    V = model.cfg.vocab_size
+    kind = key[0]
+    if kind in ("prefill", "prefill_cont"):
+        ins = dict(table=z((1, nb), torch.int32),
+                   ids=z((1, key[1]), torch.int64),
+                   idx=z((), torch.int64))
+        if kind == "prefill_cont":
+            ins["start"] = z((), torch.int32)
+        outs = dict(row=z((V,), model.dtype))
+        return _prompt_fn(kind, model, pools, draft, dpools, bs), ins, \
+            outs, None
+    if kind == "cow":
+        # inert: block 0 copied onto itself
+        return _cow_fn(pools, dpools), dict(
+            src=z((1,), torch.int64), dst=z((1,), torch.int64)), {}, None
+    if kind == "decode":
+        ins = dict(tables=z((B, nb), torch.int32),
+                   lens=z((B,), torch.int32), last=z((B,), torch.int64))
+        outs = dict(toks=z((B, 1), torch.int64),
+                    logits=z((B, V), torch.float32))
+        return _decode_fn(model, pools, bs), ins, outs, None
+    _, k, sampled = key
+    ins = dict(tables=z((B, nb), torch.int32),
+               lens=z((B,), torch.int32), last=z((B,), torch.int64),
+               do_s=z((B,), torch.bool), temp=z((B,), torch.float32),
+               topk=z((B,), torch.int64), topp=z((B,), torch.float32),
+               seeds=z((B,), torch.int64))
+    if kind == "tick":
+        ins["tok_pos"] = z((B,), torch.int64)
+        outs = dict(toks=z((B, k), torch.int64))
+        fn = _tick_fn(model, pools, bs, k, sampled)
+    else:
+        ins["kcap"] = z((B,), torch.int64)
+        if draft is None:
+            ins["dtoks"] = z((B, k), torch.int64)
+        outs = dict(out=z((B, k + 2), torch.int64))
+        fn = speculative.build_spec_tick(model, pools, draft, dpools, bs,
+                                         k, sampled)
+    return fn, ins, outs, dict(temp=1.0, topp=1.0)
 
 
 def _cow_fn(pools, dpools):
@@ -702,17 +722,36 @@ class ServingEngine:
                  slo_shed: bool = False, shed_queue_depth: int = 8,
                  http_port: int = 0, metrics_port: int = 0,
                  flight_recorder: Optional[_flight.FlightRecorder] = None,
+                 tp_degree: int = 1, tp_devices=None,
                  device=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}, the engine "
                              f"on {self.device}")
+        self.tp = int(tp_degree)
+        if self.tp < 1:
+            raise ValueError(f"tp_degree must be >= 1: {self.tp}")
+        self._tp_world = None
+        self._tp_devices = None
         # weight-only quantization: a twin of the model over the codes,
         # built once; like the JAX engine's snapshot, later edits of the
         # live model do not reach it
         self.quant_mode = str(quant or "")
         self._quant_stats = None
-        if self.quant_mode:
+        if self.tp > 1:
+            self._tp_devices = _tp.resolve_tp_devices(
+                self.device, self.tp, tp_devices)
+            if prefix_export_dir:
+                raise ValueError("the prefix cache's export and import "
+                                 "are not ported at tp_degree > 1")
+            # quantized before sharding: per-channel scales keep their
+            # reduced axis, so each rank's (codes, scale) shard is an
+            # exact slice of the full quantized matrix
+            plan = _tp.build_plan(model, self.tp)
+            if self.quant_mode:
+                quantize_plan(plan, self.quant_mode)
+                self._quant_stats = plan_stats(plan)
+        elif self.quant_mode:
             model, snap = quantize_model(model, self.quant_mode)
             self._quant_stats = snap.stats()
         self.model = model
@@ -726,6 +765,10 @@ class ServingEngine:
         self.num_blocks = int(num_blocks)
         self._init_spec(draft_model, spec_decode, spec_k, spec_draft,
                         spec_adaptive, spec_k_ladder)
+        if self.tp > 1:
+            self._tp_start(plan, tick_timeout_s,
+                           draft_model if self.spec_model else None)
+            model = self.model
         self._moe = any(isinstance(mod, MoELayer) for m in self._models()
                         for mod in m.modules())
         self._check_mode()
@@ -792,7 +835,10 @@ class ServingEngine:
         self._flight_rec = flight_recorder
         # the device programs by key: ("tick", k, sampled), ("spec_tick",
         # k, sampled), ("prefill", L_pad), ("prefill_cont", L_pad)
-        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        # a tensor-parallel engine's programs run eagerly (a gloo
+        # collective cannot be captured)
+        self.cuda_graphs = bool(cuda_graphs) and \
+            self.device.type == "cuda" and self.tp == 1
         self._programs: dict = {}
         self._pool = None                  # the graphs' shared memory pool
         self._warmup_info: Optional[dict] = None
@@ -884,21 +930,76 @@ class ServingEngine:
         if self.quant_mode:
             self.draft, _ = quantize_model(draft_model, self.quant_mode)
 
+    def _tp_start(self, plan, tick_timeout_s, draft) -> None:
+        """Start the worker ranks and hand them their shards, and the
+        draft model (replicated) when one speculates; rank 0's own shards
+        become ``self.model``.  The ranks run over gloo when two share a
+        card or run on the CPU, over NCCL when each has its own card
+        (``distributed.parallel.choose_backend``)."""
+        from ..distributed.parallel import choose_backend
+        backend = choose_backend(self._tp_devices)
+        timeout = float(tick_timeout_s) if tick_timeout_s else 120.0
+        world = _tp.TPWorld(self.tp, self._tp_devices, backend, timeout)
+        self._tp_world = world
+        weakref.finalize(self, world.close)
+        try:
+            rank0 = _tp.TPShardModel(plan.meta, _tp.shard_plan(plan, 0),
+                                     world.group, 0, self.device)
+            rank0.on_error = world.failed
+            world.setup(
+                dict(meta=plan.meta, B=self.B, nb=self.nb_per_seq,
+                     bs=self.bs, num_blocks=self.num_blocks,
+                     quant=self.quant_mode,
+                     draft_cfg=None if draft is None else draft.cfg,
+                     draft_dtype=None if draft is None else draft.dtype),
+                {r: _tp.shard_plan(plan, r) for r in range(1, self.tp)},
+                None if draft is None else {
+                    k: v.detach() for k, v in draft.state_dict().items()})
+        except BaseException:
+            world.close()
+            raise
+        self.model = rank0
+
+    def shutdown(self) -> None:
+        """Stop a tensor-parallel engine's worker ranks (also done when
+        the engine is collected); a no-op at degree 1."""
+        if self._tp_world is not None:
+            self._tp_world.close()
+
+    def tp_report(self) -> list:
+        """Every rank's kernel counters, resident weight and pool bytes,
+        its pools' head count and collective counts (calls, bytes,
+        seconds), rank 0 first; at degree 1 rank 0's alone."""
+        m = self.model
+        local = {"counters": _tp._counter_snapshot(),
+                 "weight_bytes": sum(
+                     t.numel() * t.element_size()
+                     for t in list(m.parameters()) + list(m.buffers())),
+                 "pool_bytes": sum(t.numel() * t.element_size()
+                                   for kv in self.pools for t in kv),
+                 "pool_heads": self.pools[0][0].shape[0],
+                 "comm_calls": getattr(m, "comm_calls", 0),
+                 "comm_bytes": getattr(m, "comm_bytes", 0),
+                 "comm_s": getattr(m, "comm_s", 0.0)}
+        if self._tp_world is None:
+            return [local]
+        return self._tp_world.report(local)
+
+    def tp_reset_counters(self) -> None:
+        """Zero every rank's kernel and collective counters."""
+        graphs.restore([(fn, a, 0) for fn, a in graphs.counters()])
+        m = self.model
+        if self._tp_world is not None:
+            m.comm_calls = m.comm_bytes = 0
+            m.comm_s = 0.0
+            self._tp_world.reset_counters()
+
     def _models(self):
         return [self.model] + ([self.draft] if self.draft is not None
                                else [])
 
     def _pools(self, model) -> list:
-        """One (K, V) pair of pools ``[nh, num_blocks + 1, bs, hd]`` per
-        layer of ``model``, in its dtype."""
-        cfg = model.cfg
-        nh = cfg.num_heads
-        hd = cfg.hidden_size // nh
-
-        def pool():
-            return torch.zeros((nh, self.num_blocks + 1, self.bs, hd),
-                               dtype=model.dtype, device=self.device)
-        return [(pool(), pool()) for _ in range(cfg.num_layers)]
+        return _pools_for(model, self.num_blocks, self.bs, self.device)
 
     # ----------------------------------------------------------- buckets
     def _default_ladder(self) -> tuple:
@@ -1758,53 +1859,12 @@ class ServingEngine:
         The ``decode`` program: tables, lengths and last tokens; out the
         greedy tokens ``[B, 1]`` and the logits ``[B, V]``.  The ``cow``
         program: the source and destination blocks, no output."""
-        dev, B, nb = self.device, self.B, self.nb_per_seq
-
-        def z(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        kind = key[0]
-        if kind in ("prefill", "prefill_cont"):
-            ins = dict(table=z((1, nb), torch.int32),
-                       ids=z((1, key[1]), torch.int64),
-                       idx=z((), torch.int64))
-            if kind == "prefill_cont":
-                ins["start"] = z((), torch.int32)
-            outs = dict(row=z((self.model.cfg.vocab_size,),
-                              self.model.dtype))
-            return graphs.Program(
-                _prompt_fn(kind, self.model, self.pools, self.draft,
-                           self.dpools, self.bs), ins, outs)
-        if kind == "cow":
-            # inert: block 0 copied onto itself
-            return graphs.Program(
-                _cow_fn(self.pools, self.dpools),
-                dict(src=z((1,), torch.int64), dst=z((1,), torch.int64)), {})
-        if kind == "decode":
-            ins = dict(tables=z((B, nb), torch.int32),
-                       lens=z((B,), torch.int32), last=z((B,), torch.int64))
-            outs = dict(toks=z((B, 1), torch.int64),
-                        logits=z((B, self.model.cfg.vocab_size),
-                                 torch.float32))
-            return graphs.Program(_decode_fn(self.model, self.pools,
-                                             self.bs), ins, outs)
-        _, k, sampled = key
-        ins = dict(tables=z((B, nb), torch.int32),
-                   lens=z((B,), torch.int32), last=z((B,), torch.int64),
-                   do_s=z((B,), torch.bool), temp=z((B,), torch.float32),
-                   topk=z((B,), torch.int64), topp=z((B,), torch.float32),
-                   seeds=z((B,), torch.int64))
-        if kind == "tick":
-            ins["tok_pos"] = z((B,), torch.int64)
-            outs = dict(toks=z((B, k), torch.int64))
-            fn = _tick_fn(self.model, self.pools, self.bs, k, sampled)
-        else:
-            ins["kcap"] = z((B,), torch.int64)
-            if not self.spec_model:
-                ins["dtoks"] = z((B, k), torch.int64)
-            outs = dict(out=z((B, k + 2), torch.int64))
-            fn = _spec_fn(self.model, self.pools, self.draft, self.dpools,
-                          self.bs, k, sampled)
-        return graphs.Program(fn, ins, outs, inert=dict(temp=1.0, topp=1.0))
+        fn, ins, outs, inert = _program_parts(
+            key, self.model, self.pools, self.draft, self.dpools, self.bs,
+            self.B, self.nb_per_seq, self.device)
+        if self._tp_world is not None:
+            return _tp.TPProgram(self._tp_world, key, fn, ins, outs, inert)
+        return graphs.Program(fn, ins, outs, inert)
 
     def warmup(self) -> dict:
         """Build (on the card: capture) the whole program grid before
@@ -2518,6 +2578,9 @@ class ServingEngine:
         entries, blocks, bytes, export_s}``."""
         if self.prefix is None:
             raise ValueError("prefix cache is disabled on this engine")
+        if self.tp > 1:
+            raise ValueError("the prefix cache's export is not ported at "
+                             "tp_degree > 1")
         t0 = time.perf_counter()
         index = self.prefix.export_state()
         blocks = sorted({e["block"] for e in index["entries"]})
@@ -2744,6 +2807,7 @@ class ServingEngine:
                                 else self._chunk_budget_now),
                "slo_sheds": self.slo_sheds,
                "pad_buckets": list(self.pad_ladder),
+               "tp_degree": self.tp,
                "overlapped_ticks": self.overlapped_ticks,
                "overlap_chunks": self.overlap_chunks,
                "tick_errors": self.tick_errors,

@@ -1,7 +1,10 @@
 """Draft/verify speculative decoding on the serving engine's tick.
 
-Counterpart of ``paddle_tpu/inference/speculative.py`` (the one-card
-ticks; the tensor-parallel ones belong to a later slice).  A proposer
+Counterpart of ``paddle_tpu/inference/speculative.py``.  One tick
+(:func:`build_spec_tick`) serves one card and a tensor-parallel rank
+alike: over a rank's ``tp.TPShardModel`` it is the JAX
+``build_tp_spec_tick`` (a draft model) or ``build_tp_hostdraft_tick``
+(n-gram proposals), the verify forward on the rank's heads.  A proposer
 offers ``k`` tokens per slot, the target model judges all of them in ONE
 k-row chunk forward through ``PagedVerifyKernelView`` (the
 ``paged_chunk`` kernel at each slot's length), and per-slot accept masks
@@ -51,7 +54,7 @@ from ..models.kv_cache import PagedKVCache, PagedVerifyKernelView
 
 __all__ = ["DRAFT_FOLD", "ACCEPT_FOLD", "RESID_FOLD", "keys_at",
            "host_draws", "accept_and_choose", "finish", "draft_phase",
-           "verify_logits"]
+           "verify_logits", "build_spec_tick"]
 
 # disjoint stream tags: fold_in(fold_in(key(seed), TAG), position)
 DRAFT_FOLD = 0x51
@@ -180,3 +183,46 @@ def verify_logits(model, pools, bs, tables, seq_lens, last_tok, dtoks):
     logits, _ = model.forward_with_cache(chunk, views,
                                          pos_offset=seq_lens[:, None])
     return logits
+
+
+def build_spec_tick(model, pools, draft, dpools, bs: int, k: int,
+                    sampled: bool):
+    """The serving engine's spec program function (``inference/graphs.py``
+    ``Program``): the counterparts of the JAX ``build_spec_tick`` (the
+    draft model's k steps; ``draft`` given) and ``build_hostdraft_tick``
+    (the host's proposals ``dtoks``; ``draft`` None), then the verify and
+    the accept tail.  Every key and uniform comes from the lengths on the
+    card (a chained tick's exist only there).  The new lengths and last
+    tokens go back into the inputs."""
+    def spec(i, o):
+        tables, lens, last = i["tables"], i["lens"], i["last"]
+        samp = (i["do_s"], i["temp"], i["topk"], i["topp"])
+        u = resid_keys = draft_keys = None
+        if sampled:
+            seeds, base = i["seeds"], lens.long()
+            u, resid_keys = host_draws(seeds, base, k)
+            if draft is not None:
+                draft_keys = torch.stack([
+                    torch.stack(keys_at(seeds, base + j, DRAFT_FOLD))
+                    for j in range(k)], dim=1)
+        if draft is not None:
+            dt, dprobs = draft_phase(draft, dpools, bs, tables, lens, last,
+                                     samp, draft_keys, sampled, k)
+        else:
+            dt = i["dtoks"]
+            # a host proposal is the point mass at its token
+            dprobs = torch.zeros(
+                dt.shape + (model.cfg.vocab_size,),
+                dtype=torch.float32, device=dt.device).scatter_(
+                    -1, dt[..., None], 1.0) if sampled else None
+        logits = verify_logits(model, pools, bs, tables, lens, last, dt)
+        chosen, counts, accepts = finish(
+            logits, dt, dprobs, samp, lens, i["kcap"], u, resid_keys,
+            sampled)
+        new_last = chosen.gather(1, (counts.clamp_min(1) - 1)[:, None])
+        o["out"].copy_(torch.cat([chosen, counts[:, None],
+                                  accepts[:, None]], dim=1))
+        i["last"].copy_(torch.where(lens > 0, new_last[:, 0],
+                                    torch.zeros_like(new_last[:, 0])))
+        i["lens"].copy_(lens + counts)
+    return spec

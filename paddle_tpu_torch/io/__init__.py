@@ -29,8 +29,8 @@ collate to numpy and ship batches through shared memory
 the main process retries a transient ``OSError`` (``dataloader.fetch``,
 counted on ``dataloader.retries``: the JAX flags ``dataloader_retries``
 2 and ``dataloader_retry_backoff_s`` 0.05).  ``DistributedBatchSampler``
-takes ``num_replicas`` and ``rank`` explicitly; reading them from the
-environment goes with ROADMAP.md A.8.  The JAX loader's thread mode
+reads ``num_replicas`` and ``rank`` from the environment when they are
+None (``distributed/env.py``).  The JAX loader's thread mode
 (``PADDLE_TPU_THREAD_LOADER=1``) is not ported.
 """
 
@@ -227,19 +227,19 @@ class BatchSampler(Sampler):
 class DistributedBatchSampler(BatchSampler):
     """Rank-sharded batches: the indices (shuffled by ``RandomState(epoch)``
     when ``shuffle``) padded to a multiple of ``num_replicas``, then every
-    ``num_replicas``-th from ``rank``.  Both are explicit here (the JAX
-    sampler reads them from the environment when they are None: A.8)."""
+    ``num_replicas``-th from ``rank``.  Either left None is read from the
+    environment (``distributed/env.py``: the launcher's
+    ``PADDLE_TRAINERS_NUM`` / ``PADDLE_TRAINER_ID``, else
+    ``torch.distributed``), as the JAX sampler does."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
-        if num_replicas is None or rank is None:
-            raise NotImplementedError(
-                "DistributedBatchSampler: pass num_replicas and rank (their "
-                "lookup in the environment is ROADMAP.md A.8)")
+        from ..distributed import env as dist_env
         self.dataset = dataset
         self.batch_size = batch_size
-        self.nranks = num_replicas
-        self.local_rank = rank
+        self.nranks = num_replicas if num_replicas is not None \
+            else dist_env.get_world_size()
+        self.local_rank = rank if rank is not None else dist_env.get_rank()
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.epoch = 0

@@ -2325,3 +2325,59 @@ def test_custom_list_mode_on_the_card(gen):
         out.append((loss.item(), dict(ctx.mode.ran)))
     assert out[0][1] == out[1][1]
     assert abs(out[0][0] - out[1][0]) <= 2e-2 + 1e-2 * abs(out[0][0])
+
+
+# ------------------------------------------------ distributed (slice 18)
+@pytest.fixture(scope="module")
+def card_world():
+    """Two ranks sharing card 0 over gloo (the machine has one card: NCCL
+    cannot put two ranks on it), ``tests/test_torch_distributed.py``'s
+    rank processes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import test_torch_distributed as td
+    w = td.World(2, devices="0")
+    yield w
+    w.close()
+
+
+def test_collectives_on_cuda_tensors_equal_the_cpu_results(card_world):
+    """Every collective of the slice on CUDA tensors (staged through the
+    host, and counted so) gives its CPU result; prints which of
+    ``torch.distributed``'s own gloo collectives take CUDA tensors."""
+    import numpy as np
+    cpu = card_world.run("task_collectives", "cpu")
+    cuda = card_world.run("task_collectives", "cuda")
+    for r, (c, g) in enumerate(zip(cpu, cuda)):
+        for k, v in c.items():
+            if k in ("calls", "bytes", "host_staged"):
+                continue
+            if k == "subgroup":
+                np.testing.assert_array_equal(g[k][0], v[0])
+                assert g[k][1:] == v[1:]
+            elif isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(g[k], v, err_msg=k)
+            else:
+                assert g[k] == v, k
+        assert c["host_staged"] is None or not c["host_staged"]["series"]
+        staged = {x["labels"]["op"] for x in g["host_staged"]["series"]}
+        assert staged >= {"all_reduce", "all_gather", "broadcast",
+                          "alltoall", "scatter", "send", "recv",
+                          "reduce_scatter"}
+    print("gloo with CUDA tensors:",
+          card_world.run("task_gloo_cuda_probe")[0])
+
+
+def test_data_parallel_on_the_card_equals_the_cpu(card_world):
+    import numpy as np
+    rng = np.random.RandomState(0)
+    init = [rng.randn(8, 4).astype(np.float32) * 0.5,
+            rng.randn(8).astype(np.float32) * 0.1,
+            rng.randn(1, 8).astype(np.float32) * 0.5,
+            rng.randn(1).astype(np.float32) * 0.1]
+    X = rng.rand(16, 4).astype(np.float32)
+    Y = X.sum(axis=1, keepdims=True)
+    cpu = card_world.run("task_dp_mlp", init, X, Y, "cpu")
+    cuda = card_world.run("task_dp_mlp", init, X, Y, "cuda")
+    for a, b in zip(cpu, cuda):
+        np.testing.assert_allclose(b, a, rtol=1e-5)

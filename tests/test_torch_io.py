@@ -245,9 +245,18 @@ def test_fetch_retries_a_transient_os_error():
     assert after != before
 
 
-def test_distributed_sampler_needs_its_rank():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tio.DistributedBatchSampler(SquareDataset(8), 2)
+def test_distributed_sampler_needs_its_rank(monkeypatch):
+    """Without ``num_replicas`` and ``rank`` the sampler takes them from
+    the launcher's environment, as the JAX sampler does, batch for batch;
+    an explicit argument wins."""
+    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "3")
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "1")
+    got = tio.DistributedBatchSampler(SquareDataset(10), 2, shuffle=True)
+    want = jio.DistributedBatchSampler(SquareDataset(10), 2, shuffle=True)
+    assert (got.nranks, got.local_rank) == (3, 1)
+    assert list(got) == list(want) and len(got) == len(want)
+    assert tio.DistributedBatchSampler(SquareDataset(10), 2,
+                                       rank=0).local_rank == 0
 
 
 def test_the_loader_runs_on_the_card_unless_told():

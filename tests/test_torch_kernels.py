@@ -510,7 +510,10 @@ _FORBIDDEN = re.compile(
 def test_port_imports_neither_jax_nor_the_jax_package():
     """`import jax`, `from jax`, `paddle_tpu.` and `from paddle_tpu`
     appear nowhere in the port or in chip_smoke.py (`paddle_tpu_torch`
-    does not match: the port names its JAX counterparts by file path)."""
+    does not match: the port names its JAX counterparts by file path),
+    the distributed modules and the tensor-parallel worker's module
+    included (the spawned ranks' own imports are checked at run time in
+    tests/test_torch_distributed.py and tests/test_torch_serving_tp.py)."""
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {f.relative_to(ROOT).as_posix() for f in files}
@@ -531,7 +534,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch/observability/http.py",
             "paddle_tpu_torch/observability/tracing.py",
             "paddle_tpu_torch/observability/chrome.py",
-            "paddle_tpu_torch/observability/flight_recorder.py"
+            "paddle_tpu_torch/observability/flight_recorder.py",
+            "paddle_tpu_torch/distributed/env.py",
+            "paddle_tpu_torch/distributed/collective.py",
+            "paddle_tpu_torch/distributed/parallel.py",
+            "paddle_tpu_torch/distributed/launch/main.py",
+            "paddle_tpu_torch/inference/tp.py",
+            "paddle_tpu_torch/inference/tp_worker.py"
             } <= names
     for f in files:
         hits = [m.group(0) for m in _FORBIDDEN.finditer(f.read_text())]
