@@ -15,7 +15,12 @@ multiplies by the scale on the card once it lives there.
 The host path (``unscale_()`` then ``step()``, the recipe that clips
 between the two; or a step the fused path declines) unscales the
 gradients in place, reads ``found_inf`` back once, and steps the optimizer
-only if every gradient is finite, as the JAX package's does.
+only if every gradient is finite, as the JAX package's does.  Where the
+ranks split the gradients (the optimizer's ``_grad_reduce``, tensor
+parallelism and ZeRO) ``found_inf`` is reduced over them first, so no
+rank steps while another skips.  An optimizer with a ``_scaler_step``
+(``fleet``'s wrappers, which communicate around the step) runs the step
+itself.
 """
 
 from __future__ import annotations
@@ -147,13 +152,24 @@ class GradScaler:
         for g in grads:
             g.mul_(inv.to(g.dtype))
             bad.append(~torch.isfinite(g).all())
-        self._found_inf = bool(torch.stack(bad).any())
+        found = torch.stack(bad).any()
+        red = getattr(optimizer, "_grad_reduce", None)
+        if red is not None:
+            found = red.any_found(found)
+        self._found_inf = bool(found)
         return self._found_inf
 
     def step(self, optimizer):
         if not self._enable:
             optimizer.step()
             return
+        if hasattr(type(optimizer), "_scaler_step"):
+            optimizer._scaler_step(self)
+            return
+        self._step(optimizer)
+
+    def _step(self, optimizer):
+        """An enabled step of ``optimizer`` (a plain ``Optimizer``)."""
         # no second unscale after unscale_() (unscale_ -> clip -> step)
         if not self._already_unscaled:
             from ..optimizer import fused as _fused
@@ -173,6 +189,8 @@ class GradScaler:
 
     def unscale_(self, optimizer):
         if self._enable:
+            if hasattr(type(optimizer), "_before_unscale"):
+                optimizer._before_unscale()     # ZeRO's gradient reduce
             self._unscale_and_check(optimizer)
             self._already_unscaled = True
 

@@ -74,8 +74,19 @@ struct Dropout {
   unsigned thresh = 0;   // keep when bits < thresh
   float keep_p = 1.f;    // 1 - rate: a kept p is divided by it
   int row0 = 0;          // absolute query row of the tile's row 0
+  int heads = 0;         // the mask's head count (0: the launch's nh)
+  int head0 = 0;         // the mask's head of this launch's head 0
   bool on = false;
 };
+
+// The (batch, head) index bh a mask is drawn for: b * heads + head0 + h.
+// A launch over a tensor-parallel rank's heads passes the model's head
+// count and its own first head, and so draws the masks the whole model
+// draws for those heads; heads 0 (and head0 0) is b * nh + h.
+__host__ __device__ __forceinline__ int dropout_bh(int b, int h, int nh,
+                                                   int heads, int head0) {
+  return b * (heads > 0 ? heads : nh) + head0 + h;
+}
 
 __host__ __device__ __forceinline__ unsigned dropout_word(unsigned seed,
                                                          int bh) {

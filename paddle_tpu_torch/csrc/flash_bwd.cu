@@ -118,6 +118,7 @@ struct BwdArgs {
   float scale;
   unsigned seed, thresh;  // dropout on when thresh > 0
   float keep_p;
+  int heads, head0;       // the masks' head numbering (dropout_bh)
 };
 
 template <int D, int BQ, int BK>
@@ -259,7 +260,8 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int b = bh / a.nh, h = bh % a.nh, hk = h / (a.nh / a.nkv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const unsigned word = dropout_word(a.seed, bh);
+  const unsigned word =
+      dropout_word(a.seed, dropout_bh(b, h, a.nh, a.heads, a.head0));
   stage_query_tile<T, D, BQ, BK>(sm, a, b, h, q0);
 
   const int q_last = min(q0 + BQ, a.Sq) - 1;
@@ -322,7 +324,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < D / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    const unsigned word = dropout_word(a.seed, b * a.nh + h);
+    const unsigned word =
+        dropout_word(a.seed, dropout_bh(b, h, a.nh, a.heads, a.head0));
     for (int q0 = q_begin; q0 < a.Sq; q0 += BQ) {
       stage_query_tile<T, D, BQ, BK>(sm, a, b, h, q0);
       tile_ds<D, BQ, BK, true>(sm, a, q0, k0, word);
@@ -420,7 +423,8 @@ __global__ void __launch_bounds__(kDqThreads, dq_tc_min_blocks(D))
   const int k_end = a.causal ? min(Sk, q_last + offset + 1) : Sk;
   const int n_tiles = k_end > 0 ? (k_end + kDqKeys - 1) / kDqKeys : 0;
   const bool drop = a.thresh > 0;
-  const unsigned word = dropout_word(a.seed, bh);
+  const unsigned word =
+      dropout_word(a.seed, dropout_bh(b, h, a.nh, a.heads, a.head0));
   const float inv_keep = 1.f / a.keep_p;
   const T* q = static_cast<const T*>(a.q);
   const T* dO = static_cast<const T*>(a.dO);
@@ -805,7 +809,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     const bool need_mask = a.mask != nullptr || kw0 + 64 > Sk ||
                            q0 + kDkvRows > Sq ||
                            (a.causal && kw0 + 63 > q0 + offset);
-    const unsigned word = dropout_word(a.seed, b * nh + h);
+    const unsigned word =
+        dropout_word(a.seed, dropout_bh(b, h, nh, a.heads, a.head0));
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1, c = tc::acc_col(i, t), qp = q0 + c;
@@ -971,12 +976,12 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* lse, void* dq, const void* mask,
                                 int B, int Sq, int Sk, int nh, int nkv,
                                 int hd, int causal, int dtype, unsigned seed,
-                                unsigned thresh, float keep_p,
-                                void* stream) {
+                                unsigned thresh, float keep_p, int heads,
+                                int head0, void* stream) {
   ptt::BwdArgs a{q, k, v, out, dO, static_cast<const float*>(lse),
                  static_cast<const int*>(mask), dq, nullptr, nullptr,
                  nullptr, B, Sq, Sk, nh, nkv, causal, 0.f, seed, thresh,
-                 keep_p};
+                 keep_p, heads, head0};
   return ptt::run_bwd(a, hd, dtype, false, stream);
 }
 
@@ -987,9 +992,11 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k,
                                  int B, int Sq,
                                  int Sk, int nh, int nkv, int hd, int causal,
                                  int dtype, unsigned seed, unsigned thresh,
-                                 float keep_p, void* stream) {
+                                 float keep_p, int heads, int head0,
+                                 void* stream) {
   ptt::BwdArgs a{q, k, v, out, dO, static_cast<const float*>(lse),
                  static_cast<const int*>(mask), nullptr, dk, dv, stats,
-                 B, Sq, Sk, nh, nkv, causal, 0.f, seed, thresh, keep_p};
+                 B, Sq, Sk, nh, nkv, causal, 0.f, seed, thresh, keep_p,
+                 heads, head0};
   return ptt::run_bwd(a, hd, dtype, true, stream);
 }

@@ -88,7 +88,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
   // drop.word comes in as the seed; this (batch, head)'s word mixes in bh
-  drop.word = dropout_word(drop.word, bh);
+  drop.word = dropout_word(
+      drop.word, dropout_bh(b, h, nh, drop.heads, drop.head0));
   drop.row0 = q0;
   attend_tile<float, D>(sm, k, v, k_end, scale, key_off, valid, acc, drop);
   finish_tile<float, D>(sm, out, lse + (long long)bh * Sq + q0, acc);
@@ -162,7 +163,8 @@ __global__ void __launch_bounds__(kTcThreads, fwd_tc_min_blocks(D))
   const int q_last = min(q0 + kTcRows, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + offset + 1) : Sk;
   const int n_tiles = k_end > 0 ? (k_end + kTcKeys - 1) / kTcKeys : 0;
-  drop.word = dropout_word(drop.word, bh);
+  drop.word = dropout_word(
+      drop.word, dropout_bh(b, h, nh, drop.heads, drop.head0));
   auto load_kv = [&](int st, int k0) {
     tc::load_kv_tile<D, kTcThreads>(
         tc::smem_addr(base + S::k + st * S::kv_stage),
@@ -366,13 +368,15 @@ cudaError_t dispatch_flash_tc(int hd, const void* q, const void* k,
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16, 2 = float16 (the
 // tensor-core kernel); any other code is refused.
 // Dropout is on when thresh > 0: keep when the bits of (seed, bh, row,
-// col) are below thresh, kept p / keep_p.  Returns the cudaError_t of the
+// col) are below thresh, kept p / keep_p; bh = b * heads + head0 + h
+// (heads 0: nh, see dropout_bh).  Returns the cudaError_t of the
 // launch (0 = success).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* mask, int B,
                              int Sq, int Sk, int nh, int nkv, int hd,
                              int causal, int dtype, unsigned seed,
-                             unsigned thresh, float keep_p, void* stream) {
+                             unsigned thresh, float keep_p, int heads,
+                             int head0, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || nkv <= 0 || nh % nkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -382,6 +386,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   drop.word = seed;
   drop.thresh = thresh;
   drop.keep_p = keep_p;
+  drop.heads = heads;
+  drop.head0 = head0;
   drop.on = thresh > 0;
   cudaError_t err =
       dtype == 1   ? ptt::dispatch_flash_tc<__nv_bfloat16>(

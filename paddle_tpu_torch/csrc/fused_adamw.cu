@@ -36,6 +36,17 @@
 // scaler and without a norm clip the launch is one block that only does
 // that bookkeeping.
 //
+// Split norm (tensor parallelism, ZeRO: each rank holds a part of the
+// gradients).  With `tsum` the last block of launch 1 stops at this
+// rank's part: per tensor the sum of its chunks in double, times the
+// tensor's norm weight (the float in the high half of its flags word: 1
+// for a tensor the ranks split, 1 / (ranks that hold the same copy) for
+// one they replicate), into tsum[t], and the non-finite flag into
+// tsum[n_tensors].  The caller all-reduces (sums) tsum over the ranks'
+// groups, then `fused_finish_kernel`, one block, turns it into the
+// coefficients, found_inf, the applied-step count and the scaler's
+// bookkeeping, exactly as the last block does without a split.
+//
 // Launch 2, `fused_update_kernel`: reads found_inf, the learning rate, the
 // inverse scale and the applied-step count from device memory (so the
 // pair can be captured in a CUDA graph).  Per element: unscale, clip (the
@@ -82,6 +93,7 @@ constexpr int kP = 0, kM = 1, kV = 2, kMaster = 3, kNumel = 4,
 // flags
 constexpr long long kPBf16 = 1, kGBf16 = 2, kNeedClip = 4, kAligned = 8,
                     kPF16 = 16, kGF16 = 32;
+// the high 32 bits of the flags word: the tensor's norm weight (a float)
 // clip kinds
 constexpr int kClipNone = 0, kClipGlobal = 1, kClipNorm = 2, kClipValue = 3;
 // rules
@@ -235,12 +247,50 @@ __device__ void chunk_norm(const GT* g, long long start, long long end,
   }
 }
 
+// The last block's bookkeeping (thread 0): the inverse scale used,
+// found_inf, the applied-step count, and GradScaler.update() as the JAX
+// program replays it on device; resets the ticket and the accumulator.
+__device__ void step_bookkeeping(float* wsf, int* wsi, int* step, float* sc_f,
+                                 int* sc_i, float inv, int found,
+                                 int dynamic, float incr_ratio,
+                                 float decr_ratio, int incr_every,
+                                 int decr_every) {
+  wsf[kInv] = inv;
+  wsi[kFound] = found;
+  if (!found) step[0] += 1;
+  wsi[kTicket] = 0;
+  wsi[kFoundAcc] = 0;
+  if (sc_f == nullptr) return;
+  const float scale = sc_f[0];
+  int good = sc_i[1], bad = sc_i[2];
+  if (dynamic) {
+    const int bad1 = bad + 1, good1 = good + 1;
+    const bool dec = bad1 >= decr_every, inc = good1 >= incr_every;
+    float scale2 = scale;
+    if (found) {
+      if (dec) scale2 = fmaxf(scale * decr_ratio, 1.0f);
+      good = 0;
+      bad = dec ? 0 : bad1;
+    } else {
+      if (inc) scale2 = scale * incr_ratio;
+      good = inc ? 0 : good1;
+      bad = 0;
+    }
+    sc_f[0] = scale2;
+  }
+  sc_i[0] = found;
+  sc_i[1] = good;
+  sc_i[2] = bad;
+  sc_i[3] += found;
+}
+
 __global__ void __launch_bounds__(kFusedThreads)
     fused_norm_kernel(const long long* __restrict__ desc,
                       const long long* __restrict__ gptr, int n_tensors,
                       long long chunk, float* __restrict__ partials,
                       float* __restrict__ coef, float* wsf, int* wsi,
-                      int* step, float* sc_f, int* sc_i, int clip_kind, float clip_norm,
+                      int* step, float* sc_f, int* sc_i, double* tsum,
+                      int clip_kind, float clip_norm,
                       int scan, int dynamic, float incr_ratio,
                       float decr_ratio, int incr_every, int decr_every) {
   __shared__ float s_f[32];
@@ -281,6 +331,26 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
   // the last block: reduce, then the bookkeeping
   const int found = use_scaler ? (__ldcg(wsi + kFoundAcc) != 0) : 0;
+  if (tsum != nullptr) {
+    // split: this rank's weighted per-tensor sums and its flag; the
+    // caller reduces them over the ranks and fused_finish_kernel goes on
+    for (int t = threadIdx.x; t < n_tensors; t += blockDim.x) {
+      const long long* d = desc + (size_t)t * kDescWords;
+      const long long c1 = t + 1 < n_tensors
+                               ? d[kDescWords + kChunkBegin]
+                               : (long long)gridDim.x;
+      double s = 0.0;
+      for (long long c = d[kChunkBegin]; c < c1; ++c)
+        s += (double)__ldcg(partials + c);
+      tsum[t] = s * (double)hi_float(d[kFlags]);
+    }
+    if (threadIdx.x == 0) {
+      tsum[n_tensors] = (double)found;
+      wsi[kTicket] = 0;
+      wsi[kFoundAcc] = 0;
+    }
+    return;
+  }
   if (clip_kind == kClipGlobal) {
     double s = 0.0;
     for (int c = threadIdx.x; c < (int)gridDim.x; c += blockDim.x)
@@ -308,37 +378,48 @@ __global__ void __launch_bounds__(kFusedThreads)
   } else {
     for (int t = threadIdx.x; t < n_tensors; t += blockDim.x) coef[t] = 1.f;
   }
-  if (threadIdx.x == 0) {
-    wsf[kInv] = inv;
-    wsi[kFound] = found;
-    if (!found) step[0] += 1;
-    wsi[kTicket] = 0;
-    wsi[kFoundAcc] = 0;
-    if (use_scaler) {
-      // GradScaler.update(), as the JAX program replays it on device
-      const float scale = sc_f[0];
-      int good = sc_i[1], bad = sc_i[2];
-      if (dynamic) {
-        const int bad1 = bad + 1, good1 = good + 1;
-        const bool dec = bad1 >= decr_every, inc = good1 >= incr_every;
-        float scale2 = scale;
-        if (found) {
-          if (dec) scale2 = fmaxf(scale * decr_ratio, 1.0f);
-          good = 0;
-          bad = dec ? 0 : bad1;
-        } else {
-          if (inc) scale2 = scale * incr_ratio;
-          good = inc ? 0 : good1;
-          bad = 0;
-        }
-        sc_f[0] = scale2;
-      }
-      sc_i[0] = found;
-      sc_i[1] = good;
-      sc_i[2] = bad;
-      sc_i[3] += found;
+  if (threadIdx.x == 0)
+    step_bookkeeping(wsf, wsi, step, sc_f, sc_i, inv, found, dynamic,
+                     incr_ratio, decr_ratio, incr_every, decr_every);
+}
+
+// After a split launch 1 and the caller's reduction of tsum over the
+// ranks: the clip coefficients from the global per-tensor sums,
+// found_inf from the summed flags, and the bookkeeping.  One block.
+__global__ void __launch_bounds__(kFusedThreads)
+    fused_finish_kernel(const long long* __restrict__ desc, int n_tensors,
+                        const double* __restrict__ tsum,
+                        float* __restrict__ coef, float* wsf, int* wsi,
+                        int* step, float* sc_f, int* sc_i, int clip_kind,
+                        float clip_norm, int dynamic, float incr_ratio,
+                        float decr_ratio, int incr_every, int decr_every) {
+  __shared__ double s_d[32];
+  const bool use_scaler = sc_f != nullptr;
+  const float inv = use_scaler ? 1.0f / sc_f[0] : 1.0f;
+  const int found = use_scaler ? (tsum[n_tensors] > 0.0) : 0;
+  if (clip_kind == kClipGlobal) {
+    double s = 0.0;
+    for (int t = threadIdx.x; t < n_tensors; t += blockDim.x) s += tsum[t];
+    s = block_sum(s, s_d);
+    const float norm = sqrtf((float)s);
+    const float cg = clip_norm / fmaxf(norm, clip_norm);
+    for (int t = threadIdx.x; t < n_tensors; t += blockDim.x)
+      coef[t] = (desc[(size_t)t * kDescWords + kFlags] & kNeedClip) ? cg
+                                                                     : 1.f;
+  } else if (clip_kind == kClipNorm) {
+    for (int t = threadIdx.x; t < n_tensors; t += blockDim.x) {
+      const float norm = sqrtf((float)tsum[t]);
+      coef[t] = ((desc[(size_t)t * kDescWords + kFlags] & kNeedClip) &&
+                 norm > clip_norm)
+                    ? clip_norm / fmaxf(norm, 1e-12f)
+                    : 1.f;
     }
+  } else {
+    for (int t = threadIdx.x; t < n_tensors; t += blockDim.x) coef[t] = 1.f;
   }
+  if (threadIdx.x == 0)
+    step_bookkeeping(wsf, wsi, step, sc_f, sc_i, inv, found, dynamic,
+                     incr_ratio, decr_ratio, incr_every, decr_every);
 }
 
 struct Rule {
@@ -520,16 +601,19 @@ extern "C" int ptt_fused_table_upload(void* dst, const void* src,
 // wsf float [2]; wsi int [3]; step int [1]; sc_f float [1] and sc_i int
 // [4], both null
 // without a scaler.  scan = 0 (no scaler, no norm clip) runs one block
-// of bookkeeping.  Returns the launch's cudaError_t.
+// of bookkeeping.  tsum: null, or double [n_tensors + 1] for the split
+// norm (with scan = 1; see the head of the file).  Returns the launch's
+// cudaError_t.
 extern "C" int ptt_fused_norm(const void* desc, const void* gptr,
                               int n_tensors, int n_chunks, long long chunk,
                               void* partials, void* coef, void* wsf,
                               void* wsi, void* step, void* sc_f, void* sc_i,
-                              int clip_kind, float clip_norm, int scan,
+                              void* tsum, int clip_kind, float clip_norm,
+                              int scan,
                               int dynamic, float incr_ratio, float decr_ratio,
                               int incr_every, int decr_every, void* stream) {
   if (n_tensors <= 0 || n_chunks <= 0 || chunk <= 0 || chunk % 4 ||
-      (sc_f == nullptr) != (sc_i == nullptr))
+      (sc_f == nullptr) != (sc_i == nullptr) || (tsum != nullptr && !scan))
     return (int)cudaErrorInvalidValue;
   ptt::fused_norm_kernel<<<scan ? n_chunks : 1, ptt::kFusedThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
@@ -538,8 +622,34 @@ extern "C" int ptt_fused_norm(const void* desc, const void* gptr,
       static_cast<float*>(coef), static_cast<float*>(wsf),
       static_cast<int*>(wsi), static_cast<int*>(step),
       static_cast<float*>(sc_f),
-      static_cast<int*>(sc_i), clip_kind, clip_norm, scan, dynamic,
-      incr_ratio, decr_ratio, incr_every, decr_every);
+      static_cast<int*>(sc_i), static_cast<double*>(tsum), clip_kind,
+      clip_norm, scan, dynamic, incr_ratio, decr_ratio, incr_every,
+      decr_every);
+  return (int)cudaGetLastError();
+}
+
+// The end of a split launch 1, after the caller's reduction of tsum
+// (double [n_tensors + 1]): coefficients, found_inf and the bookkeeping,
+// one block.  Arguments as ptt_fused_norm's.  Returns the launch's
+// cudaError_t.
+extern "C" int ptt_fused_finish(const void* desc, int n_tensors,
+                                const void* tsum, void* coef, void* wsf,
+                                void* wsi, void* step, void* sc_f,
+                                void* sc_i, int clip_kind, float clip_norm,
+                                int dynamic, float incr_ratio,
+                                float decr_ratio, int incr_every,
+                                int decr_every, void* stream) {
+  if (n_tensors <= 0 || tsum == nullptr ||
+      (sc_f == nullptr) != (sc_i == nullptr))
+    return (int)cudaErrorInvalidValue;
+  ptt::fused_finish_kernel<<<1, ptt::kFusedThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(desc), n_tensors,
+      static_cast<const double*>(tsum), static_cast<float*>(coef),
+      static_cast<float*>(wsf), static_cast<int*>(wsi),
+      static_cast<int*>(step), static_cast<float*>(sc_f),
+      static_cast<int*>(sc_i), clip_kind, clip_norm, dynamic, incr_ratio,
+      decr_ratio, incr_every, decr_every);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 """Distributed training and serving: the environment (``env``), groups
 and process-granular collectives (``collective``), ``init_parallel_env``
 and ``DataParallel`` (``parallel``), the collective launcher
-(``python -m paddle_tpu_torch.distributed.launch``), ``fleet.recompute``,
-and the atomic, integrity-checked version directories of
-``checkpoint``."""
+(``python -m paddle_tpu_torch.distributed.launch``), ``fleet`` (the
+hybrid topology, tensor-parallel layers, ZeRO, ``recompute``),
+``sharding`` (``group_sharded_parallel``), and the atomic,
+integrity-checked version directories of ``checkpoint``."""
 
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_gather_into_tensor, all_gather_object,
@@ -14,3 +15,5 @@ from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          reduce_scatter, scatter, send, stream, wait)
 from .env import ParallelEnv, get_rank, get_world_size  # noqa: F401
 from .parallel import DataParallel, init_parallel_env  # noqa: F401
+from . import fleet  # noqa: F401
+from . import sharding  # noqa: F401

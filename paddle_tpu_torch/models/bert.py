@@ -17,7 +17,9 @@ draws from ``self.generator``, a host ``torch.Generator`` that the model
 owns, seeded with ``seed`` (as in ``models/gpt.py``).  ``use_recompute``
 (in training) checkpoints every layer (``distributed/fleet/recompute.py``,
 full recompute; the dropout draws are replayed).  Tensor parallelism
-waits for a later slice (see ROADMAP.md).
+(``tensor_parallel=True`` under ``fleet.init`` with ``mp_degree`` > 1):
+the encoder's qkv / out and intermediate / output are column / row-parallel
+pairs (the JAX ``bert.py:93-121``), the embeddings and heads whole.
 """
 
 from __future__ import annotations
@@ -32,7 +34,10 @@ from ..core.device import resolve_device
 from ..distributed.fleet.recompute import recompute
 from ..nn.functional import (cross_entropy, dropout,
                              scaled_dot_product_attention)
+from ..distributed.fleet.mp_layers import init_global_
 from ..observability.flops import training_flops_per_token
+from ._common import tp_linear_pair
+from .gpt import TiedEmbedding, _local_heads
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertSelfAttention", "BertLayer",
            "BertModel", "BertForMaskedLM", "BertForSequenceClassification",
@@ -51,14 +56,8 @@ class BertConfig:
     dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
-    tensor_parallel: bool = False  # True is not ported yet
+    tensor_parallel: bool = False
     use_recompute: bool = False
-
-    def __post_init__(self):
-        if self.tensor_parallel:
-            raise NotImplementedError(
-                "tensor parallelism (tensor_parallel) is not ported yet: "
-                "see ROADMAP.md")
 
 
 def bert_base(**kw):
@@ -76,7 +75,7 @@ def bert_tiny(**kw):
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig, generator=None):
         super().__init__()
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.word_embeddings = TiedEmbedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
                                                 cfg.hidden_size)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
@@ -99,16 +98,19 @@ class BertEmbeddings(nn.Module):
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig, generator=None):
         super().__init__()
-        self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        H = cfg.hidden_size
+        self.qkv, self.out = tp_linear_pair(cfg.tensor_parallel, H, 3 * H,
+                                            row_in=H, row_out=H, parts=3)
+        self.num_heads, self.mask_heads = _local_heads(
+            cfg.num_heads, self.qkv, "num_heads")
         self.dropout = cfg.dropout
         self.generator = generator
 
     def forward(self, x, attention_mask=None):
         """``attention_mask``: the boolean ``[B, 1, 1, S]`` keep mask."""
-        b, s, hidden = x.shape
+        b, s = x.shape[:2]
+        hidden = self.num_heads * self.head_dim
         q, k, v = self.qkv(x).view(b, s, 3, self.num_heads,
                                    self.head_dim).unbind(2)
         # the kernels take contiguous tensors; unbind gives strided views
@@ -116,7 +118,7 @@ class BertSelfAttention(nn.Module):
             q.contiguous(), k.contiguous(), v.contiguous(),
             attn_mask=attention_mask, dropout_p=self.dropout,
             is_causal=False, training=self.training,
-            generator=self.generator)
+            generator=self.generator, mask_heads=self.mask_heads)
         return self.out(out.reshape(b, s, hidden))
 
 
@@ -128,8 +130,8 @@ class BertLayer(nn.Module):
         self.attention = BertSelfAttention(cfg, generator)
         self.attn_norm = nn.LayerNorm(cfg.hidden_size,
                                       eps=cfg.layer_norm_eps)
-        self.intermediate = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate, self.output = tp_linear_pair(
+            cfg.tensor_parallel, cfg.hidden_size, cfg.intermediate_size)
         self.out_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = cfg.dropout
         self.generator = generator
@@ -200,7 +202,8 @@ class _BertPretrained(nn.Module):
             elif name.endswith("bias"):
                 p.zero_()
             else:
-                p.normal_(0.0, self.cfg.initializer_range, generator=gen)
+                init_global_(p, lambda t: t.normal_(
+                    0.0, self.cfg.initializer_range, generator=gen))
 
     @property
     def device(self) -> torch.device:
@@ -231,7 +234,7 @@ class BertForMaskedLM(_BertPretrained):
         h = self.transform_norm(F.gelu(self.transform(seq)))
         # the bias is added after the product, as in the JAX model (under
         # auto_cast: a bfloat16 product plus a float32 bias)
-        return F.linear(h, self.bert.embeddings.word_embeddings.weight) \
+        return self.bert.embeddings.word_embeddings.attend(h) \
             + self.decoder_bias
 
     def compute_loss(self, input_ids, labels, ignore_index: int = -100,

@@ -16,6 +16,14 @@ decoder among them), biases, LayerNorm and RMSNorm parameters,
 (``experts.w1/b1/w2/b2``, whose layout the port keeps).  An optimizer's
 accumulators and master weights of a linear weight are transposed like
 the weight.
+
+Tensor parallelism and ZeRO-3: the JAX package's arrays are GLOBAL (its
+sharding is a layout of one array), while a rank of the port holds its
+shard (``distributed/fleet/mp_layers.py``, ``sharding.py``).
+``state_from_numpy`` and ``optimizer_state_from_numpy`` keep this rank's
+shard of each global array (the tensor-parallel split, then the ZeRO-3
+slice); :func:`full_state_dict` gathers a model's shards back into global
+tensors on every rank (collectives over the groups that split them).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 import torch.nn as nn
 
 __all__ = ["state_from_numpy", "optimizer_state_from_numpy",
-           "adamw_state_from_numpy"]
+           "adamw_state_from_numpy", "full_state_dict", "local_shard"]
 
 
 def _linear_weights(model: nn.Module) -> set:
@@ -46,14 +54,61 @@ def _tensor(name, arr, transpose):
     return t.t().contiguous()
 
 
+def local_shard(t: torch.Tensor, p) -> torch.Tensor:
+    """This rank's part of the global tensor ``t`` (the port's layout)
+    for the parameter ``p``: its tensor-parallel shard, then its ZeRO-3
+    slice; ``t`` itself for a parameter no rank splits."""
+    from ..distributed.fleet.mp_layers import shard_of
+    if getattr(p, "mp_split", False):
+        t = shard_of(t, p.split_axis, p.split_parts, p.split_rank,
+                     p.split_degree)
+    dim = getattr(p, "_zero3_dim", None)
+    if dim is not None:
+        g = p._zero3_group
+        k = t.shape[dim] // g.nranks
+        t = t.narrow(dim, g.rank * k, k).clone()
+    return t
+
+
 def state_from_numpy(state: Dict[str, np.ndarray], model: nn.Module
                      ) -> Dict[str, torch.Tensor]:
     """Map a JAX model's ``state_dict()`` (as numpy arrays) onto
     ``model.load_state_dict`` of the port's model of the same family and
-    configuration (GPT, GPT-MoE, Llama or BERT)."""
+    configuration (GPT, GPT-MoE, Llama or BERT); under tensor
+    parallelism or ZeRO-3 each array becomes this rank's shard."""
     linear = _linear_weights(model)
-    return {name: _tensor(name, arr, name in linear)
-            for name, arr in state.items()}
+    params = dict(model.named_parameters())
+    out = {}
+    for name, arr in state.items():
+        t = _tensor(name, arr, name in linear)
+        out[name] = local_shard(t, params[name]) if name in params else t
+    return out
+
+
+@torch.no_grad()
+def full_state_dict(model: nn.Module, jax_layout: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` with every shard gathered into the global
+    tensor (a copy on the CPU), on every rank: ZeRO-3 slices over their group,
+    then tensor-parallel shards over the mp group.  ``jax_layout``:
+    linear weights transposed to the JAX package's ``[in, out]``."""
+    from ..distributed import collective as _coll
+    from ..distributed.fleet.mp_layers import gather_full
+    linear = _linear_weights(model)
+    params = dict(model.named_parameters())
+    out = {}
+    for name, v in model.state_dict().items():
+        p = params.get(name)
+        t = v.detach()
+        if p is not None and getattr(p, "_zero3_dim", None) is not None:
+            t = _coll.all_gather_concat(t.contiguous(), p._zero3_dim,
+                                        p._zero3_group)
+        if p is not None and getattr(p, "mp_split", False):
+            t = gather_full(p, t)
+        t = t.to("cpu", copy=True)
+        out[name] = t.t().contiguous() if jax_layout and name in linear \
+            else t
+    return out
 
 
 def optimizer_state_from_numpy(state: Dict[str, np.ndarray], model
@@ -79,7 +134,8 @@ def optimizer_state_from_numpy(state: Dict[str, np.ndarray], model
         if not sep or name not in params:
             raise ValueError(f"optimizer_state_from_numpy: {key!r} is not "
                              "an accumulator of a parameter of the model")
-        out[key] = _tensor(key, arr, name in linear).to(params[name].device)
+        out[key] = local_shard(_tensor(key, arr, name in linear),
+                               params[name]).to(params[name].device)
     return out
 
 

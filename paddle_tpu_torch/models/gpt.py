@@ -22,8 +22,17 @@ recompute); MoE blocks run without it, as in the JAX model.  Serving and
 generation: ``forward_with_cache`` over the caches of ``init_caches``
 (dense ``(k, v)`` tuples, ``StaticKVCache``, ``PagedKVCache`` or
 ``BlockKVCache``, ``models/kv_cache.py``), and ``generate``
-(``models/generation.py``).  Tensor parallelism waits for a later slice
-(see ROADMAP.md).
+(``models/generation.py``).
+
+Tensor parallelism (``tensor_parallel=True`` under ``fleet.init`` with
+``mp_degree`` > 1, ``distributed/fleet/mp_layers.py``): qkv / proj and
+fc1 / fc2 are column / row-parallel pairs, so a rank holds ``num_heads /
+mp`` heads (its attention dropout draws those heads' masks of the whole
+model); ``wte`` is a ``VocabParallelEmbedding`` whose tied head gives
+this rank's vocabulary slice of the logits; ``compute_loss`` reduces
+them through ``ParallelCrossEntropy``, and the logits ``forward``
+returns are gathered (the JAX model's are global).  The weights a rank
+draws from ``seed`` are its shard of the one-process model's.
 """
 
 from __future__ import annotations
@@ -39,7 +48,11 @@ from ..distributed.fleet.recompute import recompute
 from ..incubate.distributed.models.moe import MoELayer
 from ..nn.functional import (cross_entropy, dropout,
                              scaled_dot_product_attention)
+from ..distributed.fleet.mp_layers import (ParallelCrossEntropy,
+                                           VocabParallelEmbedding,
+                                           gather_from_mp, init_global_)
 from ..observability.flops import training_flops_per_token
+from ._common import tp_linear_pair
 from .generation import GenerationMixin
 from .kv_cache import BlockKVCache, PagedKVCache, StaticKVCache
 
@@ -60,6 +73,7 @@ class GPTConfig:
     use_recompute: bool = False
     recompute_interval: int = 1
     recompute_policy: str = None
+    tensor_parallel: bool = False
     # GPT-MoE: the MLP of every moe_every_n_layers-th block is a mixture
     # of moe_num_experts experts (0 = dense)
     moe_num_experts: int = 0
@@ -89,13 +103,26 @@ class TiedEmbedding(nn.Embedding):
         return F.linear(h, self.weight)
 
 
+def _local_heads(n: int, layer, what: str):
+    """``(heads on this rank, mask_heads)`` of ``n`` heads split by
+    ``layer``'s model-parallel degree (``mask_heads`` None at degree 1)."""
+    degree = getattr(layer, "mp_degree", 1)
+    if n % degree:
+        raise ValueError(f"{what} {n} is not divisible by the "
+                         f"model-parallel degree {degree}")
+    local = n // degree
+    return local, ((layer.mp_rank * local, n) if degree > 1 else None)
+
+
 class GPTAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, generator=None):
         super().__init__()
-        self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        H = cfg.hidden_size
+        self.qkv, self.proj = tp_linear_pair(cfg.tensor_parallel, H, 3 * H,
+                                             row_in=H, row_out=H, parts=3)
+        self.num_heads, self.mask_heads = _local_heads(
+            cfg.num_heads, self.qkv, "num_heads")
         self.dropout = cfg.dropout
         self.generator = generator
 
@@ -107,7 +134,8 @@ class GPTAttention(nn.Module):
         chunk (``k_len > s``) attend under flash's end-aligned causal mask
         (the JAX model's offset mask ``qpos >= kpos``), a decode token
         (``s == 1``) sees the whole cache."""
-        b, s, hidden = x.shape
+        b, s = x.shape[:2]
+        hidden = self.num_heads * self.head_dim
         q, k, v = self.qkv(x).view(b, s, 3, self.num_heads,
                                    self.head_dim).unbind(2)
         if isinstance(kv_cache, tuple):
@@ -116,7 +144,7 @@ class GPTAttention(nn.Module):
             out = scaled_dot_product_attention(
                 q.contiguous(), k, v, dropout_p=self.dropout,
                 is_causal=s > 1, training=self.training,
-                generator=self.generator)
+                generator=self.generator, mask_heads=self.mask_heads)
             return self.proj(out.reshape(b, s, hidden)), (k, v)
         if kv_cache is not None:
             new_cache, out = kv_cache.update_and_attend(q, k, v)
@@ -125,15 +153,15 @@ class GPTAttention(nn.Module):
         out = scaled_dot_product_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             dropout_p=self.dropout, is_causal=True, training=self.training,
-            generator=self.generator)
+            generator=self.generator, mask_heads=self.mask_heads)
         return self.proj(out.reshape(b, s, hidden))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.fc1, self.fc2 = tp_linear_pair(
+            cfg.tensor_parallel, cfg.hidden_size, cfg.intermediate_size)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -179,7 +207,8 @@ class GPTModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.generator = generator
-        self.wte = TiedEmbedding(cfg.vocab_size, cfg.hidden_size)
+        self.wte = (VocabParallelEmbedding if cfg.tensor_parallel
+                    else TiedEmbedding)(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
         def _is_moe(i):
             return cfg.moe_num_experts > 0 and \
@@ -264,7 +293,8 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             elif ".ln" in name or name.startswith("ln_"):
                 p.fill_(1.0)
             else:
-                p.normal_(0.0, 0.02, generator=gen)
+                init_global_(p, lambda t: t.normal_(0.0, 0.02,
+                                                    generator=gen))
         for m in self.gpt.modules():
             if isinstance(m, MoELayer):
                 m.experts.reset_parameters(gen)
@@ -286,28 +316,40 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         ``"paged"`` with ``max_context`` a :class:`PagedKVCache` pool sized
         by that context (blocks of 64), without it a host-allocated
         :class:`BlockKVCache` over ``max_seq_len`` (blocks of 16)."""
-        return _init_caches(self.cfg, self.cfg.num_heads, self.cfg.num_heads,
-                            self.dtype, self.device, batch_size, cache_impl,
-                            block_size, max_context)
+        nh = self.gpt.blocks[0].attn.num_heads     # this rank's heads
+        return _init_caches(self.cfg, nh, nh, self.dtype, self.device,
+                            batch_size, cache_impl, block_size, max_context)
+
+    def _logits(self, h):
+        """The tied head's logits, gathered over the mp group under
+        tensor parallelism."""
+        return gather_from_mp(self.gpt.wte.attend(h),
+                              getattr(self.gpt.wte, "mp_group", None))
 
     def forward_with_cache(self, input_ids, caches, pos_offset=0):
         """Returns ``(logits [B, s, vocab], new_caches)``."""
         h, new_caches = self.gpt(input_ids, caches, pos_offset)
-        return self.gpt.wte.attend(h), new_caches
+        return self._logits(h), new_caches
 
     def forward(self, input_ids):
         """Logits ``[B, S, vocab]`` of ``input_ids`` ``[B, S]`` through
         the tied head, causal attention without a cache."""
-        return self.gpt.wte.attend(self.gpt(input_ids))
+        return self._logits(self.gpt(input_ids))
 
     def compute_loss(self, input_ids, labels):
         """Mean cross-entropy of the logits against ``labels`` ``[B, S]``
         (the caller shifts; nothing is shifted here, as in the JAX
         package), plus ``moe_aux_weight`` times each MoE block's aux
-        loss."""
-        logits = self(input_ids)
-        loss = cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
-                             labels.reshape(-1))
+        loss.  Under tensor parallelism the vocabulary-sharded logits go
+        through ``ParallelCrossEntropy`` (never gathered)."""
+        if getattr(self.gpt.wte, "mp_degree", 1) > 1:
+            per = ParallelCrossEntropy()(
+                self.gpt.wte.attend(self.gpt(input_ids)), labels)
+            loss = per.sum() / (labels != -100).sum().clamp_min(1)
+        else:
+            logits = self(input_ids)
+            loss = cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+                                 labels.reshape(-1))
         if self.cfg.moe_num_experts > 0:
             for block in self.gpt.blocks:
                 aux = getattr(block.mlp, "l_aux", None)

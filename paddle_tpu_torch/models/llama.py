@@ -21,9 +21,14 @@ serving engine passes: an int (whole-prompt prefill from 0), a 0-d tensor
 (a chunk at its start) and a ``[B, 1]`` tensor (decode, verify and draft
 steps, one position per row).  cos and sin are computed once per forward
 and shared by the layers.  ``use_recompute`` (in training) checkpoints
-every layer (``distributed/fleet/recompute.py``, full recompute).  Tensor
-parallelism and ``generate`` with the static and block caches wait for
-later slices (see ROADMAP.md).
+every layer (``distributed/fleet/recompute.py``, full recompute).
+
+Tensor parallelism (``tensor_parallel=True`` under ``fleet.init`` with
+``mp_degree`` > 1): q / k / v and gate / up are column-parallel, o and
+down row-parallel, the token embedding vocabulary-parallel, and the
+output head whole (as in the JAX model); GQA splits the kv heads by the
+same degree, and a degree that does not divide ``num_kv_heads`` raises
+when the model is built, before any collective.
 """
 
 from __future__ import annotations
@@ -39,9 +44,13 @@ from ..incubate.nn.functional import (fused_rotary_position_embedding,
                                       rope_cos_sin, swiglu)
 from ..nn import RMSNorm
 from ..nn.functional import cross_entropy, scaled_dot_product_attention
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding,
+                                           init_global_)
 from ..observability.flops import training_flops_per_token
 from .generation import GenerationMixin
-from .gpt import _init_caches
+from .gpt import _init_caches, _local_heads
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaBlock",
            "LlamaModel", "LlamaForCausalLM", "llama_tiny", "llama2_7b",
@@ -60,7 +69,7 @@ class LlamaConfig:
     rms_eps: float = 1e-6
     rope_base: float = 10000.0
     use_recompute: bool = False
-    tensor_parallel: bool = False  # True is not ported yet
+    tensor_parallel: bool = False
 
     def __post_init__(self):
         if self.num_kv_heads == 0:
@@ -68,23 +77,37 @@ class LlamaConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"num_kv_heads {self.num_kv_heads} does not "
                              f"divide num_heads {self.num_heads}")
-        if self.tensor_parallel:
-            raise NotImplementedError(
-                "tensor parallelism (tensor_parallel) is not ported yet: "
-                "see ROADMAP.md")
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        self.num_heads = cfg.num_heads
-        self.num_kv_heads = cfg.num_kv_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, self.head_dim
-        self.q_proj = nn.Linear(cfg.hidden_size, h * hd, bias=False)
-        self.k_proj = nn.Linear(cfg.hidden_size, kvh * hd, bias=False)
-        self.v_proj = nn.Linear(cfg.hidden_size, kvh * hd, bias=False)
-        self.o_proj = nn.Linear(h * hd, cfg.hidden_size, bias=False)
+        H = cfg.hidden_size
+        if cfg.tensor_parallel:
+            # the kv heads' split is checked first: it raises before any
+            # layer reads the topology's groups
+            from ..distributed.fleet.mp_layers import mp_state
+            degree = mp_state()[2]
+            if kvh % degree:
+                raise ValueError(f"num_kv_heads {kvh} is not divisible by "
+                                 f"the model-parallel degree {degree}")
+            col = lambda o: ColumnParallelLinear(  # noqa: E731
+                H, o, has_bias=False, gather_output=False)
+            self.q_proj, self.k_proj, self.v_proj = \
+                col(h * hd), col(kvh * hd), col(kvh * hd)
+            self.o_proj = RowParallelLinear(h * hd, H, has_bias=False,
+                                            input_is_parallel=True)
+        else:
+            self.q_proj = nn.Linear(H, h * hd, bias=False)
+            self.k_proj = nn.Linear(H, kvh * hd, bias=False)
+            self.v_proj = nn.Linear(H, kvh * hd, bias=False)
+            self.o_proj = nn.Linear(h * hd, H, bias=False)
+        self.num_heads, self.mask_heads = _local_heads(h, self.q_proj,
+                                                       "num_heads")
+        self.num_kv_heads = _local_heads(kvh, self.q_proj,
+                                         "num_kv_heads")[0]
 
     def forward(self, x, rope, kv_cache=None):
         """``rope`` is the forward's ``(cos, sin)``.  Without a cache:
@@ -104,7 +127,7 @@ class LlamaAttention(nn.Module):
             v = torch.cat([kv_cache[1], v], dim=1)
             out = scaled_dot_product_attention(
                 q.contiguous(), k, v, is_causal=s > 1,
-                training=self.training)
+                training=self.training, mask_heads=self.mask_heads)
             return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
         if kv_cache is not None:
             if nkv != nh:
@@ -114,19 +137,26 @@ class LlamaAttention(nn.Module):
             new_cache, out = kv_cache.update_and_attend(q, k, v)
             return self.o_proj(out.reshape(b, s, nh * hd)), new_cache
         out = scaled_dot_product_attention(q, k, v, is_causal=True,
-                                           training=self.training)
+                                           training=self.training,
+                                           mask_heads=self.mask_heads)
         return self.o_proj(out.reshape(b, s, nh * hd))
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                                   bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                                 bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                                   bias=False)
+        H, inter = cfg.hidden_size, cfg.intermediate_size
+        if cfg.tensor_parallel:
+            self.gate_proj = ColumnParallelLinear(H, inter, has_bias=False,
+                                                  gather_output=False)
+            self.up_proj = ColumnParallelLinear(H, inter, has_bias=False,
+                                                gather_output=False)
+            self.down_proj = RowParallelLinear(inter, H, has_bias=False,
+                                               input_is_parallel=True)
+        else:
+            self.gate_proj = nn.Linear(H, inter, bias=False)
+            self.up_proj = nn.Linear(H, inter, bias=False)
+            self.down_proj = nn.Linear(inter, H, bias=False)
 
     def forward(self, x):
         return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -154,7 +184,9 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.embed_tokens = (VocabParallelEmbedding if cfg.tensor_parallel
+                             else nn.Embedding)(cfg.vocab_size,
+                                                cfg.hidden_size)
         self.layers = nn.ModuleList(LlamaBlock(cfg)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
@@ -216,7 +248,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
             else:
-                p.normal_(0.0, 0.02, generator=gen)
+                init_global_(p, lambda t: t.normal_(0.0, 0.02,
+                                                    generator=gen))
 
     # read from the final norm, which the quantized serving twin keeps
     @property
@@ -233,10 +266,10 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         caches hold ``num_kv_heads`` heads, static and paged ones
         ``num_heads`` (the kv heads repeated before the write, as in the
         JAX model)."""
-        cfg = self.cfg
-        return _init_caches(cfg, cfg.num_heads, cfg.num_kv_heads, self.dtype,
-                            self.device, batch_size, cache_impl, block_size,
-                            max_context)
+        attn = self.model.layers[0].self_attn     # this rank's heads
+        return _init_caches(self.cfg, attn.num_heads, attn.num_kv_heads,
+                            self.dtype, self.device, batch_size, cache_impl,
+                            block_size, max_context)
 
     def forward_with_cache(self, input_ids, caches, pos_offset=0):
         """Returns ``(logits [B, s, vocab], new_caches)``."""

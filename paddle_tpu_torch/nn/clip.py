@@ -19,6 +19,13 @@ clipped copy of every gradient (``Optimizer._apply_per_leaf``).  The
 fused optimizer step (``optimizer/fused.py``) carries the three kinds
 into its kernels instead of calling these; a subclass of them takes the
 list rules there, through its ``__call__``.
+
+``_global_norm_reduce_fn`` (the JAX package's hook, set by
+``fleet.distributed_optimizer`` and the ZeRO wrappers when each rank
+holds a part of the gradients): ``fn(params, sq)`` turns the local sums
+of squares ``sq`` of ``params``' gradients into the global ones
+(``distributed/fleet/norm.py``), so the global norm and a tensor's own
+norm are the whole model's.
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
 
 
 class ClipGradBase:
+    # fn(params, sq) -> the global sums of squares (see the module's head)
+    _global_norm_reduce_fn = None
+
     @torch.no_grad()
     def __call__(self, params_grads):
         idx = [i for i, (p, g) in enumerate(params_grads)
@@ -38,7 +48,8 @@ class ClipGradBase:
         if not idx:
             return out
         grads = [params_grads[i][1] for i in idx]
-        for i, g in zip(idx, self._clip_many(grads, self._prepare(grads))):
+        prepared = self._prepare(grads, [params_grads[i][0] for i in idx])
+        for i, g in zip(idx, self._clip_many(grads, prepared)):
             out[i] = (params_grads[i][0], g)
         return out
 
@@ -48,10 +59,19 @@ class ClipGradBase:
         and the parameter opted in (``need_clip``)."""
         return g is not None and getattr(p, "need_clip", True)
 
-    def _prepare(self, grads):
-        """What the clip needs from all the applicable gradients at once
-        (None if nothing)."""
+    def _prepare(self, grads, params=None):
+        """What the clip needs from all the applicable gradients (of
+        ``params``) at once (None if nothing)."""
         return None
+
+    def _global_sq(self, grads, params):
+        """Each gradient's sum of squares over every rank (float32), or
+        None without a reduce hook."""
+        fn = self._global_norm_reduce_fn
+        if fn is None or params is None:
+            return None
+        return fn(params, [torch.sum(torch.square(g.float()))
+                           for g in grads])
 
     def _clip_many(self, grads, prepared):
         """New clipped tensors for ``grads`` (a part or all of the
@@ -78,10 +98,16 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
+    def _prepare(self, grads, params=None):
+        sq = self._global_sq(grads, params)
+        return None if sq is None else {
+            id(g): torch.sqrt(s) for g, s in zip(grads, sq.unbind())}
+
     def _clip_many(self, grads, prepared):
         cn, out = self.clip_norm, []
         for g in grads:
-            norm = torch.sqrt(torch.sum(torch.square(g)))
+            norm = prepared[id(g)] if prepared is not None else \
+                torch.sqrt(torch.sum(torch.square(g)))
             out.append(g * torch.where(
                 norm > cn, cn / torch.clamp(norm, min=1e-12),
                 torch.ones_like(norm)))
@@ -99,9 +125,13 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def _prepare(self, grads):
-        norms = torch._foreach_norm([g.float() for g in grads])
-        total = torch.linalg.vector_norm(torch.stack(norms))
+    def _prepare(self, grads, params=None):
+        sq = self._global_sq(grads, params)
+        if sq is not None:
+            total = torch.sqrt(sq.sum())
+        else:
+            norms = torch._foreach_norm([g.float() for g in grads])
+            total = torch.linalg.vector_norm(torch.stack(norms))
         return self.clip_norm / total.clamp_min(self.clip_norm)
 
     def _clip_many(self, grads, scale):

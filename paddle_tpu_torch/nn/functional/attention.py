@@ -73,18 +73,22 @@ def _sdpa_plain(q, k, v, mask, dropout_p, causal, generator):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True, generator=None):
+                                 training: bool = True, generator=None,
+                                 mask_heads=None):
     """Attention over ``[B, S, heads, hd]`` tensors; ``dropout_p`` applies
-    in training only, its randomness drawn from ``generator``.  Under
+    in training only, its randomness drawn from ``generator``.
+    ``mask_heads=(head0, heads)``: the flash route's dropout masks are
+    those of heads ``head0 ..`` of a ``heads``-head model (a
+    tensor-parallel rank's heads, ``ops/flash_attention.py``).  Under
     custom autocast lists it is the op ``sdpa``."""
     query, key, value = op_lists.cast_inputs("sdpa", query, key, value)
     with op_lists.outside_lists():
         return _sdpa(query, key, value, attn_mask, dropout_p, is_causal,
-                     training, generator)
+                     training, generator, mask_heads)
 
 
 def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training,
-          generator):
+          generator, mask_heads=None):
     B, Sk = query.shape[0], key.shape[1]
     kv_mask = as_kv_padding_mask(attn_mask, B, Sk)
     rate = float(dropout_p) if training else 0.0
@@ -93,8 +97,9 @@ def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training,
         if fa.plain_route(query):
             fa.flash_attention_fwd.plain_calls += 1
             return fa.flash_attention_fwd_reference(
-                query, key, value, is_causal, kv_mask, rate, seed)[0]
+                query, key, value, is_causal, kv_mask, rate, seed,
+                mask_heads)[0]
         return fa.flash_attention(query, key, value, is_causal, kv_mask,
-                                  rate, seed)
+                                  rate, seed, mask_heads)
     return _sdpa_plain(query, key, value, attn_mask, rate, is_causal,
                        generator)

@@ -46,8 +46,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# the flash kernels' dropout: seed, keep threshold (uint32), keep probability
-_DROPOUT = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+# the flash kernels' dropout: seed, keep threshold (uint32), keep
+# probability, the masks' head count and this launch's first head
+_DROPOUT = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I]
 # C signature of every entry point: pointer arguments, then int arguments,
 # then (flash) the dropout arguments, then the stream; the fused
 # optimizer's mix pointers, counts and float hyperparameters
@@ -62,8 +63,10 @@ _SIGNATURES = {
     "ptt_weight_only_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "ptt_weight_only_gemm": [_P] * 6 + [_I] * 8 + [_P],
     "ptt_fused_table_upload": [_P, _P, _L, _P],
-    "ptt_fused_norm": [_P, _P, _I, _I, _L] + [_P] * 7 + [_I, _F, _I, _I,
+    "ptt_fused_norm": [_P, _P, _I, _I, _L] + [_P] * 8 + [_I, _F, _I, _I,
                                                         _F, _F, _I, _I, _P],
+    "ptt_fused_finish": [_P, _I] + [_P] * 7 + [_I, _F, _I, _F, _F, _I, _I,
+                                               _P],
     "ptt_fused_update": [_P, _P, _I, _I, _L] + [_P] * 4 + [_I] * 3
                         + [_F] * 4 + [_I, _F, _F, _I, _P],
 }

@@ -20,7 +20,11 @@ row, key column): the lowbias32 mix of the JAX package's ``_hash_bits``
 applied to ABSOLUTE coordinates with the seed word ``seed ^ (bh << 20)``,
 kept where the bits are below ``uint32((1 - rate) * 4294967295.0)``.  So
 the forward and both backward kernels redraw the same bits whatever their
-tiling, and the plain versions draw them too.  (The JAX kernels seed each
+tiling, and the plain versions draw them too.  ``mask_heads=(head0,
+heads)`` numbers a call's heads as heads ``head0 ..`` of ``heads``
+(bh = b * heads + head0 + h): a tensor-parallel rank, which holds
+``nh / mp`` of a model's heads, draws the masks the whole model draws for
+them.  (The JAX kernels seed each
 tile and draw on tile-local coordinates; where their forward and backward
 tile alike, in one tile of Sq, Sk <= 512, they give these bits exactly.)
 """
@@ -73,14 +77,19 @@ def _mul32(x, c: int):
 
 
 def dropout_keep_mask(B: int, nh: int, Sq: int, Sk: int, seed: int,
-                      rate: float, device=None) -> torch.Tensor:
+                      rate: float, device=None,
+                      mask_heads=None) -> torch.Tensor:
     """The keep mask ``[B, nh, Sq, Sk]`` (bool) that all three kernels
     draw: lowbias32 of (row * 0x10193 + col + word * 0x9E3779B9), word =
-    ``seed ^ (bh << 20)`` in uint32, bh = b * nh + h."""
+    ``seed ^ (bh << 20)`` in uint32, bh = b * nh + h, or with
+    ``mask_heads=(head0, heads)`` b * heads + head0 + h."""
+    head0, heads = _mask_heads(nh, mask_heads)
     i64 = dict(dtype=torch.int64, device=device)
     rows = torch.arange(Sq, **i64)[:, None]
     cols = torch.arange(Sk, **i64)[None, :]
-    word = ((seed & _M32) ^ (torch.arange(B * nh, **i64) << 20)) & _M32
+    bh = (torch.arange(B, **i64)[:, None] * heads + head0
+          + torch.arange(nh, **i64)[None, :]).reshape(-1)
+    word = ((seed & _M32) ^ (bh << 20)) & _M32
     x = (rows * 0x10193 + cols)[None] + _mul32(word, 0x9E3779B9)[:, None,
                                                                  None]
     x &= _M32
@@ -90,6 +99,19 @@ def dropout_keep_mask(B: int, nh: int, Sq: int, Sk: int, seed: int,
     x = _mul32(x, 0x846CA68B)
     x ^= x >> 16
     return (x < _keep_threshold(rate)).view(B, nh, Sq, Sk)
+
+
+def _mask_heads(nh: int, mask_heads):
+    """``(head0, heads)`` of ``mask_heads`` for a call over ``nh`` heads:
+    ``(0, nh)`` when None; heads ``head0 .. head0 + nh - 1`` must lie in
+    ``0 .. heads - 1``."""
+    if mask_heads is None:
+        return 0, nh
+    head0, heads = (int(x) for x in mask_heads)
+    if head0 < 0 or head0 + nh > heads:
+        raise KernelValueError(f"flash_attention: mask_heads {mask_heads} "
+                               f"does not hold this call's {nh} heads")
+    return head0, heads
 
 
 def _autocast_off(device):
@@ -135,13 +157,15 @@ def _check_training_args(k, kv_mask, dropout_rate, seed):
     return kv_mask, int(seed or 0)
 
 
-def _launch_args(kv_mask, dropout_rate, seed):
+def _launch_args(kv_mask, dropout_rate, seed, nh, mask_heads):
     """The trailing C arguments every flash entry point takes: the mask
     pointer (None for no mask), then seed, keep threshold, keep
-    probability."""
+    probability, the masks' head count and this call's first head."""
     rate = float(dropout_rate)
+    head0, heads = _mask_heads(nh, mask_heads)
     return ((kv_mask.data_ptr() if kv_mask is not None else None),
-            seed & _M32, _keep_threshold(rate) if rate else 0, 1.0 - rate)
+            seed & _M32, _keep_threshold(rate) if rate else 0, 1.0 - rate,
+            heads, head0)
 
 
 def _kernel_dims(kernel, q, k, floats, kv_mask):
@@ -158,7 +182,8 @@ def _kernel_dims(kernel, q, k, floats, kv_mask):
 # ------------------------------------------------------------------ forward
 
 def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
-                        dropout_rate: float = 0.0, seed=None):
+                        dropout_rate: float = 0.0, seed=None,
+                        mask_heads=None):
     """Returns ``(out, lse)``: out ``[B, Sq, nh, hd]`` in q's dtype, lse
     ``[B, nh, Sq]`` float32 (the log-sum-exp of each row's scaled scores).
 
@@ -167,9 +192,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
     ``h // (nh // nkv)``).  ``causal`` is end-aligned: query i sees keys
     ``<= i + Sk - Sq``.  ``kv_mask`` ``[B, Sk]`` (nonzero = valid key)
     hides padded keys.  ``dropout_rate`` with an int32 ``seed`` drops the
-    normalised probabilities (see :func:`dropout_keep_mask`); lse is that
-    of the undropped scores.  Any Sq and Sk work; a row that sees no key
-    gives zeros and lse -1e30.
+    normalised probabilities (see :func:`dropout_keep_mask`, and its
+    ``mask_heads``); lse is that of the undropped scores.  Any Sq and Sk
+    work; a row that sees no key gives zeros and lse -1e30.
 
     The JAX version returns lse as ``[B, nh, Sq, 128]``, each row broadcast
     across 128 lanes; that layout is an artefact of the TPU's (8, 128)
@@ -185,17 +210,17 @@ def flash_attention_fwd(q, k, v, causal: bool = False, kv_mask=None,
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal, kv_mask,
-                                             dropout_rate, seed)
+                                             dropout_rate, seed, mask_heads)
     B, Sq, Sk, nh, nkv, hd = _kernel_dims("flash_fwd", q, k, (q, k, v),
                                           kv_mask)
+    drop = _launch_args(kv_mask, dropout_rate, seed, nh, mask_heads)
     out = torch.empty_like(q)
     lse = torch.empty((B, nh, Sq), dtype=torch.float32, device=q.device)
-    mask_ptr, seed, thresh, keep_p = _launch_args(kv_mask, dropout_rate, seed)
     err = _build.library().ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), mask_ptr, B, Sq, Sk, nh, nkv, hd,
+        lse.data_ptr(), drop[0], B, Sq, Sk, nh, nkv, hd,
         int(bool(causal)), _build.dtype_code(q.dtype, _build.FP16_DTYPES),
-        seed, thresh, keep_p, _build.stream(q.device))
+        *drop[1:], _build.stream(q.device))
     _build.check(err, "flash_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -223,7 +248,7 @@ def _scores(q, k, causal, kv_mask):
 
 def flash_attention_fwd_reference(q, k, v, causal: bool = False,
                                   kv_mask=None, dropout_rate: float = 0.0,
-                                  seed=None):
+                                  seed=None, mask_heads=None):
     """The plain version of ``flash_fwd``: the whole score matrix in
     float32 (autocast off), the same masking, the same keep bits and the
     same zero-row convention."""
@@ -240,7 +265,7 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = False,
         l_safe = torch.where(l == 0, torch.ones_like(l), l)
         if dropout_rate:
             keep = dropout_keep_mask(B, nh, Sq, Sk, int(seed), dropout_rate,
-                                     q.device)
+                                     q.device, mask_heads)
             p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
         out = torch.einsum("bhqk,bkhd->bqhd", p / l_safe, vf)
         lse = (m + torch.log(l_safe)).squeeze(-1)
@@ -250,11 +275,13 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = False,
 # ----------------------------------------------------------------- backward
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
-                        kv_mask=None, dropout_rate: float = 0.0, seed=None):
+                        kv_mask=None, dropout_rate: float = 0.0, seed=None,
+                        mask_heads=None):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd`'s output
     with respect to q, k and v, from the forward's ``out`` and ``lse`` and
-    the output gradient ``do`` (like q).  The mask, rate and seed must be
-    the forward's.  Gradients come in their inputs' dtypes.
+    the output gradient ``do`` (like q).  The mask, rate, seed and
+    ``mask_heads`` must be the forward's.  Gradients come in their
+    inputs' dtypes.
 
     CUDA tensors launch ``flash_bwd_dq`` then ``flash_bwd_dkv``; CPU
     tensors take :func:`flash_attention_bwd_reference`.
@@ -268,34 +295,36 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
     kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
-                                             kv_mask, dropout_rate, seed)
+                                             kv_mask, dropout_rate, seed,
+                                             mask_heads=mask_heads)
     dq = flash_attention_bwd_dq(q, k, v, out, lse, do, causal, kv_mask,
-                                dropout_rate, seed)
+                                dropout_rate, seed, mask_heads)
     dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, causal, kv_mask,
-                                     dropout_rate, seed)
+                                     dropout_rate, seed, mask_heads)
     return dq, dk, dv
 
 
 def _bwd_launch(kernel, entry, q, k, v, out, lse, do, grads, causal,
-                kv_mask, dropout_rate, seed, scratch=()):
+                kv_mask, dropout_rate, seed, mask_heads, scratch=()):
     B, Sq, Sk, nh, nkv, hd = _kernel_dims(kernel, q, k, (q, k, v, out, do),
                                           kv_mask)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, nh, Sq) \
             or not lse.is_contiguous() or lse.device != q.device:
         raise KernelValueError(f"{kernel}: lse must be contiguous float32 "
                                f"[B, nh, Sq] = {[B, nh, Sq]} on {q.device}")
-    mask_ptr, seed, thresh, keep_p = _launch_args(kv_mask, dropout_rate, seed)
+    drop = _launch_args(kv_mask, dropout_rate, seed, nh, mask_heads)
     err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), *(g.data_ptr() for g in grads),
-        *scratch, mask_ptr, B, Sq, Sk, nh, nkv, hd, int(bool(causal)),
-        _build.dtype_code(q.dtype, _build.FP16_DTYPES), seed, thresh,
-        keep_p, _build.stream(q.device))
+        *scratch, drop[0], B, Sq, Sk, nh, nkv, hd, int(bool(causal)),
+        _build.dtype_code(q.dtype, _build.FP16_DTYPES), *drop[1:],
+        _build.stream(q.device))
     _build.check(err, kernel)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False,
-                           kv_mask=None, dropout_rate=0.0, seed=None):
+                           kv_mask=None, dropout_rate=0.0, seed=None,
+                           mask_heads=None):
     """dq through the ``flash_bwd_dq`` kernel (CUDA tensors; bfloat16 and
     float16 on the tensor cores, ``flash_bwd_dq_tc_kernel``, float32 on
     FMAs) or the plain version (CPU tensors).  Arguments as
@@ -305,10 +334,10 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False,
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
                                              kv_mask, dropout_rate, seed,
-                                             parts=("dq",))[0]
+                                             ("dq",), mask_heads)[0]
     dq = torch.empty_like(q)
     _bwd_launch("flash_bwd_dq", "ptt_flash_bwd_dq", q, k, v, out, lse, do,
-                (dq,), causal, kv_mask, dropout_rate, seed)
+                (dq,), causal, kv_mask, dropout_rate, seed, mask_heads)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -317,7 +346,8 @@ flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal=False,
-                            kv_mask=None, dropout_rate=0.0, seed=None):
+                            kv_mask=None, dropout_rate=0.0, seed=None,
+                            mask_heads=None):
     """(dk, dv) through the ``flash_bwd_dkv`` kernel (CUDA tensors;
     bfloat16 and float16 on the tensor cores, ``flash_bwd_dkv_tc_kernel``
     after a pre-pass of each query row's lse and D = rowsum(dO * out) into
@@ -329,7 +359,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal=False,
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
                                              kv_mask, dropout_rate, seed,
-                                             parts=("dkv",))[1:]
+                                             ("dkv",), mask_heads)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stats = None
     if q.dtype != torch.float32:
@@ -339,7 +369,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal=False,
         stats = torch.empty((B, nh, -(-Sq // 64) * 64, 2),
                             dtype=torch.float32, device=q.device)
     _bwd_launch("flash_bwd_dkv", "ptt_flash_bwd_dkv", q, k, v, out, lse, do,
-                (dk, dv), causal, kv_mask, dropout_rate, seed,
+                (dk, dv), causal, kv_mask, dropout_rate, seed, mask_heads,
                 (None if stats is None else stats.data_ptr(),))
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -350,7 +380,7 @@ flash_attention_bwd_dkv.launches = 0
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
                                   kv_mask=None, dropout_rate=0.0, seed=None,
-                                  parts=("dq", "dkv")):
+                                  parts=("dq", "dkv"), mask_heads=None):
     """The plain version of the two backward kernels, in the FA-2 form
     they compute (not autograd through the forward): with
     p = exp(s - lse) on valid entries and D = rowsum(dO * O),
@@ -374,7 +404,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
         dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
         if dropout_rate:
             keep = dropout_keep_mask(B, nh, Sq, Sk, int(seed), dropout_rate,
-                                     q.device)
+                                     q.device, mask_heads)
             dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
         delta = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]
         ds = p * (dp - delta) / math.sqrt(hd)
@@ -398,16 +428,18 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its backward on the two backward kernels
     (the JAX package's ``custom_vjp``).  The forward saves q, k, v, out,
-    lse, the int32 mask and the seed; the backward redraws the forward's
-    dropout bits from the seed."""
+    lse, the int32 mask, the seed and ``mask_heads``; the backward redraws
+    the forward's dropout bits from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, kv_mask, dropout_rate, seed):
+    def forward(ctx, q, k, v, causal, kv_mask, dropout_rate, seed,
+                mask_heads=None):
         kv_mask, seed = _check_training_args(k, kv_mask, dropout_rate, seed)
         out, lse = flash_attention_fwd(q, k, v, causal, kv_mask,
-                                       dropout_rate, seed)
+                                       dropout_rate, seed, mask_heads)
         ctx.save_for_backward(q, k, v, out, lse, kv_mask)
         ctx.causal, ctx.dropout_rate, ctx.seed = causal, dropout_rate, seed
+        ctx.mask_heads = mask_heads
         return out
 
     @staticmethod
@@ -415,16 +447,16 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, kv_mask = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, lse, do.to(out.dtype).contiguous(), ctx.causal,
-            kv_mask, ctx.dropout_rate, ctx.seed)
-        return dq, dk, dv, None, None, None, None
+            kv_mask, ctx.dropout_rate, ctx.seed, ctx.mask_heads)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False, kv_mask=None,
-                    dropout_rate: float = 0.0, seed=None):
+                    dropout_rate: float = 0.0, seed=None, mask_heads=None):
     """Differentiable flash attention, ``[B, Sq, nh, hd]`` out; arguments
     as :func:`flash_attention_fwd`.  Under custom autocast lists it is the
     op ``flash_attention``."""
     q, k, v = op_lists.cast_inputs("flash_attention", q, k, v)
     with op_lists.outside_lists():
         return FlashAttention.apply(q, k, v, causal, kv_mask, dropout_rate,
-                                    seed)
+                                    seed, mask_heads)

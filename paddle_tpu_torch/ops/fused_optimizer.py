@@ -26,6 +26,18 @@ A third, tiny launch writes the step's gradient addresses into the
 device table from its kernel arguments, so nothing is copied from the
 host and the step never waits for the card.
 
+Split norm (``reduce=``: tensor parallelism and ZeRO, where each rank
+holds a part of the gradients).  Launch 1 then stops at this rank's part,
+per tensor its sum of squares times its norm weight (``norm_weights``: 1
+for a tensor the ranks split, ``1 / copies`` for one that ``copies``
+ranks hold alike) and the non-finite flag, in a float64 vector on the
+card; ``reduce`` sums that vector over the ranks' groups (one all-reduce
+a group), and ``fused_finish_kernel`` makes the coefficients,
+``found_inf`` and the scaler's bookkeeping from the sums, as the last
+block of launch 1 does otherwise.  So every rank clips by the global norm
+and skips together.  Without ``reduce`` the step is the two launches
+above, unchanged.
+
 :class:`FusedTable` holds what does not change from step to step (the
 parameters, masters and states, per tensor its weight decay, learning
 rate ratio and ``need_clip``; on the card the table and the workspace).
@@ -83,7 +95,9 @@ class FusedTable:
     velocity, None; SGD: None, None), float32, shaped like the parameter.
     ``wds``, ``lr_ratios``, ``need_clip``: per parameter its weight decay
     (0 where it does not decay), its learning rate over the optimizer's,
-    and whether the clip applies.  All tensors on one device, contiguous.
+    and whether the clip applies.  ``norm_weights``: per parameter the
+    weight of its sum of squares in a split norm (None: all 1).  All
+    tensors on one device, contiguous.
 
     On the card it owns, besides the table: ``gptr`` (the step's gradient
     addresses), ``partials`` (a float per chunk), ``coef`` (a clip
@@ -95,10 +109,13 @@ class FusedTable:
                  masters: Sequence[Optional[torch.Tensor]],
                  states: Sequence[Sequence[Optional[torch.Tensor]]],
                  wds: Sequence[float], lr_ratios: Sequence[float],
-                 need_clip: Sequence[bool]):
+                 need_clip: Sequence[bool],
+                 norm_weights: Optional[Sequence[float]] = None):
         n = len(params)
+        norm_weights = [1.0] * n if norm_weights is None else norm_weights
         if n == 0 or not (n == len(masters) == len(states) == len(wds)
-                          == len(lr_ratios) == len(need_clip)):
+                          == len(lr_ratios) == len(need_clip)
+                          == len(norm_weights)):
             raise KernelValueError("fused_adamw: one entry per parameter, "
                                    "and at least one parameter")
         self.params = list(params)
@@ -107,6 +124,9 @@ class FusedTable:
         self.wds = [float(w) for w in wds]
         self.lr_ratios = [float(r) for r in lr_ratios]
         self.need_clip = [bool(c) for c in need_clip]
+        self.norm_weights = [float(w) for w in norm_weights]
+        if any(not 0.0 < w <= 1.0 for w in self.norm_weights):
+            raise KernelValueError("fused_adamw: norm weights in (0, 1]")
         self.device = self.params[0].device
         for p, mw, st in zip(self.params, self.masters, self.states):
             for t in (p, mw, *st):
@@ -152,6 +172,8 @@ class FusedTable:
         self.gptr = torch.zeros(n, dtype=torch.int64, device=dev)
         self.partials = torch.zeros(self.n_chunks, dtype=torch.float32,
                                     device=dev)
+        # the split norm's per-tensor sums and flag (made at first use)
+        self.tsum = None
         words = np.zeros((n, _DESC_WORDS), np.int64)
         for i, (p, mw, st) in enumerate(zip(self.params, self.masters,
                                             self.states)):
@@ -159,9 +181,11 @@ class FusedTable:
                                      for s in (st + [None, None])[:2]]
             ptrs.append(0 if mw is None else mw.data_ptr())
             # a gradient has its parameter's type (autograd's rule)
+            # the norm weight rides in the flags word's high half
             flags = _TYPE_FLAGS[p.dtype] | \
                 (_NEED_CLIP if self.need_clip[i] else 0) | \
-                (_ALIGNED if all(a % 16 == 0 for a in ptrs) else 0)
+                (_ALIGNED if all(a % 16 == 0 for a in ptrs) else 0) | \
+                (_float_bits(self.norm_weights[i]) << 32)
             hyper = _float_bits(self.wds[i]) | \
                 (_float_bits(self.lr_ratios[i]) << 32)
             words[i] = ptrs + [self.numels[i], self.chunk_begin[i],
@@ -217,7 +241,7 @@ def fused_adamw(table: FusedTable, grads: Sequence[torch.Tensor], lr: float,
                 beta1: float = 0.9, beta2: float = 0.999,
                 epsilon: float = 1e-8, decoupled: bool = True,
                 momentum: float = 0.0, nesterov: bool = False, clip=None,
-                scaler=None) -> None:
+                scaler=None, reduce=None) -> None:
     """One optimizer step over ``table`` with ``grads`` (one per parameter,
     of its type), in place.
 
@@ -232,7 +256,9 @@ def fused_adamw(table: FusedTable, grads: Sequence[torch.Tensor], lr: float,
     skipped if any is not finite, and every gradient is overwritten IN
     PLACE with its unscaled value (applied or skipped; the JAX program's
     unscaled gradients in ``p.grad``).  Nothing is read back to the
-    host.
+    host.  ``reduce``: None, or a callable that sums a float64 tensor over
+    the ranks that share the step, in place (the split norm, see the head
+    of this module); it runs only where the step has a norm or a scaler.
 
     CUDA tensors launch the kernels; CPU tensors take
     :func:`fused_adamw_reference`."""
@@ -243,7 +269,7 @@ def fused_adamw(table: FusedTable, grads: Sequence[torch.Tensor], lr: float,
         return fused_adamw_reference(
             table, grads, lr, step, rule=rule, beta1=beta1, beta2=beta2,
             epsilon=epsilon, decoupled=decoupled, momentum=momentum,
-            nesterov=nesterov, clip=clip, scaler=scaler)
+            nesterov=nesterov, clip=clip, scaler=scaler, reduce=reduce)
     _check_grads(table, grads)
     for t in (step, *(() if scaler is None else scaler[:2])):
         if t.device != table.device or not t.is_contiguous():
@@ -266,14 +292,28 @@ def fused_adamw(table: FusedTable, grads: Sequence[torch.Tensor], lr: float,
         sc_f, sc_i, cfg = scaler[0].data_ptr(), scaler[1].data_ptr(), \
             scaler[2]
     scan = int(scaler is not None or kind in (1, 2))
+    split = reduce is not None and scan
+    if split and table.tsum is None:
+        table.tsum = torch.zeros(n + 1, dtype=torch.float64,
+                                 device=table.device)
+    rule_args = (int(cfg.dynamic), float(cfg.incr_ratio),
+                 float(cfg.decr_ratio), int(cfg.incr_every),
+                 int(cfg.decr_every))
     err = lib.ptt_fused_norm(
         table.desc.data_ptr(), table.gptr.data_ptr(), n, table.n_chunks,
         CHUNK, table.partials.data_ptr(), table.coef.data_ptr(),
         table.wsf.data_ptr(), table.wsi.data_ptr(), step.data_ptr(), sc_f,
-        sc_i, kind, cn, scan, int(cfg.dynamic), float(cfg.incr_ratio),
-        float(cfg.decr_ratio), int(cfg.incr_every), int(cfg.decr_every),
-        stream)
+        sc_i, table.tsum.data_ptr() if split else None, kind, cn, scan,
+        *rule_args, stream)
     _build.check(err, "fused_adamw (norm)")
+    if split:
+        reduce(table.tsum)
+        err = lib.ptt_fused_finish(
+            table.desc.data_ptr(), n, table.tsum.data_ptr(),
+            table.coef.data_ptr(), table.wsf.data_ptr(),
+            table.wsi.data_ptr(), step.data_ptr(), sc_f, sc_i, kind, cn,
+            *rule_args, stream)
+        _build.check(err, "fused_adamw (finish)")
     err = lib.ptt_fused_update(
         table.desc.data_ptr(), table.gptr.data_ptr(), n, table.n_chunks,
         CHUNK, table.coef.data_ptr(), table.wsf.data_ptr(),
@@ -298,7 +338,8 @@ def fused_adamw_reference(table: FusedTable, grads, lr: float,
                           epsilon: float = 1e-8, decoupled: bool = True,
                           momentum: float = 0.0, nesterov: bool = False,
                           clip=None, scaler=None,
-                          coef: Optional[torch.Tensor] = None) -> None:
+                          coef: Optional[torch.Tensor] = None,
+                          reduce=None) -> None:
     """The plain version of :func:`fused_adamw`: the kernels' two phases
     in ``torch`` ops, on any device, with the same roundings (a bfloat16
     or float16 gradient is rounded to its type after the unscale and after
@@ -310,7 +351,10 @@ def fused_adamw_reference(table: FusedTable, grads, lr: float,
     the kernels passes theirs, so that it can hold phase 2 alone to a
     tight limit: the two versions sum the norms in other orders, and a
     coefficient one float32 ulp apart may round a clipped bfloat16
-    gradient to its neighbour."""
+    gradient to its neighbour.  ``reduce``: the split norm, as
+    :func:`fused_adamw`'s (per-tensor weighted sums and the flag in a
+    float64 vector, reduced, then the coefficients and ``found_inf`` from
+    the sums)."""
     if rule not in RULES:
         raise KernelValueError(f"fused_adamw: rule {rule!r}")
     kind, cn, lo, hi = _clip_args(clip)
@@ -330,6 +374,14 @@ def fused_adamw_reference(table: FusedTable, grads, lr: float,
         found = torch.zeros((), dtype=torch.bool, device=table.device)
     sq = [torch.sum(u * u, dtype=torch.float64) for u in us]
     coef = torch.ones(len(us), dtype=torch.float32, device=table.device)
+    if reduce is not None and (scaler is not None or kind in (1, 2)):
+        vec = torch.stack([s * w if c else torch.zeros_like(s) for s, w, c
+                           in zip(sq, table.norm_weights, table.need_clip)]
+                          + [found.double()])
+        reduce(vec)
+        sq = list(vec[:-1].unbind())
+        if scaler is not None:
+            found = vec[-1] > 0
     if kind == 1:
         total = sum(s for s, c in zip(sq, table.need_clip) if c)
         norm = torch.sqrt(torch.as_tensor(total, dtype=torch.float64)

@@ -28,6 +28,12 @@ type than float32.
 Scaler steps: the applied-step count depends on ``found_inf``, so it
 stays on the card (``Optimizer._step_dev``) with the scaler's scale and
 counts; the skipped step leaves it unchanged, as the JAX program does.
+
+Under tensor parallelism and ZeRO (``opt._grad_reduce``, a
+``distributed/fleet/norm.py`` ``CrossRankNorm``) the table carries each
+tensor's norm weight and the step runs the kernels' split norm: the
+per-tensor sums and the non-finite flag are summed over the ranks
+before the coefficients and ``found_inf`` are made.
 The update kernel writes each unscaled gradient back into ``p.grad``,
 applied step or skipped, as the JAX program returns them
 (``paddle_tpu/optimizer/fused.py:399-401``); a step without a scaler
@@ -95,11 +101,14 @@ def _plan(opt, work):
            for st in states for s in st) or \
             any(not p.is_contiguous() for p, *_ in leaves):
         return None
+    red = opt._grad_reduce
+    weights = None if red is None else red.weights([p for p, *_ in leaves])
     key = tuple((id(p), p.data_ptr(), p.dtype, um, wd, ratio, nc,
                  None if mw is None else mw.data_ptr(),
                  tuple(None if s is None else s.data_ptr() for s in st))
                 for (p, um, wd, ratio, nc), mw, st in zip(leaves, masters,
-                                                          states))
+                                                          states)) + \
+        (None if weights is None else tuple(weights),)
     table = opt._fused_tables.get(key)
     if table is None:
         _M_FUSED.inc_key(_K_MISS)
@@ -108,7 +117,7 @@ def _plan(opt, work):
             [p for p, *_ in leaves], masters, states,
             [wd for _, _, wd, _, _ in leaves],
             [r for _, _, _, r, _ in leaves],
-            [nc for *_, nc in leaves])
+            [nc for *_, nc in leaves], weights)
     else:
         _M_FUSED.inc_key(_K_HIT)
     return table
@@ -122,8 +131,11 @@ def _execute(opt, table, work, clip, scaler=None):
     elif not opt._gs_ahead:
         step.fill_(opt._gs_host)
     grads = [g.contiguous() for _, g, *_ in work]
+    red = opt._grad_reduce
     _fo.fused_adamw(table, grads, opt.get_lr(), step, rule=opt._fused_rule,
-                    clip=clip, scaler=scaler, **opt._fused_hyper())
+                    clip=clip, scaler=scaler,
+                    reduce=None if red is None else red.reduce,
+                    **opt._fused_hyper())
     if scaler is not None:
         opt._gs_ahead = True
         for (_, g, *_), gc in zip(work, grads):

@@ -107,6 +107,20 @@ class Optimizer:
         self._gs_ahead = False
         self._step_dev: Optional[torch.Tensor] = None
         self._fused_tables: dict = {}
+        # the cross-rank sums of a step whose gradients the ranks split
+        # (distributed/fleet/norm.py CrossRankNorm), None on one rank
+        self._grad_reduce = None
+
+    def _set_grad_reduce(self, reduce) -> None:
+        """Make every step reduce its norms and ``found_inf`` with
+        ``reduce`` (a ``CrossRankNorm``, or None): the fused step's split
+        norm, the clip's ``_global_norm_reduce_fn`` and the GradScaler's
+        host path."""
+        self._grad_reduce = reduce if reduce else None
+        if self._grad_clip is not None:
+            self._grad_clip._global_norm_reduce_fn = None \
+                if self._grad_reduce is None else \
+                self._grad_reduce.per_tensor_sq
 
     # ------------------------------------------------------------ params
     def _name_params(self, items, offset):
@@ -245,10 +259,11 @@ class Optimizer:
             type(clip).__call__ is ClipGradBase.__call__
         prepared = None
         if sliced:
-            applicable = [g for p, g in all_pg if clip._applies(p, g)]
+            applicable = [(p, g) for p, g in all_pg if clip._applies(p, g)]
             sliced = bool(applicable)
             if sliced:
-                prepared = clip._prepare(applicable)
+                prepared = clip._prepare([g for _, g in applicable],
+                                         [p for p, _ in applicable])
         elif clip is not None:
             for item, (_, g) in zip(work, clip(all_pg)):
                 item[1] = g

@@ -200,8 +200,7 @@ def test_sequence_classification_and_max_position():
     assert vars(bert_base()) == vars(jax_base())
     assert vars(bert_tiny(num_layers=3)) == vars(jax_tiny(num_layers=3))
     assert bert_tiny(use_recompute=True).use_recompute    # ported
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
-        bert_tiny(tensor_parallel=True)
+    assert bert_tiny(tensor_parallel=True).tensor_parallel   # ported
     mlm_ = BertForMaskedLM(bert_tiny(), device="cpu")
     assert mlm_.num_params() == int(JaxMLM(jax_tiny()).num_params())
 

@@ -2381,3 +2381,112 @@ def test_data_parallel_on_the_card_equals_the_cpu(card_world):
     cuda = card_world.run("task_dp_mlp", init, X, Y, "cuda")
     for a, b in zip(cpu, cuda):
         np.testing.assert_allclose(b, a, rtol=1e-5)
+
+
+# ------------------------------------------------- tensor parallelism
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_mask_heads_give_slices_of_the_whole_launch(gen, dtype, hd):
+    """A launch over heads 2..3 of 4 (kv head 1 of 2: GQA) with
+    ``mask_heads=(2, 4)`` draws the whole launch's dropout masks for
+    those heads: its output, lse, dq, dk and dv are the whole launch's
+    slices, bit for bit, and its plain version agrees."""
+    B, S, nh, nkv, rate, seed = 2, 130, 4, 2, 0.2, 99
+    q, k, v, mask = _flash_inputs(gen, B, S, S, nh, nkv, hd, dtype)
+    do = _randn(gen, (B, S, nh, hd), dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, mask, rate, seed)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, True, mask,
+                                        rate, seed)
+    part = [t[:, :, 2:].contiguous() for t in (q, do)]
+    kv = [t[:, :, 1:].contiguous() for t in (k, v)]
+    o2, lse2 = fa.flash_attention_fwd(part[0], *kv, True, mask, rate, seed,
+                                      mask_heads=(2, 4))
+    g2 = fa.flash_attention_bwd(part[0], *kv, o2, lse2, part[1], True, mask,
+                                rate, seed, mask_heads=(2, 4))
+    assert torch.equal(o2, out[:, :, 2:]) and torch.equal(lse2, lse[:, 2:])
+    for got, want in zip(g2, (dq[:, :, 2:], dk[:, :, 1:], dv[:, :, 1:])):
+        assert torch.equal(got, want)
+    ref, ref_lse = fa.flash_attention_fwd_reference(
+        part[0].float(), *(t.float() for t in kv), True, mask, rate, seed,
+        mask_heads=(2, 4))
+    torch.testing.assert_close(o2.float(), ref, **TOL[dtype])
+    torch.testing.assert_close(lse2, ref_lse, **TOL[dtype])
+    with pytest.raises(fa.KernelValueError):
+        fa.flash_attention_fwd(part[0], *kv, True, mask, rate, seed,
+                               mask_heads=(3, 4))
+
+
+@pytest.mark.parametrize("low", [None, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("clip", [("global", 1.0), ("norm", 0.5), None])
+@pytest.mark.parametrize("scaled", [None, "finite", "inf"])
+def test_fused_adamw_split_norm_matches_its_plain_version(gen, low, clip,
+                                                          scaled):
+    """The split norm (tensor parallelism, ZeRO) as two like ranks would
+    run it: every other tensor weighted 1/2 (held alike by both), the
+    rest 1 (split), and the reduction doubling the sums (the other rank's
+    equal part).  Three steps against the plain version with the same
+    weights and reduction: step counts, the scaler's scale and counts
+    exact (an overflow skips), the coefficients within rtol 1e-6, each
+    float32 tensor's change within 1e-4 of the plain version's (on the
+    kernels' coefficients), 16-bit copies within one step of their
+    type; one launch of the pair a step."""
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    lr, o2 = 1e-2, low is not None
+    pdt = low or torch.float32
+    gscale = 1024.0 if scaled else 1.0
+    shapes = FUSED_SHAPES + [(33,)]
+    need_clip = [i != 1 for i in range(len(shapes))]
+    all_grads = [[torch.randn(s, generator=gen, device="cuda").to(pdt)
+                  * gscale for s in shapes] for _ in range(3)]
+    base = _fused_case(gen, o2, _clipped_rms(all_grads[0], clip, need_clip,
+                                             gscale), wd=0.1, low=low)
+    weights = [0.5 if i % 2 else 1.0 for i in range(len(shapes))]
+
+    def weighted(t):
+        return fo.FusedTable(t.params, t.masters, t.states, t.wds,
+                             t.lr_ratios, t.need_clip, weights)
+    table, ref = weighted(base), weighted(_clone_table(base))
+    reduce = lambda v: v.mul_(2.0)  # noqa: E731
+    steps = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    scalers = None
+    if scaled:
+        scalers = [(torch.full((1,), gscale, device="cuda"),
+                    torch.tensor([0, 1, 0, 0], dtype=torch.int32,
+                                 device="cuda"),
+                    fo.ScalerConfig(2.0, 0.5, 2, 1, True))
+                   for _ in range(2)]
+    for it, grads in enumerate(all_grads):
+        if scaled == "inf" and it == 1:
+            grads[2].view(-1)[65537] = float("inf")
+        before = [t.clone() for t in _table_tensors(table)]
+        ref_before = [t.clone() for t in _table_tensors(ref)]
+        ref_grads = [g.clone() for g in grads]
+        n = fo.fused_adamw.launches
+        fo.fused_adamw(table, grads, lr, steps[0], clip=clip,
+                       scaler=scalers and scalers[0], reduce=reduce)
+        assert fo.fused_adamw.launches == n + 1
+        fo.fused_adamw_reference(ref, ref_grads, lr, steps[1], clip=clip,
+                                 scaler=scalers and scalers[1],
+                                 coef=table.coef, reduce=reduce)
+        torch.cuda.synchronize()
+        assert torch.equal(steps[0], steps[1])
+        if scaled:
+            assert torch.equal(scalers[0][0], scalers[1][0])
+            assert torch.equal(scalers[0][1], scalers[1][1])
+        torch.testing.assert_close(table.coef, ref.coef, atol=0.0,
+                                   rtol=1e-6)
+        if scaled == "inf" and it == 1:
+            assert int(scalers[0][1][0]) == 1
+            continue
+        for got, got0, want, want0 in zip(_table_tensors(table), before,
+                                          _table_tensors(ref), ref_before):
+            if got.dtype != torch.float32:
+                torch.testing.assert_close(
+                    got.float(), want.float(), atol=1e-6,
+                    rtol=2 ** -7 if got.dtype == torch.bfloat16
+                    else 2 ** -10)
+            else:
+                assert _step_change_err(got, got0, want, want0) <= 1e-4
+    assert int(steps[0]) == (2 if scaled == "inf" else 3)

@@ -2,12 +2,13 @@
 the CPU, against the JAX package.
 
 Each module shares two spawned worlds of CPU ranks over gloo (2 and 4
-processes, started once): every rank is this file run as a script
-(``python tests/test_torch_distributed.py``, which imports the port and
-torch, never jax), joined by ``init_parallel_env`` from the launcher's
-variables, and runs the rank-side task the test names through the
-controller's ``TCPStore``.  The JAX package's collectives run on its
-8-virtual-device CPU mesh inside ``shard_map`` (its axis-context mode):
+processes, started once, ``_torch_world.py``): every rank is this file
+run as a script (``python tests/test_torch_distributed.py``, which
+imports the port and torch, never jax), joined by ``init_parallel_env``
+from the launcher's variables, and runs the rank-side task the test
+names through the controller's ``TCPStore``.  The JAX package's
+collectives run on its 8-virtual-device CPU mesh inside ``shard_map``
+(its axis-context mode):
 the same rows per rank, the same results; object collectives,
 point-to-point calls and barriers, which the JAX package runs through a
 multi-process runtime this CPU lacks (``tests/test_eager_comm.py``), are
@@ -17,18 +18,19 @@ held against numpy.  ``DataParallel`` reproduces the JAX
 script and returns a failing rank's exit code.
 """
 
+import functools
 import os
-import pickle
 import subprocess
 import sys
-import time
-import traceback
 
 import numpy as np
 import pytest
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_world import ROOT, serve  # noqa: E402
+from _torch_world import World as _World  # noqa: E402
+
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
@@ -276,88 +278,9 @@ def task_sampler(n, bs):
 TASKS = {k: v for k, v in globals().items() if k.startswith("task_")}
 
 
-def _serve() -> int:
-    """A rank: join the job, then run the controller's tasks."""
-    from datetime import timedelta
-
-    import torch.distributed as tdist
-    from paddle_tpu_torch import distributed as dist
-    dist.init_parallel_env()
-    rank = dist.get_rank()
-    host, port = os.environ["PADDLE_MASTER"].rsplit(":", 1)
-    store = tdist.TCPStore(host, int(port), None, False,
-                           timedelta(seconds=600))
-    parent = os.getppid()
-    n = 0
-    while True:
-        key = f"task/{n}"
-        while not store.check([key]):
-            if os.getppid() != parent:
-                return 1
-            time.sleep(0.005)
-        name, args = pickle.loads(store.get(key))
-        if name == "stop":
-            return 0
-        try:
-            res = ("ok", TASKS[name](*args))
-        except Exception:   # noqa: BLE001 - shipped to the controller
-            res = ("error", traceback.format_exc())
-        store.set(f"result/{n}/{rank}", pickle.dumps(res))
-        n += 1
-
-
 # ----------------------------------------------------------- controller
-class World:
-    """W CPU ranks of this file, started through the launcher's
-    environment, each running the tasks :meth:`run` names."""
-
-    def __init__(self, W, devices="cpu"):
-        from datetime import timedelta
-
-        import torch.distributed as tdist
-        self.W = W
-        self.n = 0
-        self.store = tdist.TCPStore("127.0.0.1", 0, None, True,
-                                    timedelta(seconds=600),
-                                    wait_for_workers=False)
-        master = f"127.0.0.1:{self.store.port}"
-        self.procs = []
-        for r in range(W):
-            env = dict(os.environ, PADDLE_TRAINER_ID=str(r),
-                       PADDLE_TRAINERS_NUM=str(W), PADDLE_MASTER=master,
-                       PADDLE_CURRENT_ENDPOINT=f"127.0.0.1:{7000 + r}",
-                       PADDLE_TRAINER_ENDPOINTS=",".join(
-                           f"127.0.0.1:{7000 + i}" for i in range(W)),
-                       PADDLE_WORLD_DEVICES=",".join([devices] * W),
-                       FLAGS_selected_gpus=devices, PYTHONPATH=ROOT)
-            self.procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__)], env=env))
-
-    def run(self, name, *args, timeout=300):
-        n, self.n = self.n, self.n + 1
-        self.store.set(f"task/{n}", pickle.dumps((name, args)))
-        keys = [f"result/{n}/{r}" for r in range(self.W)]
-        end = time.monotonic() + timeout
-        while not self.store.check(keys):
-            dead = [p.poll() for p in self.procs if p.poll() is not None]
-            assert not dead, f"a rank exited: {dead}"
-            assert time.monotonic() < end, f"{name} timed out"
-            time.sleep(0.005)
-        out = []
-        for k in keys:
-            status, val = pickle.loads(self.store.get(k))
-            assert status == "ok", val
-            out.append(val)
-        return out
-
-    def close(self):
-        self.store.set(f"task/{self.n}", pickle.dumps(("stop", ())))
-        for p in self.procs:
-            try:
-                p.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
+# the ranks are this file run as a script (``_torch_world.serve``)
+World = functools.partial(_World, script=__file__)
 
 
 @pytest.fixture(scope="module")
@@ -641,4 +564,4 @@ def test_launch_without_cards_needs_named_devices():
 
 
 if __name__ == "__main__":
-    sys.exit(_serve())
+    sys.exit(serve(TASKS))

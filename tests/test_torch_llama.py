@@ -307,8 +307,7 @@ def test_auto_cast_o1_bf16_loss_matches_jax(pair):
 
 def test_config_refusals_presets_and_flops():
     assert llama_tiny(use_recompute=True).use_recompute   # ported
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
-        llama_tiny(tensor_parallel=True)
+    assert llama_tiny(tensor_parallel=True).tensor_parallel  # ported
     with pytest.raises(ValueError, match="divide"):
         llama_tiny(num_kv_heads=3)
     # the presets are the JAX package's
