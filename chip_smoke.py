@@ -289,7 +289,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    resident bytes, peak memory and the twin's largest logit deviation from
    bf16 on one prompt (informational: random weights). Then an activation
    quanter's scales, codes and gradients card against CPU; phase 3's GPT
-   cut and phase 15's Llama cut (1 layer) quantized int8 and fp8, card
+   cut and phase 15's Llama cut (2 layers) quantized int8 and fp8, card
    (default engine and eager programs) against the CPU quant engine, 8 new
    tokens, whole-prompt, the Llama int8 cut also chunked and the GPT int8
    cut also with n-gram speculation, with phase 3's checks; and a 2-layer
@@ -458,6 +458,22 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    concatenated batches: losses and parameters as phase 30's bounds;
    a rank's moments about half of one process's, gradients half from
    ``os_g``, parameters half at ``p_g_os``.
+32. Pipeline, tensor-sequence and ZeRO-3 parallelism of the hybrid step
+   (same ranks, ``distributed/fleet/hybrid_step.py``), GPT-3 1.3B's
+   widths (H 2048, 16 heads, I 8192, V 50304, S 2048) in float32, random
+   weights from a seed on the card: a. ``make_hybrid_train_step`` at
+   pp 2 x vpp 2, 4 layers (one a chunk), 4 micro-batches of 1 row; b. at
+   mp 2 with sequence parallelism, 2 layers, the same batch shape; c.
+   ``make_zero3_train_step`` at dp 2 (grain 0), 2 layers, 1 row a rank x
+   2 micro-batches; 2 Adam steps each, against ``serial_train_step`` run
+   first in one process on the card from the same parameters and
+   batches: losses within rtol 2e-4 / atol 2e-5, the ranks' gathered
+   parameters bit-equal (a SHA-256 each) and within 2 x lr x steps of
+   one process's; the three flash kernels launched on every rank
+   (and ``fused_adamw``, once a step, in c), no plain route.  Each part
+   prints its step times, per rank the ring's sends and receives with
+   their bytes and time, the collectives' count, bytes and share of the
+   step, and ``bubble_fraction`` beside the schedule's tick count.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -6781,7 +6797,12 @@ class _CommTimer:
     def _wrap(self, fn):
         import torch
 
+        from paddle_tpu_torch.distributed.collective import Group
+
         def call(*a, **k):
+            groups = [g for g in (*a, *k.values()) if isinstance(g, Group)]
+            if groups and groups[0].nranks == 1:    # moves nothing
+                return fn(*a, **k)
             sizes = [t.numel() * t.element_size() for t in a
                      if isinstance(t, torch.Tensor)]
             _sync(self.dev)
@@ -7038,6 +7059,245 @@ def _zero_rank(dev, timer, out_dir, rank):
     return out
 
 
+# -------------------------------------------------------------- phase 32
+# GPT-3 1.3B's widths in float32 (HybridConfig's type); depths cut for the
+# script's time limit (PERF.md section 4): a. 4 of 24 layers at pp 2 x vpp 2
+# (one a chunk), b. 2 at mp 2 with SP, c. 2 under ZeRO-3 at dp 2.
+PIPE_WIDTH = dict(vocab_size=50304, hidden_size=2048, num_heads=16,
+                  intermediate_size=8192, seq_len=2048)
+PIPE_PARTS = {
+    "a": dict(pp=2, vpp=2, dp=1, mp=1, num_layers=4, n_microbatches=4,
+              sequence_parallel=False),
+    "b": dict(pp=1, dp=1, mp=2, num_layers=2, n_microbatches=4,
+              sequence_parallel=True),
+    "c": dict(pp=1, dp=2, mp=1, num_layers=2, n_microbatches=2,
+              sequence_parallel=False, zero_stage=3)}
+PIPE_B = {"a": 1, "b": 1, "c": 2}    # rows of a micro-batch (c: 1 a rank)
+PIPE_STEPS, PIPE_SEED = 2, 32
+
+
+def _pipe_cfg(part):
+    from paddle_tpu_torch.distributed.fleet.hybrid_step import HybridConfig
+    return HybridConfig(**PIPE_WIDTH, **PIPE_PARTS[part])
+
+
+def _pipe_params(cfg, dev):
+    """The part's serial parameters, drawn on ``dev`` from the seed (the
+    one process and every rank draw the same)."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet.hybrid_step import init_gpt_params
+    gen = torch.Generator(device=dev).manual_seed(PIPE_SEED)
+    return init_gpt_params(cfg, gen, device=dev)
+
+
+def _pipe_ids(cfg, part, dev):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(PIPE_SEED)
+    return torch.as_tensor(rng.randint(
+        0, cfg.vocab_size, (cfg.n_microbatches, PIPE_B[part], cfg.seq_len)),
+        device=dev)
+
+
+def _free(dev):
+    import torch
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _pipeline_reference(out_dir):
+    """Phase 32's one process, before the ranks start: each part's
+    ``serial_train_step`` steps on the same parameters and batches; the
+    losses, and the parameters saved (``flatten`` order)."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    dev = HYBRID["device"]
+    ref = {}
+    for part in PIPE_PARTS:
+        cfg = _pipe_cfg(part)
+        params = _pipe_params(cfg, dev)
+        ids = _pipe_ids(cfg, part, dev)
+        zeros = T.tree_map(torch.zeros_like, params)
+        state, losses = (params, zeros, T.tree_map(torch.zeros_like, params)), []
+        for i in range(PIPE_STEPS):
+            loss, *state = T.serial_train_step(*state, float(i + 1), ids,
+                                               cfg)
+            losses.append(loss.item())
+        torch.save([t.cpu() for t in T.flatten(state[0])[0]],
+                   os.path.join(out_dir, f"ref_pipe_{part}.pt"))
+        ref[part] = losses
+        del params, zeros, state
+        _free(dev)
+    return ref
+
+
+class _P2PTimer:
+    """The pipeline ring's hops on this rank (``spmd_pipeline._exchange``,
+    one send and one receive of equal bytes), wrapped: hops, bytes a
+    direction and seconds, the card synchronised before and after."""
+
+    def __init__(self, dev):
+        from paddle_tpu_torch.distributed.fleet import spmd_pipeline as sp
+        self.dev, self.hops, self.bytes, self.seconds = dev, 0, 0, 0.0
+        inner = sp._exchange
+
+        def hop(x, group, shift):
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            try:
+                return inner(x, group, shift)
+            finally:
+                _sync(self.dev)
+                self.seconds += time.perf_counter() - t0
+                self.hops += 1
+                self.bytes += x.numel() * x.element_size()
+        sp._exchange = hop
+
+    def take(self):
+        out = (self.hops, self.bytes, self.seconds)
+        self.hops, self.bytes, self.seconds = 0, 0, 0.0
+        return out
+
+
+def _pipeline_rank(dev, timer, out_dir, rank):
+    """Phase 32 on this rank: each part's hybrid (a, b) or ZeRO-3 (c) steps
+    on this rank's shard, timed; the gathered parameters against the one
+    process's (rank 0)."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    p2p = _P2PTimer(dev)
+    cuda = torch.device(dev).type == "cuda"
+    out = {}
+    for part in PIPE_PARTS:
+        cfg = _pipe_cfg(part)
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = dict(dp_degree=cfg.dp, mp_degree=cfg.mp,
+                                pp_degree=cfg.pp, sharding_degree=1,
+                                sep_degree=1)
+        hcg = fleet.init(is_collective=True, strategy=s)
+        params = _pipe_params(cfg, dev)
+        if part == "c":
+            state = T.init_zero3_state(params, cfg.dp,
+                                       hcg.get_data_parallel_rank())
+            step = T.make_zero3_train_step(hcg, cfg, grain=0)
+        else:
+            local = T.hybrid_local_params(T.stack_for_pipeline(params, cfg),
+                                          cfg, hcg.get_stage_id(),
+                                          hcg.get_model_parallel_rank())
+            state = (local,) + T.init_zero_state(
+                local, T.hybrid_param_specs(cfg), cfg.dp)[:2]
+            step = T.make_hybrid_train_step(hcg, cfg)
+        del params
+        _free(dev)
+        ids = _pipe_ids(cfg, part, dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _counts_reset()
+        losses, steps = [], []
+        for i in range(PIPE_STEPS):
+            timer.take()
+            p2p.take()
+            _sync(dev)
+            t0 = time.perf_counter()
+            loss, *state = step(*state, float(i + 1), ids)
+            losses.append(loss.item())
+            dt = time.perf_counter() - t0
+            calls, nbytes, comm = timer.take()
+            hops, hbytes, hs = p2p.take()
+            steps.append(dict(s=dt, comm_s=comm, calls=calls, bytes=nbytes,
+                              p2p_hops=hops, p2p_bytes=hbytes, p2p_s=hs))
+        launches, _ = _counts()
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        if part == "c":
+            g = hcg.get_data_parallel_group()
+            full = T.zero3_unflatten(T.tree_map(
+                lambda t: coll.all_gather_concat(t, 0, g), state[0]), cfg)
+        else:
+            full = T.unstack_for_pipeline(
+                T.gather_hybrid_params(state[0], cfg, hcg), cfg)
+        # the gathered tree's bits: the leaves no axis splits are each
+        # rank's own copy, so a missing or partial gradient sum over pp,
+        # mp or dp parts the ranks (within the 2 lr-steps bound)
+        digest = hashlib.sha256()
+        for leaf in T.flatten(full)[0]:
+            digest.update(leaf.detach().reshape(-1).contiguous()
+                          .view(torch.uint8).cpu().numpy().tobytes())
+        worst = None
+        if rank == 0:
+            ref = torch.load(os.path.join(out_dir, f"ref_pipe_{part}.pt"),
+                             mmap=True)
+            worst = max((a - b.to(a.device)).abs().max().item()
+                        for a, b in zip(T.flatten(full)[0], ref))
+            del ref
+        out[part] = dict(
+            losses=losses, steps=steps, launches=launches, worst=worst,
+            params_sha256=digest.hexdigest(), peak=peak, ticks=cfg.n_microbatches * cfg.vpp + cfg.pp - 1,
+            bubble=T.bubble_fraction(cfg.pp, cfg.vpp, cfg.n_microbatches),
+            buckets=len(getattr(step, "buckets", ())))
+        del state, full, step
+        _free(dev)
+    return out
+
+
+def _check_pipeline(ranks, ref):
+    """Phase 32's checks and lines."""
+    bound = 2 * _pipe_cfg("a").learning_rate * PIPE_STEPS
+    for rk in ranks:
+        for part, res in rk["pipe"].items():
+            label = f"phase 32{part} rank {rk['rank']}"
+            bad = [n for n in HYBRID_KERNELS[:3] if res["launches"][n] <= 0]
+            if bad:
+                raise AssertionError(f"{label} never launched {bad}")
+            fused = res["launches"]["fused_adamw"]
+            if fused != (PIPE_STEPS if part == "c" else 0):
+                raise AssertionError(f"{label}: fused_adamw launched "
+                                     f"{fused} times")
+            for a, b in zip(res["losses"], ref[part]):
+                if not abs(a - b) <= 2e-5 + 2e-4 * abs(b):
+                    raise AssertionError(f"{label} losses {res['losses']} "
+                                         f"against one process {ref[part]}")
+            if res["worst"] is not None and not res["worst"] <= bound:
+                raise AssertionError(f"{label}: gathered parameters differ "
+                                     f"by {res['worst']} (bound {bound})")
+    for part in PIPE_PARTS:
+        if len({rk["pipe"][part]["params_sha256"] for rk in ranks}) != 1:
+            raise AssertionError(f"phase 32{part}: the ranks' gathered "
+                                 "parameters differ after the steps")
+    what = {"a": "make_hybrid_train_step at pp 2 x vpp 2, 4 layers, M 4 x "
+                 "B 1",
+            "b": "make_hybrid_train_step at mp 2 with sequence "
+                 "parallelism, 2 layers, M 4 x B 1",
+            "c": "make_zero3_train_step at dp 2 (grain 0), 2 layers, M 2 x "
+                 "B 1 a rank"}
+    for part in PIPE_PARTS:
+        r0 = ranks[0]["pipe"][part]
+        _log(f"phase 32{part} {what[part]}, GPT-3 1.3B widths float32, Adam "
+             f"(lr {_pipe_cfg(part).learning_rate:g}), 2 ranks on card 0: "
+             f"losses by rank {[rk['pipe'][part]['losses'] for rk in ranks]}"
+             f" against one process {ref[part]}; the ranks' gathered "
+             f"parameters bit-equal, within {r0['worst']:.3e} of one "
+             f"process's (bound {bound:.0e}); step times (ms) by "
+             f"rank {[[round(x['s'] * 1e3, 1) for x in rk['pipe'][part]['steps']] for rk in ranks]}; "
+             f"last step by rank: ring sends = receives "
+             f"{[rk['pipe'][part]['steps'][-1]['p2p_hops'] for rk in ranks]}"
+             f" of {r0['steps'][-1]['p2p_bytes'] / max(r0['steps'][-1]['p2p_hops'], 1) / 2**20:.1f} MiB, "
+             f"{[round(rk['pipe'][part]['steps'][-1]['p2p_s'] / rk['pipe'][part]['steps'][-1]['s'], 3) for rk in ranks]}"
+             f" of the step; collectives "
+             f"{[rk['pipe'][part]['steps'][-1]['calls'] for rk in ranks]} "
+             f"calls, {[round(rk['pipe'][part]['steps'][-1]['bytes'] / 2**20, 1) for rk in ranks]} MiB, "
+             f"{[round(rk['pipe'][part]['steps'][-1]['comm_s'] / rk['pipe'][part]['steps'][-1]['s'], 3) for rk in ranks]}"
+             f" of the step; "
+             + (f"{r0['buckets']} gather buckets" if part == "c" else
+                f"{r0['ticks']} ticks, bubble_fraction {r0['bubble']:.4f}")
+             + f"; peak by rank "
+             f"{[round(rk['pipe'][part]['peak'] / 2**30, 2) for rk in ranks]}"
+             f" GiB; launches by rank "
+             f"{[rk['pipe'][part]['launches'] for rk in ranks]}")
+
+
 def tp_kernel_checks():
     """Phase 30's kernel entries on the card against their plain
     versions: a flash launch over heads 8..15 of 16 with ``mask_heads``
@@ -7125,9 +7385,9 @@ def tp_kernel_checks():
 
 
 def hybrid_rank(out_dir):
-    """A rank of phases 29-31 (``chip_smoke.py --hybrid-rank DIR`` under
+    """A rank of phases 29-32 (``chip_smoke.py --hybrid-rank DIR`` under
     the launcher): the DataParallel steps, the tensor-parallel steps,
-    then the ZeRO levels; writes its numbers."""
+    the ZeRO levels, then the hybrid steps; writes its numbers."""
     import torch
     from paddle_tpu_torch import distributed as dist
     env = dist.init_parallel_env()
@@ -7142,6 +7402,7 @@ def hybrid_rank(out_dir):
     res = dict(rank=env.rank, backend=dist.get_group().backend, ddp=ddp,
                tp=_tp_rank(dev, timer, out_dir, env.rank),
                zero=_zero_rank(dev, timer, out_dir, env.rank),
+               pipe=_pipeline_rank(dev, timer, out_dir, env.rank),
                modules=sorted(m for m in sys.modules
                               if m.split(".")[0] in ("jax", "paddle_tpu")))
     with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
@@ -7200,9 +7461,9 @@ def _check_hybrid_path(label, res, ref_losses, bound, steps):
 
 
 def hybrid_phase(root):
-    """Phases 29-31: DataParallel, tensor-parallel training and ZeRO, two
-    ranks sharing one card over gloo through one launch of the port's
-    launcher, against one process on the same batches."""
+    """Phases 29-32: DataParallel, tensor-parallel training, ZeRO and the
+    hybrid steps, two ranks sharing one card over gloo through one launch
+    of the port's launcher, against one process on the same batches."""
     import shutil
 
     import torch
@@ -7216,7 +7477,11 @@ def hybrid_phase(root):
     t0 = time.perf_counter()
     ref = _hybrid_reference(root)
     t_ref = time.perf_counter() - t0
-    ranks = _launch_ranks(root, out_dir, "--hybrid-rank", "phases 29-31")
+    pipe_ref = _pipeline_reference(out_dir)
+    t_pipe = time.perf_counter() - t0 - t_ref
+    _log(f"phase 32 one process: {t_pipe:.1f} s")
+    t0 += t_pipe
+    ranks = _launch_ranks(root, out_dir, "--hybrid-rank", "phases 29-32")
     launch_s = time.perf_counter() - t0 - t_ref
     ddp = ddp_phase(out_dir, [rk["ddp"] for rk in ranks], launch_s)
     for rk in ranks:
@@ -7252,6 +7517,7 @@ def hybrid_phase(root):
                         f"phase 31 {level}: {k} bytes {got[k]:.3f} of "
                         f"one process's, want [{lo}, {hi}]")
             z["shares"] = got
+    _check_pipeline(ranks, pipe_ref)
     r0 = ranks[0]
 
     def summary(res):
@@ -7298,7 +7564,7 @@ def hybrid_phase(root):
              f"{z['shares']['grad']:.3f}, parameters "
              f"{z['shares']['param']:.3f}; launches {z['launches']}; "
              f"optimizer.fused {z['kinds']}")
-    return dict(ranks=ranks, ref=ref, ddp=ddp)
+    return dict(ranks=ranks, ref=ref, ddp=ddp, pipe_ref=pipe_ref)
 
 
 def card_name() -> str:
@@ -7352,8 +7618,8 @@ def main() -> int:
     tpk = timed("phase 30 kernel entries", tp_kernel_checks)
     rows["flash_fwd"]["mask_heads_max_abs_err"] = \
         tpk["mask_heads_max_abs_err"]
-    hybrid = timed("DataParallel, tensor parallelism and ZeRO (phases "
-                   "29-31)", hybrid_phase, root)
+    hybrid = timed("DataParallel, tensor parallelism, ZeRO and the hybrid "
+                   "steps (phases 29-32)", hybrid_phase, root)
     ddp = hybrid["ddp"]
     timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=CUT_LAYERS))
     prefix, spec = timed("prefix and spec", serving_extras_phase)
@@ -7485,6 +7751,8 @@ def main() -> int:
             paths[f"{name}_rank{r}"] = rk["tp"][name]["launches"]
         for level, z in rk["zero"].items():
             paths[f"zero_{level}_rank{r}"] = z["launches"]
+        for part, res in rk["pipe"].items():
+            paths[f"pipe_{part}_rank{r}"] = res["launches"]
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}

@@ -6,8 +6,9 @@
 ``init`` builds the topology of ``strategy.hybrid_configs`` over the
 job's ranks (joining the launcher's job first, ``init_parallel_env``,
 when there is more than one rank).  ``distributed_model`` wraps a model
-in ``DataParallel`` over the data-parallel group when ``dp_degree`` > 1;
-pipeline parallelism (``pp_degree`` > 1) is not ported yet and raises.
+in ``DataParallel`` over the data-parallel group when ``dp_degree`` > 1,
+and a ``PipelineLayer`` in ``PipelineParallel`` when ``pp_degree`` > 1
+(anything else raises ``TypeError`` there).
 ``distributed_optimizer`` gives a :class:`HybridParallelOptimizer`: where
 the ranks split the gradients (``mp_degree`` or ``sharding_degree`` >
 1) its steps sum their norms and ``found_inf`` over those groups
@@ -85,15 +86,37 @@ def get_hybrid_communicate_group() -> HybridCommunicateGroup:
 
 
 def distributed_model(model):
-    """``model`` wrapped by the parallel degrees: ``DataParallel`` over
-    the data-parallel group when ``dp_degree`` > 1, else ``model``."""
+    """``model`` wrapped by the parallel degrees: ``PipelineParallel``
+    over a ``PipelineLayer`` when ``pp_degree`` > 1, ``DataParallel``
+    over the data-parallel group when ``dp_degree`` > 1, else
+    ``model``.
+
+    ``PipelineParallel`` is the host path: it runs every stage in each
+    process and communicates nothing, so beside ``pp_degree`` > 1 any
+    other degree above 1 (whose gradients it would never sum) raises:
+    ``hybrid_step.make_hybrid_train_step`` runs pp with dp, mp and
+    ZeRO."""
     from .sharding import mark_jax_layout
     hcg = get_hybrid_communicate_group()
     strategy = _fleet_state["strategy"]
     if hcg.get_pipe_parallel_world_size() > 1:
-        raise NotImplementedError(
-            "fleet.distributed_model with pp_degree > 1 (pipeline "
-            "parallelism) is not ported yet: see ROADMAP.md A.8.3")
+        from .pipeline_parallel import PipelineParallel
+        from .pp_layers import PipelineLayer
+        if not isinstance(model, PipelineLayer):
+            raise TypeError("fleet.distributed_model with pp_degree > 1 "
+                            "needs a PipelineLayer")
+        others = {"dp_degree": hcg.get_data_parallel_world_size(),
+                  "mp_degree": hcg.get_model_parallel_world_size(),
+                  "sharding_degree":
+                      hcg.get_sharding_parallel_world_size()}
+        if any(d > 1 for d in others.values()):
+            raise NotImplementedError(
+                f"fleet.distributed_model at pp_degree > 1 with {others}: "
+                "PipelineParallel sums no gradient across ranks; use "
+                "hybrid_step.make_hybrid_train_step (or "
+                "spmd_pipeline.pipeline_forward) for pp with dp, mp or "
+                "sharding")
+        return PipelineParallel(model, hcg, strategy)
     mark_jax_layout(model)
     if hcg.get_data_parallel_world_size() > 1:
         from ..parallel import DataParallel

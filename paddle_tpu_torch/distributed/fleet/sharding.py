@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import warnings
 
+import numpy as np
 import torch
 import torch.nn as nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
@@ -49,7 +50,8 @@ from .norm import CrossRankNorm, split_over
 
 __all__ = ["DygraphShardingOptimizer", "GroupShardedOptimizerStage2",
            "group_sharded_parallel", "apply_stage3_param_sharding",
-           "mark_jax_layout", "zero_dim", "state_bytes"]
+           "mark_jax_layout", "zero_dim", "state_bytes",
+           "flat_shard_layout", "plan_zero3_buckets"]
 
 _warned_shapes: set = set()
 
@@ -86,6 +88,35 @@ def zero_dim(p, degree: int):
             f"ZeRO sharding: no free dim of shape {shape} is divisible by "
             f"the sharding degree {degree}; this tensor stays whole")
     return None
+
+
+def flat_shard_layout(shape, degree):
+    """``(F, Fp)`` of one flattened leaf: its element count and that
+    count padded to ``degree * ceil(F / degree)`` (the layout of the
+    fused ZeRO-3 step, ``hybrid_step.make_zero3_train_step``).  The pad
+    starts at zero and stays zero under Adam (zero gradient, zero
+    moments)."""
+    F = int(np.prod(shape)) if len(tuple(shape)) else 1
+    Fp = degree * ((F + degree - 1) // degree)
+    return F, Fp
+
+
+def plan_zero3_buckets(leaf_nbytes, bucket_mb):
+    """Leaves (in order) grouped into gather buckets: consecutive leaves
+    join a bucket until the next would take it past ``bucket_mb`` MiB
+    (every bucket holds at least one leaf; ``bucket_mb <= 0`` gives each
+    leaf its own).  ``leaf_nbytes``: each leaf's padded global bytes."""
+    limit = int(bucket_mb * (1 << 20))
+    buckets, cur, cur_bytes = [], [], 0
+    for i, nb in enumerate(leaf_nbytes):
+        if cur and (limit <= 0 or cur_bytes + nb > limit):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += int(nb)
+    if cur:
+        buckets.append(cur)
+    return buckets
 
 
 def _slice(t, dim, rank, degree):

@@ -24,6 +24,12 @@ shard (``distributed/fleet/mp_layers.py``, ``sharding.py``).
 shard of each global array (the tensor-parallel split, then the ZeRO-3
 slice); :func:`full_state_dict` gathers a model's shards back into global
 tensors on every rank (collectives over the groups that split them).
+
+The hybrid train steps (``distributed/fleet/hybrid_step.py``) keep the
+JAX parameter tree's layout (``[in, out]`` weights, nested dicts of
+arrays, serial ``[L, ...]`` or stacked ``[pp, vpp, Lc, ...]`` blocks):
+:func:`hybrid_params_from_numpy` and :func:`hybrid_params_to_numpy` carry
+such a tree across unchanged.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 import torch.nn as nn
 
 __all__ = ["state_from_numpy", "optimizer_state_from_numpy",
-           "adamw_state_from_numpy", "full_state_dict", "local_shard"]
+           "adamw_state_from_numpy", "full_state_dict", "local_shard",
+           "hybrid_params_from_numpy", "hybrid_params_to_numpy"]
 
 
 def _linear_weights(model: nn.Module) -> set:
@@ -86,6 +93,24 @@ def state_from_numpy(state: Dict[str, np.ndarray], model: nn.Module
 
 
 @torch.no_grad()
+def hybrid_params_from_numpy(tree, device="cpu", dtype=None):
+    """A JAX hybrid parameter tree (nested dicts of numpy arrays, serial
+    or stacked) as the port's tree of tensors (copies), on ``device``,
+    in ``dtype`` if given."""
+    if isinstance(tree, dict):
+        return {k: hybrid_params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    t = torch.from_numpy(np.array(tree, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def hybrid_params_to_numpy(tree):
+    """The port's hybrid parameter tree as numpy arrays (copies)."""
+    if isinstance(tree, dict):
+        return {k: hybrid_params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
 def full_state_dict(model: nn.Module, jax_layout: bool = False
                     ) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` with every shard gathered into the global

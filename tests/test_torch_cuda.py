@@ -2383,6 +2383,76 @@ def test_data_parallel_on_the_card_equals_the_cpu(card_world):
         np.testing.assert_allclose(b, a, rtol=1e-5)
 
 
+# ------------------------------------------- pipeline parallelism (slice 20)
+@pytest.fixture(scope="module")
+def pipe_world():
+    """Two ranks sharing card 0 over gloo: ``tests/test_torch_pipeline.py``
+    run as rank scripts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import test_torch_pipeline as tp
+    w = tp.World(2, tp.__file__, devices="0")
+    yield w
+    w.close()
+
+
+def test_ring_permute_on_cuda_tensors(pipe_world):
+    """The ring permute's autograd function on CUDA tensors across two
+    ranks: each receives the other's tensor, the backward returns each
+    cotangent to its sender, and both p2p calls are staged through the
+    host (gloo)."""
+    for r, (y, g, staged) in enumerate(pipe_world.run("task_ring", "cuda",
+                                                      timeout=120)):
+        assert y == [float(1 - r)] * 3
+        assert g == [10.0 + (1 - r)] * 3
+        assert staged == ["recv", "send"]
+
+
+@pytest.fixture(scope="module")
+def hybrid_world():
+    """Two ranks sharing card 0 over gloo:
+    ``tests/test_torch_hybrid_step.py`` run as rank scripts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import test_torch_hybrid_step as th
+    w = th.World(2, th.__file__, devices="0")
+    yield w
+    w.close()
+
+
+def test_hybrid_step_on_the_card_matches_the_serial_step(hybrid_world, gen):
+    """A tiny ``make_hybrid_train_step`` at pp 2 x vpp 2 on the card (hd
+    64: the flash kernels, no plain route) against ``serial_train_step``
+    on the card in this process: losses within rtol 2e-4 / atol 2e-5,
+    parameters within 2 lr steps, every rank launching the three flash
+    kernels, and the ranks' gathered parameters bit-equal."""
+    import numpy as np
+    import test_torch_hybrid_step as th
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.models.convert import hybrid_params_to_numpy
+    kw = dict(vocab_size=256, hidden_size=128, num_layers=4, num_heads=2,
+              seq_len=64, n_microbatches=4, learning_rate=1e-3)
+    cfg = T.HybridConfig(pp=1, mp=1, dp=1, **kw)
+    params = T.init_gpt_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(20), device="cuda")
+    ids = np.random.RandomState(20).randint(0, 256, (4, 2, 64))
+    zeros = T.tree_map(torch.zeros_like, params)
+    state, losses = (params, zeros, zeros), []
+    for i in range(3):
+        loss, *state = T.serial_train_step(
+            *state, float(i + 1), torch.from_numpy(ids).cuda(), cfg)
+        losses.append(float(loss))
+    ref = dict(losses=losses, after=hybrid_params_to_numpy(state[0]))
+    res = hybrid_world.run("task_hybrid",
+                           dict(kw, pp=2, vpp=2, dp=1, mp=1),
+                           hybrid_params_to_numpy(params), ids, 3, "cuda",
+                           timeout=300)
+    for got_losses, got_params, launches, plain in res:
+        th._assert_matches(got_losses, got_params, ref)
+        assert all(n > 0 for n in launches) and plain == 0
+    th._assert_replicas_equal([r[1] for r in res])
+
+
 # ------------------------------------------------- tensor parallelism
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])

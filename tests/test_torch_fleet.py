@@ -270,14 +270,14 @@ def task_tp_dropout(state, batches, mp):
 
 
 def task_refusals():
-    """distributed_model at pp 2 names the next slice; Llama's kv heads
-    that the degree does not divide raise before any collective."""
+    """distributed_model at pp 2 takes only a PipelineLayer; Llama's kv
+    heads that the degree does not divide raise before any collective."""
     from paddle_tpu_torch.distributed import fleet
     out = {}
     _fleet(pp=2)
     try:
         fleet.distributed_model(torch.nn.Linear(2, 2))
-    except NotImplementedError as e:
+    except TypeError as e:
         out["pp"] = str(e)
     _fleet(mp=2)
     try:
@@ -598,7 +598,7 @@ def test_tensor_parallel_dropout_draws_the_one_process_masks(worlds):
 def test_refusals_name_the_slices_to_come(worlds):
     res = worlds[2].run("task_refusals")
     for r in res:
-        assert "A.8.3" in r["pp"]
+        assert "PipelineLayer" in r["pp"]
         assert "num_kv_heads 1" in r["gqa"]
 
 

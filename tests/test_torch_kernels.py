@@ -540,7 +540,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch/distributed/parallel.py",
             "paddle_tpu_torch/distributed/launch/main.py",
             "paddle_tpu_torch/inference/tp.py",
-            "paddle_tpu_torch/inference/tp_worker.py"
+            "paddle_tpu_torch/inference/tp_worker.py",
+            "paddle_tpu_torch/distributed/fleet/pp_layers.py",
+            "paddle_tpu_torch/distributed/fleet/pipeline_parallel.py",
+            "paddle_tpu_torch/distributed/fleet/spmd_pipeline.py",
+            "paddle_tpu_torch/distributed/fleet/hybrid_step.py",
+            "paddle_tpu_torch/distributed/fleet/utils/"
+            "sequence_parallel_utils.py",
             } <= names
     for f in files:
         hits = [m.group(0) for m in _FORBIDDEN.finditer(f.read_text())]
