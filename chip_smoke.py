@@ -474,6 +474,22 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    prints its step times, per rank the ring's sends and receives with
    their bytes and time, the collectives' count, bytes and share of the
    step, and ``bubble_fraction`` beside the schedule's tick count.
+33. Context and expert parallelism (same ranks; ``incubate/nn/functional/
+   ring_attention.py``, ``hybrid_step.py``): a. under ``fleet.init`` at
+   sep 2, ring attention (causal, then not) and Ulysses attention
+   (causal) on each rank's half of one bf16 sequence (B 1, S 4096, 16
+   heads, hd 128), forward and backward: out, dq, dk and dv within
+   GRAD_TOL of one process's ``flash_attention`` over the whole sequence
+   on the card; each rank's flash launches (a causal ring: rank 0 one hop
+   of each kernel, rank 1 two), its ring exchanges with their bytes and
+   time, its all-to-alls.  b. ``make_hybrid_train_step`` at cp 2, ring
+   and then Ulysses, c. at dp 2 with 4 experts (expert parallelism), each
+   at phase 32's widths in float32, 2 layers, M 2 x B 1 a rank, 2 Adam
+   steps, with phase 32's checks against ``serial_train_step`` run first
+   in one process on the card; the three flash kernels (and in c
+   ``moe_dispatch`` and ``moe_combine``) launched on every rank, no plain
+   route; each step's exchanges, all-to-alls and other collectives with
+   their bytes and share of the step.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -6908,20 +6924,20 @@ def _hybrid_reference(root):
 
 def _counts_reset():
     from paddle_tpu_torch.observability import metrics
-    for name in HYBRID_KERNELS:
-        _train_counters()[name].launches = 0
+    for fn in _train_counters().values():
+        fn.launches = 0
     for fn in _plain_counters().values():
         fn.plain_calls = 0
     metrics.reset()
 
 
-def _counts():
+def _counts(names=HYBRID_KERNELS):
     from paddle_tpu_torch.observability import metrics
     snap = metrics.snapshot().get("optimizer.fused") or {"series": []}
     if any(_plain_calls().values()):
         raise AssertionError(f"a hybrid rank took plain routes: "
                              f"{_plain_calls()}")
-    return ({n: _train_counters()[n].launches for n in HYBRID_KERNELS},
+    return ({n: _train_counters()[n].launches for n in names},
             {x["labels"]["kind"]: x["value"] for x in snap["series"]})
 
 
@@ -7072,13 +7088,29 @@ PIPE_PARTS = {
               sequence_parallel=True),
     "c": dict(pp=1, dp=2, mp=1, num_layers=2, n_microbatches=2,
               sequence_parallel=False, zero_stage=3)}
-PIPE_B = {"a": 1, "b": 1, "c": 2}    # rows of a micro-batch (c: 1 a rank)
+# phase 33 (same widths, float32, 2 layers each): b. context parallelism
+# at cp 2 (the topology's sep axis), ring and Ulysses attention; c. expert
+# parallelism at dp 2, a 4-expert switch MoE in every block
+CONTEXT_PARTS = {
+    "ring": dict(pp=1, dp=1, mp=1, cp=2, num_layers=2, n_microbatches=2,
+                 sequence_parallel=False),
+    "ulysses": dict(pp=1, dp=1, mp=1, cp=2, cp_attention="ulysses",
+                    num_layers=2, n_microbatches=2, sequence_parallel=False),
+    "ep": dict(pp=1, dp=2, mp=1, num_layers=2, n_microbatches=2,
+               sequence_parallel=False, moe_num_experts=4)}
+# rows of a micro-batch (c, ep: 1 a rank)
+PIPE_B = {"a": 1, "b": 1, "c": 2, "ring": 1, "ulysses": 1, "ep": 2}
 PIPE_STEPS, PIPE_SEED = 2, 32
+# phase 33a: ring and Ulysses attention alone, GPT-3 1.3B's heads, bf16
+RING_ALONE = dict(S=4096, nh=16, hd=128, seed=33)
+CONTEXT_KERNELS = HYBRID_KERNELS[:3] + ("moe_dispatch", "moe_combine",
+                                        "fused_adamw")
 
 
 def _pipe_cfg(part):
     from paddle_tpu_torch.distributed.fleet.hybrid_step import HybridConfig
-    return HybridConfig(**PIPE_WIDTH, **PIPE_PARTS[part])
+    return HybridConfig(**PIPE_WIDTH, **{**PIPE_PARTS,
+                                         **CONTEXT_PARTS}[part])
 
 
 def _pipe_params(cfg, dev):
@@ -7106,15 +7138,15 @@ def _free(dev):
         torch.cuda.empty_cache()
 
 
-def _pipeline_reference(out_dir):
-    """Phase 32's one process, before the ranks start: each part's
+def _pipeline_reference(out_dir, parts):
+    """Phase 32's (33's) one process, before the ranks start: each part's
     ``serial_train_step`` steps on the same parameters and batches; the
     losses, and the parameters saved (``flatten`` order)."""
     import torch
     from paddle_tpu_torch.distributed.fleet import hybrid_step as T
     dev = HYBRID["device"]
     ref = {}
-    for part in PIPE_PARTS:
+    for part in parts:
         cfg = _pipe_cfg(part)
         params = _pipe_params(cfg, dev)
         ids = _pipe_ids(cfg, part, dev)
@@ -7160,23 +7192,30 @@ class _P2PTimer:
         return out
 
 
-def _pipeline_rank(dev, timer, out_dir, rank):
-    """Phase 32 on this rank: each part's hybrid (a, b) or ZeRO-3 (c) steps
-    on this rank's shard, timed; the gathered parameters against the one
-    process's (rank 0)."""
+class _A2ATimer(_CommTimer):
+    """The all-to-alls of this process (Ulysses' head exchange, expert
+    parallelism's token lanes), timed as :class:`_CommTimer` times the
+    other collectives."""
+
+    NAMES = ("alltoall_single",)
+
+
+def _pipeline_rank(dev, timer, p2p, a2a, out_dir, rank, parts):
+    """Phase 32 (33b, c) on this rank: each part's hybrid (a, b; ring,
+    ulysses, ep) or ZeRO-3 (c) steps on this rank's shard, timed; the
+    gathered parameters against the one process's (rank 0)."""
     import torch
     from paddle_tpu_torch.distributed import collective as coll
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet import hybrid_step as T
-    p2p = _P2PTimer(dev)
     cuda = torch.device(dev).type == "cuda"
     out = {}
-    for part in PIPE_PARTS:
+    for part in parts:
         cfg = _pipe_cfg(part)
         s = fleet.DistributedStrategy()
         s.hybrid_configs = dict(dp_degree=cfg.dp, mp_degree=cfg.mp,
                                 pp_degree=cfg.pp, sharding_degree=1,
-                                sep_degree=1)
+                                sep_degree=cfg.cp)
         hcg = fleet.init(is_collective=True, strategy=s)
         params = _pipe_params(cfg, dev)
         if part == "c":
@@ -7186,7 +7225,8 @@ def _pipeline_rank(dev, timer, out_dir, rank):
         else:
             local = T.hybrid_local_params(T.stack_for_pipeline(params, cfg),
                                           cfg, hcg.get_stage_id(),
-                                          hcg.get_model_parallel_rank())
+                                          hcg.get_model_parallel_rank(),
+                                          hcg.get_data_parallel_rank())
             state = (local,) + T.init_zero_state(
                 local, T.hybrid_param_specs(cfg), cfg.dp)[:2]
             step = T.make_hybrid_train_step(hcg, cfg)
@@ -7200,6 +7240,7 @@ def _pipeline_rank(dev, timer, out_dir, rank):
         for i in range(PIPE_STEPS):
             timer.take()
             p2p.take()
+            a2a.take()
             _sync(dev)
             t0 = time.perf_counter()
             loss, *state = step(*state, float(i + 1), ids)
@@ -7207,9 +7248,12 @@ def _pipeline_rank(dev, timer, out_dir, rank):
             dt = time.perf_counter() - t0
             calls, nbytes, comm = timer.take()
             hops, hbytes, hs = p2p.take()
+            a2a_calls, a2a_bytes, a2a_s = a2a.take()
             steps.append(dict(s=dt, comm_s=comm, calls=calls, bytes=nbytes,
-                              p2p_hops=hops, p2p_bytes=hbytes, p2p_s=hs))
-        launches, _ = _counts()
+                              p2p_hops=hops, p2p_bytes=hbytes, p2p_s=hs,
+                              a2a_calls=a2a_calls, a2a_bytes=a2a_bytes,
+                              a2a_s=a2a_s))
+        launches, _ = _counts(CONTEXT_KERNELS)
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
         if part == "c":
             g = hcg.get_data_parallel_group()
@@ -7296,6 +7340,156 @@ def _check_pipeline(ranks, ref):
              f"{[round(rk['pipe'][part]['peak'] / 2**30, 2) for rk in ranks]}"
              f" GiB; launches by rank "
              f"{[rk['pipe'][part]['launches'] for rk in ranks]}")
+
+
+def _ring_alone_rank(dev, p2p, a2a):
+    """Phase 33a on this rank, under ``fleet.init`` at sep 2: ring
+    attention (causal, then not) and Ulysses attention (causal) over the
+    sep group on this rank's half of one bf16 sequence, forward and
+    backward, against one process's ``flash_attention`` over the whole
+    sequence on the card (this rank's slices of its output and
+    gradients); each run's launches, ring hops and all-to-alls."""
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.incubate.nn import functional as tf
+    from paddle_tpu_torch.ops import flash_attention as fa
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(dp_degree=1, mp_degree=1, pp_degree=1,
+                            sharding_degree=1, sep_degree=2)
+    hcg = fleet.init(is_collective=True, strategy=s)
+    n, r = 2, hcg.get_sep_parallel_rank()
+    S, nh, hd = RING_ALONE["S"], RING_ALONE["nh"], RING_ALONE["hd"]
+    gen = torch.Generator(device=dev).manual_seed(RING_ALONE["seed"])
+    q, k, v, g = (torch.randn((1, nh, S, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))        # (B, H, S, D)
+    sl = slice(r * S // n, (r + 1) * S // n)
+    out = {}
+    for name, causal in (("ring_causal", True), ("ring", False),
+                         ("ulysses_causal", True)):
+        whole = [t.transpose(1, 2).contiguous().requires_grad_()
+                 for t in (q, k, v)]
+        o = fa.flash_attention(*whole, causal)
+        (o.float() * g.transpose(1, 2).float()).sum().backward()
+        want = [t.transpose(1, 2)[:, :, sl] for t in
+                [o.detach()] + [x.grad for x in whole]]
+        del whole, o
+        mine = [t[:, :, sl].contiguous().requires_grad_() for t in (q, k, v)]
+        fn = tf.ring_attention_local if name.startswith("ring") else \
+            tf.ulysses_attention_local
+        _counts_reset()
+        p2p.take()
+        a2a.take()
+        _sync(dev)
+        t0 = time.perf_counter()
+        o = fn(*mine, causal=causal)
+        (o.float() * g[:, :, sl].float()).sum().backward()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        launches, _ = _counts(HYBRID_KERNELS[:3])
+        got = [o.detach()] + [x.grad for x in mine]
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+        tol = GRAD_TOL["torch.bfloat16"]
+        ok = [bool(torch.allclose(a.float(), b.float(), **tol))
+              for a, b in zip(got, want)]
+        hops, hbytes, hs = p2p.take()
+        calls, abytes, a_s = a2a.take()
+        out[name] = dict(s=dt, launches=launches, errs=errs, ok=ok,
+                         p2p_hops=hops, p2p_bytes=hbytes, p2p_s=hs,
+                         a2a_calls=calls, a2a_bytes=abytes, a2a_s=a_s)
+        del got, want, mine, o
+        _free(dev)
+    return out
+
+
+def _check_context(ranks, ref):
+    """Phase 33's checks and lines."""
+    bound = 2 * _pipe_cfg("ring").learning_rate * PIPE_STEPS
+    want = {"ring_causal": ([1, 2], False), "ring": ([2, 2], False),
+            "ulysses_causal": ([1, 1], True)}
+    for rk in ranks:
+        r = rk["rank"]
+        for name, res in rk["ring_alone"].items():
+            label = f"phase 33a {name} rank {r}"
+            if not all(res["ok"]):
+                raise AssertionError(f"{label}: out, dq, dk, dv against one "
+                                     f"process: max errors {res['errs']}")
+            hops, ulysses = want[name]
+            if [res["launches"][k] for k in HYBRID_KERNELS[:3]] != \
+                    [hops[r]] * 3:
+                raise AssertionError(f"{label}: launches {res['launches']}"
+                                     f", want {hops[r]} hops of each")
+            if ulysses != (res["a2a_calls"] > 0) or \
+                    ulysses == (res["p2p_hops"] > 0):
+                raise AssertionError(f"{label}: {res['p2p_hops']} ring "
+                                     f"hops, {res['a2a_calls']} all-to-alls")
+        for part, res in rk["context"].items():
+            label = f"phase 33{'c' if part == 'ep' else 'b'} {part} rank {r}"
+            need = HYBRID_KERNELS[:3] + (("moe_dispatch", "moe_combine")
+                                         if part == "ep" else ())
+            bad = [n for n in need if res["launches"][n] <= 0]
+            if bad:
+                raise AssertionError(f"{label} never launched {bad}")
+            for a, b in zip(res["losses"], ref[part]):
+                if not abs(a - b) <= 2e-5 + 2e-4 * abs(b):
+                    raise AssertionError(f"{label} losses {res['losses']} "
+                                         f"against one process {ref[part]}")
+            if res["worst"] is not None and not res["worst"] <= bound:
+                raise AssertionError(f"{label}: gathered parameters differ "
+                                     f"by {res['worst']} (bound {bound})")
+    for part in CONTEXT_PARTS:
+        if len({rk["context"][part]["params_sha256"] for rk in ranks}) != 1:
+            raise AssertionError(f"phase 33 {part}: the ranks' gathered "
+                                 "parameters differ after the steps")
+    ra = RING_ALONE
+    for name in want:
+        runs = [rk["ring_alone"][name] for rk in ranks]
+        _log(f"phase 33a {name}, bf16 B 1 x S {ra['S']} ({ra['S'] // 2} a "
+             f"rank), {ra['nh']} heads x hd {ra['hd']}, 2 ranks on card 0 "
+             f"(sep 2): out, dq, dk, dv within GRAD_TOL of one process's "
+             f"flash_attention over the whole sequence (max errors by rank "
+             f"{[[float(f'{e:.3e}') for e in x['errs']] for x in runs]}); "
+             f"forward + backward {[round(x['s'] * 1e3, 1) for x in runs]} "
+             f"ms by rank; launches by rank "
+             f"{[x['launches'] for x in runs]}; ring exchanges by rank "
+             f"{[x['p2p_hops'] for x in runs]} ("
+             f"{[round(x['p2p_bytes'] / 2**20, 1) for x in runs]} MiB a "
+             f"direction, {[round(x['p2p_s'] * 1e3, 1) for x in runs]} ms; "
+             f"forward: K and V 1 exchange, backward: K and V 1, float32 "
+             f"dK and dV 2, the JAX scan's last forward rotation dropped); "
+             f"all-to-alls {[x['a2a_calls'] for x in runs]} ("
+             f"{[round(x['a2a_bytes'] / 2**20, 1) for x in runs]} MiB, "
+             f"{[round(x['a2a_s'] * 1e3, 1) for x in runs]} ms)")
+    what = {"ring": "make_hybrid_train_step at cp 2, ring attention",
+            "ulysses": "make_hybrid_train_step at cp 2, Ulysses attention",
+            "ep": "make_hybrid_train_step at dp 2, 4 experts (2 a rank)"}
+    for part in CONTEXT_PARTS:
+        r0 = ranks[0]["context"][part]
+        steps = [rk["context"][part]["steps"][-1] for rk in ranks]
+        cols = "S 2048" if part == "ep" else "S 2048 (1024 a rank)"
+        _log(f"phase 33{'c' if part == 'ep' else 'b'} {what[part]}, "
+             f"2 layers, M 2 x B 1 a rank x {cols}, "
+             f"GPT-3 1.3B widths float32, Adam (lr "
+             f"{_pipe_cfg(part).learning_rate:g}), 2 ranks on card 0: "
+             f"losses by rank "
+             f"{[rk['context'][part]['losses'] for rk in ranks]} against "
+             f"one process {ref[part]}; the ranks' gathered parameters "
+             f"bit-equal, within {r0['worst']:.3e} of one process's (bound "
+             f"{bound:.0e}); step times (ms) by rank "
+             f"{[[round(x['s'] * 1e3, 1) for x in rk['context'][part]['steps']] for rk in ranks]}; "
+             f"last step by rank: exchanges {[x['p2p_hops'] for x in steps]}"
+             f" ({[round(x['p2p_bytes'] / 2**20, 1) for x in steps]} MiB, "
+             f"{[round(x['p2p_s'] / x['s'], 3) for x in steps]} of the "
+             f"step); all-to-alls {[x['a2a_calls'] for x in steps]} ("
+             f"{[round(x['a2a_bytes'] / 2**20, 1) for x in steps]} MiB, "
+             f"{[round(x['a2a_s'] / x['s'], 3) for x in steps]} of the "
+             f"step); other collectives {[x['calls'] for x in steps]} ("
+             f"{[round(x['bytes'] / 2**20, 1) for x in steps]} MiB, "
+             f"{[round(x['comm_s'] / x['s'], 3) for x in steps]} of the "
+             f"step); peak by rank "
+             f"{[round(rk['context'][part]['peak'] / 2**30, 2) for rk in ranks]}"
+             f" GiB; launches by rank "
+             f"{[rk['context'][part]['launches'] for rk in ranks]}")
 
 
 def tp_kernel_checks():
@@ -7385,9 +7579,10 @@ def tp_kernel_checks():
 
 
 def hybrid_rank(out_dir):
-    """A rank of phases 29-32 (``chip_smoke.py --hybrid-rank DIR`` under
+    """A rank of phases 29-33 (``chip_smoke.py --hybrid-rank DIR`` under
     the launcher): the DataParallel steps, the tensor-parallel steps,
-    the ZeRO levels, then the hybrid steps; writes its numbers."""
+    the ZeRO levels, the hybrid steps, then ring / Ulysses attention and
+    the context- and expert-parallel steps; writes its numbers."""
     import torch
     from paddle_tpu_torch import distributed as dist
     env = dist.init_parallel_env()
@@ -7399,10 +7594,15 @@ def hybrid_rank(out_dir):
         torch.cuda.reset_peak_memory_stats(dev)
     ddp = ddp_rank(env, out_dir)
     timer = _CommTimer(dev)
+    p2p, a2a = _P2PTimer(dev), _A2ATimer(dev)
     res = dict(rank=env.rank, backend=dist.get_group().backend, ddp=ddp,
                tp=_tp_rank(dev, timer, out_dir, env.rank),
                zero=_zero_rank(dev, timer, out_dir, env.rank),
-               pipe=_pipeline_rank(dev, timer, out_dir, env.rank),
+               pipe=_pipeline_rank(dev, timer, p2p, a2a, out_dir, env.rank,
+                                   PIPE_PARTS),
+               ring_alone=_ring_alone_rank(dev, p2p, a2a),
+               context=_pipeline_rank(dev, timer, p2p, a2a, out_dir,
+                                      env.rank, CONTEXT_PARTS),
                modules=sorted(m for m in sys.modules
                               if m.split(".")[0] in ("jax", "paddle_tpu")))
     with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
@@ -7461,9 +7661,11 @@ def _check_hybrid_path(label, res, ref_losses, bound, steps):
 
 
 def hybrid_phase(root):
-    """Phases 29-32: DataParallel, tensor-parallel training, ZeRO and the
-    hybrid steps, two ranks sharing one card over gloo through one launch
-    of the port's launcher, against one process on the same batches."""
+    """Phases 29-33: DataParallel, tensor-parallel training, ZeRO, the
+    hybrid steps, ring / Ulysses attention and the context- and
+    expert-parallel steps, two ranks sharing one card over gloo through
+    one launch of the port's launcher, against one process on the same
+    batches."""
     import shutil
 
     import torch
@@ -7477,11 +7679,12 @@ def hybrid_phase(root):
     t0 = time.perf_counter()
     ref = _hybrid_reference(root)
     t_ref = time.perf_counter() - t0
-    pipe_ref = _pipeline_reference(out_dir)
+    pipe_ref = _pipeline_reference(out_dir, PIPE_PARTS)
+    context_ref = _pipeline_reference(out_dir, CONTEXT_PARTS)
     t_pipe = time.perf_counter() - t0 - t_ref
-    _log(f"phase 32 one process: {t_pipe:.1f} s")
+    _log(f"phases 32-33 one process: {t_pipe:.1f} s")
     t0 += t_pipe
-    ranks = _launch_ranks(root, out_dir, "--hybrid-rank", "phases 29-32")
+    ranks = _launch_ranks(root, out_dir, "--hybrid-rank", "phases 29-33")
     launch_s = time.perf_counter() - t0 - t_ref
     ddp = ddp_phase(out_dir, [rk["ddp"] for rk in ranks], launch_s)
     for rk in ranks:
@@ -7518,6 +7721,7 @@ def hybrid_phase(root):
                         f"one process's, want [{lo}, {hi}]")
             z["shares"] = got
     _check_pipeline(ranks, pipe_ref)
+    _check_context(ranks, context_ref)
     r0 = ranks[0]
 
     def summary(res):
@@ -7564,7 +7768,8 @@ def hybrid_phase(root):
              f"{z['shares']['grad']:.3f}, parameters "
              f"{z['shares']['param']:.3f}; launches {z['launches']}; "
              f"optimizer.fused {z['kinds']}")
-    return dict(ranks=ranks, ref=ref, ddp=ddp, pipe_ref=pipe_ref)
+    return dict(ranks=ranks, ref=ref, ddp=ddp, pipe_ref=pipe_ref,
+                context_ref=context_ref)
 
 
 def card_name() -> str:
@@ -7618,8 +7823,9 @@ def main() -> int:
     tpk = timed("phase 30 kernel entries", tp_kernel_checks)
     rows["flash_fwd"]["mask_heads_max_abs_err"] = \
         tpk["mask_heads_max_abs_err"]
-    hybrid = timed("DataParallel, tensor parallelism, ZeRO and the hybrid "
-                   "steps (phases 29-32)", hybrid_phase, root)
+    hybrid = timed("DataParallel, tensor parallelism, ZeRO, the hybrid "
+                   "steps, context and expert parallelism (phases 29-33)",
+                   hybrid_phase, root)
     ddp = hybrid["ddp"]
     timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=CUT_LAYERS))
     prefix, spec = timed("prefix and spec", serving_extras_phase)
@@ -7753,6 +7959,10 @@ def main() -> int:
             paths[f"zero_{level}_rank{r}"] = z["launches"]
         for part, res in rk["pipe"].items():
             paths[f"pipe_{part}_rank{r}"] = res["launches"]
+        for name, res in rk["ring_alone"].items():
+            paths[f"alone_{name}_rank{r}"] = res["launches"]
+        for part, res in rk["context"].items():
+            paths[f"context_{part}_rank{r}"] = res["launches"]
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}

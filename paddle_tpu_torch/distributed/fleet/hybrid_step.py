@@ -1,12 +1,14 @@
-"""The hybrid-parallel train step (pp x dp x mp, Megatron SP, ZeRO) and the
-fused ZeRO-3 step: counterpart of
+"""The hybrid-parallel train step (pp x dp x mp x cp, Megatron SP, ZeRO,
+expert parallelism) and the fused ZeRO-3 step: counterpart of
 ``paddle_tpu/distributed/fleet/hybrid_step.py``.
 
 The JAX package runs each step as ONE program under ``shard_map`` over a
-``(pp, dp, mp)`` mesh and differentiates through it.  The port is
-process-granular: every rank of the job (``fleet.init``'s topology, on
-the JAX mesh's order: pp outermost, mp innermost) calls the step with its
-own shard of the parameters and runs the same tick arithmetic:
+``(pp, dp, mp)`` mesh (``(pp, dp, cp, mp)`` with context parallelism) and
+differentiates through it.  The port is process-granular: every rank of
+the job (``fleet.init``'s topology, on the JAX mesh's order: pp
+outermost, mp innermost; cp is the topology's ``sep`` axis, between dp
+and mp) calls the step with its own shard of the parameters and runs the
+same tick arithmetic:
 
 - PP: the interleaved (vpp = 1: GPipe) tick loop of the JAX ``loss_fn``
   (``spmd_pipeline.run_schedule``, the pipelines' own loop); activations
@@ -21,6 +23,18 @@ own shard of the parameters and runs the same tick arithmetic:
 - DP + ZeRO-1/2: each rank takes its ``B / dp`` rows; Adam updates this
   rank's ``1 / dp`` flat slice of every leaf (stage 1 all-reduces the
   gradient and slices, stage 2 reduce-scatters it), then all-gathers.
+- CP: a rank takes its ``S / cp`` columns of the batch; the whole block
+  stays sequence-split, its embedding adds its rows of ``wpe``,
+  attention crosses the sep group by ring hops (``ring_attention_local``)
+  or a head all-to-all (``ulysses_attention_local``), each shard's last
+  label is the next rank's first token (a one-token exchange), and the
+  loss sums over the group.
+- EP (``moe_num_experts``): every block's MLP is a top-1 (switch)
+  mixture of experts, the experts split over dp.  A rank routes its own
+  tokens (with SP, its sequence slice): it packs them into one lane a dp
+  rank (``moe_dispatch``), exchanges the lanes (a differentiable
+  all-to-all), runs its experts, exchanges back and unpacks, weighted by
+  the gate's probability (``moe_combine``).
 - remat: each stage under ``torch.utils.checkpoint`` (non-reentrant).
 
 The gradient rule.  The JAX step sums each leaf's per-rank cotangent over
@@ -31,7 +45,12 @@ sums they leave out: over pp for the leaves no stage splits (``wte``,
 ``wpe``, ``lnf_*``, ``head``: the first or last stage alone touches
 them), and, with SP, over mp for the leaves the mp ranks hold alike (the
 LayerNorms, ``bproj``, ``bfc2``, ``wpe``, ``lnf_*``: each rank saw its
-own sequence slice).  The yardstick is :func:`serial_train_step`.
+own sequence slice), and over the sep group for every leaf (no leaf is
+split on cp; each rank saw its own columns).  The expert leaves, split
+on dp, get no dp sum: the all-to-all's backward brings every token's
+gradient to its expert's rank.  The yardstick is
+:func:`serial_train_step`, and one step's gradients are
+``step.value_and_grad``.
 
 Parameters keep the JAX package's layout (``x @ W``, ``[in, out]``; wqkv's
 output laid out ``[nh, 3, hd]``), so ``models/convert.py``'s
@@ -43,9 +62,7 @@ card the ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` kernels,
 on the CPU their plain versions.  The ZeRO-3 shard update runs on
 ``fused_adamw`` (its plain version on the CPU).
 
-Context parallelism (``cp``) is ROADMAP.md A.8.4, expert parallelism
-(``moe_num_experts``) A.8.5 and the checkpoints of both steps A.8.6: they
-raise.
+The checkpoints of both steps are ROADMAP.md A.8.6: they raise.
 """
 
 from __future__ import annotations
@@ -64,7 +81,10 @@ from ...observability import telemetry as _telemetry
 from ...observability.flops import training_flops_per_token
 from ...ops import flash_attention as _fa
 from .. import collective as _coll
-from .mp_layers import ParallelCrossEntropy, copy_to_mp, reduce_from_mp
+from ...ops.moe import moe_combine, moe_dispatch, routing_indices
+from . import spmd_pipeline as _pipe
+from .mp_layers import (ParallelCrossEntropy, all_to_all, copy_to_mp,
+                        reduce_from_mp)
 from .sharding import flat_shard_layout, plan_zero3_buckets
 from .spmd_pipeline import (_remat, join, run_schedule, schedule_ticks,
                             tick_work, tree_map)
@@ -102,9 +122,14 @@ class HybridConfig:
     vpp: int = 1  # virtual pipeline chunks per pp rank (interleaved)
     n_microbatches: int = 2
     sequence_parallel: bool = True
+    # context parallelism over the topology's sep axis: "ring" hops or
+    # the "ulysses" head all-to-all
     cp: int = 1
     cp_attention: str = "ring"
     remat: bool = True
+    # expert parallelism: a top-1 mixture of experts in every block, the
+    # experts split over dp; moe_capacity is a dp lane's token capacity
+    # (0: a rank's token count, nothing dropped)
     moe_num_experts: int = 0
     moe_capacity: int = 0
     # ZeRO stage over dp: 1 all-reduces the gradients, 2 reduce-scatters
@@ -118,14 +143,6 @@ class HybridConfig:
     dtype: Any = torch.float32
 
     def __post_init__(self):
-        if self.cp > 1:
-            raise NotImplementedError(
-                "HybridConfig.cp > 1 (context parallelism: ring / Ulysses "
-                "attention) is not ported yet: see ROADMAP.md A.8.4")
-        if self.moe_num_experts > 0:
-            raise NotImplementedError(
-                "HybridConfig.moe_num_experts > 0 (expert parallelism in "
-                "the hybrid step) is not ported yet: see ROADMAP.md A.8.5")
         if self.intermediate_size == 0:
             self.intermediate_size = 4 * self.hidden_size
         assert self.num_layers % (self.pp * self.vpp) == 0
@@ -138,6 +155,20 @@ class HybridConfig:
             # whole blocks of pp micro-batches (Megatron's rule)
             assert self.n_microbatches % self.pp == 0
         assert self.cp_attention in ("ring", "ulysses")
+        if self.cp > 1:
+            assert self.mp == 1 and not self.sequence_parallel, \
+                "context parallel composes with pp/dp; combine with " \
+                "Megatron TP-SP per-config, not both in one block"
+            assert self.seq_len % self.cp == 0
+            assert self.moe_num_experts == 0
+            if self.cp_attention == "ulysses":
+                assert self.num_heads % self.cp == 0
+        if self.moe_num_experts > 0:
+            assert self.moe_num_experts % self.dp == 0, \
+                "experts shard over the dp axis"
+            assert self.mp == 1 or self.sequence_parallel, \
+                "MoE with mp>1 needs sequence_parallel (each mp rank " \
+                "must route a disjoint token shard)"
 
     @property
     def layers_per_stage(self):
@@ -186,8 +217,14 @@ def _param_shapes(cfg: HybridConfig):
                      cfg.vocab_size, cfg.seq_len, cfg.num_layers)
     blocks = {"ln1_g": (L, H), "ln1_b": (L, H), "wqkv": (L, H, 3 * H),
               "bqkv": (L, 3 * H), "wproj": (L, H, H), "bproj": (L, H),
-              "ln2_g": (L, H), "ln2_b": (L, H), "wfc1": (L, H, I),
-              "bfc1": (L, I), "wfc2": (L, I, H), "bfc2": (L, H)}
+              "ln2_g": (L, H), "ln2_b": (L, H)}
+    E = cfg.moe_num_experts
+    if E > 0:
+        blocks.update(wgate=(L, H, E), wexp1=(L, E, H, I),
+                      wexp2=(L, E, I, H))
+    else:
+        blocks.update(wfc1=(L, H, I), bfc1=(L, I), wfc2=(L, I, H),
+                      bfc2=(L, H))
     return {"blocks": blocks, "wte": (V, H), "wpe": (S, H),
             "lnf_g": (H,), "lnf_b": (H,), "head": (H, V)}
 
@@ -198,12 +235,13 @@ def init_gpt_params(cfg: HybridConfig, generator=None, device="cpu"):
     ``torch.Generator``; a CPU one seeded 0 by default): normal weights
     with std 0.02 (the output projections 0.02 / sqrt(2 L)), LayerNorm
     gains one, biases zero, as the JAX ``init_gpt_params`` lays them
-    out."""
+    out (with experts: ``wgate``, ``wexp1``, ``wexp2`` in place of the
+    dense MLP's leaves)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     std = 0.02
     shapes = _param_shapes(cfg)
-    small = {"wproj", "wfc2"}
+    small = {"wproj", "wfc2", "wexp2"}
 
     def make(name, shape):
         if name.startswith("ln") and name.endswith("_g"):
@@ -249,36 +287,47 @@ def hybrid_param_specs(cfg: HybridConfig) -> Dict[str, Any]:
     (a tuple like the JAX ``PartitionSpec``; None: not split).  qkv and
     fc1 are column-parallel, proj and fc2 row-parallel, the embedding
     vocab-parallel, the head column-parallel over the vocabulary; block
-    leaves ``[pp, vpp, Lc, ...]`` split on pp."""
+    leaves ``[pp, vpp, Lc, ...]`` split on pp.  Experts split on E over
+    dp (the gate replicated)."""
     blocks = {
         "ln1_g": ("pp",), "ln1_b": ("pp",),
         "wqkv": ("pp", None, None, None, "mp"),
         "bqkv": ("pp", None, None, "mp"),
         "wproj": ("pp", None, None, "mp", None), "bproj": ("pp",),
         "ln2_g": ("pp",), "ln2_b": ("pp",),
-        "wfc1": ("pp", None, None, None, "mp"),
-        "bfc1": ("pp", None, None, "mp"),
-        "wfc2": ("pp", None, None, "mp", None), "bfc2": ("pp",),
     }
+    if cfg.moe_num_experts > 0:
+        blocks.update(wgate=("pp",),
+                      wexp1=("pp", None, None, "dp", None, None),
+                      wexp2=("pp", None, None, "dp", None, None))
+    else:
+        blocks.update(wfc1=("pp", None, None, None, "mp"),
+                      bfc1=("pp", None, None, "mp"),
+                      wfc2=("pp", None, None, "mp", None), bfc2=("pp",))
     return {"blocks": blocks, "wte": ("mp", None), "wpe": (),
             "lnf_g": (), "lnf_b": (), "head": (None, "mp")}
 
 
+def _opt_spec(spec):
+    axes = tuple(a for a in spec if a is not None)
+    return axes if "dp" in axes else axes + ("dp",)
+
+
 def zero_state_specs(specs: Dict[str, Any]):
     """The optimizer state's specs: each leaf flattened and split over
-    dp after the param's own axes."""
+    dp after the param's own axes; an expert leaf's (already split on
+    dp) follows the param."""
     leaves, treedef = flatten(specs)
-    return unflatten(treedef, [tuple(a for a in s if a is not None)
-                               + ("dp",) for s in leaves])
+    return unflatten(treedef, [_opt_spec(s) for s in leaves])
 
 
 def hybrid_local_params(stacked, cfg: HybridConfig, pp_rank: int,
-                        mp_rank: int):
+                        mp_rank: int, dp_rank: int = 0):
     """This rank's shard of the stacked tree (what the JAX step sees
-    inside ``shard_map``, the unit pp dimension of block leaves
-    dropped)."""
-    sizes = {"pp": cfg.pp, "mp": cfg.mp}
-    ranks = {"pp": pp_rank, "mp": mp_rank}
+    inside ``shard_map``, the unit pp dimension of block leaves dropped;
+    ``dp_rank`` picks the experts' slice)."""
+    sizes = {"pp": cfg.pp, "mp": cfg.mp, "dp": cfg.dp}
+    ranks = {"pp": pp_rank, "mp": mp_rank, "dp": dp_rank}
 
     def local(leaf, spec):
         out, dim = leaf, 0
@@ -296,15 +345,17 @@ def hybrid_local_params(stacked, cfg: HybridConfig, pp_rank: int,
 
 def gather_hybrid_params(params_local, cfg: HybridConfig, hcg):
     """The stacked global tree from every rank's shard, on every rank
-    (all-gathers over mp, then pp)."""
+    (all-gathers over mp and dp, then pp)."""
     mp_g = hcg.get_model_parallel_group()
+    dp_g = hcg.get_data_parallel_group()
     pp_g = hcg.get_pipe_parallel_group()
 
     def gather(leaf, spec):
         out = leaf.detach().contiguous()
         dims = [e for e in spec if e != "pp"]
-        if "mp" in dims:
-            out = _coll.all_gather_concat(out, dims.index("mp"), mp_g)
+        for axis, group in (("mp", mp_g), ("dp", dp_g)):
+            if axis in dims:
+                out = _coll.all_gather_concat(out, dims.index(axis), group)
         if "pp" in spec:
             out = _coll.all_gather_concat(out[None].contiguous(), 0, pp_g)
         return out
@@ -314,11 +365,14 @@ def gather_hybrid_params(params_local, cfg: HybridConfig, hcg):
 def init_zero_state(params_local, specs, dp: int):
     """Adam's (m, v) for this rank: per leaf a flat float zero slice of
     ``Fp / dp`` elements, ``Fp = dp * ceil(F / dp)`` with F the local
-    leaf's size (the JAX ``init_zero_state``'s slices).  Returns
+    leaf's size (the JAX ``init_zero_state``'s slices); an expert leaf's
+    state is shaped like the leaf (its dp split already).  Returns
     ``(m, v, opt_specs)``."""
     leaves, treedef = flatten(params_local)
-    m = [torch.zeros(flat_shard_layout(p.shape, dp)[1] // dp,
-                     dtype=p.dtype, device=p.device) for p in leaves]
+    m = [torch.zeros_like(p) if "dp" in s else
+         torch.zeros(flat_shard_layout(p.shape, dp)[1] // dp,
+                     dtype=p.dtype, device=p.device)
+         for p, s in zip(leaves, flatten(specs)[0])]
     return (unflatten(treedef, m),
             unflatten(treedef, [x.clone() for x in m]),
             zero_state_specs(specs))
@@ -345,11 +399,99 @@ def _attention(q, k, v):
     return _fa.flash_attention(q, k, v, True)
 
 
-def _block(p, x, lidx, nh_local, *, mp_group=None, seq_parallel=False):
+def _attention_cp(q, k, v, group, mode):
+    """Causal attention ``[B, s, nh, hd]`` with the sequence split over
+    ``group`` (the sep group): ring hops or the Ulysses head
+    all-to-all."""
+    from ...incubate.nn.functional.ring_attention import (
+        ring_attention_local, ulysses_attention_local)
+    fn = ring_attention_local if mode == "ring" else ulysses_attention_local
+    return fn(*(t.transpose(1, 2) for t in (q, k, v)), group,
+              causal=True).transpose(1, 2)
+
+
+def _gate_top1(h2, wg):
+    """The switch (top-1) router: h2 ``[T, H]``, wg ``[H, E]`` -> (the
+    expert ``[T]``, its softmax probability ``[T]`` in h2's type); the
+    first index wins a tie, as in ``jnp.argmax``."""
+    logits = (h2 @ wg).float()
+    probs = torch.softmax(logits, dim=-1)
+    a = torch.argmax(logits, dim=-1)
+    return a, probs.gather(1, a[:, None])[:, 0].to(h2.dtype)
+
+
+def _expert(p, lidx, e, x):
+    """Expert e of block ``lidx``; its GELU is tanh's, as in the JAX
+    hybrid step (``ExpertMLP`` uses the exact one)."""
+    h = F.gelu(x @ p["wexp1"][lidx, e], approximate="tanh")
+    return h @ p["wexp2"][lidx, e]
+
+
+def _moe_ffn_serial(p, x, lidx, cfg):
+    """The switch FFN of the serial model: every token to its argmax
+    expert, nothing dropped, the output scaled by the gate's
+    probability."""
+    B, S, H = x.shape
+    h2 = x.reshape(B * S, H)
+    a, prob = _gate_top1(h2, p["wgate"][lidx])
+    y = torch.zeros_like(h2)
+    for e in range(cfg.moe_num_experts):
+        y = y + torch.where((a == e)[:, None], _expert(p, lidx, e, h2), 0.0)
+    return (y * prob[:, None]).reshape(B, S, H)
+
+
+def _moe_ffn_dist(p, x, lidx, cfg, dp_group):
+    """The expert-parallel switch FFN on this rank's tokens (the JAX
+    ``_moe_ffn_dist``): each token goes to the dp rank that holds its
+    expert, in a lane of ``C`` rows a destination (``moe_capacity``, or
+    the rank's token count); tokens past a lane's capacity contribute
+    zero.  Packing is ``moe_dispatch`` with one "expert" a dp lane, the
+    exchange a differentiable all-to-all over dp (the local expert ids
+    ride a plain one), the rank's El experts run masked, and the
+    unpacking is ``moe_combine`` weighted by the gate's probability, so
+    its backward carries the gradient to the gate."""
+    DP = dp_group.nranks
+    El = cfg.moe_num_experts // DP
+    B, S, H = x.shape
+    T = B * S
+    C = cfg.moe_capacity if cfg.moe_capacity > 0 else T
+    h2 = x.reshape(T, H)
+    a, prob = _gate_top1(h2, p["wgate"][lidx])
+    dest = a // El
+    # a token's place in its destination's lane: the JAX step's stable
+    # sort by destination keeps the token order within a lane, so the
+    # place is the count of earlier tokens bound there
+    oh = F.one_hot(dest, DP)
+    pos = (torch.cumsum(oh, 0) - oh).gather(1, dest[:, None])[:, 0]
+    keep = pos < C
+    flat, inv = routing_indices(dest[:, None], pos.clamp(max=C - 1)[:, None],
+                                keep[:, None].float(), DP, C)
+    send_x = moe_dispatch(h2, inv)                          # [DP C, H]
+    send_e = torch.full((DP * C + 1,), El, dtype=torch.int32,
+                        device=x.device)                    # El: empty
+    send_e.scatter_(0, flat.reshape(-1).long(), (a - dest * El).int())
+    send_e = send_e[:DP * C].contiguous()
+    recv_x = all_to_all(send_x, dp_group)
+    recv_e = torch.empty_like(send_e)
+    _coll.alltoall_single(recv_e, send_e, group=dp_group)
+    y = torch.zeros_like(recv_x)
+    for e in range(El):
+        y = y + torch.where((recv_e == e)[:, None],
+                            _expert(p, lidx, e, recv_x), 0.0)
+    back = all_to_all(y, dp_group).contiguous()
+    out = moe_combine(back, (prob * keep)[:, None], flat)
+    return out.reshape(B, S, H)
+
+
+def _block(p, x, lidx, nh_local, *, mp_group=None, seq_parallel=False,
+           cfg=None, dp_group=None, cp_group=None):
     """One pre-LN transformer block; serial without ``mp_group``.  With
     ``seq_parallel`` x enters and leaves sequence-sharded ``[B, S/mp,
     H]``: the TP regions see the whole sequence through an all-gather in
-    and a reduce-scatter out."""
+    and a reduce-scatter out.  With ``cp_group`` the sequence stays split
+    over it and attention crosses it (``cfg.cp_attention``).  With
+    ``cfg.moe_num_experts`` the MLP is the switch MoE on the rank's own
+    tokens: expert-parallel over ``dp_group``, serial without it."""
     def take(name):
         return p[name][lidx]
 
@@ -369,20 +511,32 @@ def _block(p, x, lidx, nh_local, *, mp_group=None, seq_parallel=False):
     # wqkv's 3H output is laid out [nh, 3, hd], so an mp column shard is
     # whole heads
     qkv = (h @ take("wqkv") + take("bqkv")).reshape(B, S, nh_local, 3, -1)
-    a = _attention(qkv[:, :, :, 0], qkv[:, :, :, 1],
-                   qkv[:, :, :, 2]).reshape(B, S, -1)
-    x = x + leave_tp(a @ take("wproj")) + take("bproj")
-    h = enter_tp(_layer_norm(x, take("ln2_g"), take("ln2_b")))
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    if cp_group is not None:
+        a = _attention_cp(q, k, v, cp_group, cfg.cp_attention)
+    else:
+        a = _attention(q, k, v)
+    x = x + leave_tp(a.reshape(B, S, -1) @ take("wproj")) + take("bproj")
+    h = _layer_norm(x, take("ln2_g"), take("ln2_b"))
+    if cfg is not None and cfg.moe_num_experts > 0:
+        if dp_group is not None:
+            return x + _moe_ffn_dist(p, h, lidx, cfg, dp_group)
+        return x + _moe_ffn_serial(p, h, lidx, cfg)
+    h = enter_tp(h)
     f = F.gelu(h @ take("wfc1") + take("bfc1"), approximate="tanh")
     return x + leave_tp(f @ take("wfc2")) + take("bfc2")
 
 
-def _lm_loss(logits, labels, mp_group=None):
+def _lm_loss(logits, labels, mp_group=None, sstart=0, seq_total=None,
+             seq_group=None):
     """The causal-LM loss over logits ``[B, S, V(/mp)]``, the last
     position ignored.  Over mp ranks: ``ParallelCrossEntropy`` (the
     maximum, the sum of exponentials and the target logit reduced over
     the group; only ``[B, S]`` crosses it).  One rank: the same math,
-    the maximum a constant of the gradient."""
+    the maximum a constant of the gradient.  With the sequence split over
+    ``seq_group``, this rank's rows start at ``sstart`` of
+    ``seq_total``: the GLOBAL last position is ignored and the sum runs
+    over the group (an all-reduce whose backward is the identity)."""
     if mp_group is not None and mp_group.nranks > 1:
         nll = ParallelCrossEntropy(mp_group=mp_group)(logits, labels)
     else:
@@ -391,8 +545,13 @@ def _lm_loss(logits, labels, mp_group=None):
         logz = mx.squeeze(-1) + torch.log(torch.exp(x - mx).sum(dim=-1))
         nll = logz - x.gather(-1, labels[..., None].long())[..., 0]
     S = nll.shape[1]
-    mask = (torch.arange(S, device=nll.device) < S - 1).to(nll.dtype)
-    return (nll * mask).sum() / mask.sum() / nll.shape[0]
+    S_tot = S if seq_total is None else seq_total
+    mask = (sstart + torch.arange(S, device=nll.device) < S_tot - 1) \
+        .to(nll.dtype)
+    tot = (nll * mask).sum()
+    if seq_group is not None:
+        return reduce_from_mp(tot, seq_group) / (S_tot - 1) / nll.shape[0]
+    return tot / mask.sum() / nll.shape[0]
 
 
 # --------------------------------------------------------------------------
@@ -405,7 +564,7 @@ def serial_forward(params, ids, cfg: HybridConfig):
     S = ids.shape[1]
     x = params["wte"][ids] + params["wpe"][:S]
     for layer in range(cfg.num_layers):
-        x = _block(params["blocks"], x, layer, cfg.num_heads)
+        x = _block(params["blocks"], x, layer, cfg.num_heads, cfg=cfg)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     return _lm_loss(x @ params["head"], torch.roll(ids, -1, dims=1))
 
@@ -444,24 +603,27 @@ def serial_train_step(params, m, v, step, ids, cfg: HybridConfig):
 # the hybrid step
 # --------------------------------------------------------------------------
 
-def _resolve_hcg(hcg, pp=1, dp=1, mp=1):
+def _resolve_hcg(hcg, pp=1, dp=1, mp=1, cp=1):
     """``hcg``; a dict of degrees, or None (``fleet.init``'s topology if
-    there is one, else these degrees), made into one."""
+    there is one, else these degrees), made into one.  cp is the
+    topology's sep degree."""
     from .fleet import _fleet_state
     from .topology import HybridCommunicateGroup
     if hcg is None:
         hcg = _fleet_state["hcg"]
     if hcg is None or isinstance(hcg, dict):
-        d = hcg or {"pp": pp, "dp": dp, "mp": mp}
+        d = hcg or {"pp": pp, "dp": dp, "mp": mp, "cp": cp}
         hcg = HybridCommunicateGroup(dp_degree=d.get("dp", 1),
                                      mp_degree=d.get("mp", 1),
-                                     pp_degree=d.get("pp", 1))
+                                     pp_degree=d.get("pp", 1),
+                                     sep_degree=d.get("cp", 1))
     got = (hcg.get_pipe_parallel_world_size(),
            hcg.get_data_parallel_world_size(),
-           hcg.get_model_parallel_world_size())
-    if got != (pp, dp, mp):
-        raise ValueError(f"the topology's (pp, dp, mp) {got} differ from "
-                         f"the config's {(pp, dp, mp)}")
+           hcg.get_model_parallel_world_size(),
+           hcg.get_sep_parallel_world_size())
+    if got != (pp, dp, mp, cp):
+        raise ValueError(f"the topology's (pp, dp, mp, sep) {got} differ "
+                         f"from the config's {(pp, dp, mp, cp)}")
     return hcg
 
 
@@ -511,25 +673,32 @@ def _timed(step, name, cfg, tokens_of):
 
 def make_hybrid_train_step(hcg, cfg: HybridConfig):
     """The hybrid train step over the topology ``hcg`` (a
-    ``HybridCommunicateGroup``, a dict of ``pp`` / ``dp`` / ``mp``
-    degrees, or None: ``fleet.init``'s, else the config's degrees; in
-    every case the config's degrees).
+    ``HybridCommunicateGroup``, a dict of ``pp`` / ``dp`` / ``mp`` /
+    ``cp`` degrees, or None: ``fleet.init``'s, else the config's degrees;
+    in every case the config's degrees, cp as the sep degree).
 
     Returns ``step(params, m, v, step_no, ids) -> (loss, params, m, v)``,
     called on every rank: ``params`` this rank's
     :func:`hybrid_local_params`, ``m`` / ``v`` its
     :func:`init_zero_state`, ``step_no`` the 1-based Adam step, ``ids``
-    ``[M, B, S]`` the whole batch (a rank takes its dp block of rows, the
-    JAX ``P(None, "dp", None)``).  The loss (summed over pp, averaged
-    over dp) comes back on every rank; the parameters and moments are new
-    tensors."""
-    hcg = _resolve_hcg(hcg, cfg.pp, cfg.dp, cfg.mp)
-    MP, DP, VPP = cfg.mp, cfg.dp, cfg.vpp
+    ``[M, B, S]`` the whole batch (a rank takes its dp block of rows and
+    its cp block of columns, the JAX ``P(None, "dp", "cp")``).  The loss
+    (summed over pp and cp, averaged over dp) comes back on every rank;
+    the parameters and moments are new tensors.
+
+    ``step.value_and_grad(params, ids) -> (loss, grads)``: the loss and
+    this rank's gradient tree as the update reads it, whole (summed over
+    every rank that contributes to it; before ZeRO takes its slice)."""
+    hcg = _resolve_hcg(hcg, cfg.pp, cfg.dp, cfg.mp, cfg.cp)
+    MP, DP, VPP, CP = cfg.mp, cfg.dp, cfg.vpp, cfg.cp
     M = cfg.n_microbatches
     pp_g = hcg.get_pipe_parallel_group()
     dp_g = hcg.get_data_parallel_group()
     mp_g = hcg.get_model_parallel_group() if MP > 1 else None
+    sep_g = hcg.get_sep_parallel_group() if CP > 1 else None
     dp_i, mp_i = hcg.get_data_parallel_rank(), hcg.get_model_parallel_rank()
+    cp_i = hcg.get_sep_parallel_rank() if CP > 1 else 0
+    ep_g = dp_g if cfg.moe_num_experts > 0 else None
     nh_local = cfg.num_heads // MP
     Vloc = cfg.vocab_size // MP
     sp = cfg.sequence_parallel and MP > 1
@@ -544,12 +713,14 @@ def make_hybrid_train_step(hcg, cfg: HybridConfig):
             e = _sp.reduce_scatter(e, 1, mp_g)
             s = e.shape[1]
             return e + ps["wpe"][mp_i * s:(mp_i + 1) * s]
-        return reduce_from_mp(e, mp_g) + ps["wpe"][:ids.shape[1]]
+        s = ids.shape[1]                # cp: this rank's rows of wpe
+        return reduce_from_mp(e, mp_g) + ps["wpe"][cp_i * s:(cp_i + 1) * s]
 
     def stage(chunk, h):
         for layer in range(cfg.layers_per_stage):
             h = _block(chunk, h, layer, nh_local, mp_group=mp_g,
-                       seq_parallel=sp)
+                       seq_parallel=sp, cfg=cfg, dp_group=ep_g,
+                       cp_group=sep_g)
         return h
 
     stage_fn = _remat(stage) if cfg.remat else stage
@@ -557,6 +728,10 @@ def make_hybrid_train_step(hcg, cfg: HybridConfig):
     def head_loss(ps, h, labels):
         h = _layer_norm(h, ps["lnf_g"], ps["lnf_b"])
         h = _sp.all_gather(h, 1, mp_g) if sp else copy_to_mp(h, mp_g)
+        if CP > 1:
+            s = labels.shape[1]
+            return _lm_loss(h @ ps["head"], labels, mp_g, sstart=cp_i * s,
+                            seq_total=s * CP, seq_group=sep_g)
         return _lm_loss(h @ ps["head"], labels, mp_g)
 
     def loss_and_grads(ps, ids_local):
@@ -565,7 +740,14 @@ def make_hybrid_train_step(hcg, cfg: HybridConfig):
         its head loss; the ring delivers rank PP-1's slot-j output to rank
         0 when it starts slot j + 1."""
         b, S = ids_local.shape[1], ids_local.shape[2]
-        labels_all = torch.roll(ids_local, -1, dims=2)
+        if CP > 1:
+            # a shard's last label is the next cp rank's first token (the
+            # last rank's wraps to rank 0's: the global roll)
+            nxt = _pipe._exchange(ids_local[:, :, :1].contiguous(), sep_g,
+                                  -1)
+            labels_all = torch.cat([ids_local[:, :, 1:], nxt], dim=2)
+        else:
+            labels_all = torch.roll(ids_local, -1, dims=2)
         losses = []
         carry = run_schedule(
             lambda v, h: stage_fn({k: leaf[v] for k, leaf in
@@ -582,12 +764,16 @@ def make_hybrid_train_step(hcg, cfg: HybridConfig):
         join(loss_acc / (M * DP), carry).backward()
         return loss_acc.detach() / M
 
-    def step(params, m, v, step_no, ids):
+    def grads_of(params, ids):
+        """The loss, the leaves and their gradients with every sum but
+        dp's done."""
         b = ids.shape[1] // DP
-        ids_local = ids[:, dp_i * b:(dp_i + 1) * b].to(
-            flatten(params)[0][0].device)
+        ids_local = ids[:, dp_i * b:(dp_i + 1) * b]
+        if CP > 1:
+            s = ids.shape[2] // CP
+            ids_local = ids_local[:, :, cp_i * s:(cp_i + 1) * s]
         leaves, ps = _requires_grad(params)
-        loss = loss_and_grads(ps, ids_local).reshape(1)
+        loss = loss_and_grads(ps, ids_local.to(leaves[0].device)).reshape(1)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in leaves]
         # the sums the operators leave out (the module's head)
@@ -597,36 +783,56 @@ def make_hybrid_train_step(hcg, cfg: HybridConfig):
             _sp.allreduce_sequence_parallel_grads(
                 [g for g, s in zip(grads, spec_leaves) if "mp" not in s],
                 mp_g)
+        if CP > 1:
+            _sp.allreduce_sequence_parallel_grads(grads, sep_g)
         _coll.all_reduce(loss, _coll.ReduceOp.SUM, pp_g)
         _coll.all_reduce(loss, _coll.ReduceOp.AVG, dp_g)
+        return loss[0], leaves, grads
+
+    def value_and_grad(params, ids):
+        loss, _, grads = grads_of(params, ids)
+        _sp.allreduce_sequence_parallel_grads(
+            [g for g, s in zip(grads, spec_leaves) if "dp" not in s], dp_g)
+        return loss, unflatten(flatten(params)[1], grads)
+
+    def step(params, m, v, step_no, ids):
+        loss, leaves, grads = grads_of(params, ids)
         new_p, new_m, new_v = [], [], []
         with torch.no_grad():
-            for p, g, mm, vv in zip(leaves, grads, flatten(m)[0],
-                                    flatten(v)[0]):
-                # ZeRO: Adam on this dp rank's 1/dp flat slice, then the
-                # all-gather; stage 1 all-reduces the gradient and
-                # slices, stage 2 (and 3) reduce-scatters it
-                F_, k = p.numel(), mm.numel()
-                flat_p = F.pad(p.detach().reshape(-1), (0, DP * k - F_))
-                flat_g = F.pad(g.reshape(-1), (0, DP * k - F_))
-                psh = flat_p[dp_i * k:(dp_i + 1) * k]
-                if cfg.zero_stage >= 2:
-                    gsh = torch.empty_like(psh)
-                    _coll.reduce_scatter(gsh, flat_g, group=dp_g)
+            for p, g, mm, vv, spec in zip(leaves, grads, flatten(m)[0],
+                                          flatten(v)[0], spec_leaves):
+                if "dp" in spec:
+                    # an expert leaf: this rank's experts are its own,
+                    # plain Adam, no ZeRO slice or gather
+                    p2, m2, v2 = _adam_math(p.detach(), g, mm, vv, step_no,
+                                            cfg)
                 else:
-                    _coll.all_reduce(flat_g, _coll.ReduceOp.SUM, dp_g)
-                    gsh = flat_g[dp_i * k:(dp_i + 1) * k]
-                p2, m2, v2 = _adam_math(psh, gsh, mm, vv, step_no, cfg)
-                full = _coll.all_gather_concat(p2.contiguous(), 0, dp_g)
-                new_p.append(full[:F_].reshape(p.shape))
+                    # ZeRO: Adam on this dp rank's 1/dp flat slice, then
+                    # the all-gather; stage 1 all-reduces the gradient
+                    # and slices, stage 2 (and 3) reduce-scatters it
+                    F_, k = p.numel(), mm.numel()
+                    flat_p = F.pad(p.detach().reshape(-1), (0, DP * k - F_))
+                    flat_g = F.pad(g.reshape(-1), (0, DP * k - F_))
+                    psh = flat_p[dp_i * k:(dp_i + 1) * k]
+                    if cfg.zero_stage >= 2:
+                        gsh = torch.empty_like(psh)
+                        _coll.reduce_scatter(gsh, flat_g, group=dp_g)
+                    else:
+                        _coll.all_reduce(flat_g, _coll.ReduceOp.SUM, dp_g)
+                        gsh = flat_g[dp_i * k:(dp_i + 1) * k]
+                    p2, m2, v2 = _adam_math(psh, gsh, mm, vv, step_no, cfg)
+                    full = _coll.all_gather_concat(p2.contiguous(), 0, dp_g)
+                    p2 = full[:F_].reshape(p.shape)
+                new_p.append(p2)
                 new_m.append(m2)
                 new_v.append(v2)
         treedef = flatten(params)[1]
-        return (loss[0], unflatten(treedef, new_p), unflatten(treedef, new_m),
+        return (loss, unflatten(treedef, new_p), unflatten(treedef, new_m),
                 unflatten(treedef, new_v))
 
     timed = _timed(step, "hybrid", cfg, lambda a: int(a[4].numel()))
     timed.hcg = hcg
+    timed.value_and_grad = value_and_grad
     return timed
 
 
@@ -693,10 +899,11 @@ def make_zero3_train_step(hcg, cfg: HybridConfig, grain: int = 0):
     from ...ops.fused_optimizer import FusedTable, fused_adamw
     if isinstance(hcg, int):
         hcg = {"dp": hcg}
-    hcg = _resolve_hcg(hcg, 1, cfg.dp, 1)
     assert cfg.zero_stage == 3, "make_zero3_train_step is the stage-3 path"
-    assert cfg.pp == 1 and cfg.mp == 1, \
+    assert cfg.pp == 1 and cfg.mp == 1 and cfg.cp == 1, \
         "fused ZeRO-3 is dp-only FSDP; mp/pp belong to make_hybrid_train_step"
+    assert cfg.moe_num_experts == 0, "MoE experts already shard over dp"
+    hcg = _resolve_hcg(hcg, 1, cfg.dp, 1)
     dp_g = hcg.get_data_parallel_group()
     dp, d_i = cfg.dp, hcg.get_data_parallel_rank()
     M = cfg.n_microbatches

@@ -16,6 +16,10 @@ operators, ``torch.autograd.Function`` s over the mp group
 - :func:`gather_from_mp`: gather on the last dim forward, split backward;
 - :func:`scatter_to_mp`: split on the last dim forward, gather backward.
 
+Beside them, :func:`all_to_all` over any group (``lax.all_to_all`` with
+``tiled=True``), whose backward is the reverse all-to-all: Ulysses
+attention's head exchange and expert parallelism's token exchange.
+
 Reductions run in float32 and come back in the input's type.
 
 Layouts, in ``torch.nn.Linear``'s ``[out, in]`` (``models/convert.py``
@@ -48,7 +52,7 @@ from .. import collective as _coll
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "shard_param",
            "copy_to_mp", "reduce_from_mp", "gather_from_mp",
-           "scatter_to_mp", "mp_state", "shard_of", "full_of",
+           "scatter_to_mp", "all_to_all", "mp_state", "shard_of", "full_of",
            "gather_full", "init_global_"]
 
 
@@ -142,6 +146,42 @@ def gather_from_mp(x, group):
 
 def scatter_to_mp(x, group):
     return _ScatterToMP.apply(x, group) if _active(group) else x
+
+
+def _exchange_all(x, group, split, concat):
+    """Chunk j of ``x`` along ``split`` goes to rank j; the chunks
+    received, in rank order, are concatenated along ``concat``."""
+    send = torch.stack(x.chunk(group.nranks, dim=split)).contiguous()
+    recv = torch.empty_like(send)
+    _coll.alltoall_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split, concat):
+        ctx.group, ctx.split, ctx.concat = group, split, concat
+        return _exchange_all(x.detach(), group, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange_all(g.contiguous(), ctx.group, ctx.concat,
+                              ctx.split), None, None, None)
+
+
+def all_to_all(x, group, split_axis: int = 0, concat_axis: int = 0):
+    """``lax.all_to_all(x, split_axis, concat_axis, tiled=True)`` over
+    ``group``: ``x`` cut in ``nranks`` equal chunks along ``split_axis``,
+    chunk j sent to rank j, and the chunks received concatenated along
+    ``concat_axis`` in rank order.  Differentiable: the backward is the
+    all-to-all with the two axes swapped.  One rank: ``x``."""
+    if not _active(group):
+        return x
+    if x.shape[split_axis] % group.nranks:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not divide by the group size "
+                         f"{group.nranks}")
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 # ------------------------------------------------------- shard bookkeeping

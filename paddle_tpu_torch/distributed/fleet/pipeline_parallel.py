@@ -34,11 +34,19 @@ class PipelineParallel:
         self.total_loss = None
 
     def _split_microbatches(self, data):
+        """``accumulate_steps`` equal micro-batches of x and y; a batch
+        that does not divide raises the reference's ``ValueError``
+        (``ops.manipulation.split``) before any forward."""
         x, y = data
         mbs = self.accumulate_steps
-        xs = torch.chunk(x, mbs, dim=0) if mbs > 1 else [x]
-        ys = torch.chunk(y, mbs, dim=0) if mbs > 1 else [y]
-        return xs, ys
+        if mbs == 1:
+            return [x], [y]
+        for t in (x, y):
+            if t.shape[0] % mbs:
+                raise ValueError(
+                    "array split does not result in an equal division: "
+                    f"{t.shape[0]} rows into {mbs} micro-batches")
+        return torch.chunk(x, mbs, dim=0), torch.chunk(y, mbs, dim=0)
 
     def forward_backward_pipeline(self, data, scaler=None):
         """F-then-B with gradient accumulation (1F1B's arithmetic is the

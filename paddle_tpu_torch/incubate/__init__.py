@@ -1,3 +1,4 @@
 """The parts of the JAX package's ``incubate`` that the port has: the
-mixture-of-experts layer of the GPT-MoE blocks, and the fused RoPE and
-SwiGLU of the Llama family (``incubate.nn.functional``)."""
+mixture-of-experts layer of the GPT-MoE blocks, the fused RoPE and
+SwiGLU of the Llama family, and ring / Ulysses attention
+(``incubate.nn.functional``)."""

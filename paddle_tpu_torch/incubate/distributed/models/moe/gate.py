@@ -10,8 +10,13 @@ expert id, the slot in that expert's fixed-capacity buffer, a keep flag
 renormalised combine weight, for the fused dispatch of ``ops/moe.py``;
 ``forward`` gives the same decision in the dense form, ``(T, E, C)``
 combine weights and 0/1 dispatch slots, for ``MoELayer``'s einsum path.
-Expert parallelism (the JAX gates' ``world_size``) goes with ROADMAP.md
-A.8.
+
+The constructors take the JAX gates' arguments in their order:
+``(d_model, num_expert, world_size=1, top_k, ...)``.  A gate routes over
+``tot_expert = num_expert * world_size`` experts (its ``Linear`` is
+``d_model -> tot_expert``, and capacity and the aux losses count
+``tot_expert``); ``group`` is accepted and unused, as in the JAX gates.
+The port's ``generator=`` comes after them, by keyword.
 
 Two details fix the routing bit for bit against the JAX package:
 
@@ -54,11 +59,13 @@ class BaseGate(nn.Module):
     ``forward_indices(x)`` in index form; the aux loss of the last call is
     ``get_loss()``."""
 
-    def __init__(self, d_model: int, num_expert: int, top_k: int = 2):
+    def __init__(self, d_model: int, num_expert: int, world_size: int = 1,
+                 top_k: int = 2):
         super().__init__()
         self.d_model = d_model
         self.num_expert = num_expert
-        self.tot_expert = num_expert
+        self.world_size = world_size
+        self.tot_expert = num_expert * world_size
         self.top_k = top_k
         self.loss = None
 
@@ -73,9 +80,9 @@ class BaseGate(nn.Module):
 class NaiveGate(BaseGate):
     """Top-k softmax routing with fixed capacity, no aux loss."""
 
-    def __init__(self, d_model, num_expert, top_k=2,
+    def __init__(self, d_model, num_expert, world_size=1, top_k=2,
                  capacity_factor: float = 1.0, min_capacity: int = 4):
-        super().__init__(d_model, num_expert, top_k)
+        super().__init__(d_model, num_expert, world_size, top_k)
         self.gate = nn.Linear(d_model, self.tot_expert)
         self.capacity_factor = capacity_factor
         self.min_capacity = min_capacity
@@ -194,12 +201,12 @@ class SwitchGate(NaiveGate):
     """Top-1 routing with the Switch-Transformer load-balance loss
     ``E * sum_e(frac_e * mean_gate_e)``."""
 
-    def __init__(self, d_model, num_expert, top_k=1, capacity_factor=1.0,
-                 min_capacity=4):
+    def __init__(self, d_model, num_expert, world_size=1, top_k=1,
+                 capacity_factor=1.0, min_capacity=4, group=None):
         if top_k != 1:
             raise ValueError("SwitchGate routes top-1")
-        super().__init__(d_model, num_expert, 1, capacity_factor,
-                         min_capacity)
+        super().__init__(d_model, num_expert, world_size, 1,
+                         capacity_factor, min_capacity)
 
     def _aux(self, frac, mean_gate):
         return (frac * mean_gate).sum() * float(self.tot_expert)
@@ -207,15 +214,17 @@ class SwitchGate(NaiveGate):
 
 class GShardGate(NaiveGate):
     """Top-2 routing with the GShard aux loss, capacity ``(train, eval)``
-    in multiples of tokens / E, and random routing of the second choice
-    in training: kept with probability ``2 * g2``."""
+    in multiples of tokens / E, and with ``random_routing`` random routing
+    of the second choice in training: kept with probability ``2 * g2``."""
 
-    def __init__(self, d_model, num_expert, top_k=2, capacity=(1.2, 2.4),
+    def __init__(self, d_model, num_expert, world_size=1, top_k=2,
+                 capacity=(1.2, 2.4), random_routing=True, group=None,
                  generator=None):
         if top_k != 2:
             raise ValueError("GShardGate routes top-2")
-        super().__init__(d_model, num_expert, 2)
+        super().__init__(d_model, num_expert, world_size, 2)
         self._cap_train, self._cap_eval = capacity
+        self.random_routing = random_routing
         self.generator = generator
 
     def uniforms(self, n: int, device) -> torch.Tensor:
@@ -232,7 +241,7 @@ class GShardGate(NaiveGate):
                        min_capacity=self.min_capacity)
         gates = self._gates(x)
         second_keep = None
-        if self.training:
+        if self.random_routing and self.training:
             g2 = torch.sort(gates, dim=-1, descending=True)[0][:, 1]
             second_keep = (2.0 * g2 > self.uniforms(T, x.device)).float()
         return gates, cap, second_keep

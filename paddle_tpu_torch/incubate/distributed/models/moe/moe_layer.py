@@ -12,8 +12,11 @@ construction as the JAX layer snapshots ``FLAGS_moe_fused_dispatch``:
   expert buffers and ``einsum("tec,ecm->tm")`` back, plain large
   products that the JAX package leaves to XLA outside any Pallas kernel.
 
-``audit_dispatch`` goes with the X-ray rewrite and expert-parallel
-sharding with the distributed slice (ROADMAP.md A.9, A.8).
+``audit_dispatch`` goes with the X-ray rewrite (ROADMAP.md A.9).  The
+JAX layer's experts shard over an ``ep`` mesh axis under GSPMD; the port
+has no mesh, and its expert parallelism is the hybrid step's
+(``distributed/fleet/hybrid_step.py``, ``moe_num_experts``), so
+``moe_group`` and ``mp_group`` are accepted here and unused.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ class MoELayer(nn.Module):
     and ``d_hidden``).  After each forward the gate's aux loss is
     ``self.l_aux``, for the caller to add to the training loss.
     ``generator`` (the model's) feeds GShard's random routing.
+    ``moe_group`` and ``mp_group`` are the JAX layer's, accepted and
+    unused there and here.
 
     The layer lives on ``device``: ``cuda`` by default (raises without
     CUDA unless ``device="cpu"``), where dispatch and combine run the
@@ -85,8 +90,9 @@ class MoELayer(nn.Module):
     def __init__(self, d_model: int, experts: Optional[ExpertMLP] = None,
                  gate: "BaseGate | str" = "gshard", num_expert: int = None,
                  d_hidden: int = None, top_k: int = 2,
-                 capacity_factor: Optional[float] = None, generator=None,
-                 device=None, fused: bool = True, **gate_kwargs):
+                 capacity_factor: Optional[float] = None, moe_group=None,
+                 mp_group=None, generator=None, device=None,
+                 fused: bool = True, **gate_kwargs):
         super().__init__()
         meta = device is not None and torch.device(device).type == "meta"
         device = torch.device("meta") if meta else resolve_device(device)

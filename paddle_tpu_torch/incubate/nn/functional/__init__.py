@@ -1,5 +1,5 @@
-"""Fused functionals of the Llama family: rotary position embedding and
-SwiGLU.
+"""Fused functionals of the Llama family (rotary position embedding and
+SwiGLU), and ring / Ulysses attention (:mod:`.ring_attention`).
 
 Counterparts of ``paddle_tpu/incubate/nn/functional/__init__.py``
 (``_rope_impl``, ``_default_cos_sin``, ``fused_rotary_position_embedding``,
@@ -21,7 +21,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fused_rotary_position_embedding", "rope_cos_sin", "swiglu"]
+from .ring_attention import (ring_attention,  # noqa: F401
+                             ring_attention_chunked, ring_attention_local,
+                             ulysses_attention, ulysses_attention_local)
+
+__all__ = ["fused_rotary_position_embedding", "rope_cos_sin", "swiglu",
+           "ring_attention_local", "ring_attention",
+           "ring_attention_chunked", "ulysses_attention_local",
+           "ulysses_attention"]
 
 
 def rope_cos_sin(position_ids, head_dim: int, base: float = 10000.0,

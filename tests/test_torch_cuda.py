@@ -2560,3 +2560,104 @@ def test_fused_adamw_split_norm_matches_its_plain_version(gen, low, clip,
             else:
                 assert _step_change_err(got, got0, want, want0) <= 1e-4
     assert int(steps[0]) == (2 if scaled == "inf" else 3)
+
+
+# ------------------------------------------ ring hops and EP lanes (A.8)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_ring_hop_backward_against_the_global_lse(gen, dtype, hd):
+    """A ring rank's hops: the whole key range's out and lse (the global
+    normaliser) from the plain version, then each chunk's backward on
+    the kernels (FULL hops non-causal, the DIAG hop causal) against the
+    plain version's on the same inputs; the chunks' dq sum to the whole
+    sequence's."""
+    n, C, nh, nkv = 4, 96, 4, 2
+    q = _randn(gen, (1, C, nh, hd), dtype)                 # rank 2's rows
+    k = _randn(gen, (1, n * C, nkv, hd), dtype)
+    v = _randn(gen, (1, n * C, nkv, hd), dtype)
+    g = _randn(gen, (1, C, nh, hd), dtype)
+    rank = 2
+    keys = slice(0, (rank + 1) * C)
+    out, lse = fa.flash_attention_fwd_reference(q, k[:, keys], v[:, keys],
+                                                causal=True)
+    out = out.to(dtype).contiguous()
+    dq_sum = torch.zeros(q.shape, device="cuda")
+    for src in range(rank + 1):
+        kc = k[:, src * C:(src + 1) * C].contiguous()
+        vc = v[:, src * C:(src + 1) * C].contiguous()
+        causal = src == rank
+        nq, nk = fa.flash_attention_bwd_dq.launches, \
+            fa.flash_attention_bwd_dkv.launches
+        got = fa.flash_attention_bwd(q, kc, vc, out, lse, g, causal)
+        assert (fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches) == (nq + 1, nk + 1)
+        want = fa.flash_attention_bwd_reference(q, kc, vc, out, lse, g,
+                                                causal)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(),
+                                       **GRAD_TOL[dtype])
+        dq_sum += got[0].float()
+    whole = fa.flash_attention_bwd_reference(q, k[:, keys], v[:, keys], out,
+                                             lse, g, True)
+    torch.testing.assert_close(dq_sum, whole[0].float(), **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_chunked_on_the_kernels_matches_the_cpu(gen, dtype):
+    """``ring_attention_chunked`` (one process, the ring's hop program):
+    on the card every hop launches the kernels, against the CPU's plain
+    hops on the same inputs; output and gradients."""
+    from paddle_tpu_torch.incubate.nn.functional import ring_attention_chunked
+    n, C = 4, 64
+    q = _randn(gen, (1, 4, 2 * C, 128), dtype)              # two members
+    k, v = (_randn(gen, (1, 2, n * C, 128), dtype) for _ in range(2))
+    g = _randn(gen, (1, 4, 2 * C, 128), dtype)
+    got = []
+    for dev in ("cuda", "cpu"):
+        x = [t.to(dev).clone().requires_grad_() for t in (q, k, v)]
+        counts = (fa.flash_attention_fwd.launches,
+                  fa.flash_attention_bwd_dq.launches)
+        out = ring_attention_chunked(*x, n_chunks=n, causal=True,
+                                     q_off=C)
+        (out.float() * g.to(dev).float()).sum().backward()
+        if dev == "cuda":
+            # members 1 and 2 run 2 and 3 hops (the later chunks skipped)
+            assert (fa.flash_attention_fwd.launches - counts[0],
+                    fa.flash_attention_bwd_dq.launches - counts[1]) == (5, 5)
+        got.append([out.detach().float().cpu()]
+                   + [t.grad.float().cpu() for t in x])
+    torch.testing.assert_close(got[0][0], got[1][0], **TOL[dtype])
+    for a, b in zip(got[0][1:], got[1][1:]):
+        torch.testing.assert_close(a, b, **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ep_pack_and_unpack_through_dp_lanes(gen, dtype):
+    """Expert parallelism's pack and unpack (``hybrid_step._moe_ffn_dist``)
+    with E = 2 dp lanes of capacity 700 for 1500 tokens (drops in the
+    fuller lane): ``moe_dispatch`` exact and ``moe_combine`` exact against
+    their plain versions."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import moe as mo
+    T, H, DP, C = 1500, 2048, 2, 700
+    x = _randn(gen, (T, H), dtype)
+    dest = torch.randint(0, DP, (T,), generator=gen, device="cuda")
+    prob = torch.rand((T,), generator=gen, device="cuda")
+    oh = F.one_hot(dest, DP)
+    pos = (torch.cumsum(oh, 0) - oh).gather(1, dest[:, None])[:, 0]
+    keep = pos < C
+    assert 0 < int(keep.sum()) < T
+    flat, inv = mo.routing_indices(dest[:, None],
+                                   pos.clamp(max=C - 1)[:, None],
+                                   keep[:, None].float(), DP, C)
+    nd, nc = mo.moe_dispatch.launches, mo.moe_combine.launches
+    send = mo.moe_dispatch(x, inv)
+    assert torch.equal(send, mo.moe_dispatch_reference(x, inv))
+    back = _randn(gen, (DP * C, H), dtype)
+    w = (prob * keep)[:, None]
+    out = mo.moe_combine(back, w, flat)
+    assert torch.equal(out, mo.moe_combine_reference(back, w, flat))
+    assert (mo.moe_dispatch.launches, mo.moe_combine.launches) == \
+        (nd + 1, nc + 1)
+    assert not out[~keep].any()

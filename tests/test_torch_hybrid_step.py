@@ -1,5 +1,6 @@
 """The port's hybrid train step (pp x dp x mp, Megatron SP, ZeRO-1/2, VPP,
-remat) and fused ZeRO-3 step on the CPU, against the JAX package.
+remat, context parallelism by ring or Ulysses attention, expert
+parallelism) and fused ZeRO-3 step on the CPU, against the JAX package.
 
 The ranks are spawned worlds of 2, 4 and 8 CPU processes over gloo
 (``_torch_world.py``); they import the port and torch, never jax.  The
@@ -8,10 +9,14 @@ the JAX package holds it to its serial functions in its own slow tests
 (``tests/test_hybrid_step.py``); so the ranks are held here to the JAX
 package's ``serial_train_step``: one run of it on the tiny GPT (H 64, 4
 heads, S 32, V 128, 4 layers, 4 micro-batches of 4 rows, Adam lr 1e-3)
-is the reference of every configuration.  Losses within rtol 2e-4 and
+is the reference of every configuration (a second, with 4 experts in
+every block, of the expert-parallel one).  Losses within rtol 2e-4 and
 atol 2e-5 (the JAX tests' bound); parameters within 2 x lr x steps
 (ROADMAP.md reference fact 6: Adam moves a weight whose gradient is
-rounding noise by up to lr a step).
+rounding noise by up to lr a step).  Adam's update hardly sees a
+gradient's scale, so a sum done twice or a mean taken twice would pass
+those bounds: one step's gathered gradients are also held against
+``jax.grad`` of the JAX serial loss, at rtol 1e-4 / atol 1e-6.
 """
 
 import os
@@ -42,12 +47,26 @@ def task_modules():
                   if m.split(".")[0] in ("jax", "paddle_tpu"))
 
 
-def _fleet(pp=1, dp=1, mp=1):
+def _fleet(pp=1, dp=1, mp=1, cp=1):
     from paddle_tpu_torch.distributed import fleet
     s = fleet.DistributedStrategy()
     s.hybrid_configs = dict(dp_degree=dp, mp_degree=mp, pp_degree=pp,
-                            sharding_degree=1, sep_degree=1)
+                            sharding_degree=1, sep_degree=cp)
     return fleet.init(is_collective=True, strategy=s)
+
+
+def _hybrid_setup(T, cfg_kw, params, dev):
+    """This rank's topology, config, shard of ``params`` (the JAX serial
+    tree) and step."""
+    from paddle_tpu_torch.models.convert import hybrid_params_from_numpy
+    cfg = T.HybridConfig(**cfg_kw)
+    hcg = _fleet(cfg.pp, cfg.dp, cfg.mp, cfg.cp)
+    stacked = T.stack_for_pipeline(
+        hybrid_params_from_numpy(params, device=dev), cfg)
+    local = T.hybrid_local_params(stacked, cfg, hcg.get_stage_id(),
+                                  hcg.get_model_parallel_rank(),
+                                  hcg.get_data_parallel_rank())
+    return cfg, hcg, local, T.make_hybrid_train_step(hcg, cfg)
 
 
 def task_hybrid(cfg_kw, params, ids, steps, dev="cpu"):
@@ -55,23 +74,16 @@ def task_hybrid(cfg_kw, params, ids, steps, dev="cpu"):
     JAX serial tree) on ``dev``: the losses and the gathered serial
     parameters (on the card also the flash launches and plain routes)."""
     from paddle_tpu_torch.distributed.fleet import hybrid_step as T
-    from paddle_tpu_torch.models.convert import (hybrid_params_from_numpy,
-                                                 hybrid_params_to_numpy)
+    from paddle_tpu_torch.models.convert import hybrid_params_to_numpy
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = T.HybridConfig(**cfg_kw)
-    hcg = _fleet(cfg.pp, cfg.dp, cfg.mp)
     fns = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
            fa.flash_attention_bwd_dkv)
     for fn in fns:
         fn.launches = 0
     fa.flash_attention_fwd.plain_calls = 0
-    stacked = T.stack_for_pipeline(
-        hybrid_params_from_numpy(params, device=dev), cfg)
-    local = T.hybrid_local_params(stacked, cfg, hcg.get_stage_id(),
-                                  hcg.get_model_parallel_rank())
+    cfg, hcg, local, step = _hybrid_setup(T, cfg_kw, params, dev)
     m, v, _ = T.init_zero_state(local, T.hybrid_param_specs(cfg), cfg.dp)
-    step = T.make_hybrid_train_step(hcg, cfg)
     losses = []
     for i in range(steps):
         loss, local, m, v = step(local, m, v, float(i + 1),
@@ -83,6 +95,18 @@ def task_hybrid(cfg_kw, params, ids, steps, dev="cpu"):
         return out
     return out + ([fn.launches for fn in fns],
                   fa.flash_attention_fwd.plain_calls)
+
+
+def task_grads(cfg_kw, params, ids):
+    """``step.value_and_grad`` on this rank's shard: the loss and the
+    gathered serial gradient tree."""
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.models.convert import hybrid_params_to_numpy
+    cfg, hcg, local, step = _hybrid_setup(T, cfg_kw, params, "cpu")
+    loss, grads = step.value_and_grad(local, torch.from_numpy(ids))
+    full = T.gather_hybrid_params(grads, cfg, hcg)
+    return float(loss), hybrid_params_to_numpy(
+        T.unstack_for_pipeline(full, cfg))
 
 
 def task_serial(cfg_kw, params, ids, steps):
@@ -139,15 +163,16 @@ def worlds():
         w.close()
 
 
-@pytest.fixture(scope="module")
-def reference(worlds):
-    """The JAX package's serial GPT: its parameters, the batches, and
-    ``STEPS`` Adam steps of ``serial_train_step`` (losses, parameters);
-    compiled while the worlds' ranks start."""
+def _jax_reference(**extra):
+    """The JAX package's serial GPT: its parameters, the batches,
+    ``STEPS`` Adam steps of ``serial_train_step`` (losses, parameters),
+    and the first step's gradients: ``jax.grad`` of the serial loss
+    inside ``serial_train_step``, read back from Adam's first moment
+    ``m = (1 - beta1) g`` (no second compile)."""
     import jax
     import jax.numpy as jnp
     from paddle_tpu.distributed.fleet import hybrid_step as J
-    cfg = J.HybridConfig(pp=1, mp=1, dp=1, **BASE)
+    cfg = J.HybridConfig(pp=1, mp=1, dp=1, **BASE, **extra)
     params = J.init_gpt_params(jax.random.key(42), cfg)
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (cfg.n_microbatches, B, cfg.seq_len)) \
@@ -160,9 +185,26 @@ def reference(worlds):
     for i in range(STEPS):
         loss, *state = step(*state, jnp.float32(i + 1), jnp.asarray(ids))
         losses.append(float(loss))
+        if i == 0:
+            grads = jax.tree_util.tree_map(
+                lambda m: np.asarray(m, np.float64) / (1 - cfg.beta1),
+                state[1])
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     return dict(params=to_np(params), ids=ids.astype(np.int64),
-                losses=losses, after=to_np(state[0]), cfg=cfg)
+                losses=losses, after=to_np(state[0]), cfg=cfg, grads=grads)
+
+
+@pytest.fixture(scope="module")
+def reference(worlds):
+    """The dense model's reference, compiled while the worlds' ranks
+    start."""
+    return _jax_reference()
+
+
+@pytest.fixture(scope="module")
+def moe_reference(worlds):
+    """The reference with a 4-expert switch MoE in every block."""
+    return _jax_reference(moe_num_experts=4)
 
 
 def _assert_matches(losses, params, ref, bound=2 * LR * STEPS):
@@ -226,18 +268,57 @@ HYBRID_CASES = {
     "mp2_no_sp": (2, dict(pp=1, dp=1, mp=2, sequence_parallel=False)),
     "dp2_zero2": (2, dict(pp=1, dp=2, mp=1, zero_stage=2)),
     "pp2_mp2_sp_no_remat": (4, dict(pp=2, dp=1, mp=2, remat=False)),
+    # the JAX package's test_hybrid_context_parallel and
+    # test_hybrid_moe_expert_parallel
+    "pp2_dp2_cp2_ring": (8, dict(pp=2, dp=2, mp=1, cp=2,
+                                 sequence_parallel=False)),
+    "pp2_dp2_cp2_ulysses": (8, dict(pp=2, dp=2, mp=1, cp=2,
+                                    cp_attention="ulysses",
+                                    sequence_parallel=False)),
+    "pp2_dp2_mp2_sp_moe4_zero2": (8, dict(pp=2, dp=2, mp=2,
+                                          moe_num_experts=4, zero_stage=2)),
 }
 
 
+def _reference_of(request, kw):
+    return request.getfixturevalue(
+        "moe_reference" if kw.get("moe_num_experts") else "reference")
+
+
 @pytest.mark.parametrize("case", sorted(HYBRID_CASES))
-def test_hybrid_step_matches_the_jax_serial_step(worlds, reference, case):
+def test_hybrid_step_matches_the_jax_serial_step(worlds, request, case):
     W, kw = HYBRID_CASES[case]
-    res = worlds[W].run("task_hybrid", dict(BASE, **kw),
-                        reference["params"], reference["ids"], STEPS,
-                        timeout=TIMEOUT)
+    ref = _reference_of(request, kw)
+    res = worlds[W].run("task_hybrid", dict(BASE, **kw), ref["params"],
+                        ref["ids"], STEPS, timeout=TIMEOUT)
     for losses, params in res:
-        _assert_matches(losses, params, reference)
+        _assert_matches(losses, params, ref)
     _assert_replicas_equal([p for _, p in res])
+
+
+@pytest.mark.parametrize("case", ["pp2_dp2_cp2_ring", "pp2_dp2_cp2_ulysses",
+                                  "pp2_dp2_mp2_sp_moe4_zero2",
+                                  "pp2_dp2_mp2_sp_zero1"])
+def test_one_step_gradients_equal_jax_grad(worlds, request, case):
+    """Every rank's gathered gradient tree of one step against
+    ``jax.grad`` of the JAX serial loss: a sum over cp, dp, mp or pp
+    missing or done twice shows here, where Adam's update would hide
+    it."""
+    W, kw = HYBRID_CASES[case]
+    ref = _reference_of(request, kw)
+    res = worlds[W].run("task_grads", dict(BASE, **kw), ref["params"],
+                        ref["ids"], timeout=TIMEOUT)
+    want = ref["grads"]
+    for loss, grads in res:
+        np.testing.assert_allclose(loss, ref["losses"][0], rtol=2e-4,
+                                   atol=2e-5)
+        for k in ("wte", "wpe", "lnf_g", "lnf_b", "head"):
+            np.testing.assert_allclose(grads[k], want[k], rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+        assert sorted(grads["blocks"]) == sorted(want["blocks"])
+        for k, w in want["blocks"].items():
+            np.testing.assert_allclose(grads["blocks"][k], w, rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("dp", [2, 4])
@@ -277,11 +358,30 @@ def test_ranks_import_neither_jax_nor_the_jax_package(worlds):
 
 
 def test_the_slices_to_come_refuse():
+    """The checkpoints (A.8.6) raise; cp and experts refuse what the JAX
+    config and ZeRO-3 step refuse."""
+    from paddle_tpu.distributed.fleet import hybrid_step as J
     from paddle_tpu_torch.distributed.fleet import hybrid_step as T
-    with pytest.raises(NotImplementedError, match="A.8.4"):
-        T.HybridConfig(cp=2, mp=1, sequence_parallel=False)
-    with pytest.raises(NotImplementedError, match="A.8.5"):
-        T.HybridConfig(moe_num_experts=4)
+    for kw in (dict(cp=2, mp=2, sequence_parallel=False),
+               dict(cp=2, mp=1),                     # SP on by default
+               dict(cp=2, mp=1, sequence_parallel=False, seq_len=33),
+               dict(cp=2, mp=1, sequence_parallel=False,
+                    moe_num_experts=4),
+               dict(cp=3, mp=1, sequence_parallel=False, seq_len=33,
+                    cp_attention="ulysses"),
+               dict(moe_num_experts=3),
+               dict(moe_num_experts=4, sequence_parallel=False)):
+        with pytest.raises(AssertionError):
+            J.HybridConfig(**kw)
+        with pytest.raises(AssertionError):
+            T.HybridConfig(**kw)
+    T.HybridConfig(cp=2, mp=1, sequence_parallel=False)
+    T.HybridConfig(moe_num_experts=4)
+    for kw in (dict(cp=2, sequence_parallel=False),
+               dict(moe_num_experts=2)):
+        cfg = T.HybridConfig(pp=1, mp=1, dp=2, zero_stage=3, **kw)
+        with pytest.raises(AssertionError):
+            T.make_zero3_train_step(2, cfg)
     for fn in (T.save_hybrid_state, T.load_hybrid_state,
                T.save_zero3_state, T.load_zero3_state):
         with pytest.raises(NotImplementedError, match="A.8.6"):

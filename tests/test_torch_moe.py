@@ -197,6 +197,78 @@ def test_gate_forward_is_the_jax_dense_route(monkeypatch, kind, zero, skew,
                                rtol=0)
 
 
+def _positional_gate_pair(kind, world_size):
+    """The JAX gate and the port's built positionally, ``world_size``
+    third (the JAX order), with the same weights."""
+    paddle.seed(5)
+    if kind == "naive":
+        jg = jmoe.NaiveGate(M, E, world_size, 2, 1.0)
+        tg = tmoe.NaiveGate(M, E, world_size, 2, 1.0)
+    elif kind == "switch":
+        jg = jmoe.SwitchGate(M, E, world_size, 1, 1.0, 4, None)
+        tg = tmoe.SwitchGate(M, E, world_size, 1, 1.0, 4, None)
+    else:
+        rr = kind == "gshard"
+        jg = jmoe.GShardGate(M, E, world_size, 2, (1.2, 2.4), rr, None)
+        tg = tmoe.GShardGate(M, E, world_size, 2, (1.2, 2.4), rr, None)
+    w, b = _np(jg.gate.weight).copy(), _np(jg.gate.bias).copy()
+    with torch.no_grad():
+        tg.gate.weight.copy_(torch.from_numpy(w.T.copy()))
+        tg.gate.bias.copy_(torch.from_numpy(b))
+    return jg, tg
+
+
+@pytest.mark.parametrize("kind", ["naive", "switch", "gshard",
+                                  "gshard_no_random_routing"])
+def test_gates_take_world_size_third_like_jax(monkeypatch, kind):
+    """``NaiveGate(M, E, 2, ...)`` routes over ``2 E`` experts in both
+    packages: the Linear is ``M -> 2 E``, ids, slots and keep equal, the
+    weights and the aux loss (which counts ``2 E``) within 1e-6, in
+    training.  ``random_routing=False`` draws no uniforms and keeps every
+    second choice within capacity, as the JAX gate does."""
+    jg, tg = _positional_gate_pair(kind, 2)
+    assert tg.tot_expert == jg.tot_expert == 2 * E
+    assert tuple(tg.gate.weight.shape) == (2 * E, M)
+    jg.train()
+    tg.train()
+    if kind == "gshard_no_random_routing":
+        def never(*a, **k):
+            raise AssertionError("random routing is off")
+        monkeypatch.setattr(paddle, "rand", never)
+        monkeypatch.setattr(tg, "uniforms", never)
+    else:
+        _inject(monkeypatch, 6, [tg])
+    x = _tokens(64, seed=7)
+    want = jg.forward_indices(paddle.to_tensor(x))
+    got = tg.forward_indices(torch.from_numpy(x))
+    assert got[4] == want[4]
+    for i in range(3):
+        np.testing.assert_array_equal(got[i].numpy(), _np(want[i]))
+    for i in (3, 5):
+        np.testing.assert_allclose(got[i].detach().numpy(), _np(want[i]),
+                                   atol=1e-6, rtol=0)
+    assert int(got[0].max()) >= E          # experts past num_expert routed
+    if kind == "gshard":
+        _inject(monkeypatch, 6, [tg])
+    jc, jd, jaux = jg(paddle.to_tensor(x))
+    tc, td, taux = tg(torch.from_numpy(x))
+    assert tc.shape[1] == 2 * E
+    np.testing.assert_array_equal(td.numpy(), _np(jd))
+    np.testing.assert_allclose(taux.item(), float(jaux.item()), atol=1e-6)
+
+
+def test_moe_layer_takes_the_jax_groups():
+    """``MoELayer``'s ``moe_group`` and ``mp_group`` come after
+    ``capacity_factor``, as in the JAX layer, and change nothing."""
+    a = tmoe.MoELayer(M, None, "switch", E, H, 1, 1.0, None, None,
+                      device="cpu")
+    b = tmoe.MoELayer(M, gate="switch", num_expert=E, d_hidden=H, top_k=1,
+                      capacity_factor=1.0, device="cpu")
+    b.load_state_dict(a.state_dict())
+    x = torch.from_numpy(_tokens(16))
+    torch.testing.assert_close(a(x), b(x), rtol=0, atol=0)
+
+
 def test_routing_indices_match_jax(monkeypatch):
     jg, tg = _gate_pair("gshard", skew=1.5)
     _inject(monkeypatch, 4, [tg])

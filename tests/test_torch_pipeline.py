@@ -429,6 +429,82 @@ def test_pipeline_parallel_matches_the_jax_host_schedule(worlds, scale):
     assert want["losses"][-1] < want["losses"][0]
 
 
+class _OneStageHCG:
+    def get_pipe_parallel_world_size(self):
+        return 2
+
+    def get_stage_id(self):
+        return 0
+
+
+def _host_pipelines(weights, accumulate):
+    """The JAX ``PipelineParallel`` and the port's, one process each, on
+    the same two-stage ``PipelineLayer`` weights."""
+    from paddle_tpu import nn as jnn
+    from paddle_tpu.distributed import fleet as jfleet
+    import jax.numpy as jnp
+    from paddle_tpu_torch.distributed import fleet as tfleet
+    from paddle_tpu_torch.distributed.fleet.pipeline_parallel import \
+        PipelineParallel
+    jpipe = jfleet.PipelineLayer(
+        layers=[jfleet.LayerDesc(jnn.Linear, 4, 8),
+                jfleet.LayerDesc(jnn.Tanh),
+                jfleet.LayerDesc(jnn.Linear, 8, 4),
+                jfleet.LayerDesc(jnn.Linear, 4, 1)],
+        num_stages=2, loss_fn=jnn.MSELoss())
+    jlin = [m for m in jpipe.run_function if isinstance(m, jnn.Linear)]
+    for m, (w, b) in zip(jlin, weights):
+        m.weight._value = jnp.asarray(w)
+        m.bias._value = jnp.asarray(b)
+    js = jfleet.DistributedStrategy()
+    js.pipeline_configs["accumulate_steps"] = accumulate
+    tpipe, tlin = _pipe_layer(weights, 2)
+    ts = tfleet.DistributedStrategy()
+    ts.pipeline_configs["accumulate_steps"] = accumulate
+    return (jfleet.PipelineParallel(jpipe, _OneStageHCG(), js), jlin,
+            PipelineParallel(tpipe, _OneStageHCG(), ts), tlin)
+
+
+def test_host_pipeline_refuses_a_batch_that_does_not_divide():
+    """One rank, against the JAX class: 6 rows at 4 micro-batches and 5
+    at 2 raise the reference's ValueError in ``train_batch`` and
+    ``eval_batch`` before any forward; 8 rows at 4 give equal losses and
+    gradients."""
+    import paddle_tpu as paddle
+    rng = np.random.RandomState(2)
+    weights = [((rng.randn(i, o) * 0.5).astype(np.float32),
+                (rng.randn(o) * 0.1).astype(np.float32))
+               for i, o in ((4, 8), (8, 4), (4, 1))]
+    for rows, acc in ((6, 4), (5, 2)):
+        jpp, _, tpp, tlin = _host_pipelines(weights, acc)
+        X = rng.randn(rows, 4).astype(np.float32)
+        Y = X.sum(axis=1, keepdims=True)
+        calls = []
+        tpp._layers.forward = lambda x: calls.append(x)
+        for run in (lambda pp, x, y: pp.train_batch((x, y), None),
+                    lambda pp, x, y: pp.eval_batch((x, y))):
+            with pytest.raises(ValueError, match="equal division"):
+                run(jpp, paddle.to_tensor(X), paddle.to_tensor(Y))
+            with pytest.raises(ValueError, match="equal division"):
+                run(tpp, torch.from_numpy(X), torch.from_numpy(Y))
+        assert calls == []
+    jpp, jlin, tpp, tlin = _host_pipelines(weights, 4)
+    X = rng.randn(8, 4).astype(np.float32)
+    Y = X.sum(axis=1, keepdims=True)
+    jl = jpp.forward_backward_pipeline((paddle.to_tensor(X),
+                                        paddle.to_tensor(Y)))
+    tl = tpp.forward_backward_pipeline((torch.from_numpy(X),
+                                        torch.from_numpy(Y)))
+    np.testing.assert_allclose(float(tl), float(jl.item()), rtol=1e-6)
+    for jm, tm in zip(jlin, tlin):
+        np.testing.assert_allclose(tm.weight.grad.numpy().T,
+                                   np.asarray(jm.weight.grad._value),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(tm.bias.grad.numpy(),
+                                   np.asarray(jm.bias.grad._value),
+                                   rtol=1e-5, atol=1e-6)
+
+
 def test_pipeline_refusals(worlds):
     for r in worlds[2].run("task_pp_refusals", timeout=TIMEOUT):
         assert "PipelineLayer" in r["plain"]
