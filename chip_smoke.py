@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs thirty-four phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -246,10 +246,10 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    default engine and eager programs) with phase 3's checks; a 2-layer
    cut takes 2 AdamW steps card against CPU at B 1 x S 256 with phase 5's
    (the card's fp32 FMA flash kernels reading kv head h // 8).
-16. Llama training at a layer cut: ``llama2_7b(num_layers=8)`` at full
-   width (1.88 B parameters: fp32 weights, gradients and AdamW moments
-   take 30 GB; all 32 layers would take 108 GB), phase 4's step at B 1 x
-   S 4096, 6 steps and one profiled; each flash kernel launched 8 x 6
+16. Llama training at a layer cut: ``llama2_7b(num_layers=4)`` at full
+   width (1.07 B parameters: fp32 weights, gradients and AdamW moments
+   take 17 GB; all 32 layers would take 108 GB), phase 4's step at B 1 x
+   S 4096, 6 steps and one profiled; each flash kernel launched 4 x 6
    times, on the tensor-core kernels by name.
 17. BERT-base MLM training at full width (``bench.py``'s
    ``bench_bert_base``: B 8 x S 512, dropout 0.1, labels on 15% of the
@@ -371,7 +371,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    every gradient (1e-4) against the CPU's fused path; no MoE launch on
    the dense path.  b. Phase 8's step on the dense path, 4 steps: the
    (T, E, C) tensors' bytes, the peak, the step beside phase 8's.
-26. ``hapi.Model.fit`` (after phase 24): GPT-3 1.3B at 4 of its 24
+26. ``hapi.Model.fit`` (after phase 24): GPT-3 1.3B at 2 of its 24
    layers (the time limit), fp32 weights, O1
    bf16, AdamW under a cosine schedule, clip 1.0, a ``DataLoader`` of 2
    spawned workers over 32 of 64 synthetic samples of 2048 token ids
@@ -420,7 +420,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    degree 1's (about and exactly half).  b. One engine, int8
    (``quantize_plan``), 256-token chunks, n-gram speculation: phase 2's
    first two requests and two on a shared 1024-token prefix (the second
-   hits).  c. A 4-layer fp32 cut at ``tp_degree=2`` on the card against
+   hits).  c. A 2-layer fp32 cut at ``tp_degree=2`` on the card against
    the CPU: greedy streams equal.  Every rank launches ``flash_fwd`` and
    ``paged_decode`` (a), ``paged_chunk``, the verify and both weight-only
    kernels (b), with pools at 8 heads, no plain route, no leaked block,
@@ -442,7 +442,7 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    ``mask_heads`` equal to the whole launch's slices, ``fused_adamw``'s
    split norm), then two ranks on card 0 over gloo through the launcher
    (``--hybrid-rank``) under ``fleet.init`` at mp 2: GPT-3 1.3B
-   (``tensor_parallel=True``, 4 of 24 layers, 8 heads a rank), O1 bf16,
+   (``tensor_parallel=True``, 2 of 24 layers, 8 heads a rank), O1 bf16,
    AdamW on the fused step with ``ClipGradByGlobalNorm(1.0)`` and a
    GradScaler through ``fleet.distributed_optimizer``, B 2 x S 2048, 3
    steps (dropout 0.1 in the last); then one step of Llama-2 7B (2 of 32
@@ -490,6 +490,34 @@ into ``build/paddle_tpu_torch/``), then runs twenty-seven phases on card 0:
    ``moe_dispatch`` and ``moe_combine``) launched on every rank, no plain
    route; each step's exchanges, all-to-alls and other collectives with
    their bytes and share of the step.
+34. Distributed checkpoints (same ranks; ``distributed/checkpoint/``:
+   ``save_state_dict.py``, ``load_state_dict.py``, ``metadata.py``,
+   ``utils.py``, ``manager.py``'s ``CheckpointManager``; the
+   ``save_`` / ``load_hybrid_state`` and ``save_`` / ``load_zero3_state``
+   of ``hybrid_step.py``): a. phase 32b's configuration (mp 2 with
+   sequence parallelism, 2 layers, float32): step 1, a save through
+   ``CheckpointManager(root, async_save=True, keep_last=1)``, step 2
+   while the write runs, ``wait()``, a barrier, fresh templates restored
+   by ``load_hybrid_state``, and step 2 again; b. the same for
+   ``make_zero3_train_step`` at dp 2 with grain 2 through
+   ``save_zero3_state`` / ``load_zero3_state``.  The restored step's loss
+   and the SHA-256 of each rank's gathered tree must equal the first
+   step 2's bit for bit; the three flash kernels (and in b
+   ``fused_adamw``) launch in the restored step on every rank, no plain
+   route; this process's template-free ``read_state_dict`` of part a's
+   version must hash as the ranks' gathered step-1 parameters.  Each
+   part prints the free disk, each rank's bytes written, the snapshot,
+   write (files, hashes, the coordinator's commit) and restore seconds
+   with the restore's GB/s, and a pageable against a pinned
+   device-to-host copy of the largest leaf, beside the card's name and
+   power limit; the roots are deleted at the end.
+
+The script re-executes itself once with ``MALLOC_ENV`` (glibc keeps
+freed memory for the next allocation rather than mapping it afresh), and
+the processes it starts inherit it; after the build it prints the host's
+fresh-memory, pageable-copy and CPU dequantize times with and without
+those settings, the latter from a child started without them.  Each rank
+of phases 29-34 reports its seconds by phase.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -523,14 +551,16 @@ REPEATS = 1
 EXTRAS_REPEATS = 1
 SPEC_LENS = [400 + 600 * i // (BATCH - 1) for i in range(BATCH)]  # phase 12
 LLAMA_NH = 32                        # llama2_7b's heads (phase 14)
-LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_S = 8, 4096    # phase 16
+# phase 16 (the time limit: 8 layers before phase 34 joined)
+LLAMA_TRAIN_LAYERS, LLAMA_TRAIN_S = 4, 4096
 # Llama-2 7B served at full width in phases 14, 18, 23c and 27d: 4 of
 # its 32 layers (the script's time limit; 8 before phases 30-31 joined)
 LLAMA_SERVE_LAYERS = 4
 # the fp32 cuts held card against CPU, GPT-3 1.3B's and Llama-2 7B's (the
-# time limit: their CPU sides); phase 28c's at tp_degree=2 is deeper
+# time limit: their CPU sides); phase 28c's at tp_degree=2 too (4 before
+# phase 34 joined)
 CUT_LAYERS = 2
-TP_CUT_LAYERS = 4
+TP_CUT_LAYERS = 2
 CUT_LABEL = f"gpt3_1p3b {CUT_LAYERS} layers fp32"
 MOE_CUT_LAYERS = 2                   # GPT-MoE's cuts: block 1 is the MoE one
 BERT_B, BERT_S = 8, 512              # phase 17, bench.py's bench_bert_base
@@ -550,8 +580,16 @@ CHUNK_KERNELS = ("paged_chunk_tc_kernel", "paged_chunk_merge_kernel",
                  "paged_chunk_kernel")
 
 
+_T0 = time.perf_counter()
+
+
 def _log(*a):
+    """A line of the report on stdout; its head on stderr after the
+    seconds since the process began (where the time goes)."""
     print(*a, flush=True)
+    head = " ".join(str(x) for x in a)[:100]
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {head}", file=sys.stderr,
+          flush=True)
 
 
 def _time_ms(fn, iters):
@@ -2531,14 +2569,58 @@ def sampling_cost(vocab):
          f"{greedy:.4f} ms (CUDA events over an eager loop of 50)")
 
 
-def _device_kernels(prof):
-    """The profile's kernels on the card, without the ranges that
-    ``record_function`` marks on the card's timeline (the optimizer's step,
-    for one): those overlap the kernels they enclose."""
+# the profiler's memory bookkeeping, no record of work
+_NOT_RECORDS = ("[memory]", "[OutOfMemory]")
+
+
+class _Kernel:
+    """One kernel name's line of a profile: the fields of
+    ``key_averages()`` the script reads."""
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+class _Record:
+    """One record of a profile: the fields of ``prof.events()`` that
+    :func:`_lost_records` reads."""
+    __slots__ = ("id", "name", "device_type", "is_user_annotation")
+
+    def __init__(self, e):
+        self.id, self.name = e.correlation_id(), e.name()
+        self.device_type = e.device_type()
+        self.is_user_annotation = e.is_user_annotation()
+
+
+def _device_kernels(results):
+    """The kernels on the card of a profile's raw records (the profiler's
+    ``kineto_results``), by name as ``key_averages()`` gives them (its
+    demangled names, counts and self device time in us), without the
+    ranges that ``record_function`` marks on the card's timeline (the
+    optimizer's step, for one): those overlap the kernels they enclose.
+    Read straight from the records: ``key_averages()`` first builds
+    Python events and their tree for every record, a minute for an eager
+    serving run's few hundred thousand."""
     import torch
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    cuda = torch.autograd.DeviceType.CUDA
+    names, out = {}, {}
+    for e in results.events():
+        if e.device_type() != cuda or e.is_user_annotation() \
+                or e.is_hidden_event() or e.name() in _NOT_RECORDS:
+            continue
+        raw = e.name()
+        key = names.get(raw)
+        if key is None:
+            key = names[raw] = torch._C._demangle(raw)
+        k = out.get(key)
+        if k is None:
+            k = out[key] = _Kernel(key)
+        k.count += 1
+        # key_averages() counts an async record's self time as 0
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            k.self_device_time_total += e.duration_ns() / 1e3
+    return list(out.values())
 
 
 def _profiled(fn, warm, events=None):
@@ -2547,7 +2629,7 @@ def _profiled(fn, warm, events=None):
     records (a cycle's first kernel records can otherwise go missing: a
     profiled train step once showed 23 of its 24 forward launches).
     Returns ``fn``'s result and the active cycle's kernels on the card;
-    ``events``, a list, receives the cycle's events for
+    ``events``, a list, receives the cycle's records for
     :func:`_lost_records`."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -2561,9 +2643,12 @@ def _profiled(fn, warm, events=None):
         out = fn()
         torch.cuda.synchronize()
         prof.step()
+    results = prof.profiler.kineto_results
     if events is not None:
-        events.extend(prof.events())
-    return out, _device_kernels(prof)
+        events.extend(_Record(e) for e in results.events()
+                      if not e.is_hidden_event()
+                      and e.name() not in _NOT_RECORDS)
+    return out, _device_kernels(results)
 
 
 def _graph_kernel_nodes(graph) -> int:
@@ -4577,7 +4662,7 @@ def llama_phases(lens):
     """Phases 14-16 and 18's kernel and serving parts: Llama-2 7B served
     at full width in bf16, the weight-only kernel's checks and the int8
     and fp8 serving on the same model, the GQA fp32 cuts card against
-    CPU, and the 8-layer cut trained at full width."""
+    CPU, and the 4-layer cut trained at full width."""
     import torch
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
@@ -5916,10 +6001,10 @@ class _TokenData:
 
 
 HAPI_STEPS, HAPI_WORKERS = 8, 2
-# GPT-3 1.3B at 4 of its 24 layers (the time limit: the two checkpoints
+# GPT-3 1.3B at 2 of its 24 layers (the time limit: the two checkpoints
 # of the full depth, 15.6 GB each, took ~40 s; 8 layers before phases
-# 30-31 joined the run)
-HAPI_LAYERS = 4
+# 30-31 joined the run, 4 before phase 34)
+HAPI_LAYERS = 2
 HAPI_DIR = os.path.join("build", "hapi_ckpt")
 
 
@@ -6506,7 +6591,7 @@ def tp_phase(model, prompts, runs):
     bytes against degree 1's.  b. The first two requests of the mix
     (greedy and sampled) and two on a shared 1024-token prefix (the
     second hits), int8 (``quantize_plan``), 256-token chunks and n-gram
-    speculation in one engine.  c. The 4-layer fp32 cut card against
+    speculation in one engine.  c. The 2-layer fp32 cut card against
     CPU.  On every rank: the kernels launched, the pools at 8 heads, no
     plain route, no leaked block."""
     import torch
@@ -6583,7 +6668,7 @@ def tp_phase(model, prompts, runs):
 
 
 def tp_card_vs_cpu():
-    """Phase 28c: the 4-layer fp32 cut (``TP_CUT_LAYERS``) at
+    """Phase 28c: the 2-layer fp32 cut (``TP_CUT_LAYERS``) at
     ``tp_degree=2`` on the card (both ranks on card 0), 64-token chunks,
     against the CPU's plain model: two greedy streams equal."""
     import torch
@@ -6762,10 +6847,11 @@ def ddp_phase(out_dir, ranks, launch_s):
 
 # ---------------------------------------------------------- phases 30, 31
 
-# phase 30: GPT-3 1.3B at mp 2 (4 of 24 layers), then Llama-2 7B at mp 2
+# phase 30: GPT-3 1.3B at mp 2 (2 of 24 layers; 4 before phase 34), then
+# Llama-2 7B at mp 2
 # (2 of 32 layers); phase 31: GPT-3 1.3B (2 layers) at ZeRO degree 2.
 # Full width; depths cut for the script's time limit.
-HYBRID = dict(gpt_layers=4, llama_layers=2, zero_layers=2, B=2, S=2048,
+HYBRID = dict(gpt_layers=2, llama_layers=2, zero_layers=2, B=2, S=2048,
               tp_steps=3, zero_steps=2, llama_B=1, device="cuda",
               devices="0,0", gpt="gpt3_1p3b", llama="llama2_7b")
 ZERO_LEVELS = ("os", "os_g", "p_g_os")
@@ -7265,10 +7351,6 @@ def _pipeline_rank(dev, timer, p2p, a2a, out_dir, rank, parts):
         # the gathered tree's bits: the leaves no axis splits are each
         # rank's own copy, so a missing or partial gradient sum over pp,
         # mp or dp parts the ranks (within the 2 lr-steps bound)
-        digest = hashlib.sha256()
-        for leaf in T.flatten(full)[0]:
-            digest.update(leaf.detach().reshape(-1).contiguous()
-                          .view(torch.uint8).cpu().numpy().tobytes())
         worst = None
         if rank == 0:
             ref = torch.load(os.path.join(out_dir, f"ref_pipe_{part}.pt"),
@@ -7278,7 +7360,7 @@ def _pipeline_rank(dev, timer, p2p, a2a, out_dir, rank, parts):
             del ref
         out[part] = dict(
             losses=losses, steps=steps, launches=launches, worst=worst,
-            params_sha256=digest.hexdigest(), peak=peak, ticks=cfg.n_microbatches * cfg.vpp + cfg.pp - 1,
+            params_sha256=_tree_sha(T.flatten(full)[0]), peak=peak, ticks=cfg.n_microbatches * cfg.vpp + cfg.pp - 1,
             bubble=T.bubble_fraction(cfg.pp, cfg.vpp, cfg.n_microbatches),
             buckets=len(getattr(step, "buckets", ())))
         del state, full, step
@@ -7492,6 +7574,245 @@ def _check_context(ranks, ref):
              f"{[rk['context'][part]['launches'] for rk in ranks]}")
 
 
+# phase 34: the checkpointed parts, phase 32b's and (at grain 2) 32c's
+CKPT_PARTS = {"hybrid": "b", "zero3": "c"}
+CKPT_GRAIN = 2
+
+
+def _tree_sha(leaves):
+    """SHA-256 of tensors' (or numpy arrays') bytes, in order."""
+    import numpy as np
+    import torch
+    h = hashlib.sha256()
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            x = x.detach().reshape(-1).contiguous().view(torch.uint8).cpu() \
+                .numpy()
+        h.update(np.ascontiguousarray(x).reshape(-1).view(np.uint8))
+    return h.hexdigest()
+
+
+def _copy_rates(leaf, dev):
+    """GB/s of a device-to-host copy of ``leaf``: pageable
+    (``.to("cpu", copy=True)``, what ``plan_save`` does) and into a
+    pinned buffer, each the best of 3."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return None
+    pinned = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+    rates = {}
+    for name, copy in (("pageable", lambda: leaf.to("cpu", copy=True)),
+                       ("pinned", lambda: pinned.copy_(leaf))):
+        best = None
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            copy()
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        rates[name] = leaf.numel() * leaf.element_size() / best / 1e9
+    return rates
+
+
+def _checkpoint_rank(dev, out_dir, rank):
+    """Phase 34 on this rank: per part, step 1, an async save, step 2
+    while it writes, the restore into fresh templates and step 2 again;
+    the losses, digests, launches, bytes and seconds."""
+    import shutil
+
+    import torch
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    out = {}
+    for name, part in CKPT_PARTS.items():
+        cfg = _pipe_cfg(part)
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = dict(dp_degree=cfg.dp, mp_degree=cfg.mp,
+                                pp_degree=cfg.pp, sharding_degree=1,
+                                sep_degree=cfg.cp)
+        hcg = fleet.init(is_collective=True, strategy=s)
+        params = _pipe_params(cfg, dev)
+        if name == "zero3":
+            g = hcg.get_data_parallel_group()
+            state = T.init_zero3_state(params, cfg.dp,
+                                       hcg.get_data_parallel_rank())
+            step = T.make_zero3_train_step(hcg, cfg, grain=CKPT_GRAIN)
+
+            def gathered(st):
+                return [coll.all_gather_concat(t, 0, g)
+                        for t in T.flatten(st[0])[0]]
+        else:
+            local = T.hybrid_local_params(T.stack_for_pipeline(params, cfg),
+                                          cfg, hcg.get_stage_id(),
+                                          hcg.get_model_parallel_rank(),
+                                          hcg.get_data_parallel_rank())
+            state = (local,) + T.init_zero_state(
+                local, T.hybrid_param_specs(cfg), cfg.dp)[:2]
+            step = T.make_hybrid_train_step(hcg, cfg)
+
+            def gathered(st):
+                return T.flatten(T.gather_hybrid_params(st[0], cfg, hcg))[0]
+        del params
+        _free(dev)
+        ids = _pipe_ids(cfg, part, dev)
+        root = os.path.join(out_dir, f"ckpt_{name}")
+        if rank == 0 and os.path.isdir(root):
+            shutil.rmtree(root)
+        coll.barrier()
+        free = shutil.disk_usage(out_dir).free
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss1, *state = step(*state, 1.0, ids)
+        loss1 = loss1.item()
+        step1_s = time.perf_counter() - t0
+        # part a's step-1 tree is what this process reads back
+        step1_sha = _tree_sha(gathered(state)) if name == "hybrid" else None
+        rates = _copy_rates(max(T.flatten(state[0])[0], key=torch.numel),
+                            dev)
+        mgr = CheckpointManager(root, async_save=True, keep_last=1)
+        _sync(dev)
+        t0 = time.perf_counter()
+        if name == "zero3":
+            T.save_zero3_state(mgr, 1, *state, 1.0, CKPT_GRAIN, cfg=cfg,
+                               hcg=hcg)
+        else:
+            T.save_hybrid_state(mgr, 1, *state, 1.0, cfg=cfg, hcg=hcg)
+        save_call_s = time.perf_counter() - t0
+        # step 2 while the write runs (the ZeRO-3 step updates the
+        # snapshotted slices in place)
+        loss2, *state = step(*state, 2.0, ids)
+        loss2 = loss2.item()
+        step2_s = time.perf_counter() - t0 - save_call_s
+        mgr.wait()
+        wait_s = time.perf_counter() - t0 - save_call_s - step2_s
+        coll.barrier()              # the coordinator has committed
+        step2_sha = _tree_sha(gathered(state))
+        if name == "zero3":
+            state = None
+            _free(dev)
+            _sync(dev)
+            t1 = time.perf_counter()
+            *state, step_no, grain = T.load_zero3_state(
+                CheckpointManager(root), hcg, cfg)
+        else:
+            templates = [T.tree_map(torch.zeros_like, t) for t in state]
+            state = None
+            _free(dev)
+            _sync(dev)
+            t1 = time.perf_counter()
+            *state, step_no = T.load_hybrid_state(
+                CheckpointManager(root), hcg, cfg, *templates)
+            grain = None
+        _sync(dev)
+        restore_s = time.perf_counter() - t1
+        restored_bytes = sum(t.numel() * t.element_size()
+                             for tree in state for t in T.flatten(tree)[0])
+        _counts_reset()
+        loss2b, *state = step(*state, step_no + 1.0, ids)
+        loss2b = loss2b.item()
+        launches, _ = _counts(CONTEXT_KERNELS)
+        out[name] = dict(
+            loss1=loss1, loss2=loss2, loss2_restored=loss2b, step1_s=step1_s,
+            step1_sha=step1_sha, step2_sha=step2_sha,
+            step2_restored_sha=_tree_sha(gathered(state)),
+            step_no=step_no, grain=grain, launches=launches,
+            bytes=mgr.last_save["bytes"],
+            snapshot_s=mgr.last_save["snapshot_s"],
+            write_s=mgr.last_save["write_s"], save_call_s=save_call_s,
+            step2_s=step2_s, wait_s=wait_s, restore_s=restore_s,
+            restored_bytes=restored_bytes, free_bytes=free, rates=rates,
+            root=root)
+        del state, step
+        _free(dev)
+        coll.barrier()
+        if name == "zero3" and rank == 0:
+            shutil.rmtree(root)     # part a's stays for the controller
+    return out
+
+
+def _check_checkpoint(ranks):
+    """Phase 34's checks and lines: every restored step bit-equal to the
+    first step 2, the kernels launched, and this process's
+    template-free read of part a's version against the ranks' step-1
+    tree; then the roots go."""
+    import shutil
+
+    from paddle_tpu_torch.distributed.checkpoint import read_state_dict
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    card = card_name()
+    for name in CKPT_PARTS:
+        for rk in ranks:
+            res, label = rk["ckpt"][name], f"phase 34 {name} rank {rk['rank']}"
+            want = HYBRID_KERNELS[:3] + (("fused_adamw",) if name == "zero3"
+                                         else ())
+            bad = [k for k in want if res["launches"][k] <= 0]
+            if bad:
+                raise AssertionError(f"{label}: the restored step never "
+                                     f"launched {bad}")
+            if res["step_no"] != 1.0 or (name == "zero3"
+                                         and res["grain"] != CKPT_GRAIN):
+                raise AssertionError(f"{label}: restored step_no "
+                                     f"{res['step_no']}, grain "
+                                     f"{res['grain']}")
+            if res["loss2_restored"] != res["loss2"] or \
+                    res["step2_restored_sha"] != res["step2_sha"]:
+                raise AssertionError(
+                    f"{label}: the restored step 2 (loss "
+                    f"{res['loss2_restored']!r}, tree "
+                    f"{res['step2_restored_sha'][:16]}) differs from the "
+                    f"first (loss {res['loss2']!r}, tree "
+                    f"{res['step2_sha'][:16]})")
+        if len({rk["ckpt"][name]["step2_sha"] for rk in ranks}) != 1:
+            raise AssertionError(f"phase 34 {name}: the ranks' gathered "
+                                 "trees differ")
+    a = ranks[0]["ckpt"]["hybrid"]
+    step_path = os.path.join(a["root"], "step_00000001")
+    t0 = time.perf_counter()
+    full = read_state_dict(step_path)
+    read_s = time.perf_counter() - t0
+    read_bytes = sum(x.nbytes for x in T.flatten(full)[0])
+    got = _tree_sha(T.flatten(full["hybrid"]["params"])[0])
+    if got != a["step1_sha"]:
+        raise AssertionError("phase 34 hybrid: read_state_dict of the "
+                             "version hashes "
+                             f"{got[:16]}, the ranks' step-1 tree "
+                             f"{a['step1_sha'][:16]}")
+    del full
+    shutil.rmtree(a["root"])
+    what = {"hybrid": "make_hybrid_train_step at mp 2 with sequence "
+                      "parallelism (phase 32b), 2 layers",
+            "zero3": f"make_zero3_train_step at dp 2, grain {CKPT_GRAIN} "
+                     "(phase 32c's), 2 layers"}
+    for name in CKPT_PARTS:
+        rs = [rk["ckpt"][name] for rk in ranks]
+        r0 = rs[0]
+        _log(f"phase 34 {name}: {what[name]}, GPT-3 1.3B widths float32, 2 "
+             f"ranks on card 0 ({card}): free disk "
+             f"{r0['free_bytes'] / 1e9:.1f} GB; bytes written by rank "
+             f"{[r['bytes'] for r in rs]} ({sum(r['bytes'] for r in rs) / 1e9:.3f} GB); "
+             f"snapshot (device to host) s by rank "
+             f"{[round(r['snapshot_s'], 3) for r in rs]}; write + hash "
+             f"(+ commit on rank 0) s {[round(r['write_s'], 3) for r in rs]}"
+             f" (step 2 meanwhile {[round(r['step2_s'], 3) for r in rs]} s,"
+             f" then wait {[round(r['wait_s'], 3) for r in rs]} s); restore"
+             f" s {[round(r['restore_s'], 3) for r in rs]} for "
+             f"{[round(r['restored_bytes'] / 1e9, 3) for r in rs]} GB "
+             f"({[round(r['restored_bytes'] / r['restore_s'] / 1e9, 3) for r in rs]}"
+             f" GB/s, the version's hashes included); device-to-host copy "
+             f"of the largest leaf GB/s by rank {[r['rates'] for r in rs]};"
+             f" loss step 2 {r0['loss2']!r} = restored "
+             f"{r0['loss2_restored']!r}, trees bit-equal; restored step's "
+             f"launches by rank {[r['launches'] for r in rs]}")
+    _log(f"phase 34 hybrid: this process's read_state_dict of the version "
+         f"({read_bytes / 1e9:.3f} GB) {read_s:.3f} s "
+         f"({read_bytes / read_s / 1e9:.3f} GB/s), its parameters hash as "
+         f"the ranks' step-1 tree ({card})")
+    return dict(read_s=read_s, read_bytes=read_bytes)
+
+
 def tp_kernel_checks():
     """Phase 30's kernel entries on the card against their plain
     versions: a flash launch over heads 8..15 of 16 with ``mask_heads``
@@ -7579,10 +7900,11 @@ def tp_kernel_checks():
 
 
 def hybrid_rank(out_dir):
-    """A rank of phases 29-33 (``chip_smoke.py --hybrid-rank DIR`` under
+    """A rank of phases 29-34 (``chip_smoke.py --hybrid-rank DIR`` under
     the launcher): the DataParallel steps, the tensor-parallel steps,
-    the ZeRO levels, the hybrid steps, then ring / Ulysses attention and
-    the context- and expert-parallel steps; writes its numbers."""
+    the ZeRO levels, the hybrid steps, ring / Ulysses attention, the
+    context- and expert-parallel steps, then the checkpointed steps;
+    writes its numbers."""
     import torch
     from paddle_tpu_torch import distributed as dist
     env = dist.init_parallel_env()
@@ -7592,19 +7914,28 @@ def hybrid_rank(out_dir):
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.set_device(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    ddp = ddp_rank(env, out_dir)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+    ddp = timed("29", ddp_rank, env, out_dir)
     timer = _CommTimer(dev)
     p2p, a2a = _P2PTimer(dev), _A2ATimer(dev)
     res = dict(rank=env.rank, backend=dist.get_group().backend, ddp=ddp,
-               tp=_tp_rank(dev, timer, out_dir, env.rank),
-               zero=_zero_rank(dev, timer, out_dir, env.rank),
-               pipe=_pipeline_rank(dev, timer, p2p, a2a, out_dir, env.rank,
-                                   PIPE_PARTS),
-               ring_alone=_ring_alone_rank(dev, p2p, a2a),
-               context=_pipeline_rank(dev, timer, p2p, a2a, out_dir,
-                                      env.rank, CONTEXT_PARTS),
+               tp=timed("30", _tp_rank, dev, timer, out_dir, env.rank),
+               zero=timed("31", _zero_rank, dev, timer, out_dir, env.rank),
+               pipe=timed("32", _pipeline_rank, dev, timer, p2p, a2a,
+                          out_dir, env.rank, PIPE_PARTS),
+               ring_alone=timed("33a", _ring_alone_rank, dev, p2p, a2a),
+               context=timed("33bc", _pipeline_rank, dev, timer, p2p, a2a,
+                             out_dir, env.rank, CONTEXT_PARTS),
+               ckpt=timed("34", _checkpoint_rank, dev, out_dir, env.rank),
                modules=sorted(m for m in sys.modules
                               if m.split(".")[0] in ("jax", "paddle_tpu")))
+    res["seconds"] = seconds
     with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
         json.dump(res, f)
     return 0
@@ -7661,11 +7992,11 @@ def _check_hybrid_path(label, res, ref_losses, bound, steps):
 
 
 def hybrid_phase(root):
-    """Phases 29-33: DataParallel, tensor-parallel training, ZeRO, the
-    hybrid steps, ring / Ulysses attention and the context- and
-    expert-parallel steps, two ranks sharing one card over gloo through
-    one launch of the port's launcher, against one process on the same
-    batches."""
+    """Phases 29-34: DataParallel, tensor-parallel training, ZeRO, the
+    hybrid steps, ring / Ulysses attention, the context- and
+    expert-parallel steps and the checkpointed steps, two ranks sharing
+    one card over gloo through one launch of the port's launcher, against
+    one process on the same batches."""
     import shutil
 
     import torch
@@ -7684,7 +8015,7 @@ def hybrid_phase(root):
     t_pipe = time.perf_counter() - t0 - t_ref
     _log(f"phases 32-33 one process: {t_pipe:.1f} s")
     t0 += t_pipe
-    ranks = _launch_ranks(root, out_dir, "--hybrid-rank", "phases 29-33")
+    ranks = _launch_ranks(root, out_dir, "--hybrid-rank", "phases 29-34")
     launch_s = time.perf_counter() - t0 - t_ref
     ddp = ddp_phase(out_dir, [rk["ddp"] for rk in ranks], launch_s)
     for rk in ranks:
@@ -7722,7 +8053,10 @@ def hybrid_phase(root):
             z["shares"] = got
     _check_pipeline(ranks, pipe_ref)
     _check_context(ranks, context_ref)
+    ckpt = _check_checkpoint(ranks)
     r0 = ranks[0]
+    _log(f"phases 29-34 seconds by rank (launch {launch_s:.1f} s): "
+         f"{[rk['seconds'] for rk in ranks]}")
 
     def summary(res):
         last = res["steps"][-1]
@@ -7769,7 +8103,53 @@ def hybrid_phase(root):
              f"{z['shares']['param']:.3f}; launches {z['launches']}; "
              f"optimizer.fused {z['kinds']}")
     return dict(ranks=ranks, ref=ref, ddp=ddp, pipe_ref=pipe_ref,
-                context_ref=context_ref)
+                context_ref=context_ref, ckpt=ckpt)
+
+
+def _host_rates():
+    """Seconds, each the best of 3, of 1 GiB of fresh host memory
+    filled, a 1 GiB pageable device-to-host copy, and an int8 dequantize
+    + linear of Llama-2 7B's 11008 x 4096 weight for one row (the CPU's
+    plain weight-only route), in this process."""
+    import torch
+    import torch.nn.functional as F
+
+    def best(fn):
+        out = None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            out = dt if out is None else min(out, dt)
+        return round(out, 4)
+    n = (1 << 30) // 4
+    x = torch.ones(n, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randint(-127, 128, (11008, 4096), dtype=torch.int8,
+                      generator=gen)
+    scale = torch.rand(11008, 1, generator=gen)
+    a = torch.randn(1, 4096, generator=gen)
+    return {"fill": best(lambda: torch.empty(n).fill_(1.0)),
+            "d2h_pageable": best(lambda: x.to("cpu", copy=True)),
+            "dequant_linear": best(lambda: F.linear(a, q * scale))}
+
+
+def host_memory_probe():
+    """:func:`_host_rates` in this process (``MALLOC_ENV``) and in one
+    started without those settings: why the script sets them."""
+    env = {k: v for k, v in os.environ.items() if k not in MALLOC_ENV}
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--host-probe"], env=env, check=True,
+                         capture_output=True, text=True, timeout=300)
+    without = json.loads(out.stdout.strip().splitlines()[-1])
+    with_env = _host_rates()
+    _log(f"host memory, s (1 GiB fresh fill, 1 GiB pageable device-to-"
+         f"host copy, int8 dequantize + linear 11008 x 4096): glibc "
+         f"keeping freed memory {with_env}, without {without} "
+         f"({card_name()})")
+    return dict(with_env=with_env, without=without)
 
 
 def card_name() -> str:
@@ -7804,6 +8184,7 @@ def main() -> int:
     _build.library()
     _log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     tc_regs, gemm_regs = ptxas_report(_build.BUILD_DIR)
+    host_memory_probe()
 
     lens = [100 + 200 * i for i in range(BATCH)]       # 100 .. 1500
 
@@ -7824,8 +8205,8 @@ def main() -> int:
     rows["flash_fwd"]["mask_heads_max_abs_err"] = \
         tpk["mask_heads_max_abs_err"]
     hybrid = timed("DataParallel, tensor parallelism, ZeRO, the hybrid "
-                   "steps, context and expert parallelism (phases 29-33)",
-                   hybrid_phase, root)
+                   "steps, context and expert parallelism, checkpoints "
+                   "(phases 29-34)", hybrid_phase, root)
     ddp = hybrid["ddp"]
     timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=CUT_LAYERS))
     prefix, spec = timed("prefix and spec", serving_extras_phase)
@@ -7963,6 +8344,8 @@ def main() -> int:
             paths[f"alone_{name}_rank{r}"] = res["launches"]
         for part, res in rk["context"].items():
             paths[f"context_{part}_rank{r}"] = res["launches"]
+        for name, res in rk["ckpt"].items():
+            paths[f"ckpt_{name}_rank{r}"] = res["launches"]
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -7996,7 +8379,25 @@ def main() -> int:
     return 0
 
 
+# Large host buffers (gloo's staging copies, device-to-host snapshots,
+# the CPU references' weights and dequantized copies) are freed and
+# allocated again all through the run.  glibc maps each one afresh and the
+# kernel faults its pages in again, which on the card's host costs more
+# than the copy itself (PERF.md §6); these settings keep freed memory in
+# the heap for the next allocation.  The script re-executes itself once
+# with them, and the processes it starts inherit them.
+MALLOC_ENV = {"MALLOC_MMAP_THRESHOLD_": str(1 << 40),
+              "MALLOC_TRIM_THRESHOLD_": str(1 << 40),
+              "MALLOC_TOP_PAD_": str(1 << 26)}
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host-probe"]:
+        print(json.dumps(_host_rates()))
+        sys.exit(0)
+    if any(os.environ.get(k) != v for k, v in MALLOC_ENV.items()):
+        os.environ.update(MALLOC_ENV)
+        os.execv(sys.executable, [sys.executable] + sys.orig_argv[1:])
     if sys.argv[1:2] == ["--hybrid-rank"]:
         sys.exit(hybrid_rank(sys.argv[2]))
     sys.exit(main())

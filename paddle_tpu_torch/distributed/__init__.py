@@ -3,8 +3,8 @@ and process-granular collectives (``collective``), ``init_parallel_env``
 and ``DataParallel`` (``parallel``), the collective launcher
 (``python -m paddle_tpu_torch.distributed.launch``), ``fleet`` (the
 hybrid topology, tensor-parallel layers, ZeRO, ``recompute``),
-``sharding`` (``group_sharded_parallel``), and the atomic,
-integrity-checked version directories of ``checkpoint``."""
+``sharding`` (``group_sharded_parallel``), and ``checkpoint`` (sharded
+save and reshard-on-load, ``CheckpointManager``'s atomic versions)."""
 
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_gather_into_tensor, all_gather_object,
@@ -17,3 +17,5 @@ from .env import ParallelEnv, get_rank, get_world_size  # noqa: F401
 from .parallel import DataParallel, init_parallel_env  # noqa: F401
 from . import fleet  # noqa: F401
 from . import sharding  # noqa: F401
+from . import checkpoint  # noqa: F401
+from .checkpoint import load_state_dict, save_state_dict  # noqa: F401

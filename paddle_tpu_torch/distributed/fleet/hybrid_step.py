@@ -62,7 +62,11 @@ card the ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` kernels,
 on the CPU their plain versions.  The ZeRO-3 shard update runs on
 ``fused_adamw`` (its plain version on the CPU).
 
-The checkpoints of both steps are ROADMAP.md A.8.6: they raise.
+Checkpoints: :func:`save_hybrid_state` / :func:`load_hybrid_state` and
+:func:`save_zero3_state` / :func:`load_zero3_state` version a rank's
+pieces of the JAX package's global trees through a ``CheckpointManager``
+(``distributed/checkpoint/``), so the port loads the JAX package's
+versions; ZeRO-3's reload at another dp.
 """
 
 from __future__ import annotations
@@ -96,8 +100,8 @@ __all__ = [
     "gather_hybrid_params", "init_zero_state", "zero_state_specs",
     "make_hybrid_train_step",
     "make_zero3_train_step", "init_zero3_state", "zero3_unflatten",
-    "save_zero3_state", "load_zero3_state",
-    "save_hybrid_state", "load_hybrid_state",
+    "zero3_train_state", "save_zero3_state", "load_zero3_state",
+    "hybrid_train_state", "save_hybrid_state", "load_hybrid_state",
     "serial_train_step", "serial_forward", "schedule_table",
     "bubble_fraction", "flatten", "unflatten", "tree_map",
 ]
@@ -1013,29 +1017,200 @@ def make_zero3_train_step(hcg, cfg: HybridConfig, grain: int = 0):
 
 
 # --------------------------------------------------------------------------
-# saving and loading: ROADMAP.md A.8.6
+# saving and loading: versions of the train states, resharded on load
 # --------------------------------------------------------------------------
+#
+# A rank saves its own pieces of the JAX package's GLOBAL trees, so a
+# version either package writes holds the same keys, shapes and values:
+# - a stacked block leaf is ``[pp, vpp, Lc, ...]`` (the rank's local leaf
+#   with its unit pp dimension back), every other leaf the serial one, each
+#   split on its spec's axes;
+# - a ZeRO-1/2 moment of a leaf split on the spec axes A is ``(sizes(A)...,
+#   Fp)`` with the rank's ``[Fp / dp]`` slice at ``(coords(A)..., dp_rank
+#   Fp / dp)`` (the JAX ``init_zero_state``); an expert leaf's moment is
+#   laid out like the leaf;
+# - a ZeRO-3 leaf is ``(Fp,)``, split on dp.
+# The rank at coordinate 0 of every axis a leaf is not split on writes it.
 
-def _no_checkpoints(what):
-    raise NotImplementedError(
-        f"{what}: the distributed checkpoints (distributed/checkpoint/) "
-        "are not ported yet: see ROADMAP.md A.8.6")
+def _axis_coords(hcg):
+    """This rank's coordinate and the degree of every axis of the
+    topology (cp is its sep axis)."""
+    coords = {"pp": hcg.get_stage_id(), "dp": hcg.get_data_parallel_rank(),
+              "mp": hcg.get_model_parallel_rank(),
+              "cp": hcg.get_sep_parallel_rank()}
+    sizes = {"pp": hcg.get_pipe_parallel_world_size(),
+             "dp": hcg.get_data_parallel_world_size(),
+             "mp": hcg.get_model_parallel_world_size(),
+             "cp": hcg.get_sep_parallel_world_size()}
+    return coords, sizes
 
 
-def save_hybrid_state(*args, **kwargs):
-    _no_checkpoints("save_hybrid_state")
+def _replica(split_axes, coords):
+    return int(any(c != 0 for a, c in coords.items() if a not in split_axes))
 
 
-def load_hybrid_state(*args, **kwargs):
-    _no_checkpoints("load_hybrid_state")
+def _param_leaf(local, spec, coords, sizes):
+    """A parameter's piece: its global shape and offset from the spec."""
+    from ..checkpoint import ShardedLeaf
+    piece = local.unsqueeze(0) if "pp" in spec else local
+    gshape, offset, dim = [], [], 0
+    for entry in spec:
+        if entry == "pp":
+            gshape.append(sizes["pp"])
+            offset.append(coords["pp"])
+            continue
+        n = local.shape[dim]
+        gshape.append(n * (sizes[entry] if entry else 1))
+        offset.append(n * coords[entry] if entry else 0)
+        dim += 1
+    gshape += list(local.shape[dim:])
+    offset += [0] * (local.dim() - dim)
+    return ShardedLeaf(piece, gshape, offset, _replica(set(spec), coords))
 
 
-def save_zero3_state(*args, **kwargs):
-    _no_checkpoints("save_zero3_state")
+def _moment_leaf(local, spec, coords, sizes):
+    """A ZeRO-1/2 moment's piece, ``(sizes(A)..., Fp)`` split on
+    ``(A..., dp)``; an expert leaf's (split on dp) follows the param."""
+    from ..checkpoint import ShardedLeaf
+    if "dp" in spec:
+        return _param_leaf(local, spec, coords, sizes)
+    axes = [a for a in spec if a is not None]
+    k = local.numel()
+    piece = local.view((1,) * len(axes) + (k,))   # a load fills local
+    return ShardedLeaf(piece, [sizes[a] for a in axes] + [sizes["dp"] * k],
+                       [coords[a] for a in axes] + [coords["dp"] * k],
+                       _replica(set(axes) | {"dp"}, coords))
 
 
-def load_zero3_state(*args, **kwargs):
-    _no_checkpoints("load_zero3_state")
+def _hybrid_leaves(params, m, v, cfg: HybridConfig, hcg):
+    """The rank's trees as ``ShardedLeaf`` trees of the global ones."""
+    hcg = _resolve_hcg(hcg, cfg.pp, cfg.dp, cfg.mp, cfg.cp)
+    coords, sizes = _axis_coords(hcg)
+    specs = flatten(hybrid_param_specs(cfg))[0]
+
+    def wrap(tree, leaf_fn):
+        leaves, treedef = flatten(tree)
+        if len(leaves) != len(specs):
+            raise ValueError(f"a tree of {len(leaves)} leaves for the "
+                             f"config's {len(specs)}")
+        return unflatten(treedef, [leaf_fn(x, s, coords, sizes)
+                                   for x, s in zip(leaves, specs)])
+    return (wrap(params, _param_leaf), wrap(m, _moment_leaf),
+            wrap(v, _moment_leaf))
+
+
+def hybrid_train_state(params, m, v, step_no) -> Dict[str, Any]:
+    """The checkpointable tree of the hybrid train state: the parameter
+    and moment trees take the sharded save, the Adam step count the
+    coordinator's extra blob."""
+    return {"hybrid": {"params": params, "m": m, "v": v},
+            "meta": {"step_no": float(step_no)}}
+
+
+def save_hybrid_state(manager, step: int, params, m, v, step_no,
+                      wait: bool = False, *, cfg: HybridConfig, hcg=None):
+    """Version this rank's hybrid train state as ``step`` through
+    ``manager`` (a ``CheckpointManager``; every rank calls it on its own
+    manager over one root): ``params`` its :func:`hybrid_local_params`,
+    ``m`` / ``v`` its :func:`init_zero_state` trees, saved as its pieces
+    of the JAX package's global trees.  ``cfg`` and ``hcg`` (None:
+    ``fleet.init``'s topology) place the pieces; the JAX function reads
+    both from its arrays' shardings."""
+    ps, ms, vs = _hybrid_leaves(params, m, v, cfg, hcg)
+    return manager.save(step, hybrid_train_state(ps, ms, vs, step_no),
+                        wait=wait)
+
+
+def load_hybrid_state(manager, hcg, cfg: HybridConfig, params, m, v,
+                      step=None):
+    """Resume: fill the templates ``params``, ``m``, ``v`` (this rank's
+    trees, as :func:`hybrid_local_params` and :func:`init_zero_state`
+    give them) in place from the newest complete version of ``manager``
+    (or ``step``), a version of the port or of the JAX package, and
+    return ``(params, m, v, step_no)``.  ``hcg`` stands where the JAX
+    function takes its mesh (None: ``fleet.init``'s topology).  The
+    moments' global shapes depend on pp, mp and dp, so the version loads
+    at the layout that wrote it; another raises a shape mismatch."""
+    ps, ms, vs = _hybrid_leaves(params, m, v, cfg, hcg)
+    _, extra = manager.restore_into(
+        {"hybrid": {"params": ps, "m": ms, "v": vs}}, step=step)
+    return (params, m, v,
+            float(extra.get("meta", {}).get("step_no", 0.0)))
+
+
+def zero3_train_state(flat_params, m, v, step_no,
+                      grain: int = 0) -> Dict[str, Any]:
+    """The checkpointable tree of the fused ZeRO-3 state: the flat slices
+    take the sharded save (each rank writes its own), the Adam step count
+    and the reduction grain the coordinator's extra blob (a bit-exact
+    resume needs the grain the run trained with)."""
+    return {"zero3": {"params": flat_params, "m": m, "v": v},
+            "meta": {"step_no": float(step_no), "zero3_grain": int(grain)}}
+
+
+def _zero3_leaves(tree, cfg: HybridConfig, dp: int, d_i: int):
+    from ..checkpoint import ShardedLeaf
+    metas, treedef = _zero3_metas(cfg, dp)
+    leaves = flatten(tree)[0]
+    if len(leaves) != len(metas):
+        raise ValueError(f"a tree of {len(leaves)} leaves for the config's "
+                         f"{len(metas)}")
+    out = []
+    for t, (_, _, _, Fp) in zip(leaves, metas):
+        k = Fp // dp
+        if tuple(t.shape) != (k,):
+            raise ValueError(f"a ZeRO-3 slice of shape {tuple(t.shape)} "
+                             f"where dp {dp} gives ({k},)")
+        out.append(ShardedLeaf(t, (Fp,), (d_i * k,)))
+    return unflatten(treedef, out)
+
+
+def save_zero3_state(manager, step: int, flat_params, m, v, step_no,
+                     grain: int = 0, wait: bool = False, *,
+                     cfg: HybridConfig, hcg=None) -> bool:
+    """Version this rank's ZeRO-3 slices (:func:`init_zero3_state`'s
+    layout) as ``step``: each rank writes its ``[Fp / dp]`` slice of the
+    global ``(Fp,)`` leaves.  ``cfg`` and ``hcg`` (None: ``fleet.init``'s
+    topology) place the slices, as in :func:`save_hybrid_state`."""
+    hcg = _resolve_hcg(hcg, 1, cfg.dp, 1)
+    dp, d_i = cfg.dp, hcg.get_data_parallel_rank()
+    state = zero3_train_state(*(_zero3_leaves(t, cfg, dp, d_i)
+                                for t in (flat_params, m, v)),
+                              step_no, grain)
+    return manager.save(step, state, wait=wait)
+
+
+def load_zero3_state(manager, hcg, cfg: HybridConfig, step=None):
+    """Elastic resume: this rank's ZeRO-3 slices at THIS topology's dp
+    (``cfg.dp``), whatever dp wrote the version, on the rank's device
+    (``distributed.env.local_device``) in ``cfg.dtype``.
+
+    A leaf saved at dp_old is ``(Fp_old,)``; this dp needs ``(Fp_new,)``,
+    the same F live elements under another zero pad.  The templates are
+    made at this dp and ``restore_into(..., resize_trailing=True)``
+    truncates or zero-fills the tail.  That is bit-exact because the pad
+    is an invariant zero of the step: it starts at zero, the gather's
+    ``[:F]`` gives it zero gradients, and Adam maps (0, 0, 0) to (0, 0, 0).
+
+    Returns ``(flat_params, m, v, step_no, grain)``."""
+    from .. import env as _env
+    hcg = _resolve_hcg(hcg, 1, cfg.dp, 1)
+    dp, d_i = cfg.dp, hcg.get_data_parallel_rank()
+    metas, treedef = _zero3_metas(cfg, dp)
+    dev = _env.local_device()
+
+    def templ():
+        return unflatten(treedef, [torch.zeros(Fp // dp, dtype=dt,
+                                               device=dev)
+                                   for (_, dt, _, Fp) in metas])
+    trees = [templ() for _ in range(3)]
+    _, extra = manager.restore_into(
+        {"zero3": {name: _zero3_leaves(t, cfg, dp, d_i) for name, t in
+                   zip(("params", "m", "v"), trees)}},
+        step=step, resize_trailing=True)
+    meta = extra.get("meta", {})
+    return (*trees, float(meta.get("step_no", 0.0)),
+            int(meta.get("zero3_grain", 0)))
 
 
 # --------------------------------------------------------------------------

@@ -39,6 +39,8 @@ import torch.nn as nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ...core.random import module_generators
+
 __all__ = ["recompute", "POLICIES"]
 
 _aten = torch.ops.aten
@@ -70,12 +72,7 @@ def _generators(function) -> List[torch.Generator]:
         else getattr(function, "__self__", None)
     if not isinstance(owner, nn.Module):
         return []
-    found = {}
-    for m in owner.modules():
-        for v in vars(m).values():
-            if isinstance(v, torch.Generator):
-                found[id(v)] = v
-    return list(found.values())
+    return module_generators(owner)
 
 
 class _Replay:

@@ -17,8 +17,11 @@ step: tokens = B x S for ``[B, S]`` integer ids, else B rows) and the
 ``train.step_seconds`` / ``train.loss_syncs`` instruments; the loss
 reaches the host once a step, as with the JAX flag
 ``FLAGS_loss_sync_interval`` at its default of 1.
-``fit(checkpoint=, resume=)`` (the JAX ``CheckpointManager``) goes with
-ROADMAP.md A.8 and raises.
+``fit(checkpoint=, resume=)`` takes atomic, versioned checkpoints through
+``distributed.checkpoint.CheckpointManager`` and resumes from them bit
+for bit: parameters, optimizer and scaler state, every random source the
+loop draws from (``core.random.rng_checkpoint_state`` with the network's
+own generators, numpy's for the shuffle) and the loop's position.
 """
 
 from __future__ import annotations
@@ -104,6 +107,7 @@ class Model:
         self._scaler = None
         self.stop_training = False
         self._save_dir = None
+        self._train_steps = 0       # train_batch calls of this fit
 
     @property
     def _device(self) -> torch.device:
@@ -194,6 +198,7 @@ class Model:
         array (the step's one host read, inside its telemetry record)."""
         if self._optimizer is None or self._loss is None:
             raise RuntimeError("call prepare(optimizer=..., loss=...) first")
+        self._train_steps += 1
         st = _telemetry.default_timeline().step(
             tokens=_batch_tokens(to_list(inputs)),
             mode="train" if update else "accumulate")
@@ -256,6 +261,56 @@ class Model:
     def parameters(self, *args, **kwargs):
         return self.network.parameters()
 
+    # -------------------------------------------------- fault-tolerant state
+    def _train_state(self, epoch: int, step_in_epoch: int) -> dict:
+        """Everything a resumed process needs to continue bit for bit:
+        the parameters, the optimizer's state, the scaler's, every random
+        source (the key chain, torch's generators and the network's, and
+        numpy's now and at the epoch's start) and the loop's position."""
+        from ..core import random as _random
+        meta = {
+            "epoch": int(epoch), "step_in_epoch": int(step_in_epoch),
+            "train_steps": int(self._train_steps),
+            "scaler": self._scaler.state_dict()
+            if self._scaler is not None else None,
+            "rng": {"framework": _random.rng_checkpoint_state(
+                        _random.module_generators(self.network)),
+                    "numpy": np.random.get_state(),
+                    "numpy_epoch_start": getattr(self, "_epoch_np_state",
+                                                 None)},
+        }
+        return {"model": self.network.state_dict(),
+                "optimizer": self._optimizer.state_dict(),
+                "meta": meta}
+
+    def _restore_train_state(self, manager, step=None):
+        """Restore the newest complete version (or ``step``) of
+        ``manager``: the network, optimizer, scaler, random sources and
+        the loop's counters.  Returns the restored meta, or None when the
+        root holds no complete version yet (a first launch starts
+        fresh)."""
+        if self._optimizer is None:
+            raise RuntimeError("call prepare(optimizer=..., loss=...) "
+                               "before fit(resume=...)")
+        if step is None:
+            step = manager.latest_complete()
+            if step is None:
+                return None
+        state = manager.load(step)
+        self.network.load_state_dict(
+            {k: torch.as_tensor(v) for k, v in state["model"].items()})
+        self._optimizer.set_state_dict(state["optimizer"])
+        meta = state.get("meta", {})
+        if self._scaler is not None and meta.get("scaler"):
+            self._scaler.load_state_dict(meta["scaler"])
+        rng = meta.get("rng") or {}
+        if rng.get("framework") is not None:
+            from ..core import random as _random
+            _random.restore_rng_checkpoint_state(
+                rng["framework"], _random.module_generators(self.network))
+        self._train_steps = int(meta.get("train_steps", 0))
+        return meta
+
     # ------------------------------------------------------------------- fit
     def _make_loader(self, data, batch_size, shuffle, drop_last, num_workers):
         if data is None or isinstance(data, paddle_io.DataLoader):
@@ -271,13 +326,32 @@ class Model:
             checkpoint=None, resume=False):
         """Train ``epochs`` passes over ``train_data`` (a ``Dataset`` or a
         ``DataLoader``), evaluating on ``eval_data`` every ``eval_freq``
-        epochs; returns the last epoch's logs."""
+        epochs; returns the last epoch's logs.
+
+        With ``checkpoint`` (a ``CheckpointManager`` or a root path) fit
+        takes a version every ``save_interval`` optimizer steps and turns
+        SIGTERM / SIGINT into a clean stop: the step in flight finishes,
+        an emergency version is taken, fit returns.  ``resume=True``
+        restores the newest complete version (``resume=<step>`` a given
+        one) before training; an empty root starts fresh, so one launch
+        command serves before and after a preemption."""
         if train_data is None:
             raise ValueError("train_data must be given")
-        if checkpoint is not None or resume:
-            raise NotImplementedError(
-                "fit(checkpoint=, resume=) sits on the JAX package's "
-                "CheckpointManager and its sharded save: ROADMAP.md A.8")
+        self._train_steps = 0
+        manager = checkpoint
+        if isinstance(checkpoint, (str, os.PathLike)):
+            from ..distributed.checkpoint import CheckpointManager
+            manager = CheckpointManager(str(checkpoint))
+        start_epoch, skip_steps, resume_rng = 0, 0, None
+        if resume:
+            if manager is None:
+                raise ValueError("fit(resume=...) requires checkpoint=...")
+            meta = self._restore_train_state(
+                manager, None if resume is True else int(resume))
+            if meta is not None:
+                start_epoch = int(meta.get("epoch", 0))
+                skip_steps = int(meta.get("step_in_epoch", -1)) + 1
+                resume_rng = (meta.get("rng") or {})
         train_loader = self._make_loader(train_data, batch_size, shuffle,
                                          drop_last, num_workers)
         eval_loader = self._make_loader(eval_data, batch_size, False, False,
@@ -285,26 +359,50 @@ class Model:
         self._save_dir = save_dir
         steps = len(train_loader) if hasattr(train_loader, "__len__") \
             else None
+        if skip_steps and steps is not None and skip_steps >= steps:
+            # the version ends an epoch: resume at the next one's top.
+            # The numpy state of the save must be restored here (a resume
+            # mid-epoch restores it once its skip is done, and there is
+            # nothing to skip), or the next epoch's shuffle parts from the
+            # uninterrupted run's
+            start_epoch += 1
+            if resume_rng.get("numpy") is not None:
+                np.random.set_state(resume_rng["numpy"])
+            skip_steps, resume_rng = 0, None
         cbks = config_callbacks(
             callbacks, model=self, batch_size=batch_size, epochs=epochs,
             steps=steps, log_freq=log_freq, verbose=verbose,
             save_freq=save_freq, save_dir=save_dir,
             metrics=self._metrics_name())
         self.stop_training = False
+        if manager is not None:
+            from ..distributed.checkpoint import manager as _ckpt_mgr
+            _ckpt_mgr.clear_preemption()
+            manager.install_signal_handlers()
         logs = {}
-        cbks.on_train_begin({})
-        for epoch in range(epochs):
-            cbks.on_epoch_begin(epoch, {})
-            logs = self._run_one_epoch(train_loader, cbks, "train")
-            cbks.on_epoch_end(epoch, logs)
-            if eval_loader is not None and epoch % eval_freq == 0 \
-                    and not self.stop_training:
-                eval_logs = self.evaluate(eval_loader, verbose=0,
-                                          _callbacks=cbks)
-                cbks.on_eval_end(eval_logs)
-            if self.stop_training:
-                break
-        cbks.on_train_end(logs)
+        try:
+            cbks.on_train_begin({})
+            for epoch in range(start_epoch, epochs):
+                cbks.on_epoch_begin(epoch, {})
+                first = epoch == start_epoch
+                logs = self._run_one_epoch(
+                    train_loader, cbks, "train", epoch=epoch, ckpt=manager,
+                    skip_steps=skip_steps if first else 0,
+                    resume_rng=resume_rng if first else None)
+                cbks.on_epoch_end(epoch, logs)
+                if eval_loader is not None and epoch % eval_freq == 0 \
+                        and not self.stop_training:
+                    eval_logs = self.evaluate(eval_loader, verbose=0,
+                                              _callbacks=cbks)
+                    cbks.on_eval_end(eval_logs)
+                if self.stop_training:
+                    break
+            cbks.on_train_end(logs)
+        finally:
+            if manager is not None:
+                manager.uninstall_signal_handlers()
+        if manager is not None:
+            manager.wait()      # a failed trailing async save raises
         return logs
 
     def _metrics_name(self):
@@ -323,11 +421,29 @@ class Model:
         n_lab = len(to_list(self._labels)) if self._labels else 1
         return batch[:-n_lab], batch[-n_lab:]
 
-    def _run_one_epoch(self, loader, cbks, mode):
+    def _run_one_epoch(self, loader, cbks, mode, epoch=0, ckpt=None,
+                       skip_steps=0, resume_rng=None):
         logs = {}
         for m in self._metrics:
             m.reset()
+        if mode == "train":
+            # a resumed epoch draws the shuffle the interrupted run drew
+            # from the epoch's starting numpy state; the save's state is
+            # restored once the skip is done (the metrics of the skipped
+            # steps are not restored)
+            if skip_steps and resume_rng is not None and \
+                    resume_rng.get("numpy_epoch_start") is not None:
+                np.random.set_state(resume_rng["numpy_epoch_start"])
+            self._epoch_np_state = np.random.get_state()
+        skipped = 0
         for step, batch in enumerate(loader):
+            if step < skip_steps:
+                skipped += 1
+                continue
+            if skipped and resume_rng is not None and \
+                    resume_rng.get("numpy") is not None:
+                np.random.set_state(resume_rng["numpy"])
+                skipped = 0
             inputs, labels = self._split_batch(batch)
             getattr(cbks, f"on_{mode}_batch_begin")(step, logs)
             if mode == "train":
@@ -342,6 +458,18 @@ class Model:
             logs["batch_size"] = inputs[0].shape[0] \
                 if inputs and len(inputs[0].shape) else 1
             getattr(cbks, f"on_{mode}_batch_end")(step, logs)
+            if mode == "train" and ckpt is not None:
+                def state_fn(e=epoch, s=step):
+                    return self._train_state(e, s)
+                saved = ckpt.maybe_save(self._train_steps, state_fn)
+                if ckpt.preempted:
+                    # the emergency version: the step in flight is done
+                    if saved:
+                        ckpt.wait()
+                    else:
+                        ckpt.save(self._train_steps, state_fn(), wait=True)
+                    self.stop_training = True
+                    break
         for m in self._metrics:
             for name, val in zip(to_list(m.name()), to_list(m.accumulate())):
                 logs[name] = val

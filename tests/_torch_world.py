@@ -155,8 +155,12 @@ class World:
         end = time.monotonic() + timeout
         while not self.store.check(keys):
             dead = [p.poll() for p in self.procs if p.poll() is not None]
-            assert not dead, f"a rank exited: {dead}"
-            assert time.monotonic() < end, f"{name} timed out"
+            assert not dead, f"{name}: a rank exited: {dead}"
+            if time.monotonic() >= end:
+                waiting = [r for r, k in enumerate(keys)
+                           if not self.store.check([k])]
+                raise AssertionError(f"{name} timed out after {timeout} s "
+                                     f"waiting for ranks {waiting}")
             time.sleep(0.005)
         out = []
         for k in keys:

@@ -261,9 +261,12 @@ def test_callbacks_fire_in_order_and_checkpoint(tmp_path):
         assert os.path.exists(str(tmp_path / f"{name}.pdparams"))
     assert sched() == pytest.approx(0.1 * 0.5 ** 4)
     assert tm.fit(Blobs(8), batch_size=4, epochs=0, verbose=0) == {}
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tm.fit(Blobs(8), checkpoint=str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="A.8"):
+    # fit(checkpoint=) commits a version a step (the JAX package's
+    # behaviour); resume without a checkpoint raises ValueError
+    from paddle_tpu_torch.distributed.checkpoint import all_steps
+    tm.fit(Blobs(8), batch_size=4, verbose=0, checkpoint=str(tmp_path / "ck"))
+    assert all_steps(str(tmp_path / "ck")) == [1, 2]
+    with pytest.raises(ValueError, match="requires checkpoint"):
         tm.fit(Blobs(8), resume=True)
 
 

@@ -19,6 +19,7 @@ those bounds: one step's gathered gradients are also held against
 ``jax.grad`` of the JAX serial loss, at rtol 1e-4 / atol 1e-6.
 """
 
+import inspect
 import os
 import sys
 
@@ -358,8 +359,8 @@ def test_ranks_import_neither_jax_nor_the_jax_package(worlds):
 
 
 def test_the_slices_to_come_refuse():
-    """The checkpoints (A.8.6) raise; cp and experts refuse what the JAX
-    config and ZeRO-3 step refuse."""
+    """cp and experts refuse what the JAX config and ZeRO-3 step refuse;
+    the checkpoints take the JAX functions' arguments."""
     from paddle_tpu.distributed.fleet import hybrid_step as J
     from paddle_tpu_torch.distributed.fleet import hybrid_step as T
     for kw in (dict(cp=2, mp=2, sequence_parallel=False),
@@ -382,10 +383,22 @@ def test_the_slices_to_come_refuse():
         cfg = T.HybridConfig(pp=1, mp=1, dp=2, zero_stage=3, **kw)
         with pytest.raises(AssertionError):
             T.make_zero3_train_step(2, cfg)
-    for fn in (T.save_hybrid_state, T.load_hybrid_state,
-               T.save_zero3_state, T.load_zero3_state):
-        with pytest.raises(NotImplementedError, match="A.8.6"):
-            fn(None, 0)
+    # the checkpoints take the JAX signatures: the mesh's place holds the
+    # topology, and the saves add the keyword-only cfg and hcg
+    for name in ("save_hybrid_state", "load_hybrid_state",
+                 "save_zero3_state", "load_zero3_state"):
+        want = [(p.name, p.kind, p.default) for p in
+                inspect.signature(getattr(J, name)).parameters.values()]
+        got = [(p.name, p.kind, p.default) for p in
+               inspect.signature(getattr(T, name)).parameters.values()]
+        if name.startswith("load"):
+            assert want[1][0] == "mesh"
+            want[1] = ("hcg",) + want[1][1:]
+        else:
+            want += [("cfg", inspect.Parameter.KEYWORD_ONLY,
+                      inspect.Parameter.empty),
+                     ("hcg", inspect.Parameter.KEYWORD_ONLY, None)]
+        assert got == want, name
 
 
 if __name__ == "__main__":

@@ -263,6 +263,14 @@ SPEC_IDS = ["ngram-k4", "ngram-adaptive-chunked", "model-k3",
             "model-adaptive-chunked"]
 
 
+@pytest.fixture(scope="module")
+def plain_streams():
+    """Plain decoding's streams by family and chunk, served once:
+    streams depend on neither the overlap nor the tick size (only the
+    stats do)."""
+    return {}
+
+
 @pytest.mark.parametrize(
     "models,case,overlap",
     [pytest.param("gpt", c, o, id=f"{i}-{o}")
@@ -271,7 +279,8 @@ SPEC_IDS = ["ngram-k4", "ngram-adaptive-chunked", "model-k3",
     # chain)
     + [pytest.param("llama", SPEC_CASES[0], True, id="llama-ngram-k4-True")],
     indirect=["models"])
-def test_engine_matches_the_jax_engine(models, case, overlap):
+def test_engine_matches_the_jax_engine(models, plain_streams, case,
+                                       overlap):
     (jm, tm), (jd, td) = models
     kw = dict(spec_decode=True, overlap=overlap, **case)
     model_draft = case["spec_draft"] == "model"
@@ -292,9 +301,12 @@ def test_engine_matches_the_jax_engine(models, case, overlap):
     if case.get("spec_adaptive") and not model_draft:
         assert sp["k_switches"] > 0
     # greedy speculation is lossless: plain decoding's streams
-    plain, _ = _serve(ServingEngine, Request, tm, device="cpu",
-                      overlap=overlap,
-                      prefill_chunk=case.get("prefill_chunk", 0))
+    key = (type(tm).__name__, case.get("prefill_chunk", 0))
+    if key not in plain_streams:
+        plain_streams[key] = _serve(ServingEngine, Request, tm, device="cpu",
+                                    overlap=overlap,
+                                    prefill_chunk=key[1])[0]
+    plain = plain_streams[key]
     assert [got[i] for i in (0, 3)] == [plain[i] for i in (0, 3)]
 
 
