@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``paddle_tpu_torch/csrc/`` (at first use,
-into ``build/paddle_tpu_torch/``), then runs thirty-four phases on card 0:
+into ``build/paddle_tpu_torch/``), then runs thirty-five phases on card 0:
 
 1. Kernels against their plain PyTorch versions, at the shapes the serving
    engine and the train step below give them (nh 16, hd 128, block 64,
@@ -493,31 +493,67 @@ into ``build/paddle_tpu_torch/``), then runs thirty-four phases on card 0:
 34. Distributed checkpoints (same ranks; ``distributed/checkpoint/``:
    ``save_state_dict.py``, ``load_state_dict.py``, ``metadata.py``,
    ``utils.py``, ``manager.py``'s ``CheckpointManager``; the
-   ``save_`` / ``load_hybrid_state`` and ``save_`` / ``load_zero3_state``
-   of ``hybrid_step.py``): a. phase 32b's configuration (mp 2 with
-   sequence parallelism, 2 layers, float32): step 1, a save through
-   ``CheckpointManager(root, async_save=True, keep_last=1)``, step 2
-   while the write runs, ``wait()``, a barrier, fresh templates restored
-   by ``load_hybrid_state``, and step 2 again; b. the same for
-   ``make_zero3_train_step`` at dp 2 with grain 2 through
-   ``save_zero3_state`` / ``load_zero3_state``.  The restored step's loss
-   and the SHA-256 of each rank's gathered tree must equal the first
-   step 2's bit for bit; the three flash kernels (and in b
-   ``fused_adamw``) launch in the restored step on every rank, no plain
-   route; this process's template-free ``read_state_dict`` of part a's
-   version must hash as the ranks' gathered step-1 parameters.  Each
-   part prints the free disk, each rank's bytes written, the snapshot,
-   write (files, hashes, the coordinator's commit) and restore seconds
-   with the restore's GB/s, and a pageable against a pinned
-   device-to-host copy of the largest leaf, beside the card's name and
-   power limit; the roots are deleted at the end.
+   ``save_`` / ``load_hybrid_state`` of ``hybrid_step.py``): phase 32b's
+   configuration (mp 2 with sequence parallelism, 2 layers, float32):
+   step 1, a save through ``CheckpointManager(root, async_save=True,
+   keep_last=1)``, step 2 while the write runs, ``wait()``, a barrier,
+   fresh templates restored by ``load_hybrid_state``, and step 2 again.
+   The restored step's loss and the SHA-256 of each rank's gathered tree
+   must equal the first step 2's bit for bit; the three flash kernels
+   launch in the restored step on every rank, no plain route; this
+   process's template-free ``read_state_dict`` of the version must hash
+   as the ranks' gathered step-1 parameters.  It prints the free disk,
+   each rank's bytes written, the snapshot, write (files, hashes, the
+   coordinator's commit) and restore seconds with the restore's GB/s,
+   and a pageable against a pinned device-to-host copy of the largest
+   leaf, beside the card's name and power limit; the root is deleted at
+   the end.  (The ZeRO-3 save and restore are phase 35's.)
+35. A node lost mid-run (after phase 29-34's launch; ``distributed/
+   store.py``, ``watchdog.py``, ``launch/main.py``, ``fleet/elastic/``):
+   two "nodes" on this host, each ``python -m
+   paddle_tpu_torch.distributed.launch --master 127.0.0.1:P --rank 0
+   (node 1: -1) --nnodes 1:2 --nproc_per_node 1 --devices 0 --max_restart
+   1 --elastic_timeout 3`` of this script with ``--elastic-rank DIR``, in
+   sessions of their own; node 0 hosts the port's store (it must be the
+   native server).  Each worker runs ``run_elastic`` over
+   ``zero3_elastic_hooks`` at phase 32c's configuration (GPT-3 1.3B's
+   widths, 2 layers, float32, random weights from a seed), grain 2, 4
+   steps, an asynchronous save every 2 through a ``CheckpointManager`` on
+   local disk (the write runs beside the next step), each step's batch
+   from its index (the same global batch at any dp), each step starting
+   at a barrier on the launcher's store; rank 0 records each step's loss
+   and the SHA-256 of the gathered live parameters.  Generation 0 runs at
+   dp 2 (steps 1-2, the save of step 2, step 3); once the step-2 version
+   is committed, rank 1 enters step 4 and its node's session is
+   SIGKILLed inside the step's first collective, while rank 0 waits on
+   the store (inside the collective it would fail at once on gloo's
+   closed connection and the worker-failure restart would take over:
+   ``tests/test_torch_elastic.py`` drives that path).  Node 0's launcher
+   sees node 1's lease expire, bumps the generation, stops its waiting
+   worker, the world settles at one node, and the new worker at dp 1
+   restores step 2 (a 2 -> 1 reshard), redoes steps 3-4 and exits 0.  The
+   phase prints the path that recovered and fails unless it is the
+   lease.  Generation 1's step-3 loss and tree must equal generation 0's
+   bit for bit (which also shows the snapshot unharmed by the step that
+   ran beside its write), the three flash kernels and
+   ``fused_adamw`` launch in it with no plain route,
+   ``elastic.resumes_total`` reads 1, and no worker imports jax or
+   ``paddle_tpu``.  It prints the time to recover (host clock, the card
+   synchronised) in its parts: kill to the lease expiry seen, the worker
+   stopped, the world settled, the new worker's card ready, the restore
+   (seconds, GB/s) and the first step; the step times at dp 2 and dp 1;
+   the version's bytes, snapshot and write seconds; ``memory_reserved``
+   after the restore and the card's free memory at the new worker's
+   start; the native store's set/get round trip against the Python
+   server's; beside the card's name and power limit.
 
 The script re-executes itself once with ``MALLOC_ENV`` (glibc keeps
 freed memory for the next allocation rather than mapping it afresh), and
 the processes it starts inherit it; after the build it prints the host's
 fresh-memory, pageable-copy and CPU dequantize times with and without
 those settings, the latter from a child started without them.  Each rank
-of phases 29-34 reports its seconds by phase.
+of phases 29-34 reports its seconds by phase, each worker of phase 35 its
+times.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA card is present or the package is not
@@ -7574,9 +7610,9 @@ def _check_context(ranks, ref):
              f"{[rk['context'][part]['launches'] for rk in ranks]}")
 
 
-# phase 34: the checkpointed parts, phase 32b's and (at grain 2) 32c's
-CKPT_PARTS = {"hybrid": "b", "zero3": "c"}
-CKPT_GRAIN = 2
+# phase 34: the checkpointed part, phase 32b's (32c's checkpoint is phase
+# 35's, through the elastic hooks)
+CKPT_PARTS = {"hybrid": "b"}
 
 
 def _tree_sha(leaves):
@@ -7616,9 +7652,9 @@ def _copy_rates(leaf, dev):
 
 
 def _checkpoint_rank(dev, out_dir, rank):
-    """Phase 34 on this rank: per part, step 1, an async save, step 2
-    while it writes, the restore into fresh templates and step 2 again;
-    the losses, digests, launches, bytes and seconds."""
+    """Phase 34 on this rank: step 1, an async save, step 2 while it
+    writes, the restore into fresh templates and step 2 again; the
+    losses, digests, launches, bytes and seconds."""
     import shutil
 
     import torch
@@ -7635,26 +7671,16 @@ def _checkpoint_rank(dev, out_dir, rank):
                                 sep_degree=cfg.cp)
         hcg = fleet.init(is_collective=True, strategy=s)
         params = _pipe_params(cfg, dev)
-        if name == "zero3":
-            g = hcg.get_data_parallel_group()
-            state = T.init_zero3_state(params, cfg.dp,
-                                       hcg.get_data_parallel_rank())
-            step = T.make_zero3_train_step(hcg, cfg, grain=CKPT_GRAIN)
+        local = T.hybrid_local_params(T.stack_for_pipeline(params, cfg),
+                                      cfg, hcg.get_stage_id(),
+                                      hcg.get_model_parallel_rank(),
+                                      hcg.get_data_parallel_rank())
+        state = (local,) + T.init_zero_state(
+            local, T.hybrid_param_specs(cfg), cfg.dp)[:2]
+        step = T.make_hybrid_train_step(hcg, cfg)
 
-            def gathered(st):
-                return [coll.all_gather_concat(t, 0, g)
-                        for t in T.flatten(st[0])[0]]
-        else:
-            local = T.hybrid_local_params(T.stack_for_pipeline(params, cfg),
-                                          cfg, hcg.get_stage_id(),
-                                          hcg.get_model_parallel_rank(),
-                                          hcg.get_data_parallel_rank())
-            state = (local,) + T.init_zero_state(
-                local, T.hybrid_param_specs(cfg), cfg.dp)[:2]
-            step = T.make_hybrid_train_step(hcg, cfg)
-
-            def gathered(st):
-                return T.flatten(T.gather_hybrid_params(st[0], cfg, hcg))[0]
+        def gathered(st):
+            return T.flatten(T.gather_hybrid_params(st[0], cfg, hcg))[0]
         del params
         _free(dev)
         ids = _pipe_ids(cfg, part, dev)
@@ -7668,21 +7694,16 @@ def _checkpoint_rank(dev, out_dir, rank):
         loss1, *state = step(*state, 1.0, ids)
         loss1 = loss1.item()
         step1_s = time.perf_counter() - t0
-        # part a's step-1 tree is what this process reads back
-        step1_sha = _tree_sha(gathered(state)) if name == "hybrid" else None
+        # the step-1 tree is what this process reads back
+        step1_sha = _tree_sha(gathered(state))
         rates = _copy_rates(max(T.flatten(state[0])[0], key=torch.numel),
                             dev)
         mgr = CheckpointManager(root, async_save=True, keep_last=1)
         _sync(dev)
         t0 = time.perf_counter()
-        if name == "zero3":
-            T.save_zero3_state(mgr, 1, *state, 1.0, CKPT_GRAIN, cfg=cfg,
-                               hcg=hcg)
-        else:
-            T.save_hybrid_state(mgr, 1, *state, 1.0, cfg=cfg, hcg=hcg)
+        T.save_hybrid_state(mgr, 1, *state, 1.0, cfg=cfg, hcg=hcg)
         save_call_s = time.perf_counter() - t0
-        # step 2 while the write runs (the ZeRO-3 step updates the
-        # snapshotted slices in place)
+        # step 2 while the write runs
         loss2, *state = step(*state, 2.0, ids)
         loss2 = loss2.item()
         step2_s = time.perf_counter() - t0 - save_call_s
@@ -7690,22 +7711,13 @@ def _checkpoint_rank(dev, out_dir, rank):
         wait_s = time.perf_counter() - t0 - save_call_s - step2_s
         coll.barrier()              # the coordinator has committed
         step2_sha = _tree_sha(gathered(state))
-        if name == "zero3":
-            state = None
-            _free(dev)
-            _sync(dev)
-            t1 = time.perf_counter()
-            *state, step_no, grain = T.load_zero3_state(
-                CheckpointManager(root), hcg, cfg)
-        else:
-            templates = [T.tree_map(torch.zeros_like, t) for t in state]
-            state = None
-            _free(dev)
-            _sync(dev)
-            t1 = time.perf_counter()
-            *state, step_no = T.load_hybrid_state(
-                CheckpointManager(root), hcg, cfg, *templates)
-            grain = None
+        templates = [T.tree_map(torch.zeros_like, t) for t in state]
+        state = None
+        _free(dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        *state, step_no = T.load_hybrid_state(
+            CheckpointManager(root), hcg, cfg, *templates)
         _sync(dev)
         restore_s = time.perf_counter() - t1
         restored_bytes = sum(t.numel() * t.element_size()
@@ -7718,7 +7730,7 @@ def _checkpoint_rank(dev, out_dir, rank):
             loss1=loss1, loss2=loss2, loss2_restored=loss2b, step1_s=step1_s,
             step1_sha=step1_sha, step2_sha=step2_sha,
             step2_restored_sha=_tree_sha(gathered(state)),
-            step_no=step_no, grain=grain, launches=launches,
+            step_no=step_no, launches=launches,
             bytes=mgr.last_save["bytes"],
             snapshot_s=mgr.last_save["snapshot_s"],
             write_s=mgr.last_save["write_s"], save_call_s=save_call_s,
@@ -7728,8 +7740,6 @@ def _checkpoint_rank(dev, out_dir, rank):
         del state, step
         _free(dev)
         coll.barrier()
-        if name == "zero3" and rank == 0:
-            shutil.rmtree(root)     # part a's stays for the controller
     return out
 
 
@@ -7746,17 +7756,13 @@ def _check_checkpoint(ranks):
     for name in CKPT_PARTS:
         for rk in ranks:
             res, label = rk["ckpt"][name], f"phase 34 {name} rank {rk['rank']}"
-            want = HYBRID_KERNELS[:3] + (("fused_adamw",) if name == "zero3"
-                                         else ())
-            bad = [k for k in want if res["launches"][k] <= 0]
+            bad = [k for k in HYBRID_KERNELS[:3] if res["launches"][k] <= 0]
             if bad:
                 raise AssertionError(f"{label}: the restored step never "
                                      f"launched {bad}")
-            if res["step_no"] != 1.0 or (name == "zero3"
-                                         and res["grain"] != CKPT_GRAIN):
+            if res["step_no"] != 1.0:
                 raise AssertionError(f"{label}: restored step_no "
-                                     f"{res['step_no']}, grain "
-                                     f"{res['grain']}")
+                                     f"{res['step_no']}")
             if res["loss2_restored"] != res["loss2"] or \
                     res["step2_restored_sha"] != res["step2_sha"]:
                 raise AssertionError(
@@ -7783,9 +7789,7 @@ def _check_checkpoint(ranks):
     del full
     shutil.rmtree(a["root"])
     what = {"hybrid": "make_hybrid_train_step at mp 2 with sequence "
-                      "parallelism (phase 32b), 2 layers",
-            "zero3": f"make_zero3_train_step at dp 2, grain {CKPT_GRAIN} "
-                     "(phase 32c's), 2 layers"}
+                      "parallelism (phase 32b), 2 layers"}
     for name in CKPT_PARTS:
         rs = [rk["ckpt"][name] for rk in ranks]
         r0 = rs[0]
@@ -7811,6 +7815,391 @@ def _check_checkpoint(ranks):
          f"({read_bytes / read_s / 1e9:.3f} GB/s), its parameters hash as "
          f"the ranks' step-1 tree ({card})")
     return dict(read_s=read_s, read_bytes=read_bytes)
+
+
+# phase 35: the node-loss drill.  Two "nodes" (launchers, one worker each)
+# on card 0 over gloo, ``--nnodes 1:2``; run_elastic over
+# zero3_elastic_hooks at phase 32c's configuration (2 layers, float32),
+# grain 2, 4 steps, a save every 2; node 1 lost inside step 4
+ELASTIC = dict(part="c", grain=2, max_steps=4, save_every=2, kill_after=3,
+               elastic_timeout=3, timeout=600, devices="0")
+
+
+def _elastic_ids(cfg, step, dev):
+    """Step ``step``'s global batch, from the step index alone (the same
+    rows whatever the dp)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(PIPE_SEED + 1000 + step)
+    return torch.as_tensor(rng.randint(
+        0, cfg.vocab_size, (cfg.n_microbatches, PIPE_B[ELASTIC["part"]],
+                            cfg.seq_len)), device=dev)
+
+
+def _live_sha(state, cfg, g):
+    """SHA-256 of the whole flat parameters' live elements (the ranks'
+    slices gathered, each leaf's dp-dependent zero pad cut off)."""
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    sizes = [math.prod(s) for s in T.flatten(T._param_shapes(cfg))[0]]
+    return _tree_sha([coll.all_gather_concat(t, 0, g)[:n] for t, n in
+                      zip(T.flatten(state["flat"])[0], sizes)])
+
+
+def elastic_rank(out_dir):
+    """A worker of phase 35 (``chip_smoke.py --elastic-rank DIR`` under
+    the launcher): ``run_elastic`` over ``zero3_elastic_hooks`` in the
+    world the launcher settled, its saves asynchronous (the write runs
+    beside the next step, over the snapshot).  Each step starts at a
+    barrier on the launcher's store.  In generation 0, once the step-2
+    version is committed, rank 1 enters step 4 (it is killed inside its
+    first collective) while rank 0 waits on the store: a survivor inside
+    the collective would fail at once on gloo's closed connection and
+    the worker's failure would restart the job; held out of it, only the
+    launcher's lease sees the loss.  Rank 0 appends each step's loss and
+    tree hash to ``records.jsonl``; every rank rewrites
+    ``gen{g}_rank{r}.json`` with its times and counts as it goes."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        ElasticContext, run_elastic, zero3_elastic_hooks)
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.observability import metrics
+    started = time.time()
+    ctx = ElasticContext.from_env()
+    env = dist.init_parallel_env()
+    dev = env.device
+    cuda = dev.type == "cuda"
+    free = total = 0
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(dev)
+        free, total = torch.cuda.mem_get_info(dev)
+    torch.zeros(1, device=dev)
+    _sync(dev)
+    res = dict(generation=ctx.generation, rank=ctx.rank,
+               world=ctx.world_size, started=started,
+               card_ready=time.time(), card_free_bytes=free,
+               card_total_bytes=total, steps={}, saves={},
+               backend=dist.get_group().backend)
+    path = os.path.join(out_dir, f"gen{ctx.generation}_rank{ctx.rank}.json")
+
+    def report():
+        res["modules"] = sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "paddle_tpu"))
+        with open(path + ".tmp", "w") as f:
+            json.dump(res, f)
+        os.replace(path + ".tmp", path)
+    report()
+    cfg = dataclasses.replace(_pipe_cfg(ELASTIC["part"]), dp=ctx.world_size)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(dp_degree=cfg.dp, mp_degree=1, pp_degree=1,
+                            sharding_degree=1, sep_degree=1)
+    hcg = fleet.init(is_collective=True, strategy=s)
+    g = hcg.get_data_parallel_group()
+    init_fn, restore_fn, _ = zero3_elastic_hooks(
+        hcg, cfg, lambda ctx: _pipe_params(cfg, dev), grain=ELASTIC["grain"])
+    step = T.make_zero3_train_step(hcg, cfg, grain=ELASTIC["grain"])
+    host, port = ctx.master.rsplit(":", 1)
+    store = TCPStore(host, int(port))
+    manager = CheckpointManager(os.path.join(out_dir, "ckpt"), keep_last=1,
+                                async_save=True)
+
+    def restore(manager, ctx):
+        _sync(dev)
+        t0 = time.time()
+        state, at = restore_fn(manager, ctx)
+        _sync(dev)
+        res["restore"] = dict(
+            start=t0, end=time.time(), step=at, step_no=state["step_no"],
+            grain=state["grain"],
+            bytes=sum(t.numel() * t.element_size() for k in ("flat", "m", "v")
+                      for t in T.flatten(state[k])[0]),
+            memory_reserved=torch.cuda.memory_reserved(dev) if cuda else 0)
+        report()
+        return state, at
+    pending = {}
+
+    def save(manager, i, state, ctx):
+        """The hooks' save with ``wait=False``: the snapshot now, the
+        write and commit on the manager's thread."""
+        finish_save()
+        pending.update(step=i, start=time.time())
+        T.save_zero3_state(manager, i, state["flat"], state["m"], state["v"],
+                           state["step_no"], state["grain"], wait=False,
+                           cfg=cfg, hcg=hcg)
+
+    def finish_save():
+        if pending:
+            manager.wait()
+            res["saves"][pending["step"]] = dict(
+                manager.last_save, seconds=time.time() - pending["start"])
+            pending.clear()
+            report()
+
+    def step_fn(state, i, ctx):
+        kill_step = ctx.generation == 0 and i == ELASTIC["kill_after"]
+        if kill_step:
+            finish_save()       # the step-2 version committed first
+            with open(os.path.join(out_dir, f"held{ctx.rank}"), "w") as f:
+                f.write(str(time.time()))
+            if ctx.rank == 0:
+                store.wait("drill/never", timeout=3600)
+        else:
+            store.barrier(f"drill/{ctx.generation}/{i}", ctx.world_size)
+        ids = _elastic_ids(cfg, i, dev)
+        for fn in _train_counters().values():     # not the metrics: they
+            fn.launches = 0                         # hold the resumes
+        for fn in _plain_counters().values():
+            fn.plain_calls = 0
+        _sync(dev)
+        t0 = time.time()
+        loss, *st = step(state["flat"], state["m"], state["v"],
+                         float(i + 1), ids)
+        loss = loss.item()
+        _sync(dev)
+        t1 = time.time()
+        launches, _ = _counts(CONTEXT_KERNELS)
+        state = dict(zip(("flat", "m", "v"), st), step_no=float(i + 1),
+                     grain=state["grain"])
+        sha = _live_sha(state, cfg, g)
+        rec = dict(generation=ctx.generation, world=ctx.world_size,
+                   step=i + 1, loss=loss, sha=sha, step_s=t1 - t0,
+                   end=t1, launches=launches)
+        res["steps"][i + 1] = rec
+        if ctx.rank == 0:
+            with open(os.path.join(out_dir, "records.jsonl"), "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        report()
+        return state
+    _, steps = run_elastic(step_fn, manager, init_fn=init_fn,
+                           restore_fn=restore, save_fn=save,
+                           max_steps=ELASTIC["max_steps"],
+                           save_every=ELASTIC["save_every"], ctx=ctx)
+    finish_save()
+    resumes = metrics.get("elastic.resumes_total")
+    res.update(done=steps, resumes=0 if resumes is None else resumes.total(),
+               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    report()
+    return 0
+
+
+def _store_rtt(native, n=2000):
+    """Microseconds of a set and a get of 64 bytes on one client, against
+    the C++ server (its build failing fails the phase) or the Python
+    server of the port's store (loopback)."""
+    from paddle_tpu_torch.distributed import store as S
+    server = S._NativeServer(0) if native else S._PyServer(0)
+    client = S.TCPStore(port=server.port)
+    val = b"x" * 64
+    for _ in range(100):
+        client.set("k", val)
+        client.get("k")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        client.set("k", val)
+        client.get("k")
+    us = (time.perf_counter() - t0) / n * 1e6
+    server.stop()
+    return us
+
+
+def _has_line(path, text):
+    try:
+        with open(path, errors="replace") as f:
+            return text in f.read()
+    except OSError:
+        return False
+
+
+def elastic_phase(root):
+    """Phase 35: two launchers on this host share card 0, node 1 is
+    killed (its session: launcher and worker) inside step 4's first
+    collective, node 0's lease watch restarts the job one node smaller,
+    and the new worker resumes from the step-2 version at dp 1 to step
+    4."""
+    import shutil
+    import signal
+
+    out_dir = os.path.join(root, "build", "elastic_phase")
+    if os.path.isdir(out_dir):
+        shutil.rmtree(out_dir)
+    os.makedirs(out_dir)
+    if ELASTIC["devices"] != "cpu":
+        _free("cuda")
+    from paddle_tpu_torch.distributed.launch.main import _free_port as free
+    rtt = {"native": _store_rtt(True), "python": _store_rtt(False)}
+    port = free()     # node 1 connects before node 0 binds
+    err = {n: os.path.join(out_dir, f"launcher{n}.err") for n in (0, 1)}
+
+    def node(n):
+        """Node 0 hosts the store (``--rank 0``), node 1 is auto-ranked."""
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--master", f"127.0.0.1:{port}", "--rank", "0" if n == 0
+               else "-1", "--nnodes", "1:2", "--nproc_per_node", "1",
+               "--devices", ELASTIC["devices"], "--max_restart", "1",
+               "--elastic_timeout",
+               str(ELASTIC["elastic_timeout"]), "--log_dir",
+               os.path.join(out_dir, f"log{n}"), "--job_id", "elastic",
+               os.path.abspath(__file__), "--elastic-rank", out_dir]
+        with open(err[n], "wb") as f:
+            return subprocess.Popen(
+                cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                start_new_session=True, stdout=f, stderr=subprocess.STDOUT)
+    records = os.path.join(out_dir, "records.jsonl")
+
+    def recs():
+        if not os.path.exists(records):
+            return []
+        with open(records) as f:
+            return [json.loads(x) for x in f if x.strip()]
+
+    def tails():
+        out = ""
+        for dirpath, _, files in os.walk(out_dir):
+            for fn in sorted(files):
+                if fn.endswith((".log", ".err")):
+                    with open(os.path.join(dirpath, fn), "rb") as f:
+                        out += (f"\n--- {fn}\n"
+                                + f.read()[-3000:].decode(errors="replace"))
+        return out
+    t_start = time.time()
+    nodes = {1: node(1)}            # the joiner waits for node 0's store
+    nodes[0] = node(0)
+    try:
+        deadline = time.time() + ELASTIC["timeout"]
+        held = [os.path.join(out_dir, f"held{r}") for r in (0, 1)]
+        while not (any(r["step"] == ELASTIC["kill_after"] for r in recs())
+                   and all(os.path.exists(h) for h in held)):
+            if time.time() > deadline or any(
+                    p.poll() is not None for p in nodes.values()):
+                raise AssertionError("phase 35: generation 0 never reached "
+                                     "step 4 on both nodes" + tails())
+            time.sleep(0.02)
+        time.sleep(1.0)     # rank 1 inside step 4's first collective
+        if nodes[1].poll() is not None or len(recs()) != \
+                ELASTIC["kill_after"]:
+            raise AssertionError("phase 35: node 1 left step 4 before "
+                                 "the kill" + tails())
+        t_kill = time.time()
+        os.killpg(nodes[1].pid, signal.SIGKILL)
+        nodes[1].wait()
+        marks = {"lease": "node 1 lease expired",
+                 "stopped": "peer requested restart (generation 1)",
+                 "settled": "elastic world settled at 1 nodes"}
+        seen = {}
+        while len(seen) < len(marks) or nodes[0].poll() is None:
+            for k, text in marks.items():
+                if k not in seen and _has_line(err[0], text):
+                    seen[k] = time.time()
+            if time.time() > deadline:
+                raise AssertionError("phase 35: node 0 did not finish "
+                                     f"(seen {sorted(seen)})" + tails())
+            if nodes[0].poll() is not None and len(seen) < len(marks):
+                break
+            time.sleep(0.01)
+        rc = nodes[0].wait()
+    finally:
+        for p in nodes.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    total_s = time.time() - t_start
+    with open(err[0], errors="replace") as f:
+        node0 = f.read()
+    if rc != 0 or len(seen) < len(marks):
+        raise AssertionError(f"phase 35: node 0's launcher returned {rc}, "
+                             f"lines seen {sorted(seen)}" + tails())
+    # which path recovered: the lease (node 0's worker held out of the
+    # collective) or a failed worker
+    path = "worker failure" if "worker failed" in node0 else "lease"
+    if path != "lease":
+        raise AssertionError(f"phase 35: node 0 recovered by the {path} "
+                             f"path, not the lease" + tails())
+    if "(native server)" not in node0:
+        raise AssertionError("phase 35: node 0 did not host the native "
+                             "store server" + tails())
+
+    def load(gen, rank):
+        with open(os.path.join(out_dir, f"gen{gen}_rank{rank}.json")) as f:
+            return json.load(f)
+    g0 = [load(0, r) for r in (0, 1)]
+    g1 = load(1, 0)
+    by = {(r["generation"], r["step"]): r for r in recs()}
+    before, after = by[(0, 3)], by[(1, 3)]
+    for label, w in (("generation 0 rank 0", g0[0]),
+                     ("generation 0 rank 1", g0[1]),
+                     ("generation 1", g1)):
+        if w["modules"]:
+            raise AssertionError(f"phase 35 {label} imported "
+                                 f"{w['modules']}")
+    if [w["world"] for w in g0] != [2, 2] or g1["world"] != 1 or \
+            sorted(by) != [(0, 1), (0, 2), (0, 3), (1, 3), (1, 4)]:
+        raise AssertionError(f"phase 35: steps by generation "
+                             f"{sorted(by)}, worlds "
+                             f"{[w['world'] for w in g0]} / {g1['world']}")
+    if (after["loss"], after["sha"]) != (before["loss"], before["sha"]):
+        raise AssertionError(
+            f"phase 35: generation 1's step 3 (loss {after['loss']!r}, tree "
+            f"{after['sha'][:16]}) differs from generation 0's (loss "
+            f"{before['loss']!r}, tree {before['sha'][:16]})")
+    want = HYBRID_KERNELS[:3] + ("fused_adamw",)
+    bad = [k for k in want if after["launches"][k] <= 0]
+    if bad or after["launches"]["fused_adamw"] != 1:
+        raise AssertionError(f"phase 35: the restored step's launches "
+                             f"{after['launches']}")
+    rs = g1["restore"]
+    if (rs["step"], rs["step_no"], rs["grain"]) != (2, 2.0,
+                                                    ELASTIC["grain"]) \
+            or g1["resumes"] != 1 or g1["done"] != ELASTIC["max_steps"]:
+        raise AssertionError(f"phase 35: restore {rs}, resumes "
+                             f"{g1['resumes']}, steps {g1['done']}")
+    card = card_name()
+    save2 = [w["saves"]["2"] for w in g0]
+    parts = [("kill -> lease expiry seen", seen["lease"] - t_kill),
+             ("-> worker stopped", seen["stopped"] - seen["lease"]),
+             ("-> world settled", seen["settled"] - seen["stopped"]),
+             ("-> new worker's card ready", g1["card_ready"]
+              - seen["settled"]),
+             ("-> restore done", rs["end"] - g1["card_ready"]),
+             ("-> first step done", g1["steps"]["3"]["end"] - rs["end"])]
+    ttr = g1["steps"]["3"]["end"] - t_kill
+    _log(f"phase 35 node-loss drill, run_elastic over zero3_elastic_hooks, "
+         f"GPT-3 1.3B widths float32, {PIPE_PARTS['c']['num_layers']} "
+         f"layers, grain {ELASTIC['grain']}, 2 nodes (launchers) on card 0 "
+         f"({card}), node 1 killed inside step 4's first collective, "
+         f"recovered by the {path} path: time to recover "
+         f"{ttr:.3f} s = " + "; ".join(f"{k} {v:.3f} s" for k, v in parts)
+         + f"; restore {rs['end'] - rs['start']:.3f} s for "
+         f"{rs['bytes'] / 1e9:.3f} GB "
+         f"({rs['bytes'] / (rs['end'] - rs['start']) / 1e9:.3f} GB/s), "
+         f"memory_reserved after it {rs['memory_reserved'] / 2**30:.2f} GiB,"
+         f" card free at the new worker's start "
+         f"{g1['card_free_bytes'] / 2**30:.2f} of "
+         f"{g1['card_total_bytes'] / 2**30:.2f} GiB")
+    _log(f"phase 35 steps: dp 2 (generation 0) s "
+         f"{[round(by[(0, i)]['step_s'], 3) for i in (1, 2, 3)]}, dp 1 "
+         f"(generation 1) s {[round(by[(1, i)]['step_s'], 3) for i in (3, 4)]};"
+         f" step 3 loss {after['loss']!r} and tree {after['sha'][:16]} "
+         f"equal generation 0's; restored step's launches "
+         f"{after['launches']}; the step-2 version's bytes by rank "
+         f"{[x['bytes'] for x in save2]} "
+         f"({sum(x['bytes'] for x in save2) / 1e9:.3f} GB), snapshot s "
+         f"{[round(x['snapshot_s'], 3) for x in save2]}, write + hash "
+         f"(+ commit on rank 0, async beside step 3) s "
+         f"{[round(x['write_s'], 3) for x in save2]};"
+         f" store set+get round trip {rtt['native']:.1f} us native, "
+         f"{rtt['python']:.1f} us Python server; whole drill {total_s:.1f} s"
+         f" ({card})")
+    shutil.rmtree(os.path.join(out_dir, "ckpt"), ignore_errors=True)
+    return dict(ttr_s=ttr, parts=dict(parts), rtt_us=rtt, g0=g0, g1=g1,
+                records=recs(), total_s=total_s, path=path)
 
 
 def tp_kernel_checks():
@@ -8208,6 +8597,7 @@ def main() -> int:
                    "steps, context and expert parallelism, checkpoints "
                    "(phases 29-34)", hybrid_phase, root)
     ddp = hybrid["ddp"]
+    elastic = timed("a node lost mid-run (phase 35)", elastic_phase, root)
     timed("card vs CPU", card_vs_cpu, gpt3_1p3b(num_layers=CUT_LAYERS))
     prefix, spec = timed("prefix and spec", serving_extras_phase)
     timed("plain routes", plain_route_phase)
@@ -8346,6 +8736,13 @@ def main() -> int:
             paths[f"context_{part}_rank{r}"] = res["launches"]
         for name, res in rk["ckpt"].items():
             paths[f"ckpt_{name}_rank{r}"] = res["launches"]
+    # phase 35: each worker's counts of its last step (from 0 before each
+    # step); generation 1's first step is the restored one
+    for w in elastic["g0"] + [elastic["g1"]]:
+        last = max(w["steps"], key=int)
+        paths[f"elastic_gen{w['generation']}_rank{w['rank']}_step{last}"] = \
+            w["steps"][last]["launches"]
+    paths["elastic_restored_step3"] = elastic["g1"]["steps"]["3"]["launches"]
     kernels = []
     for name, (src, replaces) in sources.items():
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -8400,4 +8797,6 @@ if __name__ == "__main__":
         os.execv(sys.executable, [sys.executable] + sys.orig_argv[1:])
     if sys.argv[1:2] == ["--hybrid-rank"]:
         sys.exit(hybrid_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        sys.exit(elastic_rank(sys.argv[2]))
     sys.exit(main())

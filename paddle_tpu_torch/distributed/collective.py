@@ -22,6 +22,15 @@ nothing decides this silently per call.  NCCL groups take the CUDA tensors
 as they are.  Each call counts ``collective.calls`` and the input bytes in
 ``collective.bytes`` (labels ``op``), in the port's metrics registry.
 
+The host waits where the JAX package registers its comm watchdog
+(``watchdog.py``) are registered here too: ``barrier``, the object
+collectives and the wait of a receive, each a ``comm_task`` whose meta
+holds the job's control-plane store (:func:`_host_store`) and the restart
+generation, so a hang report names the ranks with no heartbeat.  With
+``watchdog.COMM_STATIC_CHECK`` on, ``all_reduce`` and ``all_gather`` over
+the whole job first check every rank's shape and dtype through that store
+(``static_check_meta``).
+
 Two deliberate supersets, as in the JAX package: ``reduce`` leaves the
 result on every rank (Paddle promises it only on ``dst``), and ``gather``
 fills ``gather_list`` on every rank.  The JAX module's ``axis_context``
@@ -31,6 +40,7 @@ torch program is eager, so every collective here is the eager one.
 
 from __future__ import annotations
 
+import os
 import pickle
 from datetime import timedelta
 from typing import Any, List, Optional
@@ -40,6 +50,7 @@ import torch.distributed as dist
 
 from ..observability import metrics as _metrics
 from . import env as _env
+from . import watchdog as _wd
 
 __all__ = ["ReduceOp", "Group", "new_group", "get_group", "private_group",
            "is_initialized", "destroy_process_group", "all_reduce",
@@ -209,7 +220,64 @@ def destroy_process_group(group=None) -> None:
         dist.destroy_process_group()
     _default = None
     _groups.clear()
+    _store_state.update(store=None, seq={})
+    from . import parallel
+    parallel._stop_heartbeat()
     _env._mark_initialized(False)
+
+
+# ------------------------------------------------------- the control plane
+_store_state = {"store": None, "seq": {}}
+
+
+def _generation() -> str:
+    """The launcher's restart generation: a restarted world's keys must
+    not meet those the last one left in the store."""
+    return os.environ.get("PADDLE_RESTART_GENERATION", "0")
+
+
+def _host_store():
+    """The job's control-plane store: the launcher's ``TCPStore`` at
+    ``PADDLE_MASTER`` (a ``store.TCPStore`` client), None for a
+    single-rank job."""
+    st = _store_state
+    world = _env.get_world_size()
+    master = os.environ.get("PADDLE_MASTER")
+    if st["store"] is None and world > 1 and master:
+        from .store import TCPStore
+        host, port = master.rsplit(":", 1)
+        st["store"] = TCPStore(host, int(port), world_size=world)
+    return st["store"]
+
+
+def _next_seq(key) -> int:
+    seq = _store_state["seq"].get(key, 0)
+    _store_state["seq"][key] = seq + 1
+    return seq
+
+
+def _watched(name: str) -> "_wd.comm_task":
+    """A watchdog task around a host wait of this rank."""
+    return _wd.comm_task(name, rank=_env.get_rank(),
+                         world_size=_env.get_world_size(),
+                         store=_host_store(), generation=_generation())
+
+
+def _maybe_static_check(op: str, tensor: torch.Tensor, g: "Group") -> None:
+    """``COMM_STATIC_CHECK``: every rank's shape and dtype for ``op``
+    checked before it runs, for collectives over the whole job (a
+    sub-group's ranks do not include the checking rank 0, as in the JAX
+    package)."""
+    if not _wd.COMM_STATIC_CHECK or g.nranks != _env.get_world_size():
+        return
+    store = _host_store()
+    if store is None:
+        return
+    _wd.static_check_meta(
+        store, _env.get_rank(), _env.get_world_size(), op,
+        _next_seq(("check", op)), shape=tuple(tensor.shape),
+        dtype=str(tensor.dtype).replace("torch.", ""),
+        generation=_generation())
 
 
 # ------------------------------------------------------------ transport
@@ -283,6 +351,7 @@ def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None,
     staged = _count("all_reduce", g, tensor)
     if not _active(g):
         return tensor
+    _maybe_static_check("all_reduce", tensor, g)
     buf = _buf(tensor, staged)
     _reduce_into(g, buf, op)
     _back(tensor, buf)
@@ -314,6 +383,7 @@ def all_gather(tensor_list: list, tensor: torch.Tensor, group=None,
     if not _active(g):
         tensor_list.append(tensor)
         return tensor_list
+    _maybe_static_check("all_gather", tensor, g)
     outs = _gather_bufs(g, _buf(tensor, staged, move=True))
     tensor_list.extend(o.view(tensor.dtype).to(tensor.device) for o in outs)
     return tensor_list
@@ -364,12 +434,14 @@ def all_gather_object(object_list: list, obj: Any, group=None) -> list:
     dev = _object_device(g)
     data = torch.frombuffer(bytearray(pickle.dumps(obj)),
                             dtype=torch.uint8).to(dev)
-    sizes = _gather_bufs(g, torch.tensor([data.numel()], dtype=torch.int64,
-                                         device=dev))
-    n = max(int(s.item()) for s in sizes)
-    padded = torch.zeros(n, dtype=torch.uint8, device=dev)
-    padded[:data.numel()] = data
-    for s, o in zip(sizes, _gather_bufs(g, padded)):
+    with _watched(f"all_gather_object#{_next_seq('all_gather_object')}"):
+        sizes = _gather_bufs(g, torch.tensor([data.numel()],
+                                             dtype=torch.int64, device=dev))
+        n = max(int(s.item()) for s in sizes)
+        padded = torch.zeros(n, dtype=torch.uint8, device=dev)
+        padded[:data.numel()] = data
+        outs = _gather_bufs(g, padded)
+    for s, o in zip(sizes, outs):
         object_list.append(pickle.loads(o[:int(s.item())].cpu().numpy()
                                         .tobytes()))
     return object_list
@@ -476,10 +548,13 @@ def broadcast_object_list(object_list: list, src: int = 0,
         size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
     else:
         size = torch.zeros(1, dtype=torch.int64, device=dev)
-    g.pg.broadcast([size], opts).wait()
-    if g.rank != root:
-        data = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
-    g.pg.broadcast([data], opts).wait()
+    with _watched(
+            f"broadcast_object_list#{_next_seq('broadcast_object_list')}"):
+        g.pg.broadcast([size], opts).wait()
+        if g.rank != root:
+            data = torch.empty(int(size.item()), dtype=torch.uint8,
+                               device=dev)
+        g.pg.broadcast([data], opts).wait()
     if g.rank != root:
         object_list[:] = pickle.loads(data.cpu().numpy().tobytes())
     return object_list
@@ -518,16 +593,22 @@ def gather(tensor, gather_list=None, dst: int = 0, group=None,
 
 
 class _Task:
-    """A point-to-point call in flight: ``wait()`` finishes it."""
+    """A point-to-point call in flight: ``wait()`` finishes it (a
+    receive's wait as a watchdog task named ``watch``)."""
 
-    def __init__(self, work, finish=None):
+    def __init__(self, work, finish=None, watch=None):
         self._work = work
         self._finish = finish
+        self._watch = watch
         self._done = work is None
 
     def wait(self) -> bool:
         if not self._done:
-            self._work.wait()
+            if self._watch is None:
+                self._work.wait()
+            else:
+                with _watched(self._watch):
+                    self._work.wait()
             if self._finish is not None:
                 self._finish()
             self._done = True
@@ -553,7 +634,8 @@ def irecv(tensor: torch.Tensor, src: int = 0, group=None) -> _Task:
         return _Task(None)
     buf = _buf(tensor, staged, move=True)
     return _Task(g.pg.recv([buf], _root(g, src), 0),
-                 lambda: _back(tensor, buf))
+                 lambda: _back(tensor, buf),
+                 watch=f"recv({src}->{g._me})")
 
 
 def send(tensor: torch.Tensor, dst: int = 0, group=None,
@@ -578,7 +660,8 @@ def barrier(group=None) -> None:
     g = _group(group)
     _count("barrier", g)
     if _active(g):
-        g.pg.barrier().wait()
+        with _watched(f"barrier#{_next_seq('barrier')}"):
+            g.pg.barrier().wait()
 
 
 def wait(tensor, group=None, use_calc_stream: bool = True):

@@ -5,8 +5,15 @@ Counterpart of ``paddle_tpu/distributed/parallel.py`` (Paddle's
 its C++ ``EagerReducer``).  One process per rank, as the launcher
 (``distributed/launch``) starts them.
 
-``init_parallel_env(backend=None)`` joins the launcher's job: the store at
-``PADDLE_MASTER``, rank ``PADDLE_TRAINER_ID`` of ``PADDLE_TRAINERS_NUM``.
+``init_parallel_env(backend=None)`` joins the launcher's job as rank
+``PADDLE_TRAINER_ID`` of ``PADDLE_TRAINERS_NUM`` and starts the rank's
+``watchdog.Heartbeat`` on the job's control-plane store, the launcher's
+``TCPStore`` (``distributed/store.py``) at ``PADDLE_MASTER``.  The
+process group's store is another: rank 0 hosts a
+``torch.distributed.TCPStore`` at ``COORDINATOR_ADDRESS`` (the launcher's
+fresh ``host:port`` for each restart generation) and every rank joins it.
+``destroy_process_group`` stops the heartbeat, so a re-initialised job
+beats on its own store.
 The backend rule (:func:`choose_backend`): ``nccl`` when every rank has a
 card of its own, ``gloo`` for CPU ranks or ranks that share a card (NCCL
 cannot put two ranks on one card).  An explicit ``backend=`` wins.  A
@@ -76,14 +83,8 @@ def init_parallel_env(backend: Optional[str] = None,
             # without the launcher's list: each rank is taken to own its
             # card (Paddle's launcher gives one a rank), the CPU is gloo
             backend = choose_backend(devices or [_env.local_device()])
-        master = os.environ.get("PADDLE_MASTER")
-        if not master:
-            raise RuntimeError(
-                "init_parallel_env: PADDLE_MASTER is unset; start the job "
-                "with python -m paddle_tpu_torch.distributed.launch")
-        host, port = master.rsplit(":", 1)
         timeout = timedelta(seconds=float(timeout_s))
-        store = dist.TCPStore(host, int(port), None, False, timeout)
+        store = _pg_store(rank, world, timeout)
         if backend == "nccl":
             torch.cuda.set_device(_env.local_device())
         dist.init_process_group(backend, store=store, rank=rank,
@@ -92,8 +93,39 @@ def init_parallel_env(backend: Optional[str] = None,
         _coll._set_default(_coll.Group(
             dist.group.WORLD, range(dist.get_world_size()),
             dist.get_backend(), gid=0, rank=dist.get_rank()))
+        # this rank's liveness on the job's store, so that a watchdog's
+        # hang report can name the ranks whose beat stopped
+        global _heartbeat
+        store = _coll._host_store()
+        if _heartbeat is None and store is not None:
+            from .watchdog import Heartbeat
+            _heartbeat = Heartbeat(store, rank,
+                                   generation=_coll._generation()).start()
     _env._mark_initialized()
     return ParallelEnv()
+
+
+_heartbeat = None
+
+
+def _stop_heartbeat() -> None:
+    """Stop this rank's heartbeat (``destroy_process_group``'s)."""
+    global _heartbeat
+    if _heartbeat is not None:
+        _heartbeat.stop()
+        _heartbeat = None
+
+
+def _pg_store(rank: int, world: int, timeout: timedelta):
+    """The process group's store: rank 0 hosts it at
+    ``COORDINATOR_ADDRESS``, every other rank joins it."""
+    coord = os.environ.get("COORDINATOR_ADDRESS")
+    if not coord:
+        raise RuntimeError(
+            "init_parallel_env: COORDINATOR_ADDRESS is unset; start the "
+            "job with python -m paddle_tpu_torch.distributed.launch")
+    host, port = coord.rsplit(":", 1)
+    return dist.TCPStore(host, int(port), world, rank == 0, timeout)
 
 
 class _Entry(nn.Module):

@@ -25,7 +25,6 @@ import subprocess
 import sys
 import time
 import traceback
-from datetime import timedelta
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORK = "TORCH_WORLD_FORK"       # set: the process forks this many ranks
@@ -91,19 +90,18 @@ def _fork(tasks, W):
 
 def _serve(tasks) -> int:
     """A rank: join the job, then run the controller's tasks."""
-    import torch.distributed as tdist
     from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.store import TCPStore
     dist.init_parallel_env()
     rank = dist.get_rank()
     host, port = os.environ["PADDLE_MASTER"].rsplit(":", 1)
-    store = tdist.TCPStore(host, int(port), None, False,
-                           timedelta(seconds=600))
+    store = TCPStore(host, int(port))
     parent = os.getppid()
     n = 0
     while True:
         key = f"task/{n}"
         wait = 0.001
-        while not store.check([key]):
+        while not store.check(key):
             if os.getppid() != parent:
                 return 1
             # back off to 20 polls a second: idle ranks of many worlds
@@ -127,15 +125,17 @@ class World:
     running the tasks :meth:`run` names."""
 
     def __init__(self, W, script, devices="cpu"):
-        import torch.distributed as tdist
+        from paddle_tpu_torch.distributed.launch.main import _free_port
+        from paddle_tpu_torch.distributed.store import TCPStore
         self.W = W
         self.n = 0
-        self.store = tdist.TCPStore("127.0.0.1", 0, None, True,
-                                    timedelta(seconds=600),
-                                    wait_for_workers=False)
+        self.store = TCPStore(is_master=True, world_size=W)
         master = f"127.0.0.1:{self.store.port}"
+        # the process group's store, on a free port as the launcher
+        # takes one for each generation
+        coordinator = f"127.0.0.1:{_free_port()}"
         env = dict(os.environ, PADDLE_TRAINERS_NUM=str(W),
-                   PADDLE_MASTER=master,
+                   PADDLE_MASTER=master, COORDINATOR_ADDRESS=coordinator,
                    PADDLE_TRAINER_ENDPOINTS=",".join(
                        f"127.0.0.1:{7000 + i}" for i in range(W)),
                    PADDLE_WORLD_DEVICES=",".join([devices] * W),
@@ -153,12 +153,12 @@ class World:
         self.store.set(f"task/{n}", pickle.dumps((name, args)))
         keys = [f"result/{n}/{r}" for r in range(self.W)]
         end = time.monotonic() + timeout
-        while not self.store.check(keys):
+        while not all(self.store.check(k) for k in keys):
             dead = [p.poll() for p in self.procs if p.poll() is not None]
             assert not dead, f"{name}: a rank exited: {dead}"
             if time.monotonic() >= end:
                 waiting = [r for r, k in enumerate(keys)
-                           if not self.store.check([k])]
+                           if not self.store.check(k)]
                 raise AssertionError(f"{name} timed out after {timeout} s "
                                      f"waiting for ranks {waiting}")
             time.sleep(0.005)
@@ -177,3 +177,4 @@ class World:
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
+        self.store.stop()

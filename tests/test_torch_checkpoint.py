@@ -37,6 +37,10 @@ HYBRID_LAYOUTS = [(1, 2, 2), (2, 2, 1)]     # (pp, dp, mp) on 4 ranks
 
 # ---------------------------------------------------------------- ranks
 def task_modules():
+    import paddle_tpu_torch.distributed.fleet.elastic  # noqa: F401
+    import paddle_tpu_torch.distributed.launch.main  # noqa: F401
+    import paddle_tpu_torch.distributed.rpc  # noqa: F401
+    import paddle_tpu_torch.distributed.watchdog  # noqa: F401
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "paddle_tpu"))
 
@@ -250,6 +254,93 @@ def task_zero3_segment(root, cfg_kw, params, ids, first, n, load, save):
     whole = [[coll.all_gather_concat(t, 0, g).numpy()
               for t in T.flatten(x)[0]] for x in state]
     return losses, whole
+
+
+class _Killed(Exception):
+    pass
+
+
+def task_zero3_hooks_cold(cfg_kw, params):
+    """``zero3_elastic_hooks``' cold start against ``init_zero3_state``."""
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        ElasticContext, zero3_elastic_hooks)
+    from paddle_tpu_torch.models.convert import hybrid_params_from_numpy
+    cfg = T.HybridConfig(**cfg_kw)
+    hcg = _fleet(dp=cfg.dp)
+    init_fn, _, _ = zero3_elastic_hooks(
+        hcg, cfg, lambda ctx: hybrid_params_from_numpy(params), grain=2)
+    state, step = init_fn(ElasticContext.from_env())
+    want = T.init_zero3_state(hybrid_params_from_numpy(params), cfg.dp,
+                              hcg.get_data_parallel_rank())
+    same = all(a.numpy().tobytes() == b.numpy().tobytes()
+               for name, tree in zip(("flat", "m", "v"), want)
+               for a, b in zip(T.flatten(state[name])[0],
+                               T.flatten(tree)[0]))
+    return step, state["step_no"], state["grain"], same
+
+
+def task_zero3_hooks_restore(root, cfg_kw):
+    """``restore_fn`` of ``zero3_elastic_hooks`` at this world's dp: this
+    rank's slices and the step it resumes at."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        ElasticContext, zero3_elastic_hooks)
+    cfg = T.HybridConfig(**cfg_kw)
+    hcg = _fleet(dp=cfg.dp)
+    _, restore_fn, _ = zero3_elastic_hooks(hcg, cfg, None, grain=4)
+    state, step = restore_fn(CheckpointManager(root),
+                             ElasticContext.from_env())
+    return (hcg.get_data_parallel_rank(), step, state["step_no"],
+            state["grain"], [[t.numpy().copy() for t in T.flatten(
+                state[k])[0]] for k in ("flat", "m", "v")])
+
+
+def task_zero3_elastic(root, cfg_kw, params, ids, generation, die_at):
+    """``run_elastic`` over ``zero3_elastic_hooks`` at grain 2 to step 4,
+    a save every 2 steps; generation 0 dies after ``die_at`` steps
+    (None: never).  The losses by step and the whole flat leaves at the end."""
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        ElasticContext, run_elastic, zero3_elastic_hooks)
+    from paddle_tpu_torch.models.convert import hybrid_params_from_numpy
+    from paddle_tpu_torch.observability import metrics
+    cfg = T.HybridConfig(**cfg_kw)
+    hcg = _fleet(dp=cfg.dp)
+    hooks = zero3_elastic_hooks(
+        hcg, cfg, lambda ctx: hybrid_params_from_numpy(params), grain=2)
+    step = T.make_zero3_train_step(hcg, cfg, grain=2)
+    ids = torch.from_numpy(ids)
+    losses = {}
+
+    def step_fn(state, i, ctx):
+        if ctx.generation == 0 and i == die_at:
+            raise _Killed()
+        loss, *st = step(state["flat"], state["m"], state["v"],
+                         float(i + 1), ids)
+        losses[i + 1] = float(loss)
+        return dict(zip(("flat", "m", "v"), st), step_no=float(i + 1),
+                    grain=state["grain"])
+    ctx = dict(ElasticContext.from_env().__dict__, generation=generation,
+               master=None)
+    metrics.reset()
+    try:
+        state, steps = run_elastic(
+            step_fn, CheckpointManager(root, keep_last=4), init_fn=hooks[0],
+            restore_fn=hooks[1], save_fn=hooks[2], max_steps=4,
+            save_every=2, ctx=ElasticContext(**ctx))
+    except _Killed:
+        coll.barrier()
+        return dict(killed=True, losses=losses)
+    g = hcg.get_data_parallel_group()
+    whole = [[coll.all_gather_concat(t, 0, g).numpy()
+              for t in T.flatten(state[k])[0]] for k in ("flat", "m", "v")]
+    resumes = metrics.get("elastic.resumes_total")
+    return dict(killed=False, losses=losses, steps=steps, whole=whole,
+                resumes=0 if resumes is None else resumes.total())
 
 
 TASKS = {k: v for k, v in globals().items() if k.startswith("task_")}
@@ -549,6 +640,7 @@ def zero3_versions(worlds, tmp_path_factory):
     from paddle_tpu_torch.distributed.checkpoint import read_state_dict
     return dict(jax=[_np_tree(jax.tree_util.tree_leaves(t))
                      for t in jstate[:3]], jax_meta=jstate[3:], ranks=ranks,
+                jax_root=jax_root,
                 jax_read=jread(str(base / "jax2" / "step_00000005")),
                 port_read=read_state_dict(str(base / "port" /
                                               "step_00000005")))
@@ -627,6 +719,89 @@ def test_zero3_resume_across_dp_is_bit_exact(worlds, tmp_path):
     for name, a, b in zip("pmv", got[1], ref[1]):
         for x, y in zip(a, b):
             assert x.tobytes() == y.tobytes(), name
+
+
+def test_zero3_hooks_cold_start_equals_init_zero3_state(worlds):
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.models.convert import hybrid_params_to_numpy
+    cfg_kw = dict(SMALL, pp=1, mp=1, dp=2, zero_stage=3)
+    params = hybrid_params_to_numpy(T.init_gpt_params(
+        T.HybridConfig(**cfg_kw)))
+    for step, step_no, grain, same in worlds[2].run(
+            "task_zero3_hooks_cold", cfg_kw, params, timeout=TIMEOUT):
+        assert (step, step_no, grain, same) == (0, 0.0, 2, True)
+
+
+def test_zero3_hooks_resume_a_jax_dp4_version_at_dp2(worlds, zero3_versions):
+    """``restore_fn`` on the JAX package's dp-4 version (step 4, grain
+    4): each dp-2 rank's slices equal the JAX ``load_zero3_state`` at
+    dp 2, and the loop resumes at step 4."""
+    zv = zero3_versions
+    cfg_kw = dict(SMALL, pp=1, mp=1, dp=2, zero_stage=3)
+    ranks = worlds[2].run("task_zero3_hooks_restore", zv["jax_root"],
+                          cfg_kw, timeout=TIMEOUT)
+    for d_i, step, step_no, grain, trees in ranks:
+        assert (step, step_no, grain) == (4, 4.0, 4)
+        for got, want in zip(trees, zv["jax"]):
+            for a, w in zip(got, want):
+                k = w.shape[0] // 2
+                assert a.tobytes() == w[d_i * k:(d_i + 1) * k].tobytes()
+
+
+def _jax_serial_losses(params, ids, steps):
+    """The JAX package's ``serial_train_step`` (jitted) from the same
+    parameters on the same batch."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.distributed.fleet import hybrid_step as J
+    cfg = J.HybridConfig(pp=1, mp=1, dp=1, **SMALL)
+    step = jax.jit(lambda p, m, v, s, i: J.serial_train_step(p, m, v, s, i,
+                                                             cfg))
+    tree = jax.tree_util.tree_map(jnp.asarray, params)
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, tree)
+    state, out = (tree, zeros, zeros), []
+    for i in range(steps):
+        loss, *state = step(*state, jnp.float32(i + 1),
+                            jnp.asarray(ids.astype(np.int32)))
+        out.append(float(loss))
+    return out
+
+
+def test_zero3_elastic_kill_and_resume_is_bit_exact(worlds, tmp_path):
+    """``run_elastic`` over ``zero3_elastic_hooks`` at grain 2: killed in
+    step 3 at dp 4 (after the save of step 2), resumed at dp 2 (a 4 -> 2
+    reshard) to step 4.  Steps 3-4's losses and the whole params and
+    moments equal an uninterrupted dp-2 run's bit for bit; its losses
+    are within fp32 tolerance of the JAX ``serial_train_step``."""
+    from paddle_tpu_torch.distributed.fleet import hybrid_step as T
+    from paddle_tpu_torch.models.convert import hybrid_params_to_numpy
+    cfg_kw = dict(SMALL, pp=1, mp=1, zero_stage=3)
+    params = hybrid_params_to_numpy(T.init_gpt_params(
+        T.HybridConfig(**cfg_kw, dp=2)))
+    ids = np.random.RandomState(5).randint(
+        0, SMALL["vocab_size"], (SMALL["n_microbatches"], ROWS,
+                                 SMALL["seq_len"])).astype(np.int64)
+    at2, at4 = dict(cfg_kw, dp=2), dict(cfg_kw, dp=4)
+    ref = worlds[2].run("task_zero3_elastic", str(tmp_path / "ref"), at2,
+                        params, ids, 0, None, timeout=TIMEOUT)
+    root = str(tmp_path / "killed")
+    dead = worlds[4].run("task_zero3_elastic", root, at4, params, ids, 0, 2,
+                         timeout=TIMEOUT)
+    assert all(d["killed"] and sorted(d["losses"]) == [1, 2] for d in dead)
+    got = worlds[2].run("task_zero3_elastic", root, at2, params, ids, 1,
+                        None, timeout=TIMEOUT)
+    jax_losses = _jax_serial_losses(params, ids, 4)
+    for r, g in zip(ref, got):
+        assert not g["killed"] and g["steps"] == 4 and g["resumes"] == 1
+        assert sorted(g["losses"]) == [3, 4]
+        assert [g["losses"][i] for i in (3, 4)] == \
+            [r["losses"][i] for i in (3, 4)]
+        for a, b in zip(g["whole"], r["whole"]):
+            assert [x.tobytes() for x in a] == [y.tobytes() for y in b]
+        assert [dead[0]["losses"][i] for i in (1, 2)] == \
+            [r["losses"][i] for i in (1, 2)]
+        np.testing.assert_allclose([r["losses"][i] for i in range(1, 5)],
+                                   jax_losses, rtol=2e-4, atol=2e-5)
 
 
 def test_restore_into_refuses_a_resize_unless_asked(tmp_path):

@@ -43,6 +43,10 @@ def _base(r):
 
 
 def task_modules():
+    import paddle_tpu_torch.distributed.fleet.elastic  # noqa: F401
+    import paddle_tpu_torch.distributed.launch.main  # noqa: F401
+    import paddle_tpu_torch.distributed.rpc  # noqa: F401
+    import paddle_tpu_torch.distributed.watchdog  # noqa: F401
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "paddle_tpu"))
 
@@ -275,6 +279,57 @@ def task_sampler(n, bs):
     return [list(s), list(s), s.nranks, s.local_rank]
 
 
+def task_watchdog():
+    """``COMM_STATIC_CHECK`` on: a matching all_reduce runs, a mismatched
+    all_reduce (rank 1 brings 5 elements) raises on every rank before the
+    collective.  Then, the check off: the host waits registered with the
+    comm watchdog, and the collectives' counts."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import watchdog as wd
+    from paddle_tpu_torch.observability import metrics
+    rank = dist.get_rank()
+    out = {}
+    wd.COMM_STATIC_CHECK = True
+    try:
+        t = torch.ones(4)
+        dist.all_reduce(t)
+        out["matched"] = t.tolist()
+        bad = torch.ones(5 if rank == 1 else 4)
+        try:
+            dist.all_reduce(bad)
+            out["mismatch"] = None
+        except RuntimeError as e:
+            out["mismatch"] = str(e)
+    finally:
+        wd.COMM_STATIC_CHECK = False
+    mgr = wd.CommTaskManager.instance()
+    seen = len(mgr.history())
+    metrics.reset()
+    dist.barrier()
+    objs = []
+    dist.all_gather_object(objs, {"rank": rank})
+    lst = [rank * 10]
+    dist.broadcast_object_list(lst, src=0)
+    t = torch.full((2,), float(rank))
+    if rank == 0:
+        dist.send(t, dst=1)
+    elif rank == 1:
+        dist.recv(t, src=0)
+    dist.all_reduce(t)
+    tasks = mgr.history()[seen:]
+    out.update(
+        objs=objs, lst=lst, t=t.tolist(),
+        tasks=[(x.name.split("#")[0], x.meta["rank"], x.meta["generation"],
+                type(x.meta["store"]).__name__, x.done, x.error)
+               for x in tasks],
+        calls={x["labels"]["op"]: x["value"] for x in
+               metrics.snapshot()["collective.calls"]["series"]},
+        store=type(coll._host_store()).__name__,
+        beats=[coll._host_store().check(f"__hb__/0/{r}") for r in range(2)])
+    return out
+
+
 TASKS = {k: v for k, v in globals().items() if k.startswith("task_")}
 
 
@@ -400,6 +455,40 @@ def test_collectives_match_the_jax_package(worlds, W):
 def test_ranks_import_neither_jax_nor_the_jax_package(worlds):
     for w in worlds.values():
         assert w.run("task_modules") == [[]] * w.W
+
+
+def test_static_check_and_the_watchdog_in_a_world(worlds):
+    """With ``COMM_STATIC_CHECK`` a mismatched ``all_reduce`` raises on
+    both ranks, naming rank 1 and the two metas as the JAX package's
+    check does, before the collective (a matched one sums as ever); the
+    barrier, the object collectives and the receive's wait are comm
+    tasks with the job's store and generation in their meta, and every
+    rank's heartbeat is on that store; with the
+    check off the ``collective.calls`` counts are one a call."""
+    texts = {0: "comm_static_check failed for 'all_reduce' seq 1: rank 1 "
+                "brings {'shape': [5], 'dtype': 'float32'}, rank 0 brings "
+                "{'shape': [4], 'dtype': 'float32'}",
+             1: "comm_static_check failed for 'all_reduce' seq 1: rank 1 "
+                "meta {'shape': [5], 'dtype': 'float32'} != rank 0 meta "
+                "{'shape': [4], 'dtype': 'float32'}"}
+    for r, res in enumerate(worlds[2].run("task_watchdog")):
+        assert res["matched"] == [2.0] * 4
+        assert res["mismatch"] == texts[r]
+        assert res["objs"] == [{"rank": 0}, {"rank": 1}]
+        assert res["lst"] == [0] and res["t"] == [0.0, 0.0]
+        names = ["barrier", "all_gather_object", "broadcast_object_list"]
+        if r == 1:
+            names.append("recv(0->1)")
+        assert [x[0] for x in res["tasks"]] == names
+        for _, rank, gen, store, done, error in res["tasks"]:
+            assert (rank, gen, store, done, error) == (r, "0", "TCPStore",
+                                                       True, None)
+        assert res["store"] == "TCPStore"
+        assert res["beats"] == [True, True]     # init_parallel_env's
+        assert res["calls"] == {"barrier": 1, "all_gather_object": 1,
+                                "broadcast_object_list": 1,
+                                "send" if r == 0 else "recv": 1,
+                                "all_reduce": 1}
 
 
 def test_env_from_the_launcher_variables(worlds):

@@ -551,6 +551,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch/distributed/checkpoint/metadata.py",
             "paddle_tpu_torch/distributed/checkpoint/save_state_dict.py",
             "paddle_tpu_torch/distributed/checkpoint/load_state_dict.py",
+            "paddle_tpu_torch/core/native/__init__.py",
+            "paddle_tpu_torch/distributed/store.py",
+            "paddle_tpu_torch/distributed/watchdog.py",
+            "paddle_tpu_torch/distributed/fleet/elastic/__init__.py",
+            "paddle_tpu_torch/distributed/fleet/elastic/manager.py",
+            "paddle_tpu_torch/distributed/fleet/elastic/loop.py",
+            "paddle_tpu_torch/distributed/rpc/__init__.py",
             } <= names
     for f in files:
         hits = [m.group(0) for m in _FORBIDDEN.finditer(f.read_text())]
